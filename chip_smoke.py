@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (spotter_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's paths, RT-DETRv2-R101 at full width with weights drawn
-from --seed, through the entry points a user calls, and holds its three
-hand-written kernels (csrc/msda.cu: MSDA gather-sum, loc-prep and
-fused-prologue sampling) against their plain PyTorch versions. Phases, each
-printing JSON lines:
+Drives the port's paths through the entry points a user calls, at full
+width with weights drawn from --seed: RT-DETRv2-R101 and YOLOS (yolos-base,
+800x1344, under the "float32" and "mixed" precision policies). Holds its
+five hand-written kernels against their plain PyTorch versions: csrc/msda.cu
+(MSDA gather-sum, loc-prep and fused-prologue sampling) and
+csrc/attention.cu (flash attention, fp32 and bf16). Phases, each printing
+JSON lines:
 
 1. device  — card name, `nvidia-smi` name and power limit, and whether the
              serving layer's packages (PIL, aiohttp, httpx, pydantic) import;
-2. build   — nvcc build of the kernel library for sm_90a, with its seconds;
-3. kernel  — each kernel against its plain version at the decoder's shapes
-             (B = 1 and 8; fp32 and bf16 rows; default and discrete corner
-             prep): max abs error against the tolerance, kernel / plain (and,
-             for the gather-sum, embedding_bag) times by CUDA events with a
-             cold L2, and the bound for the rows this data samples;
+2. build   — nvcc builds of the two kernel libraries for sm_90a, started
+             together, with their seconds;
+3. kernel  — each kernel against its plain version: the MSDA kernels at the
+             decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
+             discrete corner prep), the attention kernel at YOLOS's shapes
+             and more (B = 1 and 8, S = 4301 and 1100, hd = 64 and 128, fp32
+             and bf16): max abs error against the tolerance, kernel / plain /
+             library (embedding_bag, scaled_dot_product_attention) times by
+             CUDA events with a cold L2, and the bound;
 4. parity  — the full-width forward at B = 1 on the card against the same
              model on the CPU, TF32 off, under each SPOTTER_TPU_MSDA_PREP
              setting (xla, kernel, fused), and card fused against card xla at
@@ -30,36 +35,55 @@ printing JSON lines:
              kernel. Each run's counts are reset just before it; the fused
              (resp. loc) kernel must launch 6 times per forward and no other
              kernel at all. p50/p99 per request size, img/s, images per
-             forward (how well the batcher coalesced), /healthz.
+             forward (how well the batcher coalesced), /healthz;
+7. yolos_parity — yolos-base at B = 1 on the card against the same model on
+             the CPU under "float32" (TF32 off), then the card under "mixed"
+             (bf16 body) against the card under "float32" at B = 8;
+8. yolos_serve — InferenceEngine.detect on 1 and 8 photos under "float32"
+             and "mixed"; flash_attn_fp32 (resp. _bf16) must launch 12 times
+             per forward and no other kernel at all; p50/p99, img/s, device
+             ms per forward;
+9. yolos_http — the standalone server with yolos-base answering POST
+             /detect for 1 and 8 URLs under each policy, with the same count
+             check.
 
-Then a `{"kernels": [...]}` summary line, the `nvidia-smi` name/power line,
+Every RT-DETR path must launch neither attention kernel. Then a
+`{"kernels": [...]}` summary line, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`. Any failure raises and the exit
 code is non-zero. Needs one CUDA card and the repository checkout around
 this file; exits non-zero without either.
 
-    python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http]
+    python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http,
+                                            yolos_parity,yolos_serve,yolos_http]
 
 The full record is also written to build/chip_smoke.json (or --out).
 """
 
 import argparse
+import contextlib
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernel", "parity", "serve", "http")
+PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
+          "yolos_serve", "yolos_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
+YOLOS_NAME = "hustvl/yolos-base"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 non-tensor rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate,
+# dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # max |kernel - plain|, every kernel and method: both sum the same fp32
 # products (bf16 rows widen exactly to fp32) over J <= 48 terms, in another
@@ -76,6 +100,28 @@ KERNEL_ATOL = 1e-5
 # differently (an ulp or so in the locations)
 PARITY_ATOL_LOGITS = 1e-3
 PARITY_ATOL_BOXES = 1e-4
+# attention kernel vs plain, as a share of the largest |output|. fp32: both
+# sum up to 4301 weighted values in fp32 in other orders (cuBLAS blocks, the
+# kernel a running sum rescaled once per 64-key tile), ~sqrt(S) * 2**-24 =
+# 4e-6 of |out| typically; 2e-5 leaves room for the tail. bf16: the kernel
+# computes in fp32 from bf16 inputs and rounds its output once, so it is held
+# against the plain version run in fp32 on the same bf16 inputs and rounded
+# to bf16 the same way: they may differ by one bf16 ulp, at most 2**-7 of the
+# largest output
+ATTN_RTOL = {"float32": 2e-5, "bfloat16": 2.0**-7}
+# yolos-base, card vs CPU under "float32" at B = 1: the RT-DETR tolerances.
+# fp32 throughout with TF32 off, but every product sums in another order
+# (cuBLAS / cuDNN vs oneDNN), and the card's attention is the kernel (q scaled
+# first, online softmax) against the CPU's materialised scores (scaled after):
+# ~1e-6 relative per op through 12 residual layers; boxes are a sigmoid
+# (slope <= 1/4) of the box head's output
+# card "mixed" (bf16 body) vs card "float32" at B = 8: the bf16 residual
+# stream rounds at 2**-8 relative some 40 times over 12 layers (every dense
+# output, LayerNorm, GELU and residual add), ~sqrt(40) * 2**-9 = 1 % typical
+# of the activations' scale, compounding through the heads: logits within
+# 10 % of the largest |logit|, boxes within 0.05 (sigmoid slope <= 1/4)
+MIXED_RTOL_LOGITS = 0.1
+MIXED_ATOL_BOXES = 0.05
 
 
 def emit(record: dict, log: list) -> None:
@@ -147,14 +193,20 @@ def phase_device(log: list) -> dict:
 
 
 def phase_build(log: list) -> dict:
+    """Both kernel libraries, one nvcc each, started together."""
+    from spotter_tpu_torch.ops.attention import build_attention_kernel
     from spotter_tpu_torch.ops.msda import build_msda_kernel
 
-    lib = build_msda_kernel()
-    ptxas = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln]
-    rec = {
-        "phase": "build", "library": str(lib.path.relative_to(REPO)),
-        "seconds": lib.build_seconds, "ptxas": ptxas,
-    }
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(build) for build in (build_msda_kernel, build_attention_kernel)]
+        libs = [f.result() for f in futures]
+    rec = {"phase": "build", "wall_s": time.perf_counter() - t0, "libraries": [
+        {"library": str(lib.path.relative_to(REPO)), "seconds": lib.build_seconds,
+         "ptxas": [ln.strip() for ln in lib.log.splitlines()
+                   if "registers" in ln or "spill" in ln]}
+        for lib in libs
+    ]}
     emit(rec, log)
     return rec
 
@@ -357,12 +409,79 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
 
 KERNEL_CASES = (msda_case, loc_case, fused_case)
 
+# (B, S, H, hd): yolos-base (S = 1 + 50*84 + 100 = 4301, 12 heads of 64) at
+# B = 1 and 8; a sequence just past the cutover that is a multiple of no
+# tile (1100); hd = 128 at the JAX splash test's shape and at yolos-base width
+ATTN_SHAPES = ((1, 4301, 12, 64), (8, 4301, 12, 64), (1, 1100, 12, 64), (8, 1100, 12, 64),
+               (1, 1100, 2, 128), (8, 4301, 6, 128))
+ATTN_MAIN_SHAPE = (8, 4301, 12, 64)
+
+
+def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict:
+    """flash_attn_fp32 / _bf16 against the plain version, with SDPA's time
+    at the same shape as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from spotter_tpu_torch.ops.attention import (
+        flash_attn_bf16,
+        flash_attn_fp32,
+        self_attention_reference,
+    )
+
+    b, s, h, hd = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    # q pre-scaled and drawn twice as wide as hd**-0.5, so the scores spread
+    # over ~N(0, 4) and the running max of the online softmax does real work
+    q = (torch.randn(shape, generator=gen, device=device) * (2 * hd**-0.5)).to(dtype)
+    k = torch.randn(shape, generator=gen, device=device).to(dtype)
+    v = torch.randn(shape, generator=gen, device=device).to(dtype)
+    wrapper = flash_attn_fp32 if dtype == torch.float32 else flash_attn_bf16
+    name = wrapper.__name__
+
+    got = wrapper(q, k, v)
+    want = self_attention_reference(q.float(), k.float(), v.float()).to(dtype).float()
+    torch.cuda.synchronize()
+    dname = str(dtype).removeprefix("torch.")
+    err = (got.float() - want).abs().max().item()
+    atol = ATTN_RTOL[dname] * want.abs().max().item()
+    plain_err = (self_attention_reference(q, k, v).float() - want).abs().max().item()
+    del want
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=1.0)
+
+    lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+    flops = 4 * b * h * s * s * hd
+    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / (PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS) * 1e3
+    if not err <= atol:
+        raise AssertionError(f"{name} vs plain at {shape}: max abs err {err} > {atol}")
+    rec = {
+        "phase": "kernel", "kernel": name, "batch": b, "dtype": dname,
+        "shape": {"b": b, "s": s, "h": h, "hd": hd},
+        "max_abs_err": err, "atol": atol, "rtol_of_max_out": ATTN_RTOL[dname],
+        "plain_in_dtype_max_abs_err": plain_err, "library_max_abs_err": lib_err,
+        "kernel_ms": cuda_time_ms(lambda: wrapper(q, k, v), 10 if b == 8 else 30, flush),
+        "plain_ms": cuda_time_ms(lambda: self_attention_reference(q, k, v), 5, flush),
+        "library_ms": cuda_time_ms(library, 10 if b == 8 else 30, flush),
+        "bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
+    torch.cuda.empty_cache()  # the plain version's (B, H, S, S) scores
+    return rec
+
 
 def kernel_counters():
-    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.ops import attention, msda
 
     return {"msda_gather_sum": msda.msda_gather_sum, "msda_loc_sum": msda.msda_loc_sum,
-            "msda_fused_sum": msda.msda_fused_sum}
+            "msda_fused_sum": msda.msda_fused_sum,
+            "flash_attn_fp32": attention.flash_attn_fp32,
+            "flash_attn_bf16": attention.flash_attn_bf16}
 
 
 def reset_counts() -> None:
@@ -388,6 +507,11 @@ def phase_kernel(log: list, seed: int) -> list:
                     rec = case(b, rows_dtype, method, seed, flush)
                     emit(rec, log)
                     cases.append(rec)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ATTN_SHAPES:
+            rec = attention_case(dtype, shape, seed, flush)
+            emit(rec, log)
+            cases.append(rec)
     idle = [name for name, fn in counters.items() if fn.launches == before[name]]
     if idle:
         raise AssertionError(f"the kernel phase never launched {idle}")
@@ -431,6 +555,10 @@ def check_parity(rec: dict, what: str) -> None:
         raise AssertionError(f"{what}: outside tolerance: {rec}")
 
 
+# the MSDA kernel each SPOTTER_TPU_MSDA_PREP setting runs
+PREP_KERNEL = {"xla": "msda_gather_sum", "kernel": "msda_loc_sum", "fused": "msda_fused_sum"}
+
+
 def phase_parity(log: list, seed: int, built, device: str = "cuda") -> list:
     """The full-width forward, card against CPU at B = 1 under each MSDA prep
     setting, and card `fused` against card `xla` at B = 8."""
@@ -444,6 +572,7 @@ def phase_parity(log: list, seed: int, built, device: str = "cuda") -> list:
 
     use_exact_float32()
     spec = built.preprocess_spec
+    layers = built.module.config.decoder_layers
     rng = np.random.default_rng(seed + 1)
     imgs = [resize_uint8(synthetic_photo(rng, 720, 960), spec.size) for _ in range(8)]
     x8 = device_rescale_normalize(torch.from_numpy(np.stack(imgs)), spec)
@@ -477,6 +606,8 @@ def phase_parity(log: list, seed: int, built, device: str = "cuda") -> list:
             emit(rec, log)
             records.append(rec)
             check_parity(rec, f"card vs CPU under {prep}")
+            check_launches(card_launches, PREP_KERNEL[prep], layers,
+                           f"RT-DETR card forward under {prep}")
         outs, launches = {}, {}
         for prep in ("xla", "fused"):
             msda.MSDA_PREP = prep
@@ -592,6 +723,97 @@ def phase_serve(log: list, seed: int, built, device: str = "cuda") -> dict:
     return rec
 
 
+async def drive_http(det, photo_dir: str, runs: list) -> dict:
+    """Serve `det` through the port's standalone app and the photos in
+    `photo_dir` through a static route, both on localhost, and drive POST
+    /detect. `runs` holds (label, setup, plan): `setup()` is called, the
+    kernel counts are set to 0, the plan's requests run, and the counts are
+    read. A plan step (key, n_urls, rounds, clients) sends `rounds` rounds of
+    `clients` concurrent requests of `n_urls` URLs each."""
+    import asyncio
+    import io
+
+    import httpx
+    from aiohttp import web
+    from PIL import Image
+
+    from spotter_tpu_torch.serving.standalone import make_app
+
+    images = web.Application()
+    images.router.add_static("/img", photo_dir)
+    runners = []
+    for app in (images, make_app(detector=det, fatal_exit_cb=None)):
+        runner = web.AppRunner(app)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        runners.append((runner, runner.addresses[0][1]))
+    (_, img_port), (_, api_port) = runners
+    urls = [f"http://127.0.0.1:{img_port}/img/p{i}.jpg" for i in range(len(PHOTO_SIZES))]
+    api = f"http://127.0.0.1:{api_port}"
+    out = {"latency_ms": {}}
+    try:
+        async with httpx.AsyncClient(timeout=300.0) as client:
+            async def post(n: int) -> float:
+                t = time.perf_counter()
+                resp = await client.post(f"{api}/detect", json={"image_urls": urls[:n]})
+                resp.raise_for_status()
+                ms = (time.perf_counter() - t) * 1e3
+                check_http_response(resp.json(), urls[:n], PHOTO_SIZES[0])
+                return ms
+
+            def batches() -> int:
+                return det.engine.metrics.snapshot()["batches_total"]
+
+            await post(1)  # first request through the server: not timed
+            for label, setup, plan in runs:
+                setup()
+                batches0 = batches()
+                reset_counts()
+                images_per_forward = {}
+                for key, n, rounds, clients in plan:
+                    b0 = batches()
+                    lat = []
+                    for _ in range(rounds):
+                        lat += await asyncio.gather(*(post(n) for _ in range(clients)))
+                    out["latency_ms"][f"{label}:{key}"] = lat
+                    images_per_forward[key] = n * len(lat) / (batches() - b0)
+                out[label] = {"launches": read_counts(), "forwards": batches() - batches0,
+                              "images_per_forward": images_per_forward}
+            out["healthz"] = (await client.get(f"{api}/healthz")).status_code
+            out["metrics"] = (await client.get(f"{api}/metrics")).json()
+            # where a batch-8 request's host time goes: fetch and decode of
+            # its 8 photos, one after another, as the server does them
+            t = time.perf_counter()
+            for url in urls:
+                data = (await client.get(url)).content
+                Image.open(io.BytesIO(data)).convert("RGB")
+            out["fetch_decode_8_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        for runner, _ in reversed(runners):
+            await runner.cleanup()
+    return out
+
+
+def write_photos(photo_dir: str, rng) -> None:
+    from PIL import Image
+
+    for i, (h, w) in enumerate(PHOTO_SIZES):
+        Image.fromarray(synthetic_photo(rng, h, w)).save(f"{photo_dir}/p{i}.jpg", quality=90)
+
+
+def latency_summary(lat: dict) -> dict:
+    return {k: {"p50": statistics.median(v), "p99": percentile(v, 0.99), "n": len(v)}
+            for k, v in lat.items()}
+
+
+def check_launches(counts: dict, name: str, expected: int, what: str) -> None:
+    """`name` launched `expected` times and no other kernel at all."""
+    others = {k: v for k, v in counts.items() if k != name and v}
+    if counts[name] != expected or others:
+        raise AssertionError(
+            f"{what}: launches {counts}, expected {expected} of {name} and no other kernel")
+
+
 def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
     """The replica's own entry point: the port's standalone server on
     localhost with the full-width model, answering POST /detect for photos
@@ -600,16 +822,10 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
     short run under `kernel`. Each run's kernel counts are set to 0 just
     before it and read just after."""
     import asyncio
-    import io
     import tempfile
-
-    import httpx
-    from aiohttp import web
-    from PIL import Image
 
     from spotter_tpu_torch.ops import msda
     from spotter_tpu_torch.serving.app import build_detector_app
-    from spotter_tpu_torch.serving.standalone import make_app
 
     rng = np.random.default_rng(seed + 3)
     t0 = time.perf_counter()
@@ -617,92 +833,26 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
     bringup_s = time.perf_counter() - t0
     layers = det.engine.built.module.config.decoder_layers
 
-    async def serve(photo_dir: str) -> dict:
-        images = web.Application()
-        images.router.add_static("/img", photo_dir)
-        runners = []
-        for app in (images, make_app(detector=det, fatal_exit_cb=None)):
-            runner = web.AppRunner(app)
-            await runner.setup()
-            await web.TCPSite(runner, "127.0.0.1", 0).start()
-            runners.append((runner, runner.addresses[0][1]))
-        (_, img_port), (_, api_port) = runners
-        urls = [f"http://127.0.0.1:{img_port}/img/p{i}.jpg" for i in range(len(PHOTO_SIZES))]
-        api = f"http://127.0.0.1:{api_port}"
-        out = {"latency_ms": {}, "requests": {}}
+    def prep(name: str):
+        return lambda: setattr(msda, "MSDA_PREP", name)
+
+    runs = [
+        ("fused", prep("fused"), [("1", 1, 10, 1), ("3", 3, 10, 1), ("8", 8, 10, 1),
+                                  ("4x8", 8, 3, 4)]),
+        ("kernel", prep("kernel"), [("8", 8, 3, 1)]),
+    ]
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
         try:
-            async with httpx.AsyncClient(timeout=120.0) as client:
-                async def post(n: int) -> float:
-                    t = time.perf_counter()
-                    resp = await client.post(f"{api}/detect", json={"image_urls": urls[:n]})
-                    resp.raise_for_status()
-                    ms = (time.perf_counter() - t) * 1e3
-                    check_http_response(resp.json(), urls[:n], PHOTO_SIZES[0])
-                    return ms
-
-                def batches() -> int:
-                    return det.engine.metrics.snapshot()["batches_total"]
-
-                async def run(prep: str, plan) -> dict:
-                    msda.MSDA_PREP = prep
-                    batches0 = batches()
-                    reset_counts()
-                    images_per_forward = {}
-                    for key, n, coro_fn in plan:
-                        b0 = batches()
-                        lat = await coro_fn()
-                        out["latency_ms"].setdefault(f"{prep}:{key}", []).extend(lat)
-                        images_per_forward[key] = n * len(lat) / (batches() - b0)
-                    launches = read_counts()
-                    return {"launches": launches, "forwards": batches() - batches0,
-                            "images_per_forward": images_per_forward}
-
-                def sequential(n: int, reps: int):
-                    async def go():
-                        return [await post(n) for _ in range(reps)]
-                    return go
-
-                def concurrent(clients: int, n: int, rounds: int):
-                    async def go():
-                        lat = []
-                        for _ in range(rounds):
-                            lat += await asyncio.gather(*(post(n) for _ in range(clients)))
-                        return lat
-                    return go
-
-                await post(1)  # first request through the server: not timed
-                out["fused"] = await run("fused", [
-                    ("1", 1, sequential(1, 10)), ("3", 3, sequential(3, 10)),
-                    ("8", 8, sequential(8, 10)), ("4x8", 8, concurrent(4, 8, 3)),
-                ])
-                out["kernel"] = await run("kernel", [("8", 8, sequential(8, 3))])
-                health = await client.get(f"{api}/healthz")
-                out["healthz"] = health.status_code
-                out["metrics"] = (await client.get(f"{api}/metrics")).json()
-                # where a batch-8 request's host time goes: fetch and decode of
-                # its 8 photos, one after another, as the server does them
-                t = time.perf_counter()
-                for url in urls:
-                    data = (await client.get(url)).content
-                    Image.open(io.BytesIO(data)).convert("RGB")
-                out["fetch_decode_8_ms"] = (time.perf_counter() - t) * 1e3
+            out = asyncio.run(drive_http(det, photo_dir, runs))
         finally:
             msda.MSDA_PREP = "xla"
-            for runner, _ in reversed(runners):
-                await runner.cleanup()
-        return out
-
-    with tempfile.TemporaryDirectory() as photo_dir:
-        for i, (h, w) in enumerate(PHOTO_SIZES):
-            Image.fromarray(synthetic_photo(rng, h, w)).save(f"{photo_dir}/p{i}.jpg", quality=90)
-        out = asyncio.run(serve(photo_dir))
 
     lat = out["latency_ms"]
     rec = {
         "phase": "http", "model": MODEL_NAME, "device": device, "bringup_s": bringup_s,
         "healthz": out["healthz"],
-        "latency_ms": {k: {"p50": statistics.median(v), "p99": percentile(v, 0.99), "n": len(v)}
-                       for k, v in lat.items()},
+        "latency_ms": latency_summary(lat),
         "img_per_s_8_urls": 8e3 / statistics.median(lat["fused:8"]),
         "img_per_s_4x8_concurrent": 32e3 / statistics.median(lat["fused:4x8"]),
         "fetch_decode_8_ms": out["fetch_decode_8_ms"],
@@ -714,14 +864,235 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
     emit(rec, log)
     if out["healthz"] != 200:
         raise AssertionError(f"/healthz answered {out['healthz']}")
-    for prep, name in (("fused", "msda_fused_sum"), ("kernel", "msda_loc_sum")):
-        run_rec = out[prep]
-        others = {k: v for k, v in run_rec["launches"].items() if k != name and v}
-        if run_rec["launches"][name] != layers * run_rec["forwards"] or others:
-            raise AssertionError(
-                f"under {prep}: launches {run_rec['launches']} over {run_rec['forwards']} "
-                f"forwards, expected {layers} of {name} per forward and no other kernel"
-            )
+    for prep_name, name in (("fused", "msda_fused_sum"), ("kernel", "msda_loc_sum")):
+        run_rec = out[prep_name]
+        check_launches(run_rec["launches"], name, layers * run_rec["forwards"],
+                       f"under {prep_name}")
+    return rec
+
+
+# the attention instantiation each precision policy's YOLOS body runs
+POLICY_KERNEL = {"float32": "flash_attn_fp32", "mixed": "flash_attn_bf16"}
+
+
+@contextlib.contextmanager
+def precision_policy(name: str):
+    """SPOTTER_TPU_DTYPE=`name` while the block builds models (the zoo reads
+    the policy when it builds one)."""
+    old = os.environ.get("SPOTTER_TPU_DTYPE")
+    os.environ["SPOTTER_TPU_DTYPE"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("SPOTTER_TPU_DTYPE")
+        else:
+            os.environ["SPOTTER_TPU_DTYPE"] = old
+
+
+def build_yolos_under(policy: str, seed: int):
+    from spotter_tpu_torch.models.registry import build_detector
+
+    with precision_policy(policy):
+        return build_detector(YOLOS_NAME, tiny=False, seed=seed)
+
+
+def release_cuda_memory() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_yolos_parity(log: list, seed: int, device: str = "cuda") -> list:
+    """yolos-base at full width: the card against the CPU at B = 1 under
+    "float32", then the card's "mixed" body against its "float32" one at
+    B = 8 (same seed, so the same weights before the bf16 cast)."""
+    import copy
+
+    import torch
+
+    from spotter_tpu_torch.ops.preprocess import device_rescale_normalize, resize_uint8
+    from spotter_tpu_torch.utils.precision import use_exact_float32
+
+    use_exact_float32()
+    built = build_yolos_under("float32", seed)
+    layers = built.module.config.num_hidden_layers
+    gh, gw = built.module.config.grid_hw
+    spec = built.preprocess_spec
+    rng = np.random.default_rng(seed + 4)
+    imgs = [resize_uint8(synthetic_photo(rng, 720, 960), spec.size) for _ in range(8)]
+    x8 = device_rescale_normalize(torch.from_numpy(np.stack(imgs)), spec)
+    cpu_model = built.module.eval()
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu_model(x8[:1])
+        cpu_s = time.perf_counter() - t0
+        reset_counts()
+        got = gpu_model(x8[:1].to(device))
+        torch.cuda.synchronize()
+    launches = read_counts()
+    for key in ("logits", "pred_boxes"):
+        if not torch.isfinite(got[key]).all():
+            raise AssertionError(f"non-finite {key} on the card")
+    rec = {
+        "phase": "yolos_parity", "model": YOLOS_NAME, "policy": "float32", "batch": 1,
+        "compare": "card vs cpu", "tokens": got["logits"].shape[1] + 1 + gh * gw,
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+        "logits_max_abs_err": (got["logits"].cpu() - ref["logits"]).abs().max().item(),
+        "boxes_max_abs_err": (got["pred_boxes"].cpu() - ref["pred_boxes"]).abs().max().item(),
+        "atol_logits": PARITY_ATOL_LOGITS, "atol_boxes": PARITY_ATOL_BOXES,
+        "logits_abs_max": ref["logits"].abs().max().item(),
+        "same_argmax": bool(torch.equal(got["logits"].cpu()[..., :-1].argmax(-1),
+                                        ref["logits"][..., :-1].argmax(-1))),
+        "cpu_forward_s": cpu_s, "card_launches": launches,
+    }
+    emit(rec, log)
+    records = [rec]
+    check_launches(launches, "flash_attn_fp32", layers, "yolos card forward under float32")
+    if not (rec["logits_max_abs_err"] <= PARITY_ATOL_LOGITS
+            and rec["boxes_max_abs_err"] <= PARITY_ATOL_BOXES):
+        raise AssertionError(f"yolos card vs CPU outside tolerance: {rec}")
+    del cpu_model, built, ref
+
+    mixed_model = build_yolos_under("mixed", seed).module.to(device).eval()
+    outs, counts = {}, {}
+    with torch.inference_mode():
+        for policy, model in (("float32", gpu_model), ("mixed", mixed_model)):
+            reset_counts()
+            outs[policy] = model(x8.to(device))
+            torch.cuda.synchronize()
+            counts[policy] = read_counts()
+    for policy in outs:
+        check_launches(counts[policy], POLICY_KERNEL[policy], layers,
+                       f"yolos card forward under {policy}")
+    o32, o16 = outs["float32"], outs["mixed"]
+    scale = o32["logits"].abs().max().item()
+    rec = {
+        "phase": "yolos_parity", "model": YOLOS_NAME, "policy": "mixed vs float32", "batch": 8,
+        "compare": "card vs card",
+        "logits_max_abs_err": (o16["logits"] - o32["logits"]).abs().max().item(),
+        "boxes_max_abs_err": (o16["pred_boxes"] - o32["pred_boxes"]).abs().max().item(),
+        "logits_abs_max": scale,
+        "atol_logits": MIXED_RTOL_LOGITS * scale, "atol_boxes": MIXED_ATOL_BOXES,
+        "argmax_agreement": (o16["logits"][..., :-1].argmax(-1)
+                             == o32["logits"][..., :-1].argmax(-1)).float().mean().item(),
+        "card_launches": counts,
+    }
+    emit(rec, log)
+    records.append(rec)
+    if not (rec["logits_max_abs_err"] <= rec["atol_logits"]
+            and rec["boxes_max_abs_err"] <= MIXED_ATOL_BOXES):
+        raise AssertionError(f"yolos mixed vs float32 outside tolerance: {rec}")
+    del gpu_model, mixed_model, outs, got
+    release_cuda_memory()
+    return records
+
+
+def phase_yolos_serve(log: list, seed: int, device: str = "cuda") -> dict:
+    """yolos-base through InferenceEngine.detect and the response assembly,
+    on requests of 1 and 8 decoded photos, under "float32" and "mixed". The
+    counts are set to 0 after warmup and read after the requests."""
+    import torch
+
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.ops.preprocess import batch_images_uint8
+    from spotter_tpu_torch.serving.detector import assemble_response
+
+    rng = np.random.default_rng(seed + 5)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    requests = [photos[:1]] * 5 + [photos[:8]] * 5
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    rec = {"phase": "yolos_serve", "model": YOLOS_NAME, "device": device}
+    for policy in ("float32", "mixed"):
+        built = build_yolos_under(policy, seed)
+        layers = built.module.config.num_hidden_layers
+        engine = InferenceEngine(built, device=device)
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        reset_counts()  # count only this path's launches from here
+        latencies, forwards = {1: [], 8: []}, 0
+        for reqn, images in enumerate(requests):
+            urls = [f"synthetic://{reqn}/{i}" for i in range(len(images))]
+            t0 = time.perf_counter()
+            raw = engine.detect(images)
+            resp = assemble_response(urls, raw)
+            latencies[len(images)].append(time.perf_counter() - t0)
+            forwards += -(-len(images) // engine.batch_buckets[-1])
+            check_response(resp, raw, len(images))
+        counts = read_counts()
+        check_launches(counts, POLICY_KERNEL[policy], layers * forwards,
+                       f"yolos engine path under {policy}")
+        # device time per forward, after the counts were read
+        t0 = time.perf_counter()
+        pixels, _, sizes = batch_images_uint8(photos[:8], built.preprocess_spec)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        px = torch.from_numpy(pixels).to(device)
+        sz = torch.from_numpy(sizes).to(device)
+        with torch.inference_mode():
+            device_ms = {b: cuda_time_ms(lambda b=b: engine._forward(px[:b], sz[:b]), 5, flush)
+                         for b in (1, 8)}
+        rec[policy] = {
+            "warmup_s": warmup_s, "forwards": forwards, "launches": counts,
+            "launches_per_forward": counts[POLICY_KERNEL[policy]] / forwards,
+            "latency_ms": {n: {"p50": statistics.median(v) * 1e3,
+                               "p99": percentile(v, 0.99) * 1e3, "n": len(v)}
+                           for n, v in latencies.items()},
+            "img_per_s_8": 8 / statistics.median(latencies[8]),
+            "batch8_host_resize_ms": host_ms,
+            "device_forward_ms": device_ms,
+            "detections_per_image": [len(d) for d in raw],
+        }
+        del engine, built, px, sz
+        release_cuda_memory()
+    emit(rec, log)
+    return rec
+
+
+def phase_yolos_http(log: list, seed: int, device: str = "cuda") -> dict:
+    """yolos-base behind the port's standalone server, under "float32" and
+    then "mixed": requests of 1 and 8 URLs, one at a time; each run's counts
+    are set to 0 just before it and read just after."""
+    import asyncio
+    import tempfile
+
+    from spotter_tpu_torch.serving.app import build_detector_app
+
+    rng = np.random.default_rng(seed + 6)
+    rec = {"phase": "yolos_http", "model": YOLOS_NAME, "device": device}
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        for policy in ("float32", "mixed"):
+            t0 = time.perf_counter()
+            with precision_policy(policy):
+                det = build_detector_app(YOLOS_NAME, device=device, seed=seed, warmup=True)
+            bringup_s = time.perf_counter() - t0
+            layers = det.engine.built.module.config.num_hidden_layers
+            runs = [(policy, lambda: None, [("1", 1, 5, 1), ("8", 8, 5, 1)])]
+            out = asyncio.run(drive_http(det, photo_dir, runs))
+            lat = out["latency_ms"]
+            rec[policy] = {
+                "bringup_s": bringup_s, "healthz": out["healthz"],
+                "latency_ms": latency_summary(lat),
+                "img_per_s_8_urls": 8e3 / statistics.median(lat[f"{policy}:8"]),
+                "fetch_decode_8_ms": out["fetch_decode_8_ms"],
+                "engine_stage_ms": {k: v for k, v in out["metrics"].items()
+                                    if k.startswith("stage_")},
+                "mean_batch_size": out["metrics"]["mean_batch_size"],
+                **out[policy],
+            }
+            del det
+            release_cuda_memory()
+            if out["healthz"] != 200:
+                raise AssertionError(f"/healthz answered {out['healthz']} under {policy}")
+            check_launches(out[policy]["launches"], POLICY_KERNEL[policy],
+                           layers * out[policy]["forwards"], f"yolos /detect under {policy}")
+    emit(rec, log)
     return rec
 
 
@@ -754,24 +1125,37 @@ def check_http_response(body: dict, urls: list, first_hw: tuple[int, int]) -> No
         raise AssertionError(f"labeled image is {first.format} {first.size}, not the source's")
 
 
-# the TPU kernel each port replaces
+# the TPU kernel each port replaces, and the source it is built from
 REPLACES = {
     "msda_gather_sum": "spotter_tpu/ops/msda.py:906",
     "msda_loc_sum": "spotter_tpu/ops/msda.py:1162",
     "msda_fused_sum": "spotter_tpu/ops/msda.py:1368",
+    "flash_attn_fp32": "spotter_tpu/models/layers.py:126",
+    "flash_attn_bf16": "spotter_tpu/models/layers.py:185",
 }
+SOURCES = {name: "spotter_tpu_torch/csrc/msda.cu" for name in REPLACES if name.startswith("msda")}
+SOURCES.update({name: "spotter_tpu_torch/csrc/attention.cu"
+                for name in REPLACES if name.startswith("flash")})
+
+
+def is_main_case(c: dict) -> bool:
+    """The case each kernel reports in the summary: B = 8 at its main path's
+    shapes (fp32 rows and bilinear prep for MSDA; yolos-base for attention)."""
+    if c["kernel"].startswith("flash"):
+        shape = c["shape"]
+        return (shape["b"], shape["s"], shape["h"], shape["hd"]) == ATTN_MAIN_SHAPE
+    return c["batch"] == 8 and c["rows_dtype"] == "float32" and c["method"] == "default"
 
 
 def kernel_summary(cases: list, launches: dict) -> dict:
-    """The `kernels` line: per kernel, its main-path launches and its
-    B = 8, fp32-rows, bilinear case's numbers from the kernel phase."""
+    """The `kernels` line: per kernel, its launches on the path that runs it
+    and its main case's numbers from the kernel phase."""
     rows = []
     for name, replaces in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]
-        main_case = next(c for c in mine if c["batch"] == 8 and c["rows_dtype"] == "float32"
-                         and c["method"] == "default")
+        main_case = next(c for c in mine if is_main_case(c))
         rows.append({
-            "name": name, "route": "cuda", "source": "spotter_tpu_torch/csrc/msda.cu",
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "launches": launches.get(name),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
@@ -797,7 +1181,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (REPO / "spotter_tpu_torch" / "csrc" / "msda.cu").exists():
+    if not all((REPO / "spotter_tpu_torch" / "csrc" / src).exists()
+               for src in ("msda.cu", "attention.cu")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -816,14 +1201,24 @@ def main(argv=None) -> int:
         phase_parity(log, args.seed, built)
     serve = phase_serve(log, args.seed, built) if "serve" in phases else None
     http = phase_http(log, args.seed) if "http" in phases else None
+    del built
+    if "yolos_parity" in phases:
+        phase_yolos_parity(log, args.seed)
+    if "yolos_serve" in phases:
+        phase_yolos_serve(log, args.seed)
+    yolos_http = phase_yolos_http(log, args.seed) if "yolos_http" in phases else None
     # each kernel's launches on the path that runs it: slice 1's engine path
-    # under xla, the HTTP /detect path under fused and under kernel
+    # under xla, the HTTP /detect path under fused and under kernel, and
+    # YOLOS's /detect path under float32 (fp32) and mixed (bf16)
     launches = {}
     if serve:
         launches["msda_gather_sum"] = serve["msda_launches"]
     if http:
         launches["msda_fused_sum"] = http["fused"]["launches"]["msda_fused_sum"]
         launches["msda_loc_sum"] = http["kernel"]["launches"]["msda_loc_sum"]
+    if yolos_http:
+        for policy, name in POLICY_KERNEL.items():
+            launches[name] = yolos_http[policy]["launches"][name]
 
     if cases:
         summary = kernel_summary(cases, launches)

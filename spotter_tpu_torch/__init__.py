@@ -13,6 +13,10 @@ micro-batcher and the engine to the RT-DETRv2 forward
 deformable decoder whose MSDA sampling runs hand-written CUDA kernels,
 `csrc/msda.cu`, one per `SPOTTER_TPU_MSDA_PREP` setting), the sigmoid top-k
 postprocess, thresholding, the drawn labeled image and the amenity response.
+The same path serves YOLOS (`MODEL_NAME=hustvl/yolos-base`: a ViT whose
+4301-token self-attention runs the hand-written flash-attention kernel,
+`csrc/attention.cu`, in fp32 or, under the mixed and bfloat16 policies,
+bf16) with the softmax postprocess.
 
 Entry points take an explicit `device`. With none given they run on `cuda`,
 and raise where no GPU is present; the CPU runs only when asked for

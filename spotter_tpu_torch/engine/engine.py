@@ -6,7 +6,8 @@ What it keeps of the JAX engine: batch sizes come from a fixed ladder
 runs every bucket once ahead of traffic, the device returns fixed-k
 (scores, labels, boxes) and the host thresholds them. It takes decoded
 uint8 HWC images (numpy); the host resizes them to the spec and stacks
-them, the device rescales, runs the model and the top-k postprocess.
+them, the device rescales, runs the model and the family's postprocess
+(sigmoid top-k for RT-DETR, per-query softmax for YOLOS).
 
 It takes what the batcher hands over (PIL images) or decoded uint8 HWC
 arrays, and classifies device failures as the JAX engine does
@@ -37,13 +38,19 @@ from spotter_tpu_torch.engine.errors import (
     classify_engine_exception,
 )
 from spotter_tpu_torch.engine.metrics import Metrics
-from spotter_tpu_torch.ops.postprocess import sigmoid_topk_postprocess, to_detections
+from spotter_tpu_torch.ops.postprocess import (
+    sigmoid_topk_postprocess,
+    softmax_postprocess,
+    to_detections,
+)
 from spotter_tpu_torch.ops.preprocess import (
     PreprocessSpec,
     batch_images_uint8,
     device_rescale_normalize,
 )
-from spotter_tpu_torch.utils.precision import compute_dtype, backbone_dtype, use_exact_float32
+from spotter_tpu_torch.utils.precision import use_exact_float32
+
+POSTPROCESS_KINDS = ("sigmoid_topk", "softmax")  # RT-DETR; DETR/YOLOS
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -71,7 +78,7 @@ class BuiltDetector:
     model_name: str
     module: nn.Module  # weights loaded; (B, H, W, 3) float pixels -> dict
     preprocess_spec: PreprocessSpec
-    postprocess: str  # only "sigmoid_topk" (the RT-DETR family) is ported
+    postprocess: str  # one of POSTPROCESS_KINDS
     id2label: dict[int, str]
     num_top_queries: int = 300
 
@@ -88,10 +95,8 @@ class InferenceEngine:
     ) -> None:
         """`device`: where the model runs; None means `cuda`, and raises
         where there is no GPU (pass "cpu" to run on the CPU)."""
-        if built.postprocess != "sigmoid_topk":
+        if built.postprocess not in POSTPROCESS_KINDS:
             raise ValueError(f"postprocess {built.postprocess!r} is not ported")
-        if compute_dtype() != torch.float32 or backbone_dtype() != torch.float32:
-            raise ValueError("only the float32 precision policy is ported")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_exact_float32()
@@ -115,6 +120,8 @@ class InferenceEngine:
         pixels = device_rescale_normalize(pixels_u8, self.built.preprocess_spec)
         out = self.model(pixels)
         logits = out["logits"]
+        if self.built.postprocess == "softmax":
+            return softmax_postprocess(logits, out["pred_boxes"], target_sizes)
         kk = min(self.built.num_top_queries, logits.shape[1] * logits.shape[2])
         return sigmoid_topk_postprocess(logits, out["pred_boxes"], target_sizes, k=kk)
 
@@ -141,7 +148,7 @@ class InferenceEngine:
         (H, W, 3) arrays. Splits into chunks of the largest bucket, pads each
         chunk's batch to its bucket and drops the pad rows' results. Boxes
         are in each image's own pixel coordinates. `canvas_hw` is the
-        ragged scheduler's canvas; RT-DETR's fixed 640x640 spec ignores it.
+        ragged scheduler's canvas; the ported families' fixed specs ignore it.
         `qset` (an open-vocabulary query set) raises: the port serves only
         closed-set models, as the JAX engine does for them.
         """

@@ -1,8 +1,9 @@
-"""Config dataclasses for the RT-DETR family (copy of spotter_tpu.models.configs).
+"""Config dataclasses for the RT-DETR and YOLOS families (copy of
+spotter_tpu.models.configs).
 
 The port keeps its own copy rather than importing the JAX package's module:
-`ResNetConfig`, `RTDetrConfig` and their presets, unchanged, so a config
-built on one side means the same model on the other.
+`ResNetConfig`, `RTDetrConfig` and their presets, and `YolosConfig`,
+unchanged, so a config built on one side means the same model on the other.
 """
 
 from dataclasses import dataclass, field
@@ -159,3 +160,51 @@ RTDETR_PRESETS = {
         encoder_ffn_dim=2048,
     ),
 }
+
+
+@dataclass(frozen=True)
+class YolosConfig:
+    """YOLOS (hustvl/yolos-*) — plain ViT with appended detection tokens.
+    The defaults are yolos-base."""
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    image_size: tuple[int, int] = (800, 1344)
+    patch_size: int = 16
+    num_channels: int = 3
+    num_detection_tokens: int = 100
+    use_mid_position_embeddings: bool = True
+    qkv_bias: bool = True
+    layer_norm_eps: float = 1e-12
+    num_labels: int = 91
+    id2label: tuple[tuple[int, str], ...] = ()
+
+    @property
+    def id2label_dict(self) -> dict[int, str]:
+        return dict(self.id2label)
+
+    @property
+    def grid_hw(self) -> tuple[int, int]:
+        return self.image_size[0] // self.patch_size, self.image_size[1] // self.patch_size
+
+    @classmethod
+    def from_hf(cls, hf) -> "YolosConfig":
+        return cls(
+            hidden_size=hf.hidden_size,
+            num_hidden_layers=hf.num_hidden_layers,
+            num_attention_heads=hf.num_attention_heads,
+            intermediate_size=hf.intermediate_size,
+            hidden_act=hf.hidden_act,
+            image_size=tuple(hf.image_size),
+            patch_size=hf.patch_size,
+            num_channels=hf.num_channels,
+            num_detection_tokens=hf.num_detection_tokens,
+            use_mid_position_embeddings=hf.use_mid_position_embeddings,
+            qkv_bias=hf.qkv_bias,
+            layer_norm_eps=hf.layer_norm_eps,
+            num_labels=hf.num_labels,
+            id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
+        )

@@ -1,12 +1,31 @@
-"""Shared building blocks (port of spotter_tpu.models.layers, RT-DETR subset).
+"""Shared building blocks (port of spotter_tpu.models.layers, the RT-DETR
+and YOLOS subset).
 
 Convolutions run NCHW inside the port (PyTorch's layout); token tensors
 are (B, S, D) as in the JAX package. Each submodule attribute carries its
 flax module's name (`conv`, `bn`, `q_proj`, `layer0`, ...), so the weight
 carry-over from JAX params (convert/from_jax.py) is a mechanical rename.
+
+`dtype` on a module is its compute dtype, as in the flax modules: the
+ViT body runs bf16 under the "mixed" and "bfloat16" policies (models/zoo.py).
+
+Process-wide knobs, with the JAX package's values and error texts, kept as
+module attributes that are read when a forward runs (so a process can
+switch them by setting the attribute):
+
+- SPOTTER_TPU_GELU=auto|exact|tanh (`GELU_MODE`): "auto" takes the tanh
+  form on bf16 tensors, where its error sits below bf16 rounding, and the
+  exact erf form on fp32.
+- SPOTTER_TPU_FLASH_ATTN (`FLASH_ATTN_ENABLED`): "0" keeps unmasked
+  self-attention of FLASH_ATTN_MIN_SEQ tokens or more on the materialised
+  path; otherwise it runs the attention kernel on a CUDA tensor.
+- SPOTTER_TPU_FLASH_IMPL=auto|splash|flash (`FLASH_IMPL`): which TPU kernel
+  the JAX package takes. Validated and accepted here; both names are the
+  same Hopper kernel, whose instantiation follows the tensor's dtype.
 """
 
 import math
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -14,11 +33,43 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# fp32 policy: GELU is the exact erf form (the JAX package's "auto" takes
-# the tanh form only on bf16 tensors, which the port does not run yet)
+from spotter_tpu_torch.ops.attention import flash_attn_bf16, flash_attn_fp32
+
+
+def parse_gelu_mode(raw: str) -> str:
+    """The SPOTTER_TPU_GELU value, checked as the JAX package checks it."""
+    mode = raw.strip().lower()
+    if mode not in ("auto", "exact", "tanh"):
+        raise ValueError(f"SPOTTER_TPU_GELU must be auto|exact|tanh, got {mode!r}")
+    return mode
+
+
+def parse_flash_impl(raw: str) -> str:
+    """The SPOTTER_TPU_FLASH_IMPL value, checked as the JAX package checks it."""
+    impl = raw.strip().lower()
+    if impl not in ("auto", "splash", "flash"):
+        raise ValueError(f"SPOTTER_TPU_FLASH_IMPL must be auto|splash|flash, got {impl!r}")
+    return impl
+
+
+GELU_MODE = parse_gelu_mode(os.environ.get("SPOTTER_TPU_GELU", "auto"))
+# the JAX package's cutover: ViT-detector sequences (yolos-base at 800x1344
+# is 4301 tokens) would materialise ~7 GB of fp32 scores per batch-8 forward;
+# RT-DETR's 400 (AIFI) and 300 (decoder) tokens stay below it
+FLASH_ATTN_MIN_SEQ = 1024
+FLASH_ATTN_ENABLED = os.environ.get("SPOTTER_TPU_FLASH_ATTN", "1") != "0"
+FLASH_IMPL = parse_flash_impl(os.environ.get("SPOTTER_TPU_FLASH_IMPL", "auto"))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    if GELU_MODE == "tanh" or (GELU_MODE == "auto" and x.dtype == torch.bfloat16):
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
 ACTIVATIONS: dict[str, Callable] = {
     "relu": F.relu,
-    "gelu": F.gelu,
+    "gelu": gelu,
     "silu": F.silu,
     "swish": F.silu,
 }
@@ -92,15 +143,83 @@ class ConvNorm(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
-class MLPHead(nn.Module):
-    """DETR-style MLP prediction head: Linear stack with ReLU between layers."""
+def flash_attention_enabled(x: torch.Tensor) -> bool:
+    """True when long self-attention on `x` may take the attention kernel:
+    on a CUDA tensor, unless SPOTTER_TPU_FLASH_ATTN=0. (The JAX package asks
+    for the TPU backend here; a CPU tensor always takes the plain path.)"""
+    return FLASH_ATTN_ENABLED and x.device.type == "cuda"
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int) -> None:
+
+def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) pre-scaled q, k, v -> (B, S, H, hd) through the
+    hand-written attention kernel (ops/attention.py): the bf16
+    instantiation on bf16 tensors, the fp32 one otherwise. The JAX
+    package's SPOTTER_TPU_FLASH_IMPL picks between two TPU kernels that
+    compute this same function; on Hopper both names are this one kernel."""
+    if q.dtype == torch.bfloat16:
+        return flash_attn_bf16(q, k, v)
+    return flash_attn_fp32(q, k, v)
+
+
+class Dense(nn.Linear):
+    """flax's nn.Dense(dtype=...), and QuantDense's float path: input and
+    weights at the compute dtype (the weights are stored in it, which is
+    flax's cast at use done once), bias added in the same product."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(in_features, features, bias=bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's nn.LayerNorm(dtype=...): statistics, scale and bias in fp32
+    (fp32 params), the result cast to the compute dtype."""
+
+    def __init__(self, features: int, eps: float, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(features, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+class PatchEmbed(nn.Conv2d):
+    """ViT patch embedding: a (P, P) convolution with stride P, (B, H, W, C)
+    pixels -> (B, H/P * W/P, D) tokens in row-major patch order.
+
+    flax's kernel is (P, P, C, D), HWIO, so the carry-over's HWIO -> OIHW
+    rule maps it onto this conv's weight. Under a bf16 compute dtype the
+    pixels and the kernel are rounded to bf16 and the products summed in
+    fp32 with the fp32 bias, then rounded once, as the JAX rewrite's
+    `preferred_element_type=float32` dot does.
+    """
+
+    def __init__(self, in_channels: int, features: int, patch_size: int,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(in_channels, features, patch_size, stride=patch_size)
+        self.dtype = dtype
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        x = pixels.permute(0, 3, 1, 2).to(self.dtype).to(torch.float32)
+        w = self.weight.to(self.dtype).to(torch.float32)
+        y = F.conv2d(x, w, self.bias, stride=self.stride)  # (B, D, gh, gw)
+        return y.flatten(2).transpose(1, 2).to(self.dtype)
+
+
+class MLPHead(nn.Module):
+    """DETR-style MLP prediction head: Dense stack with ReLU between layers."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.num_layers = num_layers
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         for i in range(num_layers):
-            setattr(self, f"layer{i}", nn.Linear(dims[i], dims[i + 1]))
+            setattr(self, f"layer{i}", Dense(dims[i], dims[i + 1], dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_layers):
@@ -111,12 +230,14 @@ class MLPHead(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Standard MHA with separate q/k/v/out projections, plain path.
+    """Standard MHA with separate q/k/v/out projections.
 
     DETR-lineage peculiarity: position embeddings are added to queries and
-    keys only — values come from the un-positioned hidden states. Scores are
-    materialised: RT-DETR's sequences (AIFI 400 tokens, decoder 300) stay
-    below the JAX package's flash cutover of 1024.
+    keys only — values come from the un-positioned hidden states. Unmasked
+    self-attention over FLASH_ATTN_MIN_SEQ tokens or more on a CUDA tensor
+    runs the attention kernel (`flash_self_attention`); everything else
+    materialises the scores. RT-DETR's sequences (AIFI 400 tokens, decoder
+    300) never reach the cutover.
     """
 
     def __init__(self, embed_dim: int, num_heads: int) -> None:
@@ -148,12 +269,21 @@ class MultiHeadAttention(nn.Module):
                 k_in = key_value_states + key_position_embeddings
             v_in = key_value_states
 
-        def split(x):  # (B, T, D) -> (B, H, T, hd)
-            return x.reshape(*x.shape[:-1], self.num_heads, head_dim).transpose(-3, -2)
+        def split(x):  # (B, T, D) -> (B, T, H, hd)
+            return x.reshape(*x.shape[:-1], self.num_heads, head_dim)
 
         q = split(self.q_proj(q_in)) * (head_dim**-0.5)
         k = split(self.k_proj(k_in))
         v = split(self.v_proj(v_in))
+        if (
+            flash_attention_enabled(q)
+            and attention_mask is None
+            and key_value_states is None
+            and q.shape[1] >= FLASH_ATTN_MIN_SEQ
+        ):
+            out = flash_self_attention(q, k, v)
+            return self.out_proj(out.reshape(*out.shape[:-2], self.embed_dim))
+        q, k, v = (t.transpose(-3, -2) for t in (q, k, v))  # (B, H, T, hd)
         logits = torch.matmul(q, k.transpose(-1, -2))  # (B, H, Tq, Tk)
         if attention_mask is not None:
             logits = logits + attention_mask.to(logits.dtype)

@@ -1,11 +1,16 @@
-"""Model zoo, RT-DETR family: MODEL_NAME -> BuiltDetector (port of the
-RT-DETR part of spotter_tpu.models.zoo).
+"""Model zoo, RT-DETR and YOLOS families: MODEL_NAME -> BuiltDetector (port
+of those parts of spotter_tpu.models.zoo).
 
 Weights are either a seeded random init that mirrors flax's initializers
-(`init_rtdetr`), at the width of the preset the name selects, or JAX params
-carried across with `convert.from_jax` (`params=`). Loading a local HF
-checkpoint is not ported yet. `tiny=True` (or SPOTTER_TPU_TINY=1) builds
-the zoo's tiny config at a 64x64 spec, as the JAX package does.
+(`init_rtdetr`, `init_yolos`), at the width of the preset the name selects,
+or JAX params carried across with `convert.from_jax` (`params=`). Loading a
+local HF checkpoint is not ported yet. `tiny=True` (or SPOTTER_TPU_TINY=1)
+builds the zoo's tiny config, as the JAX package does.
+
+Each build function applies the precision policy (utils/precision.py) and refuses
+the knobs whose computation the port lacks: the int8 knobs, and for
+RT-DETR a non-float32 policy and the SPOTTER_TPU_MSDA backends whose TPU
+kernels are not ported.
 """
 
 import dataclasses
@@ -17,12 +22,25 @@ from torch import nn
 
 from spotter_tpu_torch.convert.from_jax import load_from_jax
 from spotter_tpu_torch.engine.engine import BuiltDetector
-from spotter_tpu_torch.models.coco import coco_id2label_80
-from spotter_tpu_torch.models.configs import RTDETR_PRESETS, ResNetConfig, RTDetrConfig
+from spotter_tpu_torch.models.coco import coco_id2label_80, coco_id2label_91
+from spotter_tpu_torch.models.configs import (
+    RTDETR_PRESETS,
+    ResNetConfig,
+    RTDetrConfig,
+    YolosConfig,
+)
 from spotter_tpu_torch.models.layers import FrozenBatchNorm, lecun_normal_
 from spotter_tpu_torch.models.registry import ModelFamily, register
 from spotter_tpu_torch.models.rtdetr import RTDetrDetector
-from spotter_tpu_torch.ops.preprocess import RTDETR_SPEC, PreprocessSpec
+from spotter_tpu_torch.models.yolos import YolosDetector
+from spotter_tpu_torch.ops.msda import MSDA_ENV, check_msda_backend
+from spotter_tpu_torch.ops.preprocess import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    RTDETR_SPEC,
+    PreprocessSpec,
+)
+from spotter_tpu_torch.utils.precision import backbone_dtype, refuse_int8, require_float32
 
 TINY_ENV = "SPOTTER_TPU_TINY"
 
@@ -61,13 +79,9 @@ def rtdetr_preset(model_name: str) -> RTDetrConfig:
 
 
 @torch.no_grad()
-def init_rtdetr(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Random init from `seed`, mirroring the flax module's initializers:
-    lecun-normal conv and dense kernels, zero biases, LayerNorm scale 1,
-    identity frozen-BN statistics, normal(1.0) query embeddings. Drawn on
-    the CPU from one `torch.Generator` in module order, so the same seed
-    gives the same weights whatever device the model later moves to."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+def _init_flax_layers(model: nn.Module, gen: torch.Generator) -> None:
+    """flax's initializers on every conv, dense, LayerNorm and frozen BN of
+    `model`, drawn from `gen` in module order."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             fan_in = module.weight[0].numel()
@@ -84,6 +98,17 @@ def init_rtdetr(model: nn.Module, seed: int = 0) -> nn.Module:
             module.bias.zero_()
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
+
+
+@torch.no_grad()
+def init_rtdetr(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random init from `seed`, mirroring the flax module's initializers:
+    lecun-normal conv and dense kernels, zero biases, LayerNorm scale 1,
+    identity frozen-BN statistics, normal(1.0) query embeddings. Drawn on
+    the CPU from one `torch.Generator` in module order, so the same seed
+    gives the same weights whatever device the model later moves to."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    _init_flax_layers(model, gen)
     if isinstance(model, RTDetrDetector) and model.config.learn_initial_query:
         model.query_embed.copy_(torch.randn(model.query_embed.shape, generator=gen))
     return model
@@ -98,6 +123,9 @@ def build_rtdetr(
 ) -> BuiltDetector:
     """RT-DETR family builder. The model is built on the CPU; the engine
     moves it to its device."""
+    refuse_int8()
+    require_float32("RT-DETR")
+    check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     if tiny:
@@ -121,4 +149,89 @@ def build_rtdetr(
     )
 
 
+def tiny_yolos_config(num_labels: int = 80) -> YolosConfig:
+    return YolosConfig(
+        hidden_size=32,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        intermediate_size=48,
+        image_size=(32, 48),
+        patch_size=8,
+        num_detection_tokens=5,
+        num_labels=num_labels,
+        id2label=tuple(coco_id2label_80().items()),
+    )
+
+
+def yolos_preset(model_name: str) -> YolosConfig:
+    """yolos-base (`YolosConfig()`'s defaults) with the 91 COCO labels. The
+    other YOLOS sizes take their widths from a checkpoint's config, which
+    the repository does not hold, so their names raise."""
+    if "yolos-base" not in model_name.lower():
+        raise ValueError(
+            f"MODEL_NAME '{model_name}' names no YOLOS configuration the port holds: only "
+            f"yolos-base (other sizes need a checkpoint's config; ROADMAP Queue 1 item 4)"
+        )
+    return YolosConfig(id2label=tuple(coco_id2label_91().items()))
+
+
+YOLOS_TOKEN_STD = 0.02  # HF YolosConfig.initializer_range
+
+
+@torch.no_grad()
+def init_yolos(model: YolosDetector, seed: int = 0) -> YolosDetector:
+    """Random init from `seed`: flax's initializers (lecun-normal kernels,
+    zero biases, LayerNorm scale 1) on every dense, the patch conv and the
+    LayerNorms, in module order, as `init_rtdetr` draws them.
+
+    One exception: flax initialises `cls_token`, `detection_tokens`,
+    `position_embeddings` and `mid_position_embeddings` to zeros, which
+    makes all detection tokens the same row, so every query of a random
+    model would predict the same box. Those four are drawn from
+    N(0, 0.02^2) instead, from the same generator after the layers, as HF's
+    YOLOS init does.
+    """
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    _init_flax_layers(model, gen)
+    for name in ("cls_token", "detection_tokens", "position_embeddings",
+                 "mid_position_embeddings"):
+        table = getattr(model, name, None)
+        if table is not None:
+            table.copy_(torch.randn(table.shape, generator=gen) * YOLOS_TOKEN_STD)
+    return model
+
+
+def build_yolos(
+    model_name: str,
+    *,
+    tiny: Optional[bool] = None,
+    seed: int = 0,
+    params: Optional[Mapping] = None,
+) -> BuiltDetector:
+    """Builds the YOLOS family. The ViT body runs at the policy's backbone
+    dtype (bf16 under "mixed" and "bfloat16"), as the JAX zoo builds it; the
+    spec warp-resizes to the config's image size with ImageNet mean/std.
+    The model is built on the CPU; the engine moves it to its device."""
+    refuse_int8()
+    if tiny is None:
+        tiny = bool(os.environ.get(TINY_ENV))
+    cfg = tiny_yolos_config() if tiny else yolos_preset(model_name)
+    model = YolosDetector(cfg, dtype=backbone_dtype()).eval()
+    if params is not None:
+        load_from_jax(model, params)
+    else:
+        init_yolos(model, seed)
+    return BuiltDetector(
+        model_name=model_name,
+        module=model,
+        preprocess_spec=PreprocessSpec(
+            mode="fixed", size=cfg.image_size, mean=IMAGENET_MEAN, std=IMAGENET_STD
+        ),
+        postprocess="softmax",
+        id2label=cfg.id2label_dict,
+        num_top_queries=cfg.num_detection_tokens,
+    )
+
+
 register(ModelFamily(name="rtdetr", matches=("rtdetr", "rt_detr", "rt-detr"), build=build_rtdetr))
+register(ModelFamily(name="yolos", matches=("yolos",), build=build_yolos))

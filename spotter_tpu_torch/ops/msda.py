@@ -55,6 +55,31 @@ def parse_msda_prep(raw: str) -> str:
 MSDA_PREP = parse_msda_prep(os.environ.get("SPOTTER_TPU_MSDA_PREP", "xla"))
 
 
+MSDA_ENV = "SPOTTER_TPU_MSDA"
+# backends that select a TPU kernel the port does not have yet
+UNPORTED_MSDA_BACKENDS = {
+    "pallas_sep": "pallas_sep_sampling, ROADMAP Queue 2 item 5",
+    "pallas_gather": "pallas_deformable_sampling, ROADMAP Queue 2 item 6",
+}
+
+
+def check_msda_backend(raw: str) -> str:
+    """The SPOTTER_TPU_MSDA value, checked as the JAX package checks it.
+    "auto", "xla" and "pallas" run this module's kernels; the two backends
+    whose kernels are not ported raise rather than serve another one."""
+    name = raw.strip().lower()
+    if name not in ("auto", "xla", "pallas", *UNPORTED_MSDA_BACKENDS):
+        raise ValueError(
+            f"{MSDA_ENV} must be auto|xla|pallas|pallas_sep|pallas_gather, got {name!r}"
+        )
+    if name in UNPORTED_MSDA_BACKENDS:
+        raise ValueError(
+            f"{MSDA_ENV}={name} selects a TPU kernel the port does not have yet "
+            f"({UNPORTED_MSDA_BACKENDS[name]}); unset it or use auto"
+        )
+    return name
+
+
 def msda_prep_fused() -> bool:
     """True when the model layer should route deformable cross-attention
     through `deformable_sampling_fused` (SPOTTER_TPU_MSDA_PREP=fused)."""

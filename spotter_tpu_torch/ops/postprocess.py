@@ -1,4 +1,5 @@
-"""Detection postprocess (port of spotter_tpu.ops.postprocess, RT-DETR half).
+"""Detection postprocess (port of spotter_tpu.ops.postprocess: the sigmoid
+top-k of RT-DETR and the softmax of YOLOS).
 
 The device side returns fixed-k (scores, labels, boxes) tensors; the host
 thresholds them into the reference's detection dicts (`to_detections`).
@@ -39,6 +40,25 @@ def sigmoid_topk_postprocess(
     boxes = center_to_corners(boxes)
     boxes = scale_boxes(boxes, target_sizes.to(boxes.dtype))
     return top_scores, labels, boxes
+
+
+def softmax_postprocess(
+    logits: torch.Tensor,
+    pred_boxes: torch.Tensor,
+    target_sizes: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DETR/YOLOS-style postprocess.
+
+    The final class is "no object" and is dropped before the per-query max
+    and argmax (the first of equal maxima, as `jnp.argmax` takes it).
+    Returns scores (B, Q), labels (B, Q), boxes (B, Q, 4) xyxy pixels.
+    """
+    probs = torch.softmax(logits, dim=-1)[..., :-1]
+    scores = probs.amax(dim=-1)
+    labels = probs.argmax(dim=-1)
+    boxes = center_to_corners(pred_boxes)
+    boxes = scale_boxes(boxes, target_sizes.to(boxes.dtype))
+    return scores, labels, boxes
 
 
 def to_detections(

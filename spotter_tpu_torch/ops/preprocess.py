@@ -1,4 +1,4 @@
-"""Image preprocess for the fixed-size RT-DETR spec (port of
+"""Image preprocess for the fixed-size specs of RT-DETR and YOLOS (port of
 spotter_tpu.ops.preprocess, uint8 path).
 
 The split is the JAX package's uint8 ingest: the host only resizes uint8
@@ -14,6 +14,7 @@ against the JAX package's PIL path).
 Arrays are NHWC at this module's interface, as in the JAX package.
 """
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -21,19 +22,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 
 @dataclass(frozen=True)
 class PreprocessSpec:
     """How to turn an image into a model input array.
 
-    Only mode "fixed" (warp-resize to `size` (h, w), RT-DETR's 640x640) is
-    ported; the shortest-edge and pad-square modes and mean/std
-    normalization come with their model families.
+    Only mode "fixed" (warp-resize to `size` (h, w): RT-DETR's 640x640,
+    YOLOS's trained image size) is ported; the shortest-edge and pad-square
+    modes come with their model families. `mean`/`std`, when set, normalize
+    each channel after the rescale (YOLOS: ImageNet's).
     """
 
     mode: str = "fixed"
     size: tuple[int, int] = (640, 640)
     rescale_factor: float = 1.0 / 255.0
+    mean: tuple[float, float, float] | None = None
+    std: tuple[float, float, float] | None = None
 
     @property
     def input_hw(self) -> tuple[int, int]:
@@ -104,10 +111,22 @@ def batch_images_uint8(
     return pixels, valid, sizes
 
 
+@functools.lru_cache(maxsize=16)
+def _channel_table(values: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """`values` as an fp32 tensor on `device`, made once: a fresh host copy on
+    every forward would make the host wait for the stream. Made outside
+    inference mode, so it also serves forwards that track gradients."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def device_rescale_normalize(
     pixels_u8: torch.Tensor, spec: PreprocessSpec
 ) -> torch.Tensor:
-    """uint8 NHWC on the device -> float32 NHWC, rescaled. RT-DETR's spec
-    has no mean/std normalization, and fixed-mode images fill their canvas,
-    so no pad mask is needed."""
-    return pixels_u8.to(torch.float32) * spec.rescale_factor
+    """uint8 NHWC on the device -> float32 NHWC: rescaled, then normalized
+    by the spec's mean/std when it has them. Fixed-mode images fill their
+    canvas, so no pad mask is needed."""
+    x = pixels_u8.to(torch.float32) * spec.rescale_factor
+    if spec.mean is not None and spec.std is not None:
+        x = (x - _channel_table(spec.mean, x.device)) / _channel_table(spec.std, x.device)
+    return x

@@ -23,9 +23,10 @@ fatal device error exits `FATAL_ENGINE_EXIT_CODE` (85); a preemption
     MODEL_NAME=PekingU/rtdetr_v2_r101vd python -m spotter_tpu_torch.serving.standalone \\
         [--port 8000] [--device cpu] [--no-warmup]
 
-`SPOTTER_TPU_TINY=1` serves the tiny RT-DETR (random weights) for smoke
-runs. The model runs on `cuda` unless `--device cpu` is given; with no GPU
-it raises. Tenancy, output integrity, `/profile`, `/debug/*` and the stub
+MODEL_NAME picks the family: RT-DETR (`PekingU/rtdetr_v2_*`) or YOLOS
+(`hustvl/yolos-base`). `SPOTTER_TPU_TINY=1` serves the family's tiny
+config (random weights) for smoke runs. The model runs on `cuda` unless
+`--device cpu` is given; with no GPU it raises. Tenancy, output integrity, `/profile`, `/debug/*` and the stub
 engine are not ported yet.
 """
 

@@ -9,8 +9,14 @@ The same three policies and the same env knob as the JAX package:
 - "mixed": bf16 backbone, fp32 detection transformer.
 - "bfloat16": bf16 activations everywhere.
 
-Only "float32" is ported so far: the models run fp32, and the
-engine refuses the other two names rather than serve them as fp32.
+Each family's build function (models/zoo.py) applies the policy as the JAX
+package's does. YOLOS takes all three: its ViT body runs at
+`backbone_dtype()`, so bf16 under "mixed" and "bfloat16", with fp32 heads.
+RT-DETR runs only "float32" so far and its build function refuses the other two
+names (`require_float32`) rather than serve them as fp32. The int8 knobs
+(SPOTTER_TPU_INT8, _INT8_DENSE, _INT8_ATTN) change what the JAX package
+computes and are not ported: building any model with one of them set
+raises (`refuse_int8`).
 """
 
 import os
@@ -53,6 +59,32 @@ def compute_dtype(override: str | None = None) -> torch.dtype:
 def backbone_dtype(override: str | None = None) -> torch.dtype:
     """CNN-backbone dtype: differs from compute_dtype only under "mixed"."""
     return _policy(override)[1]
+
+
+def require_float32(family: str) -> None:
+    """Raise unless the policy is "float32": `family` runs no other yet."""
+    if compute_dtype() != torch.float32 or backbone_dtype() != torch.float32:
+        raise ValueError(
+            f"{DTYPE_ENV}={os.environ.get(DTYPE_ENV)!r}: the port runs the {family} family "
+            f"only under the float32 policy; its mixed and bfloat16 policies are "
+            f"ROADMAP Queue 1 item 9"
+        )
+
+
+INT8_KNOBS = ("SPOTTER_TPU_INT8", "SPOTTER_TPU_INT8_DENSE", "SPOTTER_TPU_INT8_ATTN")
+
+
+def refuse_int8() -> None:
+    """Raise when an int8 knob is set (any value but "0", as the JAX package
+    reads them): int8 quantization is not ported, and serving the float
+    model under it would silently compute something else."""
+    for knob in INT8_KNOBS:
+        raw = os.environ.get(knob, "0")
+        if raw.strip() != "0":
+            raise ValueError(
+                f"{knob}={raw!r}: int8 quantization is not ported "
+                f"(ROADMAP Queue 1 item 9); unset it to serve the float model"
+            )
 
 
 def use_exact_float32() -> None:

@@ -30,8 +30,19 @@ SERVING_MODULES = (
 )
 
 
+# the YOLOS slice's modules: the model, and the attention kernel's wrapper
+YOLOS_MODULES = (
+    "spotter_tpu_torch.models.yolos",
+    "spotter_tpu_torch.ops.attention",
+)
+
+
 def test_every_serving_module_is_covered():
     assert set(SERVING_MODULES) <= set(MODULES)
+
+
+def test_every_yolos_module_is_covered():
+    assert set(YOLOS_MODULES) <= set(MODULES)
 
 
 def test_importing_every_module_loads_no_jax():

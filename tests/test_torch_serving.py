@@ -13,6 +13,10 @@ URL. Also: `labeled_image_base64` decodes to the source size, `/drain` then
 `/detect` answers 503, and concurrent requests get the detections that
 sequential ones get.
 
+The same holds for the tiny YOLOS (MODEL_NAME=hustvl/yolos-base), on 48x32
+PNGs (its 32x48 spec) and the softmax postprocess; and the port's replica
+brings the tiny YOLOS up by name on the CPU and answers /detect.
+
 Then the port's serving parts alone: the engine fault classification
 (CUDA fatal markers exit 85 and are never bisect-retried; out of memory
 splits the chunk and retries), the HTTP status mapping, and the device
@@ -35,6 +39,8 @@ from spotter_tpu.engine.engine import BuiltDetector as JBuilt
 from spotter_tpu.engine.engine import InferenceEngine as JEngine
 from spotter_tpu.models import zoo as jzoo
 from spotter_tpu.models.rtdetr import RTDetrDetector as JRTDetr
+from spotter_tpu.models.yolos import YolosDetector as JYolos
+from spotter_tpu.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from spotter_tpu.ops.preprocess import PreprocessSpec as JSpec
 from spotter_tpu.serving import standalone as jstandalone
 from spotter_tpu.serving.detector import AmenitiesDetector as JDetector
@@ -212,6 +218,93 @@ def test_bad_requests_answer_400(weights):
         return not_json.status, bad_url.status, queries.status
 
     assert asyncio.run(_with_clients(".", [app], body)) == (400, 400, 400)
+
+
+# --- YOLOS ----------------------------------------------------------------
+
+YOLOS = "hustvl/yolos-base"
+
+
+@pytest.fixture(scope="module")
+def yolos_image_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("yolos_images")
+    for i in range(4):
+        Image.fromarray(_photo(200 + i, h=32, w=48)).save(root / f"p{i}.png")
+    return root
+
+
+@pytest.fixture(scope="module")
+def yolos_weights():
+    cfg = jzoo.tiny_yolos_config()
+    module = JYolos(cfg)
+    params = random_flax_params(module, np.zeros((1, 32, 48, 3), np.float32), seed=33)
+    head = params["class_labels_classifier"]["layer2"]
+    head["kernel"] = head["kernel"] * 10.0  # a peaked softmax: scores pass the 0.5 threshold
+    return cfg, module, params
+
+
+def test_yolos_detect_json_matches_jax(yolos_weights, yolos_image_dir):
+    cfg, module, params = yolos_weights
+    jbuilt = JBuilt(
+        model_name=YOLOS, module=module, params=params,
+        preprocess_spec=JSpec(mode="fixed", size=(32, 48), mean=IMAGENET_MEAN, std=IMAGENET_STD),
+        postprocess="softmax", id2label=cfg.id2label_dict,
+        num_top_queries=cfg.num_detection_tokens,
+    )
+    jdet = JDetector(JEngine(jbuilt, batch_buckets=(1, 2, 4)), cache=None)
+    engine = InferenceEngine(registry.build_detector(YOLOS, tiny=True, params=params),
+                             batch_buckets=(1, 2, 4), device="cpu")
+    tdet = AmenitiesDetector(engine, MicroBatcher(engine, max_delay_ms=20.0))
+    apps = [jstandalone.make_app(detector=jdet), tstandalone.make_app(detector=tdet)]
+
+    async def body(url, clients):
+        urls = [url(f"p{i}.png") for i in range(4)]
+        out = []
+        for c in clients:
+            resp = await c.post("/detect", json={"image_urls": urls})
+            assert resp.status == 200, await resp.text()
+            out.append(await resp.json())
+        return out
+
+    jresp, tresp = asyncio.run(_with_clients(yolos_image_dir, apps, body))
+    assert tresp["amenities_description"] == jresp["amenities_description"]
+    n_dets = 0
+    for t_img, j_img in zip(tresp["images"], jresp["images"], strict=True):
+        assert t_img["url"] == j_img["url"]
+        assert [d["label"] for d in t_img["detections"]] == [d["label"] for d in j_img["detections"]]
+        np.testing.assert_allclose(
+            np.asarray([d["box"] for d in t_img["detections"]]).reshape(-1, 4),
+            np.asarray([d["box"] for d in j_img["detections"]]).reshape(-1, 4), atol=BOX_ATOL,
+        )
+        decoded = Image.open(BytesIO(base64.b64decode(t_img["labeled_image_base64"])))
+        assert decoded.size == (48, 32)
+        n_dets += len(t_img["detections"])
+    assert n_dets > 0, "the tiny YOLOS kept no amenity: nothing was compared"
+
+
+def test_standalone_brings_up_tiny_yolos_by_name(monkeypatch, yolos_image_dir):
+    """MODEL_NAME=hustvl/yolos-base SPOTTER_TPU_TINY=1 ... --device cpu: the
+    replica's own bring-up builds the tiny YOLOS and answers /detect."""
+    monkeypatch.setenv("SPOTTER_TPU_TINY", "1")
+    monkeypatch.delenv("SPOTTER_TPU_ADMIN_TOKEN", raising=False)
+    exits = []
+    app = tstandalone.make_app(model_name=YOLOS, device="cpu", bringup_exit_cb=exits.append)
+
+    async def body(url, clients):
+        (client,) = clients
+        for _ in range(600):
+            if (await client.get("/startupz")).status == 200 or exits:
+                break
+            await asyncio.sleep(0.1)
+        resp = await client.post("/detect", json={"image_urls": [url("p0.png"), url("p1.png")]})
+        metrics = await (await client.get("/metrics")).json()
+        return resp.status, await resp.json(), metrics
+
+    status, resp, metrics = asyncio.run(_with_clients(yolos_image_dir, [app], body))
+    assert exits == [] and status == 200
+    assert [img["url"].rsplit("/", 1)[1] for img in resp["images"]] == ["p0.png", "p1.png"]
+    assert all("detections" in img for img in resp["images"])
+    assert metrics["replica"]["model"] == YOLOS
 
 
 # --- engine fault classification ------------------------------------------
