@@ -2,24 +2,28 @@
 """Smoke run of the PyTorch/CUDA port (spotter_tpu_torch) on one NVIDIA GPU.
 
 Drives the port's paths through the entry points a user calls, at full
-width with weights drawn from --seed: RT-DETRv2-R101 and YOLOS (yolos-base,
-800x1344, under the "float32" and "mixed" precision policies). Holds its
-five hand-written kernels against their plain PyTorch versions: csrc/msda.cu
-(MSDA gather-sum, loc-prep and fused-prologue sampling) and
-csrc/attention.cu (flash attention, fp32 and bf16). Phases, each printing
-JSON lines:
+width with weights drawn from --seed: RT-DETRv2-R101, YOLOS (yolos-base,
+800x1344, under the "float32" and "mixed" precision policies), and OWLv2
+(owlv2-base-patch16-ensemble, 960x960, both policies) with OWL-ViT B/32.
+Holds its six hand-written kernels against their plain PyTorch versions:
+csrc/msda.cu (MSDA gather-sum, loc-prep and fused-prologue sampling),
+csrc/attention.cu (flash attention, fp32 and bf16) and csrc/class_logits.cu
+(the OWL class-logit head). Phases, each printing JSON lines:
 
 1. device  — card name, `nvidia-smi` name and power limit, and whether the
              serving layer's packages (PIL, aiohttp, httpx, pydantic) import;
-2. build   — nvcc builds of the two kernel libraries for sm_90a, started
+2. build   — nvcc builds of the three kernel libraries for sm_90a, started
              together, with their seconds;
 3. kernel  — each kernel against its plain version: the MSDA kernels at the
              decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
              discrete corner prep), the attention kernel at YOLOS's shapes
              and more (B = 1 and 8, S = 4301 and 1100, hd = 64 and 128, fp32
-             and bf16): max abs error against the tolerance, kernel / plain /
-             library (embedding_bag, scaled_dot_product_attention) times by
-             CUDA events with a cold L2, and the bound;
+             and bf16), the class-logit kernel at OWLv2's and OWL-ViT B/32's
+             shapes (P = 3600 and 576; B = 1 and 8; fp32 and bf16 features;
+             22 queries, 24 with 2 masked, 160): max abs error against the
+             tolerance, kernel / plain / library (embedding_bag,
+             scaled_dot_product_attention; none for the class logits) times
+             by CUDA events with a cold L2, and the bound;
 4. parity  — the full-width forward at B = 1 on the card against the same
              model on the CPU, TF32 off, under each SPOTTER_TPU_MSDA_PREP
              setting (xla, kernel, fused), and card fused against card xla at
@@ -45,16 +49,36 @@ JSON lines:
              ms per forward;
 9. yolos_http — the standalone server with yolos-base answering POST
              /detect for 1 and 8 URLs under each policy, with the same count
-             check.
+             check;
+10. owl_parity — OWLv2 and OWL-ViT B/32 at B = 1, the card against the CPU
+             under "float32" (TF32 off): logits, boxes and objectness; then
+             OWLv2 on the card under "mixed" against "float32" at B = 8, and
+             SPOTTER_TPU_OWL_FUSED=0 (the unfused head) against auto;
+11. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
+             "float32" and "mixed", plus requests with their own query set:
+             owl_class_logits must launch once and flash_attn_fp32 (resp.
+             _bf16) 12 times per forward, and no other kernel; p50/p99,
+             img/s, device ms per forward, host preprocess ms (the float
+             pad-to-square warp) and detections per image;
+12. owl_http — the standalone server with OWLv2 answering POST /detect for 1
+             and 8 URLs under the default vocabulary and for 8 URLs with
+             `queries`, with the same count check; the labels of a queries
+             request must all be among its queries.
 
-Every RT-DETR path must launch neither attention kernel. Then a
+The OWL families read their prompts' token ids from a tokenization cache;
+the script writes one for its prompts under a temporary
+SPOTTER_TPU_CACHE, with CLIP-shaped ids drawn from --seed (the weights are
+random, so only the ids' shape matters). Every RT-DETR path must launch
+neither attention kernel, and no RT-DETR or YOLOS path the class-logit
+kernel. Then a
 `{"kernels": [...]}` summary line, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`. Any failure raises and the exit
 code is non-zero. Needs one CUDA card and the repository checkout around
 this file; exits non-zero without either.
 
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http,
-                                            yolos_parity,yolos_serve,yolos_http]
+                                            yolos_parity,yolos_serve,yolos_http,
+                                            owl_parity,owl_serve,owl_http]
 
 The full record is also written to build/chip_smoke.json (or --out).
 """
@@ -67,6 +91,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -75,9 +100,14 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
-          "yolos_serve", "yolos_http")
+          "yolos_serve", "yolos_http", "owl_parity", "owl_serve", "owl_http")
+OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
+OWLV2_NAME = "google/owlv2-base-patch16-ensemble"
+OWLVIT_NAME = "google/owlvit-base-patch32"
+# a request's own vocabulary: 5 queries, padded to 8 with 3 masked slots
+OWL_QUERIES = ("sofa", "floor lamp", "kitchen sink", "bed", "window")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate,
 # dense bf16 tensor-core rate
@@ -122,6 +152,15 @@ ATTN_RTOL = {"float32": 2e-5, "bfloat16": 2.0**-7}
 # 10 % of the largest |logit|, boxes within 0.05 (sigmoid slope <= 1/4)
 MIXED_RTOL_LOGITS = 0.1
 MIXED_ATOL_BOXES = 0.05
+# class-logit kernel vs plain, as a share of the largest unmasked |logit|:
+# both widen the features to fp32 and sum Dt = 512 fp32 products, in
+# another order (the kernel's per-lane FMA chains over 16 columns, then a
+# 32-lane shuffle tree, for the product and the norm alike; the plain
+# version's cuBLAS GEMM), and the
+# kernel divides the product by the norm where the plain version divides
+# the features first: a few ulps of fp32 of each logit. Masked columns must
+# be NEG_INF bit for bit
+CLASS_LOGITS_RTOL = 1e-5
 
 
 def emit(record: dict, log: list) -> None:
@@ -148,10 +187,18 @@ def synthetic_photo(rng, h: int, w: int):
     return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
+# device cycles the card spins before each timed launch (~0.5 ms at the
+# H100's 1.98 GHz boost clock), so the host has enqueued the start event,
+# the wrapper's launches and the end event before the start event runs
+TIMING_LEAD_CYCLES = 1_000_000
+
+
 def cuda_time_ms(fn, iters: int, flush) -> float:
     """Median milliseconds of `fn` by CUDA events, one launch per pair of
     events, with the L2 cache flushed before each (the decoder meets its
-    inputs cold: they are written by the layer's projections just before)."""
+    inputs cold: they are written by the layer's projections just before).
+    The card is kept busy while the host enqueues, so the events bracket
+    device time and not the wrapper's Python."""
     import torch
 
     for _ in range(3):
@@ -160,6 +207,7 @@ def cuda_time_ms(fn, iters: int, flush) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
+        torch.cuda._sleep(TIMING_LEAD_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -193,13 +241,15 @@ def phase_device(log: list) -> dict:
 
 
 def phase_build(log: list) -> dict:
-    """Both kernel libraries, one nvcc each, started together."""
+    """The three kernel libraries, one nvcc each, started together."""
     from spotter_tpu_torch.ops.attention import build_attention_kernel
     from spotter_tpu_torch.ops.msda import build_msda_kernel
+    from spotter_tpu_torch.ops.openvocab import build_class_logits_kernel
 
+    builds = (build_msda_kernel, build_attention_kernel, build_class_logits_kernel)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(build) for build in (build_msda_kernel, build_attention_kernel)]
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = [pool.submit(build) for build in builds]
         libs = [f.result() for f in futures]
     rec = {"phase": "build", "wall_s": time.perf_counter() - t0, "libraries": [
         {"library": str(lib.path.relative_to(REPO)), "seconds": lib.build_seconds,
@@ -475,13 +525,79 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
     return rec
 
 
+# (B, P, Q, masked slots): OWLv2 (960/16 = 60x60 patches) and OWL-ViT B/32
+# (768/32 = 24x24), at B = 1 and 8, against the 22-label default
+# vocabulary, a request's query set padded to 24 with 2 slots masked, and a
+# vocabulary of 160 (5 tiles of 32 queries); the text width Dt is 512
+OWL_TEXT_WIDTH = 512
+CLASS_LOGITS_SHAPES = tuple((b, p, q, m) for p in (3600, 576) for b in (1, 8)
+                            for q, m in ((22, 0), (24, 2), (160, 0)))
+CLASS_LOGITS_MAIN = (8, 3600, 22, 0, "float32")
+
+
+def class_logits_case(shape, img_dtype, seed: int, flush, device: str = "cuda") -> dict:
+    """owl_class_logits against its plain version on the same inputs."""
+    import torch
+
+    from spotter_tpu_torch.ops.openvocab import (
+        NEG_INF,
+        class_logits_reference,
+        owl_class_logits,
+    )
+
+    b, p, q, n_masked = shape
+    dt = OWL_TEXT_WIDTH
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn((b, p, dt), generator=gen, device=device).to(img_dtype)
+    bank = torch.randn((q, dt), generator=gen, device=device)
+    bank = bank / bank.norm(dim=-1, keepdim=True)
+    shift = torch.randn((b, p), generator=gen, device=device)
+    scale = torch.randn((b, p), generator=gen, device=device)
+    mask = None
+    if n_masked:
+        mask = torch.ones(q, dtype=torch.int32, device=device)
+        mask[q - n_masked:] = 0
+    args = (img, bank, shift, scale, mask)
+
+    got = owl_class_logits(*args)
+    want = class_logits_reference(*args)
+    torch.cuda.synchronize()
+    real = slice(0, q - n_masked)
+    err = (got[..., real] - want[..., real]).abs().max().item()
+    atol = CLASS_LOGITS_RTOL * want[..., real].abs().max().item()
+    masked_exact = bool((got[..., q - n_masked:] == NEG_INF).all()) if n_masked else True
+    dname = str(img_dtype).removeprefix("torch.")
+    if not (err <= atol and masked_exact):
+        raise AssertionError(f"owl_class_logits vs plain at {shape} {dname}: max abs err "
+                             f"{err} (atol {atol}), masked columns NEG_INF: {masked_exact}")
+    # img read once, the bank, shift, scale and mask once, the logits written once
+    nbytes = (img.numel() * img.element_size() + bank.numel() * 4 + 2 * b * p * 4
+              + (q * 4 if n_masked else 0) + got.numel() * 4)
+    flops = 2 * b * p * q * dt + 2 * b * p * dt + 3 * b * p * q  # products, norms, epilogue
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return {
+        "phase": "kernel", "kernel": "owl_class_logits", "batch": b, "img_dtype": dname,
+        "shape": {"b": b, "p": p, "dt": dt, "q": q, "masked": n_masked},
+        "max_abs_err": err, "atol": atol, "rtol_of_max_logit": CLASS_LOGITS_RTOL,
+        "masked_columns_neg_inf": masked_exact,
+        "kernel_ms": cuda_time_ms(lambda: owl_class_logits(*args), 30, flush),
+        "plain_ms": cuda_time_ms(lambda: class_logits_reference(*args), 30, flush),
+        "library_ms": None,  # no one PyTorch call computes this function
+        "bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_us": max(bytes_ms, ops_ms) * 1e3,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
 def kernel_counters():
-    from spotter_tpu_torch.ops import attention, msda
+    from spotter_tpu_torch.ops import attention, msda, openvocab
 
     return {"msda_gather_sum": msda.msda_gather_sum, "msda_loc_sum": msda.msda_loc_sum,
             "msda_fused_sum": msda.msda_fused_sum,
             "flash_attn_fp32": attention.flash_attn_fp32,
-            "flash_attn_bf16": attention.flash_attn_bf16}
+            "flash_attn_bf16": attention.flash_attn_bf16,
+            "owl_class_logits": openvocab.owl_class_logits}
 
 
 def reset_counts() -> None:
@@ -510,6 +626,11 @@ def phase_kernel(log: list, seed: int) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ATTN_SHAPES:
             rec = attention_case(dtype, shape, seed, flush)
+            emit(rec, log)
+            cases.append(rec)
+    for img_dtype in (torch.float32, torch.bfloat16):
+        for shape in CLASS_LOGITS_SHAPES:
+            rec = class_logits_case(shape, img_dtype, seed, flush)
             emit(rec, log)
             cases.append(rec)
     idle = [name for name, fn in counters.items() if fn.launches == before[name]]
@@ -728,8 +849,10 @@ async def drive_http(det, photo_dir: str, runs: list) -> dict:
     `photo_dir` through a static route, both on localhost, and drive POST
     /detect. `runs` holds (label, setup, plan): `setup()` is called, the
     kernel counts are set to 0, the plan's requests run, and the counts are
-    read. A plan step (key, n_urls, rounds, clients) sends `rounds` rounds of
-    `clients` concurrent requests of `n_urls` URLs each."""
+    read. A plan step (key, n_urls, rounds, clients[, queries]) sends
+    `rounds` rounds of `clients` concurrent requests of `n_urls` URLs each,
+    with free-text `queries` when given (whose labels must then be all the
+    response holds)."""
     import asyncio
     import io
 
@@ -753,12 +876,15 @@ async def drive_http(det, photo_dir: str, runs: list) -> dict:
     out = {"latency_ms": {}}
     try:
         async with httpx.AsyncClient(timeout=300.0) as client:
-            async def post(n: int) -> float:
+            async def post(n: int, queries=None) -> float:
+                body = {"image_urls": urls[:n]}
+                if queries is not None:
+                    body["queries"] = list(queries)
                 t = time.perf_counter()
-                resp = await client.post(f"{api}/detect", json={"image_urls": urls[:n]})
+                resp = await client.post(f"{api}/detect", json=body)
                 resp.raise_for_status()
                 ms = (time.perf_counter() - t) * 1e3
-                check_http_response(resp.json(), urls[:n], PHOTO_SIZES[0])
+                check_http_response(resp.json(), urls[:n], PHOTO_SIZES[0], queries)
                 return ms
 
             def batches() -> int:
@@ -770,11 +896,12 @@ async def drive_http(det, photo_dir: str, runs: list) -> dict:
                 batches0 = batches()
                 reset_counts()
                 images_per_forward = {}
-                for key, n, rounds, clients in plan:
+                for key, n, rounds, clients, *queries in plan:
                     b0 = batches()
                     lat = []
                     for _ in range(rounds):
-                        lat += await asyncio.gather(*(post(n) for _ in range(clients)))
+                        lat += await asyncio.gather(
+                            *(post(n, *queries) for _ in range(clients)))
                     out["latency_ms"][f"{label}:{key}"] = lat
                     images_per_forward[key] = n * len(lat) / (batches() - b0)
                 out[label] = {"launches": read_counts(), "forwards": batches() - batches0,
@@ -1096,14 +1223,356 @@ def phase_yolos_http(log: list, seed: int, device: str = "cuda") -> dict:
     return rec
 
 
+# --- OWLv2 and OWL-ViT ------------------------------------------------------
+
+CLIP_BOS, CLIP_EOT = 49406, 49407  # CLIP's begin- and end-of-text ids, its two largest
+# card vs CPU under "float32": objectness is a logit like the class logits
+PARITY_ATOL_OBJECTNESS = 1e-3
+
+
+def owl_prompts() -> list:
+    """Every prompt the OWL phases encode: the default vocabulary's and the
+    request query list's, through the zoo's template."""
+    from spotter_tpu_torch.models.zoo import PROMPT_TEMPLATE, owlvit_query_labels
+
+    return [PROMPT_TEMPLATE.format(q) for q in owlvit_query_labels() + list(OWL_QUERIES)]
+
+
+def write_token_cache(seed: int) -> list:
+    """Write tokenized.json for both OWL models under $SPOTTER_TPU_CACHE, in
+    the JAX package's format: per prompt, CLIP-shaped ids drawn from `seed`
+    (begin-of-text, 3 to 8 body ids below it, end-of-text, then 0 padding to
+    the text tower's 16 positions) and the mask over begin..end."""
+    from spotter_tpu_torch.convert.tokens import tokenization_path
+    from spotter_tpu_torch.models.configs import OwlViTTextConfig
+
+    length = OwlViTTextConfig().max_position_embeddings
+    rng = np.random.default_rng(seed + 7)
+    table = {}
+    for prompt in owl_prompts():
+        body = rng.integers(1, CLIP_BOS, int(rng.integers(3, 9))).tolist()
+        pad = length - len(body) - 2
+        table[prompt] = {"ids": [CLIP_BOS, *body, CLIP_EOT] + [0] * pad,
+                         "mask": [1] * (len(body) + 2) + [0] * pad}
+    paths = []
+    for name in (OWLV2_NAME, OWLVIT_NAME):
+        path = tokenization_path(name)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(table))
+        paths.append(str(path))
+    return paths
+
+
+def build_owl_under(name: str, policy: str, seed: int):
+    from spotter_tpu_torch.models.registry import build_detector
+
+    with precision_policy(policy):
+        return build_detector(name, tiny=False, seed=seed)
+
+
+def owl_pixels(spec, photos):
+    """Photos through the spec's preprocess -> (B, H, W, 3) normalized fp32
+    on the CPU: the uint8 resize plus the rescale for OWL-ViT's fixed spec,
+    the host float pad-to-square warp for OWLv2's."""
+    import torch
+
+    from spotter_tpu_torch.ops.preprocess import (
+        batch_images_float,
+        batch_images_uint8,
+        device_preprocess_supported,
+        device_rescale_normalize,
+    )
+
+    if device_preprocess_supported(spec):
+        return device_rescale_normalize(
+            torch.from_numpy(batch_images_uint8(photos, spec)[0]), spec)
+    return torch.from_numpy(batch_images_float(photos, spec)[0])
+
+
+def owl_expected(model, forwards: int, attention: str) -> dict:
+    """Each kernel's launches over `forwards` OWL forwards: one class-logit
+    head each, and the attention kernel once per vision layer where the
+    tower's sequence reaches the cutover (OWLv2's 3601 tokens, not B/32's 577)."""
+    from spotter_tpu_torch.models.layers import FLASH_ATTN_MIN_SEQ
+
+    vision = model.config.vision
+    expected = {"owl_class_logits": forwards}
+    if vision.grid * vision.grid + 1 >= FLASH_ATTN_MIN_SEQ:
+        expected[attention] = vision.num_hidden_layers * forwards
+    return expected
+
+
+def check_counts(counts: dict, expected: dict, what: str) -> None:
+    """Each kernel launched exactly as `expected` says, every other none."""
+    if any(counts[name] != expected.get(name, 0) for name in counts):
+        raise AssertionError(f"{what}: launches {counts}, expected {expected} and no other")
+
+
+def owl_diffs(ref: dict, got: dict) -> dict:
+    return {f"{key}_max_abs_err": (got[key].cpu() - ref[key].cpu()).abs().max().item()
+            for key in ("logits", "pred_boxes", "objectness") if key in ref}
+
+
+def phase_owl_parity(log: list, seed: int, device: str = "cuda") -> list:
+    """OWLv2 and OWL-ViT B/32 at full width against the default vocabulary:
+    the card against the CPU at B = 1 under "float32"; then, for OWLv2 at
+    B = 8, the card's "mixed" vision tower against its "float32" one, and
+    the unfused head (SPOTTER_TPU_OWL_FUSED=0) against the kernel."""
+    import copy
+
+    import torch
+
+    from spotter_tpu_torch.ops import openvocab
+    from spotter_tpu_torch.utils.precision import use_exact_float32
+
+    use_exact_float32()
+    rng = np.random.default_rng(seed + 8)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    records, kept = [], {}
+    for name in (OWLV2_NAME, OWLVIT_NAME):
+        built = build_owl_under(name, "float32", seed)
+        x = owl_pixels(built.preprocess_spec, photos[:1])
+        bank = built.query_embeds
+        cpu_model = built.module.eval()
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = cpu_model(x, bank)
+            cpu_s = time.perf_counter() - t0
+            reset_counts()
+            got = gpu_model(x.to(device), bank.to(device))
+            torch.cuda.synchronize()
+        launches = read_counts()
+        for key, value in got.items():
+            if not torch.isfinite(value).all():
+                raise AssertionError(f"{name}: non-finite {key} on the card")
+        rec = {
+            "phase": "owl_parity", "model": name, "policy": "float32", "batch": 1,
+            "compare": "card vs cpu", "patches": got["logits"].shape[1],
+            "queries": got["logits"].shape[2],
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+            **owl_diffs(ref, got),
+            "atol_logits": PARITY_ATOL_LOGITS, "atol_boxes": PARITY_ATOL_BOXES,
+            "atol_objectness": PARITY_ATOL_OBJECTNESS,
+            "logits_abs_max": ref["logits"].abs().max().item(),
+            "same_argmax": bool(torch.equal(got["logits"].cpu().argmax(-1),
+                                            ref["logits"].argmax(-1))),
+            "cpu_forward_s": cpu_s, "card_launches": launches,
+        }
+        emit(rec, log)
+        records.append(rec)
+        check_counts(launches, owl_expected(gpu_model, 1, "flash_attn_fp32"),
+                     f"{name} card forward under float32")
+        if not (rec["logits_max_abs_err"] <= PARITY_ATOL_LOGITS
+                and rec["pred_boxes_max_abs_err"] <= PARITY_ATOL_BOXES
+                and rec.get("objectness_max_abs_err", 0.0) <= PARITY_ATOL_OBJECTNESS):
+            raise AssertionError(f"{name} card vs CPU outside tolerance: {rec}")
+        if name == OWLV2_NAME:
+            kept = {"model": gpu_model, "bank": bank.to(device), "spec": built.preprocess_spec}
+        del cpu_model, built, ref, got
+        release_cuda_memory()
+
+    gpu_model, bank = kept["model"], kept["bank"]
+    x8 = owl_pixels(kept["spec"], photos[:8]).to(device)
+    mixed_model = build_owl_under(OWLV2_NAME, "mixed", seed).module.to(device).eval()
+    outs, counts = {}, {}
+    try:
+        with torch.inference_mode():
+            for label, model, fused in (("float32", gpu_model, "auto"),
+                                        ("mixed", mixed_model, "auto"),
+                                        ("float32 unfused", gpu_model, "0")):
+                openvocab.OWL_FUSED = fused
+                reset_counts()
+                outs[label] = model(x8, bank)
+                torch.cuda.synchronize()
+                counts[label] = read_counts()
+    finally:
+        openvocab.OWL_FUSED = "auto"
+    check_counts(counts["float32"], owl_expected(gpu_model, 1, "flash_attn_fp32"),
+                 "OWLv2 card forward under float32 at B = 8")
+    check_counts(counts["mixed"], owl_expected(mixed_model, 1, "flash_attn_bf16"),
+                 "OWLv2 card forward under mixed at B = 8")
+    unfused = owl_expected(gpu_model, 1, "flash_attn_fp32")
+    unfused.pop("owl_class_logits")
+    check_counts(counts["float32 unfused"], unfused, "OWLv2 card forward, OWL_FUSED=0")
+    o32 = outs["float32"]
+    scale = o32["logits"].abs().max().item()
+    obj_scale = o32["objectness"].abs().max().item()
+    rec = {
+        "phase": "owl_parity", "model": OWLV2_NAME, "policy": "mixed vs float32", "batch": 8,
+        "compare": "card vs card", **owl_diffs(o32, outs["mixed"]),
+        "logits_abs_max": scale, "objectness_abs_max": obj_scale,
+        "atol_logits": MIXED_RTOL_LOGITS * scale, "atol_boxes": MIXED_ATOL_BOXES,
+        "atol_objectness": MIXED_RTOL_LOGITS * obj_scale,
+        "argmax_agreement": (outs["mixed"]["logits"].argmax(-1)
+                             == o32["logits"].argmax(-1)).float().mean().item(),
+        "card_launches": {k: counts[k] for k in ("float32", "mixed")},
+    }
+    emit(rec, log)
+    records.append(rec)
+    if not (rec["logits_max_abs_err"] <= rec["atol_logits"]
+            and rec["pred_boxes_max_abs_err"] <= MIXED_ATOL_BOXES
+            and rec["objectness_max_abs_err"] <= rec["atol_objectness"]):
+        raise AssertionError(f"OWLv2 mixed vs float32 outside tolerance: {rec}")
+    rec = {
+        "phase": "owl_parity", "model": OWLV2_NAME, "policy": "float32",
+        "compare": "OWL_FUSED=0 vs auto (card)", "batch": 8,
+        **owl_diffs(o32, outs["float32 unfused"]),
+        "logits_abs_max": scale, "atol_logits": CLASS_LOGITS_RTOL * scale,
+        "card_launches": counts["float32 unfused"],
+    }
+    emit(rec, log)
+    records.append(rec)
+    if not rec["logits_max_abs_err"] <= rec["atol_logits"]:
+        raise AssertionError(f"OWLv2 unfused vs fused head outside tolerance: {rec}")
+    del gpu_model, mixed_model, outs, kept
+    release_cuda_memory()
+    return records
+
+
+def phase_owl_serve(log: list, seed: int, device: str = "cuda") -> dict:
+    """OWLv2 through InferenceEngine.detect and the response assembly, under
+    "float32" and "mixed": requests of 1 and 8 decoded photos against the
+    default vocabulary, then 8 photos against a request's own query set
+    (resolved through the text cache: its first request encodes, the next
+    hit). The counts are set to 0 after warmup and read after the requests."""
+    import torch
+
+    from PIL import Image
+
+    from spotter_tpu_torch.caching.text_cache import TextQueryResolver
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.ops.preprocess import batch_images_float
+    from spotter_tpu_torch.serving.detector import assemble_response, draw_detections
+
+    rng = np.random.default_rng(seed + 9)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    requests = [(photos[:1], False)] * 3 + [(photos[:8], False)] * 3 + [(photos[:8], True)] * 2
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    rec = {"phase": "owl_serve", "model": OWLV2_NAME, "device": device,
+           "queries": list(OWL_QUERIES)}
+    for policy, attention in POLICY_KERNEL.items():
+        built = build_owl_under(OWLV2_NAME, policy, seed)
+        engine = InferenceEngine(built, device=device)
+        resolver = TextQueryResolver(built.model_name, built.text_encoder,
+                                     metrics=engine.metrics)
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        reset_counts()  # count only this path's launches from here
+        latencies, forwards, q_labels = {"1": [], "8": [], "8q": []}, 0, set()
+        for reqn, (images, own_queries) in enumerate(requests):
+            urls = [f"synthetic://{reqn}/{i}" for i in range(len(images))]
+            t0 = time.perf_counter()
+            if own_queries:
+                qset = resolver.resolve(OWL_QUERIES)
+                raw = engine.detect(images, qset=qset)
+                q_labels |= {d["label"] for dets in raw for d in dets}
+            else:
+                raw = engine.detect(images)
+                resp = assemble_response(urls, raw)
+                check_response(resp, raw, len(images))
+            latencies[f"{len(images)}{'q' if own_queries else ''}"].append(
+                time.perf_counter() - t0)
+            forwards += -(-len(images) // engine.batch_buckets[-1])
+        counts = read_counts()
+        check_counts(counts, owl_expected(built.module, forwards, attention),
+                     f"OWLv2 engine path under {policy}")
+        if not q_labels or not q_labels <= set(OWL_QUERIES):
+            raise AssertionError(f"query-set labels {sorted(q_labels)} are not among "
+                                 f"{list(OWL_QUERIES)}")
+        # host preprocess and device time per forward, after the counts were read
+        t0 = time.perf_counter()
+        pixels, sizes = batch_images_float(photos[:8], built.preprocess_spec)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        px = torch.from_numpy(pixels).to(device)
+        sz = torch.from_numpy(sizes).to(device)
+        with torch.inference_mode():
+            device_ms = {b: cuda_time_ms(lambda b=b: engine._forward(px[:b], sz[:b]), 5, flush)
+                         for b in (1, 8)}
+        # the detector's drawing and JPEG encode of the last (query-set)
+        # request's first photo, as /detect does it on the event loop
+        t0 = time.perf_counter()
+        dets = [{"label": d["label"], "box": d["box"]} for d in raw[0]]
+        draw_detections(Image.fromarray(photos[0]), dets)
+        draw_ms = (time.perf_counter() - t0) * 1e3
+        snap = engine.metrics.snapshot()
+        rec[policy] = {
+            "warmup_s": warmup_s, "forwards": forwards, "launches": counts,
+            "launches_per_forward": {k: v / forwards for k, v in counts.items() if v},
+            "latency_ms": {n: {"p50": statistics.median(v) * 1e3,
+                               "p99": percentile(v, 0.99) * 1e3, "n": len(v)}
+                           for n, v in latencies.items()},
+            "img_per_s_8": 8 / statistics.median(latencies["8"]),
+            "batch8_host_preprocess_ms": host_ms,
+            "device_forward_ms": device_ms,
+            "detections_per_image": [len(d) for d in raw],
+            "draw_first_image_ms": draw_ms, "draw_first_image_boxes": len(dets),
+            "query_labels_seen": sorted(q_labels),
+            "text_cache": {k: snap[k] for k in snap if k.startswith("text_cache")},
+        }
+        del engine, built, px, sz, resolver
+        release_cuda_memory()
+    emit(rec, log)
+    return rec
+
+
+def phase_owl_http(log: list, seed: int, device: str = "cuda") -> dict:
+    """OWLv2 behind the port's standalone server under "float32": requests of
+    1 and 8 URLs against the default vocabulary, then 8 URLs with their own
+    `queries`; each run's counts are set to 0 just before it and read just
+    after."""
+    import asyncio
+
+    from spotter_tpu_torch.serving.app import build_detector_app
+
+    rng = np.random.default_rng(seed + 10)
+    t0 = time.perf_counter()
+    with precision_policy("float32"):
+        det = build_detector_app(OWLV2_NAME, device=device, seed=seed, warmup=True)
+    bringup_s = time.perf_counter() - t0
+    model = det.engine.built.module
+    runs = [("default", lambda: None, [("1", 1, 3, 1), ("8", 8, 3, 1)]),
+            ("queries", lambda: None, [("8q", 8, 3, 1, OWL_QUERIES)])]
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        out = asyncio.run(drive_http(det, photo_dir, runs))
+    lat = out["latency_ms"]
+    rec = {
+        "phase": "owl_http", "model": OWLV2_NAME, "device": device, "policy": "float32",
+        "bringup_s": bringup_s, "healthz": out["healthz"],
+        "latency_ms": latency_summary(lat),
+        "img_per_s_8_urls": 8e3 / statistics.median(lat["default:8"]),
+        "img_per_s_8_urls_queries": 8e3 / statistics.median(lat["queries:8q"]),
+        "fetch_decode_8_ms": out["fetch_decode_8_ms"],
+        "engine_stage_ms": {k: v for k, v in out["metrics"].items() if k.startswith("stage_")},
+        "text_cache": {k: v for k, v in out["metrics"].items() if k.startswith("text_cache")},
+        "mean_batch_size": out["metrics"]["mean_batch_size"],
+        "default": out["default"], "queries": out["queries"],
+    }
+    emit(rec, log)
+    del det
+    release_cuda_memory()
+    if out["healthz"] != 200:
+        raise AssertionError(f"/healthz answered {out['healthz']}")
+    for run in ("default", "queries"):
+        check_counts(out[run]["launches"],
+                     owl_expected(model, out[run]["forwards"], "flash_attn_fp32"),
+                     f"OWLv2 /detect ({run})")
+    return rec
+
+
 def percentile(values, p: float) -> float:
     vals = sorted(values)
     return vals[min(int(p * len(vals)), len(vals) - 1)]
 
 
-def check_http_response(body: dict, urls: list, first_hw: tuple[int, int]) -> None:
-    """The reference wire schema, one success per URL with finite boxes, and
-    the first image's labeled JPEG at its source size."""
+def check_http_response(body: dict, urls: list, first_hw: tuple[int, int],
+                        queries=None) -> None:
+    """The reference wire schema, one success per URL with finite boxes, the
+    first image's labeled JPEG at its source size, and, for a request with
+    `queries`, no label but those queries (a padded query slot never wins)."""
     import base64
     import io
     import math
@@ -1120,6 +1589,9 @@ def check_http_response(body: dict, urls: list, first_hw: tuple[int, int]) -> No
             raise AssertionError(f"image failed: {r}")
         if not all(math.isfinite(v) for d in r.detections for v in d.box):
             raise AssertionError(f"non-finite box in {r.url}")
+        if queries is not None and not {d.label for d in r.detections} <= set(queries):
+            raise AssertionError(f"labels outside the request's queries in {r.url}: "
+                                 f"{sorted({d.label for d in r.detections} - set(queries))}")
     first = Image.open(io.BytesIO(base64.b64decode(resp.images[0].labeled_image_base64)))
     if first.format != "JPEG" or first.size != (first_hw[1], first_hw[0]):
         raise AssertionError(f"labeled image is {first.format} {first.size}, not the source's")
@@ -1132,15 +1604,23 @@ REPLACES = {
     "msda_fused_sum": "spotter_tpu/ops/msda.py:1368",
     "flash_attn_fp32": "spotter_tpu/models/layers.py:126",
     "flash_attn_bf16": "spotter_tpu/models/layers.py:185",
+    "owl_class_logits": "spotter_tpu/ops/openvocab.py:87",
 }
 SOURCES = {name: "spotter_tpu_torch/csrc/msda.cu" for name in REPLACES if name.startswith("msda")}
 SOURCES.update({name: "spotter_tpu_torch/csrc/attention.cu"
                 for name in REPLACES if name.startswith("flash")})
+SOURCES["owl_class_logits"] = "spotter_tpu_torch/csrc/class_logits.cu"
 
 
 def is_main_case(c: dict) -> bool:
     """The case each kernel reports in the summary: B = 8 at its main path's
-    shapes (fp32 rows and bilinear prep for MSDA; yolos-base for attention)."""
+    shapes (fp32 rows and bilinear prep for MSDA; yolos-base for attention;
+    OWLv2's patches, fp32 features and the default vocabulary for the class
+    logits)."""
+    if c["kernel"] == "owl_class_logits":
+        shape = c["shape"]
+        return (shape["b"], shape["p"], shape["q"], shape["masked"],
+                c["img_dtype"]) == CLASS_LOGITS_MAIN
     if c["kernel"].startswith("flash"):
         shape = c["shape"]
         return (shape["b"], shape["s"], shape["h"], shape["hd"]) == ATTN_MAIN_SHAPE
@@ -1182,7 +1662,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if not all((REPO / "spotter_tpu_torch" / "csrc" / src).exists()
-               for src in ("msda.cu", "attention.cu")):
+               for src in ("msda.cu", "attention.cu", "class_logits.cu")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -1207,9 +1687,30 @@ def main(argv=None) -> int:
     if "yolos_serve" in phases:
         phase_yolos_serve(log, args.seed)
     yolos_http = phase_yolos_http(log, args.seed) if "yolos_http" in phases else None
+    owl_http = None
+    if set(OWL_PHASES) & set(phases):
+        # the OWL prompts' token ids, in a cache of this run's own
+        old_cache = os.environ.get("SPOTTER_TPU_CACHE")
+        with tempfile.TemporaryDirectory() as cache:
+            os.environ["SPOTTER_TPU_CACHE"] = cache
+            try:
+                emit({"phase": "owl_tokens", "files": write_token_cache(args.seed),
+                      "prompts": len(owl_prompts())}, log)
+                if "owl_parity" in phases:
+                    phase_owl_parity(log, args.seed)
+                if "owl_serve" in phases:
+                    phase_owl_serve(log, args.seed)
+                if "owl_http" in phases:
+                    owl_http = phase_owl_http(log, args.seed)
+            finally:
+                if old_cache is None:
+                    os.environ.pop("SPOTTER_TPU_CACHE", None)
+                else:
+                    os.environ["SPOTTER_TPU_CACHE"] = old_cache
     # each kernel's launches on the path that runs it: slice 1's engine path
-    # under xla, the HTTP /detect path under fused and under kernel, and
-    # YOLOS's /detect path under float32 (fp32) and mixed (bf16)
+    # under xla, the HTTP /detect path under fused and under kernel, YOLOS's
+    # /detect path under float32 (fp32) and mixed (bf16), and OWLv2's /detect
+    # path against its default vocabulary
     launches = {}
     if serve:
         launches["msda_gather_sum"] = serve["msda_launches"]
@@ -1219,6 +1720,8 @@ def main(argv=None) -> int:
     if yolos_http:
         for policy, name in POLICY_KERNEL.items():
             launches[name] = yolos_http[policy]["launches"][name]
+    if owl_http:
+        launches["owl_class_logits"] = owl_http["default"]["launches"]["owl_class_logits"]
 
     if cases:
         summary = kernel_summary(cases, launches)

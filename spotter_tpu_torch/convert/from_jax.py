@@ -10,7 +10,8 @@ rename of the leaf plus a fixed layout change:
 - LayerNorm `scale` -> `weight`;
 - FrozenBatchNorm `scale`/`bias`/`mean`/`var` -> buffers `weight`/`bias`/
   `running_mean`/`running_var`;
-- any other leaf (e.g. `query_embed`) keeps its name and layout.
+- any other leaf (RT-DETR's `query_embed`; the OWL towers' token and
+  position tables and `class_embedding`) keeps its name and layout.
 
 Shared modules stay shared: RT-DETR's `query_pos_head` is one module used
 by every decoder layer, on both sides. Any key the port does not have, and

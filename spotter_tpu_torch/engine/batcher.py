@@ -16,8 +16,10 @@ What it keeps of the JAX batcher:
   fails with `PoisonImageError`; a `FatalEngineError` fails the batch and
   calls `fatal_exit_cb(FATAL_ENGINE_EXIT_CODE)`. The port serves one device,
   so there is no degraded rebuild to try first;
-- the `Scheduler` (FIFO, or slack-ordered with `SPOTTER_TPU_RAGGED=1`) and
-  the opt-in overload tier (`SPOTTER_TPU_ADMIT_TARGET_MS`: AIMD limiter and
+- the `Scheduler` (FIFO, or slack-ordered with `SPOTTER_TPU_RAGGED=1`),
+  which never mixes two open-vocabulary query sets in one batch (each
+  batch's `qset` goes to `engine.detect`), and the opt-in overload tier
+  (`SPOTTER_TPU_ADMIT_TARGET_MS`: AIMD limiter and
   brownout ladder).
 
 Not ported yet: keyed coalescing and the result cache, tenancy, the fault
@@ -130,7 +132,8 @@ class MicroBatcher:
         self.limiter = limiter
         self.brownout = brownout
         # the pending buffer lives here (not in the scheduler) so drain() and
-        # stop() account for it; under FIFO it never holds anything between plans
+        # stop() account for it; under FIFO it holds between plans only the
+        # items of query groups the last plan left pending
         self.scheduler = scheduler or Scheduler.from_env()
         self._sched_buf: list[QueueItem] = []
         self._fatal_fired = False
@@ -225,7 +228,8 @@ class MicroBatcher:
         }
 
     async def submit(
-        self, image, deadline: Optional[Deadline] = None, cls: Optional[str] = None
+        self, image, deadline: Optional[Deadline] = None, cls: Optional[str] = None,
+        qset=None,
     ) -> list[dict]:
         """One image in, its detections out (awaits the batched device call).
 
@@ -234,7 +238,9 @@ class MicroBatcher:
         `BrownoutShedError`) at admission, and `DeadlineExceededError` when
         `deadline` expires before the result lands. `cls` ("slo" | "bulk",
         None means slo) matters only with the overload tier armed: bulk
-        sheds strictly before slo.
+        sheds strictly before slo. `qset` (a `caching.text_cache.QuerySet`)
+        runs an open-vocabulary model against the request's own queries; it
+        is also the item's batch group.
         """
         metrics = self.engine.metrics
         if self.draining:
@@ -260,7 +266,7 @@ class MicroBatcher:
         try:
             self._queue.put_nowait(QueueItem(
                 image=image, fut=fut, deadline=deadline, t_submit=time.monotonic(),
-                adm=adm, cls=cls,
+                adm=adm, cls=cls, qset=qset,
             ))
         except asyncio.QueueFull:
             metrics.record_shed()
@@ -385,7 +391,7 @@ class MicroBatcher:
         below = [b for b in self.engine.batch_buckets if b < self.max_batch]
         return below[-1] if below else self.max_batch
 
-    def _detect_outcomes(self, images: list, splits_left: int) -> list:
+    def _detect_outcomes(self, images: list, splits_left: int, qset=None) -> list:
         """Worker-thread engine call with the poison bisect-retry.
 
         Returns one outcome per image: a detections list, or the exception
@@ -396,7 +402,9 @@ class MicroBatcher:
         (transient after the engine's own retry, fatal) are never bisected.
         """
         try:
-            return list(self.engine.detect(images))
+            if qset is None:
+                return list(self.engine.detect(images))
+            return list(self.engine.detect(images, qset=qset))
         except (FatalEngineError, TransientEngineError):
             raise
         except Exception as exc:
@@ -408,9 +416,9 @@ class MicroBatcher:
                 return [exc] * len(images)
             self.engine.metrics.record_batch_retry()
             mid = len(images) // 2
-            return self._detect_outcomes(images[:mid], splits_left - 1) + self._detect_outcomes(
-                images[mid:], splits_left - 1
-            )
+            return self._detect_outcomes(
+                images[:mid], splits_left - 1, qset
+            ) + self._detect_outcomes(images[mid:], splits_left - 1, qset)
 
     async def _run_batch(self, plan: list[QueueItem]) -> None:
         try:
@@ -418,6 +426,9 @@ class MicroBatcher:
             if not batch:
                 return
             images = [item.image for item in batch]
+            # the scheduler packs one query group per plan, so the first
+            # item's query set is the whole batch's
+            qset = batch[0].qset
             t_dispatch = time.monotonic()
             queue_waits_ms, slack_ms = [], []
             for item in batch:
@@ -434,7 +445,8 @@ class MicroBatcher:
             metrics.record_stage_samples(QUEUE_WAIT, queue_waits_ms)
             metrics.record_slack(slack_ms)
             try:
-                detect = asyncio.to_thread(self._detect_outcomes, images, self.poison_max_splits)
+                detect = asyncio.to_thread(
+                    self._detect_outcomes, images, self.poison_max_splits, qset)
                 if self.batch_timeout_s is not None:
                     outcomes = await asyncio.wait_for(detect, self.batch_timeout_s)
                 else:

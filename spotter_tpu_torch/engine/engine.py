@@ -7,7 +7,16 @@ runs every bucket once ahead of traffic, the device returns fixed-k
 (scores, labels, boxes) and the host thresholds them. It takes decoded
 uint8 HWC images (numpy); the host resizes them to the spec and stacks
 them, the device rescales, runs the model and the family's postprocess
-(sigmoid top-k for RT-DETR, per-query softmax for YOLOS).
+(sigmoid top-k for RT-DETR, per-query softmax for YOLOS, per-patch
+sigmoid max for OWL-ViT).
+
+Open-vocabulary families (OWL-ViT, OWLv2) bring a build-time query bank,
+which the engine keeps on its device and passes to every forward, and a
+text encoder: `detect(..., qset=)` runs the model against a request's own
+resolved query set instead (caching/text_cache.py), keeping each set's
+device copy per key, and labels its detections from that set. OWLv2's
+pad-to-square spec preprocesses in float on the host, so its pixels cross
+to the device as float32; the fixed specs ship uint8.
 
 It takes what the batcher hands over (PIL images) or decoded uint8 HWC
 arrays, and classifies device failures as the JAX engine does
@@ -18,14 +27,15 @@ for the batcher's poison bisect. One lock serialises the device half of
 concurrent `detect` calls (the batcher's worker threads), so one batch's
 host resize overlaps another's forward.
 
-Not ported yet: weights attestation, sharding, open-vocabulary query sets,
-the perf ledger and CUDA graphs.
+Not ported yet: weights attestation, sharding, the perf ledger and CUDA
+graphs.
 """
 
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,18 +49,24 @@ from spotter_tpu_torch.engine.errors import (
 )
 from spotter_tpu_torch.engine.metrics import Metrics
 from spotter_tpu_torch.ops.postprocess import (
+    sigmoid_max_postprocess,
     sigmoid_topk_postprocess,
     softmax_postprocess,
     to_detections,
 )
 from spotter_tpu_torch.ops.preprocess import (
     PreprocessSpec,
+    batch_images_float,
     batch_images_uint8,
+    device_preprocess_supported,
     device_rescale_normalize,
 )
 from spotter_tpu_torch.utils.precision import use_exact_float32
 
-POSTPROCESS_KINDS = ("sigmoid_topk", "softmax")  # RT-DETR; DETR/YOLOS
+POSTPROCESS_KINDS = ("sigmoid_topk", "softmax", "sigmoid_max")  # RT-DETR; DETR/YOLOS; OWL-ViT
+# query sets whose device copies the engine keeps, least recently used
+# dropped first (the text cache's default bound)
+QSET_DEVICE_ENTRIES = 256
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -81,6 +97,12 @@ class BuiltDetector:
     postprocess: str  # one of POSTPROCESS_KINDS
     id2label: dict[int, str]
     num_top_queries: int = 300
+    # open-vocabulary families: the deployment vocabulary's normalized
+    # (Q, proj) fp32 query bank, encoded once at build time, and the text
+    # encoder for a request's own queries (list[str] -> (Q, proj) float32
+    # numpy). Both None for closed-set families, which then refuse `qset`.
+    query_embeds: Optional[torch.Tensor] = None
+    text_encoder: Optional[Callable] = None
 
 
 class InferenceEngine:
@@ -104,6 +126,12 @@ class InferenceEngine:
         self.threshold = threshold
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.model = built.module.to(self.device).eval()
+        # fixed specs ship uint8 and normalize on the device; pad_square is float on the host
+        self.device_preprocess = device_preprocess_supported(built.preprocess_spec)
+        self._query_embeds = (
+            None if built.query_embeds is None else built.query_embeds.to(self.device)
+        )
+        self._qset_tensors: OrderedDict[str, tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
         self.metrics = Metrics()
         self._device_lock = threading.Lock()
 
@@ -114,24 +142,52 @@ class InferenceEngine:
         return self.batch_buckets[-1]
 
     def _forward(
-        self, pixels_u8: torch.Tensor, target_sizes: torch.Tensor
+        self,
+        pixels: torch.Tensor,
+        target_sizes: torch.Tensor,
+        queries: Optional[tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Device half: (B, H, W, 3) uint8 + (B, 2) sizes -> fixed-k outputs."""
-        pixels = device_rescale_normalize(pixels_u8, self.built.preprocess_spec)
-        out = self.model(pixels)
+        """Device half: (B, H, W, 3) pixels (uint8, or the float path's
+        normalized float32) + (B, 2) sizes -> fixed-k outputs. An
+        open-vocabulary model runs against `queries` (embeddings, mask),
+        by default the build-time bank with no mask."""
+        if pixels.dtype == torch.uint8:
+            pixels = device_rescale_normalize(pixels, self.built.preprocess_spec)
+        if queries is None and self._query_embeds is not None:
+            queries = (self._query_embeds, None)
+        out = self.model(pixels) if queries is None else self.model(pixels, *queries)
         logits = out["logits"]
         if self.built.postprocess == "softmax":
             return softmax_postprocess(logits, out["pred_boxes"], target_sizes)
+        if self.built.postprocess == "sigmoid_max":
+            return sigmoid_max_postprocess(logits, out["pred_boxes"], target_sizes)
         kk = min(self.built.num_top_queries, logits.shape[1] * logits.shape[2])
         return sigmoid_topk_postprocess(logits, out["pred_boxes"], target_sizes, k=kk)
+
+    def _qset_queries(self, qset) -> tuple[torch.Tensor, torch.Tensor]:
+        """`qset`'s (embeddings, mask) on the device, copied once per query
+        set and kept (least recently used dropped past QSET_DEVICE_ENTRIES)
+        so a repeated vocabulary pays no host-to-device copy. Called under
+        the device lock."""
+        hit = self._qset_tensors.get(qset.key)
+        if hit is not None:
+            self._qset_tensors.move_to_end(qset.key)
+            return hit
+        hit = (torch.from_numpy(qset.embeds).to(self.device),
+               torch.from_numpy(qset.mask).to(self.device))
+        self._qset_tensors[qset.key] = hit
+        while len(self._qset_tensors) > QSET_DEVICE_ENTRIES:
+            self._qset_tensors.popitem(last=False)
+        return hit
 
     @torch.inference_mode()
     def warmup(self) -> None:
         """Run every bucket of the ladder once ahead of traffic (cuDNN picks
-        its algorithms and the kernel library builds on the first call)."""
+        its algorithms and the kernel libraries build on the first call)."""
         h, w = self.built.preprocess_spec.input_hw
+        dtype = torch.uint8 if self.device_preprocess else torch.float32
         for b in self.batch_buckets:
-            pixels = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=self.device)
+            pixels = torch.zeros((b, h, w, 3), dtype=dtype, device=self.device)
             sizes = torch.ones((b, 2), dtype=torch.float32, device=self.device)
             outputs = self._forward(pixels, sizes)
             [t.cpu() for t in outputs]
@@ -147,12 +203,14 @@ class InferenceEngine:
         `images` are PIL images (what the batcher hands over) or uint8
         (H, W, 3) arrays. Splits into chunks of the largest bucket, pads each
         chunk's batch to its bucket and drops the pad rows' results. Boxes
-        are in each image's own pixel coordinates. `canvas_hw` is the
-        ragged scheduler's canvas; the ported families' fixed specs ignore it.
-        `qset` (an open-vocabulary query set) raises: the port serves only
-        closed-set models, as the JAX engine does for them.
+        are in each image's own pixel coordinates (OWLv2's: its padded
+        square's). `canvas_hw` is the ragged scheduler's canvas; the ported
+        families' fixed-size specs ignore it. `qset` (a
+        `caching.text_cache.QuerySet`) runs an open-vocabulary model against
+        that query set and labels from it; a closed-set family raises, as
+        the JAX engine does.
         """
-        if qset is not None:
+        if qset is not None and self.built.text_encoder is None:
             raise ValueError(
                 f"{self.built.model_name} is a closed-set family: it has no "
                 f"text encoder, so per-request `queries` are unsupported"
@@ -164,12 +222,14 @@ class InferenceEngine:
         for start in range(0, len(arrays), max_b):
             chunk = arrays[start : start + max_b]
             try:
-                results.extend(self._detect_chunk(chunk))
+                results.extend(self._detect_chunk(chunk, qset))
             except Exception as exc:
-                results.extend(self._recover_chunk(chunk, exc))
+                results.extend(self._recover_chunk(chunk, exc, qset))
         return results
 
-    def _recover_chunk(self, chunk: list[np.ndarray], exc: Exception) -> list[list[dict]]:
+    def _recover_chunk(
+        self, chunk: list[np.ndarray], exc: Exception, qset=None
+    ) -> list[list[dict]]:
         """Classify a failed chunk and recover when the taxonomy allows it:
         an out-of-memory chunk drops to the next smaller bucket (split in
         half, retried once, serially); a second failure propagates typed."""
@@ -181,34 +241,42 @@ class InferenceEngine:
         self.metrics.record_batch_retry()
         try:
             if len(chunk) <= 1:
-                return self._detect_chunk(chunk)
+                return self._detect_chunk(chunk, qset)
             mid = (len(chunk) + 1) // 2
-            return self._detect_chunk(chunk[:mid]) + self._detect_chunk(chunk[mid:])
+            return self._detect_chunk(chunk[:mid], qset) + self._detect_chunk(chunk[mid:], qset)
         except Exception as retry_exc:
             raise as_typed(retry_exc) from retry_exc
 
     @torch.inference_mode()
-    def _detect_chunk(self, chunk: list[np.ndarray]) -> list[list[dict]]:
-        """Host resize, then (under the device lock) H2D, forward, top-k and
-        D2H, then thresholding on the host, for one chunk <= the top bucket."""
+    def _detect_chunk(self, chunk: list[np.ndarray], qset=None) -> list[list[dict]]:
+        """Host preprocess, then (under the device lock) H2D, forward,
+        postprocess and D2H, then thresholding on the host, for one chunk <=
+        the top bucket."""
         t0 = time.monotonic()
         n = len(chunk)
-        pixels, _, sizes = batch_images_uint8(chunk, self.built.preprocess_spec)
+        spec = self.built.preprocess_spec
+        if self.device_preprocess:
+            pixels, _, sizes = batch_images_uint8(chunk, spec)
+        else:
+            pixels, sizes = batch_images_float(chunk, spec)
         bucket = self.bucket_for(n)
         if bucket > n:  # pad the batch to the static bucket size
             pad = bucket - n
-            pixels = np.concatenate([pixels, np.zeros((pad, *pixels.shape[1:]), np.uint8)])
+            pixels = np.concatenate([pixels, np.zeros((pad, *pixels.shape[1:]), pixels.dtype)])
             sizes = np.concatenate([sizes, np.ones((pad, 2), np.float32)])
         t_host = time.monotonic()
         with self._device_lock:
-            outputs = self._forward(
-                torch.from_numpy(pixels).to(self.device),
-                torch.from_numpy(sizes).to(self.device),
-            )
+            args = [torch.from_numpy(pixels).to(self.device),
+                    torch.from_numpy(sizes).to(self.device)]
+            if qset is not None:
+                args.append(self._qset_queries(qset))
+            outputs = self._forward(*args)
             scores, labels, boxes = (t.cpu().numpy() for t in outputs)
         t_dev = time.monotonic()
+        # a query set's detections label from its own (sorted) queries
+        id2label = qset.id2label if qset is not None else self.built.id2label
         out = [
-            to_detections(scores[j], labels[j], boxes[j], self.built.id2label, self.threshold)
+            to_detections(scores[j], labels[j], boxes[j], id2label, self.threshold)
             for j in range(n)
         ]
         t_post = time.monotonic()

@@ -2,9 +2,10 @@
 counters (lean port of spotter_tpu.engine.metrics).
 
 Keeps the counters and the snapshot that the batcher, the detector and the
-engine touch. The JAX package's device-efficiency ledger (`obs.perf`),
-caching, wire and text-cache counters, latency exemplars and mergeable
-histograms are not ported yet. Lock-light counters plus a bounded
+engine touch, and the open-vocabulary text cache's hits, misses and resolve
+times. The JAX package's device-efficiency ledger (`obs.perf`), result
+caching and wire counters, latency exemplars and mergeable histograms are
+not ported yet. Lock-light counters plus a bounded
 reservoir; `snapshot()` is what /metrics serves.
 """
 
@@ -42,6 +43,14 @@ def _quantiles(values) -> dict[str, float]:
         tag: vals[min(int(p * len(vals)), len(vals) - 1)]
         for p, tag in ((0.50, "p50"), (0.90, "p90"), (0.99, "p99"))
     }
+
+
+def _median(values) -> float | None:
+    """Median of a sample deque, None when empty (as the JAX package's)."""
+    if not values:
+        return None
+    vals = sorted(values)
+    return vals[len(vals) // 2]
 
 
 class Metrics:
@@ -84,6 +93,11 @@ class Metrics:
         self._brownout_transitions_total = 0
         # deadline slack each deadline-carrying item had left at dispatch
         self._slack_at_dispatch_ms: deque[float] = deque(maxlen=window)
+        # open-vocabulary query-set resolves (caching/text_cache.py)
+        self._text_cache_hits_total = 0
+        self._text_cache_misses_total = 0
+        self._text_hit_ms: deque[float] = deque(maxlen=window)
+        self._text_miss_ms: deque[float] = deque(maxlen=window)
 
     def record_batch(
         self, batch_size: int, latency_s: float, stages: dict[str, float] | None = None
@@ -183,6 +197,20 @@ class Metrics:
         with self._lock:
             self._slack_at_dispatch_ms.extend(slack_ms)
 
+    def record_text_cache(self, hit: bool, resolve_ms: float | None) -> None:
+        """One open-vocabulary query-set resolve: the cache outcome and its
+        wall time (a miss's includes the text-tower encode; a hit's is the
+        lookup)."""
+        with self._lock:
+            if hit:
+                self._text_cache_hits_total += 1
+                if resolve_ms is not None:
+                    self._text_hit_ms.append(resolve_ms)
+            else:
+                self._text_cache_misses_total += 1
+                if resolve_ms is not None:
+                    self._text_miss_ms.append(resolve_ms)
+
     def set_aggregate_bucket(self, bucket: int) -> None:
         with self._lock:
             self._aggregate_bucket = bucket
@@ -260,6 +288,10 @@ class Metrics:
                 "breaker_transitions_total": self._breaker_transitions_total,
                 "draining": self._draining,
                 "time_to_ready_s": self._time_to_ready_s,
+                "text_cache_hits_total": self._text_cache_hits_total,
+                "text_cache_misses_total": self._text_cache_misses_total,
+                "text_cache_hit_ms_p50": _median(self._text_hit_ms),
+                "text_cache_miss_ms_p50": _median(self._text_miss_ms),
                 "restarts_total": self._restarts_total,
                 "batches_total": self._batches_total,
                 "mean_batch_size": (

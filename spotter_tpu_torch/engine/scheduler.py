@@ -8,16 +8,22 @@ Two policies:
   `LOOKAHEAD_FACTOR` times past the fill target, and the pack takes slo
   before bulk, then least deadline slack first, then arrival order.
 
+Under either policy a pack draws from one query group only
+(`QueueItem.group`: an open-vocabulary request's query set, None for the
+deployment's own vocabulary): the engine runs one query set per forward.
+The leader's group goes first (the queue head under FIFO, the
+highest-priority item when slack-ordered); other groups stay pending and
+lead a later plan.
+
 What the JAX scheduler adds on top waits for the models that need it: the
 packing of mixed-size images into one canvas (only `shortest_edge` specs,
 the DETR family, have a variable valid region; RT-DETR's 640x640 canvas is
-fixed), the per-query-set packs of the open-vocabulary families, and the
-tenants' fair-share ordering.
+fixed) and the tenants' fair-share ordering.
 """
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from spotter_tpu_torch.serving.overload import SLO
@@ -44,6 +50,13 @@ class QueueItem:
     t_submit: float = 0.0
     adm: Optional[object] = None  # overload.Admission
     cls: str = SLO
+    # an open-vocabulary request's caching.text_cache.QuerySet; its key is
+    # this item's batch group (None: the deployment's own vocabulary)
+    qset: Optional[object] = field(default=None, compare=False)
+
+    @property
+    def group(self) -> Optional[str]:
+        return self.qset.key if self.qset is not None else None
 
 
 class Scheduler:
@@ -74,8 +87,21 @@ class Scheduler:
         return (0 if item.cls == SLO else 1, slack, item.t_submit)
 
     def plan(self, pending: list[QueueItem], target: int, now: Optional[float] = None) -> list:
-        """Pick (and remove from `pending`) the next dispatch's items."""
+        """Pick (and remove from `pending`) the next dispatch's items, all of
+        the leader's query group."""
         target = max(1, target)
+        if len({it.group for it in pending}) > 1:
+            now = time.monotonic() if now is None else now
+            leader = pending[0] if self.fifo else min(
+                pending, key=lambda it: self.priority_key(it, now))
+            selected = [it for it in pending if it.group == leader.group]
+            pack = self._plan_from(selected, target, now)
+            chosen = {id(it) for it in pack}
+            pending[:] = [it for it in pending if id(it) not in chosen]
+            return pack
+        return self._plan_from(pending, target, now)
+
+    def _plan_from(self, pending: list[QueueItem], target: int, now: Optional[float]) -> list:
         if self.fifo:
             pack = pending[:target]
             del pending[: len(pack)]

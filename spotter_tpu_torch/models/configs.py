@@ -1,9 +1,12 @@
-"""Config dataclasses for the RT-DETR and YOLOS families (copy of
+"""Config dataclasses for the RT-DETR, YOLOS and OWL-ViT families (copy of
 spotter_tpu.models.configs).
 
 The port keeps its own copy rather than importing the JAX package's module:
-`ResNetConfig`, `RTDetrConfig` and their presets, and `YolosConfig`,
-unchanged, so a config built on one side means the same model on the other.
+`ResNetConfig`, `RTDetrConfig` and their presets, `YolosConfig`, and the
+three OWL-ViT configs, unchanged, so a config built on one side means the
+same model on the other. `OWL_PRESETS` holds the published OWL-ViT and
+OWLv2 base widths by name (the JAX package reads them from a checkpoint's
+config).
 """
 
 from dataclasses import dataclass, field
@@ -208,3 +211,63 @@ class YolosConfig:
             num_labels=hf.num_labels,
             id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
         )
+
+
+@dataclass(frozen=True)
+class OwlViTTextConfig:
+    """CLIP-style text tower of OWL-ViT."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    intermediate_size: int = 2048
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 8
+    max_position_embeddings: int = 16
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+
+
+@dataclass(frozen=True)
+class OwlViTVisionConfig:
+    """CLIP-style vision tower of OWL-ViT."""
+
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    image_size: int = 768
+    patch_size: int = 32
+    num_channels: int = 3
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+
+@dataclass(frozen=True)
+class OwlViTConfig:
+    """OWL-ViT / OWLv2 open-vocabulary detector (google/owlvit-*, google/owlv2-*).
+
+    OWLv2 is architecturally OWL-ViT plus an objectness head (and a
+    pad-to-square preprocess handled by the serving spec); `objectness` is
+    therefore the one config switch between the two families.
+    """
+
+    text: OwlViTTextConfig = field(default_factory=OwlViTTextConfig)
+    vision: OwlViTVisionConfig = field(default_factory=OwlViTVisionConfig)
+    projection_dim: int = 512
+    objectness: bool = False  # True = OWLv2
+
+
+# the published base checkpoints' widths (HF OwlViTConfig / Owlv2Config):
+# vision ViT-B at 768 wide, text 512 wide, projection 512; OWLv2's
+# -ensemble and -finetuned checkpoints share owlv2-base-patch16's shapes
+OWL_PRESETS = {
+    "owlvit-base-patch32": OwlViTConfig(),
+    "owlvit-base-patch16": OwlViTConfig(vision=OwlViTVisionConfig(patch_size=16)),
+    "owlv2-base-patch16": OwlViTConfig(
+        vision=OwlViTVisionConfig(image_size=960, patch_size=16), objectness=True
+    ),
+}

@@ -1,5 +1,5 @@
-"""Shared building blocks (port of spotter_tpu.models.layers, the RT-DETR
-and YOLOS subset).
+"""Shared building blocks (port of spotter_tpu.models.layers, the RT-DETR,
+YOLOS and OWL-ViT subset).
 
 Convolutions run NCHW inside the port (PyTorch's layout); token tensors
 are (B, S, D) as in the JAX package. Each submodule attribute carries its
@@ -67,11 +67,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's x * sigmoid(1.702 x), one op at a time at x's dtype, as the
+    JAX package writes it (each op rounds to bf16 on a bf16 tensor)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 ACTIVATIONS: dict[str, Callable] = {
     "relu": F.relu,
     "gelu": gelu,
     "silu": F.silu,
     "swish": F.silu,
+    "quick_gelu": quick_gelu,
 }
 
 
@@ -189,7 +196,8 @@ class LayerNorm(nn.LayerNorm):
 
 class PatchEmbed(nn.Conv2d):
     """ViT patch embedding: a (P, P) convolution with stride P, (B, H, W, C)
-    pixels -> (B, H/P * W/P, D) tokens in row-major patch order.
+    pixels -> (B, H/P * W/P, D) tokens in row-major patch order, with a bias
+    unless `bias=False` (OWL-ViT's has none).
 
     flax's kernel is (P, P, C, D), HWIO, so the carry-over's HWIO -> OIHW
     rule maps it onto this conv's weight. Under a bf16 compute dtype the
@@ -199,8 +207,8 @@ class PatchEmbed(nn.Conv2d):
     """
 
     def __init__(self, in_channels: int, features: int, patch_size: int,
-                 dtype: torch.dtype = torch.float32) -> None:
-        super().__init__(in_channels, features, patch_size, stride=patch_size)
+                 dtype: torch.dtype = torch.float32, bias: bool = True) -> None:
+        super().__init__(in_channels, features, patch_size, stride=patch_size, bias=bias)
         self.dtype = dtype
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
@@ -237,17 +245,22 @@ class MultiHeadAttention(nn.Module):
     self-attention over FLASH_ATTN_MIN_SEQ tokens or more on a CUDA tensor
     runs the attention kernel (`flash_self_attention`); everything else
     materialises the scores. RT-DETR's sequences (AIFI 400 tokens, decoder
-    300) never reach the cutover.
+    300) never reach the cutover; the OWLv2 vision tower's 3601 do.
+
+    `dtype` is the projections' compute dtype (fp32 by default, RT-DETR's);
+    an additive `attention_mask` is cast to the scores' dtype and added to
+    them, as the JAX package adds it (the OWL-ViT text tower's causal and
+    padding NEG_INF sum to -inf in fp32 on both sides).
     """
 
-    def __init__(self, embed_dim: int, num_heads: int) -> None:
+    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.q_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
 
     def forward(
         self,

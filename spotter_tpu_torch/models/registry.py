@@ -1,8 +1,8 @@
 """Model registry: MODEL_NAME -> model family (port of spotter_tpu.models.registry).
 
 Families register themselves; lookup is by substring of the HF repo name,
-so the same MODEL_NAME values keep working. The port registers only the
-RT-DETR family so far (models/zoo.py).
+so the same MODEL_NAME values keep working. The port registers the RT-DETR,
+YOLOS and OWL-ViT families so far (models/zoo.py).
 """
 
 from dataclasses import dataclass

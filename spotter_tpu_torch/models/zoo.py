@@ -1,11 +1,12 @@
-"""Model zoo, RT-DETR and YOLOS families: MODEL_NAME -> BuiltDetector (port
-of those parts of spotter_tpu.models.zoo).
+"""Model zoo, RT-DETR, YOLOS and OWL-ViT families: MODEL_NAME ->
+BuiltDetector (port of those parts of spotter_tpu.models.zoo).
 
 Weights are either a seeded random init that mirrors flax's initializers
-(`init_rtdetr`, `init_yolos`), at the width of the preset the name selects,
-or JAX params carried across with `convert.from_jax` (`params=`). Loading a
-local HF checkpoint is not ported yet. `tiny=True` (or SPOTTER_TPU_TINY=1)
-builds the zoo's tiny config, as the JAX package does.
+(`init_rtdetr`, `init_yolos`, `init_owlvit`), at the width of the preset the
+name selects, or JAX params carried across with `convert.from_jax`
+(`params=`). Loading a local HF checkpoint is not ported yet. `tiny=True`
+(or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as the JAX package
+does.
 
 Each build function applies the precision policy (utils/precision.py) and refuses
 the knobs whose computation the port lacks: the int8 knobs, and for
@@ -17,30 +18,47 @@ import dataclasses
 import os
 from typing import Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from spotter_tpu_torch.convert.from_jax import load_from_jax
+from spotter_tpu_torch.convert.tokens import owlvit_tokenize, tiny_tokenize
 from spotter_tpu_torch.engine.engine import BuiltDetector
 from spotter_tpu_torch.models.coco import coco_id2label_80, coco_id2label_91
 from spotter_tpu_torch.models.configs import (
+    OWL_PRESETS,
     RTDETR_PRESETS,
+    OwlViTConfig,
+    OwlViTTextConfig,
+    OwlViTVisionConfig,
     ResNetConfig,
     RTDetrConfig,
     YolosConfig,
 )
 from spotter_tpu_torch.models.layers import FrozenBatchNorm, lecun_normal_
+from spotter_tpu_torch.models.owlvit import OwlViTDetector
 from spotter_tpu_torch.models.registry import ModelFamily, register
 from spotter_tpu_torch.models.rtdetr import RTDetrDetector
 from spotter_tpu_torch.models.yolos import YolosDetector
 from spotter_tpu_torch.ops.msda import MSDA_ENV, check_msda_backend
 from spotter_tpu_torch.ops.preprocess import (
+    CLIP_MEAN,
+    CLIP_STD,
     IMAGENET_MEAN,
     IMAGENET_STD,
+    OWLV2_SPEC,
+    OWLVIT_SPEC,
     RTDETR_SPEC,
     PreprocessSpec,
 )
-from spotter_tpu_torch.utils.precision import backbone_dtype, refuse_int8, require_float32
+from spotter_tpu_torch.taxonomy import AMENITIES_MAPPING
+from spotter_tpu_torch.utils.precision import (
+    backbone_dtype,
+    compute_dtype,
+    refuse_int8,
+    require_float32,
+)
 
 TINY_ENV = "SPOTTER_TPU_TINY"
 
@@ -233,5 +251,143 @@ def build_yolos(
     )
 
 
+def tiny_owlvit_config() -> OwlViTConfig:
+    return OwlViTConfig(
+        text=OwlViTTextConfig(
+            vocab_size=99, hidden_size=16, intermediate_size=24,
+            num_hidden_layers=2, num_attention_heads=2, max_position_embeddings=8,
+        ),
+        vision=OwlViTVisionConfig(
+            hidden_size=20, intermediate_size=28, num_hidden_layers=2,
+            num_attention_heads=2, image_size=32, patch_size=8,
+        ),
+        projection_dim=16,
+    )
+
+
+def owlvit_preset(model_name: str) -> OwlViTConfig:
+    """The published base width whose name appears in MODEL_NAME:
+    owlvit-base-patch32, owlvit-base-patch16, or owlv2-base-patch16 (and
+    its -ensemble and -finetuned checkpoints). The other sizes take their
+    widths from a checkpoint's config, which the repository does not hold,
+    so their names raise."""
+    key = model_name.lower()
+    for name, cfg in OWL_PRESETS.items():
+        if name in key:
+            return cfg
+    raise ValueError(
+        f"MODEL_NAME '{model_name}' names no OWL-ViT configuration the port holds: only "
+        f"{sorted(OWL_PRESETS)} (other sizes need a checkpoint's config; ROADMAP Queue 1 "
+        f"item 4)"
+    )
+
+
+QUERIES_ENV = "SPOTTER_TPU_TEXT_QUERIES"
+PROMPT_TEMPLATE = "a photo of a {}"
+OWL_TABLE_STD = 0.02  # flax's normal(0.02) for the token, position and class tables
+
+
+def owlvit_query_labels() -> list[str]:
+    """The deployment's label set: the amenity taxonomy's COCO labels (so
+    the AMENITIES_MAPPING filter behaves as with the closed-set detectors),
+    or a comma-separated SPOTTER_TPU_TEXT_QUERIES."""
+    env = os.environ.get(QUERIES_ENV, "")
+    if env.strip():
+        labels = [s.strip() for s in env.split(",") if s.strip()]
+        if not labels:
+            raise ValueError(f"{QUERIES_ENV} is set but contains no labels: {env!r}")
+        return labels
+    return list(AMENITIES_MAPPING)
+
+
+@torch.no_grad()
+def init_owlvit(model: OwlViTDetector, seed: int = 0) -> OwlViTDetector:
+    """Random init from `seed`, mirroring the flax module's initializers:
+    lecun-normal dense and patch kernels, zero biases and LayerNorm 1/0 on
+    every layer in module order (as `init_rtdetr` draws them), then
+    normal(0.02) for the token, position and class tables, from the same
+    generator. flax zeroes none of these, so unlike YOLOS nothing differs."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    _init_flax_layers(model, gen)
+    for table in (model.text.token_embedding, model.text.position_embedding,
+                  model.vision.class_embedding, model.vision.position_embedding):
+        table.copy_(torch.randn(table.shape, generator=gen) * OWL_TABLE_STD)
+    return model
+
+
+def build_owlvit(
+    model_name: str,
+    *,
+    tiny: Optional[bool] = None,
+    seed: int = 0,
+    params: Optional[Mapping] = None,
+) -> BuiltDetector:
+    """Builds the OWL-ViT family (OWLv2 when the config has objectness).
+
+    The vision tower runs at the policy's backbone dtype and the text tower
+    and heads at its compute dtype, as the JAX zoo builds it. The text tower
+    runs once here, on the CPU, to encode the deployment's vocabulary
+    ("a photo of a {label}"); the engine keeps that bank on its device. The
+    returned `text_encoder` encodes a request's own queries on whatever
+    device the model then lives on. Full-width builds read the prompts' ids
+    from the JAX package's tokenization cache (convert/tokens.py); tiny
+    builds hash them. The model is built on the CPU; the engine moves it."""
+    refuse_int8()
+    if tiny is None:
+        tiny = bool(os.environ.get(TINY_ENV))
+    labels = owlvit_query_labels()
+    if tiny:
+        cfg = tiny_owlvit_config()
+        spec = PreprocessSpec(mode="fixed", size=(32, 32), mean=CLIP_MEAN, std=CLIP_STD)
+    else:
+        cfg = owlvit_preset(model_name)
+        spec = OWLV2_SPEC if cfg.objectness else OWLVIT_SPEC
+    t = cfg.text.max_position_embeddings
+
+    def tokenize(prompts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        if tiny:
+            return tiny_tokenize(prompts, cfg.text.vocab_size, t)
+        return owlvit_tokenize(model_name, prompts, t)
+
+    # the vocabulary's ids first: a missing tokenization cache raises before
+    # a full-width model is built
+    ids, mask = tokenize([PROMPT_TEMPLATE.format(label) for label in labels])
+    model = OwlViTDetector(cfg, dtype=compute_dtype(), vision_dtype=backbone_dtype()).eval()
+    if params is not None:
+        load_from_jax(model, params)
+    else:
+        init_owlvit(model, seed)
+
+    @torch.inference_mode()
+    def encode_ids(ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        device = model.text.token_embedding.device
+        embeds = model.encode_text(torch.from_numpy(ids).to(device),
+                                   torch.from_numpy(mask).to(device))
+        return embeds.to(torch.float32).cpu().numpy()
+
+    def encode_text(queries: list[str]) -> np.ndarray:
+        """Query strings -> normalized (Q, proj) float32 embeddings, through
+        the same prompt template and text tower as the deployment's
+        vocabulary, on the model's current device."""
+        return encode_ids(*tokenize([PROMPT_TEMPLATE.format(q) for q in queries]))
+
+    query_embeds = torch.from_numpy(encode_ids(ids, mask))
+    return BuiltDetector(
+        model_name=model_name,
+        module=model,
+        preprocess_spec=spec,
+        postprocess="sigmoid_max",
+        id2label=dict(enumerate(labels)),
+        num_top_queries=len(labels),
+        query_embeds=query_embeds,
+        text_encoder=encode_text,
+    )
+
+
 register(ModelFamily(name="rtdetr", matches=("rtdetr", "rt_detr", "rt-detr"), build=build_rtdetr))
 register(ModelFamily(name="yolos", matches=("yolos",), build=build_yolos))
+register(ModelFamily(
+    name="owlvit",  # OWL-ViT and OWLv2 (the same architecture + an objectness head)
+    matches=("owlvit", "owl-vit", "owl_vit", "owlv2", "owl-v2", "owl_v2"),
+    build=build_owlvit,
+))

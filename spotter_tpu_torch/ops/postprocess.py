@@ -1,5 +1,6 @@
 """Detection postprocess (port of spotter_tpu.ops.postprocess: the sigmoid
-top-k of RT-DETR and the softmax of YOLOS).
+top-k of RT-DETR, the softmax of YOLOS and the per-patch sigmoid max of
+OWL-ViT).
 
 The device side returns fixed-k (scores, labels, boxes) tensors; the host
 thresholds them into the reference's detection dicts (`to_detections`).
@@ -54,6 +55,24 @@ def softmax_postprocess(
     Returns scores (B, Q), labels (B, Q), boxes (B, Q, 4) xyxy pixels.
     """
     probs = torch.softmax(logits, dim=-1)[..., :-1]
+    scores = probs.amax(dim=-1)
+    labels = probs.argmax(dim=-1)
+    boxes = center_to_corners(pred_boxes)
+    boxes = scale_boxes(boxes, target_sizes.to(boxes.dtype))
+    return scores, labels, boxes
+
+
+def sigmoid_max_postprocess(
+    logits: torch.Tensor,
+    pred_boxes: torch.Tensor,
+    target_sizes: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """OWL-ViT-style postprocess: per patch, the sigmoid max over the text
+    queries and its query index (the first of equal maxima, as `jnp.argmax`
+    takes it). A masked query's NEG_INF logit has probability 0 and never
+    wins over a real one. Returns scores (B, P), labels (B, P), boxes
+    (B, P, 4) xyxy pixels."""
+    probs = torch.sigmoid(logits)
     scores = probs.amax(dim=-1)
     labels = probs.argmax(dim=-1)
     boxes = center_to_corners(pred_boxes)

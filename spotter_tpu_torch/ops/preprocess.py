@@ -1,15 +1,21 @@
-"""Image preprocess for the fixed-size specs of RT-DETR and YOLOS (port of
-spotter_tpu.ops.preprocess, uint8 path).
+"""Image preprocess for the fixed-size specs of RT-DETR, YOLOS and OWL-ViT,
+and OWLv2's pad-to-square (port of spotter_tpu.ops.preprocess).
 
-The split is the JAX package's uint8 ingest: the host only resizes uint8
-pixels into the static bucket and stacks them; the rescale runs on the
-device (`device_rescale_normalize`).
-
-The host resize replaces PIL's `Image.resize(..., BILINEAR)` with
+Fixed specs take the JAX package's uint8 ingest: the host only resizes
+uint8 pixels into the static bucket and stacks them; the rescale runs on
+the device (`device_rescale_normalize`). The bilinear resize replaces
+PIL's `Image.resize(..., BILINEAR)` with
 `torch.nn.functional.interpolate(mode="bilinear", antialias=True)` on a
-CPU uint8 tensor, so the port needs no PIL. The two agree to within 1 LSB
-on downscales and upscales to 640x640 (tests/test_torch_engine.py pins it
-against the JAX package's PIL path).
+CPU uint8 tensor; the two agree to within 1 LSB on downscales and upscales
+to 640x640 (tests/test_torch_engine.py pins it against the JAX package's
+PIL path). Torch's antialiased bicubic differs from PIL's `BICUBIC` by up
+to 2 LSB on listing-photo downscales, so OWL-ViT's bicubic spec resizes
+with PIL itself.
+
+OWLv2's "pad_square" spec rescales before its warp, so its host work is
+inherently float (`device_preprocess_supported`): pad with 0.5 grey to a
+square, scipy's gaussian_filter + zoom with skimage's resize semantics,
+then normalize; the engine ships float32 pixels (`batch_images_float`).
 
 Arrays are NHWC at this module's interface, as in the JAX package.
 """
@@ -24,16 +30,24 @@ import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+RESAMPLE_MODES = ("bilinear", "bicubic")
 
 
 @dataclass(frozen=True)
 class PreprocessSpec:
     """How to turn an image into a model input array.
 
-    Only mode "fixed" (warp-resize to `size` (h, w): RT-DETR's 640x640,
-    YOLOS's trained image size) is ported; the shortest-edge and pad-square
-    modes come with their model families. `mean`/`std`, when set, normalize
-    each channel after the rescale (YOLOS: ImageNet's).
+    mode "fixed": warp-resize to `size` (h, w) (RT-DETR's 640x640, YOLOS's
+    trained image size, OWL-ViT's 768x768). mode "pad_square": pad
+    bottom/right to a square with mid-grey (0.5 before normalization), then
+    warp to `size` (OWLv2's 960x960); the reported target size is the
+    square's (side, side), as HF's Owlv2ImageProcessor scales its boxes.
+    The shortest-edge mode comes with the DETR family. `mean`/`std`, when
+    set, normalize each channel after the rescale. `resample` is the fixed
+    mode's filter: "bilinear" (the RT-DETR, DETR and YOLOS processors) or
+    "bicubic" (OWL-ViT's).
     """
 
     mode: str = "fixed"
@@ -41,16 +55,28 @@ class PreprocessSpec:
     rescale_factor: float = 1.0 / 255.0
     mean: tuple[float, float, float] | None = None
     std: tuple[float, float, float] | None = None
+    resample: str = "bilinear"
 
     @property
     def input_hw(self) -> tuple[int, int]:
         """The static (h, w) every preprocessed array has."""
-        if self.mode != "fixed":
+        if self.mode not in ("fixed", "pad_square"):
             raise ValueError(f"preprocess mode {self.mode!r} is not ported")
         return self.size
 
 
 RTDETR_SPEC = PreprocessSpec(mode="fixed", size=(640, 640))
+OWLVIT_SPEC = PreprocessSpec(
+    mode="fixed", size=(768, 768), mean=CLIP_MEAN, std=CLIP_STD, resample="bicubic"
+)
+OWLV2_SPEC = PreprocessSpec(mode="pad_square", size=(960, 960), mean=CLIP_MEAN, std=CLIP_STD)
+
+
+def device_preprocess_supported(spec: PreprocessSpec) -> bool:
+    """pad_square (OWLv2) rescales before its skimage-style warp, so its host
+    work is inherently float; only fixed specs defer rescale/normalize to
+    the device."""
+    return spec.mode == "fixed"
 
 MAX_IMAGE_PIXELS_ENV = "SPOTTER_TPU_MAX_IMAGE_PIXELS"
 DEFAULT_MAX_IMAGE_PIXELS = 64_000_000  # ~64 MP; <= 0 disables the guard
@@ -82,19 +108,32 @@ def check_image_pixels(image) -> None:
         )
 
 
-def resize_uint8(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """(H, W, 3) uint8 -> (h, w, 3) uint8, bilinear with antialiasing.
-
-    Runs on the CPU: it is the host half of preprocess, like PIL's resize
-    in the JAX package. An image already at `size` is returned as a copy.
-    """
+def _check_rgb_uint8(image: np.ndarray) -> None:
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(
             f"expected an (H, W, 3) uint8 image, got {image.dtype} {image.shape}"
         )
+
+
+def resize_uint8(
+    image: np.ndarray, size: tuple[int, int], resample: str = "bilinear"
+) -> np.ndarray:
+    """(H, W, 3) uint8 -> (h, w, 3) uint8, antialiased bilinear (torch) or
+    PIL's bicubic.
+
+    Runs on the CPU: it is the host half of preprocess, like PIL's resize
+    in the JAX package. An image already at `size` is returned as a copy.
+    """
+    _check_rgb_uint8(image)
+    if resample not in RESAMPLE_MODES:
+        raise ValueError(f"resample must be one of {RESAMPLE_MODES}, got {resample!r}")
     th, tw = size
     if image.shape[:2] == (th, tw):
         return image.copy()
+    if resample == "bicubic":
+        from PIL import Image  # the serving layer's decoder; only this filter needs it
+
+        return np.array(Image.fromarray(image).resize((tw, th), resample=Image.BICUBIC))
     x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
     y = F.interpolate(x, size=(th, tw), mode="bilinear", antialias=True, align_corners=False)
     return y[0].permute(1, 2, 0).contiguous().numpy()
@@ -104,11 +143,55 @@ def batch_images_uint8(
     images: list[np.ndarray], spec: PreprocessSpec
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Resize and stack -> (pixels (B,H,W,3) u8, valid (B,2) i32, sizes (B,2) f32 [orig h,w])."""
+    if not device_preprocess_supported(spec):
+        raise ValueError(f"preprocess mode {spec.mode!r} has no uint8 path")
     hw = spec.input_hw
-    pixels = np.stack([resize_uint8(img, hw) for img in images])
+    pixels = np.stack([resize_uint8(img, hw, spec.resample) for img in images])
     valid = np.tile(np.asarray([hw], np.int32), (len(images), 1))
     sizes = np.asarray([img.shape[:2] for img in images], dtype=np.float32)
     return pixels, valid, sizes
+
+
+def pad_square_float(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarray, tuple[int, int]]:
+    """OWLv2's host preprocess, (H, W, 3) uint8 -> ((h, w, 3) float32
+    normalized, (side, side)), as the JAX package computes it: rescale to
+    [0, 1], pad bottom/right to a square with 0.5 grey, resize the padded
+    square to `spec.size` with skimage.transform.resize's semantics as HF's
+    Owlv2ImageProcessor vendors them (anti-aliasing gaussian of sigma
+    (factor - 1) / 2, then an order-1 zoom, both "mirror" at the edges,
+    clipped to the padded square's range), then normalize."""
+    import scipy.ndimage as ndi  # the HF processor itself requires scipy
+
+    _check_rgb_uint8(image)
+    th, tw = spec.size
+    h, w = image.shape[:2]
+    side = max(h, w)
+    padded = np.full((side, side, 3), 0.5, dtype=np.float32)
+    padded[:h, :w] = image.astype(np.float32) * spec.rescale_factor
+    factors = np.divide(padded.shape, (th, tw, 3))
+    sigma = np.maximum(0.0, (factors - 1.0) / 2.0)
+    filtered = ndi.gaussian_filter(padded, sigma, mode="mirror") if sigma.any() else padded
+    out = ndi.zoom(filtered, 1.0 / factors, order=1, mode="mirror", grid_mode=True)
+    arr = np.clip(out, padded.min(), padded.max()).astype(np.float32)
+    if spec.mean is not None and spec.std is not None:
+        arr = (arr - np.asarray(spec.mean, dtype=np.float32)) / np.asarray(
+            spec.std, dtype=np.float32
+        )
+    return arr, (side, side)
+
+
+def batch_images_float(
+    images: list[np.ndarray], spec: PreprocessSpec
+) -> tuple[np.ndarray, np.ndarray]:
+    """The host float path (pad_square) -> (pixels (B,H,W,3) f32 normalized,
+    sizes (B,2) f32 [h, w] the boxes are scaled to)."""
+    if spec.mode != "pad_square":
+        raise ValueError(f"preprocess mode {spec.mode!r} takes the uint8 path")
+    done = [pad_square_float(img, spec) for img in images]
+    return (
+        np.stack([arr for arr, _ in done]),
+        np.asarray([hw for _, hw in done], dtype=np.float32),
+    )
 
 
 @functools.lru_cache(maxsize=16)

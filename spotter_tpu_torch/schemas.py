@@ -5,8 +5,9 @@ Field names, nesting, and union shape are a wire contract with the reference
 the port unchanged. `DetectionResponse.degraded` is the JAX package's
 additive brownout marker, None and excluded from the wire (the serving
 layers dump with `exclude_none=True`) on every non-degraded response.
-`DetectionRequest.queries` is its open-vocabulary extension; the port serves
-only closed-set models, so a request that carries queries is answered 400.
+`DetectionRequest.queries` is its open-vocabulary extension: the OWL-ViT
+and OWLv2 families detect those labels instead of the deployment's
+vocabulary, and a closed-set model answers such a request 400.
 """
 
 from pydantic import BaseModel, HttpUrl

@@ -9,7 +9,8 @@ the JAX package keeps it at the /detect wire:
   and bytes (`SPOTTER_TPU_FETCH_MAX_BYTES`: content-length reject plus a
   streamed read cap);
 - PIL open, the decode-bomb guard (`check_image_pixels`), convert("RGB");
-- detections filtered through AMENITIES_MAPPING, other labels dropped;
+- detections filtered through AMENITIES_MAPPING, other labels dropped
+  (a request's own `queries` label its detections directly);
 - red box width 3, amenity text at (x+5, y+5), white fill, black stroke;
   JPEG + base64 of the annotated image as `labeled_image_base64`;
 - httpx errors -> "HTTP Error: ...", fetch failures -> "Fetch Error: ...",
@@ -24,8 +25,14 @@ when a request is partly served; a fully shed request re-raises so the HTTP
 layer answers 429/503 with Retry-After. The brownout threshold rung raises
 the detection bar when the overload tier is armed.
 
-Not ported yet: the result cache, single-flight fetch coalescing, the
-open-vocabulary text cache, tenancy and the fault-injection hooks.
+Open-vocabulary families (OWL-ViT, OWLv2) take a request's free-text
+`queries`: the detector resolves them once per request through the
+memoized `TextQueryResolver` (caching/text_cache.py), in an executor so a
+text-tower encode never blocks the event loop, and every image of the
+request runs against that query set. A closed-set family answers 400.
+
+Not ported yet: the result cache, single-flight fetch coalescing, tenancy
+and the fault-injection hooks.
 """
 
 import asyncio
@@ -36,6 +43,7 @@ from io import BytesIO
 import httpx
 from PIL import Image, ImageDraw
 
+from spotter_tpu_torch.caching.text_cache import TextQueryResolver
 from spotter_tpu_torch.engine.batcher import MicroBatcher
 from spotter_tpu_torch.ops.preprocess import check_image_pixels
 from spotter_tpu_torch.schemas import (
@@ -165,6 +173,15 @@ class AmenitiesDetector:
         self.fetch_max_bytes = _env_int(FETCH_MAX_BYTES_ENV, DEFAULT_FETCH_MAX_BYTES)
         self.client = client or httpx.AsyncClient(timeout=self.fetch_timeout_s)
         self.threshold = float(getattr(engine, "threshold", 0.5))
+        built = getattr(engine, "built", None)
+        self.model_name = getattr(built, "model_name", None) or type(engine).__name__
+        # the memoized query-set resolver of a text-conditioned family; None
+        # for closed-set families, whose /detect `queries` answer 400
+        text_encoder = getattr(built, "text_encoder", None)
+        self.text_resolver = (
+            TextQueryResolver(self.model_name, text_encoder, metrics=engine.metrics)
+            if text_encoder is not None else None
+        )
 
     def _check_fetch_size(self, url: str, nbytes: int) -> None:
         if self.fetch_max_bytes > 0 and nbytes > self.fetch_max_bytes:
@@ -234,7 +251,8 @@ class AmenitiesDetector:
         raise FetchError("failed to fetch image after retries")  # unreachable
 
     async def _process_single_image(
-        self, url: str, deadline: Deadline | None = None, cls: str | None = None
+        self, url: str, deadline: Deadline | None = None, cls: str | None = None,
+        qset=None,
     ) -> ImageResult:
         brownout = self.batcher.brownout
         # brownout threshold rung: read once, up front, for the whole image
@@ -250,11 +268,16 @@ class AmenitiesDetector:
                 # before convert() decodes anything
                 check_image_pixels(img_raw)
                 image = img_raw.convert("RGB")
-            raw_detections = await self.batcher.submit(image, deadline=deadline, cls=cls)
+            raw_detections = await self.batcher.submit(
+                image, deadline=deadline, cls=cls, qset=qset)
             if boost > 0.0:
                 bar = min(self.threshold + boost, 0.99)
                 raw_detections = [d for d in raw_detections if d.get("score", 1.0) >= bar]
-            detections = amenity_detections(raw_detections)
+            if qset is None:
+                detections = amenity_detections(raw_detections)
+            else:  # the request's own label set: the taxonomy filter does not apply
+                detections = [{"label": d["label"], "box": list(d["box"])}
+                              for d in raw_detections]
             jpeg = draw_detections(image, detections)
             return DetectionSuccessResult(
                 url=url,
@@ -278,16 +301,21 @@ class AmenitiesDetector:
         self, payload: dict, deadline: Deadline | None = None, cls: str | None = None
     ) -> DetectionResponse:
         request = DetectionRequest.model_validate(payload)
+        qset = None
         if request.queries:
-            raise QueriesUnsupportedError(
-                f"model '{self.engine.built.model_name}' is closed-set: free-text "
-                f"`queries` need a text-conditioned family (OWL-ViT/OWLv2)"
-            )
+            if self.text_resolver is None:
+                raise QueriesUnsupportedError(
+                    f"model '{self.model_name}' is closed-set: free-text "
+                    f"`queries` need a text-conditioned family (OWL-ViT/OWLv2)"
+                )
+            # once per request; a novel vocabulary's encode runs off the loop
+            qset = await asyncio.get_running_loop().run_in_executor(
+                None, self.text_resolver.resolve, list(request.queries))
         if deadline is None:
             deadline = Deadline.from_env()
         urls = [str(u) for u in request.image_urls]
         gathered = await asyncio.gather(
-            *(self._process_single_image(u, deadline, cls=cls) for u in urls),
+            *(self._process_single_image(u, deadline, cls=cls, qset=qset) for u in urls),
             return_exceptions=True,
         )
         shed = [r for r in gathered if isinstance(r, AdmissionError)]
@@ -356,6 +384,10 @@ class AmenitiesDetector:
             "admit": (
                 self.batcher.limiter.snapshot()
                 if self.batcher.limiter is not None else {"enabled": False}
+            ),
+            "open_vocab": (
+                self.text_resolver.stats()
+                if self.text_resolver is not None else {"enabled": False}
             ),
         }
 

@@ -2,11 +2,12 @@
 spotter_tpu.serving.standalone).
 
 Routes:
-- `POST /detect`: {"image_urls": [...]} -> the reference wire schema; 429
-  (queue full, admission limit) or 503 (breaker open, draining, brownout
-  bulk shed) with Retry-After when the whole request is shed; 400 for a bad
-  body, a pydantic-invalid request, or free-text `queries` (closed-set
-  model);
+- `POST /detect`: {"image_urls": [...]} -> the reference wire schema,
+  plus optional free-text `queries` for the open-vocabulary families
+  (OWL-ViT, OWLv2), which then label the detections; 429 (queue full,
+  admission limit) or 503 (breaker open, draining, brownout bulk shed) with
+  Retry-After when the whole request is shed; 400 for a bad body, a
+  pydantic-invalid request, or `queries` sent to a closed-set model;
 - `GET /startupz`: the `loading -> warming -> ready` state (503 until ready);
 - `GET /healthz`: readiness (503 while starting, breaker open or draining);
 - `GET /livez`: liveness;
@@ -23,8 +24,11 @@ fatal device error exits `FATAL_ENGINE_EXIT_CODE` (85); a preemption
     MODEL_NAME=PekingU/rtdetr_v2_r101vd python -m spotter_tpu_torch.serving.standalone \\
         [--port 8000] [--device cpu] [--no-warmup]
 
-MODEL_NAME picks the family: RT-DETR (`PekingU/rtdetr_v2_*`) or YOLOS
-(`hustvl/yolos-base`). `SPOTTER_TPU_TINY=1` serves the family's tiny
+MODEL_NAME picks the family: RT-DETR (`PekingU/rtdetr_v2_*`), YOLOS
+(`hustvl/yolos-base`), OWL-ViT (`google/owlvit-base-patch32`, `-patch16`)
+or OWLv2 (`google/owlv2-base-patch16-ensemble`). The OWL families read
+their prompts' token ids from `$SPOTTER_TPU_CACHE/<model>--v3/tokenized.json`
+(convert/tokens.py). `SPOTTER_TPU_TINY=1` serves the family's tiny
 config (random weights) for smoke runs. The model runs on `cuda` unless
 `--device cpu` is given; with no GPU it raises. Tenancy, output integrity, `/profile`, `/debug/*` and the stub
 engine are not ported yet.

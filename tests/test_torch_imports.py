@@ -37,12 +37,48 @@ YOLOS_MODULES = (
 )
 
 
+# the OWL slice's modules: the model, the class-logit kernel's wrapper, the
+# token ids and the text cache
+OWL_MODULES = (
+    "spotter_tpu_torch.models.owlvit",
+    "spotter_tpu_torch.ops.openvocab",
+    "spotter_tpu_torch.convert.tokens",
+    "spotter_tpu_torch.caching.keys",
+    "spotter_tpu_torch.caching.text_cache",
+)
+
+
 def test_every_serving_module_is_covered():
     assert set(SERVING_MODULES) <= set(MODULES)
 
 
 def test_every_yolos_module_is_covered():
     assert set(YOLOS_MODULES) <= set(MODULES)
+
+
+def test_every_owl_module_is_covered():
+    assert set(OWL_MODULES) <= set(MODULES)
+
+
+def test_class_logit_kernel_runs_only_on_cuda_tensors(monkeypatch):
+    """On CPU tensors the wrapper computes the plain version and neither
+    builds nor launches the kernel; any other device raises; mixed devices
+    raise."""
+    import torch
+
+    from spotter_tpu_torch.ops import openvocab
+
+    builds = []
+    monkeypatch.setattr(openvocab, "build_class_logits_kernel", lambda: builds.append(1))
+    args = (torch.ones(1, 2, 4), torch.ones(3, 4) / 2, torch.zeros(1, 2), torch.zeros(1, 2))
+    before = openvocab.owl_class_logits.launches
+    out = openvocab.owl_class_logits(*args)
+    assert out.shape == (1, 2, 3) and out.device.type == "cpu"
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        openvocab.owl_class_logits(*(t.to("meta") for t in args))
+    with pytest.raises(ValueError, match="queries is on meta"):
+        openvocab.owl_class_logits(args[0], args[1].to("meta"), *args[2:])
+    assert builds == [] and openvocab.owl_class_logits.launches == before
 
 
 def test_importing_every_module_loads_no_jax():

@@ -7,13 +7,17 @@ non-zero biases, and non-identity frozen-BN statistics, so a mix-up of
 mean/var or scale/bias in the weight carry-over cannot pass unseen.
 """
 
+import functools
+
 import jax
 import numpy as np
 
 
-def random_flax_params(module, *init_args, seed: int = 0) -> dict:
-    """Nested dict of numpy arrays shaped like `module.init(key, *init_args)["params"]`."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)["params"]
+def random_flax_params(module, *init_args, seed: int = 0, **init_kwargs) -> dict:
+    """Nested dict of numpy arrays shaped like
+    `module.init(key, *init_args, **init_kwargs)["params"]` (e.g. `method=`)."""
+    init = functools.partial(module.init, **init_kwargs)
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *init_args)["params"]
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
