@@ -3,31 +3,41 @@
 
 Drives the port's paths through the entry points a user calls, at full
 width with weights drawn from --seed: RT-DETRv2-R101, YOLOS (yolos-base,
-800x1344, under the "float32" and "mixed" precision policies), and OWLv2
-(owlv2-base-patch16-ensemble, 960x960, both policies) with OWL-ViT B/32.
-Holds its six hand-written kernels against their plain PyTorch versions:
-csrc/msda.cu (MSDA gather-sum, loc-prep and fused-prologue sampling),
-csrc/attention.cu (flash attention, fp32 and bf16) and csrc/class_logits.cu
-(the OWL class-logit head). Phases, each printing JSON lines:
+800x1344, under the "float32" and "mixed" precision policies),
+Deformable-DETR (SenseTime/deformable-detr, photos staged into the
+1333x1333 bucket with a pixel mask, under each SPOTTER_TPU_MSDA backend),
+and OWLv2 (owlv2-base-patch16-ensemble, 960x960, both policies) with
+OWL-ViT B/32. Holds its eight hand-written kernels against their plain
+PyTorch versions: csrc/msda.cu (MSDA gather-sum, loc-prep and
+fused-prologue sampling), csrc/msda_backends.cu (the pallas_sep separable
+sampling and the pallas_gather lane gather), csrc/attention.cu (flash
+attention, fp32 and bf16) and csrc/class_logits.cu (the OWL class-logit
+head). Phases, each printing JSON lines:
 
 1. device  — card name, `nvidia-smi` name and power limit, and whether the
              serving layer's packages (PIL, aiohttp, httpx, pydantic) import;
-2. build   — nvcc builds of the three kernel libraries for sm_90a, started
+2. build   — nvcc builds of the four kernel libraries for sm_90a, started
              together, with their seconds;
 3. kernel  — each kernel against its plain version: the MSDA kernels at the
              decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
-             discrete corner prep), the attention kernel at YOLOS's shapes
-             and more (B = 1 and 8, S = 4301 and 1100, hd = 64 and 128, fp32
-             and bf16), the class-logit kernel at OWLv2's and OWL-ViT B/32's
-             shapes (P = 3600 and 576; B = 1 and 8; fp32 and bf16 features;
-             22 queries, 24 with 2 masked, 160): max abs error against the
-             tolerance, kernel / plain / library (embedding_bag,
-             scaled_dot_product_attention; none for the class logits) times
-             by CUDA events with a cold L2, and the bound;
+             discrete corner prep); the sep and lane-gather kernels at B = 8
+             on one MSDA op of the RT-DETR decoder, the Deformable-DETR
+             encoder at the 1333x1333 bucket (its densest level alone, and
+             all four levels) and its decoder, default and discrete, with
+             half the sep hit table's bits cleared (which must drop exactly
+             those bands), and bf16 rows; the attention kernel at YOLOS's
+             shapes and more (B = 1 and 8, S = 4301 and 1100, hd = 64 and 128,
+             fp32 and bf16), the class-logit kernel at OWLv2's and OWL-ViT
+             B/32's shapes (P = 3600 and 576; B = 1 and 8; fp32 and bf16
+             features; 22 queries, 24 with 2 masked, 160): max abs error
+             against the tolerance, kernel / plain / library (embedding_bag,
+             scaled_dot_product_attention; none for the others) times by CUDA
+             events with a cold L2, and the bound;
 4. parity  — the full-width forward at B = 1 on the card against the same
              model on the CPU, TF32 off, under each SPOTTER_TPU_MSDA_PREP
-             setting (xla, kernel, fused), and card fused against card xla at
-             B = 8: logits and boxes against a tolerance;
+             setting (xla, kernel, fused) and under SPOTTER_TPU_MSDA=pallas_sep
+             and =pallas_gather, and card fused against card xla at B = 8:
+             logits and boxes against a tolerance;
 5. serve   — slice 1's path under xla: InferenceEngine on cuda, warmed,
              answering requests of 1, 3 and 8 synthetic photos (480x640 to
              1080x1440) through detect + response assembly; the gather-sum
@@ -50,17 +60,29 @@ csrc/attention.cu (flash attention, fp32 and bf16) and csrc/class_logits.cu
 9. yolos_http — the standalone server with yolos-base answering POST
              /detect for 1 and 8 URLs under each policy, with the same count
              check;
-10. owl_parity — OWLv2 and OWL-ViT B/32 at B = 1, the card against the CPU
+10. ddetr_parity — SenseTime/deformable-detr at B = 1, a landscape photo
+             staged into the 1333x1333 bucket: the card under xla, pallas_sep
+             and pallas_gather, each against the CPU under xla (TF32 off);
+11. ddetr_serve — InferenceEngine.detect on 1 and 8 photos under each
+             backend: msda_gather_sum (xla) or msda_hd_gather_sum
+             (pallas_gather) must launch 12 times per forward (6 encoder and 6
+             decoder ops), msda_sep_sum 48 (once per level of each), and no
+             other kernel; p50/p99, img/s, device ms per forward (also under
+             xla with SPOTTER_TPU_MSDA_PREP=kernel), host resize ms;
+12. ddetr_http — the standalone server with Deformable-DETR answering POST
+             /detect for 1 and 8 URLs under each backend, with the same count
+             check;
+13. owl_parity — OWLv2 and OWL-ViT B/32 at B = 1, the card against the CPU
              under "float32" (TF32 off): logits, boxes and objectness; then
              OWLv2 on the card under "mixed" against "float32" at B = 8, and
              SPOTTER_TPU_OWL_FUSED=0 (the unfused head) against auto;
-11. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
+14. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
              "float32" and "mixed", plus requests with their own query set:
              owl_class_logits must launch once and flash_attn_fp32 (resp.
              _bf16) 12 times per forward, and no other kernel; p50/p99,
              img/s, device ms per forward, host preprocess ms (the float
              pad-to-square warp) and detections per image;
-12. owl_http — the standalone server with OWLv2 answering POST /detect for 1
+15. owl_http — the standalone server with OWLv2 answering POST /detect for 1
              and 8 URLs under the default vocabulary and for 8 URLs with
              `queries`, with the same count check; the labels of a queries
              request must all be among its queries.
@@ -68,9 +90,9 @@ csrc/attention.cu (flash attention, fp32 and bf16) and csrc/class_logits.cu
 The OWL families read their prompts' token ids from a tokenization cache;
 the script writes one for its prompts under a temporary
 SPOTTER_TPU_CACHE, with CLIP-shaped ids drawn from --seed (the weights are
-random, so only the ids' shape matters). Every RT-DETR path must launch
-neither attention kernel, and no RT-DETR or YOLOS path the class-logit
-kernel. Then a
+random, so only the ids' shape matters). Every RT-DETR and Deformable-DETR
+path must launch neither attention kernel, and no RT-DETR, YOLOS or
+Deformable-DETR path the class-logit kernel. Then a
 `{"kernels": [...]}` summary line, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`. Any failure raises and the exit
 code is non-zero. Needs one CUDA card and the repository checkout around
@@ -78,6 +100,7 @@ this file; exits non-zero without either.
 
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http,
                                             yolos_parity,yolos_serve,yolos_http,
+                                            ddetr_parity,ddetr_serve,ddetr_http,
                                             owl_parity,owl_serve,owl_http]
 
 The full record is also written to build/chip_smoke.json (or --out).
@@ -100,7 +123,8 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
-          "yolos_serve", "yolos_http", "owl_parity", "owl_serve", "owl_http")
+          "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
+          "owl_parity", "owl_serve", "owl_http")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
@@ -241,12 +265,13 @@ def phase_device(log: list) -> dict:
 
 
 def phase_build(log: list) -> dict:
-    """The three kernel libraries, one nvcc each, started together."""
+    """The four kernel libraries, one nvcc each, started together."""
     from spotter_tpu_torch.ops.attention import build_attention_kernel
-    from spotter_tpu_torch.ops.msda import build_msda_kernel
+    from spotter_tpu_torch.ops.msda import build_msda_backends_kernel, build_msda_kernel
     from spotter_tpu_torch.ops.openvocab import build_class_logits_kernel
 
-    builds = (build_msda_kernel, build_attention_kernel, build_class_logits_kernel)
+    builds = (build_msda_kernel, build_msda_backends_kernel, build_attention_kernel,
+              build_class_logits_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(build) for build in builds]
@@ -459,6 +484,245 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
 
 KERNEL_CASES = (msda_case, loc_case, fused_case)
 
+# Deformable-DETR at the JAX package's static DETR bucket, 1333x1333: ResNet-50
+# at strides 8/16/32 plus the extra stride-64 level, 37,150 tokens; 8 heads of
+# 32, 4 points a level, 300 decoder queries
+DDETR_SHAPES = ((167, 167), (84, 84), (42, 42), (21, 21))
+DDETR_TOKENS = sum(h * w for h, w in DDETR_SHAPES)
+# (label, level shapes, queries, levels run, encoder-like sampling): the
+# RT-DETR decoder, the Deformable-DETR encoder (its densest level alone, and
+# all four as the op runs them) and decoder
+MSDA_OP_SHAPES = {
+    "rtdetr_decoder": (SHAPES, QUERIES, (0, 1, 2), False),
+    "ddetr_encoder_level0": (DDETR_SHAPES, DDETR_TOKENS, (0,), True),
+    "ddetr_encoder": (DDETR_SHAPES, DDETR_TOKENS, (0, 1, 2, 3), True),
+    "ddetr_decoder": (DDETR_SHAPES, QUERIES, (0, 1, 2, 3), False),
+}
+
+
+def msda_samples(b: int, q: int, shapes, seed: int, dev, encoder: bool):
+    """One MSDA op's sample points (B, Q, H, LP, 2) and softmaxed attention
+    (B, Q, H, LP): each query samples around its reference point, in the
+    encoder its own token's cell centre (tokens level-major, row-major), in
+    the decoder a random point, with offsets N(0, 0.02^2) (encoder) or
+    N(0, 0.05^2) (decoder), so a few land outside [0, 1]."""
+    import torch
+
+    from spotter_tpu_torch.models.deformable_detr import encoder_reference_base
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lp = len(shapes) * POINTS
+    if encoder:
+        ref = torch.from_numpy(encoder_reference_base(shapes)).to(dev)[None, :, None, None, :]
+        sigma = 0.02
+    else:
+        ref = torch.rand((b, q, 1, 1, 2), generator=gen, device=dev) * 0.9 + 0.05
+        sigma = 0.05
+    loc = ref + sigma * torch.randn((b, q, HEADS, lp, 2), generator=gen, device=dev)
+    attn = torch.softmax(torch.randn((b, q, HEADS, lp), generator=gen, device=dev), dim=-1)
+    return loc, attn
+
+
+def msda_value(b: int, s: int, rows_dtype, seed: int, dev):
+    """(B, S, H, hd) standard-normal value maps in `rows_dtype`."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return torch.randn((b, s, HEADS, HD), generator=gen, device=dev).to(rows_dtype)
+
+
+def touched_count(flat, valid, size: int) -> int:
+    """Distinct entries of `flat` (indices into a table of `size`) where `valid`."""
+    import torch
+
+    hit = torch.zeros(size, dtype=torch.bool, device=flat.device)
+    hit[flat[valid]] = True
+    return int(hit.sum().item())
+
+
+def sep_work(ops, mask, hw, r_band) -> tuple[int, int]:
+    """(terms, value rows) this level's operands need: corners with a
+    non-zero weight inside the level and inside a band whose bit is set, and
+    the distinct (b*h, row) they read."""
+    import torch
+
+    lh, lw = hw
+    bh, n_qt, n_bands = mask.shape
+    xi, xw0, xw1, yi, yw0, yw1 = (o.reshape(bh, n_qt, -1) for o in ops)
+    band_on = mask.ne(0)
+    base = torch.arange(bh, device=mask.device).view(bh, 1, 1) * (lh * lw)
+    terms, flats, valids = 0, [], []
+    for dy, yw in ((0, yw0), (1, yw1)):
+        y = yi.long() + dy
+        band = torch.div(y, r_band, rounding_mode="floor").clamp(0, n_bands - 1)
+        row_on = (y >= 0) & (y < lh) & (yw != 0) & torch.gather(band_on, 2, band)
+        for dx, xw in ((0, xw0), (1, xw1)):
+            x = xi.long() + dx
+            valid = row_on & (x >= 0) & (x < lw) & (xw != 0)
+            terms += int(valid.sum().item())
+            flats.append(base + y.clamp(0, lh - 1) * lw + x.clamp(0, lw - 1))
+            valids.append(valid)
+    rows = touched_count(torch.stack(flats), torch.stack(valids), bh * lh * lw)
+    return terms, rows
+
+
+def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
+             cleared: bool = False, device: str = "cuda") -> dict:
+    """msda_sep_sum against its plain version on one MSDA op's levels, each
+    level's operands built as the model builds them; `cleared` clears half
+    the hit table's bits at random (the kernel must drop exactly those
+    bands, as its plain version does)."""
+    import torch
+
+    from spotter_tpu_torch.ops.msda import (
+        level_offsets,
+        msda_sep_reference,
+        msda_sep_sum,
+        sep_level_operands,
+    )
+
+    shapes, q, levels, encoder = MSDA_OP_SHAPES[label]
+    dev = torch.device(device)
+    s = sum(h * w for h, w in shapes)
+    loc, attn = msda_samples(b, q, shapes, seed, dev, encoder)
+    value = msda_value(b, s, rows_dtype, seed, dev)
+    rows_all = value.permute(0, 2, 1, 3).reshape(b * HEADS, s, HD)
+    offs = level_offsets(shapes)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    calls, full_masks = [], []
+    for lvl in levels:
+        lh, lw = shapes[lvl]
+        pts = slice(lvl * POINTS, (lvl + 1) * POINTS)
+        ops, mask, r_band = sep_level_operands(loc[:, :, :, pts], attn[:, :, :, pts], lh, lw,
+                                               method)
+        full_masks.append(mask)
+        if cleared:
+            mask = mask * (torch.rand(mask.shape, generator=gen, device=dev) < 0.5).to(mask.dtype)
+        rows_l = rows_all[:, offs[lvl]:offs[lvl] + lh * lw].contiguous()
+        calls.append((rows_l, *ops, mask, (lh, lw), r_band, POINTS))
+    del loc, attn, value, rows_all
+
+    err, dropped = 0.0, 0.0
+    for args, full in zip(calls, full_masks):
+        got = msda_sep_sum(*args)
+        want = msda_sep_reference(*args)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        if cleared:  # what the cleared bits took away: zero would test nothing
+            unmasked = msda_sep_reference(*args[:7], full, *args[8:])
+            dropped = max(dropped, (unmasked - want).abs().max().item())
+        del got, want
+    check_err(f"msda_sep_sum ({label})", err)
+    if cleared and not dropped > KERNEL_ATOL:
+        raise AssertionError(f"msda_sep_sum ({label}): clearing hit-table bits changed nothing")
+    nbytes, terms = 0, 0
+    for args in calls:
+        rows_l, ops, mask = args[0], args[1:7], args[7]
+        t, rows = sep_work(ops, mask, args[8], args[9])
+        terms += t
+        nbytes += (sum(o.numel() * 4 for o in ops) + mask.numel() * 4
+                   + rows * HD * rows_l.element_size()
+                   + b * HEADS * mask.shape[1] * 64 * HD * 4)
+    flops = 3 * terms * HD  # x-weight product, y-weight FMA
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    big = label.startswith("ddetr_encoder")
+    rec = {
+        "phase": "kernel", "kernel": "msda_sep_sum", "case": label, "batch": b,
+        "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
+        "cleared_mask_bits": cleared,
+        "shape": {"bh": b * HEADS, "levels": [shapes[i] for i in levels], "hd": HD, "q": q,
+                  "points": POINTS, "launches_per_op": len(levels)},
+        "max_abs_err": err, "atol": KERNEL_ATOL,
+        "cleared_bits_change_max": dropped if cleared else None,
+        "kernel_ms": cuda_time_ms(lambda: [msda_sep_sum(*a) for a in calls], 10 if big else 30,
+                                  flush),
+        "plain_ms": cuda_time_ms(lambda: [msda_sep_reference(*a) for a in calls], 3 if big else 10,
+                                 flush),
+        "library_ms": None,  # no one PyTorch call computes this function
+        "terms": terms, "bytes": nbytes, "flops": flops,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_us": max(bytes_ms, ops_ms) * 1e3,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    del calls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
+                   device: str = "cuda") -> dict:
+    """msda_hd_gather_sum against its plain version on one MSDA op, in the
+    lane layout: vt (B, H, hd, S), idx/w (B, H, 4, LP*Q)."""
+    import torch
+
+    from spotter_tpu_torch.ops.msda import (
+        msda_hd_gather_reference,
+        msda_hd_gather_sum,
+        prepare_msda_gather_lanes,
+    )
+
+    shapes, q, _, encoder = MSDA_OP_SHAPES[label]
+    dev = torch.device(device)
+    s = sum(h * w for h, w in shapes)
+    lp = len(shapes) * POINTS
+    loc, attn = msda_samples(b, q, shapes, seed, dev, encoder)
+    idx, w = prepare_msda_gather_lanes(loc, attn, shapes, POINTS, method)
+    vt = msda_value(b, s, rows_dtype, seed, dev).permute(0, 2, 3, 1).contiguous()
+    del loc, attn
+    got = msda_hd_gather_sum(vt, idx, w, lp, q)
+    want = msda_hd_gather_reference(vt, idx, w, lp, q)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    # fp32: KERNEL_ATOL. bf16 sums in bf16 on both sides, in one order: one
+    # bf16 ulp of the largest output allows for a rounding on either side of a tie
+    atol = KERNEL_ATOL if rows_dtype == torch.float32 else 2.0**-7 * want.float().abs().max().item()
+    del want
+    if not err <= atol:
+        raise AssertionError(f"msda_hd_gather_sum ({label}) vs plain: max abs err {err} > {atol}")
+    live = w != 0
+    terms = int(live.sum().item())
+    bh_base = torch.arange(b * HEADS, device=dev).view(b, HEADS, 1, 1) * s
+    touched = touched_count(idx.long() + bh_base, live, b * HEADS * s)
+    nbytes = (idx.numel() + w.numel()) * 4 + (touched * HD + got.numel()) * vt.element_size()
+    flops = 2 * terms * HD
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    big = label.startswith("ddetr_encoder")
+    rec = {
+        "phase": "kernel", "kernel": "msda_hd_gather_sum", "case": label, "batch": b,
+        "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
+        "shape": {"b": b, "h": HEADS, "hd": HD, "s": s, "q": q, "lp": lp},
+        "max_abs_err": err, "atol": atol,
+        "kernel_ms": cuda_time_ms(lambda: msda_hd_gather_sum(vt, idx, w, lp, q),
+                                  10 if big else 30, flush),
+        "plain_ms": cuda_time_ms(lambda: msda_hd_gather_reference(vt, idx, w, lp, q),
+                                 3 if big else 10, flush),
+        "library_ms": None,  # no one PyTorch call computes this function in this layout
+        "terms": terms, "value_elements_touched": touched * HD, "bytes": nbytes, "flops": flops,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_us": max(bytes_ms, ops_ms) * 1e3,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    del vt, idx, w, got, live
+    torch.cuda.empty_cache()
+    return rec
+
+
+# (kernel case, label, rows dtype, method, cleared hit-table bits)
+def backend_cases():
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for label in MSDA_OP_SHAPES:
+        for method in ("default", "discrete"):
+            cases.append((sep_case, label, f32, method, False))
+            if label != "ddetr_encoder_level0":
+                cases.append((hd_gather_case, label, f32, method, False))
+    cases += [(sep_case, "ddetr_encoder", f32, m, True) for m in ("default", "discrete")]
+    cases += [(sep_case, "rtdetr_decoder", bf16, "default", False),
+              (hd_gather_case, "rtdetr_decoder", bf16, "default", False)]
+    return cases
+
 # (B, S, H, hd): yolos-base (S = 1 + 50*84 + 100 = 4301, 12 heads of 64) at
 # B = 1 and 8; a sequence just past the cutover that is a multiple of no
 # tile (1100); hd = 128 at the JAX splash test's shape and at yolos-base width
@@ -594,7 +858,8 @@ def kernel_counters():
     from spotter_tpu_torch.ops import attention, msda, openvocab
 
     return {"msda_gather_sum": msda.msda_gather_sum, "msda_loc_sum": msda.msda_loc_sum,
-            "msda_fused_sum": msda.msda_fused_sum,
+            "msda_fused_sum": msda.msda_fused_sum, "msda_sep_sum": msda.msda_sep_sum,
+            "msda_hd_gather_sum": msda.msda_hd_gather_sum,
             "flash_attn_fp32": attention.flash_attn_fp32,
             "flash_attn_bf16": attention.flash_attn_bf16,
             "owl_class_logits": openvocab.owl_class_logits}
@@ -623,6 +888,11 @@ def phase_kernel(log: list, seed: int) -> list:
                     rec = case(b, rows_dtype, method, seed, flush)
                     emit(rec, log)
                     cases.append(rec)
+    for case, label, rows_dtype, method, cleared in backend_cases():
+        kw = {"cleared": cleared} if case is sep_case else {}
+        rec = case(label, 8, rows_dtype, method, seed, flush, **kw)
+        emit(rec, log)
+        cases.append(rec)
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ATTN_SHAPES:
             rec = attention_case(dtype, shape, seed, flush)
@@ -678,6 +948,13 @@ def check_parity(rec: dict, what: str) -> None:
 
 # the MSDA kernel each SPOTTER_TPU_MSDA_PREP setting runs
 PREP_KERNEL = {"xla": "msda_gather_sum", "kernel": "msda_loc_sum", "fused": "msda_fused_sum"}
+# the kernel each opt-in SPOTTER_TPU_MSDA backend runs, whatever the prep
+BACKEND_KERNEL = {"pallas_sep": "msda_sep_sum", "pallas_gather": "msda_hd_gather_sum"}
+
+
+def backend_launches(backend: str, levels: int) -> int:
+    """Launches per MSDA op: the separable kernel runs once per level."""
+    return levels if backend == "pallas_sep" else 1
 
 
 def phase_parity(log: list, seed: int, built, device: str = "cuda") -> list:
@@ -729,6 +1006,31 @@ def phase_parity(log: list, seed: int, built, device: str = "cuda") -> list:
             check_parity(rec, f"card vs CPU under {prep}")
             check_launches(card_launches, PREP_KERNEL[prep], layers,
                            f"RT-DETR card forward under {prep}")
+        msda.MSDA_PREP = "xla"
+        levels = built.module.config.num_feature_levels
+        for backend, name in BACKEND_KERNEL.items():
+            msda.MSDA_BACKEND = backend
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                ref = cpu_model(x)
+                cpu_s = time.perf_counter() - t0
+                reset_counts()
+                got = gpu_model(x.to(device))
+                torch.cuda.synchronize()
+            card_launches = read_counts()
+            rec = {
+                "phase": "parity", "model": MODEL_NAME, "msda_backend": backend, "batch": 1,
+                "compare": "card vs cpu (both under the backend)",
+                **parity_record(ref, got, 1),
+                "atol_logits": PARITY_ATOL_LOGITS, "atol_boxes": PARITY_ATOL_BOXES,
+                "cpu_forward_s": cpu_s, "card_launches": card_launches,
+            }
+            emit(rec, log)
+            records.append(rec)
+            check_parity(rec, f"card vs CPU under SPOTTER_TPU_MSDA={backend}")
+            check_launches(card_launches, name, layers * backend_launches(backend, levels),
+                           f"RT-DETR card forward under {backend}")
+        msda.MSDA_BACKEND = "auto"
         outs, launches = {}, {}
         for prep in ("xla", "fused"):
             msda.MSDA_PREP = prep
@@ -748,6 +1050,7 @@ def phase_parity(log: list, seed: int, built, device: str = "cuda") -> list:
         check_parity(rec, "card fused vs card xla at B = 8")
     finally:
         msda.MSDA_PREP = "xla"
+        msda.MSDA_BACKEND = "auto"
         del gpu_model, cpu_model
     return records
 
@@ -1223,6 +1526,230 @@ def phase_yolos_http(log: list, seed: int, device: str = "cuda") -> dict:
     return rec
 
 
+# --- Deformable-DETR ----------------------------------------------------------
+
+DDETR_NAME = "SenseTime/deformable-detr"
+# the kernel each SPOTTER_TPU_MSDA backend runs in both the encoder and the
+# decoder ("xla": the gather-sum, under the default prep)
+DDETR_BACKENDS = {"xla": "msda_gather_sum", **BACKEND_KERNEL}
+
+
+def ddetr_expected(model, backend: str, forwards: int) -> dict:
+    """Each kernel's launches over `forwards` Deformable-DETR forwards: one
+    MSDA op per encoder and decoder layer (the separable kernel once per
+    level of each), and no attention or class-logit kernel (the decoder's
+    300-query self-attention is below the attention cutover)."""
+    cfg = model.config
+    ops = cfg.encoder_layers + cfg.decoder_layers
+    per_op = backend_launches(backend, cfg.num_feature_levels)
+    return {DDETR_BACKENDS[backend]: ops * per_op * forwards}
+
+
+def ddetr_inputs(spec, photos, device=None):
+    """Photos through the shortest-edge staging into the 1333x1333 bucket:
+    (normalized NHWC pixels with the pad at exactly 0, pixel mask, valid
+    (h, w), original sizes), on `device` (the CPU by default)."""
+    import torch
+
+    from spotter_tpu_torch.ops.preprocess import (
+        batch_images_uint8,
+        device_rescale_normalize_masked,
+    )
+
+    pixels, valid, sizes = batch_images_uint8(photos, spec)
+    x, mask = device_rescale_normalize_masked(
+        torch.from_numpy(pixels).to(device or "cpu"), torch.from_numpy(valid).to(device or "cpu"),
+        spec)
+    return x, mask, valid, sizes
+
+
+def phase_ddetr_parity(log: list, seed: int, device: str = "cuda") -> list:
+    """SenseTime/deformable-detr at full width, B = 1, a landscape listing
+    photo staged into the 1333x1333 bucket (so the pixel mask, the valid
+    ratios and the masked value tokens are the served path's): the card
+    under xla, pallas_sep and pallas_gather, each against the CPU under xla
+    (every backend computes the same function; the CPU sep plain version at
+    this size is the slow part)."""
+    import copy
+
+    import torch
+
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.utils.precision import use_exact_float32
+
+    use_exact_float32()
+    built = build_detector(DDETR_NAME, tiny=False, seed=seed)
+    rng = np.random.default_rng(seed + 11)
+    x, mask, valid, _ = ddetr_inputs(built.preprocess_spec, [synthetic_photo(rng, 720, 960)])
+    cpu_model = built.module.eval()
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    records = []
+    try:
+        msda.MSDA_BACKEND = "xla"
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = cpu_model(x, mask)
+            cpu_s = time.perf_counter() - t0
+        for backend in DDETR_BACKENDS:
+            msda.MSDA_BACKEND = backend
+            with torch.inference_mode():
+                reset_counts()
+                got = gpu_model(x.to(device), mask.to(device))
+                torch.cuda.synchronize()
+            launches = read_counts()
+            for key in ("logits", "pred_boxes"):
+                if not torch.isfinite(got[key]).all():
+                    raise AssertionError(f"non-finite {key} on the card under {backend}")
+            rec = {
+                "phase": "ddetr_parity", "model": DDETR_NAME, "msda_backend": backend,
+                "batch": 1, "compare": "card vs cpu (xla)", "bucket": list(x.shape[1:3]),
+                "valid_hw": valid[0].tolist(), "mask_valid_share": mask.mean().item(),
+                "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+                "logits_max_abs_err": (got["logits"].cpu() - ref["logits"]).abs().max().item(),
+                "boxes_max_abs_err":
+                    (got["pred_boxes"].cpu() - ref["pred_boxes"]).abs().max().item(),
+                "atol_logits": PARITY_ATOL_LOGITS, "atol_boxes": PARITY_ATOL_BOXES,
+                "logits_abs_max": ref["logits"].abs().max().item(),
+                "cpu_forward_s": cpu_s, "card_launches": launches,
+            }
+            emit(rec, log)
+            records.append(rec)
+            check_counts(launches, ddetr_expected(gpu_model, backend, 1),
+                         f"Deformable-DETR card forward under {backend}")
+            if not (rec["logits_max_abs_err"] <= PARITY_ATOL_LOGITS
+                    and rec["boxes_max_abs_err"] <= PARITY_ATOL_BOXES):
+                raise AssertionError(f"Deformable-DETR card vs CPU outside tolerance: {rec}")
+    finally:
+        msda.MSDA_BACKEND = "auto"
+        del gpu_model, cpu_model, built
+        release_cuda_memory()
+    return records
+
+
+def phase_ddetr_serve(log: list, seed: int, device: str = "cuda") -> dict:
+    """SenseTime/deformable-detr through InferenceEngine.detect and the
+    response assembly: requests of 1 and 8 listing photos under xla,
+    pallas_sep and pallas_gather. Each backend's counts are set to 0 just
+    before its requests and read just after; then the device ms per forward
+    at B = 1 and 8 and the host resize of 8 photos."""
+    import torch
+
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.ops.preprocess import batch_images_uint8
+    from spotter_tpu_torch.serving.detector import assemble_response
+
+    rng = np.random.default_rng(seed + 12)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    requests = [photos[:1]] * 3 + [photos[:8]] * 3
+    built = build_detector(DDETR_NAME, tiny=False, seed=seed)
+    engine = InferenceEngine(built, device=device)
+    t0 = time.perf_counter()
+    engine.warmup()
+    rec = {"phase": "ddetr_serve", "model": DDETR_NAME, "device": device,
+           "warmup_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pixels, valid, sizes = batch_images_uint8(photos[:8], built.preprocess_spec)
+    rec["batch8_host_resize_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["valid_hw"] = valid.tolist()
+    px, vd, sz = (torch.from_numpy(a).to(device) for a in (pixels, valid, sizes))
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    try:
+        for backend in DDETR_BACKENDS:
+            msda.MSDA_BACKEND = backend
+            reset_counts()  # count only this backend's requests from here
+            latencies, forwards = {1: [], 8: []}, 0
+            for reqn, images in enumerate(requests):
+                urls = [f"synthetic://{reqn}/{i}" for i in range(len(images))]
+                t0 = time.perf_counter()
+                raw = engine.detect(images)
+                resp = assemble_response(urls, raw)
+                latencies[len(images)].append(time.perf_counter() - t0)
+                forwards += -(-len(images) // engine.batch_buckets[-1])
+                check_response(resp, raw, len(images))
+            counts = read_counts()
+            check_counts(counts, ddetr_expected(built.module, backend, forwards),
+                         f"Deformable-DETR engine path under {backend}")
+            with torch.inference_mode():
+                device_ms = {b: cuda_time_ms(
+                    lambda b=b: engine._forward(px[:b], sz[:b], valid=vd[:b]), 5, flush)
+                    for b in (1, 8)}
+            rec[backend] = {
+                "forwards": forwards, "launches": counts,
+                "launches_per_forward": {k: v / forwards for k, v in counts.items() if v},
+                "latency_ms": {n: {"p50": statistics.median(v) * 1e3,
+                                   "p99": percentile(v, 0.99) * 1e3, "n": len(v)}
+                               for n, v in latencies.items()},
+                "img_per_s_8": 8 / statistics.median(latencies[8]),
+                "device_forward_ms": device_ms,
+                "detections_per_image": [len(d) for d in raw],
+            }
+        # the default backend with the corner prep in the loc kernel: the
+        # plain-torch prep is most of the encoder's MSDA time under xla
+        msda.MSDA_BACKEND, msda.MSDA_PREP = "xla", "kernel"
+        with torch.inference_mode():
+            rec["device_forward_ms_xla_prep_kernel"] = {b: cuda_time_ms(
+                lambda b=b: engine._forward(px[:b], sz[:b], valid=vd[:b]), 5, flush)
+                for b in (1, 8)}
+    finally:
+        msda.MSDA_BACKEND, msda.MSDA_PREP = "auto", "xla"
+    emit(rec, log)
+    del engine, built, px, vd, sz
+    release_cuda_memory()
+    return rec
+
+
+def phase_ddetr_http(log: list, seed: int, device: str = "cuda") -> dict:
+    """SenseTime/deformable-detr behind the port's standalone server:
+    requests of 1 and 8 URLs under xla, pallas_sep and pallas_gather; each
+    run's counts are set to 0 just before it and read just after."""
+    import asyncio
+
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.serving.app import build_detector_app
+
+    rng = np.random.default_rng(seed + 13)
+    t0 = time.perf_counter()
+    det = build_detector_app(DDETR_NAME, device=device, seed=seed, warmup=True)
+    bringup_s = time.perf_counter() - t0
+    model = det.engine.built.module
+
+    def backend(name: str):
+        return lambda: setattr(msda, "MSDA_BACKEND", name)
+
+    runs = [(name, backend(name), [("1", 1, 3, 1), ("8", 8, 3, 1)]) for name in DDETR_BACKENDS]
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        try:
+            out = asyncio.run(drive_http(det, photo_dir, runs))
+        finally:
+            msda.MSDA_BACKEND = "auto"
+    lat = out["latency_ms"]
+    rec = {
+        "phase": "ddetr_http", "model": DDETR_NAME, "device": device, "bringup_s": bringup_s,
+        "healthz": out["healthz"], "latency_ms": latency_summary(lat),
+        "img_per_s_8_urls": {name: 8e3 / statistics.median(lat[f"{name}:8"])
+                             for name in DDETR_BACKENDS},
+        "fetch_decode_8_ms": out["fetch_decode_8_ms"],
+        "engine_stage_ms": {k: v for k, v in out["metrics"].items() if k.startswith("stage_")},
+        "mean_batch_size": out["metrics"]["mean_batch_size"],
+        **{name: out[name] for name in DDETR_BACKENDS},
+    }
+    emit(rec, log)
+    del det
+    release_cuda_memory()
+    if out["healthz"] != 200:
+        raise AssertionError(f"/healthz answered {out['healthz']}")
+    for name in DDETR_BACKENDS:
+        check_counts(out[name]["launches"],
+                     ddetr_expected(model, name, out[name]["forwards"]),
+                     f"Deformable-DETR /detect under {name}")
+    return rec
+
+
 # --- OWLv2 and OWL-ViT ------------------------------------------------------
 
 CLIP_BOS, CLIP_EOT = 49406, 49407  # CLIP's begin- and end-of-text ids, its two largest
@@ -1602,6 +2129,8 @@ REPLACES = {
     "msda_gather_sum": "spotter_tpu/ops/msda.py:906",
     "msda_loc_sum": "spotter_tpu/ops/msda.py:1162",
     "msda_fused_sum": "spotter_tpu/ops/msda.py:1368",
+    "msda_sep_sum": "spotter_tpu/ops/msda.py:585",
+    "msda_hd_gather_sum": "spotter_tpu/ops/msda.py:295",
     "flash_attn_fp32": "spotter_tpu/models/layers.py:126",
     "flash_attn_bf16": "spotter_tpu/models/layers.py:185",
     "owl_class_logits": "spotter_tpu/ops/openvocab.py:87",
@@ -1610,6 +2139,7 @@ SOURCES = {name: "spotter_tpu_torch/csrc/msda.cu" for name in REPLACES if name.s
 SOURCES.update({name: "spotter_tpu_torch/csrc/attention.cu"
                 for name in REPLACES if name.startswith("flash")})
 SOURCES["owl_class_logits"] = "spotter_tpu_torch/csrc/class_logits.cu"
+SOURCES.update({name: "spotter_tpu_torch/csrc/msda_backends.cu" for name in BACKEND_KERNEL.values()})
 
 
 def is_main_case(c: dict) -> bool:
@@ -1624,6 +2154,9 @@ def is_main_case(c: dict) -> bool:
     if c["kernel"].startswith("flash"):
         shape = c["shape"]
         return (shape["b"], shape["s"], shape["h"], shape["hd"]) == ATTN_MAIN_SHAPE
+    if c["kernel"] in BACKEND_KERNEL.values():  # the Deformable-DETR encoder's op
+        return (c["case"] == "ddetr_encoder" and c["rows_dtype"] == "float32"
+                and c["method"] == "default" and not c.get("cleared_mask_bits"))
     return c["batch"] == 8 and c["rows_dtype"] == "float32" and c["method"] == "default"
 
 
@@ -1662,7 +2195,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if not all((REPO / "spotter_tpu_torch" / "csrc" / src).exists()
-               for src in ("msda.cu", "attention.cu", "class_logits.cu")):
+               for src in ("msda.cu", "msda_backends.cu", "attention.cu", "class_logits.cu")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -1687,6 +2220,11 @@ def main(argv=None) -> int:
     if "yolos_serve" in phases:
         phase_yolos_serve(log, args.seed)
     yolos_http = phase_yolos_http(log, args.seed) if "yolos_http" in phases else None
+    if "ddetr_parity" in phases:
+        phase_ddetr_parity(log, args.seed)
+    if "ddetr_serve" in phases:
+        phase_ddetr_serve(log, args.seed)
+    ddetr_http = phase_ddetr_http(log, args.seed) if "ddetr_http" in phases else None
     owl_http = None
     if set(OWL_PHASES) & set(phases):
         # the OWL prompts' token ids, in a cache of this run's own
@@ -1722,6 +2260,9 @@ def main(argv=None) -> int:
             launches[name] = yolos_http[policy]["launches"][name]
     if owl_http:
         launches["owl_class_logits"] = owl_http["default"]["launches"]["owl_class_logits"]
+    if ddetr_http:
+        for backend, name in BACKEND_KERNEL.items():
+            launches[name] = ddetr_http[backend]["launches"][name]
 
     if cases:
         summary = kernel_summary(cases, launches)

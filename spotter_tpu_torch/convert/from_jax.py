@@ -7,15 +7,17 @@ rename of the leaf plus a fixed layout change:
 
 - conv `kernel` HWIO (4-D) -> `weight` OIHW;
 - dense `kernel` (in, out) (2-D) -> `weight` (out, in);
-- LayerNorm `scale` -> `weight`;
+- LayerNorm and GroupNorm `scale` -> `weight`;
 - FrozenBatchNorm `scale`/`bias`/`mean`/`var` -> buffers `weight`/`bias`/
   `running_mean`/`running_var`;
 - any other leaf (RT-DETR's `query_embed`; the OWL towers' token and
-  position tables and `class_embedding`) keeps its name and layout.
+  position tables and `class_embedding`; Deformable-DETR's `level_embed`
+  and `query_embeddings`) keeps its name and layout.
 
 Shared modules stay shared: RT-DETR's `query_pos_head` is one module used
-by every decoder layer, on both sides. Any key the port does not have, and
-any port key the params do not supply, raises.
+by every decoder layer, and Deformable-DETR's `class_head`/`bbox_head`
+(without box refinement) one pair for every layer, on both sides. Any key
+the port does not have, and any port key the params do not supply, raises.
 """
 
 from typing import Mapping

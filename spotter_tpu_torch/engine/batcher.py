@@ -39,6 +39,7 @@ from spotter_tpu_torch.engine.errors import (
     PoisonImageError,
     TransientEngineError,
 )
+from spotter_tpu_torch.engine.engine import RAGGED_SHORTEST_EDGE_ERROR
 from spotter_tpu_torch.engine.scheduler import QueueItem, Scheduler
 from spotter_tpu_torch.serving.overload import (
     BULK,
@@ -135,6 +136,8 @@ class MicroBatcher:
         # stop() account for it; under FIFO it holds between plans only the
         # items of query groups the last plan left pending
         self.scheduler = scheduler or Scheduler.from_env()
+        if self.scheduler.ragged and engine.built.preprocess_spec.mode == "shortest_edge":
+            raise ValueError(RAGGED_SHORTEST_EDGE_ERROR)
         self._sched_buf: list[QueueItem] = []
         self._fatal_fired = False
         self._queue: asyncio.Queue = asyncio.Queue(

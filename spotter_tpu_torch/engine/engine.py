@@ -7,8 +7,13 @@ runs every bucket once ahead of traffic, the device returns fixed-k
 (scores, labels, boxes) and the host thresholds them. It takes decoded
 uint8 HWC images (numpy); the host resizes them to the spec and stacks
 them, the device rescales, runs the model and the family's postprocess
-(sigmoid top-k for RT-DETR, per-query softmax for YOLOS, per-patch
-sigmoid max for OWL-ViT).
+(sigmoid top-k for RT-DETR and Deformable-DETR, per-query softmax for
+YOLOS, per-patch sigmoid max for OWL-ViT). A model that takes a pixel mask
+(`needs_mask`: Deformable-DETR's shortest-edge spec stages each photo at the
+top left of a 1333x1333 bucket) gets it from each image's valid extent,
+built on the device with the rescale; padded batch rows are zero pixels
+with a mask of ones, as in the JAX engine; boxes are scaled to each
+photo's own size.
 
 Open-vocabulary families (OWL-ViT, OWLv2) bring a build-time query bank,
 which the engine keeps on its device and passes to every forward, and a
@@ -60,10 +65,17 @@ from spotter_tpu_torch.ops.preprocess import (
     batch_images_uint8,
     device_preprocess_supported,
     device_rescale_normalize,
+    device_rescale_normalize_masked,
 )
 from spotter_tpu_torch.utils.precision import use_exact_float32
 
 POSTPROCESS_KINDS = ("sigmoid_topk", "softmax", "sigmoid_max")  # RT-DETR; DETR/YOLOS; OWL-ViT
+# ragged canvas packing (the JAX scheduler's smaller canvases for
+# shortest-edge specs) is not ported
+RAGGED_SHORTEST_EDGE_ERROR = (
+    "ragged canvas packing for shortest_edge specs (SPOTTER_TPU_RAGGED=1 with the "
+    "DETR family) is not ported: ROADMAP Queue 1 item 6"
+)
 # query sets whose device copies the engine keeps, least recently used
 # dropped first (the text cache's default bound)
 QSET_DEVICE_ENTRIES = 256
@@ -103,6 +115,8 @@ class BuiltDetector:
     # numpy). Both None for closed-set families, which then refuse `qset`.
     query_embeds: Optional[torch.Tensor] = None
     text_encoder: Optional[Callable] = None
+    # the module takes (pixels, pixel_mask): the shortest-edge families
+    needs_mask: bool = False
 
 
 class InferenceEngine:
@@ -146,16 +160,27 @@ class InferenceEngine:
         pixels: torch.Tensor,
         target_sizes: torch.Tensor,
         queries: Optional[tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+        valid: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Device half: (B, H, W, 3) pixels (uint8, or the float path's
         normalized float32) + (B, 2) sizes -> fixed-k outputs. An
         open-vocabulary model runs against `queries` (embeddings, mask),
-        by default the build-time bank with no mask."""
-        if pixels.dtype == torch.uint8:
-            pixels = device_rescale_normalize(pixels, self.built.preprocess_spec)
-        if queries is None and self._query_embeds is not None:
-            queries = (self._query_embeds, None)
-        out = self.model(pixels) if queries is None else self.model(pixels, *queries)
+        by default the build-time bank with no mask. A model that needs a
+        pixel mask gets it from `valid` (B, 2), each image's (h, w) in the
+        bucket (None: the whole bucket)."""
+        spec = self.built.preprocess_spec
+        if self.built.needs_mask:
+            if valid is None:
+                valid = torch.tensor([spec.input_hw], dtype=torch.int32,
+                                     device=pixels.device).expand(pixels.shape[0], 2)
+            pixels, mask = device_rescale_normalize_masked(pixels, valid, spec)
+            out = self.model(pixels, mask)
+        else:
+            if pixels.dtype == torch.uint8:
+                pixels = device_rescale_normalize(pixels, spec)
+            if queries is None and self._query_embeds is not None:
+                queries = (self._query_embeds, None)
+            out = self.model(pixels) if queries is None else self.model(pixels, *queries)
         logits = out["logits"]
         if self.built.postprocess == "softmax":
             return softmax_postprocess(logits, out["pred_boxes"], target_sizes)
@@ -204,8 +229,10 @@ class InferenceEngine:
         (H, W, 3) arrays. Splits into chunks of the largest bucket, pads each
         chunk's batch to its bucket and drops the pad rows' results. Boxes
         are in each image's own pixel coordinates (OWLv2's: its padded
-        square's). `canvas_hw` is the ragged scheduler's canvas; the ported
-        families' fixed-size specs ignore it. `qset` (a
+        square's). `canvas_hw` is the ragged scheduler's canvas: fixed-size
+        specs ignore it, and a shortest-edge spec raises (the ragged canvas
+        packing is not ported; the JAX package would stage into a smaller
+        canvas and compute another result). `qset` (a
         `caching.text_cache.QuerySet`) runs an open-vocabulary model against
         that query set and labels from it; a closed-set family raises, as
         the JAX engine does.
@@ -215,7 +242,8 @@ class InferenceEngine:
                 f"{self.built.model_name} is a closed-set family: it has no "
                 f"text encoder, so per-request `queries` are unsupported"
             )
-        del canvas_hw  # fixed-size spec: the canvas is the static bucket
+        if canvas_hw is not None and self.built.preprocess_spec.mode == "shortest_edge":
+            raise ValueError(RAGGED_SHORTEST_EDGE_ERROR)
         arrays = [as_uint8_rgb(img) for img in images]
         max_b = self.batch_buckets[-1]
         results: list[list[dict]] = []
@@ -256,21 +284,28 @@ class InferenceEngine:
         n = len(chunk)
         spec = self.built.preprocess_spec
         if self.device_preprocess:
-            pixels, _, sizes = batch_images_uint8(chunk, spec)
+            pixels, valid, sizes = batch_images_uint8(chunk, spec)
         else:
             pixels, sizes = batch_images_float(chunk, spec)
+            valid = None
         bucket = self.bucket_for(n)
         if bucket > n:  # pad the batch to the static bucket size
             pad = bucket - n
             pixels = np.concatenate([pixels, np.zeros((pad, *pixels.shape[1:]), pixels.dtype)])
             sizes = np.concatenate([sizes, np.ones((pad, 2), np.float32)])
+            if valid is not None:  # pad rows: the whole bucket, a mask of ones
+                valid = np.concatenate([valid, np.tile(np.asarray([spec.input_hw], np.int32),
+                                                       (pad, 1))])
         t_host = time.monotonic()
         with self._device_lock:
             args = [torch.from_numpy(pixels).to(self.device),
                     torch.from_numpy(sizes).to(self.device)]
             if qset is not None:
                 args.append(self._qset_queries(qset))
-            outputs = self._forward(*args)
+            kwargs = {}
+            if self.built.needs_mask:
+                kwargs["valid"] = torch.from_numpy(valid).to(self.device)
+            outputs = self._forward(*args, **kwargs)
             scores, labels, boxes = (t.cpu().numpy() for t in outputs)
         t_dev = time.monotonic()
         # a query set's detections label from its own (sorted) queries

@@ -15,10 +15,13 @@ The leader's group goes first (the queue head under FIFO, the
 highest-priority item when slack-ordered); other groups stay pending and
 lead a later plan.
 
-What the JAX scheduler adds on top waits for the models that need it: the
-packing of mixed-size images into one canvas (only `shortest_edge` specs,
-the DETR family, have a variable valid region; RT-DETR's 640x640 canvas is
-fixed) and the tenants' fair-share ordering.
+What the JAX scheduler adds on top is not ported: the packing of
+mixed-size images into one smaller canvas (only `shortest_edge` specs, the
+DETR family, have a variable valid region; RT-DETR's 640x640 canvas is
+fixed) and the tenants' fair-share ordering. A batcher of a shortest-edge
+model under SPOTTER_TPU_RAGGED=1 raises (ROADMAP Queue 1 item 6): the JAX
+package would stage its images into smaller canvases, and so compute
+another result.
 """
 
 import os

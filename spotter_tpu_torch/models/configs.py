@@ -1,15 +1,15 @@
-"""Config dataclasses for the RT-DETR, YOLOS and OWL-ViT families (copy of
-spotter_tpu.models.configs).
+"""Config dataclasses for the RT-DETR, YOLOS, OWL-ViT and Deformable-DETR
+families (copy of spotter_tpu.models.configs).
 
 The port keeps its own copy rather than importing the JAX package's module:
-`ResNetConfig`, `RTDetrConfig` and their presets, `YolosConfig`, and the
-three OWL-ViT configs, unchanged, so a config built on one side means the
-same model on the other. `OWL_PRESETS` holds the published OWL-ViT and
-OWLv2 base widths by name (the JAX package reads them from a checkpoint's
-config).
+`ResNetConfig`, `RTDetrConfig` and their presets, `YolosConfig`, the three
+OWL-ViT configs and `DeformableDetrConfig`, unchanged, so a config built on
+one side means the same model on the other. `OWL_PRESETS` and
+`DEFORMABLE_DETR_PRESETS` hold the published widths by name (the JAX
+package reads them from a checkpoint's config).
 """
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 
 @dataclass(frozen=True)
@@ -269,5 +269,63 @@ OWL_PRESETS = {
     "owlvit-base-patch16": OwlViTConfig(vision=OwlViTVisionConfig(patch_size=16)),
     "owlv2-base-patch16": OwlViTConfig(
         vision=OwlViTVisionConfig(image_size=960, patch_size=16), objectness=True
+    ),
+}
+
+
+@dataclass(frozen=True)
+class DeformableDetrConfig:
+    """Deformable DETR (SenseTime/deformable-detr*): multiscale deformable
+    attention in both the encoder and the decoder, with the plain,
+    with-box-refine and two-stage variants. Mirrors HF DeformableDetrConfig;
+    the defaults are the published SenseTime/deformable-detr widths."""
+
+    backbone: ResNetConfig = field(
+        default_factory=lambda: ResNetConfig(style="v1", out_indices=(2, 3, 4))
+    )
+    num_labels: int = 91
+    d_model: int = 256
+    num_queries: int = 300
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    encoder_attention_heads: int = 8
+    decoder_attention_heads: int = 8
+    encoder_ffn_dim: int = 1024
+    decoder_ffn_dim: int = 1024
+    activation_function: str = "relu"
+    num_feature_levels: int = 4
+    encoder_n_points: int = 4
+    decoder_n_points: int = 4
+    with_box_refine: bool = False
+    two_stage: bool = False
+    two_stage_num_proposals: int = 300
+    positional_encoding_temperature: float = 10000.0
+    layer_norm_eps: float = 1e-5  # torch nn.LayerNorm/GroupNorm default
+    id2label: tuple[tuple[int, str], ...] = ()
+
+    @property
+    def id2label_dict(self) -> dict[int, str]:
+        return dict(self.id2label)
+
+    @property
+    def num_pred_heads(self) -> int:
+        # two-stage keeps one extra head pair for scoring encoder proposals
+        return self.decoder_layers + (1 if self.two_stage else 0)
+
+
+# the published SenseTime/deformable-detr* checkpoints' configs: ResNet-50 at
+# strides 8/16/32 plus one extra stride-64 level, 300 queries; the
+# single-scale model taps the stride-32 map alone (HF's timm backbone takes
+# out_indices (4,) when num_feature_levels is 1)
+_DEFORMABLE_DETR = DeformableDetrConfig()
+DEFORMABLE_DETR_PRESETS = {
+    "deformable-detr": _DEFORMABLE_DETR,
+    "deformable-detr-with-box-refine": replace(_DEFORMABLE_DETR, with_box_refine=True),
+    "deformable-detr-with-box-refine-two-stage": replace(
+        _DEFORMABLE_DETR, with_box_refine=True, two_stage=True
+    ),
+    "deformable-detr-single-scale": replace(
+        _DEFORMABLE_DETR, num_feature_levels=1,
+        backbone=ResNetConfig(style="v1", out_indices=(4,)),
     ),
 }

@@ -2,7 +2,7 @@
 
 Families register themselves; lookup is by substring of the HF repo name,
 so the same MODEL_NAME values keep working. The port registers the RT-DETR,
-YOLOS and OWL-ViT families so far (models/zoo.py).
+YOLOS, OWL-ViT and Deformable-DETR families so far (models/zoo.py).
 """
 
 from dataclasses import dataclass

@@ -1,9 +1,12 @@
-"""ResNet-D backbone (port of spotter_tpu.models.resnet, style "d").
+"""ResNet backbones (port of spotter_tpu.models.resnet): "d" and "v1".
 
-Matches RT-DETR's presnet: deep 3-conv stem, 3x3/2 max pool, and — the "D"
-trick — 2x2 ceil-mode average pooling in front of 1x1 projection shortcuts
-when downsampling. NCHW inside; frozen BN. The space-to-depth stem (off by
-default in the JAX package) is not ported.
+Style "d" matches RT-DETR's presnet: deep 3-conv stem, 3x3/2 max pool, and
+— the "D" trick — 2x2 ceil-mode average pooling in front of 1x1 projection
+shortcuts when downsampling. Style "v1" is the classic ResNet of the DETR
+family (HF ResNetBackbone / timm resnet): a single 7x7 stride-2 stem, the
+same max pool, and strided 1x1 projection shortcuts. NCHW inside; frozen
+BN. The space-to-depth stem (off by default in the JAX package) is not
+ported.
 """
 
 import torch
@@ -88,6 +91,12 @@ def _basic_shortcut(in_ch: int, out_ch: int, stride: int, apply: bool) -> str:
     return "proj" if apply else "none"
 
 
+def _v1_shortcut(in_ch: int, out_ch: int, stride: int) -> str:
+    # modeling_resnet.py ResNet{Basic,BottleNeck}Layer: strided 1x1 projection
+    # whenever shape or stride changes, no avg-pool trick
+    return "proj" if (in_ch != out_ch or stride != 1) else "none"
+
+
 def _bottleneck_shortcut(in_ch: int, out_ch: int, stride: int) -> str:
     # RTDetrResNetBottleNeckLayer.__init__: stride==2 always takes the avg-pool
     # path (projection only when shapes change); stride==1 projects iff needed.
@@ -103,14 +112,18 @@ class ResNetBackbone(nn.Module):
 
     def __init__(self, config: ResNetConfig) -> None:
         super().__init__()
-        if config.style != "d":
-            raise ValueError(f"only the RT-DETR ResNet-D style is ported, not {config.style!r}")
+        if config.style not in ("d", "v1"):
+            raise ValueError(f"unknown ResNet style {config.style!r}")
         cfg = self.config = config
         act = cfg.hidden_act
         emb = cfg.embedding_size
-        self.stem0 = ConvNorm(cfg.num_channels, emb // 2, 3, 2, activation=act)
-        self.stem1 = ConvNorm(emb // 2, emb // 2, 3, 1, activation=act)
-        self.stem2 = ConvNorm(emb // 2, emb, 3, 1, activation=act)
+        v1 = cfg.style == "v1"
+        if v1:  # classic stem: one 7x7 stride-2 conv
+            self.stem0 = ConvNorm(cfg.num_channels, emb, 7, 2, activation=act)
+        else:  # deep stem: 3x3 s2 -> 3x3 -> 3x3
+            self.stem0 = ConvNorm(cfg.num_channels, emb // 2, 3, 2, activation=act)
+            self.stem1 = ConvNorm(emb // 2, emb // 2, 3, 1, activation=act)
+            self.stem2 = ConvNorm(emb // 2, emb, 3, 1, activation=act)
         in_ch = emb
         for stage_idx, (out_ch, depth) in enumerate(zip(cfg.hidden_sizes, cfg.depths)):
             stride = 2 if (stage_idx > 0 or cfg.downsample_in_first_stage) else 1
@@ -118,16 +131,22 @@ class ResNetBackbone(nn.Module):
                 block_stride = stride if block_idx == 0 else 1
                 block_in = in_ch if block_idx == 0 else out_ch
                 if cfg.layer_type == "bottleneck":
-                    shortcut = (
-                        _bottleneck_shortcut(block_in, out_ch, block_stride)
-                        if block_idx == 0 else "none"
-                    )
+                    if block_idx != 0:
+                        shortcut = "none"
+                    elif v1:
+                        shortcut = _v1_shortcut(block_in, out_ch, block_stride)
+                    else:
+                        shortcut = _bottleneck_shortcut(block_in, out_ch, block_stride)
                     block = BottleneckBlock(
                         block_in, out_ch, block_stride, shortcut,
                         cfg.downsample_in_bottleneck, act,
                     )
                 else:
-                    shortcut = _basic_shortcut(block_in, out_ch, block_stride, block_idx == 0)
+                    if v1:
+                        shortcut = (_v1_shortcut(block_in, out_ch, block_stride)
+                                    if block_idx == 0 else "none")
+                    else:
+                        shortcut = _basic_shortcut(block_in, out_ch, block_stride, block_idx == 0)
                     block = BasicBlock(block_in, out_ch, block_stride, shortcut, act)
                 setattr(self, f"stage{stage_idx}_block{block_idx}", block)
             in_ch = out_ch
@@ -136,7 +155,9 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor) -> list[torch.Tensor]:
         cfg = self.config
-        x = self.stem2(self.stem1(self.stem0(pixel_values)))
+        x = self.stem0(pixel_values)
+        if cfg.style == "d":
+            x = self.stem2(self.stem1(x))
         x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf, as flax's max_pool
         hidden_states = [x]
         for stage_idx, depth in enumerate(cfg.depths):

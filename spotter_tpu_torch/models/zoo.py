@@ -1,17 +1,18 @@
-"""Model zoo, RT-DETR, YOLOS and OWL-ViT families: MODEL_NAME ->
-BuiltDetector (port of those parts of spotter_tpu.models.zoo).
+"""Model zoo, RT-DETR, YOLOS, OWL-ViT and Deformable-DETR families:
+MODEL_NAME -> BuiltDetector (port of those parts of spotter_tpu.models.zoo).
 
 Weights are either a seeded random init that mirrors flax's initializers
-(`init_rtdetr`, `init_yolos`, `init_owlvit`), at the width of the preset the
-name selects, or JAX params carried across with `convert.from_jax`
-(`params=`). Loading a local HF checkpoint is not ported yet. `tiny=True`
-(or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as the JAX package
-does.
+(`init_rtdetr`, `init_yolos`, `init_owlvit`, `init_deformable_detr`), at the
+width of the preset the name selects, or JAX params carried across with
+`convert.from_jax` (`params=`). Loading a local HF checkpoint is not ported
+yet. `tiny=True` (or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as
+the JAX package does.
 
 Each build function applies the precision policy (utils/precision.py) and refuses
-the knobs whose computation the port lacks: the int8 knobs, and for
-RT-DETR a non-float32 policy and the SPOTTER_TPU_MSDA backends whose TPU
-kernels are not ported.
+the knobs whose computation the port lacks: the int8 knobs, and for the
+MSDA families (RT-DETR, Deformable-DETR) a non-float32 policy. Their
+builders check SPOTTER_TPU_MSDA with the JAX package's error text; the
+backend itself is read when a forward runs (ops/msda.py).
 """
 
 import dataclasses
@@ -27,8 +28,10 @@ from spotter_tpu_torch.convert.tokens import owlvit_tokenize, tiny_tokenize
 from spotter_tpu_torch.engine.engine import BuiltDetector
 from spotter_tpu_torch.models.coco import coco_id2label_80, coco_id2label_91
 from spotter_tpu_torch.models.configs import (
+    DEFORMABLE_DETR_PRESETS,
     OWL_PRESETS,
     RTDETR_PRESETS,
+    DeformableDetrConfig,
     OwlViTConfig,
     OwlViTTextConfig,
     OwlViTVisionConfig,
@@ -36,6 +39,7 @@ from spotter_tpu_torch.models.configs import (
     RTDetrConfig,
     YolosConfig,
 )
+from spotter_tpu_torch.models.deformable_detr import DeformableDetrDetector
 from spotter_tpu_torch.models.layers import FrozenBatchNorm, lecun_normal_
 from spotter_tpu_torch.models.owlvit import OwlViTDetector
 from spotter_tpu_torch.models.registry import ModelFamily, register
@@ -45,6 +49,7 @@ from spotter_tpu_torch.ops.msda import MSDA_ENV, check_msda_backend
 from spotter_tpu_torch.ops.preprocess import (
     CLIP_MEAN,
     CLIP_STD,
+    DETR_SPEC,
     IMAGENET_MEAN,
     IMAGENET_STD,
     OWLV2_SPEC,
@@ -98,8 +103,8 @@ def rtdetr_preset(model_name: str) -> RTDetrConfig:
 
 @torch.no_grad()
 def _init_flax_layers(model: nn.Module, gen: torch.Generator) -> None:
-    """flax's initializers on every conv, dense, LayerNorm and frozen BN of
-    `model`, drawn from `gen` in module order."""
+    """flax's initializers on every conv, dense, LayerNorm, GroupNorm and
+    frozen BN of `model`, drawn from `gen` in module order."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             fan_in = module.weight[0].numel()
@@ -108,7 +113,7 @@ def _init_flax_layers(model: nn.Module, gen: torch.Generator) -> None:
             module.weight.copy_(w)
             if module.bias is not None:
                 module.bias.zero_()
-        elif isinstance(module, nn.LayerNorm):
+        elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
         elif isinstance(module, FrozenBatchNorm):
@@ -384,10 +389,110 @@ def build_owlvit(
     )
 
 
+def tiny_deformable_detr_config(num_labels: int = 80) -> DeformableDetrConfig:
+    return DeformableDetrConfig(
+        backbone=ResNetConfig(
+            embedding_size=8, hidden_sizes=(8, 12, 16, 24), depths=(1, 1, 1, 1),
+            layer_type="basic", style="v1", out_indices=(2, 3, 4),
+        ),
+        num_labels=num_labels,
+        d_model=32,
+        num_queries=9,
+        encoder_layers=1,
+        decoder_layers=2,
+        encoder_attention_heads=4,
+        decoder_attention_heads=4,
+        encoder_ffn_dim=48,
+        decoder_ffn_dim=48,
+        encoder_n_points=2,
+        decoder_n_points=2,
+        with_box_refine=True,
+        id2label=tuple(coco_id2label_80().items()),
+    )
+
+
+# the tiny config's spec: shortest edge 48 (long side at most 64) in a
+# 64x64 bucket
+TINY_DETR_SPEC = PreprocessSpec(
+    mode="shortest_edge", size=(48, 64), mean=IMAGENET_MEAN, std=IMAGENET_STD, pad_to=(64, 64)
+)
+
+
+def deformable_detr_preset(model_name: str) -> DeformableDetrConfig:
+    """The published SenseTime/deformable-detr* configuration whose name
+    MODEL_NAME ends in (the longest that matches: -with-box-refine-two-stage
+    before -with-box-refine), with the 91 COCO labels. The dilated -dc5
+    checkpoints raise, as the JAX package refuses a dilated backbone."""
+    key = model_name.lower().replace("_", "-").rstrip("/")
+    if "dc5" in key:
+        raise ValueError(
+            f"MODEL_NAME '{model_name}': dilated (dc5) backbones are not supported")
+    for name in sorted(DEFORMABLE_DETR_PRESETS, key=len, reverse=True):
+        if key.endswith(name):
+            return dataclasses.replace(
+                DEFORMABLE_DETR_PRESETS[name], id2label=tuple(coco_id2label_91().items()))
+    raise ValueError(
+        f"MODEL_NAME '{model_name}' names no Deformable-DETR preset: "
+        f"{sorted(DEFORMABLE_DETR_PRESETS)}"
+    )
+
+
+@torch.no_grad()
+def init_deformable_detr(model: DeformableDetrDetector, seed: int = 0) -> DeformableDetrDetector:
+    """Random init from `seed`, mirroring the flax module's initializers:
+    lecun-normal conv and dense kernels, zero biases, LayerNorm and
+    GroupNorm scale 1, identity frozen-BN statistics (in module order, as
+    `init_rtdetr` draws them), then normal(1.0) level embeddings and, without
+    two-stage, normal(1.0) query embeddings, from the same generator."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    _init_flax_layers(model, gen)
+    model.level_embed.copy_(torch.randn(model.level_embed.shape, generator=gen))
+    if not model.config.two_stage:
+        model.query_embeddings.copy_(torch.randn(model.query_embeddings.shape, generator=gen))
+    return model
+
+
+def build_deformable_detr(
+    model_name: str,
+    *,
+    tiny: Optional[bool] = None,
+    seed: int = 0,
+    params: Optional[Mapping] = None,
+) -> BuiltDetector:
+    """Deformable-DETR family builder: the shortest-edge spec (the 1333x1333
+    bucket with a pixel mask; tiny: 48/64 in 64x64), the sigmoid top-k
+    postprocess at HF's top_k = 100. The model is built on the CPU; the
+    engine moves it to its device."""
+    refuse_int8()
+    require_float32("Deformable-DETR")
+    check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
+    if tiny is None:
+        tiny = bool(os.environ.get(TINY_ENV))
+    cfg = tiny_deformable_detr_config() if tiny else deformable_detr_preset(model_name)
+    model = DeformableDetrDetector(cfg).eval()
+    if params is not None:
+        load_from_jax(model, params)
+    else:
+        init_deformable_detr(model, seed)
+    return BuiltDetector(
+        model_name=model_name,
+        module=model,
+        preprocess_spec=TINY_DETR_SPEC if tiny else DETR_SPEC,
+        postprocess="sigmoid_topk",
+        id2label=cfg.id2label_dict,
+        num_top_queries=min(100, cfg.num_queries),
+        needs_mask=True,
+    )
+
+
 register(ModelFamily(name="rtdetr", matches=("rtdetr", "rt_detr", "rt-detr"), build=build_rtdetr))
 register(ModelFamily(name="yolos", matches=("yolos",), build=build_yolos))
 register(ModelFamily(
     name="owlvit",  # OWL-ViT and OWLv2 (the same architecture + an objectness head)
     matches=("owlvit", "owl-vit", "owl_vit", "owlv2", "owl-v2", "owl_v2"),
     build=build_owlvit,
+))
+register(ModelFamily(
+    name="deformable_detr", matches=("deformable-detr", "deformable_detr"),
+    build=build_deformable_detr,
 ))

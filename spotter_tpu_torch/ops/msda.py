@@ -20,9 +20,28 @@ forward runs, so a process can switch it through the module attribute.
   sampling-offset and attention-weight projections, the per-head softmax
   and the location arithmetic.
 
-All three kernels are hand-written CUDA for Hopper in `csrc/msda.cu`. On a
-CPU tensor each wrapper runs its plain version (`*_reference`); on a CUDA
-tensor it launches the kernel or raises.
+All three kernels are hand-written CUDA for Hopper in `csrc/msda.cu`.
+
+`SPOTTER_TPU_MSDA` picks the sampling backend, with the JAX package's values
+(auto|xla|pallas|pallas_sep|pallas_gather) and error text; like the prep
+knob it is read when a forward runs, through `MSDA_BACKEND`. "auto", "xla"
+and "pallas" run the three kernels above, by the prep setting. The two
+others run their own kernels, whatever the prep setting, in the JAX
+package's dispatch order:
+
+- `pallas_sep`: separable bilinear sampling, one launch per level
+  (`msda_sep_sum`, replacing `pallas_sep_sampling`), on the JAX package's
+  query-side operands: 64-query tiles, unclamped corner indices, weights
+  with attention and validity folded in, and a per-tile band hit table
+  (`sep_level_operands`).
+- `pallas_gather`: the lane-gather layout, value (B, H, hd, S) and
+  sample-major idx/w (B, H, 4, LP*Q) (`prepare_msda_gather_lanes`), summed
+  in the value's dtype (`msda_hd_gather_sum`, replacing
+  `pallas_deformable_sampling`).
+
+Both are hand-written CUDA in `csrc/msda_backends.cu`. On a CPU tensor each
+wrapper runs its plain version (`*_reference`); on a CUDA tensor it launches
+the kernel or raises.
 
 Layouts follow the JAX package at the public function: value (B, S, H, hd),
 loc (B, Q, H, LP, 2), attn (B, Q, H, LP), output (B, Q, H*hd).
@@ -56,28 +75,28 @@ MSDA_PREP = parse_msda_prep(os.environ.get("SPOTTER_TPU_MSDA_PREP", "xla"))
 
 
 MSDA_ENV = "SPOTTER_TPU_MSDA"
-# backends that select a TPU kernel the port does not have yet
-UNPORTED_MSDA_BACKENDS = {
-    "pallas_sep": "pallas_sep_sampling, ROADMAP Queue 2 item 5",
-    "pallas_gather": "pallas_deformable_sampling, ROADMAP Queue 2 item 6",
-}
+MSDA_BACKENDS = ("auto", "xla", "pallas", "pallas_sep", "pallas_gather")
 
 
 def check_msda_backend(raw: str) -> str:
-    """The SPOTTER_TPU_MSDA value, checked as the JAX package checks it.
-    "auto", "xla" and "pallas" run this module's kernels; the two backends
-    whose kernels are not ported raise rather than serve another one."""
+    """The SPOTTER_TPU_MSDA value, checked as the JAX package checks it."""
     name = raw.strip().lower()
-    if name not in ("auto", "xla", "pallas", *UNPORTED_MSDA_BACKENDS):
+    if name not in MSDA_BACKENDS:
         raise ValueError(
             f"{MSDA_ENV} must be auto|xla|pallas|pallas_sep|pallas_gather, got {name!r}"
         )
-    if name in UNPORTED_MSDA_BACKENDS:
-        raise ValueError(
-            f"{MSDA_ENV}={name} selects a TPU kernel the port does not have yet "
-            f"({UNPORTED_MSDA_BACKENDS[name]}); unset it or use auto"
-        )
     return name
+
+
+# process-wide, read at forward time like MSDA_PREP: tests and chip_smoke.py
+# switch the backend by setting this attribute
+MSDA_BACKEND = check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
+
+
+def msda_backend() -> str:
+    """The backend a forward runs now ("auto", "xla" and "pallas" all take
+    this module's gather-sum, loc and fused kernels)."""
+    return check_msda_backend(MSDA_BACKEND)
 
 
 def msda_prep_fused() -> bool:
@@ -338,10 +357,12 @@ def _check_cuda_tensors(rows: torch.Tensor, **tensors) -> None:
             raise ValueError(f"{name} has {t.numel()} elements; the kernel takes < 2**31")
 
 
-def _launch(name: str, rows: torch.Tensor, *args) -> None:
-    """Call `name`'s f32 or bf16 entry point on the current stream; raise
-    with the CUDA error string if the launch was refused."""
-    lib = build_msda_kernel().lib
+def _launch(name: str, rows: torch.Tensor, *args, build=None) -> None:
+    """Call `name`'s f32 or bf16 entry point (by `rows`' dtype) in the
+    library `build` returns (this module's first one by default) on the
+    current stream; raise with the CUDA error string if the launch was
+    refused."""
+    lib = (build or build_msda_kernel)().lib
     fn = getattr(lib, f"{name}_{'f32' if rows.dtype == torch.float32 else 'bf16'}")
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
@@ -505,6 +526,312 @@ def msda_fused_sum(
 msda_fused_sum.launches = 0
 
 
+# --- the opt-in backends: pallas_sep and pallas_gather ----------------------
+
+SEP_Q_TILE = 64  # the JAX package's Q_TILE: queries per tile of the hit table
+SEP_R_BAND = 8  # rows per band when W <= 128; wider maps halve it
+SEP_PAD_INDEX = -7  # x0/y0 of a pad query: outside every level and every band
+
+
+def sep_band_rows(lw: int) -> int:
+    """Rows per band of a level `lw` wide (`_sep_level_dispatch`'s geometry)."""
+    return SEP_R_BAND if lw <= 128 else max(1, SEP_R_BAND // 2)
+
+
+def sep_level_operands(
+    loc_l: torch.Tensor,  # (B, Q, H, P, 2) this level's sample points in [0, 1]
+    attn_l: torch.Tensor,  # (B, Q, H, P)
+    lh: int,
+    lw: int,
+    method: str = "default",
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, int]:
+    """The separable kernel's operands for one level, as the JAX package's
+    `_sep_level_dispatch` builds them for `pallas_sep_sampling`.
+
+    Returns ((xi, xw0, xw1, yi, yw0, yw1), mask, r_band): xi/yi (BH,
+    n_qt*P*64, 1) int32 are the unclamped level-local x0/y0, point-major in
+    each 64-query tile, pad queries at SEP_PAD_INDEX; xw0/xw1/yw0/yw1 the
+    fp32 corner-pair weights in the same layout, attention folded into the
+    x pair and validity folded in by zeroing ("discrete": the one nearest
+    cell, clamped, weight attn on the x0/y0 pair); mask (BH, n_qt, n_bands)
+    int32 marks the row bands of r_band rows each that some corner of the
+    tile reaches with a non-zero y-weight.
+    """
+    if method not in ("default", "discrete"):
+        raise ValueError(f"unknown MSDA method {method!r}")
+    b, q, h_axis, pts, _ = loc_l.shape
+    bh = b * h_axis
+    n_qt = -(-q // SEP_Q_TILE)
+    qp = n_qt * SEP_Q_TILE
+    r_band = sep_band_rows(lw)
+    n_bands = -(-lh // r_band)
+    attn_f = attn_l.to(torch.float32)
+    x, y = loc_l[..., 0], loc_l[..., 1]
+    if method == "discrete":
+        x0 = torch.clamp(torch.floor(x * lw + 0.5), min=0).clamp(max=lw - 1)
+        y0 = torch.clamp(torch.floor(y * lh + 0.5), min=0).clamp(max=lh - 1)
+        xw0, xw1 = attn_f, torch.zeros_like(attn_f)
+        yw0, yw1 = torch.ones_like(attn_f), torch.zeros_like(attn_f)
+    else:
+        gx = x * lw - 0.5
+        gy = y * lh - 0.5
+        x0 = torch.floor(gx)
+        y0 = torch.floor(gy)
+        fx = (gx - x0).to(torch.float32)
+        fy = (gy - y0).to(torch.float32)
+        vx0 = ((x0 >= 0) & (x0 <= lw - 1)).to(torch.float32)
+        vx1 = (x0 + 1 <= lw - 1).to(torch.float32) * (x0 + 1 >= 0)
+        vy0 = ((y0 >= 0) & (y0 <= lh - 1)).to(torch.float32)
+        vy1 = (y0 + 1 <= lh - 1).to(torch.float32) * (y0 + 1 >= 0)
+        xw0 = (1.0 - fx) * vx0 * attn_f
+        xw1 = fx * vx1 * attn_f
+        yw0 = (1.0 - fy) * vy0
+        yw1 = fy * vy1
+
+    def stack(a: torch.Tensor, pad_value=0) -> torch.Tensor:
+        a = a.permute(0, 2, 1, 3).reshape(bh, q, pts)
+        if qp != q:
+            a = torch.nn.functional.pad(a, (0, 0, 0, qp - q), value=pad_value)
+        return a.reshape(bh, n_qt, SEP_Q_TILE, pts).permute(0, 1, 3, 2).reshape(
+            bh, n_qt * pts * SEP_Q_TILE, 1).contiguous()
+
+    xi = stack(x0.to(torch.int32), SEP_PAD_INDEX)
+    yi = stack(y0.to(torch.int32), SEP_PAD_INDEX)
+    operands = (xi, stack(xw0), stack(xw1), yi, stack(yw0), stack(yw1))
+    # the y-only hit table: a corner row counts where its y-weight can be
+    # non-zero (floor division, so a negative row is never a band)
+    bands = torch.cat([
+        torch.where(operands[4] > 0, torch.div(yi, r_band, rounding_mode="floor"), -1),
+        torch.where(operands[5] > 0, torch.div(yi + 1, r_band, rounding_mode="floor"), -1),
+    ], dim=-1).reshape(bh, n_qt, -1)
+    mask = torch.zeros((bh, n_qt, n_bands + 1), dtype=torch.int32, device=loc_l.device)
+    mask.scatter_(2, (bands + 1).long(), 1)
+    return operands, mask[..., 1:].contiguous(), r_band
+
+
+def msda_sep_reference(
+    rows: torch.Tensor,  # (BH, lh*lw, hd) this level's value rows, row-major
+    xi: torch.Tensor, xw0: torch.Tensor, xw1: torch.Tensor,
+    yi: torch.Tensor, yw0: torch.Tensor, yw1: torch.Tensor,
+    mask: torch.Tensor,  # (BH, n_qt, n_bands) int32
+    level_hw: tuple[int, int],
+    r_band: int,
+    n_points: int,
+) -> torch.Tensor:
+    """Plain version of `msda_sep_sum`, `pallas_sep_sampling`'s function on
+    gathers: out[bh, q] = sum over points p, rows y0 + dy and columns
+    x0 + dx (dy, dx in {0, 1}) of xw_dx * V[y, x] * yw_dy, where a row counts
+    only inside the level and inside a band whose mask bit is set, and a
+    column only inside the level. Returns (BH, n_qt*64, hd) fp32; pad
+    queries come out 0."""
+    lh, lw = level_hw
+    bh, _, hd = rows.shape
+    n_qt, n_bands = mask.shape[1], mask.shape[2]
+    nq = n_qt * SEP_Q_TILE
+
+    def unstack(a):  # (BH, n_qt*P*64, 1) -> (BH, P, n_qt*64)
+        return a.reshape(bh, n_qt, n_points, SEP_Q_TILE).permute(0, 2, 1, 3).reshape(
+            bh, n_points, nq)
+
+    xi_u, yi_u = unstack(xi).long(), unstack(yi).long()
+    xw = (unstack(xw0).to(torch.float32), unstack(xw1).to(torch.float32))
+    yw = (unstack(yw0).to(torch.float32), unstack(yw1).to(torch.float32))
+    tile = torch.arange(nq, device=rows.device) // SEP_Q_TILE  # (n_qt*64,)
+    band_on = mask.ne(0)
+    bh_idx = torch.arange(bh, device=rows.device).view(bh, 1, 1)
+    out = torch.zeros((bh, nq, hd), dtype=torch.float32, device=rows.device)
+    for dy in (0, 1):
+        y = yi_u + dy
+        band = torch.div(y, r_band, rounding_mode="floor").clamp(0, n_bands - 1)
+        row_on = (y >= 0) & (y < lh) & band_on[bh_idx, tile.view(1, 1, nq), band]
+        for dx in (0, 1):
+            x = xi_u + dx
+            valid = row_on & (x >= 0) & (x < lw)
+            flat = torch.where(valid, y * lw + x, 0) + bh_idx * (lh * lw)
+            g = rows.reshape(bh * lh * lw, hd).index_select(0, flat.reshape(-1))
+            g = g.reshape(bh, n_points, nq, hd).to(torch.float32)
+            term = g * xw[dx][..., None] * torch.where(valid, yw[dy], 0.0)[..., None]
+            out += term.sum(dim=1)
+    return out
+
+
+def prepare_msda_gather_lanes(
+    loc: torch.Tensor,  # (B, Q, H, LP, 2) normalized sample points
+    attn: torch.Tensor,  # (B, Q, H, LP)
+    spatial_shapes: tuple[tuple[int, int], ...],
+    num_points: int,
+    method: str = "default",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Corner indices and weights in the lane-gather layout, as the JAX
+    package's `prepare_msda_gather` gives them: idx (B, H, 4, LP*Q) int32
+    global into S and w (B, H, 4, LP*Q) fp32, sample-major (sample j's Q
+    queries contiguous), the corner slots in (0,0), (0,1), (1,0), (1,1) order;
+    "discrete" fills slot 0 and leaves three slots of index 0 and weight 0."""
+    b, q, h_axis, lp, _ = loc.shape
+    _check_samples(lp, spatial_shapes, num_points, method)
+    lvl_h, lvl_w, lvl_off = level_tables(
+        tuple(map(tuple, spatial_shapes)), num_points, loc.device, loc.dtype)
+    loc_t = loc.permute(0, 2, 3, 1, 4)  # (B, H, LP, Q, 2)
+    corners = _corner_terms(
+        loc_t[..., 0], loc_t[..., 1], attn.permute(0, 2, 3, 1),
+        lvl_w.view(lp, 1), lvl_h.view(lp, 1), method,
+    )
+    while len(corners) < 4:
+        corners.append((torch.zeros_like(corners[0][0]), torch.zeros_like(corners[0][1])))
+    idx = torch.stack([lvl_off.view(lp, 1) + c for c, _ in corners], dim=2)
+    w = torch.stack([cw for _, cw in corners], dim=2)
+    return idx.reshape(b, h_axis, 4, lp * q).contiguous(), w.reshape(b, h_axis, 4, lp * q).contiguous()
+
+
+def msda_hd_gather_reference(
+    vt: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, lp: int, q: int
+) -> torch.Tensor:
+    """Plain version of `msda_hd_gather_sum` (`_gather_weighted_sum`'s
+    function, in its kernel's order): vt (B, H, hd, S), idx/w (B, H, 4, LP*Q)
+    -> (B, H, hd, Q) in vt's dtype, each sample's four corner products
+    g * w summed in slot order, then the LP samples in order, all in vt's
+    dtype. A term whose index lies outside [0, S) is skipped."""
+    b, h_axis, hd, s = vt.shape
+    out = torch.zeros((b, h_axis, hd, q), dtype=vt.dtype, device=vt.device)
+    for j in range(lp):
+        acc = torch.zeros_like(out)
+        for c in range(4):
+            ids = idx[:, :, c, j * q:(j + 1) * q]
+            valid = (ids >= 0) & (ids < s)
+            g = torch.gather(vt, 3, torch.where(valid, ids, 0).long()[:, :, None, :].expand(
+                b, h_axis, hd, q))
+            wc = torch.where(valid, w[:, :, c, j * q:(j + 1) * q], 0.0).to(vt.dtype)
+            acc = acc + g * wc[:, :, None, :]
+        out = out + acc
+    return out
+
+
+@functools.cache
+def build_msda_backends_kernel() -> KernelLibrary:
+    """Build (first call only), load and bind the sep and lane-gather kernel
+    library; returns it with its build time and nvcc log."""
+    loaded = load_kernel_library("msda_backends", ("msda_backends.cu",))
+    lib = loaded.lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        "msda_sep_sum": [ptr] * 9 + [i32] * 8 + [ptr],
+        "msda_hd_gather_sum": [ptr] * 4 + [i32] * 6 + [ptr],
+    }
+    for name, args in signatures.items():
+        for suffix in ("f32", "bf16"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    lib.msda_error_string.argtypes = [ctypes.c_int]
+    lib.msda_error_string.restype = ctypes.c_char_p
+    return loaded
+
+
+def msda_sep_sum(
+    rows: torch.Tensor,
+    xi: torch.Tensor, xw0: torch.Tensor, xw1: torch.Tensor,
+    yi: torch.Tensor, yw0: torch.Tensor, yw1: torch.Tensor,
+    mask: torch.Tensor,
+    level_hw: tuple[int, int],
+    r_band: int,
+    n_points: int,
+) -> torch.Tensor:
+    """Separable bilinear sampling over one level.
+
+    rows (BH, lh*lw, hd) f32/bf16, the level's value rows row-major (the
+    JAX kernel's (W, R*hd) band transpose exists for its MXU dot and is not
+    taken); xi/yi (BH, n_qt*P*64, 1) int32 and xw0/xw1/yw0/yw1 of the same
+    shape fp32, from `sep_level_operands`; mask (BH, n_qt, n_bands) int32 ->
+    (BH, n_qt*64, hd) fp32. CUDA tensors launch `csrc/msda_backends.cu`;
+    CPU tensors take `msda_sep_reference`; anything else raises.
+    """
+    ops = (xi, xw0, xw1, yi, yw0, yw1)
+    if rows.device.type == "cpu":
+        _require_cpu("msda_sep_sum", *ops, mask)
+        return msda_sep_reference(rows, *ops, mask, level_hw, r_band, n_points)
+    _require_cuda("msda_sep_sum", rows)
+    f32, i32 = torch.float32, torch.int32
+    _check_cuda_tensors(
+        rows, xi=(xi, i32, 3), xw0=(xw0, f32, 3), xw1=(xw1, f32, 3), yi=(yi, i32, 3),
+        yw0=(yw0, f32, 3), yw1=(yw1, f32, 3), mask=(mask, i32, 3),
+    )
+    lh, lw = level_hw
+    bh, s, hd = rows.shape
+    n_qt, n_bands = mask.shape[1], mask.shape[2]
+    want = (bh, n_qt * n_points * SEP_Q_TILE, 1)
+    if s != lh * lw or r_band < 1 or n_bands != -(-lh // r_band) or mask.shape[0] != bh or any(
+            tuple(t.shape) != want for t in ops):
+        raise ValueError(
+            f"expected rows (BH, {lh}*{lw}, hd), operands {want}, mask (BH, n_qt, "
+            f"ceil({lh}/{r_band})); got {tuple(rows.shape)}, "
+            f"{[tuple(t.shape) for t in ops]}, {tuple(mask.shape)}"
+        )
+    out = torch.empty((bh, n_qt * SEP_Q_TILE, hd), dtype=f32, device=rows.device)
+    if out.numel() == 0:
+        return out
+    _launch("msda_sep_sum", rows, rows.data_ptr(), *(t.data_ptr() for t in ops),
+            mask.data_ptr(), out.data_ptr(), bh, n_qt, n_points, lh, lw, hd, r_band, n_bands,
+            build=build_msda_backends_kernel)
+    msda_sep_sum.launches += 1
+    return out
+
+
+msda_sep_sum.launches = 0
+
+
+def msda_hd_gather_sum(
+    vt: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, lp: int, q: int
+) -> torch.Tensor:
+    """Lane-gather sampling: vt (B, H, hd, S) f32/bf16, idx (B, H, 4, LP*Q)
+    int32, w (B, H, 4, LP*Q) fp32 from `prepare_msda_gather_lanes` ->
+    (B, H, hd, Q) in vt's dtype, which is also the dtype it sums in. CUDA
+    tensors launch `csrc/msda_backends.cu`; CPU tensors take
+    `msda_hd_gather_reference`; anything else raises."""
+    if vt.device.type == "cpu":
+        _require_cpu("msda_hd_gather_sum", idx, w)
+        return msda_hd_gather_reference(vt, idx, w, lp, q)
+    _require_cuda("msda_hd_gather_sum", vt)
+    if vt.dim() != 4 or not vt.is_contiguous():
+        raise ValueError(f"expected a contiguous vt (B, H, hd, S), got {tuple(vt.shape)}")
+    b, h_axis, hd, s = vt.shape
+    _check_cuda_tensors(
+        vt.view(b * h_axis, hd, s), idx=(idx, torch.int32, 4), w=(w, torch.float32, 4))
+    if idx.shape != (b, h_axis, 4, lp * q) or w.shape != idx.shape:
+        raise ValueError(
+            f"expected idx/w ({b}, {h_axis}, 4, {lp}*{q}); got {tuple(idx.shape)}, "
+            f"{tuple(w.shape)}"
+        )
+    out = torch.empty((b, h_axis, hd, q), dtype=vt.dtype, device=vt.device)
+    if out.numel() == 0 or lp == 0:
+        return out.zero_()
+    _launch("msda_hd_gather_sum", vt, vt.data_ptr(), idx.data_ptr(), w.data_ptr(),
+            out.data_ptr(), b * h_axis, hd, s, q, lp, 4, build=build_msda_backends_kernel)
+    msda_hd_gather_sum.launches += 1
+    return out
+
+
+msda_hd_gather_sum.launches = 0
+
+
+def _sep_sampling(value, loc, attn, spatial_shapes, num_points, method) -> torch.Tensor:
+    """The pallas_sep path: one `msda_sep_sum` per level, summed in level
+    order -> (B*H, Q, hd) fp32."""
+    b, s, h_axis, hd = value.shape
+    q, lp = loc.shape[1], loc.shape[3]
+    _check_samples(lp, spatial_shapes, num_points, method)
+    rows_all = _value_rows(value)
+    offs = level_offsets(spatial_shapes)
+    out = None
+    for lvl, (lh, lw) in enumerate(spatial_shapes):
+        pts = slice(lvl * num_points, (lvl + 1) * num_points)
+        operands, mask, r_band = sep_level_operands(
+            loc[:, :, :, pts], attn[:, :, :, pts], lh, lw, method)
+        rows_l = rows_all[:, offs[lvl]:offs[lvl] + lh * lw].contiguous()
+        part = msda_sep_sum(rows_l, *operands, mask, (lh, lw), r_band, num_points)[:, :q]
+        out = part if out is None else out + part
+    return out
+
+
 def _value_rows(value: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) -> the kernels' (B*H, S, hd) row layout."""
     b, s, h_axis, hd = value.shape
@@ -528,25 +855,39 @@ def deformable_sampling(
 ) -> torch.Tensor:
     """Full MSDA core: returns (B, Q, H*hd) aggregated values.
 
-    Same signature and result as spotter_tpu.ops.msda.deformable_sampling.
-    Under SPOTTER_TPU_MSDA_PREP=kernel the corner prep runs inside
-    `msda_loc_sum`; otherwise `prepare_msda_gather` feeds `msda_gather_sum`.
-    The JAX package takes its loc-prep kernel only where each level tile
-    spans whole rows, a TPU tiling condition; the port has no tiles, so the
-    loc kernel always applies. `presorted` is accepted and ignored: query
-    order only ever mattered to the TPU kernel's block-sparse tiling.
+    Same signature and result as spotter_tpu.ops.msda.deformable_sampling,
+    dispatched in its order: SPOTTER_TPU_MSDA=pallas_sep runs `msda_sep_sum`
+    per level and =pallas_gather `msda_hd_gather_sum`, whatever the prep
+    setting; otherwise SPOTTER_TPU_MSDA_PREP=kernel runs the corner prep
+    inside `msda_loc_sum`, and the rest feeds `prepare_msda_gather` to
+    `msda_gather_sum`. The JAX package takes its loc-prep kernel only where
+    each level tile spans whole rows, a TPU tiling condition; the port has
+    no tiles, so the loc kernel always applies. `presorted` is accepted and
+    ignored, and the JAX package's in-op locality sort of the pallas and
+    pallas_sep backends is not done: query order only decides which source
+    tiles or row bands a TPU tile's hit table marks, never a query's value.
     """
     del presorted
-    b, _, h_axis, _ = value.shape
-    rows = _value_rows(value)
-    if MSDA_PREP == "kernel":
-        _check_samples(loc.shape[3], spatial_shapes, num_points, method)
+    b, _, h_axis, hd = value.shape
+    q, lp = loc.shape[1], loc.shape[3]
+    backend = msda_backend()
+    if backend == "pallas_sep":
+        out = _sep_sampling(value, loc, attn, spatial_shapes, num_points, method)
+    elif backend == "pallas_gather":
+        idx, w = prepare_msda_gather_lanes(loc, attn, spatial_shapes, num_points, method)
+        vt = value.permute(0, 2, 3, 1).contiguous()  # (B, H, hd, S): spatial minor
+        out = msda_hd_gather_sum(vt, idx, w, lp, q)
+        return out.permute(0, 3, 1, 2).reshape(b, q, h_axis * hd)
+    elif MSDA_PREP == "kernel":
+        _check_samples(lp, spatial_shapes, num_points, method)
         f32 = torch.float32
         xy, at = _bh_layout(loc, attn)
         tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, loc.device, f32)
-        out = msda_loc_sum(rows, xy.to(f32).contiguous(), at.to(f32).contiguous(), *tables, method)
+        out = msda_loc_sum(_value_rows(value), xy.to(f32).contiguous(),
+                           at.to(f32).contiguous(), *tables, method)
     else:
-        out = msda_gather_sum(rows, *prepare_msda_gather(loc, attn, spatial_shapes, num_points, method))
+        out = msda_gather_sum(
+            _value_rows(value), *prepare_msda_gather(loc, attn, spatial_shapes, num_points, method))
     return _merge_heads(out, b, h_axis, value.dtype)
 
 
@@ -608,17 +949,31 @@ def deformable_sampling_fused(
     kernel (SPOTTER_TPU_MSDA_PREP=fused). Returns (B, Q, H*hd).
 
     The signature of spotter_tpu.ops.msda.deformable_sampling_fused, less
-    its TPU backend and interpret switches. The weights arrive in the Dense
+    its TPU backend and interpret switches. Under SPOTTER_TPU_MSDA=pallas_sep
+    or =pallas_gather it takes the JAX package's fallback: the einsum
+    prologue, then `deformable_sampling` with that backend's kernel. The weights arrive in the Dense
     layout (the model layer keeps its `sampling_offsets`/`attention_weights`
     parameters, so a checkpoint serves both paths) and are re-laid per head
     here. There is no padding of queries: every output row is a real query.
     `presorted` is accepted and ignored, as in `deformable_sampling`.
     """
-    del presorted
     b, _, h_axis, _ = value.shape
     lp = len(spatial_shapes) * num_points
     heads = fused_head_weights(w_off, b_off, w_att, b_att, h_axis)
     base, scale = fused_anchors(reference_points, lp, num_points, offset_scale)
+    if msda_backend() in ("pallas_sep", "pallas_gather"):
+        # the JAX package's fallback: the prologue in plain tensor code, then
+        # whatever core the backend names
+        hs32 = hs.to(torch.float32)
+        w_off_h, b_off_h, w_att_h, b_att_h = heads
+        offs = torch.einsum("bqd,hdl->bqhl", hs32, w_off_h) + b_off_h[:, 0][None, None]
+        xy = base[:, :, None, :] + offs * scale[:, :, None, :]
+        logits = torch.einsum("bqd,hdl->bqhl", hs32, w_att_h) + b_att_h[:, 0][None, None]
+        attn = torch.softmax(logits, dim=-1)
+        loc = torch.stack([xy[..., :lp], xy[..., lp:]], dim=-1)
+        return deformable_sampling(value, loc, attn.to(value.dtype), spatial_shapes,
+                                   num_points, method=method, presorted=presorted)
+    del presorted
     tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, hs.device, torch.float32)
     out = msda_fused_sum(
         _value_rows(value), hs.to(torch.float32).contiguous(), *heads, base, scale, *tables,

@@ -1,9 +1,12 @@
 """Image preprocess for the fixed-size specs of RT-DETR, YOLOS and OWL-ViT,
-and OWLv2's pad-to-square (port of spotter_tpu.ops.preprocess).
+Deformable-DETR's shortest-edge spec, and OWLv2's pad-to-square (port of
+spotter_tpu.ops.preprocess).
 
-Fixed specs take the JAX package's uint8 ingest: the host only resizes
-uint8 pixels into the static bucket and stacks them; the rescale runs on
-the device (`device_rescale_normalize`). The bilinear resize replaces
+Fixed and shortest-edge specs take the JAX package's uint8 ingest: the host
+only resizes uint8 pixels and stages them into the static bucket; the
+rescale runs on the device (`device_rescale_normalize`, and for
+shortest-edge specs `device_rescale_normalize_masked`, which also zeroes
+the pad and builds the pixel mask from each image's valid extent). The bilinear resize replaces
 PIL's `Image.resize(..., BILINEAR)` with
 `torch.nn.functional.interpolate(mode="bilinear", antialias=True)` on a
 CPU uint8 tensor; the two agree to within 1 LSB on downscales and upscales
@@ -44,10 +47,13 @@ class PreprocessSpec:
     bottom/right to a square with mid-grey (0.5 before normalization), then
     warp to `size` (OWLv2's 960x960); the reported target size is the
     square's (side, side), as HF's Owlv2ImageProcessor scales its boxes.
-    The shortest-edge mode comes with the DETR family. `mean`/`std`, when
-    set, normalize each channel after the rescale. `resample` is the fixed
-    mode's filter: "bilinear" (the RT-DETR, DETR and YOLOS processors) or
-    "bicubic" (OWL-ViT's).
+    mode "shortest_edge": aspect-preserving resize so the short side is
+    size[0] without the long side passing size[1] (`shortest_edge_size`),
+    staged at the top left of the static `pad_to` bucket with a pixel mask
+    (the DETR family's (800, 1333) in 1333x1333, which holds both
+    orientations). `mean`/`std`, when set, normalize each channel after the
+    rescale. `resample` is the resize filter: "bilinear" (the RT-DETR, DETR
+    and YOLOS processors) or "bicubic" (OWL-ViT's).
     """
 
     mode: str = "fixed"
@@ -56,13 +62,16 @@ class PreprocessSpec:
     mean: tuple[float, float, float] | None = None
     std: tuple[float, float, float] | None = None
     resample: str = "bilinear"
+    pad_to: tuple[int, int] | None = None  # the static bucket of shortest_edge mode
 
     @property
     def input_hw(self) -> tuple[int, int]:
         """The static (h, w) every preprocessed array has."""
-        if self.mode not in ("fixed", "pad_square"):
-            raise ValueError(f"preprocess mode {self.mode!r} is not ported")
-        return self.size
+        if self.mode in ("fixed", "pad_square"):
+            return self.size
+        if self.mode == "shortest_edge" and self.pad_to is not None:
+            return self.pad_to
+        raise ValueError(f"preprocess mode {self.mode!r} (pad_to={self.pad_to}) is not ported")
 
 
 RTDETR_SPEC = PreprocessSpec(mode="fixed", size=(640, 640))
@@ -70,13 +79,45 @@ OWLVIT_SPEC = PreprocessSpec(
     mode="fixed", size=(768, 768), mean=CLIP_MEAN, std=CLIP_STD, resample="bicubic"
 )
 OWLV2_SPEC = PreprocessSpec(mode="pad_square", size=(960, 960), mean=CLIP_MEAN, std=CLIP_STD)
+# the bucket covers both orientations: a portrait photo resizes to up to
+# (1333, 800), a landscape one to (800, 1333)
+DETR_SPEC = PreprocessSpec(
+    mode="shortest_edge", size=(800, 1333), mean=IMAGENET_MEAN, std=IMAGENET_STD,
+    pad_to=(1333, 1333),
+)
 
 
 def device_preprocess_supported(spec: PreprocessSpec) -> bool:
     """pad_square (OWLv2) rescales before its skimage-style warp, so its host
-    work is inherently float; only fixed specs defer rescale/normalize to
-    the device."""
-    return spec.mode == "fixed"
+    work is inherently float; fixed and shortest-edge specs defer
+    rescale/normalize to the device."""
+    return spec.mode in ("fixed", "shortest_edge")
+
+
+def shortest_edge_size(hw: tuple[int, int], short: int, longest: int) -> tuple[int, int]:
+    """Output (h, w) of the aspect-preserving shortest-edge resize with a
+    long-side cap, with the HF DETR processor's `get_size_with_aspect_ratio`
+    integer arithmetic (int truncation; a capped short side re-rounded
+    before the long side is derived from the unrounded cap; the
+    already-at-size case checked first), and the JAX package's two clamps:
+    into the bucket (the equality case can keep a side one pixel over
+    `longest`) and to at least 1 pixel."""
+    h, w = hw
+    raw_size = None
+    size = short
+    mn, mx = (h, w) if h <= w else (w, h)
+    if mx / mn * size > longest:
+        raw_size = longest * mn / mx
+        size = int(round(raw_size))
+    if (h <= w and h == size) or (w <= h and w == size):
+        oh, ow = h, w
+    elif w < h:
+        ow = size
+        oh = int(raw_size * h / w) if raw_size is not None else int(size * h / w)
+    else:
+        oh = size
+        ow = int(raw_size * w / h) if raw_size is not None else int(size * w / h)
+    return max(1, min(oh, longest)), max(1, min(ow, longest))
 
 MAX_IMAGE_PIXELS_ENV = "SPOTTER_TPU_MAX_IMAGE_PIXELS"
 DEFAULT_MAX_IMAGE_PIXELS = 64_000_000  # ~64 MP; <= 0 disables the guard
@@ -139,15 +180,28 @@ def resize_uint8(
     return y[0].permute(1, 2, 0).contiguous().numpy()
 
 
+def stage_uint8(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarray, tuple[int, int]]:
+    """One image's host half: (H, W, 3) uint8 -> (uint8 in the static
+    bucket, valid (h, w)). Fixed specs warp to the bucket; shortest-edge
+    specs resize by `shortest_edge_size` and stage at the top left of a
+    zeroed bucket."""
+    if spec.mode == "fixed":
+        return resize_uint8(image, spec.size, spec.resample), spec.size
+    rh, rw = shortest_edge_size(image.shape[:2], spec.size[0], spec.size[1])
+    out = np.zeros((*spec.input_hw, 3), dtype=np.uint8)
+    out[:rh, :rw] = resize_uint8(image, (rh, rw), spec.resample)
+    return out, (rh, rw)
+
+
 def batch_images_uint8(
     images: list[np.ndarray], spec: PreprocessSpec
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Resize and stack -> (pixels (B,H,W,3) u8, valid (B,2) i32, sizes (B,2) f32 [orig h,w])."""
     if not device_preprocess_supported(spec):
         raise ValueError(f"preprocess mode {spec.mode!r} has no uint8 path")
-    hw = spec.input_hw
-    pixels = np.stack([resize_uint8(img, hw, spec.resample) for img in images])
-    valid = np.tile(np.asarray([hw], np.int32), (len(images), 1))
+    staged = [stage_uint8(img, spec) for img in images]
+    pixels = np.stack([px for px, _ in staged])
+    valid = np.asarray([hw for _, hw in staged], dtype=np.int32).reshape(len(images), 2)
     sizes = np.asarray([img.shape[:2] for img in images], dtype=np.float32)
     return pixels, valid, sizes
 
@@ -213,3 +267,19 @@ def device_rescale_normalize(
     if spec.mean is not None and spec.std is not None:
         x = (x - _channel_table(spec.mean, x.device)) / _channel_table(spec.std, x.device)
     return x
+
+
+def device_rescale_normalize_masked(
+    pixels_u8: torch.Tensor, valid_hw: torch.Tensor, spec: PreprocessSpec
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint8 NHWC and per-image valid (h, w) (B, 2) on the device ->
+    (float32 NHWC pixels, float32 (B, H, W) pixel mask): rescale, normalize,
+    then zero the pad region, as the JAX package's device half does (the
+    DETR processor pads after normalizing, so pad pixels are 0, not
+    (0 - mean) / std)."""
+    x = device_rescale_normalize(pixels_u8, spec)
+    _, h, w = pixels_u8.shape[:3]
+    rows = torch.arange(h, device=x.device)[None, :] < valid_hw[:, :1]  # (B, H)
+    cols = torch.arange(w, device=x.device)[None, :] < valid_hw[:, 1:]  # (B, W)
+    mask = (rows[:, :, None] & cols[:, None, :]).to(torch.float32)
+    return x * mask[..., None], mask

@@ -48,6 +48,17 @@ OWL_MODULES = (
 )
 
 
+# the Deformable-DETR slice's modules: the model (with the ResNet "v1"
+# style and the shortest-edge preprocess in existing modules), and the
+# sep and lane-gather kernels' wrappers in ops.msda
+DEFORMABLE_MODULES = (
+    "spotter_tpu_torch.models.deformable_detr",
+    "spotter_tpu_torch.models.resnet",
+    "spotter_tpu_torch.ops.msda",
+    "spotter_tpu_torch.ops.preprocess",
+)
+
+
 def test_every_serving_module_is_covered():
     assert set(SERVING_MODULES) <= set(MODULES)
 
@@ -58,6 +69,33 @@ def test_every_yolos_module_is_covered():
 
 def test_every_owl_module_is_covered():
     assert set(OWL_MODULES) <= set(MODULES)
+
+
+def test_every_deformable_module_is_covered():
+    assert set(DEFORMABLE_MODULES) <= set(MODULES)
+
+
+def test_msda_backend_kernels_run_only_on_cuda_tensors(monkeypatch):
+    """On CPU tensors the sep and lane-gather wrappers compute their plain
+    versions and neither build nor launch a kernel; other devices raise."""
+    import torch
+
+    from spotter_tpu_torch.ops import msda
+
+    builds = []
+    monkeypatch.setattr(msda, "build_msda_backends_kernel", lambda: builds.append(1))
+    loc, attn = torch.full((1, 3, 1, 2, 2), 0.5), torch.full((1, 3, 1, 2), 0.5)
+    ops, mask, r_band = msda.sep_level_operands(loc, attn, 4, 4)
+    rows = torch.ones(1, 16, 8)
+    out = msda.msda_sep_sum(rows, *ops, mask, (4, 4), r_band, 2)
+    assert out.shape == (1, 64, 8) and torch.allclose(out[0, :3], torch.ones(3, 8))
+    idx, w = msda.prepare_msda_gather_lanes(loc, attn, ((4, 4),), 2)
+    vt = torch.ones(1, 1, 8, 16)
+    assert torch.allclose(msda.msda_hd_gather_sum(vt, idx, w, 2, 3), torch.ones(1, 1, 8, 3))
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        msda.msda_hd_gather_sum(vt.to("meta"), idx.to("meta"), w.to("meta"), 2, 3)
+    assert builds == []
+    assert msda.msda_sep_sum.launches == msda.msda_hd_gather_sum.launches == 0
 
 
 def test_class_logit_kernel_runs_only_on_cuda_tensors(monkeypatch):

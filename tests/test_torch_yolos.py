@@ -289,15 +289,27 @@ def test_int8_knobs_raise(monkeypatch, knob, model_name):
     registry.build_detector(model_name, tiny=True)
 
 
-@pytest.mark.parametrize("backend,item", [("pallas_sep", "Queue 2 item 5"),
-                                          ("pallas_gather", "Queue 2 item 6")])
-def test_unported_msda_backends_raise(monkeypatch, backend, item):
+@pytest.mark.parametrize("backend,wrapper", [("pallas_sep", "msda_sep_sum"),
+                                             ("pallas_gather", "msda_hd_gather_sum")])
+def test_msda_backends_build_and_run_their_wrappers(monkeypatch, backend, wrapper):
+    """SPOTTER_TPU_MSDA=pallas_sep|pallas_gather builds both MSDA families,
+    and their forwards go through the backend's own wrapper: on the CPU its
+    plain version runs and no launch is counted."""
+    from spotter_tpu_torch.ops import msda as tmsda
+
     monkeypatch.setenv("SPOTTER_TPU_MSDA", backend)
-    with pytest.raises(ValueError, match=f"SPOTTER_TPU_MSDA={backend} .*{item}"):
-        registry.build_detector("PekingU/rtdetr_v2_r101vd", tiny=True)
-    for ok in ("auto", "xla", "pallas"):
-        monkeypatch.setenv("SPOTTER_TPU_MSDA", ok)
-        registry.build_detector("PekingU/rtdetr_v2_r101vd", tiny=True)
+    monkeypatch.setattr(tmsda, "MSDA_BACKEND", backend)
+    calls = []
+    real = getattr(tmsda, wrapper)
+    monkeypatch.setattr(tmsda, wrapper, lambda *a, **k: calls.append(1) or real(*a, **k))
+    for name, hw in (("PekingU/rtdetr_v2_r101vd", (64, 64)), ("SenseTime/deformable-detr", (48, 64))):
+        built = registry.build_detector(name, tiny=True)
+        x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, *hw, 3)).astype(np.float32))
+        calls.clear()
+        with torch.inference_mode():
+            out = built.module(x)
+        assert torch.isfinite(out["logits"]).all() and calls, (name, backend)
+        assert real.launches == 0
 
 
 def test_bad_msda_backend_has_the_jax_error_text(monkeypatch):
