@@ -7,16 +7,18 @@ width with weights drawn from --seed: RT-DETRv2-R101, YOLOS (yolos-base,
 Deformable-DETR (SenseTime/deformable-detr, photos staged into the
 1333x1333 bucket with a pixel mask, under each SPOTTER_TPU_MSDA backend),
 and OWLv2 (owlv2-base-patch16-ensemble, 960x960, both policies) with
-OWL-ViT B/32. Holds its eight hand-written kernels against their plain
-PyTorch versions: csrc/msda.cu (MSDA gather-sum, loc-prep and
-fused-prologue sampling), csrc/msda_backends.cu (the pallas_sep separable
-sampling and the pallas_gather lane gather), csrc/attention.cu (flash
-attention, fp32 and bf16) and csrc/class_logits.cu (the OWL class-logit
-head). Phases, each printing JSON lines:
+OWL-ViT B/32; then the port's three measurement tools. Holds its eleven
+hand-written kernels against their plain PyTorch versions: csrc/msda.cu
+(MSDA gather-sum, loc-prep and fused-prologue sampling),
+csrc/msda_backends.cu (the pallas_sep separable sampling and the
+pallas_gather lane gather), csrc/attention.cu (flash attention, fp32 and
+bf16), csrc/class_logits.cu (the OWL class-logit head), and the probes'
+csrc/int8_gemm.cu, csrc/pack_tile.cu and csrc/launch_probe.cu. Phases,
+each printing JSON lines:
 
 1. device  — card name, `nvidia-smi` name and power limit, and whether the
              serving layer's packages (PIL, aiohttp, httpx, pydantic) import;
-2. build   — nvcc builds of the four kernel libraries for sm_90a, started
+2. build   — nvcc builds of the seven kernel libraries for sm_90a, started
              together, with their seconds;
 3. kernel  — each kernel against its plain version: the MSDA kernels at the
              decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
@@ -49,7 +51,8 @@ head). Phases, each printing JSON lines:
              kernel. Each run's counts are reset just before it; the fused
              (resp. loc) kernel must launch 6 times per forward and no other
              kernel at all. p50/p99 per request size, img/s, images per
-             forward (how well the batcher coalesced), /healthz;
+             forward (how well the batcher coalesced), /healthz (which must
+             report integrity "off": the plane is not ported);
 7. yolos_parity — yolos-base at B = 1 on the card against the same model on
              the CPU under "float32" (TF32 off), then the card under "mixed"
              (bf16 body) against the card under "float32" at B = 8;
@@ -85,7 +88,15 @@ head). Phases, each printing JSON lines:
 15. owl_http — the standalone server with OWLv2 answering POST /detect for 1
              and 8 URLs under the default vocabulary and for 8 URLs with
              `queries`, with the same count check; the labels of a queries
-             request must all be among its queries.
+             request must all be among its queries;
+16. probes — the three measurement tools through their `main`, each with
+             its kernel's count set to 0 just before: bench_int8 (int8_gemm
+             exactly equal to its plain version at n = 4096, 8192 and 4000,
+             beside torch._int_mm and a bf16 mm, and its SASS grepped for
+             IMMA), bench_pack_probe (pack_tile's eight variants bit for bit
+             at bh = 16) and profile_r101 (RT-DETR's per-part ms at B = 8, and
+             launch_probe equal to 2x, eager and in a CUDA graph). Each
+             kernel's launches must equal the tool's calls of it.
 
 The OWL families read their prompts' token ids from a tokenization cache;
 the script writes one for its prompts under a temporary
@@ -101,7 +112,7 @@ this file; exits non-zero without either.
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http,
                                             yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
-                                            owl_parity,owl_serve,owl_http]
+                                            owl_parity,owl_serve,owl_http,probes]
 
 The full record is also written to build/chip_smoke.json (or --out).
 """
@@ -124,7 +135,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
-          "owl_parity", "owl_serve", "owl_http")
+          "owl_parity", "owl_serve", "owl_http", "probes")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
@@ -211,34 +222,6 @@ def synthetic_photo(rng, h: int, w: int):
     return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
-# device cycles the card spins before each timed launch (~0.5 ms at the
-# H100's 1.98 GHz boost clock), so the host has enqueued the start event,
-# the wrapper's launches and the end event before the start event runs
-TIMING_LEAD_CYCLES = 1_000_000
-
-
-def cuda_time_ms(fn, iters: int, flush) -> float:
-    """Median milliseconds of `fn` by CUDA events, one launch per pair of
-    events, with the L2 cache flushed before each (the decoder meets its
-    inputs cold: they are written by the layer's projections just before).
-    The card is kept busy while the host enqueues, so the events bracket
-    device time and not the wrapper's Python."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for i in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(TIMING_LEAD_CYCLES)
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
 def phase_device(log: list) -> dict:
     import torch
 
@@ -265,13 +248,17 @@ def phase_device(log: list) -> dict:
 
 
 def phase_build(log: list) -> dict:
-    """The four kernel libraries, one nvcc each, started together."""
+    """The seven kernel libraries, one nvcc each, started together."""
     from spotter_tpu_torch.ops.attention import build_attention_kernel
     from spotter_tpu_torch.ops.msda import build_msda_backends_kernel, build_msda_kernel
     from spotter_tpu_torch.ops.openvocab import build_class_logits_kernel
+    from spotter_tpu_torch.tools.bench_int8 import build_int8_gemm_kernel
+    from spotter_tpu_torch.tools.bench_pack_probe import build_pack_tile_kernel
+    from spotter_tpu_torch.tools.profile_r101 import build_launch_probe_kernel
 
     builds = (build_msda_kernel, build_msda_backends_kernel, build_attention_kernel,
-              build_class_logits_kernel)
+              build_class_logits_kernel, build_int8_gemm_kernel, build_pack_tile_kernel,
+              build_launch_probe_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(build) for build in builds]
@@ -338,6 +325,7 @@ def msda_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "
         msda_gather_sum_reference,
         prepare_msda_gather,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
@@ -387,6 +375,7 @@ def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "c
         msda_loc_reference,
         msda_loc_sum,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
@@ -433,6 +422,7 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
         msda_fused_reference,
         msda_fused_sum,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
@@ -580,6 +570,7 @@ def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
         msda_sep_sum,
         sep_level_operands,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     shapes, q, levels, encoder = MSDA_OP_SHAPES[label]
     dev = torch.device(device)
@@ -660,6 +651,7 @@ def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush
         msda_hd_gather_sum,
         prepare_msda_gather_lanes,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     shapes, q, _, encoder = MSDA_OP_SHAPES[label]
     dev = torch.device(device)
@@ -742,6 +734,7 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
         flash_attn_fp32,
         self_attention_reference,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     b, s, h, hd = shape
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -808,6 +801,7 @@ def class_logits_case(shape, img_dtype, seed: int, flush, device: str = "cuda") 
         class_logits_reference,
         owl_class_logits,
     )
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     b, p, q, n_masked = shape
     dt = OWL_TEXT_WIDTH
@@ -856,13 +850,16 @@ def class_logits_case(shape, img_dtype, seed: int, flush, device: str = "cuda") 
 
 def kernel_counters():
     from spotter_tpu_torch.ops import attention, msda, openvocab
+    from spotter_tpu_torch.tools import bench_int8, bench_pack_probe, profile_r101
 
     return {"msda_gather_sum": msda.msda_gather_sum, "msda_loc_sum": msda.msda_loc_sum,
             "msda_fused_sum": msda.msda_fused_sum, "msda_sep_sum": msda.msda_sep_sum,
             "msda_hd_gather_sum": msda.msda_hd_gather_sum,
             "flash_attn_fp32": attention.flash_attn_fp32,
             "flash_attn_bf16": attention.flash_attn_bf16,
-            "owl_class_logits": openvocab.owl_class_logits}
+            "owl_class_logits": openvocab.owl_class_logits,
+            "int8_gemm": bench_int8.int8_gemm, "pack_tile": bench_pack_probe.pack_tile,
+            "launch_probe": profile_r101.launch_probe}
 
 
 def reset_counts() -> None:
@@ -878,7 +875,9 @@ def phase_kernel(log: list, seed: int) -> list:
     import torch
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
-    counters = kernel_counters()
+    # every kernel of a served path; the probes' kernels run in their own phase
+    probes = {kernel for kernel, *_ in PROBE_TOOLS}
+    counters = {n: fn for n, fn in kernel_counters().items() if n not in probes}
     before = {name: fn.launches for name, fn in counters.items()}
     cases = []
     for case in KERNEL_CASES:
@@ -1082,6 +1081,7 @@ def phase_serve(log: list, seed: int, built, device: str = "cuda") -> dict:
     from spotter_tpu_torch.ops import msda
     from spotter_tpu_torch.ops.preprocess import batch_images_uint8
     from spotter_tpu_torch.serving.detector import assemble_response
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     msda.MSDA_PREP = "xla"
     rng = np.random.default_rng(seed + 2)
@@ -1209,7 +1209,8 @@ async def drive_http(det, photo_dir: str, runs: list) -> dict:
                     images_per_forward[key] = n * len(lat) / (batches() - b0)
                 out[label] = {"launches": read_counts(), "forwards": batches() - batches0,
                               "images_per_forward": images_per_forward}
-            out["healthz"] = (await client.get(f"{api}/healthz")).status_code
+            health = await client.get(f"{api}/healthz")
+            out["healthz"], out["integrity"] = health.status_code, health.json().get("integrity")
             out["metrics"] = (await client.get(f"{api}/metrics")).json()
             # where a batch-8 request's host time goes: fetch and decode of
             # its 8 photos, one after another, as the server does them
@@ -1281,7 +1282,7 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
     lat = out["latency_ms"]
     rec = {
         "phase": "http", "model": MODEL_NAME, "device": device, "bringup_s": bringup_s,
-        "healthz": out["healthz"],
+        "healthz": out["healthz"], "integrity": out["integrity"],
         "latency_ms": latency_summary(lat),
         "img_per_s_8_urls": 8e3 / statistics.median(lat["fused:8"]),
         "img_per_s_4x8_concurrent": 32e3 / statistics.median(lat["fused:4x8"]),
@@ -1292,8 +1293,9 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
         "fused": out["fused"], "kernel": out["kernel"],
     }
     emit(rec, log)
-    if out["healthz"] != 200:
-        raise AssertionError(f"/healthz answered {out['healthz']}")
+    if out["healthz"] != 200 or out["integrity"] != "off":
+        raise AssertionError(f"/healthz answered {out['healthz']}, integrity {out['integrity']!r} "
+                             f"(the plane is not ported: it must say off)")
     for prep_name, name in (("fused", "msda_fused_sum"), ("kernel", "msda_loc_sum")):
         run_rec = out[prep_name]
         check_launches(run_rec["launches"], name, layers * run_rec["forwards"],
@@ -1432,6 +1434,7 @@ def phase_yolos_serve(log: list, seed: int, device: str = "cuda") -> dict:
     from spotter_tpu_torch.engine.engine import InferenceEngine
     from spotter_tpu_torch.ops.preprocess import batch_images_uint8
     from spotter_tpu_torch.serving.detector import assemble_response
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(seed + 5)
     photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
@@ -1641,6 +1644,7 @@ def phase_ddetr_serve(log: list, seed: int, device: str = "cuda") -> dict:
     from spotter_tpu_torch.ops import msda
     from spotter_tpu_torch.ops.preprocess import batch_images_uint8
     from spotter_tpu_torch.serving.detector import assemble_response
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(seed + 12)
     photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
@@ -1972,6 +1976,7 @@ def phase_owl_serve(log: list, seed: int, device: str = "cuda") -> dict:
     from spotter_tpu_torch.engine.engine import InferenceEngine
     from spotter_tpu_torch.ops.preprocess import batch_images_float
     from spotter_tpu_torch.serving.detector import assemble_response, draw_detections
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(seed + 9)
     photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
@@ -2124,6 +2129,54 @@ def check_http_response(body: dict, urls: list, first_hw: tuple[int, int],
         raise AssertionError(f"labeled image is {first.format} {first.size}, not the source's")
 
 
+# the measurement tools, in order, each at its defaults (n = 4096, 8192 and
+# 4000; bh = 16; B = 8): (kernel, tool module, the case the `kernels` line
+# reports)
+PROBE_TOOLS = (
+    ("int8_gemm", "bench_int8", lambda c: c["n"] == 4096),
+    ("pack_tile", "bench_pack_probe", lambda c: c["main"]),
+    ("launch_probe", "profile_r101", lambda c: c["main"]),
+)
+
+
+def phase_probes(log: list, seed: int) -> list:
+    """Each measurement tool through its `main`, as a user runs it on the
+    card, with every count set to 0 just before: its kernel must equal its
+    plain version exactly in every case, and launch exactly as often as the
+    tool called it (profile_r101 also runs MSDA ops, each one gather-sum
+    launch); no other kernel may launch. Returns one case per kernel for
+    the `kernels` line."""
+    cases = []
+    for kernel, tool_name, is_main in PROBE_TOOLS:
+        tool = importlib.import_module(f"spotter_tpu_torch.tools.{tool_name}")
+        out = REPO / "build" / "probes" / f"{tool_name}.json"
+        t0 = time.perf_counter()
+        reset_counts()
+        rc = tool.main(["--seed", str(seed), "--out", str(out)])
+        counts = read_counts()
+        record = json.loads(out.read_text())
+        mine = [c for c in record["cases"] if c.get("kernel") == kernel]
+        wrong = [c for c in mine if not c["exact"]]
+        if rc != 0 or not mine or wrong:
+            raise AssertionError(f"{tool_name}: exit {rc}, {len(mine)} {kernel} cases, "
+                                 f"not exact: {wrong}")
+        check_counts(counts, record["calls"], f"the {tool_name} tool")
+        main_case = next(c for c in mine if is_main(c))
+        case = {
+            "phase": "probes", "kernel": kernel, "tool": tool_name, "main": True,
+            "launches": counts[kernel], "tool_calls": record["calls"][kernel],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "kernel_ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
+            "library_ms": main_case["library_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "seconds": time.perf_counter() - t0,
+        }
+        if f"{kernel}_graph" in record["calls"]:  # launches that CUDA graph replays made
+            case["graph_launches"] = record["calls"][f"{kernel}_graph"]
+        emit(case, log)
+        cases.append(case)
+    return cases
+
+
 # the TPU kernel each port replaces, and the source it is built from
 REPLACES = {
     "msda_gather_sum": "spotter_tpu/ops/msda.py:906",
@@ -2134,19 +2187,26 @@ REPLACES = {
     "flash_attn_fp32": "spotter_tpu/models/layers.py:126",
     "flash_attn_bf16": "spotter_tpu/models/layers.py:185",
     "owl_class_logits": "spotter_tpu/ops/openvocab.py:87",
+    "int8_gemm": "tools/bench_int8.py:142",
+    "pack_tile": "tools/bench_pack_probe.py:78",
+    "launch_probe": "tools/profile_r101.py:320",
 }
 SOURCES = {name: "spotter_tpu_torch/csrc/msda.cu" for name in REPLACES if name.startswith("msda")}
 SOURCES.update({name: "spotter_tpu_torch/csrc/attention.cu"
                 for name in REPLACES if name.startswith("flash")})
 SOURCES["owl_class_logits"] = "spotter_tpu_torch/csrc/class_logits.cu"
 SOURCES.update({name: "spotter_tpu_torch/csrc/msda_backends.cu" for name in BACKEND_KERNEL.values()})
+SOURCES.update({name: f"spotter_tpu_torch/csrc/{name}.cu"
+                for name in ("int8_gemm", "pack_tile", "launch_probe")})
 
 
 def is_main_case(c: dict) -> bool:
     """The case each kernel reports in the summary: B = 8 at its main path's
     shapes (fp32 rows and bilinear prep for MSDA; yolos-base for attention;
     OWLv2's patches, fp32 features and the default vocabulary for the class
-    logits)."""
+    logits; the probes phase marks its own)."""
+    if "main" in c:
+        return c["main"]
     if c["kernel"] == "owl_class_logits":
         shape = c["shape"]
         return (shape["b"], shape["p"], shape["q"], shape["masked"],
@@ -2161,11 +2221,14 @@ def is_main_case(c: dict) -> bool:
 
 
 def kernel_summary(cases: list, launches: dict) -> dict:
-    """The `kernels` line: per kernel, its launches on the path that runs it
-    and its main case's numbers from the kernel phase."""
+    """The `kernels` line: per kernel that a phase of this run held against
+    its plain version, its launches on the path that runs it and its main
+    case's numbers (from the kernel phase, or the probes phase)."""
     rows = []
     for name, replaces in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]
+        if not mine:
+            continue
         main_case = next(c for c in mine if is_main_case(c))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -2175,6 +2238,8 @@ def kernel_summary(cases: list, launches: dict) -> dict:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
         })
+        if "graph_launches" in main_case:  # beside the eager launches the wrapper counts
+            rows[-1]["graph_launches"] = main_case["graph_launches"]
     return {"kernels": rows}
 
 
@@ -2195,7 +2260,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if not all((REPO / "spotter_tpu_torch" / "csrc" / src).exists()
-               for src in ("msda.cu", "msda_backends.cu", "attention.cu", "class_logits.cu")):
+               for src in ("msda.cu", "msda_backends.cu", "attention.cu", "class_logits.cu",
+                           "int8_gemm.cu", "pack_tile.cu", "launch_probe.cu")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -2245,11 +2311,13 @@ def main(argv=None) -> int:
                     os.environ.pop("SPOTTER_TPU_CACHE", None)
                 else:
                     os.environ["SPOTTER_TPU_CACHE"] = old_cache
+    if "probes" in phases:
+        cases += phase_probes(log, args.seed)
     # each kernel's launches on the path that runs it: slice 1's engine path
     # under xla, the HTTP /detect path under fused and under kernel, YOLOS's
     # /detect path under float32 (fp32) and mixed (bf16), and OWLv2's /detect
-    # path against its default vocabulary
-    launches = {}
+    # path against its default vocabulary; each probe's on its tool's path
+    launches = {c["kernel"]: c["launches"] for c in cases if c.get("phase") == "probes"}
     if serve:
         launches["msda_gather_sum"] = serve["msda_launches"]
     if http:

@@ -11,8 +11,9 @@ the JAX package does.
 Each build function applies the precision policy (utils/precision.py) and refuses
 the knobs whose computation the port lacks: the int8 knobs, and for the
 MSDA families (RT-DETR, Deformable-DETR) a non-float32 policy. Their
-builders check SPOTTER_TPU_MSDA with the JAX package's error text; the
-backend itself is read when a forward runs (ops/msda.py).
+builders check SPOTTER_TPU_MSDA and SPOTTER_TPU_MSDA_PRECISION with the
+JAX package's error texts (the precision's "default" is refused as not
+ported); both are read again when a forward runs (ops/msda.py).
 """
 
 import dataclasses
@@ -45,7 +46,12 @@ from spotter_tpu_torch.models.owlvit import OwlViTDetector
 from spotter_tpu_torch.models.registry import ModelFamily, register
 from spotter_tpu_torch.models.rtdetr import RTDetrDetector
 from spotter_tpu_torch.models.yolos import YolosDetector
-from spotter_tpu_torch.ops.msda import MSDA_ENV, check_msda_backend
+from spotter_tpu_torch.ops.msda import (
+    MSDA_ENV,
+    MSDA_PRECISION_ENV,
+    check_msda_backend,
+    check_msda_precision,
+)
 from spotter_tpu_torch.ops.preprocess import (
     CLIP_MEAN,
     CLIP_STD,
@@ -149,6 +155,7 @@ def build_rtdetr(
     refuse_int8()
     require_float32("RT-DETR")
     check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
+    check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     if tiny:
@@ -466,6 +473,7 @@ def build_deformable_detr(
     refuse_int8()
     require_float32("Deformable-DETR")
     check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
+    check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     cfg = tiny_deformable_detr_config() if tiny else deformable_detr_preset(model_name)

@@ -43,6 +43,13 @@ Both are hand-written CUDA in `csrc/msda_backends.cu`. On a CPU tensor each
 wrapper runs its plain version (`*_reference`); on a CUDA tensor it launches
 the kernel or raises.
 
+`SPOTTER_TPU_MSDA_PRECISION` is the JAX package's MXU pass count for its
+one-hot contraction. Every kernel here sums fp32 products in fp32, which is
+its "highest"; "default" (one bf16 pass) is not ported and raises when a
+forward runs (`check_msda_precision`), as does any other value, with the
+JAX package's text. Unset, the JAX default follows the dtype policy, and
+every policy the MSDA families serve here ("float32") makes it "highest".
+
 Layouts follow the JAX package at the public function: value (B, S, H, hd),
 loc (B, Q, H, LP, 2), attn (B, Q, H, LP), output (B, Q, H*hd).
 """
@@ -93,9 +100,37 @@ def check_msda_backend(raw: str) -> str:
 MSDA_BACKEND = check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
 
 
+MSDA_PRECISION_ENV = "SPOTTER_TPU_MSDA_PRECISION"
+# the raw env value (None when unset), checked when a forward runs: like the
+# two knobs above, tests and callers switch it by setting this attribute
+MSDA_PRECISION = os.environ.get(MSDA_PRECISION_ENV)
+
+
+def check_msda_precision(raw: str | None) -> str:
+    """The SPOTTER_TPU_MSDA_PRECISION value the port runs: "highest" (also
+    when unset). "default" raises as not ported; any other value raises
+    with the JAX package's text."""
+    if raw is None:
+        return "highest"
+    name = raw.strip().lower()
+    if name not in ("default", "highest"):
+        raise ValueError(
+            f"Unsupported {MSDA_PRECISION_ENV}={name!r}; expected one of ['default', 'highest']"
+        )
+    if name == "default":
+        raise ValueError(
+            f"{MSDA_PRECISION_ENV}='default' (one bf16 MXU pass) is not ported, comes with "
+            f"ROADMAP Queue 1 item 9; the port's MSDA kernels accumulate in fp32, which is "
+            f"'highest'"
+        )
+    return name
+
+
 def msda_backend() -> str:
     """The backend a forward runs now ("auto", "xla" and "pallas" all take
-    this module's gather-sum, loc and fused kernels)."""
+    this module's gather-sum, loc and fused kernels), after the forward's
+    check of SPOTTER_TPU_MSDA_PRECISION: both sampling entry points ask."""
+    check_msda_precision(MSDA_PRECISION)
     return check_msda_backend(MSDA_BACKEND)
 
 

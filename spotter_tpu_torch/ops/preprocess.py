@@ -6,14 +6,13 @@ Fixed and shortest-edge specs take the JAX package's uint8 ingest: the host
 only resizes uint8 pixels and stages them into the static bucket; the
 rescale runs on the device (`device_rescale_normalize`, and for
 shortest-edge specs `device_rescale_normalize_masked`, which also zeroes
-the pad and builds the pixel mask from each image's valid extent). The bilinear resize replaces
-PIL's `Image.resize(..., BILINEAR)` with
-`torch.nn.functional.interpolate(mode="bilinear", antialias=True)` on a
-CPU uint8 tensor; the two agree to within 1 LSB on downscales and upscales
-to 640x640 (tests/test_torch_engine.py pins it against the JAX package's
-PIL path). Torch's antialiased bicubic differs from PIL's `BICUBIC` by up
-to 2 LSB on listing-photo downscales, so OWL-ViT's bicubic spec resizes
-with PIL itself.
+the pad and builds the pixel mask from each image's valid extent). The
+resize is PIL's `Image.resize(..., BILINEAR)` (or `BICUBIC` for OWL-ViT's
+spec), the call the JAX package makes, so the staged pixels equal the JAX
+package's bit for bit (tests/test_torch_engine.py and
+tests/test_torch_deformable_detr.py pin it); torch's antialiased
+interpolation differs from PIL by up to 1 LSB (bilinear) and 2 LSB
+(bicubic).
 
 OWLv2's "pad_square" spec rescales before its warp, so its host work is
 inherently float (`device_preprocess_supported`): pad with 0.5 grey to a
@@ -25,11 +24,11 @@ Arrays are NHWC at this module's interface, as in the JAX package.
 
 import functools
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -159,8 +158,8 @@ def _check_rgb_uint8(image: np.ndarray) -> None:
 def resize_uint8(
     image: np.ndarray, size: tuple[int, int], resample: str = "bilinear"
 ) -> np.ndarray:
-    """(H, W, 3) uint8 -> (h, w, 3) uint8, antialiased bilinear (torch) or
-    PIL's bicubic.
+    """(H, W, 3) uint8 -> (h, w, 3) uint8 by PIL's bilinear or bicubic
+    filter, as the JAX package resizes.
 
     Runs on the CPU: it is the host half of preprocess, like PIL's resize
     in the JAX package. An image already at `size` is returned as a copy.
@@ -171,13 +170,10 @@ def resize_uint8(
     th, tw = size
     if image.shape[:2] == (th, tw):
         return image.copy()
-    if resample == "bicubic":
-        from PIL import Image  # the serving layer's decoder; only this filter needs it
+    from PIL import Image  # the serving layer's decoder
 
-        return np.array(Image.fromarray(image).resize((tw, th), resample=Image.BICUBIC))
-    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
-    y = F.interpolate(x, size=(th, tw), mode="bilinear", antialias=True, align_corners=False)
-    return y[0].permute(1, 2, 0).contiguous().numpy()
+    pil_filter = Image.BICUBIC if resample == "bicubic" else Image.BILINEAR
+    return np.array(Image.fromarray(image).resize((tw, th), resample=pil_filter))
 
 
 def stage_uint8(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarray, tuple[int, int]]:
@@ -193,13 +189,34 @@ def stage_uint8(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarray, tu
     return out, (rh, rw)
 
 
+DECODE_WORKERS_ENV = "SPOTTER_TPU_DECODE_WORKERS"
+
+
+@functools.cache
+def staging_pool() -> ThreadPoolExecutor | None:
+    """The threads that stage a batch's photos at once (None: one worker).
+    PIL's resize releases the GIL, so they scale with the cores. Workers:
+    SPOTTER_TPU_DECODE_WORKERS, else the JAX package's DecodePool heuristic,
+    min(8, max(2, cores - 1))."""
+    raw = os.environ.get(DECODE_WORKERS_ENV, "").strip()
+    workers = max(1, int(raw) if raw else min(8, max(2, (os.cpu_count() or 2) - 1)))
+    if workers == 1:
+        return None
+    return ThreadPoolExecutor(max_workers=workers, thread_name_prefix="spotter-stage")
+
+
 def batch_images_uint8(
     images: list[np.ndarray], spec: PreprocessSpec
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Resize and stack -> (pixels (B,H,W,3) u8, valid (B,2) i32, sizes (B,2) f32 [orig h,w])."""
+    """Resize and stack -> (pixels (B,H,W,3) u8, valid (B,2) i32, sizes (B,2) f32 [orig h,w]),
+    the photos staged at once on `staging_pool`'s threads."""
     if not device_preprocess_supported(spec):
         raise ValueError(f"preprocess mode {spec.mode!r} has no uint8 path")
-    staged = [stage_uint8(img, spec) for img in images]
+    pool = staging_pool()
+    if pool is None or len(images) < 2:
+        staged = [stage_uint8(img, spec) for img in images]
+    else:
+        staged = list(pool.map(stage_uint8, images, [spec] * len(images)))
     pixels = np.stack([px for px, _ in staged])
     valid = np.asarray([hw for _, hw in staged], dtype=np.int32).reshape(len(images), 2)
     sizes = np.asarray([img.shape[:2] for img in images], dtype=np.float32)

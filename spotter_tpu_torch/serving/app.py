@@ -5,6 +5,12 @@ MODEL_NAME is required and raises if unset, as in the reference's bootstrap
 (serve.py:199-205). The replica serves one device (dp = 1, no mesh; several
 GPUs come with the port's multi-GPU work) and runs on `cuda` unless the
 caller asks for the CPU: with no GPU and no such request, it raises.
+
+The JAX replica's tenancy, result-cache and output-integrity planes are not
+ported (ROADMAP Queue 1 item 6). Their knobs change what a replica does,
+so bring-up refuses them rather than serve as if they were unset
+(`refuse_unported_planes`); integrity, on by default in the JAX package,
+is off here and `/healthz` says so.
 """
 
 import os
@@ -18,6 +24,38 @@ DETECTION_THRESHOLD = 0.5  # serve.py:107
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8)
 BATCH_BUCKETS_ENV = "SPOTTER_TPU_BATCH_BUCKETS"
 MAX_IN_FLIGHT_ENV = "SPOTTER_TPU_MAX_IN_FLIGHT"
+
+# the JAX package's names (spotter_tpu/serving/tenancy.py, integrity.py,
+# caching/result_cache.py)
+TENANCY_KNOBS = (
+    "SPOTTER_TPU_TENANT_KEYS", "SPOTTER_TPU_TENANT_CONFIG", "SPOTTER_TPU_TENANT_RPS_DEFAULT",
+    "SPOTTER_TPU_TENANT_TOP_K", "SPOTTER_TPU_TENANT_EDGE_SECRET",
+    "SPOTTER_TPU_TENANT_TRUST_HEADER",
+)
+CACHE_MAX_MB_ENV = "SPOTTER_TPU_CACHE_MAX_MB"
+INTEGRITY_ENV = "SPOTTER_TPU_INTEGRITY"
+UNPORTED_PLANES = "not ported (ROADMAP Queue 1 item 6); unset it to serve without it"
+
+
+def refuse_unported_planes() -> None:
+    """Raise when a knob of an unported serving plane asks for it: a tenancy
+    knob set and not empty, SPOTTER_TPU_CACHE_MAX_MB above 0 (0 is the JAX
+    default and keeps the cache off), or SPOTTER_TPU_INTEGRITY set to
+    anything but "" or "0" (the JAX package's two off values)."""
+    for knob in TENANCY_KNOBS:
+        raw = os.environ.get(knob, "")
+        if raw.strip():
+            raise ValueError(f"{knob}={raw!r}: the tenancy plane is {UNPORTED_PLANES}")
+    raw = os.environ.get(CACHE_MAX_MB_ENV, "").strip()
+    try:
+        cache_mb = float(raw) if raw else 0.0
+    except ValueError:
+        raise ValueError(f"{CACHE_MAX_MB_ENV} must be a number, got {raw!r}") from None
+    if cache_mb > 0:
+        raise ValueError(f"{CACHE_MAX_MB_ENV}={raw!r}: the result cache is {UNPORTED_PLANES}")
+    raw = os.environ.get(INTEGRITY_ENV)
+    if raw is not None and raw.strip() not in ("", "0"):
+        raise ValueError(f"{INTEGRITY_ENV}={raw!r}: output integrity is {UNPORTED_PLANES}")
 
 
 def parse_batch_buckets(spec: str) -> tuple[int, ...]:
@@ -46,6 +84,7 @@ def build_detector_app(
     """Build the replica's detector. `device` None means `cuda` (raising
     where there is none); `tiny` None reads SPOTTER_TPU_TINY; the weights are
     drawn from `seed` (no checkpoint loader is ported yet)."""
+    refuse_unported_planes()
     model_name = model_name or os.environ.get("MODEL_NAME")
     if not model_name:
         raise ValueError("MODEL_NAME environment variable not set.")

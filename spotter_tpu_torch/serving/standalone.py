@@ -30,8 +30,10 @@ or OWLv2 (`google/owlv2-base-patch16-ensemble`). The OWL families read
 their prompts' token ids from `$SPOTTER_TPU_CACHE/<model>--v3/tokenized.json`
 (convert/tokens.py). `SPOTTER_TPU_TINY=1` serves the family's tiny
 config (random weights) for smoke runs. The model runs on `cuda` unless
-`--device cpu` is given; with no GPU it raises. Tenancy, output integrity, `/profile`, `/debug/*` and the stub
-engine are not ported yet.
+`--device cpu` is given; with no GPU it raises. Tenancy, the result cache,
+output integrity, `/profile`, `/debug/*` and the stub engine are not
+ported yet: `make_app` refuses the first three's knobs
+(`app.refuse_unported_planes`), and `/healthz` reports `"integrity": "off"`.
 """
 
 import argparse
@@ -117,8 +119,12 @@ def make_app(
     device=device)`) runs as a background task after the HTTP surface binds,
     and a failure calls `bringup_exit_cb(BRINGUP_FAILED_EXIT_CODE)`. The
     batcher gets `fatal_exit_cb` for fatal device errors. `preemption=True`
-    (the `main()` path) installs the PreemptionWatcher.
+    (the `main()` path) installs the PreemptionWatcher. Raises at once when
+    a knob of an unported serving plane is set (`refuse_unported_planes`).
     """
+    from spotter_tpu_torch.serving.app import refuse_unported_planes
+
+    refuse_unported_planes()
     app = web.Application(client_max_size=64 * 1024 * 1024)
     tracker = lifecycle.StartupTracker()
     app["startup"] = tracker
@@ -209,6 +215,7 @@ def make_app(
         health = det.health()
         health["startup"] = tracker.state
         health["pool"] = lifecycle.pool_from_env()
+        health["integrity"] = "off"  # the plane is not ported (ROADMAP Queue 1 item 6)
         return web.json_response(health, status=200 if health["ready"] else 503)
 
     async def livez(request: web.Request) -> web.Response:

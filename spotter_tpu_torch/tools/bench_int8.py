@@ -1,0 +1,284 @@
+"""The int8 tensor-core probe on the card (counterpart of tools/bench_int8.py).
+
+The JAX tool asks whether an int8 x int8 -> int32 matmul reaches the TPU's
+int8 MXU, three ways: timings of XLA's bf16 and int8 dots, the optimized
+HLO grepped for an s8 dot, and a tiled Pallas int8 matmul. Here the same
+three, for Hopper:
+
+1. `floor`: the launch floor, one empty kernel launch (device time by CUDA
+   events, and the host's cost per eager launch);
+2. per size n (4096 and 8192 by default; n = 4000, a size that is not a
+   multiple of the 128 x 128 tile, is checked too): the hand-written kernel
+   `int8_gemm` (`csrc/int8_gemm.cu`, mma.sync m16n8k32 s8.s8.s32, the port
+   of `pallas_int8`) against its plain version, exactly, and its time in
+   TOP/s beside `torch._int_mm` (cuBLASLt's int8 GEMM, timed with B as
+   given and column-major; the faster is the library column) and a bf16
+   `torch.mm` with fp32 out (yardsticks only: the port never calls them);
+3. `sass`: the built library's SASS grepped for the tensor-core int8 ops
+   (`IMMA`, or `IGMMA` for wgmma), the counterpart of the HLO grep.
+
+The plain version is not `torch.matmul` on int8, which returns int8 and
+wraps on the CPU, and which cuBLAS does not take on the card: it is an
+int64 product on the CPU and a float64 one on the card, both exact, since
+|sum| <= K * 128**2 stays far below 2**53.
+
+    python -m spotter_tpu_torch.tools.bench_int8 [--sizes 4096,8192]
+        [--edge-size 4000] [--iters 20] [--seed 0] [--device cpu]
+        [--out build/bench_int8.json]
+
+Runs on cuda unless --device cpu is given (then only the plain versions
+run, at whatever sizes are asked, and every time is a host-clock CPU
+time). Prints one JSON line per measurement and writes the record.
+"""
+
+import argparse
+import ctypes
+import functools
+import json
+import re
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from spotter_tpu_torch.tools.timing import (
+    PEAK_BYTES_PER_S,
+    PEAK_INT8_OPS,
+    device_record,
+    l2_flush_buffer,
+    ms_key,
+    resolve_device,
+    time_ms,
+)
+from spotter_tpu_torch.utils.cuda_build import (
+    KernelLibrary,
+    disassemble,
+    load_kernel_library,
+    sass_functions,
+)
+
+REPO = Path(__file__).resolve().parents[2]
+DEFAULT_SIZES = (4096, 8192)
+EDGE_SIZE = 4000
+TILE_MULTIPLE = 16  # M, N and K the kernel takes
+MAX_K = (2**31 - 1) // 128**2  # beyond it an int32 sum of int8 products could overflow
+
+
+@functools.cache
+def build_int8_gemm_kernel() -> KernelLibrary:
+    """Build (first call only), load and bind the kernel library."""
+    loaded = load_kernel_library("int8_gemm", ("int8_gemm.cu",))
+    lib = loaded.lib
+    lib.int8_gemm_s8s8s32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.int8_gemm_s8s8s32.restype = ctypes.c_int
+    lib.int8_gemm_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.int8_gemm_empty_launch.restype = ctypes.c_int
+    lib.int8_gemm_error_string.argtypes = [ctypes.c_int]
+    lib.int8_gemm_error_string.restype = ctypes.c_char_p
+    return loaded
+
+
+def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"int8_gemm: expected a (M, K) and b (K, N), got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_gemm: operands must be int8, got {a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"int8_gemm: a is on {a.device}, b on {b.device}")
+    if a.shape[1] > MAX_K:
+        raise ValueError(f"int8_gemm: K = {a.shape[1]} > {MAX_K} could overflow int32")
+
+
+def int8_gemm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact:
+    an int64 product on the CPU, a float64 one on the card (cuBLAS has no
+    integer GEMM; every partial sum is an integer below 2**53)."""
+    _check_operands(a, b)
+    if a.device.type == "cuda":
+        return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+    return torch.matmul(a.to(torch.int64), b.to(torch.int64)).to(torch.int32)
+
+
+def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact, both row-major.
+    Replaces the Pallas kernel of `tools/bench_int8.py:142`. On a CUDA tensor
+    the kernel (M, N, K multiples of 16, contiguous, 16-byte aligned); on a
+    CPU tensor the plain version; any other device raises."""
+    if a.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"int8_gemm runs on cuda or cpu, not {a.device}")
+    _check_operands(a, b)
+    if a.device.type == "cpu":
+        return int8_gemm_reference(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    if m % TILE_MULTIPLE or n % TILE_MULTIPLE or k % TILE_MULTIPLE or min(m, n, k) == 0:
+        raise ValueError(f"int8_gemm: M, N and K must be positive multiples of {TILE_MULTIPLE}, "
+                         f"got {m}, {n}, {k}")
+    if not (a.is_contiguous() and b.is_contiguous()) or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("int8_gemm: operands must be contiguous and 16-byte aligned")
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    lib = build_int8_gemm_kernel().lib
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = lib.int8_gemm_s8s8s32(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
+    if code != 0:
+        raise RuntimeError(f"int8_gemm launch failed: "
+                           f"{lib.int8_gemm_error_string(code).decode()} ({code})")
+    int8_gemm.launches += 1
+    return out
+
+
+int8_gemm.launches = 0  # kernel launches since the count was last reset
+
+
+def empty_launch() -> None:
+    """One launch of an empty kernel on the current stream (the floor)."""
+    lib = build_int8_gemm_kernel().lib
+    code = lib.int8_gemm_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"empty launch failed: {lib.int8_gemm_error_string(code).decode()}")
+
+
+def operands(n: int, seed: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, n) int8 operands in [-127, 127), drawn with numpy as the JAX tool draws them."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-127, 127, (n, n), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 127, (n, n), dtype=np.int8))
+    return a.to(device), b.to(device)
+
+
+def floor_calibration(device: torch.device, iters: int) -> dict:
+    """The launch floor: an empty kernel's device time, and the host's cost
+    per eager launch over a run of back-to-back launches."""
+    if device.type != "cuda":
+        return {"part": "floor", "empty_launch": "not measured on the CPU"}
+    device_ms = time_ms(empty_launch, iters, device)
+    runs = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        empty_launch()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / runs * 1e6
+    return {"part": "floor", "empty_kernel_ms": device_ms, "host_us_per_eager_launch": host_us}
+
+
+def bf16_mm_fp32_out(a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 with fp32 out, the JAX tool's bf16 yardstick
+    (preferred_element_type=float32); the CPU has no such kernel, so there
+    the operands are widened first."""
+    if a16.device.type == "cuda":
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    return torch.mm(a16.float(), b16.float())
+
+
+def size_case(n: int, seed: int, iters: int, device: torch.device, flush, calls: dict,
+              timed: bool = True) -> dict:
+    """The kernel at n against its plain version, exactly; then the times of
+    the kernel, the plain version, torch._int_mm and the bf16 yardstick."""
+    a, b = operands(n, seed, device)
+
+    def gemm():
+        calls["int8_gemm"] += 1
+        return int8_gemm(a, b)
+
+    got = gemm()
+    want = int8_gemm_reference(a, b)
+    # cuBLASLt's int8 kernels want B K-major ("TN"): the library column is
+    # the faster of B as the tool holds it and B column-major
+    b_cm = b.t().contiguous().t()
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    rec = {
+        "part": "gemm", "kernel": "int8_gemm", "n": n, "exact": bool(torch.equal(got, want)),
+        "max_abs_err": err,
+        "library_exact": all(bool(torch.equal(torch._int_mm(a, bb), want)) for bb in (b, b_cm)),
+    }
+    del want
+    ops = 2 * n**3
+    nbytes = 2 * n * n + 4 * n * n  # both int8 operands read once, the int32 result written once
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    rec.update({"ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+    if not timed:
+        return rec
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    times = {
+        "kernel": time_ms(gemm, iters, device, flush),
+        "plain": time_ms(lambda: int8_gemm_reference(a, b), max(2, iters // 5), device, flush),
+        "library_b_row_major": time_ms(lambda: torch._int_mm(a, b), iters, device, flush),
+        "library_b_col_major": time_ms(lambda: torch._int_mm(a, b_cm), iters, device, flush),
+        "bf16_fp32_out": time_ms(lambda: bf16_mm_fp32_out(a16, b16), iters, device, flush),
+    }
+    times["library"] = min(times["library_b_row_major"], times["library_b_col_major"])
+    for name, ms in times.items():
+        rec[ms_key(name, device)] = ms
+        rec[f"{name}_{'tops' if device.type == 'cuda' else 'cpu_tops'}"] = ops / ms / 1e9
+    return rec
+
+
+def sass_evidence(device: torch.device) -> dict:
+    """The built kernel's SASS, grepped for the int8 tensor-core ops: IMMA
+    (mma.sync) or IGMMA (wgmma); HMMA or conversions to float would mean
+    the int8 path was not emitted."""
+    if device.type != "cuda":
+        return {"part": "sass", "verdict": "not available on the CPU (no CUDA toolkit)"}
+    functions = sass_functions(disassemble(build_int8_gemm_kernel().path))
+    gemm = next(body for name, body in functions.items() if "int8_gemm_kernel" in name)
+    opcodes = [line.split()[1] if line.startswith("@") else line.split()[0] for line in gemm]
+    imma = [op for op in opcodes if re.match(r"I(G)?MMA", op)]
+    float_mma = [op for op in opcodes if re.match(r"H(G)?MMA", op)]
+    return {
+        "part": "sass", "instructions": len(opcodes), "int8_mma_ops": len(imma),
+        "int8_mma_kinds": sorted(set(imma)), "float_mma_ops": len(float_mma),
+        "examples": [line for line in gemm if "MMA" in line][:4],
+        "verdict": ("int8 tensor-core path EMITTED" if imma and not float_mma
+                    else "int8 tensor-core path NOT in the SASS"),
+    }
+
+
+def run(args) -> dict:
+    device = resolve_device(args.device)
+    flush = l2_flush_buffer(device) if device.type == "cuda" else None
+    calls = {"int8_gemm": 0}
+    record = {"tool": "bench_int8", **device_record(device), "seed": args.seed, "cases": []}
+
+    def emit(rec):
+        record["cases"].append(rec)
+        print(json.dumps(rec), flush=True)
+
+    emit(floor_calibration(device, args.iters))
+    for n in args.sizes:
+        emit(size_case(n, args.seed, args.iters, device, flush, calls))
+    if args.edge_size:
+        emit(size_case(args.edge_size, args.seed, args.iters, device, flush, calls, timed=False))
+    emit(sass_evidence(device))
+    record["calls"] = calls
+    return record
+
+
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sizes", default=",".join(map(str, DEFAULT_SIZES)),
+                    type=lambda s: [int(v) for v in s.split(",") if v])
+    ap.add_argument("--edge-size", type=int, default=EDGE_SIZE,
+                    help="an n that is not a multiple of the kernel's tile (0: skip)")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--out", default=str(REPO / "build" / "bench_int8.json"))
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    record = run(args)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -48,6 +48,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def disassemble(path: Path) -> str:
+    """`cuobjdump -sass` of a built library: the machine code nvcc emitted,
+    one `Function : <mangled name>` section per kernel. Raises where the
+    toolkit is missing or the dump fails."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {path} failed ({proc.returncode}):\n{proc.stderr}")
+    return proc.stdout
+
+
+def sass_functions(listing: str) -> dict[str, list[str]]:
+    """Mangled kernel name -> its SASS instructions (opcode and operands,
+    without addresses or encodings), from a `disassemble` listing."""
+    functions: dict[str, list[str]] = {}
+    current = None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            current = functions.setdefault(line.split("Function :", 1)[1].strip(), [])
+        elif current is not None and line.strip().startswith("/*") and "*/" in line:
+            body = line.split("*/", 1)[1].split("/*", 1)[0].strip().rstrip(";").strip()
+            if body:
+                current.append(body)
+    return functions
+
+
 def load_kernel_library(name: str, sources: tuple[str, ...]) -> KernelLibrary:
     """Build (once per source hash) and load `lib<name>.so` from `csrc/` sources.
 

@@ -1,8 +1,8 @@
 """Preprocess, postprocess, engine and response assembly: the port against
 the JAX package.
 
-- `resize_uint8` (torch antialiased bilinear on CPU uint8) against the JAX
-  package's PIL resize, within 1 LSB;
+- `resize_uint8` (PIL's bilinear, as the JAX package calls it) against the
+  JAX package's PIL resize, bit for bit;
 - `sigmoid_topk_postprocess` against JAX, including exact score ties
   (both must order ties by the lower index, `lax.top_k`'s contract);
 - `InferenceEngine.detect` against the JAX `InferenceEngine.detect` on the
@@ -45,6 +45,8 @@ from spotter_tpu_torch.ops.preprocess import (
     batch_images_uint8,
     device_rescale_normalize,
     resize_uint8,
+    stage_uint8,
+    staging_pool,
 )
 from spotter_tpu_torch.serving.detector import assemble_response
 from tests.torch_parity import random_flax_params
@@ -60,11 +62,32 @@ def _photo(h, w, seed):
 
 @pytest.mark.parametrize("hw", [(480, 640), (300, 400), (800, 600), (1080, 1440), (40, 30)])
 def test_resize_uint8_matches_pil_within_one_lsb(hw):
+    """The name predates the PIL resize: the port now equals the JAX
+    package's uint8 path exactly, which is within one LSB a fortiori."""
     img = _photo(*hw, seed=hw[0])
     want, valid, orig = decode_resize_uint8(Image.fromarray(img), J_RTDETR_SPEC)
     got = resize_uint8(img, RTDETR_SPEC.size)
     assert got.dtype == np.uint8 and got.shape == want.shape == (640, 640, 3)
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("workers", ["1", "4"])
+def test_batch_staging_on_threads_equals_one_photo_at_a_time(monkeypatch, workers):
+    """The staging pool changes who resizes, not what: the batch equals each
+    photo staged alone, in order, with one worker or several."""
+    monkeypatch.setenv("SPOTTER_TPU_DECODE_WORKERS", workers)
+    staging_pool.cache_clear()
+    try:
+        assert (staging_pool() is None) == (workers == "1")
+        hws = [(480, 640), (300, 400), (800, 600), (40, 30), (1080, 1440)]
+        imgs = [_photo(h, w, seed=i) for i, (h, w) in enumerate(hws)]
+        pixels, valid, sizes = batch_images_uint8(imgs, RTDETR_SPEC)
+        for i, img in enumerate(imgs):
+            px, hw = stage_uint8(img, RTDETR_SPEC)
+            np.testing.assert_array_equal(pixels[i], px)
+            assert tuple(valid[i]) == hw and tuple(sizes[i]) == img.shape[:2]
+    finally:
+        staging_pool.cache_clear()
 
 
 def test_batch_and_device_rescale_match_jax_host_float_path():

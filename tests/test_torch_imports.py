@@ -1,5 +1,6 @@
 """The port stands alone: importing spotter_tpu_torch pulls in neither jax
-nor anything of the JAX package, and no module of it names either."""
+nor anything of the JAX package or of the repository's root `tools/` (the
+JAX package's measurement tools), and no module of it names any of them."""
 
 import ast
 import pathlib
@@ -13,7 +14,7 @@ MODULES = sorted(
     ".".join(p.relative_to(PACKAGE.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PACKAGE.rglob("*.py")
 )
-FORBIDDEN = ("jax", "jaxlib", "flax", "spotter_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "spotter_tpu", "tools")
 # the serving slice's modules: each is imported (and scanned) below
 SERVING_MODULES = (
     "spotter_tpu_torch.schemas",
@@ -57,6 +58,20 @@ DEFORMABLE_MODULES = (
     "spotter_tpu_torch.ops.msda",
     "spotter_tpu_torch.ops.preprocess",
 )
+
+
+# the probes slice's modules: the three measurement tools with their
+# kernels' wrappers, and the timing they share
+PROBE_MODULES = (
+    "spotter_tpu_torch.tools.timing",
+    "spotter_tpu_torch.tools.bench_int8",
+    "spotter_tpu_torch.tools.bench_pack_probe",
+    "spotter_tpu_torch.tools.profile_r101",
+)
+
+
+def test_every_probe_module_is_covered():
+    assert set(PROBE_MODULES) <= set(MODULES)
 
 
 def test_every_serving_module_is_covered():

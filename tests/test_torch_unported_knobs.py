@@ -1,0 +1,135 @@
+"""Knobs of the JAX package that the port does not serve are refused, not
+ignored.
+
+- The tenancy, result-cache and output-integrity planes (ROADMAP Queue 1
+  item 6): `build_detector_app` and the standalone `make_app` raise, naming
+  the item, when one of their knobs asks for the plane; the knobs' off
+  values serve. `/healthz` says integrity is off, since the JAX package's
+  default is on.
+- `SPOTTER_TPU_MSDA_PRECISION`: "highest" (what the port's kernels do)
+  serves; "default" (one bf16 pass, ROADMAP Queue 1 item 9) raises at build
+  and when a forward runs; any other value raises with the JAX package's
+  own text.
+"""
+
+import asyncio
+
+import numpy as np
+import pytest
+from aiohttp.test_utils import TestClient, TestServer
+
+from spotter_tpu.ops import msda as jmsda  # imported before any test sets the knob
+from spotter_tpu_torch.ops import msda
+from spotter_tpu_torch.serving import app as tapp
+from spotter_tpu_torch.serving import standalone as tstandalone
+
+MODEL = "PekingU/rtdetr_v2_r101vd"
+REFUSED = [(knob, "x") for knob in tapp.TENANCY_KNOBS] + [
+    ("SPOTTER_TPU_TENANT_KEYS", "k1:acme"),
+    ("SPOTTER_TPU_CACHE_MAX_MB", "64"),
+    ("SPOTTER_TPU_CACHE_MAX_MB", "0.5"),
+    ("SPOTTER_TPU_INTEGRITY", "1"),
+    ("SPOTTER_TPU_INTEGRITY", "true"),
+]
+OFF_VALUES = [(knob, "") for knob in tapp.TENANCY_KNOBS] + [
+    ("SPOTTER_TPU_TENANT_KEYS", "  "),
+    ("SPOTTER_TPU_CACHE_MAX_MB", "0"),
+    ("SPOTTER_TPU_CACHE_MAX_MB", ""),
+    ("SPOTTER_TPU_CACHE_MAX_MB", "-1"),
+    ("SPOTTER_TPU_INTEGRITY", ""),
+    ("SPOTTER_TPU_INTEGRITY", "0"),
+    ("SPOTTER_TPU_INTEGRITY", " 0 "),
+]
+ALL_KNOBS = (*tapp.TENANCY_KNOBS, tapp.CACHE_MAX_MB_ENV, tapp.INTEGRITY_ENV)
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    for knob in ALL_KNOBS:
+        monkeypatch.delenv(knob, raising=False)
+    monkeypatch.delenv("SPOTTER_TPU_MSDA_PRECISION", raising=False)
+    monkeypatch.delenv("SPOTTER_TPU_ADMIN_TOKEN", raising=False)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("knob,value", REFUSED, ids=lambda v: str(v))
+def test_unported_plane_knob_raises_at_bring_up(clean_env, knob, value):
+    clean_env.setenv(knob, value)
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6") as info:
+        tapp.build_detector_app(MODEL, tiny=True, device="cpu")
+    assert knob in str(info.value)
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
+        tstandalone.make_app(model_name=MODEL, device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", OFF_VALUES, ids=lambda v: repr(v))
+def test_unported_plane_knob_off_values_serve(clean_env, knob, value):
+    clean_env.setenv(knob, value)
+    det = tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
+    assert det.engine.device.type == "cpu"
+
+
+def test_cache_size_must_be_a_number(clean_env):
+    clean_env.setenv("SPOTTER_TPU_CACHE_MAX_MB", "lots")
+    with pytest.raises(ValueError, match="must be a number"):
+        tapp.refuse_unported_planes()
+
+
+def test_healthz_reports_integrity_off(clean_env):
+    det = tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
+    app = tstandalone.make_app(detector=det)
+
+    async def run():
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            resp = await client.get("/healthz")
+            return resp.status, await resp.json()
+        finally:
+            await client.close()
+
+    status, body = asyncio.run(run())
+    assert status == 200 and body["ready"] is True
+    assert body["integrity"] == "off"
+
+
+def _photo(seed, h=64, w=64):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def test_msda_precision_highest_serves(clean_env):
+    clean_env.setenv("SPOTTER_TPU_MSDA_PRECISION", "highest")
+    clean_env.setattr(msda, "MSDA_PRECISION", "highest")
+    det = tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
+    (dets,) = det.engine.detect([_photo(0)])
+    assert isinstance(dets, list)
+
+
+@pytest.mark.parametrize("family", [MODEL, "SenseTime/deformable-detr"])
+def test_msda_precision_default_raises_at_build_and_forward(clean_env, family):
+    clean_env.setenv("SPOTTER_TPU_MSDA_PRECISION", "default")
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
+        tapp.build_detector_app(family, tiny=True, device="cpu")
+    clean_env.delenv("SPOTTER_TPU_MSDA_PRECISION")
+    det = tapp.build_detector_app(family, tiny=True, device="cpu", batch_buckets=(1,))
+    clean_env.setattr(msda, "MSDA_PRECISION", "default")
+    with pytest.raises(ValueError, match="not ported, comes with ROADMAP Queue 1 item 9"):
+        det.engine.detect([_photo(1)])
+
+
+def test_msda_precision_bogus_raises_with_the_jax_text(clean_env):
+    clean_env.setenv("SPOTTER_TPU_MSDA_PRECISION", "Bogus")
+    with pytest.raises(ValueError) as jax_err:
+        jmsda._mxu_precision()
+    with pytest.raises(ValueError) as port_err:
+        tapp.build_detector_app(MODEL, tiny=True, device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(ValueError) as forward_err:
+        msda.check_msda_precision("Bogus")
+    assert str(forward_err.value) == str(jax_err.value)
+
+
+def test_msda_precision_unset_is_highest():
+    assert msda.check_msda_precision(None) == "highest"
+    assert msda.check_msda_precision(" HIGHEST ") == "highest"
