@@ -29,7 +29,9 @@ each printing JSON lines:
              half the sep hit table's bits cleared (which must drop exactly
              those bands), and bf16 rows; the attention kernel at YOLOS's
              shapes and more (B = 1 and 8, S = 4301 and 1100, hd = 64 and 128,
-             fp32 and bf16), the class-logit kernel at OWLv2's and OWL-ViT
+             fp32 and bf16; the bf16 kernel's SASS must show wgmma (HGMMA),
+             no mma.sync (HMMA) and TMA loads (UTMALDG)), the class-logit
+             kernel at OWLv2's and OWL-ViT
              B/32's shapes (P = 3600 and 576; B = 1 and 8; fp32 and bf16
              features; 22 queries, 24 with 2 masked, 160): max abs error
              against the tolerance, kernel / plain / library (embedding_bag,
@@ -92,8 +94,9 @@ each printing JSON lines:
 16. probes — the three measurement tools through their `main`, each with
              its kernel's count set to 0 just before: bench_int8 (int8_gemm
              exactly equal to its plain version at n = 4096, 8192 and 4000,
-             beside torch._int_mm and a bf16 mm, and its SASS grepped for
-             IMMA), bench_pack_probe (pack_tile's eight variants bit for bit
+             with its transpose pass equal to b.t().contiguous(), beside
+             torch._int_mm and a bf16 mm; its SASS must show wgmma (IGMMA)
+             and no mma.sync (IMMA)), bench_pack_probe (pack_tile's eight variants bit for bit
              at bh = 16) and profile_r101 (RT-DETR's per-part ms at B = 8, and
              launch_probe equal to 2x, eager and in a CUDA graph). Each
              kernel's launches must equal the tool's calls of it.
@@ -119,6 +122,7 @@ The full record is also written to build/chip_smoke.json (or --out).
 
 import argparse
 import contextlib
+import functools
 import importlib
 import json
 import os
@@ -169,10 +173,11 @@ PARITY_ATOL_BOXES = 1e-4
 # sum up to 4301 weighted values in fp32 in other orders (cuBLAS blocks, the
 # kernel a running sum rescaled once per 64-key tile), ~sqrt(S) * 2**-24 =
 # 4e-6 of |out| typically; 2e-5 leaves room for the tail. bf16: the kernel
-# computes in fp32 from bf16 inputs and rounds its output once, so it is held
-# against the plain version run in fp32 on the same bf16 inputs and rounded
-# to bf16 the same way: they may differ by one bf16 ulp, at most 2**-7 of the
-# largest output
+# multiplies bf16 inputs on the tensor cores with fp32 sums, takes the softmax
+# in fp32, feeds P to P.V as two bf16 terms (P_hi + P_lo, ~2**-17 relative)
+# and rounds its output once, so it is held against the plain version run in
+# fp32 on the same bf16 inputs and rounded to bf16 the same way: they may
+# differ by one bf16 ulp, at most 2**-7 of the largest output
 ATTN_RTOL = {"float32": 2e-5, "bfloat16": 2.0**-7}
 # yolos-base, card vs CPU under "float32" at B = 1: the RT-DETR tolerances.
 # fp32 throughout with TF32 off, but every product sums in another order
@@ -760,6 +765,7 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=1.0)
 
     lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+    sass = dict(attention_sass()) if wrapper is flash_attn_bf16 and device == "cuda" else None
     flops = 4 * b * h * s * s * hd
     nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -771,6 +777,7 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
         "shape": {"b": b, "s": s, "h": h, "hd": hd},
         "max_abs_err": err, "atol": atol, "rtol_of_max_out": ATTN_RTOL[dname],
         "plain_in_dtype_max_abs_err": plain_err, "library_max_abs_err": lib_err,
+        "sass": sass,
         "kernel_ms": cuda_time_ms(lambda: wrapper(q, k, v), 10 if b == 8 else 30, flush),
         "plain_ms": cuda_time_ms(lambda: self_attention_reference(q, k, v), 5, flush),
         "library_ms": cuda_time_ms(library, 10 if b == 8 else 30, flush),
@@ -780,6 +787,26 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     torch.cuda.empty_cache()  # the plain version's (B, H, S, S) scores
     return rec
+
+
+@functools.cache
+def attention_sass() -> dict:
+    """Opcode counts of the bf16 attention kernel's SASS, per head width: it
+    must issue wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA).
+    Read once a run."""
+    from spotter_tpu_torch.ops.attention import HEAD_DIMS, build_attention_kernel
+    from spotter_tpu_torch.utils.cuda_build import disassemble, sass_functions
+
+    counts = {}
+    for name, body in sass_functions(disassemble(build_attention_kernel().path)).items():
+        if "flash_attn_bf16_kernel" in name:
+            ops = [line.split()[1] if line.startswith("@") else line.split()[0] for line in body]
+            counts[name] = {kind: sum(op.startswith(kind) for op in ops)
+                            for kind in ("HGMMA", "HMMA", "UTMALDG")}
+    if len(counts) != len(HEAD_DIMS) or not all(
+            c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"flash_attn_bf16's SASS is not the wgmma + TMA design: {counts}")
+    return counts
 
 
 # (B, P, Q, masked slots): OWLv2 (960/16 = 60x60 patches) and OWL-ViT B/32
@@ -2139,6 +2166,20 @@ PROBE_TOOLS = (
 )
 
 
+def check_int8_design(record: dict) -> None:
+    """int8_gemm is the wgmma design: its SASS shows IGMMA and no IMMA (a
+    record from the card; the CPU has no SASS), and its transpose pass
+    equals b.t().contiguous() at every size."""
+    from spotter_tpu_torch.tools.bench_int8 import SASS_WGMMA_VERDICT
+
+    sass = next(c for c in record["cases"] if c["part"] == "sass")
+    if record["device"] == "cuda" and sass["verdict"] != SASS_WGMMA_VERDICT:
+        raise AssertionError(f"int8_gemm's SASS: {sass}")
+    wrong = [c["n"] for c in record["cases"] if c["part"] == "gemm" and not c["transpose_exact"]]
+    if wrong:
+        raise AssertionError(f"int8_gemm's transpose pass differs from b.t() at n = {wrong}")
+
+
 def phase_probes(log: list, seed: int) -> list:
     """Each measurement tool through its `main`, as a user runs it on the
     card, with every count set to 0 just before: its kernel must equal its
@@ -2161,6 +2202,8 @@ def phase_probes(log: list, seed: int) -> list:
             raise AssertionError(f"{tool_name}: exit {rc}, {len(mine)} {kernel} cases, "
                                  f"not exact: {wrong}")
         check_counts(counts, record["calls"], f"the {tool_name} tool")
+        if kernel == "int8_gemm":
+            check_int8_design(record)
         main_case = next(c for c in mine if is_main(c))
         case = {
             "phase": "probes", "kernel": kernel, "tool": tool_name, "main": True,
@@ -2172,6 +2215,8 @@ def phase_probes(log: list, seed: int) -> list:
         }
         if f"{kernel}_graph" in record["calls"]:  # launches that CUDA graph replays made
             case["graph_launches"] = record["calls"][f"{kernel}_graph"]
+        if kernel == "int8_gemm":  # the transpose pass alone, inside kernel_ms
+            case["transpose_ms"] = main_case["transpose_ms"]
         emit(case, log)
         cases.append(case)
     return cases

@@ -5,213 +5,222 @@
 // :146-164): one int8 x int8 -> int32 dot_general per 512 x 4096 x 512
 // block, which asks whether Mosaic reaches the TPU's int8 MXU. Here the
 // question is the same for Hopper's int8 tensor cores, through
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32.
+// wgmma.mma_async m64n256k32.s32.s8.s8 (SASS IGMMA).
 //
 // What bounds it on an H100: operations. At n = 4096 the 2n^3 = 137 G int
 // ops take 69 us at the dense int8 peak of 1,979 TOP/s, where the bytes
 // (two 16.8 MB operands, a 67.1 MB int32 result) need 30 us at 3.35 TB/s;
 // at n = 8192, 556 us against 120 us. So the design keeps the tensor cores
-// fed from shared memory:
+// fed from shared memory without threads touching the operands:
 //
-// - a block owns a 128 x 128 tile of C and walks K in steps of 64; its 8
-//   warps each own 64 x 32 of the tile (4 x 4 m16n8 fragments, 64 int32
-//   accumulators a thread), so each k32 step is 16 mma per warp against 24
-//   32-bit shared loads;
-// - mma's B operand is K-major ("col"), and B arrives (K, N) row-major;
-//   ldmatrix's .trans works only on 16-bit elements, so each thread loads a
-//   4 x 4 byte block of B (4 rows of 4 bytes, coalesced along N), turns it
-//   with byte permutes and stores 4 K-contiguous words: the transpose
-//   happens while the tile is staged, inside this kernel's time;
-// - shared rows are 64 bytes of K plus 16 of pad (20 words), so the
-//   fragment loads of a warp (8 rows x 4 words) hit 32 distinct banks;
-// - the next K step's tiles are loaded from global memory into registers
-//   while the tensor cores work on the current one (register double
-//   buffering; wgmma and TMA are a later step).
+// - wgmma takes 8-bit operands K-major only, and B arrives (K, N) row-major.
+//   A first pass (transpose_s8_kernel) writes B^T (N, K) into scratch that
+//   the caller allocates: 2 x 16.8 MB of traffic at n = 4096, ~10 us at
+//   3.35 TB/s. It belongs to the GEMM's call and is timed with it;
+// - a block owns a 128 x 256 tile of C and has three warpgroups: a producer,
+//   one thread of which keeps TMA loads of the A (128 x 128 bytes) and B^T
+//   (256 x 128 bytes) tiles of the next K steps in flight in a ring of 4
+//   stages (192 KB), each with a full and an empty mbarrier; and two
+//   consumers, each issuing 4 wgmma m64n256k32 a stage from shared-memory
+//   descriptors into 128 int32 accumulators a thread, releasing a stage as
+//   soon as the wgmmas that read it have finished (one group in flight);
+// - tiles are 128-byte swizzled by TMA, so wgmma reads them without bank
+//   conflicts; TMA zero-fills rows and K columns past the edge, so a ragged
+//   M, N or K (n = 4000) needs no special case, and the epilogue stores
+//   int32 pairs of C masked at the edge.
 //
-// M, N and K must be multiples of 16 (the wrapper checks): a partial tile
-// at the edge is masked at the granularity of 16-byte chunks of A, 4 x 4
-// blocks of B and 2-column pairs of C, which never straddle the edge.
+// M, N and K must be multiples of 16 (the wrapper checks): TMA wants row
+// strides that are multiples of 16 bytes, the transpose moves 16-byte chunks,
+// and a pair of C columns never straddles the edge.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-constexpr int kRowWords = kBK / 4 + 4;  // 16 words of K + 4 of pad
+using namespace hopper;
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kBM = 128;  // C rows a block: two consumer warpgroups of 64
+constexpr int kBN = 256;  // C columns a block
+constexpr int kBK = 128;  // bytes of K a stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kThreads = 384;
+constexpr int kConsumerThreads = 256;
 
-// The global loads of one K step: two 16-byte chunks of A and two 4 x 4
-// blocks of B per thread.
-struct Stage {
-  uint4 a[2];
-  uint32_t b[2][4];
+struct alignas(1024) Smem {
+  int8_t a[kStages][kBM * kBK];  // [m][k], 16 KB a stage
+  int8_t b[kStages][kBN * kBK];  // [n][k] (B^T), 32 KB a stage
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
 };
 
-__device__ __forceinline__ void load_stage(Stage& st, const int8_t* __restrict__ A,
-                                           const int8_t* __restrict__ B, int M, int N, int K,
-                                           int m0, int n0, int k0) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * kThreads;  // 512 chunks: 128 rows x 4 chunks of 16 bytes
-    const int row = m0 + (c >> 2);
-    const int k = k0 + (c & 3) * 16;
-    st.a[i] = (row < M && k < K)
-                  ? *reinterpret_cast<const uint4*>(A + static_cast<long long>(row) * K + k)
-                  : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    // 512 blocks of 4 x 4 bytes: lanes take 8 neighbouring N blocks of 4
-    // neighbouring K blocks, so each load instruction reads 4 whole sectors
-    const int blk = tid + i * kThreads;
-    const int nq = ((blk >> 5) & 3) * 8 + (blk & 7);
-    const int kq = (blk >> 7) * 4 + ((blk >> 3) & 3);
-    const int k = k0 + kq * 4;
-    const int n = n0 + nq * 4;
-    const bool live = k < K && n < N;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      st.b[i][r] = live ? *reinterpret_cast<const uint32_t*>(
-                              B + static_cast<long long>(k + r) * N + n)
-                        : 0u;
-    }
-  }
-}
-
-__device__ __forceinline__ void store_stage(const Stage& st, uint32_t* As, uint32_t* Bs) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * kThreads;
-    *reinterpret_cast<uint4*>(As + (c >> 2) * kRowWords + (c & 3) * 4) = st.a[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int blk = tid + i * kThreads;
-    const int nq = ((blk >> 5) & 3) * 8 + (blk & 7);
-    const int kq = (blk >> 7) * 4 + ((blk >> 3) & 3);
-    const uint32_t* w = st.b[i];
-    // w[r] holds B[k + r][n .. n + 3]; column j of the block is byte j of each
-    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
-    const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
-    const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-    const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-    uint32_t* dst = Bs + (nq * 4) * kRowWords + kq;
-    dst[0 * kRowWords] = __byte_perm(lo01, lo23, 0x5410);  // column n: k .. k + 3
-    dst[1 * kRowWords] = __byte_perm(lo01, lo23, 0x7632);
-    dst[2 * kRowWords] = __byte_perm(hi01, hi23, 0x5410);
-    dst[3 * kRowWords] = __byte_perm(hi01, hi23, 0x7632);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                 int32_t* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) uint32_t As[kBM * kRowWords];  // [m][k], 10 KB
-  __shared__ __align__(16) uint32_t Bs[kBN * kRowWords];  // [n][k], transposed, 10 KB
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;  // fragment row (A, C) or column (B)
-  const int t = lane & 3;   // word within a fragment's 16 bytes of K
-  const int wm = (warp >> 2) * 64;
-  const int wn = (warp & 3) * 32;
+__global__ void __launch_bounds__(kThreads, 1)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap bt_map, int32_t* __restrict__ C, int M,
+                 int N, int K) {
+  extern __shared__ char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  // warp-uniform as far as the compiler can see, so the roles' paths are not divergent
+  const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
+  const int k_tiles = (K + kBK - 1) / kBK;
 
-  int acc[4][4][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  Stage st;
-  load_stage(st, A, B, M, N, K, m0, n0, 0);
-  store_stage(st, As, Bs);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumerThreads / 32);  // one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const bool more = k0 + kBK < K;
-    if (more) load_stage(st, A, B, M, N, K, m0, n0, k0 + kBK);  // in flight during the mma
-#pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t* r0 = As + (wm + i * 16 + g) * kRowWords + ks * 8 + t;
-        const uint32_t* r8 = r0 + 8 * kRowWords;
-        a[i][0] = r0[0];  // row g,     k t*4 .. +3
-        a[i][1] = r8[0];  // row g + 8, k t*4 .. +3
-        a[i][2] = r0[4];  // row g,     k 16 + t*4 .. +3
-        a[i][3] = r8[4];  // row g + 8, k 16 + t*4 .. +3
+
+  if (warpgroup == 0) {  // producer
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&sm.empty[st], ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st], sizeof(sm.a[0]) + sizeof(sm.b[0]));
+        tma_load_2d(sm.a[st], &a_map, &sm.full[st], kt * kBK, m0);
+        tma_load_2d(sm.b[st], &bt_map, &sm.full[st], kt * kBK, n0);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t* col = Bs + (wn + j * 8 + g) * kRowWords + ks * 8 + t;
-        b[j][0] = col[0];  // column g, k t*4 .. +3
-        b[j][1] = col[4];  // column g, k 16 + t*4 .. +3
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
     }
-    __syncthreads();  // every warp is done reading this step's tiles
-    if (more) {
-      store_stage(st, As, Bs);
-      __syncthreads();
-    }
+    return;
   }
 
-  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+  // consumer cw owns C rows m0 + 64 cw .. + 63; within them warp w rows
+  // 16 w .. + 15, and lane (g = lane / 4, t = lane % 4) rows g and g + 8,
+  // columns 8 i + 2 t and + 1 of each 8-column group i: acc[4 i + 2 r + c]
+  const int cw = warpgroup - 1;
+  const int tid = threadIdx.x - 128 * warpgroup;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  int acc[128];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int st = kt % kStages;
+    mbar_wait(&sm.full[st], (kt / kStages) & 1);
+    const uint64_t a_desc = sw128_desc(&sm.a[st][cw * 64 * kBK], 16);
+    const uint64_t b_desc = sw128_desc(sm.b[st], 16);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
-      if (col >= N) continue;
+    for (int kk = 0; kk < kBK / 32; ++kk) {  // 32 bytes of K a step
+      wgmma_m64n256k32_s8_ss(acc, a_desc + 2 * kk, b_desc + 2 * kk);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's wgmmas are done with it
+    if (kt > 0) mbar_arrive_per_warp(&sm.empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + g + h * 8;
-        if (row < M) {
-          *reinterpret_cast<int2*>(C + static_cast<long long>(row) * N + col) =
-              make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + 64 * cw + 16 * warp + g + 8 * r;
+    if (row >= M) continue;
+    int32_t* c_row = C + static_cast<long long>(row) * N;
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t;
+      if (col < N) {
+        *reinterpret_cast<int2*>(c_row + col) =
+            make_int2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
       }
     }
+  }
+}
+
+// B (K, N) -> B^T (N, K), bytes, through a 64 x 64 tile in shared memory:
+// each thread loads one 16-byte chunk of a B row and stores one 16-byte chunk
+// of a B^T row (16 byte reads of a column of the tile). Rows of the tile are
+// 68 bytes, so the column reads of a warp fall on at most 2 ways of a bank.
+constexpr int kTile = 64;
+constexpr int kTileLd = kTile + 4;
+
+__global__ void __launch_bounds__(256)
+transpose_s8_kernel(const int8_t* __restrict__ B, int8_t* __restrict__ Bt, int K, int N) {
+  __shared__ __align__(16) uint8_t tile[kTile * kTileLd];
+  const int k0 = blockIdx.y * kTile;
+  const int n0 = blockIdx.x * kTile;
+  const int row = threadIdx.x / 4;        // tile row: k (load), n (store)
+  const int chunk = (threadIdx.x % 4) * 16;
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (k0 + row < K && n0 + chunk < N) {
+    v = *reinterpret_cast<const uint4*>(B + static_cast<long long>(k0 + row) * N + n0 + chunk);
+  }
+  uint32_t* dst = reinterpret_cast<uint32_t*>(tile + row * kTileLd + chunk);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+  __syncthreads();
+  if (n0 + row < N && k0 + chunk < K) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint8_t* col = tile + (chunk + 4 * q) * kTileLd + row;
+      w[q] = static_cast<uint32_t>(col[0]) | (static_cast<uint32_t>(col[kTileLd]) << 8) |
+             (static_cast<uint32_t>(col[2 * kTileLd]) << 16) |
+             (static_cast<uint32_t>(col[3 * kTileLd]) << 24);
+    }
+    *reinterpret_cast<uint4*>(Bt + static_cast<long long>(n0 + row) * K + k0 + chunk) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
 __global__ void empty_kernel() {}
 
+bool valid_dims(int m, int n, int k) {
+  return m >= 16 && n >= 16 && k >= 16 && m % 16 == 0 && n % 16 == 0 && k % 16 == 0;
+}
+
 }  // namespace
 
-// Plain C interface, loaded with ctypes. a (m, k) and b (k, n) are
-// contiguous row-major int8 device arrays, 16-byte aligned; c a contiguous
-// (m, n) int32 device array; m, n and k positive multiples of 16. The
-// stream is the caller's current CUDA stream. Returns the CUDA error of the
-// launch (0 on success); nothing synchronises or allocates.
-extern "C" int int8_gemm_s8s8s32(const void* a, const void* b, void* c, int m, int n, int k,
-                                 void* stream) {
-  if (m < 16 || n < 16 || k < 16 || m % 16 || n % 16 || k % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Plain C interface, loaded with ctypes. All arrays are contiguous,
+// row-major and 16-byte aligned device arrays; m, n and k positive multiples
+// of 16. The stream is the caller's current CUDA stream. Each returns the
+// error of its launch or of its tensor maps (0 on success); nothing
+// synchronises or allocates.
+
+// bt (n, k) = the transpose of b (k, n), int8.
+extern "C" int int8_transpose_s8(const void* b, void* bt, int k, int n, void* stream) {
+  if (!valid_dims(16, n, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kTile - 1) / kTile, (k + kTile - 1) / kTile);
+  transpose_s8_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(b), static_cast<int8_t*>(bt), k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c (m, n) int32 = a (m, k) int8 x b (k, n) int8: the transpose of b into
+// the scratch bt (n, k), then the GEMM.
+extern "C" int int8_gemm_s8s8s32(const void* a, const void* b, void* bt, void* c, int m, int n,
+                                 int k, void* stream) {
+  if (!valid_dims(m, n, k)) return static_cast<int>(cudaErrorInvalidValue);
+  int err = int8_transpose_s8(b, bt, k, n, stream);
+  if (err != 0) return err;
+  CUtensorMap a_map, bt_map;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(m)};
+  const cuuint64_t bt_dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(n)};
+  const cuuint64_t row_bytes[1] = {static_cast<cuuint64_t>(k)};
+  const cuuint32_t a_box[2] = {kBK, kBM};
+  const cuuint32_t bt_box[2] = {kBK, kBN};
+  err = encode_tiled(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a, a_dims, row_bytes, a_box);
+  if (err != 0) return err;
+  err = encode_tiled(&bt_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, bt, bt_dims, row_bytes, bt_box);
+  if (err != 0) return err;
+  constexpr size_t smem = sizeof(Smem) + 1024;  // + the alignment slack
+  const cudaError_t attr = cudaFuncSetAttribute(
+      int8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int8_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), static_cast<int32_t*>(c), m,
-      n, k);
+  int8_gemm_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a_map, bt_map, static_cast<int32_t*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -222,6 +231,4 @@ extern "C" int int8_gemm_empty_launch(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* int8_gemm_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+extern "C" const char* int8_gemm_error_string(int code) { return hopper::error_string(code); }

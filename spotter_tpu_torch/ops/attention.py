@@ -4,10 +4,11 @@ hand-written Hopper kernel that replaces the JAX package's two TPU kernels
 fp32 tensors, and `_splash_self_attention`, Pallas splash on bf16 tensors).
 
 Both compute softmax(q·kᵀ)·v over the whole sequence with q pre-scaled by
-hd^-0.5, on (B, S, H, hd) tensors, the JAX layout. On the card that is one
-kernel (`csrc/attention.cu`) with two instantiations and a launch counter
-each: `flash_attn_fp32` and `flash_attn_bf16`. On a CPU tensor each wrapper
-runs `self_attention_reference`; on a CUDA tensor it launches its kernel or
+hd^-0.5, on (B, S, H, hd) tensors, the JAX layout. On the card they are two
+kernels of `csrc/attention.cu` with a launch counter each: `flash_attn_fp32`
+(CUDA cores, fp32) and `flash_attn_bf16` (tensor cores: wgmma fed by TMA,
+fp32 accumulation and softmax). On a CPU tensor each wrapper runs
+`self_attention_reference`; on a CUDA tensor it launches its kernel or
 raises.
 """
 
@@ -18,7 +19,8 @@ import torch
 
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
-HEAD_DIMS = (64, 128)  # the kernel's instantiations: YOLOS/OWLv2 heads, and 128
+HEAD_DIMS = (64, 128)  # the kernels' instantiations: YOLOS/OWLv2 heads, and 128
+STRIDE_BYTES = 16  # strides over (B, S, H) and start addresses: multiples of this
 
 
 def self_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -65,13 +67,15 @@ def _check_inputs(name: str, dtype: torch.dtype, q, k, v) -> None:
             raise ValueError(f"{name}: {t_name} is on {t.device}, q on {q.device}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"{name}: the kernel takes hd in {HEAD_DIMS}, got {q.shape[3]}")
-    align = 4 * q.element_size()  # the kernel moves 4 elements per load
+    # 16 bytes: the fp32 kernel's vector loads, the bf16 kernel's TMA tensor maps
+    multiple = STRIDE_BYTES // q.element_size()
     for t_name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(st % 4 for st in t.stride()[:3]) or t.data_ptr() % align:
+        if (t.stride(3) != 1 or any(st % multiple for st in t.stride()[:3])
+                or t.data_ptr() % STRIDE_BYTES):
             raise ValueError(
                 f"{name}: {t_name} needs unit stride over hd, strides over (B, S, H) that "
-                f"are multiples of 4 and a {align}-byte aligned start; got strides "
-                f"{t.stride()}"
+                f"are multiples of {multiple} and a {STRIDE_BYTES}-byte aligned start; got "
+                f"strides {t.stride()}"
             )
 
 
@@ -122,9 +126,9 @@ flash_attn_fp32.launches = 0  # kernel launches since the count was last reset
 
 
 def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """bf16 (B, S, H, hd) pre-scaled q, k, v -> bf16 (B, S, H, hd), computed
-    in fp32. Replaces the Pallas splash kernel of
-    `spotter_tpu/models/layers.py:185`."""
+    """bf16 (B, S, H, hd) pre-scaled q, k, v -> bf16 (B, S, H, hd), the
+    products on the tensor cores with fp32 sums and the softmax in fp32.
+    Replaces the Pallas splash kernel of `spotter_tpu/models/layers.py:185`."""
     if q.device.type == "cpu":
         return _cpu_reference("flash_attn_bf16", torch.bfloat16, q, k, v)
     out = _launch("flash_attn_bf16", torch.bfloat16, q, k, v)

@@ -8,14 +8,17 @@ three, for Hopper:
 1. `floor`: the launch floor, one empty kernel launch (device time by CUDA
    events, and the host's cost per eager launch);
 2. per size n (4096 and 8192 by default; n = 4000, a size that is not a
-   multiple of the 128 x 128 tile, is checked too): the hand-written kernel
-   `int8_gemm` (`csrc/int8_gemm.cu`, mma.sync m16n8k32 s8.s8.s32, the port
-   of `pallas_int8`) against its plain version, exactly, and its time in
-   TOP/s beside `torch._int_mm` (cuBLASLt's int8 GEMM, timed with B as
+   multiple of the 128 x 256 tile, is checked too): the hand-written kernel
+   `int8_gemm` (`csrc/int8_gemm.cu`: a transpose pass that writes B K-major,
+   then wgmma m64n256k32 s32.s8.s8 fed by TMA; the port of `pallas_int8`)
+   against its plain version, exactly, its transpose pass against
+   `b.t().contiguous()`, exactly, and its time in TOP/s (the transpose
+   included) beside `torch._int_mm` (cuBLASLt's int8 GEMM, timed with B as
    given and column-major; the faster is the library column) and a bf16
    `torch.mm` with fp32 out (yardsticks only: the port never calls them);
-3. `sass`: the built library's SASS grepped for the tensor-core int8 ops
-   (`IMMA`, or `IGMMA` for wgmma), the counterpart of the HLO grep.
+3. `sass`: the built GEMM kernel's SASS grepped for the tensor-core int8
+   ops, the counterpart of the HLO grep: the wgmma path is `IGMMA`, and
+   `IMMA` (mma.sync) must not appear.
 
 The plain version is not `torch.matmul` on int8, which returns int8 and
 wraps on the CPU, and which cuBLAS does not take on the card: it is an
@@ -63,6 +66,7 @@ DEFAULT_SIZES = (4096, 8192)
 EDGE_SIZE = 4000
 TILE_MULTIPLE = 16  # M, N and K the kernel takes
 MAX_K = (2**31 - 1) // 128**2  # beyond it an int32 sum of int8 products could overflow
+SASS_WGMMA_VERDICT = "int8 wgmma path EMITTED (IGMMA, no IMMA)"
 
 
 @functools.cache
@@ -70,8 +74,10 @@ def build_int8_gemm_kernel() -> KernelLibrary:
     """Build (first call only), load and bind the kernel library."""
     loaded = load_kernel_library("int8_gemm", ("int8_gemm.cu",))
     lib = loaded.lib
-    lib.int8_gemm_s8s8s32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.int8_gemm_s8s8s32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.int8_gemm_s8s8s32.restype = ctypes.c_int
+    lib.int8_transpose_s8.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.int8_transpose_s8.restype = ctypes.c_int
     lib.int8_gemm_empty_launch.argtypes = [ctypes.c_void_p]
     lib.int8_gemm_empty_launch.restype = ctypes.c_int
     lib.int8_gemm_error_string.argtypes = [ctypes.c_int]
@@ -101,30 +107,76 @@ def int8_gemm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.int64), b.to(torch.int64)).to(torch.int32)
 
 
+def _check_kernel_operands(name: str, *tensors: torch.Tensor) -> None:
+    """What the kernels take: dims that are positive multiples of 16 (TMA's
+    16-byte row strides, the transpose's 16-byte chunks), contiguous and
+    16-byte aligned."""
+    dims = [d for t in tensors for d in t.shape]
+    if any(d % TILE_MULTIPLE for d in dims) or min(dims) == 0:
+        raise ValueError(f"{name}: every dimension must be a positive multiple of "
+                         f"{TILE_MULTIPLE}, got {[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors) or any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
+
+
+def _raise_on(lib, name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.int8_gemm_error_string(code).decode()} ({code})")
+
+
+def transpose_s8_reference(b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the transpose pass: b (K, N) -> (N, K), contiguous."""
+    return b.t().contiguous()
+
+
+def transpose_s8(b: torch.Tensor) -> torch.Tensor:
+    """b (K, N) int8 -> b^T (N, K) int8, contiguous: the pass that puts B
+    K-major for `int8_gemm`'s wgmma. On a CUDA tensor its kernel (K and N
+    multiples of 16, contiguous, 16-byte aligned); on a CPU tensor the plain
+    version; any other device raises."""
+    if b.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"transpose_s8 runs on cuda or cpu, not {b.device}")
+    if b.dim() != 2 or b.dtype != torch.int8:
+        raise TypeError(f"transpose_s8: expected a 2-D int8 tensor, got {b.dtype} "
+                        f"{tuple(b.shape)}")
+    if b.device.type == "cpu":
+        return transpose_s8_reference(b)
+    _check_kernel_operands("transpose_s8", b)
+    k, n = b.shape
+    bt = torch.empty((n, k), dtype=torch.int8, device=b.device)
+    lib = build_int8_gemm_kernel().lib
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        _raise_on(lib, "transpose_s8", lib.int8_transpose_s8(b.data_ptr(), bt.data_ptr(), k, n,
+                                                             stream))
+    transpose_s8.launches += 1
+    return bt
+
+
+transpose_s8.launches = 0  # kernel launches since the count was last reset
+
+
 def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact, both row-major.
     Replaces the Pallas kernel of `tools/bench_int8.py:142`. On a CUDA tensor
-    the kernel (M, N, K multiples of 16, contiguous, 16-byte aligned); on a
-    CPU tensor the plain version; any other device raises."""
+    the kernel, its transpose pass first (M, N, K multiples of 16,
+    contiguous, 16-byte aligned); on a CPU tensor the plain version; any
+    other device raises."""
     if a.device.type not in ("cuda", "cpu"):
         raise ValueError(f"int8_gemm runs on cuda or cpu, not {a.device}")
     _check_operands(a, b)
     if a.device.type == "cpu":
         return int8_gemm_reference(a, b)
+    _check_kernel_operands("int8_gemm", a, b)
     (m, k), n = a.shape, b.shape[1]
-    if m % TILE_MULTIPLE or n % TILE_MULTIPLE or k % TILE_MULTIPLE or min(m, n, k) == 0:
-        raise ValueError(f"int8_gemm: M, N and K must be positive multiples of {TILE_MULTIPLE}, "
-                         f"got {m}, {n}, {k}")
-    if not (a.is_contiguous() and b.is_contiguous()) or a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("int8_gemm: operands must be contiguous and 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    bt = torch.empty((n, k), dtype=torch.int8, device=a.device)  # the transpose's scratch
     lib = build_int8_gemm_kernel().lib
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.int8_gemm_s8s8s32(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
-    if code != 0:
-        raise RuntimeError(f"int8_gemm launch failed: "
-                           f"{lib.int8_gemm_error_string(code).decode()} ({code})")
+        _raise_on(lib, "int8_gemm", lib.int8_gemm_s8s8s32(
+            a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k, stream))
     int8_gemm.launches += 1
     return out
 
@@ -175,8 +227,10 @@ def bf16_mm_fp32_out(a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
 
 def size_case(n: int, seed: int, iters: int, device: torch.device, flush, calls: dict,
               timed: bool = True) -> dict:
-    """The kernel at n against its plain version, exactly; then the times of
-    the kernel, the plain version, torch._int_mm and the bf16 yardstick."""
+    """The kernel at n against its plain version, and its transpose pass
+    against `b.t().contiguous()`, exactly; then the times of the kernel, the
+    transpose alone, the plain version, torch._int_mm and the bf16
+    yardstick."""
     a, b = operands(n, seed, device)
 
     def gemm():
@@ -192,6 +246,7 @@ def size_case(n: int, seed: int, iters: int, device: torch.device, flush, calls:
     rec = {
         "part": "gemm", "kernel": "int8_gemm", "n": n, "exact": bool(torch.equal(got, want)),
         "max_abs_err": err,
+        "transpose_exact": bool(torch.equal(transpose_s8(b), transpose_s8_reference(b))),
         "library_exact": all(bool(torch.equal(torch._int_mm(a, bb), want)) for bb in (b, b_cm)),
     }
     del want
@@ -215,26 +270,30 @@ def size_case(n: int, seed: int, iters: int, device: torch.device, flush, calls:
     for name, ms in times.items():
         rec[ms_key(name, device)] = ms
         rec[f"{name}_{'tops' if device.type == 'cuda' else 'cpu_tops'}"] = ops / ms / 1e9
+    # the transpose pass alone, a part of the kernel's time
+    rec[ms_key("transpose", device)] = time_ms(lambda: transpose_s8(b), iters, device, flush)
     return rec
 
 
 def sass_evidence(device: torch.device) -> dict:
-    """The built kernel's SASS, grepped for the int8 tensor-core ops: IMMA
-    (mma.sync) or IGMMA (wgmma); HMMA or conversions to float would mean
-    the int8 path was not emitted."""
+    """The built GEMM kernel's SASS, grepped for the int8 tensor-core ops:
+    the wgmma path is IGMMA; IMMA (mma.sync) or a float MMA (HMMA, HGMMA)
+    would mean the kernel is not the wgmma int8 path."""
     if device.type != "cuda":
         return {"part": "sass", "verdict": "not available on the CPU (no CUDA toolkit)"}
     functions = sass_functions(disassemble(build_int8_gemm_kernel().path))
     gemm = next(body for name, body in functions.items() if "int8_gemm_kernel" in name)
     opcodes = [line.split()[1] if line.startswith("@") else line.split()[0] for line in gemm]
-    imma = [op for op in opcodes if re.match(r"I(G)?MMA", op)]
+    igmma = [op for op in opcodes if op.startswith("IGMMA")]
+    imma = [op for op in opcodes if op.startswith("IMMA")]
     float_mma = [op for op in opcodes if re.match(r"H(G)?MMA", op)]
     return {
-        "part": "sass", "instructions": len(opcodes), "int8_mma_ops": len(imma),
-        "int8_mma_kinds": sorted(set(imma)), "float_mma_ops": len(float_mma),
+        "part": "sass", "instructions": len(opcodes), "igmma_ops": len(igmma),
+        "imma_ops": len(imma), "int8_mma_kinds": sorted(set(igmma + imma)),
+        "float_mma_ops": len(float_mma),
         "examples": [line for line in gemm if "MMA" in line][:4],
-        "verdict": ("int8 tensor-core path EMITTED" if imma and not float_mma
-                    else "int8 tensor-core path NOT in the SASS"),
+        "verdict": (SASS_WGMMA_VERDICT if igmma and not imma and not float_mma
+                    else "int8 wgmma path NOT in the SASS"),
     }
 
 

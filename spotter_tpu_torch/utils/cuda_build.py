@@ -74,18 +74,27 @@ def sass_functions(listing: str) -> dict[str, list[str]]:
     return functions
 
 
+def build_digest(sources: list[Path], headers: list[Path], flags: tuple[str, ...]) -> str:
+    """What a library's build depends on, hashed: the flags, then each source
+    and each header by name and content. A library is rebuilt when it
+    changes."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for p in [*sources, *headers]:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def load_kernel_library(name: str, sources: tuple[str, ...]) -> KernelLibrary:
     """Build (once per source hash) and load `lib<name>.so` from `csrc/` sources.
 
     Callers cache the result (one load per process); a library already in
-    BUILD_ROOT for the same sources and flags is loaded without a build.
+    BUILD_ROOT for the same sources, headers (every `csrc/*.cuh`, which a
+    source may include) and flags is loaded without a build.
     """
     paths = [CSRC_DIR / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    out_dir = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}"
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    out_dir = BUILD_ROOT / f"{name}-{build_digest(paths, headers, NVCC_FLAGS)}"
     so_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "nvcc.log"
     build_seconds = 0.0

@@ -116,6 +116,18 @@ def test_kernel_input_checks():
     # (B, S, H, hd) views of a (B, S, 3, H, hd) qkv projection pass
     qkv = torch.zeros(1, 8, 3, 2, 64)
     tattn._check_inputs("t", torch.float32, qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    # bf16 goes through TMA tensor maps: strides over (B, S, H) in multiples of
+    # 8 elements (16 bytes) and 16-byte aligned starts
+    bf = [t.to(torch.bfloat16) for t in ok]
+    tattn._check_inputs("t", torch.bfloat16, *bf)
+    qkv16 = qkv.to(torch.bfloat16)
+    tattn._check_inputs("t", torch.bfloat16, qkv16[:, :, 0], qkv16[:, :, 1], qkv16[:, :, 2])
+    padded = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64]  # h stride 68
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tattn._check_inputs("t", torch.bfloat16, padded, bf[1], bf[2])
+    shifted = torch.zeros(8 * 2 * 64 + 4, dtype=torch.bfloat16)[4:].view(1, 8, 2, 64)  # 8 bytes in
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn._check_inputs("t", torch.bfloat16, bf[0], shifted, bf[2])
 
 
 class _Recorder:
