@@ -27,10 +27,14 @@ each printing JSON lines:
              encoder at the 1333x1333 bucket (its densest level alone, and
              all four levels) and its decoder, default and discrete, with
              half the sep hit table's bits cleared (which must drop exactly
-             those bands), and bf16 rows; the attention kernel at YOLOS's
-             shapes and more (B = 1 and 8, S = 4301 and 1100, hd = 64 and 128,
-             fp32 and bf16; the bf16 kernel's SASS must show wgmma (HGMMA),
-             no mma.sync (HMMA) and TMA loads (UTMALDG)), the class-logit
+             those bands), and bf16 rows (sep: ms per op and per launch);
+             the attention kernels at YOLOS's shapes and more (B = 1 and 8,
+             S = 4301 and 1100, hd = 64 and 128, fp32 and bf16; both
+             kernels' SASS must show wgmma (HGMMA), no mma.sync (HMMA) and
+             TMA loads (UTMALDG); the fp32 kernel's K/V split pass must
+             equal its plain version bit for bit and launch once a call, and
+             is timed alone; fp32 records both bounds, on the CUDA cores and
+             as split TF32), the class-logit
              kernel at OWLv2's and OWL-ViT
              B/32's shapes (P = 3600 and 576; B = 1 and 8; fp32 and bf16
              features; 22 queries, 24 with 2 masked, 160): max abs error
@@ -59,8 +63,8 @@ each printing JSON lines:
              the CPU under "float32" (TF32 off), then the card under "mixed"
              (bf16 body) against the card under "float32" at B = 8;
 8. yolos_serve — InferenceEngine.detect on 1 and 8 photos under "float32"
-             and "mixed"; flash_attn_fp32 (resp. _bf16) must launch 12 times
-             per forward and no other kernel at all; p50/p99, img/s, device
+             and "mixed"; flash_attn_fp32 with its split pass (resp. _bf16)
+             must launch 12 times per forward and no other kernel at all; p50/p99, img/s, device
              ms per forward;
 9. yolos_http — the standalone server with yolos-base answering POST
              /detect for 1 and 8 URLs under each policy, with the same count
@@ -83,8 +87,9 @@ each printing JSON lines:
              SPOTTER_TPU_OWL_FUSED=0 (the unfused head) against auto;
 14. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
              "float32" and "mixed", plus requests with their own query set:
-             owl_class_logits must launch once and flash_attn_fp32 (resp.
-             _bf16) 12 times per forward, and no other kernel; p50/p99,
+             owl_class_logits must launch once and flash_attn_fp32 with its
+             split pass (resp. _bf16) 12 times per forward, and no other
+             kernel; p50/p99,
              img/s, device ms per forward, host preprocess ms (the float
              pad-to-square warp) and detections per image;
 15. owl_http — the standalone server with OWLv2 answering POST /detect for 1
@@ -149,10 +154,15 @@ OWLVIT_NAME = "google/owlvit-base-patch32"
 OWL_QUERIES = ("sofa", "floor lamp", "kitchen sink", "bed", "window")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate,
-# dense bf16 tensor-core rate
+# dense bf16 and TF32 tensor-core rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+# the fp32 attention kernel takes each product in three TF32 passes
+# (hi.hi + hi.lo + lo.hi), so its operations bound is 3x the function's
+# FLOPs at the TF32 rate
+SPLIT_TF32_PASSES = 3
 
 # max |kernel - plain|, every kernel and method: both sum the same fp32
 # products (bf16 rows widen exactly to fp32) over J <= 48 terms, in another
@@ -171,8 +181,11 @@ PARITY_ATOL_LOGITS = 1e-3
 PARITY_ATOL_BOXES = 1e-4
 # attention kernel vs plain, as a share of the largest |output|. fp32: both
 # sum up to 4301 weighted values in fp32 in other orders (cuBLAS blocks, the
-# kernel a running sum rescaled once per 64-key tile), ~sqrt(S) * 2**-24 =
-# 4e-6 of |out| typically; 2e-5 leaves room for the tail. bf16: the kernel
+# kernel a running sum rescaled once per key tile), ~sqrt(S) * 2**-24 =
+# 4e-6 of |out| typically; 2e-5 leaves room for the tail. The kernel's
+# products are split TF32 (three passes of two-term operands, ~2**-21
+# relative a product): tools/attention_rounding.py --precision fp32 puts
+# that split at ~1e-7 of |out|, so the gate is the fp32 one. bf16: the kernel
 # multiplies bf16 inputs on the tensor cores with fp32 sums, takes the softmax
 # in fp32, feeds P to P.V as two bf16 terms (P_hi + P_lo, ~2**-17 relative)
 # and rounds its output once, so it is held against the plain version run in
@@ -271,7 +284,7 @@ def phase_build(log: list) -> dict:
     rec = {"phase": "build", "wall_s": time.perf_counter() - t0, "libraries": [
         {"library": str(lib.path.relative_to(REPO)), "seconds": lib.build_seconds,
          "ptxas": [ln.strip() for ln in lib.log.splitlines()
-                   if "registers" in ln or "spill" in ln]}
+                   if "registers" in ln or "spill" in ln or "warning" in ln]}
         for lib in libs
     ]}
     emit(rec, log)
@@ -640,6 +653,7 @@ def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
         "bound_ms": max(bytes_ms, ops_ms), "bound_us": max(bytes_ms, ops_ms) * 1e3,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+    rec["kernel_ms_per_launch"] = rec["kernel_ms"] / len(calls)  # one launch a level
     del calls
     torch.cuda.empty_cache()
     return rec
@@ -738,6 +752,8 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
         flash_attn_bf16,
         flash_attn_fp32,
         self_attention_reference,
+        split_kv_reference,
+        split_kv_tf32,
     )
     from spotter_tpu_torch.tools.timing import cuda_time_ms
 
@@ -750,8 +766,11 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
     v = torch.randn(shape, generator=gen, device=device).to(dtype)
     wrapper = flash_attn_fp32 if dtype == torch.float32 else flash_attn_bf16
     name = wrapper.__name__
+    fp32 = wrapper is flash_attn_fp32
 
+    split_before = split_kv_tf32.launches
     got = wrapper(q, k, v)
+    split_per_call = split_kv_tf32.launches - split_before
     want = self_attention_reference(q.float(), k.float(), v.float()).to(dtype).float()
     torch.cuda.synchronize()
     dname = str(dtype).removeprefix("torch.")
@@ -765,13 +784,31 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=1.0)
 
     lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
-    sass = dict(attention_sass()) if wrapper is flash_attn_bf16 and device == "cuda" else None
+    sass = None
+    if device == "cuda":
+        tag = "flash_attn_tf32_kernel" if fp32 else "flash_attn_bf16_kernel"
+        sass = {fn: c for fn, c in attention_sass().items() if tag in fn}
     flops = 4 * b * h * s * s * hd
     nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / (PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS) * 1e3
+    ops_ms = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS) * 1e3
     if not err <= atol:
         raise AssertionError(f"{name} vs plain at {shape}: max abs err {err} > {atol}")
+    split = None
+    if fp32:  # the K/V split pass: bit for bit against its plain version, and alone
+        terms, want_terms = split_kv_tf32(k, v), split_kv_reference(k, v)
+        exact = all(torch.equal(a, w) for a, w in zip(terms, want_terms))
+        del terms, want_terms
+        if device == "cuda" and not (exact and split_per_call == 1):
+            raise AssertionError(f"split_kv_tf32 at {shape}: equal to its plain version: "
+                                 f"{exact}, launches a call {split_per_call}")
+        split = {"exact": exact, "launches_per_call": split_per_call,
+                 "ms": cuda_time_ms(lambda: split_kv_tf32(k, v), 10 if b == 8 else 30, flush),
+                 "plain_ms": cuda_time_ms(lambda: split_kv_reference(k, v), 5, flush)}
+        # the operations bound of the split-TF32 design, and the one of the
+        # CUDA-core fp32 design it replaced
+        cuda_core_ms = ops_ms
+        ops_ms = SPLIT_TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
     rec = {
         "phase": "kernel", "kernel": name, "batch": b, "dtype": dname,
         "shape": {"b": b, "s": s, "h": h, "hd": hd},
@@ -784,28 +821,36 @@ def attention_case(dtype, shape, seed: int, flush, device: str = "cuda") -> dict
         "bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+    if fp32:
+        rec["bound_name"] = (f"split TF32: {SPLIT_TF32_PASSES} passes of the FLOPs at "
+                             f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s")
+        rec["bound_cuda_cores_ms"] = max(bytes_ms, cuda_core_ms)
+        rec["split_pass"] = split
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     torch.cuda.empty_cache()  # the plain version's (B, H, S, S) scores
     return rec
 
 
+ATTN_KERNELS = ("flash_attn_bf16_kernel", "flash_attn_tf32_kernel")
+
+
 @functools.cache
 def attention_sass() -> dict:
-    """Opcode counts of the bf16 attention kernel's SASS, per head width: it
-    must issue wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA).
-    Read once a run."""
+    """Opcode counts of both attention kernels' SASS (bf16, and fp32's split
+    TF32), per head width: each must issue wgmma (HGMMA) and TMA loads
+    (UTMALDG), and no mma.sync (HMMA). Read once a run."""
     from spotter_tpu_torch.ops.attention import HEAD_DIMS, build_attention_kernel
     from spotter_tpu_torch.utils.cuda_build import disassemble, sass_functions
 
     counts = {}
     for name, body in sass_functions(disassemble(build_attention_kernel().path)).items():
-        if "flash_attn_bf16_kernel" in name:
+        if any(kernel in name for kernel in ATTN_KERNELS):
             ops = [line.split()[1] if line.startswith("@") else line.split()[0] for line in body]
             counts[name] = {kind: sum(op.startswith(kind) for op in ops)
                             for kind in ("HGMMA", "HMMA", "UTMALDG")}
-    if len(counts) != len(HEAD_DIMS) or not all(
+    if len(counts) != len(ATTN_KERNELS) * len(HEAD_DIMS) or not all(
             c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in counts.values()):
-        raise AssertionError(f"flash_attn_bf16's SASS is not the wgmma + TMA design: {counts}")
+        raise AssertionError(f"the attention kernels' SASS is not the wgmma + TMA design: {counts}")
     return counts
 
 
@@ -883,6 +928,7 @@ def kernel_counters():
             "msda_fused_sum": msda.msda_fused_sum, "msda_sep_sum": msda.msda_sep_sum,
             "msda_hd_gather_sum": msda.msda_hd_gather_sum,
             "flash_attn_fp32": attention.flash_attn_fp32,
+            "split_kv_tf32": attention.split_kv_tf32,
             "flash_attn_bf16": attention.flash_attn_bf16,
             "owl_class_logits": openvocab.owl_class_logits,
             "int8_gemm": bench_int8.int8_gemm, "pack_tile": bench_pack_probe.pack_tile,
@@ -1265,11 +1311,9 @@ def latency_summary(lat: dict) -> dict:
 
 
 def check_launches(counts: dict, name: str, expected: int, what: str) -> None:
-    """`name` launched `expected` times and no other kernel at all."""
-    others = {k: v for k, v in counts.items() if k != name and v}
-    if counts[name] != expected or others:
-        raise AssertionError(
-            f"{what}: launches {counts}, expected {expected} of {name} and no other kernel")
+    """`name` launched `expected` times (with its companion pass, if it has
+    one) and no other kernel at all."""
+    check_counts(counts, {name: expected}, what)
 
 
 def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
@@ -1860,8 +1904,15 @@ def owl_expected(model, forwards: int, attention: str) -> dict:
     return expected
 
 
+# a pass that runs once with every call of a kernel: the fp32 attention
+# kernel's K/V split
+COMPANIONS = {"flash_attn_fp32": "split_kv_tf32"}
+
+
 def check_counts(counts: dict, expected: dict, what: str) -> None:
-    """Each kernel launched exactly as `expected` says, every other none."""
+    """Each kernel launched exactly as `expected` says (a companion pass as
+    often as its kernel), every other none."""
+    expected = {**expected, **{COMPANIONS[k]: n for k, n in expected.items() if k in COMPANIONS}}
     if any(counts[name] != expected.get(name, 0) for name in counts):
         raise AssertionError(f"{what}: launches {counts}, expected {expected} and no other")
 
@@ -2285,6 +2336,12 @@ def kernel_summary(cases: list, launches: dict) -> dict:
         })
         if "graph_launches" in main_case:  # beside the eager launches the wrapper counts
             rows[-1]["graph_launches"] = main_case["graph_launches"]
+        if name in COMPANIONS:  # its pass's launches on the same path, and its time alone
+            rows[-1][f"{COMPANIONS[name]}_launches"] = launches.get(COMPANIONS[name])
+            rows[-1][f"{COMPANIONS[name]}_ms"] = main_case["split_pass"]["ms"]
+        if "bound_cuda_cores_ms" in main_case:
+            rows[-1]["bound_name"] = main_case["bound_name"]
+            rows[-1]["bound_cuda_cores_ms"] = main_case["bound_cuda_cores_ms"]
     return {"kernels": rows}
 
 
@@ -2371,6 +2428,8 @@ def main(argv=None) -> int:
     if yolos_http:
         for policy, name in POLICY_KERNEL.items():
             launches[name] = yolos_http[policy]["launches"][name]
+            if name in COMPANIONS:
+                launches[COMPANIONS[name]] = yolos_http[policy]["launches"][COMPANIONS[name]]
     if owl_http:
         launches["owl_class_logits"] = owl_http["default"]["launches"]["owl_class_logits"]
     if ddetr_http:

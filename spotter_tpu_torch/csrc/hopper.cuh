@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (csrc/attention.cu's bf16 kernel, csrc/int8_gemm.cu): inline PTX for the
+// (csrc/attention.cu's bf16 and fp32 kernels, csrc/int8_gemm.cu): inline PTX for the
 // Tensor Memory Accelerator (TMA) loads, mbarriers, warpgroup matrix
 // multiplies (wgmma) with shared-memory descriptors and named barriers,
 // plus the host side of a TMA tensor map.
@@ -8,7 +8,9 @@
 // transposed B, MN-major) layout as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B:
 // rows of 128 bytes, the 16-byte chunks of row r XORed with r % 8, 8-row
 // groups 1024 bytes apart. So a tile must start 1024-byte aligned, and one
-// wgmma k-step (32 bytes of K) is the descriptor of the tile plus 32 bytes.
+// wgmma k-step (32 bytes of K: 16 bf16, 32 s8 or 8 tf32 values) is the
+// descriptor of the tile plus 32 bytes. An fp32 tile holds 32 elements a
+// 128-byte row.
 
 #pragma once
 
@@ -102,6 +104,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -110,6 +121,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared)
+// before later async-proxy reads of them (wgmma operands, TMA stores): each
+// writing thread fences, then the threads synchronise, then wgmma issues.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- named barriers -----------------------------------------------------------
@@ -249,6 +267,75 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+
+// D (64 x N, fp32) (+)= A (64 x 8) . B (8 x N), A and B tf32 from shared
+// memory, both K-major (the only layout wgmma takes for 32-bit types): a
+// k-step is 8 tf32 values, 32 bytes. D is overwritten when accumulate is false.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t desc_a,
+                                                       uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(static_cast<int>(accumulate)));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(static_cast<int>(accumulate)));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 8, tf32 in registers) . B (8 x 64), B tf32
+// from shared memory, K-major. A thread's four A registers hold rows g and
+// g + 8 (g = lane / 4 within its warp's 16 rows) at columns t and t + 4
+// (t = lane % 4), in the order (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(static_cast<int>(accumulate)));
+}
+
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero: the low 13 bits of the result are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo exactly in fp32: hi = tf32_rna(x) and lo the residue x - hi (at
+// most 12 significant bits; the tensor cores read its top 11, so lo's last
+// bit is dropped: a relative error of at most 2^-22 of x).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
 // ---- host: tensor maps -------------------------------------------------------
 

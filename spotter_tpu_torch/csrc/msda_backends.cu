@@ -45,23 +45,40 @@
 // the backend's contract (it is the TPU lane layout); msda_gather_sum in
 // msda.cu is the row layout's kernel.
 //
-// Design, first and simple.
-// - sep: one block per (64-query tile, b*h), 8 warps of 8 queries each; the
-//   tile's row of the hit table in shared memory; the 32 lanes over hd (hd =
-//   32: one lane per channel, so each corner is one coalesced 128-byte row
-//   read). Each point's six operands are broadcast loads, shared by the
-//   warp's lanes.
+// Design.
+// - sep. Its first kernel (one warp a query, a lane a
+//   channel; per point six warp-wide 4-byte operand loads, then up to four
+//   row loads behind `continue`) ran 13x its bytes bound, and neither
+//   dependent load chains nor its operand loads were the main cause:
+//   tools/sep_probe.py times it with the branches predicated, the operands
+//   loaded first, or staged in shared memory, and none of those moves it
+//   far. Now one block of 256 threads per (64-query tile, b*h) first copies
+//   its tile's operands (6 x P x 64 words, contiguous per operand) with
+//   coalesced loads into shared memory, and turns its row of the hit table
+//   into one flag per level row (so no division in the inner loop). A
+//   thread then takes one query and 4 channels (8 threads cover a 128-byte
+//   fp32 row at hd = 32, a warp 4 neighbouring queries) and, for 4 points at
+//   a time, issues every (point, corner) row load before any FMA: 16-byte
+//   loads (8 bytes for bf16 rows) at constant offsets from the point's
+//   corner (0, 0), each predicated on the corner being inside the level, in
+//   a band whose bit is set and of non-zero weight, with no branch between
+//   them; a corner not loaded is 0 and adds exactly nothing. Each (query,
+//   channel) sum keeps the first kernel's order: points, then dy, then dx, with
+//   fmaf(wx * v, wy, acc). The sep probe's reading of it: a case with every
+//   sample on four L1-resident cells runs nearly as fast as the real op, so
+//   what remains is the work inside the SM, not L2. Any hd: channels past
+//   hd are neither loaded nor written, and an hd that is not a multiple of 4
+//   (or rows not 16-byte aligned) takes scalar loads.
 // - hd_gather: one thread per (b*h, query, 8 channels): its idx/w reads are
 //   coalesced along q, its 8 channel sums stay in registers, and its writes
-//   out[bh, d, q] are coalesced along q.
-// Both skip a term whose weight is 0 (a discrete sample's empty corner slots,
-// out-of-range corners), which changes no sum. Offsets are 64-bit: at B = 8
-// one hd_gather launch's idx + w span 1.2 GB. wgmma has nothing to multiply
-// here. On an H100 80GB HBM3 at 700 W one encoder op at B = 8 takes ~9.5 ms
-// (sep, 13x its bytes bound: each warp walks its queries and points one
-// dependent load chain at a time, so latency bounds it) and ~5.7 ms
-// (hd_gather, 10x); loading all of a query's operands at once, more rows in
-// flight, and a head's level staged in shared memory are later work.
+//   out[bh, d, q] are coalesced along q. It skips a term whose weight is 0 (a
+//   discrete sample's empty corner slots, out-of-range corners), which
+//   changes no sum.
+// Offsets are 64-bit: at B = 8 one hd_gather launch's idx + w span 1.2 GB.
+// wgmma has nothing to multiply here. On an H100 80GB HBM3 at 700 W one
+// encoder op at B = 8 takes ~1.6 ms under sep (2.3x its bytes bound; 9.5 ms
+// under the first kernel) and ~5.7 ms under hd_gather (10x); PERF.md has the
+// runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +87,8 @@
 namespace {
 
 constexpr int kSepQTile = 64;  // the JAX package's Q_TILE
-constexpr int kSepWarps = 8;
+constexpr int kSepThreads = 256;
+constexpr int kSepPointChunk = 4;  // points whose rows a thread loads before it sums them
 constexpr int kGatherThreads = 128;
 constexpr int kGatherChannels = 8;  // channels a thread of msda_hd_gather_sum sums
 
@@ -97,53 +115,139 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kSepWarps * 32)
+// 4 channels of one value row into v, as fp32: one 16-byte (fp32) or 8-byte
+// (bf16) load when kVec, else one load a channel below hd; zeros where
+// `on` is false (nothing is read then).
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_quad(const T* __restrict__ p, int c, int hd, bool on,
+                                          float (&v)[4]);
+
+template <>
+__device__ __forceinline__ void load_quad<float, true>(const float* __restrict__ p, int, int,
+                                                       bool on, float (&v)[4]) {
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (on) x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+template <>
+__device__ __forceinline__ void load_quad<__nv_bfloat16, true>(const __nv_bfloat16* __restrict__ p,
+                                                               int, int, bool on,
+                                                               float (&v)[4]) {
+  uint2 x = make_uint2(0u, 0u);
+  if (on) x = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(x.x << 16);  // bf16 -> fp32: the high half of the word
+  v[1] = __uint_as_float(x.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(x.y << 16);
+  v[3] = __uint_as_float(x.y & 0xFFFF0000u);
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_quad(const T* __restrict__ p, int c, int hd, bool on,
+                                          float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = on && c + e < hd ? to_float(p[e]) : 0.0f;
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSepThreads)
 msda_sep_sum_kernel(const T* __restrict__ rows, const int32_t* __restrict__ xi,
                     const float* __restrict__ xw0, const float* __restrict__ xw1,
                     const int32_t* __restrict__ yi, const float* __restrict__ yw0,
                     const float* __restrict__ yw1, const int32_t* __restrict__ mask,
                     float* __restrict__ out, int n_qt, int n_points, int lh, int lw, int hd,
                     int r_band, int n_bands) {
-  extern __shared__ int band_on[];  // this tile's row of the hit table
+  // this tile's operands, [operand][point][query], then a flag per level row:
+  // its band's bit in the tile's row of the hit table
+  extern __shared__ int smem[];
+  const int n_ops = n_points * kSepQTile;
+  int* s_xi = smem;
+  int* s_yi = smem + n_ops;
+  float* s_w = reinterpret_cast<float*>(smem + 2 * n_ops);  // xw0, xw1, yw0, yw1
+  int* row_on = smem + 6 * n_ops;
   const long long tile_row = (long long)blockIdx.y * n_qt + blockIdx.x;  // bh * n_qt + tile
-  for (int i = threadIdx.x; i < n_bands; i += blockDim.x) {
-    band_on[i] = __ldg(mask + tile_row * n_bands + i);
+  const long long op0 = tile_row * n_ops;
+  for (int i = threadIdx.x; i < n_ops; i += kSepThreads) {
+    s_xi[i] = __ldg(xi + op0 + i);
+    s_yi[i] = __ldg(yi + op0 + i);
+    s_w[i] = __ldg(xw0 + op0 + i);
+    s_w[n_ops + i] = __ldg(xw1 + op0 + i);
+    s_w[2 * n_ops + i] = __ldg(yw0 + op0 + i);
+    s_w[3 * n_ops + i] = __ldg(yw1 + op0 + i);
+  }
+  for (int y = threadIdx.x; y < lh; y += kSepThreads) {
+    row_on[y] = __ldg(mask + tile_row * n_bands + y / r_band);
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const T* rows_bh = rows + (long long)blockIdx.y * lh * lw * hd;
-  const long long op_tile = tile_row * n_points * kSepQTile;
-  for (int qi = warp; qi < kSepQTile; qi += kSepWarps) {
-    float* out_q = out + (tile_row * kSepQTile + qi) * hd;
-    for (int c0 = 0; c0 < hd; c0 += 32) {
-      const int c = c0 + lane;
-      const bool lane_on = c < hd;
-      float acc = 0.0f;
-      for (int p = 0; p < n_points; ++p) {
-        const long long o = op_tile + (long long)p * kSepQTile + qi;
-        const int x0 = __ldg(xi + o);
-        const int y0 = __ldg(yi + o);
-        const float wx[2] = {__ldg(xw0 + o), __ldg(xw1 + o)};
-        const float wy[2] = {__ldg(yw0 + o), __ldg(yw1 + o)};
+  float* out_tile = out + tile_row * kSepQTile * hd;
+  const int quads = (hd + 3) / 4;
+  const int row_stride = lw * hd;
+  for (int item = threadIdx.x; item < kSepQTile * quads; item += kSepThreads) {
+    const int qi = item / quads;
+    const int c = (item % quads) * 4;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int p0 = 0; p0 < n_points; p0 += kSepPointChunk) {
+      float v[kSepPointChunk][4][4];  // [point][corner 2 dy + dx][channel]
+      float wx[kSepPointChunk][2], wy[kSepPointChunk][2];
+      // every row load of these points first, each predicated, no branches;
+      // a corner not loaded is 0 and its term adds exactly nothing
+#pragma unroll
+      for (int pp = 0; pp < kSepPointChunk; ++pp) {
+        const bool point_on = p0 + pp < n_points;
+        const int o = (point_on ? p0 + pp : 0) * kSepQTile + qi;
+        const int x0 = s_xi[o];
+        const int y0 = s_yi[o];
+        wx[pp][0] = s_w[o];
+        wx[pp][1] = s_w[n_ops + o];
+        wy[pp][0] = s_w[2 * n_ops + o];
+        wy[pp][1] = s_w[3 * n_ops + o];
+        const T* p = rows_bh + (long long)y0 * row_stride + x0 * hd + c;  // corner (0, 0)
+        bool col_on[2];
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          col_on[dx] = static_cast<unsigned>(x0 + dx) < static_cast<unsigned>(lw) &&
+                       wx[pp][dx] != 0.0f;
+        }
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
-          const int y = y0 + dy;
           // outside the level, or in a band the hit table leaves out: the
           // row is not loaded
-          if (y < 0 || y >= lh || wy[dy] == 0.0f || band_on[y / r_band] == 0) continue;
+          const int y = y0 + dy;
+          const bool row_in = static_cast<unsigned>(y) < static_cast<unsigned>(lh);
+          const bool on_row = point_on && row_in && wy[pp][dy] != 0.0f &&
+                              row_on[row_in ? y : 0] != 0;
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx) {
-            const int x = x0 + dx;
-            if (x < 0 || x >= lw || wx[dx] == 0.0f || !lane_on) continue;
-            const float v = to_float(rows_bh[((long long)y * lw + x) * hd + c]);
-            acc = fmaf(__fmul_rn(wx[dx], v), wy[dy], acc);
+            load_quad<T, kVec>(p + dy * row_stride + dx * hd, c, hd, on_row && col_on[dx],
+                               v[pp][2 * dy + dx]);
           }
         }
       }
-      if (lane_on) out_q[c] = acc;
+      // then the sums, in the order points, dy, dx
+#pragma unroll
+      for (int pp = 0; pp < kSepPointChunk; ++pp)
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[e] = fmaf(__fmul_rn(wx[pp][dx], v[pp][2 * dy + dx][e]), wy[pp][dy], acc[e]);
+            }
+    }
+    float* dst = out_tile + (long long)qi * hd + c;
+    if (kVec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c + e < hd) dst[e] = acc[e];
+      }
     }
   }
 }
@@ -198,14 +302,18 @@ int launch_sep(const void* rows, const void* xi, const void* xw0, const void* xw
                const void* yi, const void* yw0, const void* yw1, const void* mask, void* out,
                int bh_count, int n_qt, int n_points, int lh, int lw, int hd, int r_band,
                int n_bands, void* stream) {
-  if (bh_count < 1 || bh_count > 65535 || n_qt < 1 || n_points < 1 || r_band < 1 ||
+  if (bh_count < 1 || bh_count > 65535 || n_qt < 1 || n_points < 1 || r_band < 1 || hd < 1 ||
       n_bands != (lh + r_band - 1) / r_band) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(int) * (size_t)n_bands;
+  const size_t smem = sizeof(int) * (6 * (size_t)n_points * kSepQTile + lh);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  // vector loads and stores need every row and output quad 16-byte aligned
+  const bool vec = hd % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 grid(n_qt, bh_count);
-  msda_sep_sum_kernel<T><<<grid, kSepWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = vec ? &msda_sep_sum_kernel<T, true> : &msda_sep_sum_kernel<T, false>;
+  kernel<<<grid, kSepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rows), static_cast<const int32_t*>(xi),
       static_cast<const float*>(xw0), static_cast<const float*>(xw1),
       static_cast<const int32_t*>(yi), static_cast<const float*>(yw0),

@@ -331,3 +331,27 @@ def test_hd_gather_kernel_matches_plain_version_on_card(method):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
     assert tmsda.msda_hd_gather_sum.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_sep_kernel_at_a_full_deformable_detr_encoder_level_on_card():
+    """One whole level of Deformable-DETR's encoder at the 1333x1333 bucket:
+    the 84 x 84 level, 8 heads of 32, 4 points, its 7,056 tokens (not a
+    multiple of 64) each sampling around its own cell, as the encoder's
+    queries do."""
+    dev = _cuda()
+    lh = lw = 84
+    q, h, hd, pts = lh * lw, 8, 32, 4
+    rng = np.random.default_rng(17)
+    rows = torch.from_numpy(rng.standard_normal((h, q, hd)).astype(np.float32))
+    iy, ix = np.divmod(np.arange(q), lw)
+    ref = np.stack([(ix + 0.5) / lw, (iy + 0.5) / lh], -1)[None, :, None, None, :]
+    loc = (ref + 0.02 * rng.standard_normal((1, q, h, pts, 2))).astype(np.float32)
+    logits = rng.standard_normal((1, q, h, pts))
+    attn = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32)
+    ops, mask, r_band = tmsda.sep_level_operands(*_t(loc, attn), lh, lw)
+    got = tmsda.msda_sep_sum(rows.to(dev), *(o.to(dev) for o in ops), mask.to(dev), (lh, lw),
+                             r_band, pts)
+    want = tmsda.msda_sep_reference(rows, *ops, mask, (lh, lw), r_band, pts)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
