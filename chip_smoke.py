@@ -22,12 +22,16 @@ each printing JSON lines:
              together, with their seconds;
 3. kernel  — each kernel against its plain version: the MSDA kernels at the
              decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
-             discrete corner prep); the sep and lane-gather kernels at B = 8
+             discrete corner prep; the fused kernel also at each query tile
+             it takes, and its fp32 SASS counted); the sep and lane-gather
+             kernels at B = 8
              on one MSDA op of the RT-DETR decoder, the Deformable-DETR
              encoder at the 1333x1333 bucket (its densest level alone, and
              all four levels) and its decoder, default and discrete, with
              half the sep hit table's bits cleared (which must drop exactly
-             those bands), and bf16 rows (sep: ms per op and per launch);
+             those bands), and bf16 rows (sep: ms per op and per launch; the
+             lane gather reads the value (B, S, H, hd) in place, and its fp32
+             SASS must load value rows 128 bits at a time, LDG.E.128);
              the attention kernels at YOLOS's shapes and more (B = 1 and 8,
              S = 4301 and 1100, hd = 64 and 128, fp32 and bf16; both
              kernels' SASS must show wgmma (HGMMA), no mma.sync (HMMA) and
@@ -482,6 +486,7 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
         "shape": {"bh": bh, "s": S_TOTAL, "hd": HD, "q": QUERIES, "lp": LP, "d": D_MODEL,
                   "j": j},
         "max_abs_err": err, "atol": KERNEL_ATOL,
+        "sass": msda_sass()["msda_fused_sum"] if device == "cuda" else None,
         "kernel_ms": cuda_time_ms(lambda: msda_fused_sum(*args), 30, flush),
         "plain_ms": cuda_time_ms(lambda: msda_fused_reference(*args), 10, flush),
         "library_ms": None,  # no one PyTorch call computes this function
@@ -661,8 +666,9 @@ def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
 
 def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
                    device: str = "cuda") -> dict:
-    """msda_hd_gather_sum against its plain version on one MSDA op, in the
-    lane layout: vt (B, H, hd, S), idx/w (B, H, 4, LP*Q)."""
+    """msda_hd_gather_sum against its plain version on one MSDA op: the
+    value (B, S, H, hd) as the model holds it, the lane prep's idx/w
+    (B, H, 4, LP*Q), out (B, Q, H, hd)."""
     import torch
 
     from spotter_tpu_torch.ops.msda import (
@@ -678,15 +684,18 @@ def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush
     lp = len(shapes) * POINTS
     loc, attn = msda_samples(b, q, shapes, seed, dev, encoder)
     idx, w = prepare_msda_gather_lanes(loc, attn, shapes, POINTS, method)
-    vt = msda_value(b, s, rows_dtype, seed, dev).permute(0, 2, 3, 1).contiguous()
+    value = msda_value(b, s, rows_dtype, seed, dev)
     del loc, attn
-    got = msda_hd_gather_sum(vt, idx, w, lp, q)
-    want = msda_hd_gather_reference(vt, idx, w, lp, q)
+    got = msda_hd_gather_sum(value, idx, w, lp, q)
+    want = msda_hd_gather_reference(value, idx, w, lp, q)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    # fp32: KERNEL_ATOL. bf16 sums in bf16 on both sides, in one order: one
-    # bf16 ulp of the largest output allows for a rounding on either side of a tie
+    # fp32: KERNEL_ATOL (both sum in one order with no contraction, so they
+    # are expected equal bit for bit). bf16 sums in bf16 on both sides, in
+    # one order: one bf16 ulp of the largest output allows for a rounding on
+    # either side of a tie
     atol = KERNEL_ATOL if rows_dtype == torch.float32 else 2.0**-7 * want.float().abs().max().item()
+    bit_equal = bool(torch.equal(got, want))
     del want
     if not err <= atol:
         raise AssertionError(f"msda_hd_gather_sum ({label}) vs plain: max abs err {err} > {atol}")
@@ -694,7 +703,7 @@ def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush
     terms = int(live.sum().item())
     bh_base = torch.arange(b * HEADS, device=dev).view(b, HEADS, 1, 1) * s
     touched = touched_count(idx.long() + bh_base, live, b * HEADS * s)
-    nbytes = (idx.numel() + w.numel()) * 4 + (touched * HD + got.numel()) * vt.element_size()
+    nbytes = (idx.numel() + w.numel()) * 4 + (touched * HD + got.numel()) * value.element_size()
     flops = 2 * terms * HD
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
@@ -703,19 +712,49 @@ def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush
         "phase": "kernel", "kernel": "msda_hd_gather_sum", "case": label, "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
         "shape": {"b": b, "h": HEADS, "hd": HD, "s": s, "q": q, "lp": lp},
-        "max_abs_err": err, "atol": atol,
-        "kernel_ms": cuda_time_ms(lambda: msda_hd_gather_sum(vt, idx, w, lp, q),
+        "max_abs_err": err, "atol": atol, "bit_equal": bit_equal,
+        "sass": msda_sass()["msda_hd_gather_sum"] if device == "cuda" else None,
+        "kernel_ms": cuda_time_ms(lambda: msda_hd_gather_sum(value, idx, w, lp, q),
                                   10 if big else 30, flush),
-        "plain_ms": cuda_time_ms(lambda: msda_hd_gather_reference(vt, idx, w, lp, q),
+        "plain_ms": cuda_time_ms(lambda: msda_hd_gather_reference(value, idx, w, lp, q),
                                  3 if big else 10, flush),
         "library_ms": None,  # no one PyTorch call computes this function in this layout
         "terms": terms, "value_elements_touched": touched * HD, "bytes": nbytes, "flops": flops,
         "bound_ms": max(bytes_ms, ops_ms), "bound_us": max(bytes_ms, ops_ms) * 1e3,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
-    del vt, idx, w, got, live
+    del value, idx, w, got, live
     torch.cuda.empty_cache()
     return rec
+
+
+# the redesigned MSDA kernels' fp32 instantiations (vector path), by the
+# library that holds them and a tag of their mangled names
+MSDA_SASS_KERNELS = {"msda_hd_gather_sum": ("msda_backends", "msda_hd_gather_sum_kernelIfLb1E"),
+                     "msda_fused_sum": ("msda", "msda_fused_sum_kernelIfLb1E")}
+
+
+@functools.cache
+def msda_sass() -> dict:
+    """Instructions, global loads and 128-bit global loads (LDG.E.128) in the
+    SASS of the two redesigned MSDA kernels (fp32 rows, vector path): the
+    lane gather must load its value rows 128 bits at a time. Read once a run."""
+    from spotter_tpu_torch.ops.msda import build_msda_backends_kernel, build_msda_kernel
+    from spotter_tpu_torch.utils.cuda_build import disassemble, sass_functions
+
+    builds = {"msda": build_msda_kernel, "msda_backends": build_msda_backends_kernel}
+    counts = {}
+    for name, (library, tag) in MSDA_SASS_KERNELS.items():
+        bodies = [b for fn, b in sass_functions(disassemble(builds[library]().path)).items()
+                  if tag in fn]
+        if len(bodies) != 1:
+            raise AssertionError(f"{name}: {len(bodies)} SASS functions match {tag}")
+        ops = [ln.split()[1] if ln.startswith("@") else ln.split()[0] for ln in bodies[0]]
+        counts[name] = {"instructions": len(ops), "LDG": sum(op.startswith("LDG") for op in ops),
+                        "LDG.E.128": sum(op.startswith("LDG.E.128") for op in ops)}
+    if not counts["msda_hd_gather_sum"]["LDG.E.128"]:
+        raise AssertionError(f"msda_hd_gather_sum's fp32 SASS has no 128-bit global load: {counts}")
+    return counts
 
 
 # (kernel case, label, rows dtype, method, cleared hit-table bits)

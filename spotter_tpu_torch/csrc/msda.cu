@@ -28,38 +28,77 @@
 // 8*B, S = 8400, hd = 32, Q = 300, LP = 12 samples per query-head) the value
 // rows dominate the traffic (1.07 MB fp32 per head), against ~59 MFLOP of
 // gather FMAs at B = 8. The fused kernel's prologue adds 2*D*3*LP = 18 kFLOP
-// per (b*h, query), ~354 MFLOP at B = 8, still far below the fp32 rate for
-// the bytes it moves. The rows of one head stay in the 50 MB L2 while its
-// queries run, so repeat reads are L2 hits.
+// per (b*h, query), ~354 MFLOP at B = 8: >= 5.3 us at the 67 TFLOP/s fp32
+// rate, below the 13.4 us bytes bound, so the CUDA cores suffice. The rows
+// of one head stay in the 50 MB L2 while its queries run, so repeat reads
+// are L2 hits.
 //
-// Design, first and simple: one warp per (bh, q) in the walk, the 32 lanes
-// over hd (hd = 32 on this model: one lane per channel, so each sample term
-// is one coalesced 128-byte row read followed by an fp32 FMA; hd != 32 loops
-// over channels in steps of 32). In the loc and fused kernels, lane l < LP
-// computes sample l's corners (one, or four) in registers, and the walk
-// broadcasts each corner's (idx, w) to all lanes with a shuffle. An index < 0
-// or >= S is skipped, so a bad index can never read out of bounds. The corner
-// arithmetic uses round-to-nearest intrinsics (no FMA contraction) so that it
-// rounds exactly as the plain torch version does, which matters for the
-// discrete method's nearest-cell rounding.
+// Design of the gather-sum and loc kernels, first and simple: one warp per
+// (bh, q), the 32 lanes over hd (hd = 32 on this model: one lane per
+// channel, so each sample term is one coalesced 128-byte row read followed
+// by an fp32 FMA; hd != 32 loops over channels in steps of 32). In the loc
+// kernel, lane l < LP computes sample l's corners (one, or four) in
+// registers, and the walk broadcasts each corner's (idx, w) to all lanes
+// with a shuffle. An index < 0 or >= S is skipped, so a bad index can never
+// read out of bounds. The corner arithmetic uses round-to-nearest
+// intrinsics (no FMA contraction) so that it rounds exactly as the plain
+// torch version does, which matters for the discrete method's nearest-cell
+// rounding.
 //
-// The fused kernel's block owns one (b, h) and a tile of kQTile queries. It
-// stages the head's weight slice (D x 3*LP fp32, 36 KB at D = 256, LP = 12)
-// and the tile's hidden states in shared memory, computes the 3*LP dot
-// products of every query with fp32 FMAs (one output per thread at a time),
-// then each warp takes queries of the tile through the softmax, the location
-// arithmetic and the walk. wgmma and TMA are later work.
+// The fused kernel's block owns one (b, h) and a tile of kFusedQTile = 32
+// queries, 256 threads (no query is padded, the ragged last tile is
+// masked), in four phases:
+// - staging: the head's weight slices (D x 3*LP fp32, 36 KB at D = 256,
+//   LP = 12) by cp.async, in flight while the tile's hidden states are
+//   loaded 16 bytes at a time and stored transposed to (D, kFusedQTile);
+// - the prologue, register-blocked: a thread owns 4 queries x one sample's
+//   three columns (x offset, y offset, logit) and walks d outermost, one
+//   float4 of hidden states and three weights a d step for 12 FMAs (0.58
+//   shared-memory reads a FMA, not 2). Each output
+//   stays one fp32 FMA chain in d order from 0, then + bias: no tensor
+//   cores, split K or reordered d, since the plain version
+//   (fused_prologue_reference) sums in this order and the discrete method
+//   needs the sample locations equal bit for bit;
+// - softmax, locations and corners: a warp a query, a lane a sample
+//   (corner_terms, as in the loc kernel); the query's terms go to shared
+//   memory, where the weights were;
+// - the walk: a thread a (query, 4 channels) with 16-byte row loads, every
+//   load of a chunk of 8 terms issued before its FMAs, predicated on an
+//   index in [0, S) and a non-zero weight; the FMAs in term order (samples,
+//   then corners), fmaf(w, v, acc), as the loc kernel sums.
+// On an H100 80GB HBM3 at 700 W the op takes ~0.069 ms at B = 8 (5x its
+// 0.0134 ms bytes bound) and ~0.024 ms at B = 1; 32-query tiles beat 16 and
+// 64 at both (tools/fused_tile_probe.py). The first fused kernel (one prologue output a thread, two
+// shared-memory reads a FMA; the walk one warp a query, each term a shuffle
+// pair and a branch before a 4-byte load) took 0.238 ms at B = 8, 18x its
+// bound. What holds it back now: every block copies its head's 36 KB of
+// weights and its tile's 32 KB of hidden states from L2 (640 blocks at B =
+// 8), 72 KB of shared memory allow 3 blocks an SM, and 96 of a block's 256
+// threads run the prologue. PERF.md has the runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "msda_rows.cuh"
+
 namespace {
 
+using msda_rows::load_quad;
+using msda_rows::store_quad;
+
 constexpr int kWarpsPerBlock = 4;
-constexpr int kFusedWarps = 8;
-constexpr int kQTile = 32;
+// queries of one fused block: 32 was the fastest of 16, 32 and 64 at B = 1
+// and 8 (tools/fused_tile_probe.py builds the other two)
+#ifndef MSDA_FUSED_Q_TILE
+#define MSDA_FUSED_Q_TILE 32
+#endif
+constexpr int kFusedQTile = MSDA_FUSED_Q_TILE;
+constexpr int kFusedThreads = kFusedQTile >= 32 ? 256 : 128;
+constexpr int kFusedRowBlock = 4;  // queries of a prologue thread's micro-tile
+constexpr int kFusedHsPad = 4;  // hs_t's row pad: each d's queries stay 16-byte aligned
+constexpr int kFusedTermChunk = 8;  // terms whose rows a walk thread loads before it sums them
 
 __device__ __forceinline__ float load_as_float(const float* p) { return __ldg(p); }
 
@@ -194,16 +233,49 @@ msda_loc_sum_kernel(const T* __restrict__ rows, const float* __restrict__ xy,
              discrete ? 1 : 4, idx, w);
 }
 
-// Shared memory of one fused block: the head's weights (d x nc), the query
-// tile's hidden states (kQTile rows of d, padded by one word against bank
-// conflicts) and the tile's prologue outputs (kQTile x nc).
-__host__ __device__ inline size_t fused_smem_bytes(int d, int lp) {
-  const int nc = 3 * lp;
-  return sizeof(float) * ((size_t)d * nc + (size_t)kQTile * (d + 1) + (size_t)kQTile * nc);
+// The fused block's shared memory, in floats, two regions reused between
+// phases: A holds the head's two weight slices as they lie in memory, w_off's
+// (d x 2*LP) then w_att's (d x LP), for the prologue, then the tile's terms
+// (kFusedQTile rows of fused_term_stride (index, weight) pairs); B holds the
+// tile's hidden states transposed, hs_t (d x (kFusedQTile + 4): each d's queries
+// 16-byte aligned), then the prologue's outputs p_s (kFusedQTile x 3*LP).
+__host__ __device__ inline int fused_term_stride(int lp) { return 4 * lp + 1; }  // odd: no bank conflicts
+
+__host__ __device__ inline int larger(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline int fused_region_a(int d, int lp) {
+  return (larger(d * 3 * lp, 2 * kFusedQTile * fused_term_stride(lp)) + 3) / 4 * 4;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kFusedWarps * 32)
+__host__ __device__ inline int fused_region_b(int d, int lp) {
+  return larger(d * (kFusedQTile + kFusedHsPad), kFusedQTile * 3 * lp);
+}
+
+// 16 bytes from device memory to shared memory without a register (cp.async;
+// complete after cp_async_wait_all and, for other threads, a __syncthreads)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// n floats from src to dst: cp.async 16 bytes at a time when both are
+// 16-byte aligned and n is a multiple of 4, else one load a float
+__device__ __forceinline__ void stage_copy(float* __restrict__ dst, const float* __restrict__ src,
+                                           int n, int tid, int n_threads) {
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    for (int i = 4 * tid; i < n; i += 4 * n_threads) cp_async16(dst + i, src + i);
+  } else {
+    for (int i = tid; i < n; i += n_threads) dst[i] = __ldg(src + i);
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFusedThreads, 2)
 msda_fused_sum_kernel(const T* __restrict__ rows, const float* __restrict__ hs,
                       const float* __restrict__ w_off, const float* __restrict__ b_off,
                       const float* __restrict__ w_att, const float* __restrict__ b_att,
@@ -211,50 +283,104 @@ msda_fused_sum_kernel(const T* __restrict__ rows, const float* __restrict__ hs,
                       const float* __restrict__ lvl_h, const float* __restrict__ lvl_w,
                       const int32_t* __restrict__ lvl_off, float* __restrict__ out,
                       int h_count, int s, int hd, int q, int d, int lp, int discrete) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int nc = 3 * lp;  // offset x lanes, offset y lanes, attention logits
-  const int hs_stride = d + 1;
-  float* w_s = smem;
-  float* hs_s = w_s + (size_t)d * nc;
-  float* p_s = hs_s + (size_t)kQTile * hs_stride;
+  constexpr int kHsStride = kFusedQTile + kFusedHsPad;
+  float* wo_s = smem;  // (d, 2*LP)
+  float* wa_s = smem + d * 2 * lp;  // (d, LP)
+  int2* terms = reinterpret_cast<int2*>(smem);
+  float* hs_t = smem + fused_region_a(d, lp);
+  float* p_s = hs_t;
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kQTile;
-  const int nq = min(kQTile, q - q0);
+  const int q0 = blockIdx.x * kFusedQTile;
+  const int nq = min(kFusedQTile, q - q0);
   const int tid = threadIdx.x;
   const int n_threads = blockDim.x;
 
-  for (int i = tid; i < d * nc; i += n_threads) {
-    const int dd = i / nc, c = i % nc;
-    w_s[i] = c < 2 * lp ? __ldg(w_off + ((long long)h * d + dd) * 2 * lp + c)
-                        : __ldg(w_att + ((long long)h * d + dd) * lp + (c - 2 * lp));
-  }
+  // staging: the head's weight slices by cp.async, in flight while the
+  // tile's hidden states are loaded and stored transposed (consecutive
+  // threads take consecutive queries, so the transposed stores hit distinct
+  // banks)
+  stage_copy(wo_s, w_off + (long long)h * d * 2 * lp, d * 2 * lp, tid, n_threads);
+  stage_copy(wa_s, w_att + (long long)h * d * lp, d * lp, tid, n_threads);
   const float* hs_tile = hs + ((long long)b * q + q0) * d;
-  for (int i = tid; i < nq * d; i += n_threads) {
-    hs_s[(i / d) * hs_stride + i % d] = __ldg(hs_tile + i);
+  if (d % 4 == 0 && reinterpret_cast<uintptr_t>(hs) % 16 == 0) {
+#pragma unroll 4
+    for (int i = tid; i < kFusedQTile * (d / 4); i += n_threads) {
+      const int r = i % kFusedQTile, k = i / kFusedQTile;
+      if (r < nq) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(hs_tile + (long long)r * d) + k);
+        hs_t[(4 * k) * kHsStride + r] = x.x;
+        hs_t[(4 * k + 1) * kHsStride + r] = x.y;
+        hs_t[(4 * k + 2) * kHsStride + r] = x.z;
+        hs_t[(4 * k + 3) * kHsStride + r] = x.w;
+      }
+    }
+  } else {
+    for (int i = tid; i < kFusedQTile * d; i += n_threads) {
+      const int r = i % kFusedQTile, dd = i / kFusedQTile;
+      if (r < nq) hs_t[dd * kHsStride + r] = __ldg(hs_tile + (long long)r * d + dd);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // prologue, register-blocked: a thread owns kFusedRowBlock queries x one
+  // sample's three columns (its x offset, y offset and attention logit) and
+  // walks d outermost, each output one fp32 FMA chain in d order from 0 (the
+  // plain version's order: the sample locations must agree bit for bit); a
+  // d step reads one float4 of hs_t and three weights (consecutive threads,
+  // consecutive words) for 12 FMAs. The launcher checks that every
+  // micro-tile has a thread. Queries past nq compute on whatever hs_t holds
+  // there and are never stored.
+  const bool has_tile = tid < (kFusedQTile / kFusedRowBlock) * lp;
+  const int rg = tid / lp, l = tid % lp;
+  float acc[kFusedRowBlock][3];
+#pragma unroll
+  for (int i = 0; i < kFusedRowBlock; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[i][k] = 0.0f;
+  if (has_tile) {
+    const float* h_col = hs_t + rg * kFusedRowBlock;
+    const float* wx = wo_s + l;
+    const float* wy = wo_s + lp + l;
+    const float* wl = wa_s + l;
+#pragma unroll 4
+    for (int dd = 0; dd < d; ++dd) {
+      const float4 hv = *reinterpret_cast<const float4*>(h_col + dd * kHsStride);
+      const float hq[kFusedRowBlock] = {hv.x, hv.y, hv.z, hv.w};
+      const float wv[3] = {wx[dd * 2 * lp], wy[dd * 2 * lp], wl[dd * lp]};
+#pragma unroll
+      for (int i = 0; i < kFusedRowBlock; ++i)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) acc[i][k] = fmaf(hq[i], wv[k], acc[i][k]);
+    }
+  }
+  __syncthreads();  // hs_t and the weights are read: p_s and the terms take their places
+  if (has_tile) {
+    const float bias[3] = {__ldg(b_off + h * 2 * lp + l), __ldg(b_off + h * 2 * lp + lp + l),
+                           __ldg(b_att + h * lp + l)};
+#pragma unroll
+    for (int i = 0; i < kFusedRowBlock; ++i) {
+      const int r = rg * kFusedRowBlock + i;
+      if (r < nq) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) p_s[r * nc + k * lp + l] = acc[i][k] + bias[k];
+      }
+    }
   }
   __syncthreads();
 
-  // prologue: the 3*LP projections of every query of the tile, fp32 FMAs
-  for (int i = tid; i < nq * nc; i += n_threads) {
-    const int r = i / nc, c = i % nc;
-    const float* hrow = hs_s + r * hs_stride;
-    float acc = 0.0f;
-    for (int dd = 0; dd < d; ++dd) acc = fmaf(hrow[dd], w_s[dd * nc + c], acc);
-    const float bias = c < 2 * lp ? __ldg(b_off + h * 2 * lp + c)
-                                  : __ldg(b_att + h * lp + (c - 2 * lp));
-    p_s[i] = acc + bias;
-  }
-  __syncthreads();
-
+  // softmax, locations and corners: a warp a query, a lane a sample, as the
+  // loc kernel computes them (corner_terms); each query's terms, samples
+  // then corners, go to shared memory for the walk
   const int lane = tid & 31;
-  const long long bh = (long long)b * h_count + h;
-  const T* rows_bh = rows + bh * (long long)s * hd;
+  const int n_corners = discrete ? 1 : 4;
+  const int term_stride = fused_term_stride(lp);
   for (int r = tid >> 5; r < nq; r += n_threads >> 5) {
-    const int qq = q0 + r;
     const float* p_q = p_s + r * nc;
-    // softmax over the head's LP samples, one lane per sample
     const float logit = lane < lp ? p_q[2 * lp + lane] : -INFINITY;
     float m = logit;
 #pragma unroll
@@ -263,18 +389,56 @@ msda_fused_sum_kernel(const T* __restrict__ rows, const float* __restrict__ hs,
     float sum = e;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-
-    int idx[4] = {-1, -1, -1, -1};
-    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (lane < lp) {
-      const long long bq = ((long long)b * q + qq) * 2 * lp;
+      const long long bq = ((long long)b * q + q0 + r) * 2 * lp;
       const float x = __fadd_rn(__ldg(base + bq + lane), __fmul_rn(p_q[lane], __ldg(scale + bq + lane)));
       const float y = __fadd_rn(__ldg(base + bq + lp + lane),
                                 __fmul_rn(p_q[lp + lane], __ldg(scale + bq + lp + lane)));
+      int idx[4];
+      float w[4];
       corner_terms(x, y, e / sum, __ldg(lvl_w + lane), __ldg(lvl_h + lane), __ldg(lvl_off + lane),
                    discrete != 0, idx, w);
+      int2* t = terms + r * term_stride + lane * n_corners;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < n_corners) t[k] = make_int2(idx[k], __float_as_int(w[k]));
+      }
     }
-    walk_terms(rows_bh, s, hd, out + (bh * q + qq) * hd, lane, lp, discrete ? 1 : 4, idx, w);
+  }
+  __syncthreads();
+
+  // the walk: a thread a (query, 4 channels); for kFusedTermChunk terms at a
+  // time every row load first, predicated on an index in [0, S) and a
+  // non-zero weight, no branch between them; then the FMAs in term order
+  // (samples, then corners), fmaf(w, v, acc) as the loc kernel sums
+  const long long bh = (long long)b * h_count + h;
+  const T* rows_bh = rows + bh * (long long)s * hd;
+  float* out_tile = out + (bh * q + q0) * hd;
+  const int n_terms = lp * n_corners;
+  const int quads = (hd + 3) / 4;
+  for (int item = tid; item < nq * quads; item += n_threads) {
+    const int r = item / quads;
+    const int c = (item % quads) * 4;
+    const int2* t_q = terms + r * term_stride;
+    float sum4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int t0 = 0; t0 < n_terms; t0 += kFusedTermChunk) {
+      float v[kFusedTermChunk][4];
+      float wt[kFusedTermChunk];
+#pragma unroll
+      for (int k = 0; k < kFusedTermChunk; ++k) {
+        const bool term_on = t0 + k < n_terms;
+        const int2 tk = t_q[term_on ? t0 + k : 0];
+        wt[k] = __int_as_float(tk.y);
+        const bool on = term_on && static_cast<unsigned>(tk.x) < static_cast<unsigned>(s) &&
+                        wt[k] != 0.0f;
+        load_quad<T, kVec>(rows_bh + (long long)(on ? tk.x : 0) * hd + c, c, hd, on, v[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kFusedTermChunk; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum4[e] = fmaf(wt[k], v[k][e], sum4[e]);
+    }
+    store_quad<kVec>(out_tile + (long long)r * hd + c, c, hd, sum4);
   }
 }
 
@@ -312,14 +476,22 @@ int launch_fused(const void* rows, const void* hs, const void* w_off, const void
                  const void* lvl_h, const void* lvl_w, const void* lvl_off, void* out,
                  int b_count, int h_count, int s, int hd, int q, int d, int lp, int discrete,
                  void* stream) {
-  if (lp < 1 || lp > 32 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fused_smem_bytes(d, lp);
-  cudaError_t err = cudaFuncSetAttribute(msda_fused_sum_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // every prologue micro-tile (4 queries x one sample) needs a thread: at
+  // the 32-query tile, LP <= 32
+  if (lp < 1 || lp > 32 || kFusedQTile / kFusedRowBlock * lp > kFusedThreads || d < 1 ||
+      hd < 1 || h_count > 65535 || b_count > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * ((size_t)fused_region_a(d, lp) + fused_region_b(d, lp));
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = hd % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto kernel = vec ? &msda_fused_sum_kernel<T, true> : &msda_fused_sum_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((q + kQTile - 1) / kQTile, h_count, b_count);
-  msda_fused_sum_kernel<T><<<grid, kFusedWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((q + kFusedQTile - 1) / kFusedQTile, h_count, b_count);
+  kernel<<<grid, kFusedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rows), static_cast<const float*>(hs),
       static_cast<const float*>(w_off), static_cast<const float*>(b_off),
       static_cast<const float*>(w_att), static_cast<const float*>(b_att),

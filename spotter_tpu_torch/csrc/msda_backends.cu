@@ -1,5 +1,6 @@
 // The two opt-in MSDA sampling backends (SPOTTER_TPU_MSDA=pallas_sep and
-// =pallas_gather), each on the operands the JAX package hands its TPU kernel.
+// =pallas_gather), each on the operands the JAX package hands its TPU kernel,
+// less the layouts that exist only for the TPU.
 //
 // 1. msda_sep_sum replaces spotter_tpu/ops/msda.py::pallas_sep_sampling, the
 //    separable bilinear sampling of one feature level. Per (b*h, query):
@@ -19,16 +20,20 @@
 //    the value dtype, as the JAX kernel's out_shape.
 //
 // 2. msda_hd_gather_sum replaces spotter_tpu/ops/msda.py::
-//    pallas_deformable_sampling, the lane gather in its own layout: value
-//    vt (B, H, hd, S), sample-major idx/w (B, H, 4, LP*Q) from the corner
-//    prep, out (B, H, hd, Q):
+//    pallas_deformable_sampling, the lane gather, on the model's own value
+//    layout: value (B, S, H, hd), read in place (the row of (b, s, h) starts
+//    at ((b*S + s)*H + h)*hd), sample-major idx/w (B, H, 4, LP*Q) from the
+//    corner prep, out (B, Q, H, hd) in the value's dtype:
 //
-//        out[bh, d, q] = sum_j (sum_c w[bh, c, j*Q + q] * vt[bh, d, idx[bh, c, j*Q + q]])
+//        out[b, q, h, d] = sum_j (sum_c w[b, h, c, j*Q + q] * value[b, idx[b, h, c, j*Q + q], h, d])
 //
-//    with the four corner products and then the LP samples summed in vt's
-//    dtype, in that order, as the TPU kernel accumulates. Nothing is padded:
-//    the TPU's common lane extent max(S, LP*Q) exists for Mosaic's gather,
-//    and any S and Q are taken here.
+//    with the four slot products and then the LP samples summed in the
+//    value's dtype, in that order, as the TPU kernel accumulates. The TPU
+//    kernel takes the value as vt (B, H, hd, S) and returns (B, H, hd, Q)
+//    because Mosaic's DynamicGather vectorises along lanes only; the JAX
+//    package's own XLA path works row-major on the transpose. Here the rows
+//    are read where the model holds them, so the backend makes no permute
+//    copy of the value or the output. Nothing is padded: any S and Q.
 //
 // What bounds them on an H100. Both move few bytes per operation: every term
 // is one value load and one or two FMAs. sep: at the Deformable-DETR encoder
@@ -38,119 +43,86 @@
 // 0.3 GB of values and 0.3 GB of output. The value rows of one head's level
 // (at most 3.6 MB) stay in the 50 MB L2 while the head's tiles run, so repeat
 // row reads are L2 hits. hd_gather: idx + w are 32 bytes per sample and
-// corner slot, 1.2 GB at that size, and are read once, coalesced along q; but
-// a sample's hd values lie in hd different rows of vt (stride S), so every
-// value load is a 32-byte sector of its own: the kernel is bound by L1/L2
-// sector traffic and load latency well above its bytes bound. That layout is
-// the backend's contract (it is the TPU lane layout); msda_gather_sum in
-// msda.cu is the row layout's kernel.
+// corner slot, 1.2 GB at that size, against 0.3 GB of values and 0.3 GB of
+// output; its bytes bound is 0.545 ms an encoder op. Both walk the same
+// 16 x 4 terms a (query, head), so what remains above the bytes is the same
+// work inside the SM: one 16-byte row load and four FMAs (or four adds and
+// four products in the value's dtype) a term and thread.
 //
-// Design.
-// - sep. Its first kernel (one warp a query, a lane a
-//   channel; per point six warp-wide 4-byte operand loads, then up to four
-//   row loads behind `continue`) ran 13x its bytes bound, and neither
-//   dependent load chains nor its operand loads were the main cause:
-//   tools/sep_probe.py times it with the branches predicated, the operands
-//   loaded first, or staged in shared memory, and none of those moves it
-//   far. Now one block of 256 threads per (64-query tile, b*h) first copies
-//   its tile's operands (6 x P x 64 words, contiguous per operand) with
-//   coalesced loads into shared memory, and turns its row of the hit table
-//   into one flag per level row (so no division in the inner loop). A
-//   thread then takes one query and 4 channels (8 threads cover a 128-byte
-//   fp32 row at hd = 32, a warp 4 neighbouring queries) and, for 4 points at
-//   a time, issues every (point, corner) row load before any FMA: 16-byte
-//   loads (8 bytes for bf16 rows) at constant offsets from the point's
-//   corner (0, 0), each predicated on the corner being inside the level, in
-//   a band whose bit is set and of non-zero weight, with no branch between
-//   them; a corner not loaded is 0 and adds exactly nothing. Each (query,
-//   channel) sum keeps the first kernel's order: points, then dy, then dx, with
-//   fmaf(wx * v, wy, acc). The sep probe's reading of it: a case with every
-//   sample on four L1-resident cells runs nearly as fast as the real op, so
-//   what remains is the work inside the SM, not L2. Any hd: channels past
-//   hd are neither loaded nor written, and an hd that is not a multiple of 4
-//   (or rows not 16-byte aligned) takes scalar loads.
-// - hd_gather: one thread per (b*h, query, 8 channels): its idx/w reads are
-//   coalesced along q, its 8 channel sums stay in registers, and its writes
-//   out[bh, d, q] are coalesced along q. It skips a term whose weight is 0 (a
-//   discrete sample's empty corner slots, out-of-range corners), which
-//   changes no sum.
-// Offsets are 64-bit: at B = 8 one hd_gather launch's idx + w span 1.2 GB.
-// wgmma has nothing to multiply here. On an H100 80GB HBM3 at 700 W one
-// encoder op at B = 8 takes ~1.6 ms under sep (2.3x its bytes bound; 9.5 ms
-// under the first kernel) and ~5.7 ms under hd_gather (10x); PERF.md has the
-// runs.
+// Design: one shape for both, memory-level parallelism.
+// - One block of 256 threads per tile of 64 queries (sep: and b*h; hd_gather:
+//   and (h, b)) first copies its tile's operands with coalesced loads into
+//   shared memory: sep's six operands (6 x P x 64 words, contiguous per
+//   operand) and a flag per level row from its row of the hit table (so no
+//   division in the inner loop); hd_gather's (row offset, weight) pairs (4
+//   slots x LP x 64 x 8 bytes, 32 KB at LP = 16), so idx/w are read from
+//   device memory once, not once per group of channels, and each term's
+//   checks (index in [0, S), weight not 0) and its row offset are worked
+//   out once, not once per thread that reads the row.
+// - A thread then takes one query and 4 channels (8 threads cover a 128-byte
+//   fp32 row at hd = 32, a warp 4 neighbouring queries) and issues every
+//   corner row load of a chunk before any arithmetic: 16-byte loads (8 bytes
+//   for bf16 rows), each predicated, with no branch between them; a corner
+//   not loaded is 0 and adds exactly nothing. sep's chunk is 4 points (16
+//   loads); hd_gather's is one sample (its 4 slots), which keeps a thread
+//   within 51 registers and 5 blocks (40 warps) on an SM: on the card a
+//   thread with 4 samples' 16 loads in flight (124 registers, 2 blocks an
+//   SM) ran the encoder op in 2.34 ms, one sample at a time in 1.47 ms, so
+//   the warps an SM holds, not the loads a thread has in flight, hide the
+//   latency here.
+// - Sums keep their order: sep, points, then dy, then dx, with fmaf(wx * v,
+//   wy, acc); hd_gather, each sample's four slot products in slot order,
+//   then the samples, every product and add rounded to the value's dtype
+//   (__fmul_rn/__fadd_rn, no FMA contraction), so it equals its plain
+//   version bit for bit in fp32.
+// - Queries stay contiguous within a tile: encoder queries are tokens in
+//   level-major, row-major order, so a tile's neighbours sample neighbouring
+//   cells and their rows are L1 and L2 hits.
+// - Any hd: channels past hd are neither loaded nor written, and an hd that
+//   is not a multiple of 4 (or rows not aligned to 4 channels) takes scalar
+//   loads. Offsets are 64-bit where they span a launch (at B = 8 one
+//   hd_gather launch's idx + w span 1.2 GB); a row's offset within one
+//   image is 32-bit (S * H * hd < 2**31, checked).
+// - No tensor cores: wgmma has nothing to multiply here.
+// What holds hd_gather back now is the work inside the SM: per term and
+// thread a shared-memory read, a predicated 16-byte load, and four products
+// and four adds that cannot fuse (the TPU's rounding; in bf16 each also
+// rounds, which makes the bf16 kernel slower than the fp32 one), about as
+// many instructions a term as sep, whose op takes about as long.
+// sep's first kernel (one warp a query, a lane a channel, operand loads and
+// row loads behind `continue`) ran 13x its bytes bound; tools/sep_probe.py
+// times it with the branches predicated, the operands loaded first or staged
+// in shared memory, and none of those moves it far; with every sample on
+// four L1-resident cells the redesign runs nearly as fast as the real op, so
+// what remains is the work inside the SM, not L2. hd_gather's first kernel
+// took the TPU's layout: a thread a (query, 8 channels) with eight 4-byte
+// loads from eight rows of vt at stride S a term, a sector each, behind a
+// branch, and idx/w read once per 8 channels. On an H100 80GB HBM3 at
+// 700 W one encoder op at B = 8 takes ~1.65 ms under sep (2.3x its bytes
+// bound; 9.5 ms under its first kernel) and ~1.47 ms under hd_gather (2.7x
+// its 0.545 ms bound; 5.75 ms under its first kernel); PERF.md has the runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "msda_rows.cuh"
+
 namespace {
+
+using msda_rows::load_quad;
+using msda_rows::round_to;
+using msda_rows::store_quad;
 
 constexpr int kSepQTile = 64;  // the JAX package's Q_TILE
 constexpr int kSepThreads = 256;
 constexpr int kSepPointChunk = 4;  // points whose rows a thread loads before it sums them
-constexpr int kGatherThreads = 128;
-constexpr int kGatherChannels = 8;  // channels a thread of msda_hd_gather_sum sums
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// rounds an fp32 value to T's precision (identity for fp32), so sums "in vt's
-// dtype" round where the TPU kernel's bf16 arithmetic rounds
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 4 channels of one value row into v, as fp32: one 16-byte (fp32) or 8-byte
-// (bf16) load when kVec, else one load a channel below hd; zeros where
-// `on` is false (nothing is read then).
-template <typename T, bool kVec>
-__device__ __forceinline__ void load_quad(const T* __restrict__ p, int c, int hd, bool on,
-                                          float (&v)[4]);
-
-template <>
-__device__ __forceinline__ void load_quad<float, true>(const float* __restrict__ p, int, int,
-                                                       bool on, float (&v)[4]) {
-  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (on) x = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-
-template <>
-__device__ __forceinline__ void load_quad<__nv_bfloat16, true>(const __nv_bfloat16* __restrict__ p,
-                                                               int, int, bool on,
-                                                               float (&v)[4]) {
-  uint2 x = make_uint2(0u, 0u);
-  if (on) x = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(x.x << 16);  // bf16 -> fp32: the high half of the word
-  v[1] = __uint_as_float(x.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(x.y << 16);
-  v[3] = __uint_as_float(x.y & 0xFFFF0000u);
-}
-
-template <typename T, bool kVec>
-__device__ __forceinline__ void load_quad(const T* __restrict__ p, int c, int hd, bool on,
-                                          float (&v)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = on && c + e < hd ? to_float(p[e]) : 0.0f;
-}
+constexpr int kGatherQTile = 64;  // queries of one msda_hd_gather_sum block (a power of 2)
+constexpr int kGatherThreads = 256;
+// blocks an SM the registers must allow (<= 51 a thread): one sample's four
+// row loads a thread in flight, but 40 warps an SM to hide their latency
+constexpr int kGatherMinBlocks = 5;
+constexpr int kSlots = 4;  // corner slots of the lane layout
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kSepThreads)
@@ -240,60 +212,77 @@ msda_sep_sum_kernel(const T* __restrict__ rows, const int32_t* __restrict__ xi,
               acc[e] = fmaf(__fmul_rn(wx[pp][dx], v[pp][2 * dy + dx][e]), wy[pp][dy], acc[e]);
             }
     }
-    float* dst = out_tile + (long long)qi * hd + c;
-    if (kVec) {
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (c + e < hd) dst[e] = acc[e];
-      }
-    }
+    store_quad<kVec>(out_tile + (long long)qi * hd + c, c, hd, acc);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kGatherThreads)
-msda_hd_gather_sum_kernel(const T* __restrict__ vt, const int32_t* __restrict__ idx,
-                          const float* __restrict__ w, T* __restrict__ out, int hd, int s,
-                          int q, int lp, int n_slots) {
-  const int qq = blockIdx.x * kGatherThreads + threadIdx.x;
-  if (qq >= q) return;
-  const int d0 = blockIdx.y * kGatherChannels;
-  const long long bh = blockIdx.z;
-  const long long n = (long long)lp * q;  // samples per corner slot
-  const int32_t* idx_bh = idx + bh * n_slots * n;
-  const float* w_bh = w + bh * n_slots * n;
-  const T* vt_d = vt + (bh * hd + d0) * (long long)s;
-
-  float total[kGatherChannels];
-#pragma unroll
-  for (int k = 0; k < kGatherChannels; ++k) total[k] = 0.0f;
-  for (int j = 0; j < lp; ++j) {
-    float acc[kGatherChannels];
-#pragma unroll
-    for (int k = 0; k < kGatherChannels; ++k) acc[k] = 0.0f;
-    for (int c = 0; c < n_slots; ++c) {
-      const long long o = c * n + (long long)j * q + qq;
-      const int sk = __ldg(idx_bh + o);
-      const float wk = round_to<T>(__ldg(w_bh + o));
-      if (sk < 0 || sk >= s || wk == 0.0f) continue;
-#pragma unroll
-      for (int k = 0; k < kGatherChannels; ++k) {
-        if (d0 + k < hd) {
-          const float g = to_float(vt_d[k * (long long)s + sk]);
-          acc[k] = round_to<T>(__fadd_rn(acc[k], round_to<T>(__fmul_rn(g, wk))));
-        }
-      }
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kGatherThreads, kGatherMinBlocks)
+msda_hd_gather_sum_kernel(const T* __restrict__ value, const int32_t* __restrict__ idx,
+                          const float* __restrict__ w, T* __restrict__ out, int h_count, int s,
+                          int hd, int q, int lp) {
+  // this tile's terms, [slot][sample][query]: .x the row's element offset
+  // from the (b, 0, h) row, or -1 where nothing is loaded (an index outside
+  // [0, S), a weight that rounds to 0, a query past Q); .y the weight's bits,
+  // rounded to T
+  extern __shared__ int2 s_terms[];
+  const int q0 = blockIdx.x * kGatherQTile;
+  const int nq = min(kGatherQTile, q - q0);
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long bh = b * h_count + h;
+  const long long term0 = bh * kSlots * lp * (long long)q;  // (slot, sample) row r at term0 + r * q
+  const int row_stride = h_count * hd;  // the launcher checks S * H * hd < 2**31
+  const int n_staged = kSlots * lp * kGatherQTile;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n_staged; i += kGatherThreads) {
+    const int r = i / kGatherQTile;  // slot * lp + sample
+    const int qi = i % kGatherQTile;
+    int2 t = make_int2(-1, 0);
+    if (qi < nq) {
+      const long long o = term0 + (long long)r * q + q0 + qi;
+      const int sk = __ldg(idx + o);
+      const float wk = round_to<T>(__ldg(w + o));
+      const bool on = static_cast<unsigned>(sk) < static_cast<unsigned>(s) && wk != 0.0f;
+      t = make_int2(on ? sk * row_stride : -1, __float_as_int(wk));
     }
-#pragma unroll
-    for (int k = 0; k < kGatherChannels; ++k) {
-      total[k] = round_to<T>(__fadd_rn(total[k], acc[k]));
-    }
+    s_terms[i] = t;
   }
+  __syncthreads();
+
+  // the value rows of (b, :, h): row s at value_bh + s * H * hd
+  const T* value_bh = value + (b * s * h_count + h) * (long long)hd;
+  T* out_tile = out + ((b * q + q0) * h_count + h) * (long long)hd;
+  const int quads = (hd + 3) / 4;
+  for (int item = threadIdx.x; item < nq * quads; item += kGatherThreads) {
+    const int qi = item / quads;
+    const int c = (item % quads) * 4;
+    float total[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < lp; ++j) {
+      // the sample's four corner rows first, each load predicated, no
+      // branch between them; a corner not loaded is 0 and adds exactly nothing
+      float v[kSlots][4];
+      float wk[kSlots];
 #pragma unroll
-  for (int k = 0; k < kGatherChannels; ++k) {
-    if (d0 + k < hd) out[(bh * hd + d0 + k) * (long long)q + qq] = from_float<T>(total[k]);
+      for (int k = 0; k < kSlots; ++k) {
+        const int2 t = s_terms[(k * lp + j) * kGatherQTile + qi];
+        wk[k] = __int_as_float(t.y);
+        load_quad<T, kVec>(value_bh + max(t.x, 0) + c, c, hd, t.x >= 0, v[k]);
+      }
+      // then the sums in the TPU kernel's order and dtype: the four slot
+      // products in slot order, then the sample onto the total, each product
+      // and add rounded to T
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[e] = round_to<T>(__fadd_rn(acc[e], round_to<T>(__fmul_rn(v[k][e], wk[k]))));
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) total[e] = round_to<T>(__fadd_rn(total[e], acc[e]));
+    }
+    store_quad<kVec>(out_tile + (long long)qi * row_stride + c, c, hd, total);
   }
 }
 
@@ -323,16 +312,29 @@ int launch_sep(const void* rows, const void* xi, const void* xw0, const void* xw
 }
 
 template <typename T>
-int launch_hd_gather(const void* vt, const void* idx, const void* w, void* out, int bh_count,
-                     int hd, int s, int q, int lp, int n_slots, void* stream) {
-  if (bh_count < 1 || bh_count > 65535 || hd < 1 || q < 1 || lp < 1) {
+int launch_hd_gather(const void* value, const void* idx, const void* w, void* out, int b_count,
+                     int h_count, int s, int hd, int q, int lp, void* stream) {
+  // a row's element offset within one image is an int
+  if (b_count < 1 || b_count > 65535 || h_count < 1 || h_count > 65535 || s < 1 || hd < 1 ||
+      q < 1 || lp < 1 || (long long)s * h_count * hd >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((q + kGatherThreads - 1) / kGatherThreads,
-                  (hd + kGatherChannels - 1) / kGatherChannels, bh_count);
-  msda_hd_gather_sum_kernel<T><<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vt), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(w), static_cast<T*>(out), hd, s, q, lp, n_slots);
+  const size_t smem = sizeof(int2) * kSlots * (size_t)lp * kGatherQTile;
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  // vector loads and stores need every row (and output row) aligned to 4 channels
+  const size_t quad_bytes = 4 * sizeof(T);
+  const bool vec = hd % 4 == 0 && reinterpret_cast<uintptr_t>(value) % quad_bytes == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % quad_bytes == 0;
+  auto kernel = vec ? &msda_hd_gather_sum_kernel<T, true> : &msda_hd_gather_sum_kernel<T, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((q + kGatherQTile - 1) / kGatherQTile, h_count, b_count);
+  kernel<<<grid, kGatherThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(value), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(w), static_cast<T*>(out), h_count, s, hd, q, lp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,16 +362,16 @@ extern "C" int msda_sep_sum_bf16(const void* rows, const void* xi, const void* x
                                    n_points, lh, lw, hd, r_band, n_bands, stream);
 }
 
-extern "C" int msda_hd_gather_sum_f32(const void* vt, const void* idx, const void* w, void* out,
-                                      int bh_count, int hd, int s, int q, int lp, int n_slots,
-                                      void* stream) {
-  return launch_hd_gather<float>(vt, idx, w, out, bh_count, hd, s, q, lp, n_slots, stream);
+extern "C" int msda_hd_gather_sum_f32(const void* value, const void* idx, const void* w,
+                                      void* out, int b_count, int h_count, int s, int hd, int q,
+                                      int lp, void* stream) {
+  return launch_hd_gather<float>(value, idx, w, out, b_count, h_count, s, hd, q, lp, stream);
 }
 
-extern "C" int msda_hd_gather_sum_bf16(const void* vt, const void* idx, const void* w,
-                                       void* out, int bh_count, int hd, int s, int q, int lp,
-                                       int n_slots, void* stream) {
-  return launch_hd_gather<__nv_bfloat16>(vt, idx, w, out, bh_count, hd, s, q, lp, n_slots,
+extern "C" int msda_hd_gather_sum_bf16(const void* value, const void* idx, const void* w,
+                                       void* out, int b_count, int h_count, int s, int hd, int q,
+                                       int lp, void* stream) {
+  return launch_hd_gather<__nv_bfloat16>(value, idx, w, out, b_count, h_count, s, hd, q, lp,
                                          stream);
 }
 

@@ -34,10 +34,13 @@ package's dispatch order:
   query-side operands: 64-query tiles, unclamped corner indices, weights
   with attention and validity folded in, and a per-tile band hit table
   (`sep_level_operands`).
-- `pallas_gather`: the lane-gather layout, value (B, H, hd, S) and
-  sample-major idx/w (B, H, 4, LP*Q) (`prepare_msda_gather_lanes`), summed
-  in the value's dtype (`msda_hd_gather_sum`, replacing
-  `pallas_deformable_sampling`).
+- `pallas_gather`: the lane gather's sample-major idx/w (B, H, 4, LP*Q)
+  (`prepare_msda_gather_lanes`), summed in the value's dtype
+  (`msda_hd_gather_sum`, replacing `pallas_deformable_sampling`). The TPU
+  kernel's value (B, H, hd, S) and output (B, H, hd, Q) lay the spatial
+  axis along lanes for Mosaic's gather; the port reads the value rows where
+  the model holds them, (B, S, H, hd), and writes (B, Q, H, hd), so the
+  backend copies neither.
 
 Both are hand-written CUDA in `csrc/msda_backends.cu`. On a CPU tensor each
 wrapper runs its plain version (`*_reference`); on a CUDA tensor it launches
@@ -719,24 +722,24 @@ def prepare_msda_gather_lanes(
 
 
 def msda_hd_gather_reference(
-    vt: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, lp: int, q: int
+    value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, lp: int, q: int
 ) -> torch.Tensor:
     """Plain version of `msda_hd_gather_sum` (`_gather_weighted_sum`'s
-    function, in its kernel's order): vt (B, H, hd, S), idx/w (B, H, 4, LP*Q)
-    -> (B, H, hd, Q) in vt's dtype, each sample's four corner products
-    g * w summed in slot order, then the LP samples in order, all in vt's
-    dtype. A term whose index lies outside [0, S) is skipped."""
-    b, h_axis, hd, s = vt.shape
-    out = torch.zeros((b, h_axis, hd, q), dtype=vt.dtype, device=vt.device)
+    function, in its kernel's order): value (B, S, H, hd), idx/w (B, H, 4,
+    LP*Q) -> (B, Q, H, hd) in value's dtype, each sample's four corner
+    products g * w summed in slot order, then the LP samples in order, all in
+    value's dtype. A term whose index lies outside [0, S) is skipped."""
+    b, s, h_axis, hd = value.shape
+    out = torch.zeros((b, q, h_axis, hd), dtype=value.dtype, device=value.device)
     for j in range(lp):
         acc = torch.zeros_like(out)
         for c in range(4):
-            ids = idx[:, :, c, j * q:(j + 1) * q]
+            ids = idx[:, :, c, j * q:(j + 1) * q].transpose(1, 2)  # (B, Q, H)
             valid = (ids >= 0) & (ids < s)
-            g = torch.gather(vt, 3, torch.where(valid, ids, 0).long()[:, :, None, :].expand(
-                b, h_axis, hd, q))
-            wc = torch.where(valid, w[:, :, c, j * q:(j + 1) * q], 0.0).to(vt.dtype)
-            acc = acc + g * wc[:, :, None, :]
+            g = torch.gather(value, 1, torch.where(valid, ids, 0).long()[..., None].expand(
+                b, q, h_axis, hd))
+            wc = torch.where(valid, w[:, :, c, j * q:(j + 1) * q].transpose(1, 2), 0.0)
+            acc = acc + g * wc.to(value.dtype)[..., None]
         out = out + acc
     return out
 
@@ -815,32 +818,32 @@ msda_sep_sum.launches = 0
 
 
 def msda_hd_gather_sum(
-    vt: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, lp: int, q: int
+    value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, lp: int, q: int
 ) -> torch.Tensor:
-    """Lane-gather sampling: vt (B, H, hd, S) f32/bf16, idx (B, H, 4, LP*Q)
-    int32, w (B, H, 4, LP*Q) fp32 from `prepare_msda_gather_lanes` ->
-    (B, H, hd, Q) in vt's dtype, which is also the dtype it sums in. CUDA
-    tensors launch `csrc/msda_backends.cu`; CPU tensors take
-    `msda_hd_gather_reference`; anything else raises."""
-    if vt.device.type == "cpu":
+    """Lane-gather sampling: value (B, S, H, hd) f32/bf16, read in place,
+    idx (B, H, 4, LP*Q) int32, w (B, H, 4, LP*Q) fp32 from
+    `prepare_msda_gather_lanes` -> (B, Q, H, hd) in value's dtype, which is
+    also the dtype it sums in. CUDA tensors launch `csrc/msda_backends.cu`;
+    CPU tensors take `msda_hd_gather_reference`; anything else raises."""
+    if value.device.type == "cpu":
         _require_cpu("msda_hd_gather_sum", idx, w)
-        return msda_hd_gather_reference(vt, idx, w, lp, q)
-    _require_cuda("msda_hd_gather_sum", vt)
-    if vt.dim() != 4 or not vt.is_contiguous():
-        raise ValueError(f"expected a contiguous vt (B, H, hd, S), got {tuple(vt.shape)}")
-    b, h_axis, hd, s = vt.shape
+        return msda_hd_gather_reference(value, idx, w, lp, q)
+    _require_cuda("msda_hd_gather_sum", value)
+    if value.dim() != 4 or not value.is_contiguous():
+        raise ValueError(f"expected a contiguous value (B, S, H, hd), got {tuple(value.shape)}")
+    b, s, h_axis, hd = value.shape
     _check_cuda_tensors(
-        vt.view(b * h_axis, hd, s), idx=(idx, torch.int32, 4), w=(w, torch.float32, 4))
+        value.view(b, s * h_axis, hd), idx=(idx, torch.int32, 4), w=(w, torch.float32, 4))
     if idx.shape != (b, h_axis, 4, lp * q) or w.shape != idx.shape:
         raise ValueError(
             f"expected idx/w ({b}, {h_axis}, 4, {lp}*{q}); got {tuple(idx.shape)}, "
             f"{tuple(w.shape)}"
         )
-    out = torch.empty((b, h_axis, hd, q), dtype=vt.dtype, device=vt.device)
+    out = torch.empty((b, q, h_axis, hd), dtype=value.dtype, device=value.device)
     if out.numel() == 0 or lp == 0:
         return out.zero_()
-    _launch("msda_hd_gather_sum", vt, vt.data_ptr(), idx.data_ptr(), w.data_ptr(),
-            out.data_ptr(), b * h_axis, hd, s, q, lp, 4, build=build_msda_backends_kernel)
+    _launch("msda_hd_gather_sum", value, value.data_ptr(), idx.data_ptr(), w.data_ptr(),
+            out.data_ptr(), b, h_axis, s, hd, q, lp, build=build_msda_backends_kernel)
     msda_hd_gather_sum.launches += 1
     return out
 
@@ -909,10 +912,12 @@ def deformable_sampling(
     if backend == "pallas_sep":
         out = _sep_sampling(value, loc, attn, spatial_shapes, num_points, method)
     elif backend == "pallas_gather":
+        # the kernel reads the value rows in place and writes (B, Q, H, hd):
+        # no permute copy either side (contiguous() is one only for a caller
+        # whose value is not)
         idx, w = prepare_msda_gather_lanes(loc, attn, spatial_shapes, num_points, method)
-        vt = value.permute(0, 2, 3, 1).contiguous()  # (B, H, hd, S): spatial minor
-        out = msda_hd_gather_sum(vt, idx, w, lp, q)
-        return out.permute(0, 3, 1, 2).reshape(b, q, h_axis * hd)
+        out = msda_hd_gather_sum(value.contiguous(), idx, w, lp, q)
+        return out.reshape(b, q, h_axis * hd)
     elif MSDA_PREP == "kernel":
         _check_samples(lp, spatial_shapes, num_points, method)
         f32 = torch.float32

@@ -85,16 +85,20 @@ def build_digest(sources: list[Path], headers: list[Path], flags: tuple[str, ...
     return digest.hexdigest()[:16]
 
 
-def load_kernel_library(name: str, sources: tuple[str, ...]) -> KernelLibrary:
+def load_kernel_library(
+    name: str, sources: tuple[str, ...], defines: tuple[str, ...] = ()
+) -> KernelLibrary:
     """Build (once per source hash) and load `lib<name>.so` from `csrc/` sources.
 
-    Callers cache the result (one load per process); a library already in
+    `defines` (`-DNAME=value` flags) build a variant a probe times. Callers
+    cache the result (one load per process); a library already in
     BUILD_ROOT for the same sources, headers (every `csrc/*.cuh`, which a
     source may include) and flags is loaded without a build.
     """
     paths = [CSRC_DIR / s for s in sources]
     headers = sorted(CSRC_DIR.glob("*.cuh"))
-    out_dir = BUILD_ROOT / f"{name}-{build_digest(paths, headers, NVCC_FLAGS)}"
+    flags = (*NVCC_FLAGS, *defines)
+    out_dir = BUILD_ROOT / f"{name}-{build_digest(paths, headers, flags)}"
     so_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "nvcc.log"
     build_seconds = 0.0
@@ -104,7 +108,7 @@ def load_kernel_library(name: str, sources: tuple[str, ...]) -> KernelLibrary:
         # killed build never leaves a half-written library at so_path
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
+        cmd = [find_nvcc(), *flags, "-o", tmp, *map(str, paths)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0

@@ -4,7 +4,9 @@ a compiler flag changes, and reused when nothing does. CPU only: nothing
 here runs nvcc.
 """
 
+import pathlib
 import shutil
+import subprocess
 
 import pytest
 
@@ -78,3 +80,32 @@ def test_the_tensor_core_kernels_include_the_shared_header():
     for source in ("attention.cu", "int8_gemm.cu"):
         assert '#include "hopper.cuh"' in (cuda_build.CSRC_DIR / source).read_text()
     assert (cuda_build.CSRC_DIR / "hopper.cuh") in sorted(cuda_build.CSRC_DIR.glob("*.cuh"))
+
+
+def test_loader_builds_a_defined_variant_apart(tmp_path, monkeypatch):
+    """`defines` enter the library's flags: a variant built with
+    `-DNAME=value` is a library of its own and never reuses the plain
+    build, and its nvcc command carries the define."""
+    csrc = tmp_path / "csrc"
+    sources, headers = _tree(csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: path)
+    digest = cuda_build.build_digest(sources, headers, cuda_build.NVCC_FLAGS)
+    plain = tmp_path / "build" / f"k-{digest}" / "libk.so"
+    plain.parent.mkdir(parents=True)
+    plain.write_bytes(b"")
+    assert cuda_build.load_kernel_library("k", ("k.cu",)).path == plain
+    commands = []
+
+    def fake_nvcc(cmd, **kwargs):
+        commands.append(cmd)
+        pathlib.Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_nvcc)
+    variant = cuda_build.load_kernel_library("k", ("k.cu",), defines=("-DTILE=16",))
+    assert variant.path != plain and variant.path.exists()
+    assert len(commands) == 1 and "-DTILE=16" in commands[0]
+    shutil.rmtree(tmp_path / "build")

@@ -2,9 +2,11 @@
 fp32 attention kernels (`ops.attention.flash_attn_bf16`, and
 `flash_attn_fp32` with its K/V split pass `split_kv_tf32`: wgmma fed by
 TMA), the int8 GEMM (`tools.bench_int8.int8_gemm`, a transpose pass, then
-wgmma fed by TMA) and the separable MSDA sampling kernel
-(`ops.msda.msda_sep_sum`), each against its plain version; and, on the CPU,
-the transpose and split passes' plain paths, the GEMM's input checks, the
+wgmma fed by TMA), the separable MSDA sampling kernel
+(`ops.msda.msda_sep_sum`), the lane-gather kernel (`msda_hd_gather_sum`,
+reading the value rows in place) and the fused MSDA kernel
+(`msda_fused_sum`, a register-blocked prologue), each against its plain
+version; and, on the CPU, the fused wrapper's plain path, the transpose and split passes' plain paths, the GEMM's input checks, the
 fp32 kernel's key order, and the rounding studies
 (`tools.attention_rounding`) behind the bf16 kernel's split P and the fp32
 kernel's split TF32.
@@ -23,7 +25,11 @@ within 2e-5 of the largest output, the fp32 gate of chip_smoke.py; its
 products are split TF32 (~2**-21 relative), its sums fp32. The int8 GEMM,
 the transpose and the split pass are exact. The sep kernel: within 1e-5,
 the MSDA gate (sums of at most 16 weighted standard-normal values in
-fp32, in the plain version's order).
+fp32, in the plain version's order). The lane gather sums in the value's
+dtype in its plain version's order: equal bit for bit in fp32, within one
+bf16 ulp of the largest output in bf16. The fused kernel: within 1e-5 under
+both methods; its prologue sums as the plain version does, so the discrete
+method's nearest cells agree and every row is compared.
 """
 
 import numpy as np
@@ -364,3 +370,167 @@ def test_sep_kernel_at_a_deformable_detr_encoder_level_on_card(rows_dtype):
     lh = lw = 42
     rows, ops, mask, r_band = _sep_level(lh, lw, 1800, 1, 8, 32, 4, seed=16, encoder=True)
     assert _sep_on_card(rows, ops, mask, r_band, (lh, lw), 4, rows_dtype) <= 1e-5
+
+
+# --- msda_hd_gather_sum and msda_fused_sum, redesigned --------------------------
+
+# Deformable-DETR's levels at the 1333x1333 bucket (37,150 tokens) and
+# RT-DETR's decoder levels at 640x640 (8,400)
+DDETR_LEVELS = ((167, 167), (84, 84), (42, 42), (21, 21))
+RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))
+
+
+def _samples(levels, q, h, points, rng):
+    """(1, Q, H, LP, 2) sample points and softmaxed (1, Q, H, LP) attention:
+    Q equal to the token count samples as an encoder does (each token around
+    its own cell, tokens level-major and row-major), other Q anywhere in
+    [-0.05, 1.05]."""
+    lp = len(levels) * points
+    if q == sum(a * b for a, b in levels):
+        cells = []
+        for lh, lw in levels:
+            iy, ix = np.divmod(np.arange(lh * lw), lw)
+            cells.append(np.stack([(ix + 0.5) / lw, (iy + 0.5) / lh], -1))
+        ref = np.concatenate(cells)[None, :, None, None, :]
+        loc = ref + 0.02 * rng.standard_normal((1, q, h, lp, 2))
+    else:
+        loc = rng.uniform(-0.05, 1.05, (1, q, h, lp, 2))
+    logits = rng.standard_normal((1, q, h, lp))
+    attn = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return (torch.from_numpy(a.astype(np.float32)) for a in (loc, attn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [24, 32, 64])
+@pytest.mark.parametrize("q", [300, 37150])
+def test_hd_gather_kernel_reads_value_rows_in_place_on_card(q, hd, dtype):
+    """B = 1, Deformable-DETR's levels, 8 heads of 4 points a level: its
+    decoder's 300 queries and its encoder's 37,150 (neither a multiple of
+    the 64-query tile), value (B, S, H, hd) in fp32 and bf16."""
+    dev = _card()
+    rng = np.random.default_rng(q + hd)
+    s, h, points = sum(a * b for a, b in DDETR_LEVELS), 8, 4
+    lp = len(DDETR_LEVELS) * points
+    loc, attn = _samples(DDETR_LEVELS, q, h, points, rng)
+    idx, w = (t.to(dev) for t in tmsda.prepare_msda_gather_lanes(loc, attn, DDETR_LEVELS, points))
+    value = torch.from_numpy(rng.standard_normal((1, s, h, hd)).astype(np.float32)).to(dev, dtype)
+    before = tmsda.msda_hd_gather_sum.launches
+    got = tmsda.msda_hd_gather_sum(value, idx, w, lp, q)
+    want = tmsda.msda_hd_gather_reference(value, idx, w, lp, q)
+    torch.cuda.synchronize()
+    assert tmsda.msda_hd_gather_sum.launches == before + 1
+    assert got.shape == (1, q, h, hd) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0**-7 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hd_gather_kernel_skips_planted_bad_indices_and_zero_weights_on_card(dtype):
+    """Indices S + 3 and -5 and zero weights planted through idx/w (Q = 300,
+    hd = 32): the kernel loads none of those rows, so it equals the plain
+    version bit for bit, and equals the sum with the bad terms pointed at
+    row 0 with weight 0."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    q, hd, s, h, points = 300, 32, sum(a * b for a, b in DDETR_LEVELS), 8, 4
+    lp = len(DDETR_LEVELS) * points
+    loc, attn = _samples(DDETR_LEVELS, q, h, points, rng)
+    idx, w = (t.to(dev) for t in tmsda.prepare_msda_gather_lanes(loc, attn, DDETR_LEVELS, points))
+    idx.view(-1)[::7] = s + 3
+    idx.view(-1)[3::11] = -5
+    w.view(-1)[5::13] = 0.0
+    off = (idx < 0) | (idx >= s)
+    value = torch.from_numpy(rng.standard_normal((1, s, h, hd)).astype(np.float32)).to(dev, dtype)
+    got = tmsda.msda_hd_gather_sum(value, idx, w, lp, q)
+    want = tmsda.msda_hd_gather_reference(value, idx, w, lp, q)
+    cleared = tmsda.msda_hd_gather_sum(value, torch.where(off, 0, idx),
+                                       torch.where(off, 0.0, w), lp, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cleared)
+    if dtype == torch.float32:
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0**-7 * want.float().abs().max().item(), err
+
+
+def _fused_operands(q, hd, seed, rows_dtype=torch.float32, h=8, points=4, d=256):
+    """RT-DETR decoder operands at B = 1: value rows (H, S, hd), hidden
+    states (1, Q, D), per-head projections, anchors and level tables."""
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    s = sum(a * b for a, b in RTDETR_LEVELS)
+    lp = len(RTDETR_LEVELS) * points
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    rows = randn(h, s, hd).to(rows_dtype)
+    hs = randn(1, q, d)
+    ref = torch.from_numpy(np.concatenate(
+        [rng.uniform(0.05, 0.95, (1, q, 2)), rng.uniform(0.05, 0.5, (1, q, 2))], -1
+    ).astype(np.float32)).to(dev)
+    heads = tmsda.fused_head_weights(randn(d, h * lp * 2, scale=d**-0.5), randn(h * lp * 2, scale=0.1),
+                                     randn(d, h * lp, scale=d**-0.5), randn(h * lp, scale=0.1), h)
+    base, scale = tmsda.fused_anchors(ref, lp, points, 0.5)
+    tables = tmsda.level_tables(RTDETR_LEVELS, points, dev, torch.float32)
+    return (rows, hs, *heads, base, scale, *tables)
+
+
+def _fused_error(args, method, **kw):
+    before = tmsda.msda_fused_sum.launches
+    got = tmsda.msda_fused_sum(*args, method, **kw)
+    want = tmsda.msda_fused_reference(*args, method)
+    torch.cuda.synchronize()
+    assert tmsda.msda_fused_sum.launches == before + 1
+    assert got.shape == want.shape
+    return (got - want).abs().max().item()  # every row, discrete included
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["default", "discrete"])
+@pytest.mark.parametrize("hd", [24, 32, 64])
+@pytest.mark.parametrize("q", [300, 37150])
+def test_fused_kernel_on_card(q, hd, method):
+    """RT-DETR's decoder sampling at B = 1 (D = 256, 8 heads, LP = 12),
+    Q = 300 and 37,150 (ragged last tiles), hd 24, 32 and 64."""
+    assert _fused_error(_fused_operands(q, hd, seed=q + hd), method) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["default", "discrete"])
+def test_fused_kernel_bf16_rows_on_card(method):
+    args = _fused_operands(300, 32, seed=5, rows_dtype=torch.bfloat16)
+    assert _fused_error(args, method) <= 1e-5
+
+
+def _tiny_fused_args(lp_points=2, seed=7):
+    rng = np.random.default_rng(seed)
+    h, d, q, s, hd = 2, 16, 9, 30, 8
+    points = lp_points
+    rows = torch.from_numpy(rng.standard_normal((h, s, hd)).astype(np.float32))
+    hs = torch.from_numpy(rng.standard_normal((1, q, d)).astype(np.float32))
+    ref = torch.from_numpy(rng.uniform(0.1, 0.9, (1, q, 4)).astype(np.float32))
+    heads = tmsda.fused_head_weights(
+        *(torch.from_numpy(rng.standard_normal(sh).astype(np.float32) * 0.2)
+          for sh in ((d, h * points * 2), (h * points * 2,), (d, h * points), (h * points,))), h)
+    base, scale = tmsda.fused_anchors(ref, points, points, 0.5)
+    tables = tmsda.level_tables(((5, 6),), points, torch.device("cpu"), torch.float32)
+    return (rows, hs, *heads, base, scale, *tables)
+
+
+@pytest.mark.parametrize("lp_points", [1, 2])
+@pytest.mark.parametrize("method", ["default", "discrete"])
+def test_fused_wrapper_cpu_path_is_the_plain_version(method, lp_points):
+    """A CPU tensor takes the plain version and counts no launch."""
+    args = _tiny_fused_args(lp_points)
+    before = tmsda.msda_fused_sum.launches
+    got = tmsda.msda_fused_sum(*args, method)
+    assert got.shape == (2, 9, 8)
+    assert torch.equal(got, tmsda.msda_fused_reference(*args, method))
+    assert tmsda.msda_fused_sum.launches == before

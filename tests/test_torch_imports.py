@@ -105,10 +105,10 @@ def test_msda_backend_kernels_run_only_on_cuda_tensors(monkeypatch):
     out = msda.msda_sep_sum(rows, *ops, mask, (4, 4), r_band, 2)
     assert out.shape == (1, 64, 8) and torch.allclose(out[0, :3], torch.ones(3, 8))
     idx, w = msda.prepare_msda_gather_lanes(loc, attn, ((4, 4),), 2)
-    vt = torch.ones(1, 1, 8, 16)
-    assert torch.allclose(msda.msda_hd_gather_sum(vt, idx, w, 2, 3), torch.ones(1, 1, 8, 3))
+    value = torch.ones(1, 16, 1, 8)
+    assert torch.allclose(msda.msda_hd_gather_sum(value, idx, w, 2, 3), torch.ones(1, 3, 1, 8))
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        msda.msda_hd_gather_sum(vt.to("meta"), idx.to("meta"), w.to("meta"), 2, 3)
+        msda.msda_hd_gather_sum(value.to("meta"), idx.to("meta"), w.to("meta"), 2, 3)
     assert builds == []
     assert msda.msda_sep_sum.launches == msda.msda_hd_gather_sum.launches == 0
 

@@ -12,7 +12,10 @@ the port's kernel reads the rows as they are.
 Tolerance: atol 1e-5 in fp32 (the acceptance gate), on sums of at most 48
 products of weights in [0, 1] and standard-normal values, summed in other
 orders on the two sides. The lane-gather plain version is held to 1e-6:
-it sums in the order of `_gather_weighted_sum`'s corner loop.
+it sums in the order of `_gather_weighted_sum`'s corner loop. It takes the
+value (B, S, H, hd) where the model holds it and returns (B, Q, H, hd); the
+JAX functions take vt (B, H, hd, S) and return (B, H, hd, Q), so the test
+side transposes both, as `_gather_weighted_sum` transposes the other way.
 
 The CUDA kernels run only on the card: the tests marked `cuda` skip here
 (chip_smoke.py holds both kernels against their plain versions at the
@@ -139,6 +142,16 @@ def test_deformable_sampling_matches_jax(monkeypatch, backend, method):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def _vt(value):
+    """(B, S, H, hd) -> the TPU kernel's vt (B, H, hd, S)."""
+    return np.ascontiguousarray(np.asarray(value).transpose(0, 2, 3, 1))
+
+
+def _from_lanes(out):
+    """The JAX kernel's (B, H, hd, Q) -> the port's (B, Q, H, hd)."""
+    return np.asarray(out, np.float32).transpose(0, 3, 1, 2)
+
+
 @pytest.mark.parametrize("method", ["default", "discrete"])
 def test_lane_gather_prep_and_reference_match_jax(method):
     value, loc, attn = _inputs(6)
@@ -150,11 +163,16 @@ def test_lane_gather_prep_and_reference_match_jax(method):
     assert idx.shape == (B, H, 4, LP * Q) and idx.dtype == torch.int32
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-7)
-    vt = np.ascontiguousarray(value.transpose(0, 2, 3, 1))
-    want = jmsda._gather_weighted_sum(jnp.asarray(vt), jidx, jw, LP, Q)
-    got = tmsda.msda_hd_gather_sum(torch.from_numpy(vt), idx, w, LP, Q)
-    assert got.shape == (B, H, HD, Q) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    want = jmsda._gather_weighted_sum(jnp.asarray(_vt(value)), jidx, jw, LP, Q)
+    got = tmsda.msda_hd_gather_sum(torch.from_numpy(value), idx, w, LP, Q)
+    assert got.shape == (B, Q, H, HD) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _from_lanes(want), atol=1e-6)
+
+
+def _bf16_ulp_atol(want) -> float:
+    """One bf16 ulp of the largest output: the two sides may round a product
+    or a partial sum on either side of a tie."""
+    return 2.0**-7 * float(np.abs(np.asarray(want, np.float32)).max())
 
 
 def test_lane_gather_sums_in_the_value_dtype():
@@ -162,17 +180,105 @@ def test_lane_gather_sums_in_the_value_dtype():
     TPU kernel accumulates (its interpret mode on the same operands)."""
     value, loc, attn = _inputs(7)
     idx, w = tmsda.prepare_msda_gather_lanes(*_t(loc, attn), SHAPES, P)
-    vt = torch.from_numpy(np.ascontiguousarray(value.transpose(0, 2, 3, 1))).to(torch.bfloat16)
-    got = tmsda.msda_hd_gather_sum(vt, idx, w, LP, Q)
+    value = torch.from_numpy(value).to(torch.bfloat16)
+    got = tmsda.msda_hd_gather_sum(value, idx, w, LP, Q)
     want = jmsda.pallas_deformable_sampling(
-        jnp.asarray(vt.float().numpy()).astype(jnp.bfloat16), jnp.asarray(idx.numpy()),
+        jnp.asarray(_vt(value.float().numpy())).astype(jnp.bfloat16), jnp.asarray(idx.numpy()),
         jnp.asarray(w.numpy()), LP, Q, True,
     )
-    assert got.dtype == torch.bfloat16
-    # one bf16 ulp of the largest output: the two sides may round a product
-    # or a partial sum on either side of a tie
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               atol=2.0**-7 * float(np.abs(np.asarray(want, np.float32)).max()))
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Q, H, HD)
+    np.testing.assert_allclose(got.float().numpy(), _from_lanes(want), atol=_bf16_ulp_atol(want))
+
+
+def _lane_case(seed, q, hd, method="default"):
+    """Value (B, S, H, hd) and the lane prep of Q queries."""
+    rng = np.random.default_rng(seed)
+    value = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    loc = rng.uniform(-0.2, 1.2, (B, q, H, LP, 2)).astype(np.float32)
+    logits = rng.standard_normal((B, q, H, LP))
+    attn = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32)
+    idx, w = tmsda.prepare_msda_gather_lanes(*_t(loc, attn), SHAPES, P, method)
+    return value, idx, w
+
+
+@pytest.mark.parametrize("method", ["default", "discrete"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lane_gather_reference_matches_interpret_kernel(dtype, method):
+    """The plain version against the TPU kernel itself in interpret mode, vt
+    made on the test side: fp32 to 1e-6 (the same order), bf16 to one ulp."""
+    value, idx, w = _lane_case(20, Q, HD, method)
+    tvalue = torch.from_numpy(value).to(getattr(torch, dtype))
+    got = tmsda.msda_hd_gather_reference(tvalue, idx, w, LP, Q)
+    want = jmsda.pallas_deformable_sampling(
+        jnp.asarray(_vt(tvalue.float().numpy())).astype(getattr(jnp, dtype)),
+        jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()), LP, Q, True,
+    )
+    assert got.dtype == tvalue.dtype and got.shape == (B, Q, H, HD)
+    atol = 1e-6 if dtype == "float32" else _bf16_ulp_atol(want)
+    np.testing.assert_allclose(got.float().numpy(), _from_lanes(want), atol=atol)
+
+
+def test_lane_gather_skips_bad_indices_and_zero_weights():
+    """On the CPU wrapper path (the plain version) an index outside [0, S)
+    adds nothing, and neither does a zero weight: the sum equals the one
+    with those terms pointed at row 0 with weight 0, bit for bit, and
+    differs from the one that counts them. The kernel's own handling of the
+    same planted terms is a `cuda` test of test_torch_hopper_kernels.py."""
+    value, idx, w = _lane_case(21, Q, HD)
+    bad = idx.clone()
+    bad.view(-1)[::7] = S + 3
+    bad.view(-1)[3::11] = -5
+    w0 = w.clone()
+    w0.view(-1)[5::13] = 0.0
+    off = (bad < 0) | (bad >= S)
+    tvalue = torch.from_numpy(value)
+    got = tmsda.msda_hd_gather_sum(tvalue, bad, w0, LP, Q)
+    want = tmsda.msda_hd_gather_reference(
+        tvalue, torch.where(off, 0, bad), torch.where(off, 0.0, w0), LP, Q)
+    assert torch.equal(got, want)
+    counted = tmsda.msda_hd_gather_reference(tvalue, torch.where(off, 0, bad), w0, LP, Q)
+    assert not torch.allclose(got, counted, atol=ATOL)
+
+
+@pytest.mark.parametrize("hd", [24, 64])
+def test_lane_gather_ragged_queries_and_other_widths(hd):
+    """Q = 37 and 70 (neither a multiple of the kernel's 64-query tile) at
+    hd 24 and 64, against `_gather_weighted_sum`."""
+    for q in (37, 70):
+        value, idx, w = _lane_case(22 + hd + q, q, hd)
+        got = tmsda.msda_hd_gather_sum(torch.from_numpy(value), idx, w, LP, q)
+        want = jmsda._gather_weighted_sum(
+            jnp.asarray(_vt(value)), jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()), LP, q)
+        assert got.shape == (B, q, H, hd)
+        np.testing.assert_allclose(got.numpy(), _from_lanes(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["default", "discrete"])
+def test_gather_branch_reads_the_value_in_place(monkeypatch, method):
+    """SPOTTER_TPU_MSDA=pallas_gather hands the wrapper the model's value
+    tensor itself (no permute copy) and returns a view of its output; the
+    result equals the JAX op's."""
+    value, loc, attn = _inputs(23)
+    seen = []
+    real = tmsda.msda_hd_gather_sum
+
+    def spy(v, *args):
+        out = real(v, *args)
+        seen.append((v, out))
+        return out
+
+    monkeypatch.setattr(tmsda, "MSDA_BACKEND", "pallas_gather")
+    monkeypatch.setattr(tmsda, "msda_hd_gather_sum", spy)
+    tvalue, tloc, tattn = _t(value, loc, attn)
+    got = tmsda.deformable_sampling(tvalue, tloc, tattn, SHAPES, P, method=method)
+    (v, out), = seen
+    assert v is tvalue
+    assert got.data_ptr() == out.data_ptr() and got.shape == (B, Q, H * HD)
+    want = jmsda.deformable_sampling(
+        jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn), SHAPES, P,
+        method=method, backend="pallas_gather", interpret=True,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -286,9 +392,8 @@ def test_wrappers_reject_bad_inputs():
         tmsda.msda_sep_sum(rows, *ops[:-1], ops[-1].to("meta"), mask, hw, r_band, P)
     value, loc, attn = _inputs(12)
     idx, w = tmsda.prepare_msda_gather_lanes(*_t(loc, attn), SHAPES, P)
-    vt = torch.from_numpy(np.ascontiguousarray(value.transpose(0, 2, 3, 1)))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tmsda.msda_hd_gather_sum(vt.to("meta"), idx, w, LP, Q)
+        tmsda.msda_hd_gather_sum(torch.from_numpy(value).to("meta"), idx, w, LP, Q)
     with pytest.raises(ValueError, match="method"):
         tmsda.sep_level_operands(*_t(loc[..., :P, :], attn[..., :P]), 9, 11, "nearest")
 
@@ -324,10 +429,10 @@ def test_hd_gather_kernel_matches_plain_version_on_card(method):
     dev = _cuda()
     value, loc, attn = _inputs(15)
     idx, w = tmsda.prepare_msda_gather_lanes(*_t(loc, attn), SHAPES, P, method)
-    vt = torch.from_numpy(np.ascontiguousarray(value.transpose(0, 2, 3, 1)))
+    tvalue = torch.from_numpy(value)
     before = tmsda.msda_hd_gather_sum.launches
-    got = tmsda.msda_hd_gather_sum(vt.to(dev), idx.to(dev), w.to(dev), LP, Q)
-    want = tmsda.msda_hd_gather_reference(vt, idx, w, LP, Q)
+    got = tmsda.msda_hd_gather_sum(tvalue.to(dev), idx.to(dev), w.to(dev), LP, Q)
+    want = tmsda.msda_hd_gather_reference(tvalue, idx, w, LP, Q)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
     assert tmsda.msda_hd_gather_sum.launches == before + 1
