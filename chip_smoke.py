@@ -45,7 +45,8 @@ each printing JSON lines:
              as split TF32), the class-logit
              kernel at OWLv2's and OWL-ViT
              B/32's shapes (P = 3600 and 576; B = 1 and 8; fp32 and bf16
-             features; 22 queries, 24 with 2 masked, 160): max abs error
+             features; 22 queries, 24 with 2 masked, 160; its SASS must show
+             wgmma (HGMMA) and TMA loads (UTMALDG), no HMMA): max abs error
              against the tolerance, kernel / plain / library (embedding_bag,
              scaled_dot_product_attention; none for the others) times by CUDA
              events with a cold L2, and the bound;
@@ -109,8 +110,10 @@ each printing JSON lines:
              exactly equal to its plain version at n = 4096, 8192 and 4000,
              with its transpose pass equal to b.t().contiguous(), beside
              torch._int_mm and a bf16 mm; its SASS must show wgmma (IGMMA)
-             and no mma.sync (IMMA)), bench_pack_probe (pack_tile's eight variants bit for bit
-             at bh = 16) and profile_r101 (RT-DETR's per-part ms at B = 8, and
+             and no mma.sync (IMMA)), bench_pack_probe (pack_tile's eight
+             variants bit for bit at bh = 16; the fp32 base and hoist SASS
+             must show no select, FSEL, past a chain's first element) and
+             profile_r101 (RT-DETR's per-part ms at B = 8, and
              launch_probe equal to 2x, eager and in a CUDA graph). Each
              kernel's launches must equal the tool's calls of it.
 
@@ -214,13 +217,16 @@ ATTN_RTOL = {"float32": 2e-5, "bfloat16": 2.0**-7}
 MIXED_RTOL_LOGITS = 0.1
 MIXED_ATOL_BOXES = 0.05
 # class-logit kernel vs plain, as a share of the largest unmasked |logit|:
-# both widen the features to fp32 and sum Dt = 512 fp32 products, in
-# another order (the kernel's per-lane FMA chains over 16 columns, then a
-# 32-lane shuffle tree, for the product and the norm alike; the plain
-# version's cuBLAS GEMM), and the
-# kernel divides the product by the norm where the plain version divides
-# the features first: a few ulps of fp32 of each logit. Masked columns must
-# be NEG_INF bit for bit
+# both widen the features to fp32 and sum Dt = 512 products, in another
+# order (the kernel's split-TF32 wgmmas, both operands as two TF32 terms,
+# ~2**-21 relative a product, summed on the tensor cores 8 columns a step,
+# and per-lane fp32 chains of squares finished by quad shuffles for the
+# norm; the plain version's cuBLAS GEMM), and the kernel scales the
+# product by the norm's reciprocal where the plain version divides the
+# features first:
+# tools/class_logits_rounding.py puts the split at well under 1e-6 of the
+# largest logit, so the gate is the fp32 one. Masked columns must be
+# NEG_INF bit for bit
 CLASS_LOGITS_RTOL = 1e-5
 
 
@@ -1020,6 +1026,7 @@ OWL_TEXT_WIDTH = 512
 CLASS_LOGITS_SHAPES = tuple((b, p, q, m) for p in (3600, 576) for b in (1, 8)
                             for q, m in ((22, 0), (24, 2), (160, 0)))
 CLASS_LOGITS_MAIN = (8, 3600, 22, 0, "float32")
+CLASS_LOGITS_MAIN_BF16 = (8, 3600, 22, 0, "bfloat16")  # the "mixed" policy's head
 
 
 def class_logits_case(shape, img_dtype, seed: int, flush, device: str = "cuda") -> dict:
@@ -1061,9 +1068,18 @@ def class_logits_case(shape, img_dtype, seed: int, flush, device: str = "cuda") 
     # img read once, the bank, shift, scale and mask once, the logits written once
     nbytes = (img.numel() * img.element_size() + bank.numel() * 4 + 2 * b * p * 4
               + (q * 4 if n_masked else 0) + got.numel() * 4)
-    flops = 2 * b * p * q * dt + 2 * b * p * dt + 3 * b * p * q  # products, norms, epilogue
+    # Operations, each at the rate of the unit that does it: the product on
+    # the tensor cores as split TF32 (fp32 img: hi.hi + hi.lo + lo.hi; bf16
+    # img is exact in TF32, so its hi and the bank's two terms), the norms
+    # and the epilogue on the fp32 cores. The units run side by side, so the
+    # operations take at least the longer of the two.
+    product_flops = 2 * b * p * q * dt
+    tf32_passes = SPLIT_TF32_PASSES if img_dtype == torch.float32 else 2
+    fp32_flops = 2 * b * p * dt + 3 * b * p * q  # norms, epilogue
+    flops = product_flops + fp32_flops
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    ops_ms = max(tf32_passes * product_flops / PEAK_TF32_FLOPS,
+                 fp32_flops / PEAK_FP32_FLOPS) * 1e3
     return {
         "phase": "kernel", "kernel": "owl_class_logits", "batch": b, "img_dtype": dname,
         "shape": {"b": b, "p": p, "dt": dt, "q": q, "masked": n_masked},
@@ -1072,10 +1088,39 @@ def class_logits_case(shape, img_dtype, seed: int, flush, device: str = "cuda") 
         "kernel_ms": cuda_time_ms(lambda: owl_class_logits(*args), 30, flush),
         "plain_ms": cuda_time_ms(lambda: class_logits_reference(*args), 30, flush),
         "library_ms": None,  # no one PyTorch call computes this function
-        "bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_us": max(bytes_ms, ops_ms) * 1e3,
+        "bytes": nbytes, "flops": flops, "tf32_passes": tf32_passes,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_us": max(bytes_ms, ops_ms) * 1e3,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+
+
+@functools.cache
+def class_logits_sass() -> dict:
+    """Opcode counts of every class-logit kernel instantiation's SASS (fp32
+    and bf16 img, each query-tile width): each must issue wgmma (HGMMA) and
+    TMA loads (UTMALDG), and no mma.sync (HMMA). Read once a run."""
+    from spotter_tpu_torch.ops.openvocab import build_class_logits_kernel
+    from spotter_tpu_torch.utils.cuda_build import disassemble, sass_functions
+
+    counts = {}
+    for name, body in sass_functions(disassemble(build_class_logits_kernel().path)).items():
+        if "class_logits_kernel" in name:
+            ops = [line.split()[1] if line.startswith("@") else line.split()[0] for line in body]
+            counts[name] = {kind: sum(op.startswith(kind) for op in ops)
+                            for kind in ("HGMMA", "HMMA", "UTMALDG")}
+    return counts
+
+
+def check_class_logits_design() -> dict:
+    """owl_class_logits is the TMA-fed split-TF32 wgmma design: all eight
+    instantiations (2 img dtypes x 4 query-tile widths) show HGMMA and
+    UTMALDG and no HMMA."""
+    counts = class_logits_sass()
+    if len(counts) != 8 or not all(
+            c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"the class-logit kernel's SASS is not the wgmma + TMA design: "
+                             f"{counts}")
+    return counts
 
 
 def kernel_counters():
@@ -1133,6 +1178,8 @@ def phase_kernel(log: list, seed: int) -> list:
             rec = class_logits_case(shape, img_dtype, seed, flush)
             emit(rec, log)
             cases.append(rec)
+    emit({"phase": "kernel", "kernel": "owl_class_logits", "part": "sass",
+          "counts": check_class_logits_design()}, log)
     idle = [name for name, fn in counters.items() if fn.launches == before[name]]
     if idle:
         raise AssertionError(f"the kernel phase never launched {idle}")
@@ -2394,6 +2441,31 @@ def check_int8_design(record: dict) -> None:
         raise AssertionError(f"int8_gemm's transpose pass differs from b.t() at n = {wrong}")
 
 
+def check_pack_tile_design(record: dict) -> None:
+    """pack_tile's fp32 base and hoist compare into a predicate and add under
+    it: their SASS shows no select (FSEL) in a chain past its first element,
+    so at most one a chain (where ptxas folds the add onto the +0 that `oh`
+    starts from into a select of w or 0). The base variants read idx and w
+    from shared memory at every chain element: an LDS for each k and j. A
+    record from the card; the CPU has no SASS."""
+    from spotter_tpu_torch.tools.bench_pack_probe import (
+        CHAIN_READ_VARIANTS,
+        JC,
+        NO_SELECT_VARIANTS,
+        REPS,
+    )
+
+    if record["device"] != "cuda":
+        return
+    sass = {c["variant"]: c["sass"] for c in record["cases"] if c.get("kernel") == "pack_tile"}
+    selects = {v: sass[v] for v in NO_SELECT_VARIANTS if sass[v]["fsel"] > sass[v]["chains"]}
+    if selects:
+        raise AssertionError(f"pack_tile's chains still select (FSEL): {selects}")
+    hoisted = {v: sass[v] for v in CHAIN_READ_VARIANTS if sass[v]["lds"] < REPS * JC}
+    if hoisted:
+        raise AssertionError(f"pack_tile's base variants do not read in every chain: {hoisted}")
+
+
 def phase_probes(log: list, seed: int) -> list:
     """Each measurement tool through its `main`, as a user runs it on the
     card, with every count set to 0 just before: its kernel must equal its
@@ -2418,6 +2490,8 @@ def phase_probes(log: list, seed: int) -> list:
         check_counts(counts, record["calls"], f"the {tool_name} tool")
         if kernel == "int8_gemm":
             check_int8_design(record)
+        if kernel == "pack_tile":
+            check_pack_tile_design(record)
         main_case = next(c for c in mine if is_main(c))
         case = {
             "phase": "probes", "kernel": kernel, "tool": tool_name, "main": True,
@@ -2504,6 +2578,14 @@ def kernel_summary(cases: list, launches: dict) -> dict:
         if name in COMPANIONS:  # its pass's launches on the same path, and its time alone
             rows[-1][f"{COMPANIONS[name]}_launches"] = launches.get(COMPANIONS[name])
             rows[-1][f"{COMPANIONS[name]}_ms"] = main_case["split_pass"]["ms"]
+        if name == "owl_class_logits":  # the bf16 head's main case beside the fp32 one
+            bf16 = [c for c in mine if (c["shape"]["b"], c["shape"]["p"], c["shape"]["q"],
+                                        c["shape"]["masked"], c["img_dtype"])
+                    == CLASS_LOGITS_MAIN_BF16]
+            if bf16:
+                rows[-1].update({"bf16_ms": bf16[0]["kernel_ms"],
+                                 "bf16_plain_ms": bf16[0]["plain_ms"],
+                                 "bf16_bound_ms": bf16[0]["bound_ms"]})
         if "bound_cuda_cores_ms" in main_case:
             rows[-1]["bound_name"] = main_case["bound_name"]
             rows[-1]["bound_cuda_cores_ms"] = main_case["bound_cuda_cores_ms"]

@@ -8,13 +8,16 @@
 // end. It replaces the Pallas kernel of tools/bench_pack_probe.py::run
 // (body `_kernel`, :44), which measures what the dense one-hot formulation
 // of the merged MSDA kernel costs per formulation on the TPU's vector
-// unit. The build stays dense here (every compare, select and add is
-// done): the probe prices the one-hot form on CUDA cores, beside the gather
-// form that the port's MSDA kernels use.
+// unit. The build stays dense here (every compare and add is done): the
+// probe prices the one-hot form on CUDA cores, beside the gather form that
+// the port's MSDA kernels use.
 //
 // Variants, the tool's eight (template arguments of one kernel):
 //   null        acc += float(c + k): the machinery alone;
-//   base        idx and w read from shared memory inside every chain;
+//   base        idx and w read from shared memory inside every chain, both
+//               in one 8-byte load (volatile: left to itself, nvcc loads
+//               them once before the chains, and base compiles to hoist's
+//               program);
 //   hoist       idx and w read once into registers before the chains;
 //   arith       oh += float(c + k == idx) * w (a multiply for the select);
 //   i32 / bf16  int32 compares, bf16 accumulators (each add rounded to bf16);
@@ -25,18 +28,35 @@
 //               counterpart of the TPU's "2x-packed" question.
 //
 // What bounds it on an H100: instructions. BH = 16 runs 16 x 32 x 16 x 64 x
-// 640 = 335.5 M chain elements of at least 2 instructions each (a compare
-// and an add predicated on it: `oh` starts at +0, so skipping the add of 0
-// gives the select's bits): 0.67 G lane-instructions over the card's
-// ~33.5 T per second (132 SMs x 128 lanes x 1.98 GHz), ~20 us, and the
-// same ~20 us for the compares alone on the 64-lane integer pipe; ~15 us
-// packed (a compare, a mask and an add per two elements). The bytes are
-// the 2.6 MB tile (0.8 us). A thread owns two columns of one tile row, c
-// and c + 320, so the packed and unpacked variants run the same threads and
-// differ only in instructions; a block is one tile row (320 threads). The
-// two columns are half a tile apart, not neighbours: the chain of column
-// c + 1 at k is the chain of column c at k + 1, and with neighbouring
-// columns nvcc shares those chains and skips half the dense work.
+// 640 = 335.5 M chain elements of at least 2 instructions each: a compare
+// into a predicate and an add predicated on it (`oh` starts at +0 and w is
+// never negative, so skipping the add of 0 gives the select's bits). That
+// is 0.67 G lane-instructions over the card's ~33.5 T per second (132 SMs x
+// 128 lanes x 1.98 GHz), ~20 us, and the same ~20 us for the compares alone
+// on the 64-lane integer pipe; ~15 us packed (a compare, a mask and an add
+// per two elements). The bytes are the 2.6 MB tile (0.8 us).
+//
+// What the design does about it:
+// - the select form `oh + (col == id ? w : 0)` compiles to ISETP + FSEL +
+//   FADD, and FSEL shares the half-rate pipe with ISETP. So the fp32 base
+//   and hoist compare into a predicate and add under it in inline PTX
+//   (`setp.eq.s32`, then `@p add.rn.f32`): ISETP and a predicated FADD,
+//   two instructions an element (ptxas folds a chain's first add, onto the
+//   +0 that `oh` starts from, into one select of w or 0);
+// - those two own four columns of a tile row each, a quarter tile apart (c,
+//   c + 160, c + 320, c + 480; a block of 160 threads is one tile row), so
+//   in `base` the one shared-memory read of (idx, w) at each chain element
+//   serves four compares, not two. The other variants keep two
+//   columns a thread, half a tile apart (320 threads a block): with four,
+//   their longer chains had too few warps to hide their latency. So the
+//   variants do not all run the same threads, and a comparison across the
+//   two layouts prices the layout with the formulation. The packed variants
+//   hold their two columns in one lane. The scalar bf16 variants keep the
+//   select: ptxas turns `@p add.rn.bf16` into a select, a byte permute and a
+//   paired HADD2, slower than the select form. The columns are far apart,
+//   not neighbours: the chain of column c + 1 at k is the chain of column c
+//   at k + 1, and with neighbouring columns nvcc shares those chains and
+//   skips dense work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +69,6 @@ constexpr int kQT = 64;    // tile rows
 constexpr int kTS = 640;   // tile columns
 constexpr int kJC = 16;    // chains a row: idx / w columns
 constexpr int kReps = 32;  // k
-constexpr int kThreads = kTS / 2;
-constexpr int kHalf = kTS / 2;  // a thread's second column: c + kHalf
 
 enum Variant { kNull = 0, kBase = 1, kHoist = 2, kArith = 3 };
 
@@ -66,11 +84,44 @@ __device__ __forceinline__ __nv_bfloat162 bf2(uint32_t u) {
   return v;
 }
 
-// fp32 accumulators, int32 compares: two independent columns a thread, c
-// and c + kHalf
-template <int V>
-__device__ __forceinline__ float2 build_f32(int c, const int* s_idx, const float* s_w) {
-  float acc0 = 0.f, acc1 = 0.f;
+// oh += w where col == id: a compare into a predicate and an add under it,
+// no select (oh is never -0, so skipping the add of +0 keeps its bits)
+__device__ __forceinline__ void add_if_equal(float& oh, int col, int id, float w) {
+  asm("{\n.reg .pred p;\nsetp.eq.s32 p, %1, %2;\n@p add.rn.f32 %0, %0, %3;\n}\n"
+      : "+f"(oh)
+      : "r"(col), "r"(id), "f"(w));
+}
+
+// idx[j] and w[j] of the tile row, side by side in shared memory, read
+// where they stand in the chain in one 8-byte load: a volatile load is
+// neither hoisted out of the loops nor shared between chains
+struct Term {
+  int id;
+  float w;
+};
+
+__device__ __forceinline__ Term chain_read(const int2* p) {
+  int id, w;
+  asm volatile("ld.volatile.shared.v2.b32 {%0, %1}, [%2];"
+               : "=r"(id), "=r"(w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return {id, __int_as_float(w)};
+}
+
+// Columns a thread owns, a 1 / COLS tile apart: 4 for the fp32 base and
+// hoist (one pair of idx, w reads serves four compares), 2 for the others.
+// More columns a thread means fewer threads, and the variants whose chains
+// are longer than a compare and an add ran slower with 4 (fewer warps to
+// hide their latency).
+template <int V, int ACC>
+constexpr int kColumns = (ACC == 0 && (V == kBase || V == kHoist)) ? 4 : 2;
+
+// fp32 accumulators, int32 compares: COLS independent columns a thread,
+// c + (kTS / COLS) * i
+template <int V, int COLS>
+__device__ __forceinline__ void build_f32(int c, const int* s_idx, const float* s_w,
+                                          const int2* s_pair, float (&acc)[COLS]) {
+  constexpr int kStride = kTS / COLS;
   int idx[kJC];
   float w[kJC];
   if constexpr (V == kHoist || V == kArith) {
@@ -81,35 +132,40 @@ __device__ __forceinline__ float2 build_f32(int c, const int* s_idx, const float
     }
   }
 #pragma unroll
+  for (int i = 0; i < COLS; ++i) acc[i] = 0.f;
+#pragma unroll
   for (int k = 0; k < kReps; ++k) {
-    const int col0 = c + k, col1 = c + kHalf + k;
-    float oh0 = 0.f, oh1 = 0.f;
-    if constexpr (V == kNull) {
-      oh0 = static_cast<float>(col0);
-      oh1 = static_cast<float>(col1);
-    } else {
+    float oh[COLS];
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) {
+      oh[i] = (V == kNull) ? static_cast<float>(c + kStride * i + k) : 0.f;
+    }
+    if constexpr (V != kNull) {
 #pragma unroll
       for (int j = 0; j < kJC; ++j) {
-        const int id = (V == kBase) ? s_idx[j] : idx[j];
-        const float wj = (V == kBase) ? s_w[j] : w[j];
-        if constexpr (V == kArith) {
-          oh0 = fmaf(static_cast<float>(col0 == id), wj, oh0);  // 0 * w or 1 * w: exact
-          oh1 = fmaf(static_cast<float>(col1 == id), wj, oh1);
-        } else {
-          oh0 = oh0 + (col0 == id ? wj : 0.f);
-          oh1 = oh1 + (col1 == id ? wj : 0.f);
+        const Term t = (V == kBase) ? chain_read(s_pair + j) : Term{idx[j], w[j]};
+#pragma unroll
+        for (int i = 0; i < COLS; ++i) {
+          const int col = c + kStride * i + k;
+          if constexpr (V == kArith) {
+            oh[i] = fmaf(static_cast<float>(col == t.id), t.w, oh[i]);  // 0 * w or 1 * w: exact
+          } else {
+            add_if_equal(oh[i], col, t.id, t.w);
+          }
         }
       }
     }
-    acc0 = acc0 + oh0;
-    acc1 = acc1 + oh1;
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) acc[i] = acc[i] + oh[i];
   }
-  return make_float2(acc0, acc1);
 }
 
-// bf16 accumulators, int32 compares: scalar bf16 adds, one per column
+// bf16 accumulators, int32 compares: scalar bf16 adds, one per column. The
+// select stays: ptxas turns `@p add.rn.bf16` into a select, a byte permute
+// and a paired HADD2 (3.5 instructions an element), slower than this form.
 template <int V>
-__device__ __forceinline__ float2 build_i32_bf16(int c, const int* s_idx, const float* s_w) {
+__device__ __forceinline__ void build_i32_bf16(int c, const int* s_idx, const float* s_w,
+                                               const int2* s_pair, float (&out)[2]) {
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   __nv_bfloat16 acc0 = zero, acc1 = zero;
   int idx[kJC];
@@ -123,24 +179,35 @@ __device__ __forceinline__ float2 build_i32_bf16(int c, const int* s_idx, const 
   }
 #pragma unroll
   for (int k = 0; k < kReps; ++k) {
-    const int col0 = c + k, col1 = c + kHalf + k;
+    const int col0 = c + k, col1 = c + kTS / 2 + k;
     __nv_bfloat16 oh0 = zero, oh1 = zero;
 #pragma unroll
     for (int j = 0; j < kJC; ++j) {
-      const int id = (V == kBase) ? s_idx[j] : idx[j];
-      const __nv_bfloat16 wj = (V == kBase) ? __float2bfloat16_rn(s_w[j]) : w[j];
+      int id;
+      __nv_bfloat16 wj;
+      if constexpr (V == kBase) {
+        const Term t = chain_read(s_pair + j);
+        id = t.id;
+        wj = __float2bfloat16_rn(t.w);
+      } else {
+        id = idx[j];
+        wj = w[j];
+      }
       oh0 = __hadd(oh0, col0 == id ? wj : zero);
       oh1 = __hadd(oh1, col1 == id ? wj : zero);
     }
     acc0 = __hadd(acc0, oh0);
     acc1 = __hadd(acc1, oh1);
   }
-  return make_float2(__bfloat162float(acc0), __bfloat162float(acc1));
+  out[0] = __bfloat162float(acc0);
+  out[1] = __bfloat162float(acc1);
 }
 
-// bf16 accumulators, int16 compares: both columns in one 32-bit lane
+// bf16 accumulators, int16 compares: both columns (c, c + kTS / 2) in one
+// 32-bit lane
 template <int V>
-__device__ __forceinline__ float2 build_i16_bf16(int c, const int* s_idx, const float* s_w) {
+__device__ __forceinline__ void build_i16_bf16(int c, const int* s_idx, const float* s_w,
+                                               float (&out)[2]) {
   uint32_t idx2[kJC], w2[kJC];
 #pragma unroll
   for (int j = 0; j < kJC; ++j) {
@@ -152,9 +219,9 @@ __device__ __forceinline__ float2 build_i16_bf16(int c, const int* s_idx, const 
   __nv_bfloat162 acc = bf2(0u);
 #pragma unroll
   for (int k = 0; k < kReps; ++k) {
-    // low half column c, high half c + kHalf, both + k (< 672: fits int16)
+    // low half column c, high half c + kTS / 2, both + k (< 672: fits int16)
     const uint32_t col2 = (static_cast<uint32_t>(c + k) & 0xffffu) |
-                          (static_cast<uint32_t>(c + kHalf + k) << 16);
+                          (static_cast<uint32_t>(c + kTS / 2 + k) << 16);
     __nv_bfloat162 oh = bf2(0u);
 #pragma unroll
     for (int j = 0; j < kJC; ++j) {
@@ -167,41 +234,48 @@ __device__ __forceinline__ float2 build_i16_bf16(int c, const int* s_idx, const 
     }
     acc = __hadd2(acc, oh);
   }
-  return __bfloat1622float2(acc);
+  const float2 v = __bfloat1622float2(acc);
+  out[0] = v.x;
+  out[1] = v.y;
 }
 
 // ACC: 0 fp32 (int32 compares), 1 bf16 with int32 compares, 2 bf16 with
-// packed int16 compares
+// packed int16 compares. A block is one tile row, kTS / COLS threads.
 template <int V, int ACC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTS / kColumns<V, ACC>)
 pack_tile_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                  float* __restrict__ out) {
+  constexpr int kCols = kColumns<V, ACC>;
   __shared__ int s_idx[kJC];
   __shared__ float s_w[kJC];
+  __shared__ int2 s_pair[kJC];  // (idx, w's bits): base's one read a chain element
   const int q = blockIdx.x;
   const long long row = static_cast<long long>(blockIdx.y) * kQT + q;
   if (threadIdx.x < kJC) {
     s_idx[threadIdx.x] = idx[row * kJC + threadIdx.x];
     s_w[threadIdx.x] = w[row * kJC + threadIdx.x];
+    if constexpr (V == kBase) {
+      s_pair[threadIdx.x] = make_int2(s_idx[threadIdx.x], __float_as_int(s_w[threadIdx.x]));
+    }
   }
   __syncthreads();
   const int c = threadIdx.x;
-  float2 v;
+  float v[kCols];
   if constexpr (ACC == 0) {
-    v = build_f32<V>(c, s_idx, s_w);
+    build_f32<V, kCols>(c, s_idx, s_w, s_pair, v);
   } else if constexpr (ACC == 1) {
-    v = build_i32_bf16<V>(c, s_idx, s_w);
+    build_i32_bf16<V>(c, s_idx, s_w, s_pair, v);
   } else {
-    v = build_i16_bf16<V>(c, s_idx, s_w);
+    build_i16_bf16<V>(c, s_idx, s_w, v);
   }
-  out[row * kTS + c] = v.x;
-  out[row * kTS + c + kHalf] = v.y;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) out[row * kTS + c + (kTS / kCols) * i] = v[i];
 }
 
 template <int V, int ACC>
 int run(const void* idx, const void* w, void* out, int bh, cudaStream_t stream) {
   const dim3 grid(kQT, bh);
-  pack_tile_kernel<V, ACC><<<grid, kThreads, 0, stream>>>(
+  pack_tile_kernel<V, ACC><<<grid, kTS / kColumns<V, ACC>, 0, stream>>>(
       static_cast<const int*>(idx), static_cast<const float*>(w), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

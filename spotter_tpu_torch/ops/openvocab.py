@@ -31,7 +31,7 @@ import torch
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
 NEG_INF = float(np.finfo(np.float32).min)
-MAX_TEXT_WIDTH = 1024  # the kernel holds up to 8 float4 of a row in each lane
+MAX_TEXT_WIDTH = 1024  # the widest text width the kernel stages the bank for
 
 
 def parse_owl_fused(raw: str) -> str:
@@ -78,7 +78,12 @@ def class_logits_reference(
 def build_class_logits_kernel() -> KernelLibrary:
     """Build (first call only), load and bind the kernel library; returns it
     with its build time and nvcc log. The first CUDA call builds it anyway."""
-    loaded = load_kernel_library("class_logits", ("class_logits.cu",))
+    return bind_class_logits_library(load_kernel_library("class_logits", ("class_logits.cu",)))
+
+
+def bind_class_logits_library(loaded: KernelLibrary) -> KernelLibrary:
+    """Set the C functions' argument types on a loaded build of
+    `class_logits.cu` (the served one, or a variant a probe builds)."""
     lib = loaded.lib
     # pointers and the stream as c_void_p, the row count as a 64-bit int:
     # ctypes would otherwise pass Python ints as 32-bit C ints
@@ -156,6 +161,11 @@ def owl_class_logits(
     shift = shift.to(torch.float32).contiguous()
     scale = scale.to(torch.float32).contiguous()
     mask_i = None if mask is None else (mask != 0).to(torch.int32).contiguous()
+    if img.dtype == torch.bfloat16 and (dt % 8 or img.data_ptr() % 16):
+        # TMA reads rows 16-byte aligned and a multiple of 16 bytes apart:
+        # such a bf16 img goes as fp32, widened exactly (its TF32 split is
+        # then hi = x, lo = 0, as on the bf16 path)
+        img = img.to(torch.float32)
     out = torch.empty((b, p, q), dtype=torch.float32, device=img.device)
     lib = build_class_logits_kernel().lib
     fn = lib.owl_class_logits_bf16 if img.dtype == torch.bfloat16 else lib.owl_class_logits_fp32

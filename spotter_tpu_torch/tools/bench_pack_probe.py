@@ -10,7 +10,8 @@ against its plain version (`pack_tile_reference`, the JAX kernel's
 arithmetic in the same order), and timed:
 
   null            the empty body: the machinery alone;
-  base            idx and w read inside every chain (the production idiom);
+  base            idx and w read inside every chain (the production idiom;
+                  one volatile 8-byte read, so nvcc does not hoist it);
   hoist           idx and w read once, before the chains;
   arith           float(mask) * w instead of a select;
   i32/bf16        bf16 accumulators, each add rounded to bf16;
@@ -19,8 +20,17 @@ arithmetic in the same order), and timed:
 
 Per variant: ms per call and Gel/s of chain elements (bh x 32 x 16 x 64 x
 640 = 335.5 M at bh = 16), its bound (lane-instructions over the card's
-issue rate, compares over its integer pipe) and the SASS instruction
-count of its kernel. No PyTorch call builds
+issue rate, compares over its integer pipe) and the SASS of its kernel:
+instructions in all and per chain element of a thread, selects (FSEL) and
+shared-memory loads (LDS). The fp32 `base` and `hoist` compare into a
+predicate and add under it (`NO_SELECT_VARIANTS`): a select (FSEL) only
+where a chain starts, at most one a chain, where ptxas folds the add onto
+the +0 `oh` starts from into a select of w or 0. Those two own four columns
+of a tile row a thread (160 threads a block), the other six two (320): each
+case records its `columns_per_thread` and `threads_per_block`, since a
+comparison across the two layouts prices the layout with the formulation.
+The `base` variants read idx and w from shared memory at every chain
+element (`CHAIN_READ_VARIANTS`: one 8-byte LDS per k and j). No PyTorch call builds
 the tile in this order, so there is no library column.
 
     python -m spotter_tpu_torch.tools.bench_pack_probe [--bh 16] [--iters 30]
@@ -72,6 +82,16 @@ VARIANTS = {
     "base i32/bf16": ("base", torch.int32, torch.bfloat16),
 }
 MAIN_VARIANT = "base i32/f32"  # the production kernel's idiom
+# the variants whose chains must show no select (FSEL) past their first
+# element: a compare into a predicate and an add predicated on it
+NO_SELECT_VARIANTS = ("base i32/f32", "hoist i32/f32")
+# columns of one tile row a thread owns: c, c + 160, c + 320, c + 480 in
+# the fp32 base and hoist, c and c + 320 in the others
+COLUMNS_PER_THREAD = {v: 4 if v in NO_SELECT_VARIANTS else 2 for v in VARIANTS}
+# the variants that read idx[j] and w[j] from shared memory at each chain
+# element, one 8-byte load for all of a thread's columns: at least REPS x JC
+# LDS
+CHAIN_READ_VARIANTS = ("base i32/f32", "base i32/bf16")
 # the kernel instantiation of each variant: (formulation, accumulator kind)
 # as pack_tile_kernel<V, ACC> is mangled: V 0 null 1 base 2 hoist 3 arith;
 # ACC 0 fp32, 1 bf16 with int32 compares, 2 bf16 with packed int16 compares
@@ -203,16 +223,26 @@ def bound(variant: str, bh: int) -> dict:
 
 
 def sass_counts() -> dict:
-    """Per variant: the SASS instructions of its kernel instantiation, and
-    the opcodes that occur most."""
+    """Per variant: the SASS instructions of its kernel instantiation, in
+    all and per chain element of a thread (its chains are unrolled, so the
+    listing is what a thread issues: its columns x 32 k chains of 16), its
+    chains, selects (FSEL) and shared-memory loads (LDS), and the opcodes
+    that occur most."""
     functions = sass_functions(disassemble(build_pack_tile_kernel().path))
     counts = {}
     for variant, (v, acc) in zip(VARIANTS, INSTANTIATIONS):
+        chains = COLUMNS_PER_THREAD[variant] * REPS
         pattern = re.compile(rf"pack_tile_kernel\w*?ILi{v}ELi{acc}E")
         body = next(lines for name, lines in functions.items() if pattern.search(name))
         ops = Counter(line.split()[1] if line.startswith("@") else line.split()[0]
                       for line in body)
-        counts[variant] = {"instructions": len(body), "top_opcodes": dict(ops.most_common(6))}
+        counts[variant] = {
+            "instructions": len(body), "per_chain_element": len(body) / (chains * JC),
+            "chains": chains,
+            "fsel": sum(n for op, n in ops.items() if op.startswith("FSEL")),
+            "lds": sum(n for op, n in ops.items() if op.startswith("LDS")),
+            "top_opcodes": dict(ops.most_common(6)),
+        }
     return counts
 
 
@@ -236,7 +266,10 @@ def run(args) -> dict:
         rec = {"part": "tile", "kernel": "pack_tile", "variant": variant,
                "exact": bool(torch.equal(got, want)),
                "max_abs_err": (got - want).abs().max().item(),
-               "main": variant == MAIN_VARIANT, **bound(variant, args.bh)}
+               "main": variant == MAIN_VARIANT,
+               "columns_per_thread": COLUMNS_PER_THREAD[variant],
+               "threads_per_block": TS // COLUMNS_PER_THREAD[variant],
+               **bound(variant, args.bh)}
         kernel_ms = time_ms(build, args.iters, device)
         rec[ms_key("kernel", device)] = kernel_ms
         rec[ms_key("plain", device)] = time_ms(

@@ -9,10 +9,16 @@ read the value (B, S, H, hd) in place: the gather-sum (`msda_gather_sum`),
 the loc kernel (`msda_loc_sum`, loc and attn read in place too) and the
 fused kernel (`msda_fused_sum`, a register-blocked prologue), each against
 its plain version (the loc and gather-sum kernels also against each other,
-bit for bit); and, on the CPU, the fused wrapper's plain path, the transpose and split passes' plain paths, the GEMM's input checks, the
-fp32 kernel's key order, and the rounding studies
-(`tools.attention_rounding`) behind the bf16 kernel's split P and the fp32
-kernel's split TF32.
+bit for bit); the class-logit kernel (`ops.openvocab.owl_class_logits`,
+split-TF32 wgmma fed by TMA; repeated launches bit equal) and the one-hot
+tile probe (`tools.bench_pack_probe.pack_tile`, all eight variants bit for
+bit, the fp32 base and hoist with no select in their SASS, the base variants
+reading idx and w in every chain); and, on the CPU, the fused
+wrapper's plain path, the transpose and split passes' plain paths, the
+GEMM's input checks, the fp32 kernel's key order, the class-logit kernel's
+column order, and the rounding studies (`tools.attention_rounding`,
+`tools.class_logits_rounding`) behind the bf16 kernel's split P and the
+split TF32 of the fp32 attention and class-logit kernels.
 
 This file imports torch and the port only, so the `cuda` tests run on a
 machine with a card and no JAX:
@@ -34,8 +40,12 @@ sides sum the same fp32 products of up to 128 terms in another order). The lane 
 dtype in its plain version's order: equal bit for bit in fp32, within one
 bf16 ulp of the largest output in bf16. The fused kernel: within 1e-5 under
 both methods; its prologue sums as the plain version does, so the discrete
-method's nearest cells agree and every row is compared.
+method's nearest cells agree and every row is compared. The class-logit
+kernel: within 1e-5 of the largest unmasked logit (chip_smoke.py's gate;
+two TF32 terms of each operand put it ~3e-7 away), masked columns NEG_INF bit for bit.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -43,7 +53,13 @@ import torch
 
 from spotter_tpu_torch.ops import attention as tattn
 from spotter_tpu_torch.ops import msda as tmsda
-from spotter_tpu_torch.tools import attention_rounding, bench_int8
+from spotter_tpu_torch.ops import openvocab
+from spotter_tpu_torch.tools import (
+    attention_rounding,
+    bench_int8,
+    bench_pack_probe,
+    class_logits_rounding,
+)
 
 
 def _card():
@@ -616,3 +632,198 @@ def test_loc_kernel_equals_gather_kernel_bit_for_bit_on_card(method):
     got_g = tmsda.msda_gather_sum(value, idx, w)
     torch.cuda.synchronize()
     assert torch.equal(got_l, got_g), (got_l - got_g).abs().max().item()
+
+
+# --- owl_class_logits: split TF32 on the tensor cores, fed by TMA -------------
+
+CLASS_LOGITS_RTOL = 1e-5  # of the largest unmasked logit: chip_smoke.py's gate
+
+
+def _class_logits_args(b, p, dt, q, n_masked, dtype, device, seed=0):
+    img, bank, shift, scale = class_logits_rounding.logit_inputs((b, p, dt, q), seed, dtype)
+    mask = None
+    if n_masked:
+        mask = torch.ones(q, dtype=torch.int32)
+        mask[q - n_masked:] = 0
+    return [None if t is None else t.to(device) for t in (img, bank, shift, scale, mask)]
+
+
+def _class_logits_check(args, n_masked):
+    """The kernel against its plain version on the same inputs: within the
+    gate on the unmasked columns, masked columns NEG_INF bit for bit, one
+    launch."""
+    q = args[1].shape[0]
+    before = openvocab.owl_class_logits.launches
+    got = openvocab.owl_class_logits(*args)
+    want = openvocab.class_logits_reference(*args)
+    torch.cuda.synchronize()
+    assert openvocab.owl_class_logits.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32 and got.is_contiguous()
+    real = slice(0, q - n_masked)
+    err = (got[..., real] - want[..., real]).abs().max().item()
+    atol = CLASS_LOGITS_RTOL * want[..., real].abs().max().item()
+    assert err <= atol, (err, atol)
+    assert (got[..., q - n_masked:] == openvocab.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt", [512, 100])
+@pytest.mark.parametrize("q,n_masked", [(22, 0), (24, 2), (160, 0)])
+@pytest.mark.parametrize("p", [3600, 576])
+@pytest.mark.parametrize("b", [1, 8])
+def test_owl_class_logits_on_card(b, p, q, n_masked, dt, dtype):
+    """OWLv2 (P = 3600) and OWL-ViT B/32 (576) at B = 1 and 8: 56.25 tiles of
+    64 rows at B = 1, fewer tiles than SMs at P = 576; the default
+    vocabulary, a request's 24 with 2 masked, 160 (query tiles of 40); the
+    text width 512 and 100 (a partial slab; bf16 rows 200 bytes apart, so
+    the wrapper widens them to fp32 for TMA)."""
+    _class_logits_check(_class_logits_args(b, p, dt, q, n_masked, dtype, _card()), n_masked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt,q,n_masked", [(520, 22, 0), (1024, 22, 3), (1024, 160, 0),
+                                           (256, 5, 1), (4, 41, 0)])
+def test_owl_class_logits_query_tiles_and_widths_on_card(dt, q, n_masked, dtype):
+    """Dt 520 (bf16 by TMA, a partial 64-column slab; fp32 an odd slab
+    count), 1024 (the narrower query tiles that fit beside the ring), 4;
+    Q 5 (one tile of 8) and 41 (two tiles of 40, the second of 1 query);
+    577 rows (a ragged last tile)."""
+    _class_logits_check(_class_logits_args(1, 577, dt, q, n_masked, dtype, _card()), n_masked)
+
+
+@pytest.mark.cuda
+def test_owl_class_logits_bf16_off_16_byte_alignment_on_card():
+    """A bf16 img that starts 8 bytes past a 16-byte boundary (the wrapper
+    takes 8-byte aligned bf16): widened to fp32 for TMA, same logits."""
+    args = _class_logits_args(2, 300, 512, 22, 2, torch.bfloat16, _card())
+    flat = torch.empty(args[0].numel() + 4, dtype=torch.bfloat16, device=args[0].device)
+    img = flat[4:].view(args[0].shape)
+    img.copy_(args[0])
+    assert img.data_ptr() % 16 == 8
+    _class_logits_check([img, *args[1:]], 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_owl_class_logits_repeated_launches_agree_on_card(dtype):
+    """The ring's stages are read by LDS and refilled by TMA: without the
+    proxy fence before a stage's release, TMA overwrote stages under the
+    reads now and then (wrong rows). At the shape that showed it (B = 8,
+    P = 3600, Dt 512, Q = 160 in four query tiles, so img streams four
+    times) 30 launches each equal the first bit for bit, and the first is
+    the plain version within the gate."""
+    args = _class_logits_args(8, 3600, 512, 160, 0, dtype, _card(), seed=5)
+    _class_logits_check(args, 0)
+    first = openvocab.owl_class_logits(*args)
+    want = openvocab.class_logits_reference(*args)
+    err = (first - want).abs().max().item()
+    assert err <= CLASS_LOGITS_RTOL * want.abs().max().item(), err
+    wrong = []
+    for trial in range(30):
+        got = openvocab.owl_class_logits(*args)
+        if not torch.equal(got, first):
+            wrong.append((trial, int((got != first).any(dim=-1).sum().item())))
+    torch.cuda.synchronize()
+    assert not wrong, wrong  # (trial, rows that differ)
+
+
+@pytest.mark.cuda
+def test_class_logits_probe_runs_on_card(tmp_path):
+    """The probe's cases, each with its three times, into its record."""
+    from spotter_tpu_torch.tools import class_logits_probe
+
+    _card()
+    out = tmp_path / "probe.json"
+    assert class_logits_probe.main(["--iters", "2", "--out", str(out)]) == 0
+    cases = json.loads(out.read_text())["cases"]
+    assert len(cases) == len(class_logits_probe.CASES)
+    for case in cases:
+        assert all(case[k] > 0 for k in ("kernel_ms", "kernel_clean_l2_ms",
+                                         "torch_sum_clean_l2_ms")), case
+
+
+def test_class_logits_kstep_order_is_a_permutation_and_keeps_the_product():
+    """The kernel's k-step column order covers every column of the padded
+    width once, so the bank permuted as the A fragments read img gives the
+    same product (float64, both widths)."""
+    rng = np.random.default_rng(2)
+    for dt, width in ((100, 32), (512, 32), (520, 64), (100, 64)):
+        order = class_logits_rounding.kstep_columns(dt, width)
+        pad = -(-dt // width) * width
+        assert sorted(order.tolist()) == list(range(pad))
+        x = torch.from_numpy(rng.standard_normal((5, pad)))
+        y = torch.from_numpy(rng.standard_normal((3, pad)))
+        assert torch.allclose(x[:, order] @ y[:, order].T, x @ y.T, rtol=0, atol=1e-12)
+    # k-step 0 of an fp32 slab: A columns t and t + 4 are lane t's first two
+    assert class_logits_rounding.kstep_columns(32, 32)[:8].tolist() == [0, 8, 16, 24, 1, 9, 17,
+                                                                        25]
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 512, 22), (2, 64, 100, 41)])
+def test_class_logits_rounding_needs_both_tf32_terms_for_fp32(shape):
+    """The design check behind the kernel's split: fp32 img against the bank,
+    both as two TF32 terms (the bank's as one B operand of hi and lo rows),
+    stays far under the gate with the accumulators truncated; one term of
+    each fails it. bf16 img is exact in TF32, so A's lo term adds nothing."""
+    rec = class_logits_rounding.shape_errors(shape, seed=0)
+    assert rec["a2_b2_err_of_max_logit"] < rec["gate"] / 10
+    assert rec["a1_b1_err_of_max_logit"] > rec["gate"]
+    bf16 = class_logits_rounding.shape_errors(shape, seed=0, img_dtype=torch.bfloat16)
+    assert bf16["a1_b2_err_of_max_logit"] == bf16["a2_b2_err_of_max_logit"] < bf16["gate"] / 10
+
+
+def test_class_logits_emulation_with_a_mask_is_the_plain_version_within_the_gate():
+    img, bank, shift, scale, mask = _class_logits_args(2, 70, 100, 9, 3, torch.float32, "cpu",
+                                                       seed=3)
+    got = class_logits_rounding.split_tf32_logits(img, bank, shift, scale, mask)
+    want = openvocab.class_logits_reference(img, bank, shift, scale, mask)
+    assert (got[..., 6:] == openvocab.NEG_INF).all() and (want[..., 6:] == openvocab.NEG_INF).all()
+    err = (got[..., :6] - want[..., :6]).abs().max().item()
+    assert err <= CLASS_LOGITS_RTOL * want[..., :6].abs().max().item()
+
+
+# --- pack_tile: a compare into a predicate and an add under it -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh", [1, 16])
+@pytest.mark.parametrize("variant", list(bench_pack_probe.VARIANTS))
+def test_pack_tile_variants_are_bit_equal_on_card(variant, bh):
+    idx, w = bench_pack_probe.probe_inputs(bh, seed=bh, device=_card())
+    before = bench_pack_probe.pack_tile.launches
+    got = bench_pack_probe.pack_tile(idx, w, variant)
+    want = bench_pack_probe.pack_tile_reference(idx, w, variant)
+    torch.cuda.synchronize()
+    assert bench_pack_probe.pack_tile.launches == before + 1
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_pack_tile_fp32_base_and_hoist_issue_no_select_on_card():
+    """The fp32 base and hoist chains are ISETP and a predicated FADD: no
+    FSEL past a chain's first element (where ptxas folds the add onto the
+    +0 that `oh` starts from into a select of w or 0), about two
+    instructions a chain element besides base's shared-memory reads."""
+    _card()
+    sass = bench_pack_probe.sass_counts()
+    for variant in bench_pack_probe.NO_SELECT_VARIANTS:
+        rec = sass[variant]
+        chain_elements = rec["chains"] * bench_pack_probe.JC
+        assert rec["fsel"] <= rec["chains"], (variant, rec)
+        assert (rec["instructions"] - rec["lds"]) / chain_elements < 2.5, (variant, rec)
+
+
+@pytest.mark.cuda
+def test_pack_tile_base_reads_idx_and_w_in_every_chain_on_card():
+    """base reads idx[j] and w[j] from shared memory at every chain element
+    (one LDS for each k and j), hoist once before its chains: the two do
+    not compile to one program."""
+    _card()
+    sass = bench_pack_probe.sass_counts()
+    per_chain = bench_pack_probe.REPS * bench_pack_probe.JC
+    for base in bench_pack_probe.CHAIN_READ_VARIANTS:
+        hoist = base.replace("base", "hoist")
+        assert sass[base]["lds"] >= per_chain, (base, sass[base])
+        assert sass[hoist]["lds"] < per_chain, (hoist, sass[hoist])

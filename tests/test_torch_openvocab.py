@@ -11,6 +11,11 @@ Tolerances, each for its reason:
   SPOTTER_TPU_OWL_FUSED=0 and =1 on both sides (JAX's =1 runs the Pallas
   kernel in interpret mode, the port's its plain version): atol 1e-5, fp32
   dense layers of 20 inputs plus the tail, summed in other orders.
+- The card kernel's split-TF32 arithmetic replayed on the CPU
+  (`tools.class_logits_rounding`) against JAX's reference and its Pallas
+  kernel in interpret mode: within 1e-5 of the largest unmasked logit, the
+  card's gate (two TF32 terms of each operand; the tool puts them ~3e-7
+  away).
 - `quick_gelu`: fp32 within 1e-6; bf16 within one bf16 ulp (both round
   after each op at bf16).
 - `sigmoid_max_postprocess`: labels equal (ties go to the first index),
@@ -47,6 +52,7 @@ from spotter_tpu_torch.models import zoo as tzoo
 from spotter_tpu_torch.models.owlvit import OwlViTClassHead
 from spotter_tpu_torch.ops import openvocab
 from spotter_tpu_torch.ops import postprocess as tpost
+from spotter_tpu_torch.tools import class_logits_rounding
 from tests.torch_parity import random_flax_params
 
 NEG_INF = openvocab.NEG_INF
@@ -155,6 +161,35 @@ def test_owl_fused_knob_error_text_matches_jax():
     with pytest.raises(ValueError) as got:
         openvocab.parse_owl_fused("bogus")
     assert want == f"ValueError: {got.value}"
+
+
+@pytest.mark.parametrize("img_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dt", [512, 100])
+def test_split_tf32_emulation_matches_jax_within_the_gate(img_dtype, dt):
+    """The class-logit kernel's arithmetic replayed on the CPU
+    (`tools.class_logits_rounding.split_tf32_logits`: two TF32 terms of each
+    operand over the kernel's k-steps, the accumulators truncated at each
+    wgmma) against the JAX
+    package's reference and its Pallas kernel in interpret mode: within 1e-5
+    of the largest unmasked logit (chip_smoke's gate), masked columns
+    NEG_INF in all three."""
+    img, bank, shift, scale, mask = _logit_inputs(b=2, p=40, dt=dt, q=7, seed=11)
+    jimg = jnp.asarray(img).astype(getattr(jnp, img_dtype))
+    j_ref = np.asarray(jov._class_logits_ref(
+        jimg, jnp.asarray(bank.T), jnp.stack([shift, scale], axis=-1),
+        jnp.asarray(mask, jnp.float32)[None]))
+    j_kernel = np.asarray(jov.fused_class_logits(
+        jimg, jnp.asarray(bank), jnp.asarray(shift), jnp.asarray(scale), jnp.asarray(mask),
+        interpret=True))
+    got = class_logits_rounding.split_tf32_logits(
+        torch.from_numpy(img).to(getattr(torch, img_dtype)), torch.from_numpy(bank),
+        torch.from_numpy(shift), torch.from_numpy(scale), torch.from_numpy(mask)).numpy()
+    real = mask == 1
+    for want in (j_ref, j_kernel):
+        assert got.shape == want.shape == (2, 40, 7)
+        atol = 1e-5 * np.abs(want[..., real]).max()
+        np.testing.assert_allclose(got[..., real], want[..., real], rtol=0, atol=atol)
+        assert np.all(got[..., ~real] == NEG_INF) and np.all(want[..., ~real] == NEG_INF)
 
 
 def test_wrapper_checks_its_inputs():
