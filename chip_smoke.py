@@ -6,7 +6,9 @@ width with weights drawn from --seed: RT-DETRv2-R101, YOLOS (yolos-base,
 800x1344, under the "float32" and "mixed" precision policies),
 Deformable-DETR (SenseTime/deformable-detr, photos staged into the
 1333x1333 bucket with a pixel mask, under each SPOTTER_TPU_MSDA backend),
-and OWLv2 (owlv2-base-patch16-ensemble, 960x960, both policies) with
+the DETR lineage in the same bucket (DETR-R50, Table-Transformer,
+Conditional-DETR, DAB-DETR: masked attention, no hand-written kernel), and
+OWLv2 (owlv2-base-patch16-ensemble, 960x960, both policies) with
 OWL-ViT B/32; then the port's three measurement tools. Holds its eleven
 hand-written kernels against their plain PyTorch versions: csrc/msda.cu
 (MSDA gather-sum, loc-prep and fused-prologue sampling),
@@ -90,22 +92,34 @@ each printing JSON lines:
 12. ddetr_http — the standalone server with Deformable-DETR answering POST
              /detect for 1 and 8 URLs under each backend, with the same count
              check;
-13. owl_parity — OWLv2 and OWL-ViT B/32 at B = 1, the card against the CPU
+13. detr_parity — facebook/detr-resnet-50, microsoft/table-transformer-detection,
+             microsoft/conditional-detr-resnet-50 and IDEA-Research/dab-detr-resnet-50
+             at B = 1, a landscape photo staged into the 1333x1333 bucket with
+             its mask: the card against the CPU (TF32 off), logits, boxes and
+             DAB-DETR's per-layer boxes; no kernel may launch (their encoder's
+             1764-token self-attention is masked, so it stays off the
+             attention kernel, as the JAX package stays off its Pallas one);
+14. detr_serve — the four through InferenceEngine.detect on 1 and 8
+             photos, no kernel launched; p50/p99, img/s, device ms per
+             forward at B = 1 and 8;
+15. detr_http — the standalone server with DETR-R50 answering POST /detect
+             for 1 and 8 URLs, no kernel launched;
+16. owl_parity — OWLv2 and OWL-ViT B/32 at B = 1, the card against the CPU
              under "float32" (TF32 off): logits, boxes and objectness; then
              OWLv2 on the card under "mixed" against "float32" at B = 8, and
              SPOTTER_TPU_OWL_FUSED=0 (the unfused head) against auto;
-14. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
+17. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
              "float32" and "mixed", plus requests with their own query set:
              owl_class_logits must launch once and flash_attn_fp32 with its
              split pass (resp. _bf16) 12 times per forward, and no other
              kernel; p50/p99,
              img/s, device ms per forward, host preprocess ms (the float
              pad-to-square warp) and detections per image;
-15. owl_http — the standalone server with OWLv2 answering POST /detect for 1
+18. owl_http — the standalone server with OWLv2 answering POST /detect for 1
              and 8 URLs under the default vocabulary and for 8 URLs with
              `queries`, with the same count check; the labels of a queries
              request must all be among its queries;
-16. probes — the three measurement tools through their `main`, each with
+19. probes — the three measurement tools through their `main`, each with
              its kernel's count set to 0 just before: bench_int8 (int8_gemm
              exactly equal to its plain version at n = 4096, 8192 and 4000,
              with its transpose pass equal to b.t().contiguous(), beside
@@ -121,8 +135,9 @@ The OWL families read their prompts' token ids from a tokenization cache;
 the script writes one for its prompts under a temporary
 SPOTTER_TPU_CACHE, with CLIP-shaped ids drawn from --seed (the weights are
 random, so only the ids' shape matters). Every RT-DETR and Deformable-DETR
-path must launch neither attention kernel, and no RT-DETR, YOLOS or
-Deformable-DETR path the class-logit kernel. Then a
+path must launch neither attention kernel, no RT-DETR, YOLOS or
+Deformable-DETR path the class-logit kernel, and no DETR-lineage path any
+kernel. Then a
 `{"kernels": [...]}` summary line, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`. Any failure raises and the exit
 code is non-zero. Needs one CUDA card and the repository checkout around
@@ -131,6 +146,7 @@ this file; exits non-zero without either.
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http,
                                             yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
+                                            detr_parity,detr_serve,detr_http,
                                             owl_parity,owl_serve,owl_http,probes]
 
 The full record is also written to build/chip_smoke.json (or --out).
@@ -155,7 +171,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
-          "owl_parity", "owl_serve", "owl_http", "probes")
+          "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
+          "probes")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
@@ -2035,6 +2052,172 @@ def phase_ddetr_http(log: list, seed: int, device: str = "cuda") -> dict:
     return rec
 
 
+# --- the DETR lineage: DETR, Table-Transformer, Conditional-DETR, DAB-DETR ----
+
+DETR_NAME = "facebook/detr-resnet-50"
+# the four models of slice 12, each at full width and depth: DETR-R50,
+# Table-Transformer (ResNet-18, pre-norm, 15 queries), Conditional-DETR-R50
+# and DAB-DETR-R50. No hand-written kernel may launch on their paths: the
+# JAX package reaches no Pallas kernel there, and the encoder's masked
+# self-attention (1764 tokens at the 1333x1333 bucket, past the attention
+# cutover) must take the materialised path, as it does there.
+DETR_LINEAGE = (DETR_NAME, "microsoft/table-transformer-detection",
+                "microsoft/conditional-detr-resnet-50", "IDEA-Research/dab-detr-resnet-50")
+
+
+def phase_detr_parity(log: list, seed: int, device: str = "cuda") -> list:
+    """The four DETR-lineage models at full width, B = 1, a landscape listing
+    photo staged into the 1333x1333 bucket with its pixel mask: the card
+    against the CPU (TF32 off), logits and boxes (DAB-DETR: every decoder
+    layer's boxes too) against the family gates; no kernel may launch."""
+    import copy
+
+    import torch
+
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.utils.precision import use_exact_float32
+
+    use_exact_float32()
+    photo = synthetic_photo(np.random.default_rng(seed + 14), 720, 960)
+    records = []
+    for name in DETR_LINEAGE:
+        built = build_detector(name, tiny=False, seed=seed)
+        x, mask, valid, _ = ddetr_inputs(built.preprocess_spec, [photo])
+        cpu_model = built.module.eval()
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = cpu_model(x, mask)
+            cpu_s = time.perf_counter() - t0
+            reset_counts()
+            got = gpu_model(x.to(device), mask.to(device))
+            torch.cuda.synchronize()
+        launches = read_counts()
+        for key, value in got.items():
+            if not torch.isfinite(value).all():
+                raise AssertionError(f"{name}: non-finite {key} on the card")
+        errs = {key: (got[key].cpu() - ref[key]).abs().max().item() for key in ref}
+        rec = {
+            "phase": "detr_parity", "model": name, "batch": 1, "compare": "card vs cpu",
+            "bucket": list(x.shape[1:3]), "valid_hw": valid[0].tolist(),
+            "encoder_tokens": -(-x.shape[1] // 32) * -(-x.shape[2] // 32),
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+            **{f"{key}_max_abs_err": err for key, err in errs.items()},
+            "atol_logits": PARITY_ATOL_LOGITS, "atol_boxes": PARITY_ATOL_BOXES,
+            "logits_abs_max": ref["logits"].abs().max().item(),
+            "cpu_forward_s": cpu_s, "card_launches": launches,
+        }
+        if "aux_boxes" in ref:  # DAB-DETR: the smallest box side over the layers
+            rec["aux_boxes_min_wh"] = ref["aux_boxes"][..., 2:].min().item()
+        emit(rec, log)
+        records.append(rec)
+        check_counts(launches, {}, f"{name} card forward")
+        bad = {k: e for k, e in errs.items()
+               if e > (PARITY_ATOL_LOGITS if k == "logits" else PARITY_ATOL_BOXES)}
+        if bad:
+            raise AssertionError(f"{name} card vs CPU outside tolerance: {bad}")
+        del gpu_model, cpu_model, built
+        release_cuda_memory()
+    return records
+
+
+def phase_detr_serve(log: list, seed: int, device: str = "cuda") -> list:
+    """The four DETR-lineage models through InferenceEngine.detect and the
+    response assembly: requests of 1 and 8 listing photos, the counts set to
+    0 just before each model's requests and read just after (no kernel may
+    launch); then the device ms per forward at B = 1 and 8."""
+    import torch
+
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.ops.preprocess import batch_images_uint8
+    from spotter_tpu_torch.serving.detector import assemble_response
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
+
+    rng = np.random.default_rng(seed + 15)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    requests = [photos[:1]] * 3 + [photos[:8]] * 3
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    records = []
+    for name in DETR_LINEAGE:
+        built = build_detector(name, tiny=False, seed=seed)
+        engine = InferenceEngine(built, device=device)
+        t0 = time.perf_counter()
+        engine.warmup()
+        rec = {"phase": "detr_serve", "model": name, "device": device,
+               "warmup_s": time.perf_counter() - t0}
+        pixels, valid, sizes = batch_images_uint8(photos[:8], built.preprocess_spec)
+        px, vd, sz = (torch.from_numpy(a).to(device) for a in (pixels, valid, sizes))
+        reset_counts()  # count only this model's requests from here
+        latencies, forwards = {1: [], 8: []}, 0
+        for reqn, images in enumerate(requests):
+            urls = [f"synthetic://{reqn}/{i}" for i in range(len(images))]
+            t0 = time.perf_counter()
+            raw = engine.detect(images)
+            resp = assemble_response(urls, raw)
+            latencies[len(images)].append(time.perf_counter() - t0)
+            forwards += -(-len(images) // engine.batch_buckets[-1])
+            check_response(resp, raw, len(images))
+        counts = read_counts()
+        check_counts(counts, {}, f"{name} engine path")
+        with torch.inference_mode():
+            device_ms = {b: cuda_time_ms(
+                lambda b=b: engine._forward(px[:b], sz[:b], valid=vd[:b]), 5, flush)
+                for b in (1, 8)}
+        rec.update({
+            "forwards": forwards, "launches": counts,
+            "latency_ms": {n: {"p50": statistics.median(v) * 1e3,
+                               "p99": percentile(v, 0.99) * 1e3, "n": len(v)}
+                           for n, v in latencies.items()},
+            "img_per_s_8": 8 / statistics.median(latencies[8]),
+            "device_forward_ms": device_ms,
+            "detections_per_image": [len(d) for d in raw],
+        })
+        emit(rec, log)
+        records.append(rec)
+        del engine, built, px, vd, sz
+        release_cuda_memory()
+    return records
+
+
+def phase_detr_http(log: list, seed: int, device: str = "cuda") -> dict:
+    """facebook/detr-resnet-50 behind the port's standalone server: requests
+    of 1 and 8 URLs, the counts set to 0 just before and read just after (no
+    kernel may launch). The score threshold stays the reference's: with
+    random weights DETR's softmax over 92 classes keeps few boxes or none,
+    and the response schema is checked all the same."""
+    import asyncio
+
+    from spotter_tpu_torch.serving.app import build_detector_app
+
+    rng = np.random.default_rng(seed + 16)
+    t0 = time.perf_counter()
+    det = build_detector_app(DETR_NAME, device=device, seed=seed, warmup=True)
+    bringup_s = time.perf_counter() - t0
+    runs = [("detr", lambda: None, [("1", 1, 10, 1), ("8", 8, 10, 1)])]
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        out = asyncio.run(drive_http(det, photo_dir, runs))
+    lat = out["latency_ms"]
+    rec = {
+        "phase": "detr_http", "model": DETR_NAME, "device": device, "bringup_s": bringup_s,
+        "healthz": out["healthz"], "latency_ms": latency_summary(lat),
+        "img_per_s_8_urls": 8e3 / statistics.median(lat["detr:8"]),
+        "fetch_decode_8_ms": out["fetch_decode_8_ms"],
+        "engine_stage_ms": {k: v for k, v in out["metrics"].items() if k.startswith("stage_")},
+        "mean_batch_size": out["metrics"]["mean_batch_size"],
+        "detr": out["detr"],
+    }
+    emit(rec, log)
+    del det
+    release_cuda_memory()
+    if out["healthz"] != 200:
+        raise AssertionError(f"/healthz answered {out['healthz']}")
+    check_counts(out["detr"]["launches"], {}, "DETR /detect")
+    return rec
+
+
 # --- OWLv2 and OWL-ViT ------------------------------------------------------
 
 CLIP_BOS, CLIP_EOT = 49406, 49407  # CLIP's begin- and end-of-text ids, its two largest
@@ -2640,6 +2823,12 @@ def main(argv=None) -> int:
     if "ddetr_serve" in phases:
         phase_ddetr_serve(log, args.seed)
     ddetr_http = phase_ddetr_http(log, args.seed) if "ddetr_http" in phases else None
+    if "detr_parity" in phases:
+        phase_detr_parity(log, args.seed)
+    if "detr_serve" in phases:
+        phase_detr_serve(log, args.seed)
+    if "detr_http" in phases:
+        phase_detr_http(log, args.seed)
     owl_http = None
     if set(OWL_PHASES) & set(phases):
         # the OWL prompts' token ids, in a cache of this run's own

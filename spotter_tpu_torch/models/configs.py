@@ -1,12 +1,14 @@
-"""Config dataclasses for the RT-DETR, YOLOS, OWL-ViT and Deformable-DETR
-families (copy of spotter_tpu.models.configs).
+"""Config dataclasses for the RT-DETR, YOLOS, OWL-ViT, Deformable-DETR and
+DETR-lineage families (copy of spotter_tpu.models.configs).
 
 The port keeps its own copy rather than importing the JAX package's module:
 `ResNetConfig`, `RTDetrConfig` and their presets, `YolosConfig`, the three
-OWL-ViT configs and `DeformableDetrConfig`, unchanged, so a config built on
-one side means the same model on the other. `OWL_PRESETS` and
-`DEFORMABLE_DETR_PRESETS` hold the published widths by name (the JAX
-package reads them from a checkpoint's config).
+OWL-ViT configs, `DeformableDetrConfig`, `DetrConfig`,
+`ConditionalDetrConfig`, `DabDetrConfig` and the timm ResNet table,
+unchanged, so a config built on one side means the same model on the other.
+`OWL_PRESETS`, `DEFORMABLE_DETR_PRESETS`, `DETR_PRESETS`,
+`CONDITIONAL_DETR_PRESETS` and `DAB_DETR_PRESETS` hold the published widths
+by name (the JAX package reads them from a checkpoint's config).
 """
 
 from dataclasses import dataclass, field, replace
@@ -328,4 +330,152 @@ DEFORMABLE_DETR_PRESETS = {
         _DEFORMABLE_DETR, num_feature_levels=1,
         backbone=ResNetConfig(style="v1", out_indices=(4,)),
     ),
+}
+
+
+@dataclass(frozen=True)
+class DetrConfig:
+    """DETR (facebook/detr-resnet-*): CNN backbone + vanilla encoder-decoder.
+    `pre_norm` selects Table-Transformer (microsoft/table-transformer-*):
+    pre-norm layers and a final encoder LayerNorm."""
+
+    backbone: ResNetConfig = field(
+        default_factory=lambda: ResNetConfig(style="v1", out_indices=(4,))
+    )
+    num_labels: int = 91
+    d_model: int = 256
+    num_queries: int = 100
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    encoder_attention_heads: int = 8
+    decoder_attention_heads: int = 8
+    encoder_ffn_dim: int = 2048
+    decoder_ffn_dim: int = 2048
+    activation_function: str = "relu"
+    positional_encoding_temperature: float = 10000.0
+    layer_norm_eps: float = 1e-5  # torch nn.LayerNorm default (DETR never overrides)
+    pre_norm: bool = False
+    id2label: tuple[tuple[int, str], ...] = ()
+
+    @property
+    def id2label_dict(self) -> dict[int, str]:
+        return dict(self.id2label)
+
+
+@dataclass(frozen=True)
+class ConditionalDetrConfig:
+    """Conditional DETR (microsoft/conditional-detr-resnet-*): a DETR encoder
+    plus the conditional decoder (content and spatial halves of the
+    cross-attention, boxes relative to reference points, focal labels
+    without a "no object" class)."""
+
+    backbone: ResNetConfig = field(
+        default_factory=lambda: ResNetConfig(style="v1", out_indices=(4,))
+    )
+    num_labels: int = 91
+    d_model: int = 256
+    num_queries: int = 300
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    encoder_attention_heads: int = 8
+    decoder_attention_heads: int = 8
+    encoder_ffn_dim: int = 2048
+    decoder_ffn_dim: int = 2048
+    activation_function: str = "relu"
+    positional_encoding_temperature: float = 10000.0
+    layer_norm_eps: float = 1e-5
+    pre_norm: bool = False  # encoder layers are shared with DETR's post-norm
+    id2label: tuple[tuple[int, str], ...] = ()
+
+    @property
+    def id2label_dict(self) -> dict[int, str]:
+        return dict(self.id2label)
+
+
+@dataclass(frozen=True)
+class DabDetrConfig:
+    """DAB-DETR (IDEA-Research/dab-detr-resnet-*): DETR with learned 4D anchor
+    queries (x, y, w, h) whose sine embedding conditions the attention,
+    refined per decoder layer through a shared box head; learned-PReLU FFNs."""
+
+    backbone: ResNetConfig = field(
+        default_factory=lambda: ResNetConfig(style="v1", out_indices=(4,))
+    )
+    num_labels: int = 91
+    d_model: int = 256  # hf "hidden_size"
+    num_queries: int = 300
+    query_dim: int = 4
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    encoder_attention_heads: int = 8
+    decoder_attention_heads: int = 8
+    encoder_ffn_dim: int = 2048
+    decoder_ffn_dim: int = 2048
+    activation_function: str = "prelu"
+    temperature_height: float = 20.0
+    temperature_width: float = 20.0
+    keep_query_pos: bool = False
+    layer_norm_eps: float = 1e-5
+    id2label: tuple[tuple[int, str], ...] = ()
+
+    @property
+    def id2label_dict(self) -> dict[int, str]:
+        return dict(self.id2label)
+
+
+# the JAX package's refusals, with its texts: a dilated (dc5) backbone turns
+# stage 4's stride into dilation-2 convs, which the ResNet does not model;
+# DAB-DETR's pattern embeddings (-pat3) are not modelled either
+DC5_ERROR = "dilated (dc5) backbones are not supported; use the non-dc5 checkpoint"
+DAB_PATTERNS_ERROR = "num_patterns > 0 is not supported"
+
+# timm checkpoints name their backbone: facebook/detr-resnet-50/101 and
+# microsoft/conditional-detr-resnet-* (bottleneck), microsoft/
+# table-transformer-* (resnet18, basic blocks)
+_TIMM_RESNET_PRESETS = {
+    "resnet18": dict(
+        layer_type="basic", depths=(2, 2, 2, 2), hidden_sizes=(64, 128, 256, 512)
+    ),
+    "resnet34": dict(
+        layer_type="basic", depths=(3, 4, 6, 3), hidden_sizes=(64, 128, 256, 512)
+    ),
+    "resnet50": dict(depths=(3, 4, 6, 3)),
+    "resnet101": dict(depths=(3, 4, 23, 3)),
+}
+
+
+def timm_resnet_backbone(name: str) -> ResNetConfig:
+    if name not in _TIMM_RESNET_PRESETS:
+        raise ValueError(
+            f"Unsupported timm backbone {name!r}; known: {sorted(_TIMM_RESNET_PRESETS)}"
+        )
+    return ResNetConfig(style="v1", out_indices=(4,), **_TIMM_RESNET_PRESETS[name])
+
+
+# the published checkpoints' configs by name (the 91 COCO labels are added
+# by the zoo). The two Table-Transformer presets' values (timm resnet18,
+# pre-norm, 15 and 125 queries, and their labels) are from the Hugging Face
+# model cards and config.json of microsoft/table-transformer-detection and
+# microsoft/table-transformer-structure-recognition.
+DETR_PRESETS = {
+    "detr-resnet-50": DetrConfig(backbone=timm_resnet_backbone("resnet50")),
+    "detr-resnet-101": DetrConfig(backbone=timm_resnet_backbone("resnet101")),
+    "table-transformer-detection": DetrConfig(
+        backbone=timm_resnet_backbone("resnet18"), pre_norm=True, num_queries=15,
+        num_labels=2, id2label=((0, "table"), (1, "table rotated")),
+    ),
+    "table-transformer-structure-recognition": DetrConfig(
+        backbone=timm_resnet_backbone("resnet18"), pre_norm=True, num_queries=125,
+        num_labels=6,
+        id2label=((0, "table"), (1, "table column"), (2, "table row"),
+                  (3, "table column header"), (4, "table projected row header"),
+                  (5, "table spanning cell")),
+    ),
+}
+CONDITIONAL_DETR_PRESETS = {
+    "conditional-detr-resnet-50": ConditionalDetrConfig(
+        backbone=timm_resnet_backbone("resnet50")),
+}
+DAB_DETR_PRESETS = {
+    "dab-detr-resnet-50": DabDetrConfig(backbone=timm_resnet_backbone("resnet50")),
 }

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from spotter_tpu_torch.models.configs import DeformableDetrConfig
+from spotter_tpu_torch.models.detr import dim_t, interleave, nearest_downsample_mask
 from spotter_tpu_torch.models.layers import (
     MLPHead,
     MultiHeadAttention,
@@ -37,28 +38,6 @@ from spotter_tpu_torch.models.layers import (
 from spotter_tpu_torch.models.resnet import ResNetBackbone
 from spotter_tpu_torch.ops import msda
 from spotter_tpu_torch.ops.postprocess import stable_top_k
-
-
-def nearest_downsample_mask(mask: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """torch F.interpolate(mode="nearest") on a (B, H, W) mask, with the
-    legacy nearest's src = floor(dst * in / out) index tables computed in
-    numpy from the static shapes (a copy of spotter_tpu.models.detr's)."""
-    _, h_in, w_in = mask.shape
-    h_out, w_out = out_hw
-    idx_h = np.floor(np.arange(h_out) * (h_in / h_out)).astype(np.int64)
-    idx_w = np.floor(np.arange(w_out) * (w_in / w_out)).astype(np.int64)
-    return mask[:, torch.from_numpy(idx_h).to(mask.device)][
-        :, :, torch.from_numpy(idx_w).to(mask.device)]
-
-
-def _dim_t(num_feats: int, temperature: float) -> np.ndarray:
-    return temperature ** (2.0 * (np.arange(num_feats, dtype=np.float32) // 2) / num_feats)
-
-
-def _interleave(p: torch.Tensor) -> torch.Tensor:
-    """sin of the even features and cos of the odd ones, interleaved."""
-    return torch.stack([torch.sin(p[..., 0::2]), torch.cos(p[..., 1::2])], dim=-1).reshape(
-        *p.shape[:-1], -1)
 
 
 def sine_position_from_mask_offset(
@@ -72,8 +51,8 @@ def sine_position_from_mask_offset(
     x = torch.cumsum(mask, dim=2)
     y = (y - 0.5) / (y[:, -1:, :] + 1e-6) * scale
     x = (x - 0.5) / (x[:, :, -1:] + 1e-6) * scale
-    dim_t = torch.from_numpy(_dim_t(embed_dim, temperature)).to(mask.device)
-    return torch.cat([_interleave(y[..., None] / dim_t), _interleave(x[..., None] / dim_t)],
+    denom = torch.from_numpy(dim_t(embed_dim, temperature)).to(mask.device)
+    return torch.cat([interleave(y[..., None] / denom), interleave(x[..., None] / denom)],
                      dim=-1)
 
 
@@ -94,9 +73,9 @@ def proposal_position_embedding(
     coord_logits: torch.Tensor, d_model: int, temperature: float = 10000.0
 ) -> torch.Tensor:
     """get_proposal_pos_embed: (B, K, 4) box logits -> (B, K, 2 * d_model) sines."""
-    dim_t = torch.from_numpy(_dim_t(d_model // 2, temperature)).to(coord_logits.device)
+    denom = torch.from_numpy(dim_t(d_model // 2, temperature)).to(coord_logits.device)
     proposals = torch.sigmoid(coord_logits) * (2.0 * math.pi)
-    pos = proposals[..., None] / dim_t  # (B, K, 4, d_model / 2)
+    pos = proposals[..., None] / denom  # (B, K, 4, d_model / 2)
     pos = torch.stack([torch.sin(pos[..., 0::2]), torch.cos(pos[..., 1::2])], dim=-1)
     return pos.reshape(*coord_logits.shape[:2], -1)
 

@@ -1,5 +1,5 @@
-"""Shared building blocks (port of spotter_tpu.models.layers, the RT-DETR,
-YOLOS and OWL-ViT subset).
+"""Shared building blocks (port of spotter_tpu.models.layers, the subset the
+ported families use).
 
 Convolutions run NCHW inside the port (PyTorch's layout); token tensors
 are (B, S, D) as in the JAX package. Each submodule attribute carries its
@@ -216,6 +216,26 @@ class PatchEmbed(nn.Conv2d):
         w = self.weight.to(self.dtype).to(torch.float32)
         y = F.conv2d(x, w, self.bias, stride=self.stride)  # (B, D, gh, gw)
         return y.flatten(2).transpose(1, 2).to(self.dtype)
+
+
+class PReLU(nn.Module):
+    """torch nn.PReLU with one learned slope: max(0, x) + a * min(0, x).
+
+    DAB-DETR's FFN activation, the one activation in the zoo with a weight
+    (flax leaf `weight`, shape (1,), initialised to 0.25)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.clamp(min=0) + self.weight.to(x.dtype) * x.clamp(max=0)
+
+
+def make_activation(name: str) -> Callable:
+    """An FFN's activation: a `PReLU` module (learned) for "prelu", else
+    the stateless function of that name."""
+    return PReLU() if name == "prelu" else get_activation(name)
 
 
 class MLPHead(nn.Module):

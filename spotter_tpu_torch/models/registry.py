@@ -1,8 +1,10 @@
 """Model registry: MODEL_NAME -> model family (port of spotter_tpu.models.registry).
 
 Families register themselves; lookup is by substring of the HF repo name,
-so the same MODEL_NAME values keep working. The port registers the RT-DETR,
-YOLOS, OWL-ViT and Deformable-DETR families so far (models/zoo.py).
+so the same MODEL_NAME values keep working. The port registers all seven
+families of the JAX package (models/zoo.py): RT-DETR, YOLOS, OWL-ViT,
+Deformable-DETR, DETR (with Table-Transformer), Conditional-DETR and
+DAB-DETR, with its match strings.
 """
 
 from dataclasses import dataclass

@@ -1,19 +1,22 @@
-"""Model zoo, RT-DETR, YOLOS, OWL-ViT and Deformable-DETR families:
-MODEL_NAME -> BuiltDetector (port of those parts of spotter_tpu.models.zoo).
+"""Model zoo, all seven families (RT-DETR, YOLOS, OWL-ViT, Deformable-DETR,
+DETR with Table-Transformer, Conditional-DETR, DAB-DETR): MODEL_NAME ->
+BuiltDetector (port of spotter_tpu.models.zoo).
 
 Weights are either a seeded random init that mirrors flax's initializers
-(`init_rtdetr`, `init_yolos`, `init_owlvit`, `init_deformable_detr`), at the
-width of the preset the name selects, or JAX params carried across with
+(`init_rtdetr`, `init_yolos`, `init_owlvit`, `init_deformable_detr`,
+`init_detr`, `init_conditional_detr`, `init_dab_detr`), at the width of the
+preset the name selects, or JAX params carried across with
 `convert.from_jax` (`params=`). Loading a local HF checkpoint is not ported
 yet. `tiny=True` (or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as
 the JAX package does.
 
 Each build function applies the precision policy (utils/precision.py) and refuses
 the knobs whose computation the port lacks: the int8 knobs, and for the
-MSDA families (RT-DETR, Deformable-DETR) a non-float32 policy. Their
-builders check SPOTTER_TPU_MSDA and SPOTTER_TPU_MSDA_PRECISION with the
-JAX package's error texts (the precision's "default" is refused as not
-ported); both are read again when a forward runs (ops/msda.py).
+MSDA families (RT-DETR, Deformable-DETR) and the DETR lineage a non-float32
+policy. The MSDA families' builders check SPOTTER_TPU_MSDA and
+SPOTTER_TPU_MSDA_PRECISION with the JAX package's error texts (the
+precision's "default" is refused as not ported); both are read again when
+a forward runs (ops/msda.py).
 """
 
 import dataclasses
@@ -28,11 +31,20 @@ from spotter_tpu_torch.convert.from_jax import load_from_jax
 from spotter_tpu_torch.convert.tokens import owlvit_tokenize, tiny_tokenize
 from spotter_tpu_torch.engine.engine import BuiltDetector
 from spotter_tpu_torch.models.coco import coco_id2label_80, coco_id2label_91
+from spotter_tpu_torch.models.conditional_detr import ConditionalDetrDetector
 from spotter_tpu_torch.models.configs import (
+    CONDITIONAL_DETR_PRESETS,
+    DAB_DETR_PRESETS,
+    DAB_PATTERNS_ERROR,
+    DC5_ERROR,
     DEFORMABLE_DETR_PRESETS,
+    DETR_PRESETS,
     OWL_PRESETS,
     RTDETR_PRESETS,
+    ConditionalDetrConfig,
+    DabDetrConfig,
     DeformableDetrConfig,
+    DetrConfig,
     OwlViTConfig,
     OwlViTTextConfig,
     OwlViTVisionConfig,
@@ -40,8 +52,10 @@ from spotter_tpu_torch.models.configs import (
     RTDetrConfig,
     YolosConfig,
 )
+from spotter_tpu_torch.models.dab_detr import DabDetrDetector
 from spotter_tpu_torch.models.deformable_detr import DeformableDetrDetector
-from spotter_tpu_torch.models.layers import FrozenBatchNorm, lecun_normal_
+from spotter_tpu_torch.models.detr import DetrDetector
+from spotter_tpu_torch.models.layers import FrozenBatchNorm, PReLU, lecun_normal_
 from spotter_tpu_torch.models.owlvit import OwlViTDetector
 from spotter_tpu_torch.models.registry import ModelFamily, register
 from spotter_tpu_torch.models.rtdetr import RTDetrDetector
@@ -493,6 +507,166 @@ def build_deformable_detr(
     )
 
 
+# --- the DETR lineage: DETR with Table-Transformer, Conditional-DETR, DAB-DETR
+
+
+def _tiny_lineage_kwargs(num_labels: int) -> dict:
+    """The JAX zoo's tiny DETR-lineage widths (its three tiny configs share
+    them): a 4-stage basic "v1" ResNet of 8-24 channels, d_model 32, 9
+    queries, one encoder and two decoder layers of 4 heads."""
+    return dict(
+        backbone=ResNetConfig(
+            embedding_size=8, hidden_sizes=(8, 12, 16, 24), depths=(1, 1, 1, 1),
+            layer_type="basic", style="v1", out_indices=(4,),
+        ),
+        num_labels=num_labels,
+        d_model=32,
+        num_queries=9,
+        encoder_layers=1,
+        decoder_layers=2,
+        encoder_attention_heads=4,
+        decoder_attention_heads=4,
+        encoder_ffn_dim=48,
+        decoder_ffn_dim=48,
+        id2label=tuple(coco_id2label_80().items()),
+    )
+
+
+def tiny_detr_config(num_labels: int = 80) -> DetrConfig:
+    return DetrConfig(**_tiny_lineage_kwargs(num_labels))
+
+
+def tiny_conditional_detr_config(num_labels: int = 80) -> ConditionalDetrConfig:
+    return ConditionalDetrConfig(**_tiny_lineage_kwargs(num_labels))
+
+
+def tiny_dab_detr_config(num_labels: int = 80) -> DabDetrConfig:
+    return DabDetrConfig(**_tiny_lineage_kwargs(num_labels))
+
+
+def _lineage_preset(model_name: str, presets: dict, family: str):
+    """The preset whose name MODEL_NAME contains (the longest that matches),
+    with the 91 COCO labels unless the preset has its own. Dilated (-dc5)
+    checkpoints raise with the JAX package's text."""
+    key = model_name.lower().replace("_", "-")
+    if "dc5" in key:
+        raise ValueError(DC5_ERROR)
+    for name in sorted(presets, key=len, reverse=True):
+        if name in key:
+            cfg = presets[name]
+            if cfg.id2label:
+                return cfg
+            return dataclasses.replace(cfg, id2label=tuple(coco_id2label_91().items()))
+    raise ValueError(f"MODEL_NAME '{model_name}' names no {family} preset: {sorted(presets)}")
+
+
+def detr_preset(model_name: str) -> DetrConfig:
+    """facebook/detr-resnet-50 and -101, microsoft/table-transformer-detection
+    and -structure-recognition (pre-norm, ResNet-18, their own labels)."""
+    return _lineage_preset(model_name, DETR_PRESETS, "DETR")
+
+
+def conditional_detr_preset(model_name: str) -> ConditionalDetrConfig:
+    """microsoft/conditional-detr-resnet-50."""
+    return _lineage_preset(model_name, CONDITIONAL_DETR_PRESETS, "Conditional-DETR")
+
+
+def dab_detr_preset(model_name: str) -> DabDetrConfig:
+    """IDEA-Research/dab-detr-resnet-50. The -pat3 checkpoints (pattern
+    embeddings) raise with the JAX package's text."""
+    key = model_name.lower()
+    if "pat3" in key and "dc5" not in key:  # the JAX package refuses dilation first
+        raise ValueError(DAB_PATTERNS_ERROR)
+    return _lineage_preset(model_name, DAB_DETR_PRESETS, "DAB-DETR")
+
+
+@torch.no_grad()
+def _init_lineage(model: nn.Module, seed: int, table: nn.Parameter) -> nn.Module:
+    """flax's initializers on every layer in module order (as `init_rtdetr`
+    draws them), then normal(1.0) for the query table, then 0.25 for every
+    PReLU slope, from one generator."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    _init_flax_layers(model, gen)
+    table.copy_(torch.randn(table.shape, generator=gen))
+    for module in model.modules():
+        if isinstance(module, PReLU):
+            module.weight.fill_(0.25)
+    return model
+
+
+def init_detr(model: DetrDetector, seed: int = 0) -> DetrDetector:
+    """Random init from `seed`: flax's layer initializers, normal(1.0) `query_pos`."""
+    return _init_lineage(model, seed, model.query_pos)
+
+
+def init_conditional_detr(model: ConditionalDetrDetector, seed: int = 0) -> ConditionalDetrDetector:
+    """Random init from `seed`: flax's layer initializers, normal(1.0) `query_pos`."""
+    return _init_lineage(model, seed, model.query_pos)
+
+
+def init_dab_detr(model: DabDetrDetector, seed: int = 0) -> DabDetrDetector:
+    """Random init from `seed`: flax's layer initializers, normal(1.0)
+    `query_refpoints` and 0.25 for each PReLU."""
+    return _init_lineage(model, seed, model.query_refpoints)
+
+
+def _build_lineage(model_name, *, tiny, seed, params, family, tiny_config, preset, detector,
+                   init, postprocess, num_top_queries) -> BuiltDetector:
+    """A DETR-lineage builder: the shortest-edge spec with a pixel mask (the
+    1333x1333 bucket; tiny: 48/64 in 64x64), float32 only. The model is
+    built on the CPU; the engine moves it to its device."""
+    refuse_int8()
+    require_float32(family)
+    if tiny is None:
+        tiny = bool(os.environ.get(TINY_ENV))
+    cfg = tiny_config() if tiny else preset(model_name)
+    model = detector(cfg).eval()
+    if params is not None:
+        load_from_jax(model, params)
+    else:
+        init(model, seed)
+    return BuiltDetector(
+        model_name=model_name,
+        module=model,
+        preprocess_spec=TINY_DETR_SPEC if tiny else DETR_SPEC,
+        postprocess=postprocess,
+        id2label=cfg.id2label_dict,
+        num_top_queries=num_top_queries(cfg),
+        needs_mask=True,
+    )
+
+
+def build_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 0,
+               params: Optional[Mapping] = None) -> BuiltDetector:
+    """DETR and Table-Transformer: the softmax postprocess ("no object" last)
+    over every query."""
+    return _build_lineage(
+        model_name, tiny=tiny, seed=seed, params=params, family="DETR",
+        tiny_config=tiny_detr_config, preset=detr_preset, detector=DetrDetector,
+        init=init_detr, postprocess="softmax", num_top_queries=lambda cfg: cfg.num_queries)
+
+
+def build_conditional_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 0,
+                           params: Optional[Mapping] = None) -> BuiltDetector:
+    """Conditional-DETR: the sigmoid top-k at HF's top_k = 100."""
+    return _build_lineage(
+        model_name, tiny=tiny, seed=seed, params=params, family="Conditional-DETR",
+        tiny_config=tiny_conditional_detr_config, preset=conditional_detr_preset,
+        detector=ConditionalDetrDetector, init=init_conditional_detr,
+        postprocess="sigmoid_topk", num_top_queries=lambda cfg: min(100, cfg.num_queries))
+
+
+def build_dab_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 0,
+                   params: Optional[Mapping] = None) -> BuiltDetector:
+    """DAB-DETR: the sigmoid top-k at the top_k = 100 of the processor its
+    checkpoints pair with (ConditionalDetrImageProcessor)."""
+    return _build_lineage(
+        model_name, tiny=tiny, seed=seed, params=params, family="DAB-DETR",
+        tiny_config=tiny_dab_detr_config, preset=dab_detr_preset, detector=DabDetrDetector,
+        init=init_dab_detr, postprocess="sigmoid_topk",
+        num_top_queries=lambda cfg: min(100, cfg.num_queries))
+
+
 register(ModelFamily(name="rtdetr", matches=("rtdetr", "rt_detr", "rt-detr"), build=build_rtdetr))
 register(ModelFamily(name="yolos", matches=("yolos",), build=build_yolos))
 register(ModelFamily(
@@ -503,4 +677,16 @@ register(ModelFamily(
 register(ModelFamily(
     name="deformable_detr", matches=("deformable-detr", "deformable_detr"),
     build=build_deformable_detr,
+))
+# JAX's match strings; "dab-detr-resnet-50" also contains "detr-resnet", and
+# family_for's earliest-start-then-longest rule picks dab_detr for it
+register(ModelFamily(
+    name="conditional_detr", matches=("conditional-detr", "conditional_detr"),
+    build=build_conditional_detr,
+))
+register(ModelFamily(name="dab_detr", matches=("dab-detr", "dab_detr"), build=build_dab_detr))
+register(ModelFamily(
+    name="detr",  # plain DETR, and Table-Transformer (a pre-norm DETR)
+    matches=("detr-resnet", "detr_resnet", "table-transformer", "table_transformer"),
+    build=build_detr,
 ))

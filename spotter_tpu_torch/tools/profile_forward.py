@@ -10,9 +10,13 @@ SPOTTER_TPU_MSDA backend asked for:
 - from torch.profiler over a few forwards: the device's busy share (kernel
   time over wall time) and the kernels that take the most time.
 
-Models: RT-DETRv2-R101 (default) on random 640x640 pixels, or
-SenseTime/deformable-detr on random pixels staged as an 800x1066 photo in
-the 1333x1333 bucket, with its pixel mask.
+Models: RT-DETRv2-R101 (default) on random 640x640 pixels, or one of the
+shortest-edge families on random pixels staged as an 800x1066 photo in the
+1333x1333 bucket, with its pixel mask: SenseTime/deformable-detr, and the
+DETR lineage (facebook/detr-resnet-50, microsoft/table-transformer-detection,
+microsoft/conditional-detr-resnet-50, IDEA-Research/dab-detr-resnet-50; their
+shared box head, which DAB-DETR also runs inside its decoder loop, counts
+as "heads").
 
     python -m spotter_tpu_torch.tools.profile_forward [--model NAME] [--batch 8]
         [--msda-backends xla,pallas_sep,pallas_gather] [--seed 0]
@@ -60,7 +64,27 @@ STAGES = {  # per model: (stage, prefixes of top-level module names)
         ("heads", ("class_head", "bbox_head", "reference_points_proj", "enc_output",
                    "pos_trans")),
     ),
+    "facebook/detr-resnet-50": (
+        ("backbone", ("backbone",)),
+        ("encoder", ("input_projection", "encoder_layer", "encoder_layernorm")),
+        ("decoder", ("decoder_layer", "decoder_layernorm")),
+        ("heads", ("class_labels_classifier", "bbox_predictor")),
+    ),
+    "microsoft/conditional-detr-resnet-50": (
+        ("backbone", ("backbone",)),
+        ("encoder", ("input_projection", "encoder_layer")),
+        ("decoder", ("ref_point_head", "query_scale", "decoder_layer", "decoder_layernorm")),
+        ("heads", ("class_labels_classifier", "bbox_predictor")),
+    ),
+    "IDEA-Research/dab-detr-resnet-50": (
+        ("backbone", ("backbone",)),
+        ("encoder", ("input_projection", "encoder_query_scale", "encoder_layer")),
+        ("decoder", ("ref_point_head", "query_scale", "ref_anchor_head", "decoder_layer",
+                     "decoder_layernorm")),
+        ("heads", ("class_embed", "bbox_predictor")),
+    ),
 }
+STAGES["microsoft/table-transformer-detection"] = STAGES["facebook/detr-resnet-50"]
 MSDA_WRAPPERS = ("msda_gather_sum", "msda_loc_sum", "msda_fused_sum", "msda_sep_sum",
                  "msda_hd_gather_sum")
 

@@ -60,6 +60,15 @@ DEFORMABLE_MODULES = (
 )
 
 
+# the DETR-lineage slice's modules: DETR with Table-Transformer,
+# Conditional-DETR and DAB-DETR
+DETR_LINEAGE_MODULES = (
+    "spotter_tpu_torch.models.detr",
+    "spotter_tpu_torch.models.conditional_detr",
+    "spotter_tpu_torch.models.dab_detr",
+)
+
+
 # the probes slice's modules: the three measurement tools with their
 # kernels' wrappers, and the timing they share
 PROBE_MODULES = (
@@ -88,6 +97,10 @@ def test_every_owl_module_is_covered():
 
 def test_every_deformable_module_is_covered():
     assert set(DEFORMABLE_MODULES) <= set(MODULES)
+
+
+def test_every_detr_lineage_module_is_covered():
+    assert set(DETR_LINEAGE_MODULES) <= set(MODULES)
 
 
 def test_msda_backend_kernels_run_only_on_cuda_tensors(monkeypatch):
