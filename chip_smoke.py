@@ -119,7 +119,21 @@ each printing JSON lines:
              and 8 URLs under the default vocabulary and for 8 URLs with
              `queries`, with the same count check; the labels of a queries
              request must all be among its queries;
-19. probes — the three measurement tools through their `main`, each with
+19. load  — every family built from a local HF checkpoint directory
+             (MODEL_NAME=<dir>), the seeded model written there first by
+             tools/hf_checkpoint.py (model.safetensors without the tied
+             twins, config.json): RT-DETRv2-R101 at full width and depth,
+             its loaded weights equal to the seeded ones bit for bit, 8
+             photos through InferenceEngine.detect (xla) with the seeded
+             engine's logits, boxes and detections, /detect for 1 and 8 URLs
+             under fused and kernel, rows 1-3 launching 6 per forward; then
+             YOLOS, Deformable-DETR with box refinement (pytorch_model.bin),
+             DETR, Conditional-DETR, DAB-DETR and OWLv2 at full width, each
+             built from its checkpoint with one B = 1 forward equal to the
+             seeded model's and its kernels' launches; each load's seconds
+             (config, file read and conversion, load_from_jax apart) and
+             bytes;
+20. probes — the three measurement tools through their `main`, each with
              its kernel's count set to 0 just before: bench_int8 (int8_gemm
              exactly equal to its plain version at n = 4096, 8192 and 4000,
              with its transpose pass equal to b.t().contiguous(), beside
@@ -147,7 +161,7 @@ this file; exits non-zero without either.
                                             yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
                                             detr_parity,detr_serve,detr_http,
-                                            owl_parity,owl_serve,owl_http,probes]
+                                            owl_parity,owl_serve,owl_http,load,probes]
 
 The full record is also written to build/chip_smoke.json (or --out).
 """
@@ -158,6 +172,7 @@ import functools
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -172,7 +187,7 @@ REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
           "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
-          "probes")
+          "load", "probes")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
@@ -2233,11 +2248,12 @@ def owl_prompts() -> list:
     return [PROMPT_TEMPLATE.format(q) for q in owlvit_query_labels() + list(OWL_QUERIES)]
 
 
-def write_token_cache(seed: int) -> list:
-    """Write tokenized.json for both OWL models under $SPOTTER_TPU_CACHE, in
-    the JAX package's format: per prompt, CLIP-shaped ids drawn from `seed`
-    (begin-of-text, 3 to 8 body ids below it, end-of-text, then 0 padding to
-    the text tower's 16 positions) and the mask over begin..end."""
+def write_token_cache(seed: int, names=(OWLV2_NAME, OWLVIT_NAME)) -> list:
+    """Write tokenized.json for each OWL MODEL_NAME in `names` (both OWL
+    models by default) under $SPOTTER_TPU_CACHE, in the JAX package's
+    format: per prompt, CLIP-shaped ids drawn from `seed` (begin-of-text, 3
+    to 8 body ids below it, end-of-text, then 0 padding to the text tower's
+    16 positions) and the mask over begin..end."""
     from spotter_tpu_torch.convert.tokens import tokenization_path
     from spotter_tpu_torch.models.configs import OwlViTTextConfig
 
@@ -2250,12 +2266,28 @@ def write_token_cache(seed: int) -> list:
         table[prompt] = {"ids": [CLIP_BOS, *body, CLIP_EOT] + [0] * pad,
                          "mask": [1] * (len(body) + 2) + [0] * pad}
     paths = []
-    for name in (OWLV2_NAME, OWLVIT_NAME):
+    for name in names:
         path = tokenization_path(name)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(table))
         paths.append(str(path))
     return paths
+
+
+@contextlib.contextmanager
+def token_cache(seed: int, names=(OWLV2_NAME, OWLVIT_NAME)):
+    """A temporary SPOTTER_TPU_CACHE holding the OWL prompts' token ids for
+    `names` while the block runs; yields the files written."""
+    old = os.environ.get("SPOTTER_TPU_CACHE")
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["SPOTTER_TPU_CACHE"] = cache
+        try:
+            yield write_token_cache(seed, names)
+        finally:
+            if old is None:
+                os.environ.pop("SPOTTER_TPU_CACHE", None)
+            else:
+                os.environ["SPOTTER_TPU_CACHE"] = old
 
 
 def build_owl_under(name: str, policy: str, seed: int):
@@ -2566,6 +2598,269 @@ def phase_owl_http(log: list, seed: int, device: str = "cuda") -> dict:
     return rec
 
 
+# the other six families' checkpoints in the load phase: (registry family,
+# the MODEL_NAME its directory is named after, weight file). Deformable-DETR
+# with box refinement shares its heads with its decoder, which
+# save_pretrained writes as pytorch_model.bin only
+LOAD_FAMILIES = (
+    ("yolos", YOLOS_NAME, "safetensors"),
+    ("deformable_detr", "SenseTime/deformable-detr-with-box-refine", "bin"),
+    ("detr", DETR_NAME, "safetensors"),
+    ("conditional_detr", "microsoft/conditional-detr-resnet-50", "safetensors"),
+    ("dab_detr", "IDEA-Research/dab-detr-resnet-50", "safetensors"),
+    ("owlvit", OWLV2_NAME, "safetensors"),
+)
+
+
+def write_and_load(family: str, name: str, fmt: str, root: str, seed: int) -> tuple:
+    """The seeded full-width `name` written as an HF checkpoint under
+    `root`/`name` (tools/hf_checkpoint.py), then built from that directory
+    through `build_detector`, as a user's MODEL_NAME=<dir> builds it. Times
+    the load's parts apart (config read and from_hf; file read and rule
+    conversion; load_from_jax into the module) and the whole build, and
+    fails unless the loaded state dict equals the seeded one bit for bit.
+    Returns (seeded, loaded, record)."""
+    import copy
+
+    import torch
+
+    from spotter_tpu_torch.convert import loader
+    from spotter_tpu_torch.convert.checkpoint_io import read_checkpoint
+    from spotter_tpu_torch.convert.from_jax import load_from_jax
+    from spotter_tpu_torch.models.registry import build_detector, family_for
+    from spotter_tpu_torch.tools.hf_checkpoint import write_checkpoint
+
+    seeded = build_detector(name, tiny=False, seed=seed)
+    path = os.path.join(root, name)
+    t0 = time.perf_counter()
+    info = write_checkpoint(seeded.module, family, path, fmt)
+    write_s = time.perf_counter() - t0
+    if family_for(path).name != family:
+        raise AssertionError(f"{path} routes to {family_for(path).name}, not {family}")
+    t0 = time.perf_counter()
+    cfg, hf = loader.read_config(family, path)
+    t1 = time.perf_counter()
+    params = loader.convert_checkpoint(path, loader.FAMILIES[family][1](cfg, hf), family)
+    t2 = time.perf_counter()
+    target = copy.deepcopy(seeded.module)
+    t3 = time.perf_counter()
+    load_from_jax(target, params)
+    t4 = time.perf_counter()
+    del target, params
+    loaded = build_detector(path, tiny=False)
+    build_s = time.perf_counter() - t4
+    if cfg != seeded.module.config or loaded.module.config != cfg:
+        raise AssertionError(f"{family}: the checkpoint's config is not the seeded model's")
+    if loaded.id2label != seeded.id2label:
+        raise AssertionError(f"{family}: the checkpoint's labels are not the seeded model's")
+    a, b = seeded.module.state_dict(), loaded.module.state_dict()
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    if set(a) != set(b) or unequal:
+        raise AssertionError(f"{family}: loaded weights differ from the seeded ones: "
+                             f"{unequal[:5]} {sorted(set(a) ^ set(b))[:5]}")
+    # the tied pairs as the file holds them: save_pretrained's copy only
+    file_keys = list(read_checkpoint(path))
+    tied = {prefix: sum(k.startswith(prefix) for k in file_keys)
+            for pair in loader.TIED.get(family, ()) for prefix in pair}
+    if family in ("rtdetr", "dab_detr"):
+        (rule_side, twin), *_ = loader.TIED[family]
+        if tied[rule_side] or not tied[twin]:
+            raise AssertionError(f"{family}: the file should hold {twin}* and no {rule_side}*: "
+                                 f"{tied}")
+    rec = {
+        "family": family, "model": name, "format": fmt, "files": info["files"],
+        "bytes": info["bytes"], "keys": info["keys"], "tied_keys_in_file": tied,
+        "write_s": write_s, "config_s": t1 - t0, "read_convert_s": t2 - t1,
+        "load_from_jax_s": t4 - t3, "load_s": (t1 - t0) + (t2 - t1) + (t4 - t3),
+        "build_s": build_s, "state_dict_equal": True, "labels": len(loaded.id2label),
+    }
+    return seeded, loaded, rec
+
+
+def model_inputs(built, photos, device: str) -> tuple:
+    """A batch of photos as the engine hands them to the model: staged by the
+    family's spec, with the pixel mask where it takes one and the vocabulary's
+    embeddings for OWL."""
+    import torch
+
+    from spotter_tpu_torch.ops.preprocess import batch_images_uint8, device_rescale_normalize
+
+    spec = built.preprocess_spec
+    if built.needs_mask:
+        x, mask, _, _ = ddetr_inputs(spec, photos, device)
+        return x, mask
+    if built.query_embeds is not None:
+        return owl_pixels(spec, photos).to(device), built.query_embeds.to(device), None
+    return (device_rescale_normalize(
+        torch.from_numpy(batch_images_uint8(photos, spec)[0]).to(device), spec),)
+
+
+def outputs_diff(ref: dict, got: dict) -> dict:
+    """Max abs difference of each tensor output, and whether all are equal."""
+    import torch
+
+    keys = [k for k, v in ref.items() if torch.is_tensor(v)]
+    errs = {k: (got[k].float() - ref[k].float()).abs().max().item() for k in keys}
+    return {"max_abs_err": errs,
+            "bit_equal": all(torch.equal(got[k], ref[k]) for k in keys)}
+
+
+def family_expected(family: str, model) -> dict:
+    """Each kernel's launches in one forward of `family` under the defaults
+    (float32, the `xla` prep)."""
+    if family == "rtdetr":
+        return {"msda_gather_sum": model.config.decoder_layers}
+    if family == "yolos":
+        return {"flash_attn_fp32": model.config.num_hidden_layers}
+    if family == "owlvit":
+        return owl_expected(model, 1, "flash_attn_fp32")
+    if family == "deformable_detr":
+        return ddetr_expected(model, "xla", 1)
+    return {}
+
+
+def load_family(family: str, name: str, fmt: str, root: str, seed: int, photo,
+                device: str) -> dict:
+    """One family's checkpoint written, loaded and run at B = 1 on the card
+    beside the seeded model: the outputs must be equal (the same card and
+    kernels on the same weights), and the loaded forward must launch its
+    family's kernels as the seeded path does."""
+    import torch
+
+    seeded, loaded, rec = write_and_load(family, name, fmt, root, seed)
+    outs = {}
+    with torch.inference_mode():
+        for key, built in (("seeded", seeded), ("loaded", loaded)):
+            model = built.module.to(device)
+            inputs = model_inputs(built, [photo], device)
+            reset_counts()
+            outs[key] = {k: v.cpu() for k, v in model(*inputs).items() if torch.is_tensor(v)}
+            torch.cuda.synchronize()
+            rec[f"{key}_launches"] = read_counts()
+            built.module.to("cpu")
+    rec.update(outputs_diff(outs["seeded"], outs["loaded"]))
+    for key, value in outs["loaded"].items():
+        if not torch.isfinite(value.float()).all():
+            raise AssertionError(f"{family}: non-finite {key} from the loaded checkpoint")
+    check_counts(rec["loaded_launches"], family_expected(family, loaded.module),
+                 f"{family} loaded from its checkpoint")
+    if not rec["bit_equal"]:
+        raise AssertionError(f"{family}: the loaded model's B = 1 forward differs from the "
+                             f"seeded one's: {rec['max_abs_err']}")
+    del seeded, loaded
+    release_cuda_memory()
+    return rec
+
+
+def phase_load(log: list, seed: int, device: str = "cuda") -> dict:
+    """Every family built from a local HF checkpoint (MODEL_NAME=<dir>), as
+    a user serves a trained model, with the seeded model written into that
+    directory first (tools/hf_checkpoint.py: model.safetensors without the
+    tied twins, and config.json). RT-DETRv2-R101 at full width and depth:
+    the loaded weights equal the seeded ones bit for bit; 8 photos through
+    InferenceEngine.detect under `xla` give the seeded engine's detections,
+    and its forward the seeded logits and boxes; the standalone replica
+    serves POST /detect for 1 and 8 URLs under `fused` and `kernel`; rows
+    1-3 launch as on the seeded paths. The other six families (YOLOS,
+    Deformable-DETR with box refinement as pytorch_model.bin, DETR,
+    Conditional-DETR, DAB-DETR without its bbox_predictor twin, OWLv2) at
+    full width: built from their checkpoints and one B = 1 forward equal to
+    the seeded model's. Prints each load's seconds (config, file read and
+    conversion, load_from_jax apart) and the checkpoint's bytes."""
+    import asyncio
+
+    import torch
+
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.serving.app import build_detector_app
+
+    rng = np.random.default_rng(seed + 20)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    msda.MSDA_PREP = "xla"
+    out = {"phase": "load", "device": device,
+           "card": nvidia_smi("name,power.limit") if device == "cuda" else None}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        seeded, loaded, rec = write_and_load("rtdetr", MODEL_NAME, "safetensors", root, seed)
+        layers = loaded.module.config.decoder_layers
+        engines = {"seeded": InferenceEngine(seeded, device=device),
+                   "loaded": InferenceEngine(loaded, device=device)}
+        with torch.inference_mode():
+            raw = {}
+            for key, engine in engines.items():
+                engine.warmup()
+                raw[key] = engine.model(*model_inputs(engine.built, photos, device))
+            rec["batch8_forward"] = {**parity_record(raw["seeded"], raw["loaded"], 8),
+                                     **outputs_diff(raw["seeded"], raw["loaded"])}
+        check_parity(rec["batch8_forward"], "loaded RT-DETR vs seeded at B = 8")
+        del raw
+        # the engine path: 5 requests of 8 photos each, the first one untimed
+        dets, lat, counts = {}, {}, {}
+        for key, engine in engines.items():
+            engine.detect(photos)
+            reset_counts()
+            lat[key] = []
+            for _ in range(5):
+                t = time.perf_counter()
+                dets[key] = engine.detect(photos)
+                lat[key].append((time.perf_counter() - t) * 1e3)
+            counts[key] = read_counts()
+        check_launches(counts["loaded"], "msda_gather_sum", layers * 5, "the loaded engine")
+        if dets["loaded"] != dets["seeded"]:
+            raise AssertionError("the loaded engine's detections differ from the seeded one's")
+        rec.update({
+            "engine_batch8_p50_ms": {k: statistics.median(v) for k, v in lat.items()},
+            "engine_latency_ms": lat, "engine_launches": counts["loaded"],
+            "detections_equal": True, "detections": sum(len(d) for d in dets["loaded"]),
+        })
+        del engines, seeded, loaded
+        release_cuda_memory()
+
+        # the replica's /detect on MODEL_NAME=<dir>, under fused, then kernel
+        path = os.path.join(root, MODEL_NAME)
+        det = build_detector_app(path, device=device, warmup=True)
+
+        def prep(name: str):
+            return lambda: setattr(msda, "MSDA_PREP", name)
+
+        runs = [("fused", prep("fused"), [("1", 1, 5, 1), ("8", 8, 5, 1)]),
+                ("kernel", prep("kernel"), [("1", 1, 3, 1), ("8", 8, 3, 1)])]
+        with tempfile.TemporaryDirectory() as photo_dir:
+            write_photos(photo_dir, rng)
+            try:
+                http = asyncio.run(drive_http(det, photo_dir, runs))
+            finally:
+                msda.MSDA_PREP = "xla"
+        for prep_name, kernel in (("fused", "msda_fused_sum"), ("kernel", "msda_loc_sum")):
+            check_launches(http[prep_name]["launches"], kernel,
+                           layers * http[prep_name]["forwards"], f"loaded /detect, {prep_name}")
+        if http["healthz"] != 200:
+            raise AssertionError(f"/healthz answered {http['healthz']}")
+        rec["http"] = {"latency_ms": latency_summary(http["latency_ms"]),
+                       "fused": http["fused"], "kernel": http["kernel"]}
+        rec["seconds"] = time.perf_counter() - t0
+        del det
+        release_cuda_memory()
+        out["rtdetr"] = rec
+        out["launches"] = {"msda_gather_sum": counts["loaded"]["msda_gather_sum"],
+                           "msda_fused_sum": http["fused"]["launches"]["msda_fused_sum"],
+                           "msda_loc_sum": http["kernel"]["launches"]["msda_loc_sum"]}
+
+        photo = synthetic_photo(np.random.default_rng(seed + 21), 720, 960)
+        out["families"] = []
+        for family, name, fmt in LOAD_FAMILIES:
+            t0 = time.perf_counter()
+            names = (name, os.path.join(root, name)) if family == "owlvit" else ()
+            with token_cache(seed, names):
+                fam = load_family(family, name, fmt, root, seed, photo, device)
+            fam["seconds"] = time.perf_counter() - t0
+            out["families"].append(fam)
+            shutil.rmtree(os.path.join(root, name.split("/")[0]), ignore_errors=True)
+    emit(out, log)
+    return out
+
+
 def percentile(values, p: float) -> float:
     vals = sorted(values)
     return vals[min(int(p * len(vals)), len(vals) - 1)]
@@ -2832,23 +3127,15 @@ def main(argv=None) -> int:
     owl_http = None
     if set(OWL_PHASES) & set(phases):
         # the OWL prompts' token ids, in a cache of this run's own
-        old_cache = os.environ.get("SPOTTER_TPU_CACHE")
-        with tempfile.TemporaryDirectory() as cache:
-            os.environ["SPOTTER_TPU_CACHE"] = cache
-            try:
-                emit({"phase": "owl_tokens", "files": write_token_cache(args.seed),
-                      "prompts": len(owl_prompts())}, log)
-                if "owl_parity" in phases:
-                    phase_owl_parity(log, args.seed)
-                if "owl_serve" in phases:
-                    phase_owl_serve(log, args.seed)
-                if "owl_http" in phases:
-                    owl_http = phase_owl_http(log, args.seed)
-            finally:
-                if old_cache is None:
-                    os.environ.pop("SPOTTER_TPU_CACHE", None)
-                else:
-                    os.environ["SPOTTER_TPU_CACHE"] = old_cache
+        with token_cache(args.seed) as files:
+            emit({"phase": "owl_tokens", "files": files, "prompts": len(owl_prompts())}, log)
+            if "owl_parity" in phases:
+                phase_owl_parity(log, args.seed)
+            if "owl_serve" in phases:
+                phase_owl_serve(log, args.seed)
+            if "owl_http" in phases:
+                owl_http = phase_owl_http(log, args.seed)
+    load = phase_load(log, args.seed) if "load" in phases else None
     if "probes" in phases:
         cases += phase_probes(log, args.seed)
     # each kernel's launches on the path that runs it: slice 1's engine path
@@ -2874,6 +3161,10 @@ def main(argv=None) -> int:
 
     if cases:
         summary = kernel_summary(cases, launches)
+        if load:  # rows 1-3's launches on the loaded checkpoint's engine and /detect paths
+            for row in summary["kernels"]:
+                if row["name"] in load["launches"]:
+                    row["load_launches"] = load["launches"][row["name"]]
         log.append(summary)
         print(json.dumps(summary), flush=True)
     out = Path(args.out)

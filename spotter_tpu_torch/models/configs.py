@@ -6,9 +6,11 @@ The port keeps its own copy rather than importing the JAX package's module:
 OWL-ViT configs, `DeformableDetrConfig`, `DetrConfig`,
 `ConditionalDetrConfig`, `DabDetrConfig` and the timm ResNet table,
 unchanged, so a config built on one side means the same model on the other.
+Each `from_hf` is the JAX one, with its refusals and texts: it reads a
+checkpoint's config (convert/hf_config.py's view of config.json).
 `OWL_PRESETS`, `DEFORMABLE_DETR_PRESETS`, `DETR_PRESETS`,
 `CONDITIONAL_DETR_PRESETS` and `DAB_DETR_PRESETS` hold the published widths
-by name (the JAX package reads them from a checkpoint's config).
+by name, for a MODEL_NAME that is not a checkpoint directory.
 """
 
 from dataclasses import dataclass, field, replace
@@ -214,6 +216,25 @@ class YolosConfig:
             id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
         )
 
+    @classmethod
+    def from_hf(cls, hf) -> "YolosConfig":
+        return cls(
+            hidden_size=hf.hidden_size,
+            num_hidden_layers=hf.num_hidden_layers,
+            num_attention_heads=hf.num_attention_heads,
+            intermediate_size=hf.intermediate_size,
+            hidden_act=hf.hidden_act,
+            image_size=tuple(hf.image_size),
+            patch_size=hf.patch_size,
+            num_channels=hf.num_channels,
+            num_detection_tokens=hf.num_detection_tokens,
+            use_mid_position_embeddings=hf.use_mid_position_embeddings,
+            qkv_bias=hf.qkv_bias,
+            layer_norm_eps=hf.layer_norm_eps,
+            num_labels=hf.num_labels,
+            id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
+        )
+
 
 @dataclass(frozen=True)
 class OwlViTTextConfig:
@@ -227,6 +248,19 @@ class OwlViTTextConfig:
     max_position_embeddings: int = 16
     hidden_act: str = "quick_gelu"
     layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def from_hf(cls, hf) -> "OwlViTTextConfig":
+        return cls(
+            vocab_size=hf.vocab_size,
+            hidden_size=hf.hidden_size,
+            intermediate_size=hf.intermediate_size,
+            num_hidden_layers=hf.num_hidden_layers,
+            num_attention_heads=hf.num_attention_heads,
+            max_position_embeddings=hf.max_position_embeddings,
+            hidden_act=hf.hidden_act,
+            layer_norm_eps=hf.layer_norm_eps,
+        )
 
 
 @dataclass(frozen=True)
@@ -247,6 +281,20 @@ class OwlViTVisionConfig:
     def grid(self) -> int:
         return self.image_size // self.patch_size
 
+    @classmethod
+    def from_hf(cls, hf) -> "OwlViTVisionConfig":
+        return cls(
+            hidden_size=hf.hidden_size,
+            intermediate_size=hf.intermediate_size,
+            num_hidden_layers=hf.num_hidden_layers,
+            num_attention_heads=hf.num_attention_heads,
+            image_size=hf.image_size,
+            patch_size=hf.patch_size,
+            num_channels=hf.num_channels,
+            hidden_act=hf.hidden_act,
+            layer_norm_eps=hf.layer_norm_eps,
+        )
+
 
 @dataclass(frozen=True)
 class OwlViTConfig:
@@ -261,6 +309,15 @@ class OwlViTConfig:
     vision: OwlViTVisionConfig = field(default_factory=OwlViTVisionConfig)
     projection_dim: int = 512
     objectness: bool = False  # True = OWLv2
+
+    @classmethod
+    def from_hf(cls, hf) -> "OwlViTConfig":
+        return cls(
+            text=OwlViTTextConfig.from_hf(hf.text_config),
+            vision=OwlViTVisionConfig.from_hf(hf.vision_config),
+            projection_dim=hf.projection_dim,
+            objectness=hf.model_type == "owlv2",
+        )
 
 
 # the published base checkpoints' widths (HF OwlViTConfig / Owlv2Config):
@@ -314,6 +371,40 @@ class DeformableDetrConfig:
         # two-stage keeps one extra head pair for scoring encoder proposals
         return self.decoder_layers + (1 if self.two_stage else 0)
 
+    @classmethod
+    def from_hf(cls, hf) -> "DeformableDetrConfig":
+        if hf.position_embedding_type != "sine":
+            raise ValueError(
+                f"Unsupported position_embedding_type {hf.position_embedding_type!r}"
+            )
+        check_no_dilation(hf)
+        if hf.use_timm_backbone:
+            out_indices = (2, 3, 4) if hf.num_feature_levels > 1 else (4,)
+            backbone = replace(timm_resnet_backbone(hf.backbone), out_indices=out_indices)
+        else:
+            # the AutoBackbone path taps backbone_config.out_features as-is
+            backbone = ResNetConfig.from_hf(hf.backbone_config)
+        return cls(
+            backbone=backbone,
+            num_labels=hf.num_labels,
+            d_model=hf.d_model,
+            num_queries=hf.num_queries,
+            encoder_layers=hf.encoder_layers,
+            decoder_layers=hf.decoder_layers,
+            encoder_attention_heads=hf.encoder_attention_heads,
+            decoder_attention_heads=hf.decoder_attention_heads,
+            encoder_ffn_dim=hf.encoder_ffn_dim,
+            decoder_ffn_dim=hf.decoder_ffn_dim,
+            activation_function=hf.activation_function,
+            num_feature_levels=hf.num_feature_levels,
+            encoder_n_points=hf.encoder_n_points,
+            decoder_n_points=hf.decoder_n_points,
+            with_box_refine=hf.with_box_refine,
+            two_stage=hf.two_stage,
+            two_stage_num_proposals=hf.two_stage_num_proposals,
+            id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
+        )
+
 
 # the published SenseTime/deformable-detr* checkpoints' configs: ResNet-50 at
 # strides 8/16/32 plus one extra stride-64 level, 300 queries; the
@@ -361,6 +452,25 @@ class DetrConfig:
     def id2label_dict(self) -> dict[int, str]:
         return dict(self.id2label)
 
+    @classmethod
+    def from_hf(cls, hf) -> "DetrConfig":
+        check_no_dilation(hf)
+        return cls(
+            backbone=lineage_backbone(hf),
+            num_labels=hf.num_labels,
+            d_model=hf.d_model,
+            num_queries=hf.num_queries,
+            encoder_layers=hf.encoder_layers,
+            decoder_layers=hf.decoder_layers,
+            encoder_attention_heads=hf.encoder_attention_heads,
+            decoder_attention_heads=hf.decoder_attention_heads,
+            encoder_ffn_dim=hf.encoder_ffn_dim,
+            decoder_ffn_dim=hf.decoder_ffn_dim,
+            activation_function=hf.activation_function,
+            pre_norm=hf.model_type == "table-transformer",
+            id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
+        )
+
 
 @dataclass(frozen=True)
 class ConditionalDetrConfig:
@@ -390,6 +500,24 @@ class ConditionalDetrConfig:
     @property
     def id2label_dict(self) -> dict[int, str]:
         return dict(self.id2label)
+
+    @classmethod
+    def from_hf(cls, hf) -> "ConditionalDetrConfig":
+        check_no_dilation(hf)
+        return cls(
+            backbone=lineage_backbone(hf),
+            num_labels=hf.num_labels,
+            d_model=hf.d_model,
+            num_queries=hf.num_queries,
+            encoder_layers=hf.encoder_layers,
+            decoder_layers=hf.decoder_layers,
+            encoder_attention_heads=hf.encoder_attention_heads,
+            decoder_attention_heads=hf.decoder_attention_heads,
+            encoder_ffn_dim=hf.encoder_ffn_dim,
+            decoder_ffn_dim=hf.decoder_ffn_dim,
+            activation_function=hf.activation_function,
+            id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
+        )
 
 
 @dataclass(frozen=True)
@@ -422,12 +550,66 @@ class DabDetrConfig:
     def id2label_dict(self) -> dict[int, str]:
         return dict(self.id2label)
 
+    @classmethod
+    def from_hf(cls, hf) -> "DabDetrConfig":
+        check_no_dilation(hf)
+        if hf.query_dim != 4:
+            raise ValueError(f"Only query_dim=4 is supported, got {hf.query_dim}")
+        if getattr(hf, "num_patterns", 0):
+            raise ValueError(DAB_PATTERNS_ERROR)
+        if getattr(hf, "normalize_before", False):
+            raise ValueError("normalize_before (pre-norm) DAB-DETR is not supported")
+        if hf.activation_function != "prelu":
+            # the model hardcodes the learned-PReLU FFN of the published
+            # checkpoints; other activations carry no activation_fn.weight
+            raise ValueError(
+                f"Only activation_function='prelu' is supported, got "
+                f"{hf.activation_function!r}"
+            )
+        return cls(
+            backbone=lineage_backbone(hf),
+            num_labels=hf.num_labels,
+            d_model=hf.hidden_size,
+            num_queries=hf.num_queries,
+            query_dim=hf.query_dim,
+            encoder_layers=hf.encoder_layers,
+            decoder_layers=hf.decoder_layers,
+            encoder_attention_heads=hf.encoder_attention_heads,
+            decoder_attention_heads=hf.decoder_attention_heads,
+            encoder_ffn_dim=hf.encoder_ffn_dim,
+            decoder_ffn_dim=hf.decoder_ffn_dim,
+            activation_function=hf.activation_function,
+            temperature_height=float(hf.temperature_height),
+            temperature_width=float(hf.temperature_width),
+            keep_query_pos=hf.keep_query_pos,
+            id2label=tuple(sorted((int(k), v) for k, v in hf.id2label.items())),
+        )
+
 
 # the JAX package's refusals, with its texts: a dilated (dc5) backbone turns
 # stage 4's stride into dilation-2 convs, which the ResNet does not model;
 # DAB-DETR's pattern embeddings (-pat3) are not modelled either
 DC5_ERROR = "dilated (dc5) backbones are not supported; use the non-dc5 checkpoint"
 DAB_PATTERNS_ERROR = "num_patterns > 0 is not supported"
+
+
+def check_no_dilation(hf) -> None:
+    """Refuse a dc5 checkpoint (timm `dilation=True` turns stage 4's stride
+    into dilation-2 convs, which the ResNet does not model)."""
+    if getattr(hf, "dilation", False):
+        raise ValueError(DC5_ERROR)
+
+
+def lineage_backbone(hf) -> ResNetConfig:
+    """A DETR / Table-Transformer / Conditional-DETR / DAB-DETR checkpoint's
+    backbone: the timm ResNet it names, or its HF ResNet tapped at its last
+    stage (the JAX from_hf methods' shared branch)."""
+    if hf.use_timm_backbone:
+        return timm_resnet_backbone(hf.backbone)
+    return replace(
+        ResNetConfig.from_hf(hf.backbone_config),
+        out_indices=(len(hf.backbone_config.depths),),
+    )
 
 # timm checkpoints name their backbone: facebook/detr-resnet-50/101 and
 # microsoft/conditional-detr-resnet-* (bottleneck), microsoft/

@@ -2,13 +2,22 @@
 DETR with Table-Transformer, Conditional-DETR, DAB-DETR): MODEL_NAME ->
 BuiltDetector (port of spotter_tpu.models.zoo).
 
-Weights are either a seeded random init that mirrors flax's initializers
-(`init_rtdetr`, `init_yolos`, `init_owlvit`, `init_deformable_detr`,
-`init_detr`, `init_conditional_detr`, `init_dab_detr`), at the width of the
-preset the name selects, or JAX params carried across with
-`convert.from_jax` (`params=`). Loading a local HF checkpoint is not ported
-yet. `tiny=True` (or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as
-the JAX package does.
+Weights come from one of three sources:
+- a MODEL_NAME that names a local directory holding `config.json` and a
+  weight file (an HF checkpoint, `save_pretrained`'s layout) builds that
+  checkpoint: its config through `from_hf`, its weights through the
+  family's rule table (convert/loader.py), its labels from its
+  `id2label`. The family still comes from the name (registry.family_for),
+  so the directory's path must contain it, as in the JAX package. A
+  directory whose weights do not load raises; it never falls back to a
+  seeded model;
+- otherwise a seeded random init that mirrors flax's initializers
+  (`init_rtdetr`, `init_yolos`, `init_owlvit`, `init_deformable_detr`,
+  `init_detr`, `init_conditional_detr`, `init_dab_detr`), at the width of
+  the preset the name selects;
+- or JAX params carried across with `convert.from_jax` (`params=`).
+`tiny=True` (or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as the
+JAX package does.
 
 Each build function applies the precision policy (utils/precision.py) and refuses
 the knobs whose computation the port lacks: the int8 knobs, and for the
@@ -27,7 +36,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from spotter_tpu_torch.convert import loader
 from spotter_tpu_torch.convert.from_jax import load_from_jax
+from spotter_tpu_torch.convert.hf_config import is_checkpoint_dir
 from spotter_tpu_torch.convert.tokens import owlvit_tokenize, tiny_tokenize
 from spotter_tpu_torch.engine.engine import BuiltDetector
 from spotter_tpu_torch.models.coco import coco_id2label_80, coco_id2label_91
@@ -109,6 +120,19 @@ def tiny_rtdetr_config(num_labels: int = 80) -> RTDetrConfig:
     )
 
 
+def full_width(model_name: str, params: Optional[Mapping], load, preset) -> tuple:
+    """(config, params) of a full-width build: the checkpoint's, through
+    `load` (a convert.loader function), when MODEL_NAME names a checkpoint
+    directory, else the `preset` the name selects with `params` as given. A
+    checkpoint brings its own weights, so `params=` beside one raises."""
+    if not is_checkpoint_dir(model_name):
+        return preset(model_name), params
+    if params is not None:
+        raise ValueError(f"MODEL_NAME '{model_name}' is a checkpoint directory, which holds "
+                         f"its own weights: params= cannot replace them")
+    return load(model_name)
+
+
 def rtdetr_preset(model_name: str) -> RTDetrConfig:
     """The published preset whose name appears in MODEL_NAME, with COCO labels
     (e.g. PekingU/rtdetr_v2_r101vd -> RTDETR_PRESETS["rtdetr_v2_r101vd"])."""
@@ -176,7 +200,7 @@ def build_rtdetr(
         cfg = tiny_rtdetr_config()
         spec = PreprocessSpec(mode="fixed", size=(64, 64))
     else:
-        cfg = rtdetr_preset(model_name)
+        cfg, params = full_width(model_name, params, loader.load_rtdetr_from_hf, rtdetr_preset)
         spec = RTDETR_SPEC
     model = RTDetrDetector(cfg).eval()
     if params is not None:
@@ -209,12 +233,12 @@ def tiny_yolos_config(num_labels: int = 80) -> YolosConfig:
 
 def yolos_preset(model_name: str) -> YolosConfig:
     """yolos-base (`YolosConfig()`'s defaults) with the 91 COCO labels. The
-    other YOLOS sizes take their widths from a checkpoint's config, which
-    the repository does not hold, so their names raise."""
+    other YOLOS sizes take their widths from a checkpoint's config: a name
+    that is not a checkpoint directory raises for them."""
     if "yolos-base" not in model_name.lower():
         raise ValueError(
-            f"MODEL_NAME '{model_name}' names no YOLOS configuration the port holds: only "
-            f"yolos-base (other sizes need a checkpoint's config; ROADMAP Queue 1 item 4)"
+            f"MODEL_NAME '{model_name}' names no YOLOS preset: only yolos-base (other sizes "
+            f"build from a checkpoint directory holding their config.json)"
         )
     return YolosConfig(id2label=tuple(coco_id2label_91().items()))
 
@@ -259,7 +283,10 @@ def build_yolos(
     refuse_int8()
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
-    cfg = tiny_yolos_config() if tiny else yolos_preset(model_name)
+    if tiny:
+        cfg = tiny_yolos_config()
+    else:
+        cfg, params = full_width(model_name, params, loader.load_yolos_from_hf, yolos_preset)
     model = YolosDetector(cfg, dtype=backbone_dtype()).eval()
     if params is not None:
         load_from_jax(model, params)
@@ -295,16 +322,15 @@ def owlvit_preset(model_name: str) -> OwlViTConfig:
     """The published base width whose name appears in MODEL_NAME:
     owlvit-base-patch32, owlvit-base-patch16, or owlv2-base-patch16 (and
     its -ensemble and -finetuned checkpoints). The other sizes take their
-    widths from a checkpoint's config, which the repository does not hold,
-    so their names raise."""
+    widths from a checkpoint's config: a name that is not a checkpoint
+    directory raises for them."""
     key = model_name.lower()
     for name, cfg in OWL_PRESETS.items():
         if name in key:
             return cfg
     raise ValueError(
-        f"MODEL_NAME '{model_name}' names no OWL-ViT configuration the port holds: only "
-        f"{sorted(OWL_PRESETS)} (other sizes need a checkpoint's config; ROADMAP Queue 1 "
-        f"item 4)"
+        f"MODEL_NAME '{model_name}' names no OWL-ViT preset: only {sorted(OWL_PRESETS)} "
+        f"(other sizes build from a checkpoint directory holding their config.json)"
     )
 
 
@@ -356,8 +382,9 @@ def build_owlvit(
     ("a photo of a {label}"); the engine keeps that bank on its device. The
     returned `text_encoder` encodes a request's own queries on whatever
     device the model then lives on. Full-width builds read the prompts' ids
-    from the JAX package's tokenization cache (convert/tokens.py); tiny
-    builds hash them. The model is built on the CPU; the engine moves it."""
+    from the JAX package's tokenization cache, keyed by MODEL_NAME (a
+    checkpoint directory's path too; convert/tokens.py); tiny builds hash
+    them. The model is built on the CPU; the engine moves it."""
     refuse_int8()
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
@@ -366,7 +393,7 @@ def build_owlvit(
         cfg = tiny_owlvit_config()
         spec = PreprocessSpec(mode="fixed", size=(32, 32), mean=CLIP_MEAN, std=CLIP_STD)
     else:
-        cfg = owlvit_preset(model_name)
+        cfg, params = full_width(model_name, params, loader.load_owlvit_from_hf, owlvit_preset)
         spec = OWLV2_SPEC if cfg.objectness else OWLVIT_SPEC
     t = cfg.text.max_position_embeddings
 
@@ -375,8 +402,8 @@ def build_owlvit(
             return tiny_tokenize(prompts, cfg.text.vocab_size, t)
         return owlvit_tokenize(model_name, prompts, t)
 
-    # the vocabulary's ids first: a missing tokenization cache raises before
-    # a full-width model is built
+    # the vocabulary's ids before the model: a missing tokenization cache
+    # raises before a full-width model is built
     ids, mask = tokenize([PROMPT_TEMPLATE.format(label) for label in labels])
     model = OwlViTDetector(cfg, dtype=compute_dtype(), vision_dtype=backbone_dtype()).eval()
     if params is not None:
@@ -490,7 +517,11 @@ def build_deformable_detr(
     check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
-    cfg = tiny_deformable_detr_config() if tiny else deformable_detr_preset(model_name)
+    if tiny:
+        cfg = tiny_deformable_detr_config()
+    else:
+        cfg, params = full_width(model_name, params, loader.load_deformable_detr_from_hf,
+                                 deformable_detr_preset)
     model = DeformableDetrDetector(cfg).eval()
     if params is not None:
         load_from_jax(model, params)
@@ -610,8 +641,8 @@ def init_dab_detr(model: DabDetrDetector, seed: int = 0) -> DabDetrDetector:
     return _init_lineage(model, seed, model.query_refpoints)
 
 
-def _build_lineage(model_name, *, tiny, seed, params, family, tiny_config, preset, detector,
-                   init, postprocess, num_top_queries) -> BuiltDetector:
+def _build_lineage(model_name, *, tiny, seed, params, family, tiny_config, preset, load,
+                   detector, init, postprocess, num_top_queries) -> BuiltDetector:
     """A DETR-lineage builder: the shortest-edge spec with a pixel mask (the
     1333x1333 bucket; tiny: 48/64 in 64x64), float32 only. The model is
     built on the CPU; the engine moves it to its device."""
@@ -619,7 +650,10 @@ def _build_lineage(model_name, *, tiny, seed, params, family, tiny_config, prese
     require_float32(family)
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
-    cfg = tiny_config() if tiny else preset(model_name)
+    if tiny:
+        cfg = tiny_config()
+    else:
+        cfg, params = full_width(model_name, params, load, preset)
     model = detector(cfg).eval()
     if params is not None:
         load_from_jax(model, params)
@@ -642,7 +676,8 @@ def build_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 0,
     over every query."""
     return _build_lineage(
         model_name, tiny=tiny, seed=seed, params=params, family="DETR",
-        tiny_config=tiny_detr_config, preset=detr_preset, detector=DetrDetector,
+        tiny_config=tiny_detr_config, preset=detr_preset, load=loader.load_detr_from_hf,
+        detector=DetrDetector,
         init=init_detr, postprocess="softmax", num_top_queries=lambda cfg: cfg.num_queries)
 
 
@@ -652,7 +687,7 @@ def build_conditional_detr(model_name: str, *, tiny: Optional[bool] = None, seed
     return _build_lineage(
         model_name, tiny=tiny, seed=seed, params=params, family="Conditional-DETR",
         tiny_config=tiny_conditional_detr_config, preset=conditional_detr_preset,
-        detector=ConditionalDetrDetector, init=init_conditional_detr,
+        load=loader.load_conditional_detr_from_hf, detector=ConditionalDetrDetector, init=init_conditional_detr,
         postprocess="sigmoid_topk", num_top_queries=lambda cfg: min(100, cfg.num_queries))
 
 
@@ -662,7 +697,8 @@ def build_dab_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 
     checkpoints pair with (ConditionalDetrImageProcessor)."""
     return _build_lineage(
         model_name, tiny=tiny, seed=seed, params=params, family="DAB-DETR",
-        tiny_config=tiny_dab_detr_config, preset=dab_detr_preset, detector=DabDetrDetector,
+        tiny_config=tiny_dab_detr_config, preset=dab_detr_preset,
+        load=loader.load_dab_detr_from_hf, detector=DabDetrDetector,
         init=init_dab_detr, postprocess="sigmoid_topk",
         num_top_queries=lambda cfg: min(100, cfg.num_queries))
 

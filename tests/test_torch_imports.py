@@ -1,6 +1,8 @@
 """The port stands alone: importing spotter_tpu_torch pulls in neither jax
 nor anything of the JAX package or of the repository's root `tools/` (the
-JAX package's measurement tools), and no module of it names any of them."""
+JAX package's measurement tools), nor `transformers` or `safetensors` (the
+card's machine has neither: the port reads checkpoints itself), and no
+module of it names any of them."""
 
 import ast
 import pathlib
@@ -14,7 +16,7 @@ MODULES = sorted(
     ".".join(p.relative_to(PACKAGE.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PACKAGE.rglob("*.py")
 )
-FORBIDDEN = ("jax", "jaxlib", "flax", "spotter_tpu", "tools")
+FORBIDDEN = ("jax", "jaxlib", "flax", "spotter_tpu", "tools", "transformers", "safetensors")
 # the serving slice's modules: each is imported (and scanned) below
 SERVING_MODULES = (
     "spotter_tpu_torch.schemas",
@@ -69,6 +71,25 @@ DETR_LINEAGE_MODULES = (
 )
 
 
+# the checkpoint slice's modules: the weight-file reader and writer, the
+# config.json view, the rule tables, the loader, and the fixture that
+# writes a port model as a checkpoint
+CONVERT_MODULES = (
+    "spotter_tpu_torch.convert.checkpoint_io",
+    "spotter_tpu_torch.convert.hf_config",
+    "spotter_tpu_torch.convert.rules",
+    "spotter_tpu_torch.convert.loader",
+    "spotter_tpu_torch.convert.rtdetr_rules",
+    "spotter_tpu_torch.convert.yolos_rules",
+    "spotter_tpu_torch.convert.owlvit_rules",
+    "spotter_tpu_torch.convert.deformable_detr_rules",
+    "spotter_tpu_torch.convert.detr_rules",
+    "spotter_tpu_torch.convert.conditional_detr_rules",
+    "spotter_tpu_torch.convert.dab_detr_rules",
+    "spotter_tpu_torch.tools.hf_checkpoint",
+)
+
+
 # the probes slice's modules: the three measurement tools with their
 # kernels' wrappers, and the timing they share
 PROBE_MODULES = (
@@ -101,6 +122,10 @@ def test_every_deformable_module_is_covered():
 
 def test_every_detr_lineage_module_is_covered():
     assert set(DETR_LINEAGE_MODULES) <= set(MODULES)
+
+
+def test_every_convert_module_is_covered():
+    assert set(CONVERT_MODULES) <= set(MODULES)
 
 
 def test_msda_backend_kernels_run_only_on_cuda_tensors(monkeypatch):

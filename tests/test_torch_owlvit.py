@@ -305,7 +305,7 @@ def test_presets_and_registry():
             cfg.vision.intermediate_size) == (512, 8, 49408, 16, 512, 768, 3072)
     for name in (OWLV2, OWLVIT, "google/owlv2-large-patch14"):
         assert registry.family_for(name).name == "owlvit"
-    with pytest.raises(ValueError, match="owlv2-large-patch14.*Queue 1 item 4"):
+    with pytest.raises(ValueError, match="owlv2-large-patch14.*checkpoint directory"):
         tzoo.owlvit_preset("google/owlv2-large-patch14")
 
 
