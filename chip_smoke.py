@@ -37,7 +37,12 @@ each printing JSON lines:
              gather-sum and loc kernels again at the Deformable-DETR encoder
              and decoder ops (B = 8, fp32, default and discrete; the value,
              loc and attn read in place, and their fp32 SASS must show
-             LDG.E.128 too);
+             LDG.E.128 too); rows 1-4's one-pass mode (the policies'
+             SPOTTER_TPU_MSDA_PRECISION=default) at B = 8 against their plain
+             "default" versions: rows 1-3 at the RT-DETR decoder op, rows
+             1, 2 and 4 at the Deformable-DETR encoder op, row 4 also at the
+             RT-DETR decoder op, fp32 and bf16 rows (the one-pass gather-sum
+             and loc fp32 SASS must show LDG.E.128 too);
              the attention kernels at YOLOS's shapes and more (B = 1 and 8,
              S = 4301 and 1100, hd = 64 and 128, fp32 and bf16; both
              kernels' SASS must show wgmma (HGMMA), no mma.sync (HMMA) and
@@ -161,7 +166,8 @@ this file; exits non-zero without either.
                                             yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
                                             detr_parity,detr_serve,detr_http,
-                                            owl_parity,owl_serve,owl_http,load,probes]
+                                            owl_parity,owl_serve,owl_http,load,precision,
+                                            probes]
 
 The full record is also written to build/chip_smoke.json (or --out).
 """
@@ -187,7 +193,7 @@ REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
           "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
-          "load", "probes")
+          "load", "precision", "probes")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
@@ -405,8 +411,16 @@ def embedding_bag_call(value, idx, w):
     return library, as_output
 
 
-def msda_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda") -> dict:
-    """msda_gather_sum against its plain version at the decoder's shapes."""
+def sass_key(kernel: str, precision: str) -> str:
+    """`msda_sass()`'s entry for `kernel` in `precision` (the one-pass
+    instantiation under "default")."""
+    return f"{kernel}_onepass" if precision == "default" else kernel
+
+
+def msda_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda",
+              precision: str = "highest") -> dict:
+    """msda_gather_sum against its plain version at the decoder's shapes, in
+    `precision` (the one-pass mode under "default")."""
     import torch
 
     from spotter_tpu_torch.ops.msda import (
@@ -427,28 +441,34 @@ def msda_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "
     idx, w = prepare_msda_gather(loc, attn, SHAPES, POINTS, method)
     bh, q, j = idx.shape
 
-    got = msda_gather_sum(value, idx, w)
-    want = msda_gather_sum_plain(value, idx, w)
+    got = msda_gather_sum(value, idx, w, precision)
+    want = msda_gather_sum_plain(value, idx, w, precision)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check_err("msda_gather_sum", err)
+    # embedding_bag computes the unrounded function: a yardstick of "highest"
     library, as_output = embedding_bag_call(value, idx, w)
     lib_err = (as_output(library()) - want).abs().max().item()
+    if precision == "default":
+        library = None
     return {
         "phase": "kernel", "kernel": "msda_gather_sum", "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
+        "precision": precision,
         "shape": {"bh": bh, "s": S_TOTAL, "hd": HD, "q": q, "j": j},
         "max_abs_err": err, "atol": KERNEL_ATOL, "library_max_abs_err": lib_err,
-        "sass": msda_sass()["msda_gather_sum"] if device == "cuda" else None,
-        "kernel_ms": cuda_time_ms(lambda: msda_gather_sum(value, idx, w), 30, flush),
-        "plain_ms": cuda_time_ms(lambda: msda_gather_sum_plain(value, idx, w), 10, flush),
-        "library_ms": cuda_time_ms(library, 30, flush),
+        "sass": msda_sass()[sass_key("msda_gather_sum", precision)] if device == "cuda" else None,
+        "kernel_ms": cuda_time_ms(lambda: msda_gather_sum(value, idx, w, precision), 30, flush),
+        "plain_ms": cuda_time_ms(lambda: msda_gather_sum_plain(value, idx, w, precision), 10,
+                                 flush),
+        "library_ms": cuda_time_ms(library, 30, flush) if library else None,
         **bound(value, idx, w, idx.numel() * 4 + w.numel() * 4 + got.numel() * 4,
                 2 * bh * q * j * HD),
     }
 
 
-def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda") -> dict:
+def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda",
+             precision: str = "highest") -> dict:
     """msda_loc_sum (corner prep in the kernel) against its plain version."""
     import torch
 
@@ -470,7 +490,7 @@ def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "c
     attn = torch.softmax(torch.from_numpy(
         rng.standard_normal((b, QUERIES, HEADS, LP), dtype=np.float32)).to(dev), dim=-1)
     tables = level_tables(SHAPES, POINTS, dev, torch.float32)
-    args = (value, loc, attn, *tables, method)
+    args = (value, loc, attn, *tables, method, precision)
 
     got = msda_loc_sum(*args)
     want = msda_loc_sum_plain(*args)
@@ -483,9 +503,10 @@ def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "c
     return {
         "phase": "kernel", "kernel": "msda_loc_sum", "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
+        "precision": precision,
         "shape": {"bh": bh, "s": S_TOTAL, "hd": HD, "q": QUERIES, "lp": LP, "j": j},
         "max_abs_err": err, "atol": KERNEL_ATOL,
-        "sass": msda_sass()["msda_loc_sum"] if device == "cuda" else None,
+        "sass": msda_sass()[sass_key("msda_loc_sum", precision)] if device == "cuda" else None,
         "kernel_ms": cuda_time_ms(lambda: msda_loc_sum(*args), 30, flush),
         "plain_ms": cuda_time_ms(lambda: msda_loc_sum_plain(*args), 10, flush),
         "library_ms": None,  # no one PyTorch call computes this function
@@ -493,7 +514,8 @@ def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "c
     }
 
 
-def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda") -> dict:
+def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda",
+               precision: str = "highest") -> dict:
     """msda_fused_sum (projections, softmax, locations and corners in the
     kernel) against its plain version."""
     import torch
@@ -528,7 +550,7 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
     )
     base, scale = fused_anchors(ref, LP, POINTS, 0.5)
     tables = level_tables(SHAPES, POINTS, dev, torch.float32)
-    args = (value, hs, *heads, base, scale, *tables, method)
+    args = (value, hs, *heads, base, scale, *tables, method, precision)
 
     got = msda_fused_sum(*args)
     want = msda_fused_sum_plain(*args)
@@ -538,7 +560,7 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
     # nearest-cell rounding is compared on every row, like the bilinear one
     err = (got - want).abs().max().item()
     check_err("msda_fused_sum", err)
-    xy, at = fused_prologue_reference(hs, *heads, base, scale)
+    xy, at = fused_prologue_reference(hs, *heads, base, scale, precision)
     idx, w = loc_corners(xy, at, *tables, method)
     j = idx.shape[2]
     extra = (hs.numel() + sum(t.numel() for t in heads) + base.numel() + scale.numel()
@@ -546,10 +568,11 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
     return {
         "phase": "kernel", "kernel": "msda_fused_sum", "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
+        "precision": precision,
         "shape": {"bh": bh, "s": S_TOTAL, "hd": HD, "q": QUERIES, "lp": LP, "d": D_MODEL,
                   "j": j},
         "max_abs_err": err, "atol": KERNEL_ATOL,
-        "sass": msda_sass()["msda_fused_sum"] if device == "cuda" else None,
+        "sass": msda_sass()[sass_key("msda_fused_sum", precision)] if device == "cuda" else None,
         "kernel_ms": cuda_time_ms(lambda: msda_fused_sum(*args), 30, flush),
         "plain_ms": cuda_time_ms(lambda: msda_fused_sum_plain(*args), 10, flush),
         "library_ms": None,  # no one PyTorch call computes this function
@@ -643,7 +666,7 @@ def sep_work(ops, mask, hw, r_band) -> tuple[int, int]:
 
 
 def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
-             cleared: bool = False, device: str = "cuda") -> dict:
+             cleared: bool = False, device: str = "cuda", precision: str = "highest") -> dict:
     """msda_sep_sum against its plain version on one MSDA op's levels, each
     level's operands built as the model builds them; `cleared` clears half
     the hit table's bits at random (the kernel must drop exactly those
@@ -676,7 +699,7 @@ def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
         if cleared:
             mask = mask * (torch.rand(mask.shape, generator=gen, device=dev) < 0.5).to(mask.dtype)
         rows_l = rows_all[:, offs[lvl]:offs[lvl] + lh * lw].contiguous()
-        calls.append((rows_l, *ops, mask, (lh, lw), r_band, POINTS))
+        calls.append((rows_l, *ops, mask, (lh, lw), r_band, POINTS, precision))
     del loc, attn, value, rows_all
 
     err, dropped = 0.0, 0.0
@@ -707,7 +730,7 @@ def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
     rec = {
         "phase": "kernel", "kernel": "msda_sep_sum", "case": label, "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
-        "cleared_mask_bits": cleared,
+        "precision": precision, "cleared_mask_bits": cleared,
         "shape": {"bh": b * HEADS, "levels": [shapes[i] for i in levels], "hd": HD, "q": q,
                   "points": POINTS, "launches_per_op": len(levels)},
         "max_abs_err": err, "atol": KERNEL_ATOL,
@@ -795,7 +818,8 @@ WALK_PLAIN_CHUNK = 4096  # queries a plain-version call takes at a Deformable-DE
 
 
 def walk_op_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
-                 kernel: str = "msda_gather_sum", device: str = "cuda") -> dict:
+                 kernel: str = "msda_gather_sum", device: str = "cuda",
+                 precision: str = "highest") -> dict:
     """msda_gather_sum or msda_loc_sum against its plain version on one
     Deformable-DETR MSDA op (`MSDA_OP_SHAPES`): the value (B, S, H, hd), loc
     (B, Q, H, LP, 2) and attn (B, Q, H, LP) as the model holds them, the
@@ -826,18 +850,19 @@ def walk_op_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
     tables = level_tables(shapes, POINTS, dev, torch.float32)
     if kernel == "msda_gather_sum":
         def run():
-            return msda_gather_sum(value, idx, w)
+            return msda_gather_sum(value, idx, w, precision)
 
         def plain_part(a, z):
-            return msda_gather_sum_plain(value, idx[:, a:z], w[:, a:z])
+            return msda_gather_sum_plain(value, idx[:, a:z], w[:, a:z], precision)
 
         inputs_bytes = (idx.numel() + w.numel()) * 4
     else:
         def run():
-            return msda_loc_sum(value, loc, attn, *tables, method)
+            return msda_loc_sum(value, loc, attn, *tables, method, precision)
 
         def plain_part(a, z):
-            return msda_loc_sum_plain(value, loc[:, a:z], attn[:, a:z], *tables, method)
+            return msda_loc_sum_plain(value, loc[:, a:z], attn[:, a:z], *tables, method,
+                                      precision)
 
         inputs_bytes = (loc.numel() + attn.numel()) * 4 + 3 * lp * 4
 
@@ -855,10 +880,11 @@ def walk_op_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
     rec = {
         "phase": "kernel", "kernel": kernel, "case": label, "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
+        "precision": precision,
         "shape": {"b": b, "h": HEADS, "hd": HD, "s": s, "q": q, "lp": lp, "j": idx.shape[2]},
         "max_abs_err": err, "atol": KERNEL_ATOL,
     }
-    if kernel == "msda_gather_sum":
+    if kernel == "msda_gather_sum" and precision == "highest":
         library, as_output = embedding_bag_call(value, idx, w)
         rec["library_max_abs_err"] = (as_output(library()) - want).abs().max().item()
     del want
@@ -876,22 +902,27 @@ def walk_op_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
     return rec
 
 
-# the redesigned MSDA kernels' fp32 instantiations (vector path), by the
-# library that holds them and a tag of their mangled names
-MSDA_SASS_KERNELS = {"msda_gather_sum": ("msda", "msda_gather_sum_kernelIfLb1E"),
-                     "msda_loc_sum": ("msda", "msda_loc_sum_kernelIfLb1E"),
-                     "msda_fused_sum": ("msda", "msda_fused_sum_kernelIfLb1E"),
-                     "msda_hd_gather_sum": ("msda_backends", "msda_hd_gather_sum_kernelIfLb1E")}
-# the kernels whose fp32 value rows must move 128 bits a load
-MSDA_WIDE_LOADS = ("msda_gather_sum", "msda_loc_sum", "msda_hd_gather_sum")
+# the redesigned MSDA kernels' fp32 instantiations (vector path), "highest"
+# and one-pass, by the library that holds them and a tag of their mangled
+# names (template <float, kVec = true, kOnePass>)
+MSDA_SASS_KERNELS = {
+    **{name: ("msda", f"{name}_kernelIfLb1ELb0E")
+       for name in ("msda_gather_sum", "msda_loc_sum", "msda_fused_sum")},
+    **{f"{name}_onepass": ("msda", f"{name}_kernelIfLb1ELb1E")
+       for name in ("msda_gather_sum", "msda_loc_sum", "msda_fused_sum")},
+    "msda_hd_gather_sum": ("msda_backends", "msda_hd_gather_sum_kernelIfLb1E"),
+}
+# the kernels whose fp32 value rows must move 128 bits a load, in both modes
+MSDA_WIDE_LOADS = ("msda_gather_sum", "msda_loc_sum", "msda_hd_gather_sum",
+                   "msda_gather_sum_onepass", "msda_loc_sum_onepass")
 
 
 @functools.cache
 def msda_sass() -> dict:
     """Instructions, global loads and 128-bit global loads (LDG.E.128) in the
     SASS of the redesigned MSDA kernels (fp32 rows, vector path): the
-    gather-sum, loc and lane-gather kernels must load their value rows 128
-    bits at a time. Read once a run."""
+    gather-sum, loc and lane-gather kernels, and the one-pass gather-sum and
+    loc, must load their value rows 128 bits at a time. Read once a run."""
     from spotter_tpu_torch.ops.msda import build_msda_backends_kernel, build_msda_kernel
     from spotter_tpu_torch.utils.cuda_build import disassemble, sass_functions
 
@@ -928,6 +959,23 @@ def backend_cases():
     cases += [(sep_case, "ddetr_encoder", f32, m, True) for m in ("default", "discrete")]
     cases += [(sep_case, "rtdetr_decoder", bf16, "default", False),
               (hd_gather_case, "rtdetr_decoder", bf16, "default", False)]
+    return cases
+
+
+# the one-pass ("default") mode of rows 1-4, at B = 8 with fp32 and bf16
+# rows: rows 1-3 at RT-DETR's decoder op, rows 1, 2 and 4 at the
+# Deformable-DETR encoder op, row 4 also at RT-DETR's decoder op
+def one_pass_cases():
+    import torch
+
+    cases = []
+    for rows_dtype in (torch.float32, torch.bfloat16):
+        cases += [(functools.partial(case, precision="default"), None, rows_dtype)
+                  for case in KERNEL_CASES]
+        cases += [(functools.partial(walk_op_case, kernel=k, precision="default"),
+                   "ddetr_encoder", rows_dtype) for k in ("msda_gather_sum", "msda_loc_sum")]
+        cases += [(functools.partial(sep_case, precision="default"), label, rows_dtype)
+                  for label in ("ddetr_encoder", "rtdetr_decoder")]
     return cases
 
 # (B, S, H, hd): yolos-base (S = 1 + 50*84 + 100 = 4301, 12 heads of 64) at
@@ -1198,6 +1246,11 @@ def phase_kernel(log: list, seed: int) -> list:
     for case, label, rows_dtype, method, cleared in backend_cases():
         kw = {"cleared": cleared} if case is sep_case else {}
         rec = case(label, 8, rows_dtype, method, seed, flush, **kw)
+        emit(rec, log)
+        cases.append(rec)
+    for case, label, rows_dtype in one_pass_cases():
+        args = (8, rows_dtype, "default", seed, flush)
+        rec = case(*args) if label is None else case(label, *args)
         emit(rec, log)
         cases.append(rec)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1621,18 +1674,25 @@ POLICY_KERNEL = {"float32": "flash_attn_fp32", "mixed": "flash_attn_bf16"}
 
 
 @contextlib.contextmanager
-def precision_policy(name: str):
-    """SPOTTER_TPU_DTYPE=`name` while the block builds models (the zoo reads
-    the policy when it builds one)."""
-    old = os.environ.get("SPOTTER_TPU_DTYPE")
+def precision_policy(name: str, rep_fuse=None):
+    """SPOTTER_TPU_DTYPE=`name` and SPOTTER_TPU_REP_FUSE=`rep_fuse` (unset
+    for None) while the block builds and runs models: the zoo reads the
+    policy when it builds one, and the MSDA precision and RepVGG fusion
+    defaults are read when a forward runs."""
+    saved = {k: os.environ.get(k) for k in ("SPOTTER_TPU_DTYPE", "SPOTTER_TPU_REP_FUSE")}
     os.environ["SPOTTER_TPU_DTYPE"] = name
+    if rep_fuse is None:
+        os.environ.pop("SPOTTER_TPU_REP_FUSE", None)
+    else:
+        os.environ["SPOTTER_TPU_REP_FUSE"] = rep_fuse
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("SPOTTER_TPU_DTYPE")
-        else:
-            os.environ["SPOTTER_TPU_DTYPE"] = old
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def build_yolos_under(policy: str, seed: int):
@@ -2861,6 +2921,363 @@ def phase_load(log: list, seed: int, device: str = "cuda") -> dict:
     return out
 
 
+# --- precision policies -------------------------------------------------------
+
+# RT-DETR's legs: (policy, SPOTTER_TPU_REP_FUSE), each policy at its default
+# fusion ("bfloat16" fuses), then "bfloat16" unfused
+RTDETR_POLICY_LEGS = (("mixed", None), ("bfloat16", None), ("bfloat16", "0"))
+# the card against the CPU under a policy, at full width: logits (of the
+# largest), boxes (absolute). The CPU tests' port-vs-JAX bounds are set at
+# the tiny depth (1 % / 3e-3 "mixed"); cuDNN's bf16 convolutions and the
+# CPU's round each output once but sum in other orders, and at full depth
+# (ResNet-101-vd's 100 convolutions) those 1-ulp differences compound: on
+# an H100 80GB HBM3 (700 W), "mixed" measured 3.8 % / 1.04e-2, encoder
+# scores 1.9 % and 91 % of the queries matched (PERF.md). The gates below
+# are the card-vs-float32 ones (the same drift's upper bound).
+POLICY_TOL = {"mixed": (0.1, 0.05), "bfloat16": (0.25, 0.1)}
+# the card's policy against its own "float32" forward at B = 8 (the same
+# seeded weights before the bf16 cast): logits (of the largest), boxes
+POLICY_VS_FLOAT32 = {"mixed": (0.1, 0.05), "bfloat16": (0.25, 0.1)}
+MATCH_RADIUS = 1e-2  # a query matches the other side's nearest selected box within this
+MIN_MATCHED_SHARE = 0.75
+POLICY_ROUNDS = 5  # timed engine requests, and /detect rounds of each size, a leg
+
+
+def forward_with_scores(model, x):
+    """RT-DETR's outputs and its encoder scores before the top-k (the
+    largest class logit of every source position), through a hook."""
+    seen = {}
+
+    def keep(module, args, output) -> None:  # returns None: the output stays as it is
+        seen["scores"] = output.float().amax(-1)
+
+    hook = model.enc_score_head.register_forward_hook(keep)
+    try:
+        out = model(x)
+    finally:
+        hook.remove()
+    return out, seen["scores"]
+
+
+def matched_record(ref: dict, got: dict, b: int) -> dict:
+    """As tests/test_torch_precision_models.py compares RT-DETR under a
+    policy: per image, each of `got`'s selected queries matched to `ref`'s
+    nearest selected box (within MATCH_RADIUS); the matched share, and the
+    logits' and boxes' max abs error over the matched queries; plus the
+    sorted top-k scores' max abs error."""
+    shares, d_logits, d_boxes, d_topk = [], 0.0, 0.0, 0.0
+    for i in range(b):
+        rb, gb = ref["enc_topk_bboxes"][i].float().cpu(), got["enc_topk_bboxes"][i].float().cpu()
+        dist, j = (gb[:, None] - rb[None]).abs().amax(-1).min(1)
+        ok = dist <= MATCH_RADIUS
+        shares.append(ok.float().mean().item())
+        if ok.any():
+            d_logits = max(d_logits, (got["logits"][i].cpu()[ok]
+                                      - ref["logits"][i].cpu()[j[ok]]).abs().max().item())
+            d_boxes = max(d_boxes, (got["pred_boxes"][i].cpu()[ok]
+                                    - ref["pred_boxes"][i].cpu()[j[ok]]).abs().max().item())
+        topk = [o["enc_topk_logits"][i].float().cpu().amax(-1).sort().values for o in (ref, got)]
+        d_topk = max(d_topk, (topk[0] - topk[1]).abs().max().item())
+    return {"matched_share": shares, "logits_max_abs_err": d_logits, "boxes_max_abs_err": d_boxes,
+            "logits_abs_max": ref["logits"].abs().max().item(), "sorted_topk_max_abs_err": d_topk}
+
+
+def check_policy_record(rec: dict, logit_tol: float, box_tol: float, what: str) -> None:
+    scale = rec["logits_abs_max"]
+    bad = [k for k in ("logits_max_abs_err", "sorted_topk_max_abs_err", "scores_max_abs_err")
+           if k in rec and not rec[k] <= logit_tol * scale]
+    if bad or not rec["boxes_max_abs_err"] <= box_tol or min(
+            rec.get("matched_share", [1.0])) < MIN_MATCHED_SHARE:
+        raise AssertionError(f"{what}: outside tolerance (logits {logit_tol} of {scale}, boxes "
+                             f"{box_tol}, matched share >= {MIN_MATCHED_SHARE}): {rec}")
+
+
+def rtdetr_policy_leg(policy: str, rep_fuse, seed: int, photos, x8, ref_scores, flush,
+                      photo_dir: str, device: str) -> dict:
+    """One RT-DETRv2-R101 leg at full width under `policy`: weights at the
+    policy's dtypes; the card against the CPU at B = 1 (default legs);
+    rows 1-3 in their one-pass mode, 6 launches a forward under each prep;
+    device ms at B = 1 and 8, stages and top kernels at B = 8 (torch.profiler,
+    tools/profile_forward.py); "mixed"'s encoder scores against "float32"'s
+    at B = 8; the engine on 8 photos; /detect for 1 and 8 URLs under fused
+    (default legs)."""
+    import asyncio
+    import copy
+
+    import torch
+
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.models.rtdetr import rep_fuse_default
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.serving.app import build_detector_app
+    from spotter_tpu_torch.tools import profile_forward
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
+
+    compute = torch.bfloat16 if policy == "bfloat16" else torch.float32
+    rec = {"policy": policy, "rep_fuse_env": rep_fuse}
+    with precision_policy(policy, rep_fuse):
+        built = build_detector(MODEL_NAME, tiny=False, seed=seed)
+        module = built.module
+        layers = module.config.decoder_layers
+        dtypes = {"backbone": module.backbone.stem0.conv.weight.dtype,
+                  "encoder": module.fpn_block0.bottleneck0.conv1.conv.weight.dtype,
+                  "decoder": module.decoder_layer0.fc1.weight.dtype}
+        rec["weight_dtypes"] = {k: str(v).removeprefix("torch.") for k, v in dtypes.items()}
+        if dtypes != {"backbone": torch.bfloat16, "encoder": compute, "decoder": compute}:
+            raise AssertionError(f"RT-DETR under {policy} built at {dtypes}")
+        rec["rep_fuse"] = rep_fuse_default(compute)
+        rec["msda_precision"] = msda.msda_precision()
+        if rec["msda_precision"] != "default":
+            raise AssertionError(f"MSDA precision under {policy}: {rec['msda_precision']}")
+        cpu_model = copy.deepcopy(module).eval() if rep_fuse is None else None
+        model = module.to(device).eval()
+        x1 = x8[:1]
+        with torch.inference_mode():
+            if cpu_model is not None:
+                t0 = time.perf_counter()
+                ref1, ref_scores1 = forward_with_scores(cpu_model, x1.cpu())
+                rec["cpu_forward_s"] = time.perf_counter() - t0
+                got1, scores1 = forward_with_scores(model, x1)
+                card_cpu = matched_record(ref1, got1, 1)
+                card_cpu["scores_max_abs_err"] = (scores1.cpu() - ref_scores1).abs().max().item()
+                rec["card_vs_cpu_b1"] = card_cpu
+                check_policy_record(card_cpu, *POLICY_TOL[policy],
+                                    f"RT-DETR {policy}: card vs CPU at B = 1")
+                del cpu_model, ref1, got1
+            prep_launches = {}
+            for prep in msda.MSDA_PREP_VALUES:
+                msda.MSDA_PREP = prep
+                reset_counts()
+                got = model(x1)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check_launches(counts, PREP_KERNEL[prep], layers,
+                               f"RT-DETR {policy} forward under {prep}")
+                prep_launches[prep] = counts[PREP_KERNEL[prep]]
+                if not (torch.isfinite(got["logits"]).all() and torch.isfinite(got["pred_boxes"]).all()):
+                    raise AssertionError(f"RT-DETR {policy}: non-finite outputs under {prep}")
+            msda.MSDA_PREP = "xla"
+            rec["launches_per_forward_by_prep"] = prep_launches
+            rec["device_forward_ms"] = {
+                b: cuda_time_ms(lambda b=b: model(x8[:b]), 5, flush) for b in (1, 8)}
+            prof = profile_forward.profile_backend(MODEL_NAME, model, (x8,))
+            rec["stages_ms_b8"] = prof["stages_ms"]
+            rec["busy_share_b8"] = prof["profiler"]["busy_share"]
+            rec["top_kernels_b8"] = prof["profiler"]["top_kernels"][:12]
+            rec["host_ms_b8"] = prof["profiler"]["host_ms_per_forward"]
+            rec["top_host_ops_b8"] = prof["profiler"]["top_host_ops"][:10]
+            if policy == "mixed" and rep_fuse is None:
+                _, scores8 = forward_with_scores(model, x8)
+                err = (scores8 - ref_scores).abs().max().item()
+                scale = ref_scores.abs().max().item()
+                rec["vs_float32_b8_encoder_scores"] = {"max_abs_err": err, "abs_max": scale}
+                if not err <= POLICY_VS_FLOAT32[policy][0] * scale:
+                    raise AssertionError(f"RT-DETR mixed vs float32 encoder scores: {err} of {scale}")
+        # the engine: 8 photos, 5 requests after one untimed
+        engine = InferenceEngine(built, device=device)
+        engine.warmup()
+        engine.detect(photos[:8])
+        reset_counts()
+        lat = []
+        for _ in range(POLICY_ROUNDS):
+            t0 = time.perf_counter()
+            engine.detect(photos[:8])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        check_launches(counts, "msda_gather_sum", layers * POLICY_ROUNDS,
+                       f"RT-DETR {policy} engine")
+        rec["engine_batch8_p50_ms"] = statistics.median(lat)
+        rec["engine_launches"] = counts["msda_gather_sum"]
+        del engine, model, built, module
+        release_cuda_memory()
+        if rep_fuse is None:  # the replica's /detect under fused
+            det = build_detector_app(MODEL_NAME, device=device, seed=seed, warmup=True)
+            runs = [("fused", lambda: setattr(msda, "MSDA_PREP", "fused"),
+                     [("1", 1, POLICY_ROUNDS, 1), ("8", 8, POLICY_ROUNDS, 1)])]
+            try:
+                http = asyncio.run(drive_http(det, photo_dir, runs))
+            finally:
+                msda.MSDA_PREP = "xla"
+            check_launches(http["fused"]["launches"], "msda_fused_sum",
+                           layers * http["fused"]["forwards"], f"RT-DETR {policy} /detect")
+            rec["http_fused"] = {"latency_ms": latency_summary(http["latency_ms"]),
+                                 "launches": http["fused"]["launches"]["msda_fused_sum"],
+                                 "forwards": http["fused"]["forwards"]}
+            del det
+            release_cuda_memory()
+    return rec
+
+
+def policy_family_leg(name: str, seed: int, photos, flush, photo_dir: str,
+                      device: str) -> dict:
+    """Deformable-DETR or a DETR-lineage model at full width, B = 8: the
+    card's "mixed" and "bfloat16" forwards against its "float32" one (the
+    same seeded weights) within POLICY_VS_FLOAT32, device ms each, and the
+    launches: 12 one-pass gather-sums for Deformable-DETR (6 encoder and 6
+    decoder ops), none for the lineage; Deformable-DETR under "mixed" also
+    once under pallas_sep (48 one-pass separable launches). Under each bf16
+    policy the same model then serves 8 photos through InferenceEngine.detect
+    and POST /detect for 1 and 8 URLs (the standalone app on it), with the
+    same launches a forward."""
+    import asyncio
+
+    import torch
+
+    from spotter_tpu_torch.engine.batcher import MicroBatcher
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.serving.detector import AmenitiesDetector
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
+
+    rec = {"model": name}
+    outs = {}
+    for policy in ("float32", "mixed", "bfloat16"):
+        with precision_policy(policy):
+            built = build_detector(name, tiny=False, seed=seed)
+            model = built.module.to(device).eval()
+            inputs = model_inputs(built, photos[:8], device)
+            expected = (ddetr_expected(model, "xla", 1) if name == DDETR_NAME else {})
+            with torch.inference_mode():
+                reset_counts()
+                out = model(*inputs)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check_counts(counts, expected, f"{name} under {policy}")
+                outs[policy] = {k: v.float().cpu() for k, v in out.items()}
+                leg = {"device_forward_ms_b8": cuda_time_ms(lambda: model(*inputs), 5, flush),
+                       "launches": {k: v for k, v in counts.items() if v},
+                       "msda_precision": msda.msda_precision()}
+                if policy != "float32":
+                    ref = outs["float32"]
+                    leg["logits_max_abs_err"] = (outs[policy]["logits"] - ref["logits"]).abs().max().item()
+                    leg["logits_abs_max"] = ref["logits"].abs().max().item()
+                    leg["boxes_max_abs_err"] = (outs[policy]["pred_boxes"]
+                                                - ref["pred_boxes"]).abs().max().item()
+                    check_policy_record(leg, *POLICY_VS_FLOAT32[policy],
+                                        f"{name} {policy} vs float32 at B = 8")
+                if name == DDETR_NAME and policy == "mixed":
+                    msda.MSDA_BACKEND = "pallas_sep"
+                    try:
+                        reset_counts()
+                        model(*inputs)
+                        torch.cuda.synchronize()
+                        sep = read_counts()
+                    finally:
+                        msda.MSDA_BACKEND = "auto"
+                    check_counts(sep, ddetr_expected(model, "pallas_sep", 1),
+                                 f"{name} mixed under pallas_sep")
+                    leg["pallas_sep_launches"] = sep["msda_sep_sum"]
+            if policy != "float32":
+                engine = InferenceEngine(built, device=device)
+                engine.warmup()
+                reset_counts()
+                t0 = time.perf_counter()
+                dets = engine.detect(photos[:8])
+                leg["engine_batch8_ms"] = (time.perf_counter() - t0) * 1e3
+                check_counts(read_counts(), expected, f"{name} {policy} engine")
+                det = AmenitiesDetector(engine, MicroBatcher(engine, max_delay_ms=5.0))
+                http = asyncio.run(drive_http(det, photo_dir, [
+                    ("policy", lambda: None, [("1", 1, 1, 1), ("8", 8, 1, 1)])]))
+                forwards = http["policy"]["forwards"]
+                check_counts(http["policy"]["launches"],
+                             {k: v * forwards for k, v in expected.items()},
+                             f"{name} {policy} /detect")
+                leg["http_ms"] = {k: v[0] for k, v in http["latency_ms"].items()}
+                leg["detections_8"] = sum(len(d) for d in dets)
+                del engine, det
+            rec[policy] = leg
+            del model, built, inputs
+            release_cuda_memory()
+    return rec
+
+
+def phase_precision(log: list, seed: int, device: str = "cuda") -> dict:
+    """The "mixed" and "bfloat16" policies on the card (module docstring,
+    phase 20): RT-DETRv2-R101's legs (`rtdetr_policy_leg`) beside its
+    "float32" stages; the no-fallback gate (the "mixed" backbone stage must
+    take less device time than the "float32" one in this run, or a silent
+    fp32 upcast would pass unseen); Deformable-DETR and the DETR lineage
+    (`policy_family_leg`); and a "mixed" RT-DETR built from a checkpoint
+    (written from the seeded "float32" model) equal to the seeded "mixed"
+    one bit for bit."""
+    import tempfile
+
+    import torch
+
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.tools import profile_forward
+    from spotter_tpu_torch.tools.hf_checkpoint import write_checkpoint
+    from spotter_tpu_torch.utils.precision import use_exact_float32
+
+    use_exact_float32()
+    msda.MSDA_PREP, msda.MSDA_PRECISION = "xla", None  # the knob follows each policy
+    rng = np.random.default_rng(seed + 30)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    out = {"phase": "precision", "device": device,
+           "card": nvidia_smi("name,power.limit") if device == "cuda" else None, "rtdetr": {}}
+    with precision_policy("float32"):
+        f32 = build_detector(MODEL_NAME, tiny=False, seed=seed)
+        model = f32.module.to(device).eval()
+        (x8,) = model_inputs(f32, photos[:8], device)
+        with torch.inference_mode():
+            _, ref_scores = forward_with_scores(model, x8)
+            prof = profile_forward.profile_backend(MODEL_NAME, model, (x8,))
+        out["rtdetr"]["float32"] = {"stages_ms_b8": prof["stages_ms"],
+                                    "forward_wall_ms_b8": prof["forward_wall_ms_median"],
+                                    "busy_share_b8": prof["profiler"]["busy_share"],
+                                    "top_kernels_b8": prof["profiler"]["top_kernels"][:12],
+                                    "host_ms_b8": prof["profiler"]["host_ms_per_forward"],
+                                    "top_host_ops_b8": prof["profiler"]["top_host_ops"][:10]}
+        emit({"phase": "precision", "model": MODEL_NAME, "leg": "float32",
+              **out["rtdetr"]["float32"]}, log)
+        del model, f32
+        release_cuda_memory()
+    out["families"] = {}
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        for policy, rep_fuse in RTDETR_POLICY_LEGS:
+            label = policy if rep_fuse is None else f"{policy}_rep_fuse_{rep_fuse}"
+            rec = rtdetr_policy_leg(policy, rep_fuse, seed, photos, x8, ref_scores, flush,
+                                    photo_dir, device)
+            emit({"phase": "precision", "model": MODEL_NAME, "leg": label, **rec}, log)
+            out["rtdetr"][label] = rec
+        backbone = {k: v["stages_ms_b8"]["backbone"] for k, v in out["rtdetr"].items()}
+        out["backbone_ms_b8"] = backbone
+        if not backbone["mixed"] < backbone["float32"]:
+            raise AssertionError(f"the mixed backbone stage is not faster than float32's: "
+                                 f"{backbone} (a silent fp32 upcast?)")
+        for name in (DDETR_NAME, *DETR_LINEAGE):
+            rec = policy_family_leg(name, seed, photos, flush, photo_dir, device)
+            emit({"phase": "precision", **rec}, log)
+            out["families"][name] = rec
+    # "mixed" from a checkpoint of the seeded fp32 model
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, MODEL_NAME)
+        with precision_policy("float32"):
+            write_checkpoint(build_detector(MODEL_NAME, tiny=False, seed=seed).module, "rtdetr",
+                             path)
+        with precision_policy("mixed"):
+            seeded = build_detector(MODEL_NAME, tiny=False, seed=seed).module
+            loaded = build_detector(path, tiny=False).module
+            want, got = seeded.state_dict(), loaded.state_dict()
+            equal = set(want) == set(got) and all(
+                got[k].dtype == v.dtype and torch.equal(got[k], v) for k, v in want.items())
+            out["checkpoint_mixed"] = {
+                "bit_equal": equal,
+                "bf16_tensors": sum(v.dtype == torch.bfloat16 for v in got.values()),
+                "tensors": len(got)}
+            if not equal:
+                raise AssertionError("the mixed RT-DETR loaded from a checkpoint differs from "
+                                     "the seeded mixed model")
+    summary = {k: v for k, v in out.items() if k not in ("rtdetr", "families")}
+    emit(summary, log)
+    return out
+
+
 def percentile(values, p: float) -> float:
     vals = sorted(values)
     return vals[min(int(p * len(vals)), len(vals) - 1)]
@@ -3011,11 +3428,13 @@ SOURCES.update({name: f"spotter_tpu_torch/csrc/{name}.cu"
                 for name in ("int8_gemm", "pack_tile", "launch_probe")})
 
 
-def is_main_case(c: dict) -> bool:
+def is_main_case(c: dict, precision: str = "highest") -> bool:
     """The case each kernel reports in the summary: B = 8 at its main path's
-    shapes (fp32 rows and bilinear prep for MSDA; yolos-base for attention;
-    OWLv2's patches, fp32 features and the default vocabulary for the class
-    logits; the probes phase marks its own)."""
+    shapes (fp32 rows and bilinear prep for MSDA, in `precision`; yolos-base
+    for attention; OWLv2's patches, fp32 features and the default vocabulary
+    for the class logits; the probes phase marks its own)."""
+    if c.get("precision", "highest") != precision:
+        return False
     if "main" in c:
         return c["main"]
     if c["kernel"] == "owl_class_logits":
@@ -3033,19 +3452,30 @@ def is_main_case(c: dict) -> bool:
             and "case" not in c)
 
 
+# the kernels with a one-pass mode: the summary lists it as a kernel of its
+# own, `<name>_onepass`
+ONE_PASS_KERNELS = ("msda_gather_sum", "msda_loc_sum", "msda_fused_sum", "msda_sep_sum")
+
+
 def kernel_summary(cases: list, launches: dict) -> dict:
     """The `kernels` line: per kernel that a phase of this run held against
     its plain version, its launches on the path that runs it and its main
-    case's numbers (from the kernel phase, or the probes phase)."""
+    case's numbers (from the kernel phase, or the probes phase); rows 1-4's
+    one-pass mode as `<name>_onepass`, with its launches on the precision
+    phase's paths."""
     rows = []
-    for name, replaces in REPLACES.items():
-        mine = [c for c in cases if c["kernel"] == name]
+    entries = [(name, name, "highest") for name in REPLACES]
+    entries += [(f"{name}_onepass", name, "default") for name in ONE_PASS_KERNELS]
+    for row_name, name, precision in entries:
+        replaces = REPLACES[name]
+        mine = [c for c in cases if c["kernel"] == name
+                and c.get("precision", "highest") == precision]
         if not mine:
             continue
-        main_case = next(c for c in mine if is_main_case(c))
+        main_case = next(c for c in mine if is_main_case(c, precision))
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": replaces, "launches": launches.get(name),
+            "name": row_name, "route": "cuda", "source": SOURCES[name],
+            "replaces": replaces, "launches": launches.get(row_name),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -3136,6 +3566,7 @@ def main(argv=None) -> int:
             if "owl_http" in phases:
                 owl_http = phase_owl_http(log, args.seed)
     load = phase_load(log, args.seed) if "load" in phases else None
+    precision = phase_precision(log, args.seed) if "precision" in phases else None
     if "probes" in phases:
         cases += phase_probes(log, args.seed)
     # each kernel's launches on the path that runs it: slice 1's engine path
@@ -3158,6 +3589,13 @@ def main(argv=None) -> int:
     if ddetr_http:
         for backend, name in BACKEND_KERNEL.items():
             launches[name] = ddetr_http[backend]["launches"][name]
+    if precision:  # rows 1-4's one-pass mode on the "mixed" paths
+        mixed = precision["rtdetr"]["mixed"]
+        launches["msda_gather_sum_onepass"] = mixed["engine_launches"]
+        launches["msda_loc_sum_onepass"] = mixed["launches_per_forward_by_prep"]["kernel"]
+        launches["msda_fused_sum_onepass"] = mixed["http_fused"]["launches"]
+        launches["msda_sep_sum_onepass"] = (
+            precision["families"][DDETR_NAME]["mixed"]["pallas_sep_launches"])
 
     if cases:
         summary = kernel_summary(cases, launches)

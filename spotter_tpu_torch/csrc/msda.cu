@@ -91,6 +91,22 @@
 //   (corner_terms, as in the loc kernel); the query's terms go to shared
 //   memory, where the weights were;
 // - walk_tile.
+// One-pass mode (SPOTTER_TPU_MSDA_PRECISION=default, the TPU's one bf16 MXU
+// pass): every kernel has a kOnePass instantiation, reached through the
+// `*_onepass` entry points. It rounds each term's weight to bf16 where the
+// term is staged (make_term) and each value element to bf16 in the walk
+// (identity for bf16 rows), so each product is exact in fp32 and the sums
+// stay fp32 as before; the fused kernel also rounds the hidden states as it
+// stages them and the two projections' weights as the prologue reads them
+// (products exact, fp32 sums, the bias added in fp32). The TPU rounds a
+// one-hot entry instead, the sum of one query's term weights that land on
+// one source row within a level: where two terms of one (query, head,
+// level) share a row, the two differ by at most a bf16 rounding of each of
+// those weights (tests/test_torch_precision_msda.py bounds it). fp32 rows
+// are rounded in registers, not cast to bf16 first: that would add a pass
+// over the value and an allocation a call, and the walk keeps its 128-bit
+// loads.
+//
 // On an H100 80GB HBM3 at 700 W, at RT-DETR's decoder op at B = 8, the
 // gather-sum and loc kernels take ~0.03 ms (2.1-2.3x their bounds) and the
 // fused one ~0.068 (5x: every block copies its head's 36 KB of weights and
@@ -118,7 +134,15 @@
 namespace {
 
 using msda_rows::load_quad;
+using msda_rows::round_to;
 using msda_rows::store_quad;
+
+// an operand of the one-pass mode's products: rounded to bf16 when
+// kOnePass, else as it is
+template <bool kOnePass>
+__device__ __forceinline__ float pass_operand(float v) {
+  return kOnePass ? round_to<__nv_bfloat16>(v) : v;
+}
 
 // queries of one block, all three kernels (tools/fused_tile_probe.py times
 // 16 and 64 beside it)
@@ -149,7 +173,10 @@ __host__ __device__ inline int padded_terms(int n_terms) {
 }
 __host__ __device__ inline int term_stride(int n_terms) { return padded_terms(n_terms) | 1; }
 
+// the weight rounded to bf16 first in the one-pass mode
+template <bool kOnePass>
 __device__ __forceinline__ int2 make_term(int idx, float w, int s, int row_stride) {
+  w = pass_operand<kOnePass>(w);
   const bool on = static_cast<unsigned>(idx) < static_cast<unsigned>(s) && w != 0.0f;
   return make_int2(on ? idx * row_stride : -1, __float_as_int(w));
 }
@@ -172,8 +199,9 @@ __device__ __forceinline__ void pad_terms(int2* __restrict__ terms, int stride, 
 // term order, fmaf(w, v, acc) from 0 (a term not loaded is 0 and adds
 // exactly nothing). value_bh points at the (b, 0, h) row and out_tile at the
 // tile's first (b, q, h) output row; both step row_stride = H * hd elements
-// a row.
-template <typename T, bool kVec>
+// a row. kOnePass rounds each loaded fp32 value to bf16 before its FMA (the
+// staged weights are already rounded; bf16 rows need nothing).
+template <typename T, bool kVec, bool kOnePass>
 __device__ __forceinline__ void walk_tile(const int2* __restrict__ terms, int stride,
                                           int n_terms, int nq, const T* __restrict__ value_bh,
                                           int hd, int row_stride, float* __restrict__ out_tile) {
@@ -192,6 +220,10 @@ __device__ __forceinline__ void walk_tile(const int2* __restrict__ terms, int st
         const int2 tk = t_q[t0 + k];
         wt[k] = __int_as_float(tk.y);
         load_quad<T, kVec>(rows_c + max(tk.x, 0), c, hd, tk.x >= 0, v[k]);
+        if (kOnePass && sizeof(T) == 4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[k][e] = pass_operand<true>(v[k][e]);
+        }
       }
 #pragma unroll
       for (int k = 0; k < kTermChunk; ++k)
@@ -239,15 +271,16 @@ __device__ __forceinline__ void corner_terms(float x, float y, float a, float lw
 }
 
 // a sample's n_corners terms (corner_terms' first n_corners) into t
+template <bool kOnePass>
 __device__ __forceinline__ void put_terms(int2* t, int n_corners, const int (&idx)[4],
                                           const float (&w)[4], int s, int row_stride) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if (k < n_corners) t[k] = make_term(idx[k], w[k], s, row_stride);
+    if (k < n_corners) t[k] = make_term<kOnePass>(idx[k], w[k], s, row_stride);
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kOnePass>
 __global__ void __launch_bounds__(kThreads)
 msda_gather_sum_kernel(const T* __restrict__ value, const int32_t* __restrict__ idx,
                        const float* __restrict__ w, float* __restrict__ out, int h_count,
@@ -285,15 +318,16 @@ msda_gather_sum_kernel(const T* __restrict__ value, const int32_t* __restrict__ 
       if (i < n / 4) {
         const int r = 4 * i / j, c = 4 * i % j;  // the four lie in one query's run
         int2* t = terms + r * stride + c;
-        t[0] = make_term(iv[k].x, wv[k].x, s, row_stride);
-        t[1] = make_term(iv[k].y, wv[k].y, s, row_stride);
-        t[2] = make_term(iv[k].z, wv[k].z, s, row_stride);
-        t[3] = make_term(iv[k].w, wv[k].w, s, row_stride);
+        t[0] = make_term<kOnePass>(iv[k].x, wv[k].x, s, row_stride);
+        t[1] = make_term<kOnePass>(iv[k].y, wv[k].y, s, row_stride);
+        t[2] = make_term<kOnePass>(iv[k].z, wv[k].z, s, row_stride);
+        t[3] = make_term<kOnePass>(iv[k].w, wv[k].w, s, row_stride);
       }
     }
   } else {
     for (int i = threadIdx.x; i < n; i += kThreads) {
-      terms[i / j * stride + i % j] = make_term(__ldg(idx_t + i), __ldg(w_t + i), s, row_stride);
+      terms[i / j * stride + i % j] =
+          make_term<kOnePass>(__ldg(idx_t + i), __ldg(w_t + i), s, row_stride);
     }
   }
   pad_terms(terms, stride, j, nq);
@@ -301,10 +335,10 @@ msda_gather_sum_kernel(const T* __restrict__ value, const int32_t* __restrict__ 
 
   const T* value_bh = value + (b * s * h_count + h) * (long long)hd;
   float* out_tile = out + ((b * q + q0) * h_count + h) * (long long)hd;
-  walk_tile<T, kVec>(terms, stride, j, nq, value_bh, hd, row_stride, out_tile);
+  walk_tile<T, kVec, kOnePass>(terms, stride, j, nq, value_bh, hd, row_stride, out_tile);
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kOnePass>
 __global__ void __launch_bounds__(kThreads)
 msda_loc_sum_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                     const float* __restrict__ attn, const float* __restrict__ lvl_h,
@@ -348,7 +382,7 @@ msda_loc_sum_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       float w[4];
       corner_terms(xy[k].x, xy[k].y, a[k], __ldg(lvl_w + l), __ldg(lvl_h + l),
                    __ldg(lvl_off + l), discrete != 0, idx, w);
-      put_terms(terms + r * stride + l * n_corners, n_corners, idx, w, s, row_stride);
+      put_terms<kOnePass>(terms + r * stride + l * n_corners, n_corners, idx, w, s, row_stride);
     }
   }
   pad_terms(terms, stride, lp * n_corners, nq);
@@ -356,7 +390,8 @@ msda_loc_sum_kernel(const T* __restrict__ value, const float* __restrict__ loc,
 
   const T* value_bh = value + (b * s * h_count + h) * (long long)hd;
   float* out_tile = out + ((b * q + q0) * h_count + h) * (long long)hd;
-  walk_tile<T, kVec>(terms, stride, lp * n_corners, nq, value_bh, hd, row_stride, out_tile);
+  walk_tile<T, kVec, kOnePass>(terms, stride, lp * n_corners, nq, value_bh, hd, row_stride,
+                               out_tile);
 }
 
 // The fused block's shared memory, in floats, two regions reused between
@@ -398,7 +433,7 @@ __device__ __forceinline__ void stage_copy(float* __restrict__ dst, const float*
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kOnePass>
 __global__ void __launch_bounds__(kThreads, 2)
 msda_fused_sum_kernel(const T* __restrict__ value, const float* __restrict__ hs,
                       const float* __restrict__ w_off, const float* __restrict__ b_off,
@@ -436,16 +471,16 @@ msda_fused_sum_kernel(const T* __restrict__ value, const float* __restrict__ hs,
       const int r = i % kQTile, k = i / kQTile;
       if (r < nq) {
         const float4 x = __ldg(reinterpret_cast<const float4*>(hs_tile + (long long)r * d) + k);
-        hs_t[(4 * k) * kHsStride + r] = x.x;
-        hs_t[(4 * k + 1) * kHsStride + r] = x.y;
-        hs_t[(4 * k + 2) * kHsStride + r] = x.z;
-        hs_t[(4 * k + 3) * kHsStride + r] = x.w;
+        hs_t[(4 * k) * kHsStride + r] = pass_operand<kOnePass>(x.x);
+        hs_t[(4 * k + 1) * kHsStride + r] = pass_operand<kOnePass>(x.y);
+        hs_t[(4 * k + 2) * kHsStride + r] = pass_operand<kOnePass>(x.z);
+        hs_t[(4 * k + 3) * kHsStride + r] = pass_operand<kOnePass>(x.w);
       }
     }
   } else {
     for (int i = tid; i < kQTile * d; i += n_threads) {
       const int r = i % kQTile, dd = i / kQTile;
-      if (r < nq) hs_t[dd * kHsStride + r] = __ldg(hs_tile + (long long)r * d + dd);
+      if (r < nq) hs_t[dd * kHsStride + r] = pass_operand<kOnePass>(__ldg(hs_tile + (long long)r * d + dd));
     }
   }
   cp_async_wait_all();
@@ -475,7 +510,10 @@ msda_fused_sum_kernel(const T* __restrict__ value, const float* __restrict__ hs,
     for (int dd = 0; dd < d; ++dd) {
       const float4 hv = *reinterpret_cast<const float4*>(h_col + dd * kHsStride);
       const float hq[kFusedRowBlock] = {hv.x, hv.y, hv.z, hv.w};
-      const float wv[3] = {wx[dd * 2 * lp], wy[dd * 2 * lp], wl[dd * lp]};
+      // the one-pass mode rounds the weights here (hs_t was rounded as staged)
+      const float wv[3] = {pass_operand<kOnePass>(wx[dd * 2 * lp]),
+                           pass_operand<kOnePass>(wy[dd * 2 * lp]),
+                           pass_operand<kOnePass>(wl[dd * lp])};
 #pragma unroll
       for (int i = 0; i < kFusedRowBlock; ++i)
 #pragma unroll
@@ -522,7 +560,8 @@ msda_fused_sum_kernel(const T* __restrict__ value, const float* __restrict__ hs,
       float w[4];
       corner_terms(x, y, e / sum, __ldg(lvl_w + lane), __ldg(lvl_h + lane), __ldg(lvl_off + lane),
                    discrete != 0, idx, w);
-      put_terms(terms + r * stride + lane * n_corners, n_corners, idx, w, s, h_count * hd);
+      put_terms<kOnePass>(terms + r * stride + lane * n_corners, n_corners, idx, w, s,
+                          h_count * hd);
     }
   }
   pad_terms(terms, stride, lp * n_corners, nq);
@@ -530,7 +569,8 @@ msda_fused_sum_kernel(const T* __restrict__ value, const float* __restrict__ hs,
 
   const T* value_bh = value + ((long long)b * s * h_count + h) * hd;
   float* out_tile = out + (((long long)b * q + q0) * h_count + h) * hd;
-  walk_tile<T, kVec>(terms, stride, lp * n_corners, nq, value_bh, hd, h_count * hd, out_tile);
+  walk_tile<T, kVec, kOnePass>(terms, stride, lp * n_corners, nq, value_bh, hd, h_count * hd,
+                               out_tile);
 }
 
 // shapes every launcher checks: a grid of (query tiles, H, B), and a row's
@@ -559,14 +599,14 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T>
+template <typename T, bool kOnePass>
 int launch_gather(const void* value, const void* idx, const void* w, void* out, int b_count,
                   int h_count, int s, int hd, int q, int j, void* stream) {
   if (bad_grid(b_count, h_count, s, hd, q) || j < 1 || j > kMaxTerms) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = vector_rows<T>(value, out, hd) ? &msda_gather_sum_kernel<T, true>
-                                               : &msda_gather_sum_kernel<T, false>;
+  auto kernel = vector_rows<T>(value, out, hd) ? &msda_gather_sum_kernel<T, true, kOnePass>
+                                               : &msda_gather_sum_kernel<T, false, kOnePass>;
   const size_t smem = sizeof(int2) * kQTile * term_stride(j);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -576,7 +616,7 @@ int launch_gather(const void* value, const void* idx, const void* w, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kOnePass>
 int launch_loc(const void* value, const void* loc, const void* attn, const void* lvl_h,
                const void* lvl_w, const void* lvl_off, void* out, int b_count, int h_count,
                int s, int hd, int q, int lp, int discrete, void* stream) {
@@ -585,8 +625,8 @@ int launch_loc(const void* value, const void* loc, const void* attn, const void*
       reinterpret_cast<uintptr_t>(loc) % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = vector_rows<T>(value, out, hd) ? &msda_loc_sum_kernel<T, true>
-                                               : &msda_loc_sum_kernel<T, false>;
+  auto kernel = vector_rows<T>(value, out, hd) ? &msda_loc_sum_kernel<T, true, kOnePass>
+                                               : &msda_loc_sum_kernel<T, false, kOnePass>;
   const size_t smem = sizeof(int2) * kQTile * term_stride(lp * (discrete ? 1 : 4));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -598,7 +638,7 @@ int launch_loc(const void* value, const void* loc, const void* attn, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kOnePass>
 int launch_fused(const void* value, const void* hs, const void* w_off, const void* b_off,
                  const void* w_att, const void* b_att, const void* base, const void* scale,
                  const void* lvl_h, const void* lvl_w, const void* lvl_off, void* out,
@@ -610,8 +650,8 @@ int launch_fused(const void* value, const void* hs, const void* w_off, const voi
       kQTile / kFusedRowBlock * lp > kThreads || d < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = vector_rows<T>(value, out, hd) ? &msda_fused_sum_kernel<T, true>
-                                               : &msda_fused_sum_kernel<T, false>;
+  auto kernel = vector_rows<T>(value, out, hd) ? &msda_fused_sum_kernel<T, true, kOnePass>
+                                               : &msda_fused_sum_kernel<T, false, kOnePass>;
   const size_t smem = sizeof(float) * ((size_t)fused_region_a(d, lp) + fused_region_b(d, lp));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -630,57 +670,47 @@ int launch_fused(const void* value, const void* hs, const void* w_off, const voi
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers; the
 // stream is the caller's current CUDA stream. value is (B, S, H, hd) and out
-// (B, Q, H, hd) fp32 in every entry. Each returns the CUDA error of the
-// launch (0 on success). None synchronises or allocates.
-extern "C" int msda_gather_sum_f32(const void* value, const void* idx, const void* w,
-                                   void* out, int b_count, int h_count, int s, int hd, int q,
-                                   int j, void* stream) {
-  return launch_gather<float>(value, idx, w, out, b_count, h_count, s, hd, q, j, stream);
-}
+// (B, Q, H, hd) fp32 in every entry. Each kernel has four entries: f32 or
+// bf16 rows, and the one-pass mode (`_onepass`). Each returns the CUDA error
+// of the launch (0 on success). None synchronises or allocates.
+#define MSDA_GATHER_ENTRY(NAME, T, ONE_PASS)                                                   \
+  extern "C" int NAME(const void* value, const void* idx, const void* w, void* out,           \
+                      int b_count, int h_count, int s, int hd, int q, int j, void* stream) {  \
+    return launch_gather<T, ONE_PASS>(value, idx, w, out, b_count, h_count, s, hd, q, j,      \
+                                      stream);                                                \
+  }
+MSDA_GATHER_ENTRY(msda_gather_sum_f32, float, false)
+MSDA_GATHER_ENTRY(msda_gather_sum_bf16, __nv_bfloat16, false)
+MSDA_GATHER_ENTRY(msda_gather_sum_f32_onepass, float, true)
+MSDA_GATHER_ENTRY(msda_gather_sum_bf16_onepass, __nv_bfloat16, true)
 
-extern "C" int msda_gather_sum_bf16(const void* value, const void* idx, const void* w,
-                                    void* out, int b_count, int h_count, int s, int hd, int q,
-                                    int j, void* stream) {
-  return launch_gather<__nv_bfloat16>(value, idx, w, out, b_count, h_count, s, hd, q, j,
-                                      stream);
-}
+#define MSDA_LOC_ENTRY(NAME, T, ONE_PASS)                                                      \
+  extern "C" int NAME(const void* value, const void* loc, const void* attn,                   \
+                      const void* lvl_h, const void* lvl_w, const void* lvl_off, void* out,   \
+                      int b_count, int h_count, int s, int hd, int q, int lp, int discrete,   \
+                      void* stream) {                                                         \
+    return launch_loc<T, ONE_PASS>(value, loc, attn, lvl_h, lvl_w, lvl_off, out, b_count,     \
+                                   h_count, s, hd, q, lp, discrete, stream);                  \
+  }
+MSDA_LOC_ENTRY(msda_loc_sum_f32, float, false)
+MSDA_LOC_ENTRY(msda_loc_sum_bf16, __nv_bfloat16, false)
+MSDA_LOC_ENTRY(msda_loc_sum_f32_onepass, float, true)
+MSDA_LOC_ENTRY(msda_loc_sum_bf16_onepass, __nv_bfloat16, true)
 
-extern "C" int msda_loc_sum_f32(const void* value, const void* loc, const void* attn,
-                                const void* lvl_h, const void* lvl_w, const void* lvl_off,
-                                void* out, int b_count, int h_count, int s, int hd, int q,
-                                int lp, int discrete, void* stream) {
-  return launch_loc<float>(value, loc, attn, lvl_h, lvl_w, lvl_off, out, b_count, h_count, s,
-                           hd, q, lp, discrete, stream);
-}
-
-extern "C" int msda_loc_sum_bf16(const void* value, const void* loc, const void* attn,
-                                 const void* lvl_h, const void* lvl_w, const void* lvl_off,
-                                 void* out, int b_count, int h_count, int s, int hd, int q,
-                                 int lp, int discrete, void* stream) {
-  return launch_loc<__nv_bfloat16>(value, loc, attn, lvl_h, lvl_w, lvl_off, out, b_count,
-                                   h_count, s, hd, q, lp, discrete, stream);
-}
-
-extern "C" int msda_fused_sum_f32(const void* value, const void* hs, const void* w_off,
-                                  const void* b_off, const void* w_att, const void* b_att,
-                                  const void* base, const void* scale, const void* lvl_h,
-                                  const void* lvl_w, const void* lvl_off, void* out,
-                                  int b_count, int h_count, int s, int hd, int q, int d, int lp,
-                                  int discrete, void* stream) {
-  return launch_fused<float>(value, hs, w_off, b_off, w_att, b_att, base, scale, lvl_h, lvl_w,
-                             lvl_off, out, b_count, h_count, s, hd, q, d, lp, discrete, stream);
-}
-
-extern "C" int msda_fused_sum_bf16(const void* value, const void* hs, const void* w_off,
-                                   const void* b_off, const void* w_att, const void* b_att,
-                                   const void* base, const void* scale, const void* lvl_h,
-                                   const void* lvl_w, const void* lvl_off, void* out,
-                                   int b_count, int h_count, int s, int hd, int q, int d, int lp,
-                                   int discrete, void* stream) {
-  return launch_fused<__nv_bfloat16>(value, hs, w_off, b_off, w_att, b_att, base, scale, lvl_h,
-                                     lvl_w, lvl_off, out, b_count, h_count, s, hd, q, d, lp,
-                                     discrete, stream);
-}
+#define MSDA_FUSED_ENTRY(NAME, T, ONE_PASS)                                                    \
+  extern "C" int NAME(const void* value, const void* hs, const void* w_off, const void* b_off, \
+                      const void* w_att, const void* b_att, const void* base,                 \
+                      const void* scale, const void* lvl_h, const void* lvl_w,                \
+                      const void* lvl_off, void* out, int b_count, int h_count, int s,        \
+                      int hd, int q, int d, int lp, int discrete, void* stream) {             \
+    return launch_fused<T, ONE_PASS>(value, hs, w_off, b_off, w_att, b_att, base, scale,      \
+                                     lvl_h, lvl_w, lvl_off, out, b_count, h_count, s, hd, q,  \
+                                     d, lp, discrete, stream);                                \
+  }
+MSDA_FUSED_ENTRY(msda_fused_sum_f32, float, false)
+MSDA_FUSED_ENTRY(msda_fused_sum_bf16, __nv_bfloat16, false)
+MSDA_FUSED_ENTRY(msda_fused_sum_f32_onepass, float, true)
+MSDA_FUSED_ENTRY(msda_fused_sum_bf16_onepass, __nv_bfloat16, true)
 
 extern "C" const char* msda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

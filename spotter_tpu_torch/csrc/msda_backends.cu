@@ -35,6 +35,19 @@
 //    are read where the model holds them, so the backend makes no permute
 //    copy of the value or the output. Nothing is padded: any S and Q.
 //
+// msda_sep_sum's one-pass mode (SPOTTER_TPU_MSDA_PRECISION=default; the
+// `_onepass` entries, kOnePass) computes the TPU kernel's two bf16 dots as
+// they round: per point and row y, g = bf16(xw0) * bf16(V[y, x0]) +
+// bf16(xw1) * bf16(V[y, x0 + 1]) (products exact, one fp32 sum) and
+// m = fp32(g * yw); the points' m of each row summed in fp32 in point
+// order, that sum rounded to bf16 (the second dot's operand, which a
+// gather would forget), and the rows' sums added in fp32. A thread walks
+// its query's 2P candidate rows (point, dy) in order; the first candidate
+// of a row sums that row's m over itself and the later candidates on it.
+// It is a simple loop (a row's loads behind its checks), not the highest
+// mode's predicated chunks; msda_sep_reference's "default" is its plain
+// version, summed in the same order.
+//
 // What bounds them on an H100. Both move few bytes per operation: every term
 // is one value load and one or two FMAs. sep: at the Deformable-DETR encoder
 // (1333x1333 bucket: S = Q = 37,150 tokens over 4 levels, 8 heads of 32,
@@ -124,7 +137,31 @@ constexpr int kGatherThreads = 256;
 constexpr int kGatherMinBlocks = 5;
 constexpr int kSlots = 4;  // corner slots of the lane layout
 
+// the one-pass mode's m for one candidate row: g = bf16(xw0) * bf16(V[y, x0])
+// + bf16(xw1) * bf16(V[y, x0 + 1]) over 4 channels, times yw, 0 where the row
+// is outside the level, in a band left out, or of weight 0
 template <typename T, bool kVec>
+__device__ __forceinline__ void sep_row_term(const T* __restrict__ rows_bh, int y, int x0,
+                                             float xw0, float xw1, float yw, bool row_ok,
+                                             int lw, int hd, int c, float (&m)[4]) {
+  const int row_stride = lw * hd;
+  const T* p = rows_bh + (long long)(row_ok ? y : 0) * row_stride + c;
+  const float a0 = round_to<__nv_bfloat16>(xw0), a1 = round_to<__nv_bfloat16>(xw1);
+  float v0[4], v1[4];
+  const bool on = row_ok && yw != 0.0f;
+  const bool on0 = on && static_cast<unsigned>(x0) < static_cast<unsigned>(lw) && a0 != 0.0f;
+  const bool on1 = on && static_cast<unsigned>(x0 + 1) < static_cast<unsigned>(lw) && a1 != 0.0f;
+  load_quad<T, kVec>(p + (long long)(on0 ? x0 : 0) * hd, c, hd, on0, v0);
+  load_quad<T, kVec>(p + (long long)(on1 ? x0 + 1 : 0) * hd, c, hd, on1, v1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float g = __fadd_rn(__fmul_rn(a0, round_to<__nv_bfloat16>(v0[e])),
+                              __fmul_rn(a1, round_to<__nv_bfloat16>(v1[e])));
+    m[e] = on ? __fmul_rn(g, yw) : 0.0f;
+  }
+}
+
+template <typename T, bool kVec, bool kOnePass>
 __global__ void __launch_bounds__(kSepThreads)
 msda_sep_sum_kernel(const T* __restrict__ rows, const int32_t* __restrict__ xi,
                     const float* __restrict__ xw0, const float* __restrict__ xw1,
@@ -159,6 +196,44 @@ msda_sep_sum_kernel(const T* __restrict__ rows, const int32_t* __restrict__ xi,
   float* out_tile = out + tile_row * kSepQTile * hd;
   const int quads = (hd + 3) / 4;
   const int row_stride = lw * hd;
+  if (kOnePass) {
+    for (int item = threadIdx.x; item < kSepQTile * quads; item += kSepThreads) {
+      const int qi = item / quads;
+      const int c = (item % quads) * 4;
+      float total[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int p = 0; p < n_points; ++p) {
+        const int y0 = s_yi[p * kSepQTile + qi];
+        for (int dy = 0; dy < 2; ++dy) {
+          const int y = y0 + dy;
+          bool first = true;  // no earlier point has a candidate on row y
+          for (int pe = 0; pe < p; ++pe) {
+            const int ye = s_yi[pe * kSepQTile + qi];
+            first = first && ye != y && ye + 1 != y;
+          }
+          if (!first) continue;
+          const bool row_ok = static_cast<unsigned>(y) < static_cast<unsigned>(lh) &&
+                              row_on[static_cast<unsigned>(y) < static_cast<unsigned>(lh) ? y : 0] != 0;
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int pl = p; pl < n_points; ++pl) {
+            const int o = pl * kSepQTile + qi;
+            const int dyl = pl == p ? dy : y - s_yi[o];  // which of pl's rows is y
+            if (dyl != 0 && dyl != 1) continue;
+            float m[4];
+            sep_row_term<T, kVec>(rows_bh, y, s_xi[o], s_w[o], s_w[n_ops + o],
+                                  s_w[(2 + dyl) * n_ops + o], row_ok, lw, hd, c, m);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], m[e]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            total[e] = __fadd_rn(total[e], round_to<__nv_bfloat16>(acc[e]));
+          }
+        }
+      }
+      store_quad<kVec>(out_tile + (long long)qi * hd + c, c, hd, total);
+    }
+    return;
+  }
   for (int item = threadIdx.x; item < kSepQTile * quads; item += kSepThreads) {
     const int qi = item / quads;
     const int c = (item % quads) * 4;
@@ -286,7 +361,7 @@ msda_hd_gather_sum_kernel(const T* __restrict__ value, const int32_t* __restrict
   }
 }
 
-template <typename T>
+template <typename T, bool kOnePass>
 int launch_sep(const void* rows, const void* xi, const void* xw0, const void* xw1,
                const void* yi, const void* yw0, const void* yw1, const void* mask, void* out,
                int bh_count, int n_qt, int n_points, int lh, int lw, int hd, int r_band,
@@ -301,7 +376,8 @@ int launch_sep(const void* rows, const void* xi, const void* xw0, const void* xw
   const bool vec = hd % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 grid(n_qt, bh_count);
-  auto kernel = vec ? &msda_sep_sum_kernel<T, true> : &msda_sep_sum_kernel<T, false>;
+  auto kernel = vec ? &msda_sep_sum_kernel<T, true, kOnePass>
+                    : &msda_sep_sum_kernel<T, false, kOnePass>;
   kernel<<<grid, kSepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rows), static_cast<const int32_t*>(xi),
       static_cast<const float*>(xw0), static_cast<const float*>(xw1),
@@ -344,23 +420,19 @@ int launch_hd_gather(const void* value, const void* idx, const void* w, void* ou
 // stream is the caller's current CUDA stream. Each returns the CUDA error of
 // the launch (0 on success). None synchronises or allocates.
 
-extern "C" int msda_sep_sum_f32(const void* rows, const void* xi, const void* xw0,
-                                const void* xw1, const void* yi, const void* yw0,
-                                const void* yw1, const void* mask, void* out, int bh_count,
-                                int n_qt, int n_points, int lh, int lw, int hd, int r_band,
-                                int n_bands, void* stream) {
-  return launch_sep<float>(rows, xi, xw0, xw1, yi, yw0, yw1, mask, out, bh_count, n_qt,
-                           n_points, lh, lw, hd, r_band, n_bands, stream);
-}
-
-extern "C" int msda_sep_sum_bf16(const void* rows, const void* xi, const void* xw0,
-                                 const void* xw1, const void* yi, const void* yw0,
-                                 const void* yw1, const void* mask, void* out, int bh_count,
-                                 int n_qt, int n_points, int lh, int lw, int hd, int r_band,
-                                 int n_bands, void* stream) {
-  return launch_sep<__nv_bfloat16>(rows, xi, xw0, xw1, yi, yw0, yw1, mask, out, bh_count, n_qt,
-                                   n_points, lh, lw, hd, r_band, n_bands, stream);
-}
+// msda_sep_sum's four entries: f32 or bf16 rows, and the one-pass mode
+#define MSDA_SEP_ENTRY(NAME, T, ONE_PASS)                                                      \
+  extern "C" int NAME(const void* rows, const void* xi, const void* xw0, const void* xw1,     \
+                      const void* yi, const void* yw0, const void* yw1, const void* mask,     \
+                      void* out, int bh_count, int n_qt, int n_points, int lh, int lw,        \
+                      int hd, int r_band, int n_bands, void* stream) {                        \
+    return launch_sep<T, ONE_PASS>(rows, xi, xw0, xw1, yi, yw0, yw1, mask, out, bh_count,     \
+                                   n_qt, n_points, lh, lw, hd, r_band, n_bands, stream);      \
+  }
+MSDA_SEP_ENTRY(msda_sep_sum_f32, float, false)
+MSDA_SEP_ENTRY(msda_sep_sum_bf16, __nv_bfloat16, false)
+MSDA_SEP_ENTRY(msda_sep_sum_f32_onepass, float, true)
+MSDA_SEP_ENTRY(msda_sep_sum_bf16_onepass, __nv_bfloat16, true)
 
 extern "C" int msda_hd_gather_sum_f32(const void* value, const void* idx, const void* w,
                                       void* out, int b_count, int h_count, int s, int hd, int q,

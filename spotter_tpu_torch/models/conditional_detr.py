@@ -11,7 +11,9 @@ As in the JAX package, `ca_qpos_proj` exists on decoder layer 0 only, and
 `query_scale` is one module shared by layers 1 and up, created only when
 there are such layers, so the state-dict keys equal flax's. Every
 attention here is on the materialised path (masked encoder, `attend` for
-the decoder): no hand-written kernel runs.
+the decoder): no hand-written kernel runs. Precision as in models/detr.py:
+the backbone at `backbone_dtype`, the rest at `dtype`, the softmaxes, the
+reference points and the outputs in fp32.
 """
 
 import math
@@ -22,7 +24,13 @@ from torch import nn
 
 from spotter_tpu_torch.models.configs import ConditionalDetrConfig
 from spotter_tpu_torch.models.detr import DetrEncoderLayer, dim_t, encoder_inputs, interleave
-from spotter_tpu_torch.models.layers import MLPHead, inverse_sigmoid, make_activation
+from spotter_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
+    MLPHead,
+    inverse_sigmoid,
+    make_activation,
+)
 from spotter_tpu_torch.models.resnet import ResNetBackbone
 
 
@@ -67,26 +75,26 @@ class ConditionalDecoderLayer(nn.Module):
     """Decoupled content/position self-attention, the conditional
     cross-attention and an FFN, each post-norm. `has_qpos` (layer 0, or
     every DAB-DETR layer under keep_query_pos) adds the query and key
-    positions to the cross-attention's content halves."""
+    positions to the cross-attention's content halves. At `dtype`."""
 
-    def __init__(self, cfg, has_qpos: bool) -> None:
+    def __init__(self, cfg, has_qpos: bool, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         d, eps = cfg.d_model, cfg.layer_norm_eps
         self.heads = cfg.decoder_attention_heads
         for name in ("sa_qcontent_proj", "sa_qpos_proj", "sa_kcontent_proj", "sa_kpos_proj",
                      "sa_v_proj", "self_attn_out_proj", "ca_qcontent_proj", "ca_kcontent_proj",
                      "ca_v_proj", "ca_kpos_proj", "ca_qpos_sine_proj", "encoder_attn_out_proj"):
-            setattr(self, name, nn.Linear(d, d))
+            setattr(self, name, Dense(d, d, dtype=dtype))
         self.has_qpos = has_qpos
         if has_qpos:
-            self.ca_qpos_proj = nn.Linear(d, d)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.fc1 = nn.Linear(d, cfg.decoder_ffn_dim)
+            self.ca_qpos_proj = Dense(d, d, dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.encoder_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.fc1 = Dense(d, cfg.decoder_ffn_dim, dtype=dtype)
         # DAB-DETR's PReLU is a module with a weight, as flax names it
         self.activation = make_activation(cfg.activation_function)
-        self.fc2 = nn.Linear(cfg.decoder_ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+        self.fc2 = Dense(cfg.decoder_ffn_dim, d, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, eps, dtype)
 
     def forward(self, hidden, query_pos, query_sine, memory, memory_pos, memory_mask):
         q = self.sa_qcontent_proj(hidden) + self.sa_qpos_proj(query_pos)
@@ -111,25 +119,29 @@ class ConditionalDecoderLayer(nn.Module):
 
 class ConditionalDetrDetector(nn.Module):
     """Conditional DETR: pixels (B, H, W, 3) NHWC and an optional pixel mask
-    -> logits (B, Q, num_labels), pred_boxes (B, Q, 4) normalized cxcywh."""
+    -> logits (B, Q, num_labels), pred_boxes (B, Q, 4) normalized cxcywh,
+    both fp32. `dtype` and `backbone_dtype` are the flax module's fields."""
 
-    def __init__(self, config: ConditionalDetrConfig) -> None:
+    def __init__(self, config: ConditionalDetrConfig, dtype: torch.dtype = torch.float32,
+                 backbone_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         cfg = self.config = config
         d = cfg.d_model
-        self.backbone = ResNetBackbone(cfg.backbone)
-        self.input_projection = nn.Conv2d(self.backbone.out_channels[-1], d, 1)
+        self.dtype = dtype
+        self.backbone = ResNetBackbone(cfg.backbone, backbone_dtype or dtype)
+        self.input_projection = nn.Conv2d(self.backbone.out_channels[-1], d, 1, dtype=dtype)
         for i in range(cfg.encoder_layers):
-            setattr(self, f"encoder_layer{i}", DetrEncoderLayer(cfg))
-        self.query_pos = nn.Parameter(torch.zeros(cfg.num_queries, d))
-        self.ref_point_head = MLPHead(d, d, 2, 2)
+            setattr(self, f"encoder_layer{i}", DetrEncoderLayer(cfg, dtype))
+        self.query_pos = nn.Parameter(torch.zeros(cfg.num_queries, d))  # fp32; cast at use
+        self.ref_point_head = MLPHead(d, d, 2, 2, dtype=dtype)
         if cfg.decoder_layers > 1:  # used from layer 1 on, so flax has it only then
-            self.query_scale = MLPHead(d, d, d, 2)
+            self.query_scale = MLPHead(d, d, d, 2, dtype=dtype)
         for i in range(cfg.decoder_layers):
-            setattr(self, f"decoder_layer{i}", ConditionalDecoderLayer(cfg, has_qpos=i == 0))
-        self.decoder_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.class_labels_classifier = nn.Linear(d, cfg.num_labels)
-        self.bbox_predictor = MLPHead(d, d, 4, 3)
+            setattr(self, f"decoder_layer{i}",
+                    ConditionalDecoderLayer(cfg, has_qpos=i == 0, dtype=dtype))
+        self.decoder_layernorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
+        self.class_labels_classifier = Dense(d, cfg.num_labels, dtype=dtype)
+        self.bbox_predictor = MLPHead(d, d, 4, 3, dtype=dtype)
 
     def forward(
         self, pixel_values: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None
@@ -137,14 +149,14 @@ class ConditionalDetrDetector(nn.Module):
         cfg = self.config
         src, pos, attn_mask = encoder_inputs(
             self.backbone, self.input_projection, pixel_values, pixel_mask, cfg.d_model,
-            cfg.positional_encoding_temperature)
+            cfg.positional_encoding_temperature, self.dtype)
         for i in range(cfg.encoder_layers):
             src = getattr(self, f"encoder_layer{i}")(src, pos, attn_mask)
 
-        query_pos = self.query_pos[None].expand(src.shape[0], -1, -1)
+        query_pos = self.query_pos[None].expand(src.shape[0], -1, -1).to(self.dtype)
         # reference points from the query embeddings, shared by every layer
         ref = torch.sigmoid(self.ref_point_head(query_pos).to(torch.float32))
-        sine_base = query_sine_embedding(ref, cfg.d_model)
+        sine_base = query_sine_embedding(ref, cfg.d_model).to(self.dtype)
         hidden = torch.zeros_like(query_pos)
         for i in range(cfg.decoder_layers):
             query_sine = sine_base if i == 0 else sine_base * self.query_scale(hidden)

@@ -1,7 +1,8 @@
 """Deformable DETR detector (port of spotter_tpu.models.deformable_detr).
 
-Same architecture and numerics as the flax module under the "float32"
-policy: a "v1" ResNet backbone, 1x1 conv + GroupNorm(32) input projections
+Same architecture and numerics as the flax module, under each precision
+policy (the backbone at `backbone_dtype`, the rest at `dtype`, the
+reference boxes and the outputs in fp32): a "v1" ResNet backbone, 1x1 conv + GroupNorm(32) input projections
 (extra pyramid levels by 3x3 stride-2 convs), mask-aware sine position
 embeddings with the deformable lineage's half-cell shift, and multiscale
 deformable attention in both the encoder (every pyramid token is a query)
@@ -30,6 +31,8 @@ from torch import nn
 from spotter_tpu_torch.models.configs import DeformableDetrConfig
 from spotter_tpu_torch.models.detr import dim_t, interleave, nearest_downsample_mask
 from spotter_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
     MLPHead,
     MultiHeadAttention,
     get_activation,
@@ -100,12 +103,20 @@ def _level_wh(spatial_shapes: tuple[tuple[int, int], ...]) -> np.ndarray:
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax's nn.GroupNorm: also over groups of a single value (a 1x1 level
-    with one channel per group gives the bias), which torch's functional
-    form refuses when the batch is 1."""
+    """flax's nn.GroupNorm(dtype=...): statistics, scale and bias in fp32
+    (fp32 params), the result cast to `dtype`; also over groups of a single
+    value (a 1x1 level with one channel per group gives the bias), which
+    torch's functional form refuses when the batch is 1."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+        y = torch.group_norm(x.to(torch.float32), self.num_groups, self.weight, self.bias,
+                             self.eps)
+        return y.to(self.dtype)
 
 
 class MsdaAttention(nn.Module):
@@ -117,14 +128,16 @@ class MsdaAttention(nn.Module):
     scaled by box size / n_points * 0.5). Padded source tokens are zeroed
     in the value by `value_mask` (B, S), 1 = valid."""
 
-    def __init__(self, d_model: int, num_heads: int, num_levels: int, num_points: int) -> None:
+    def __init__(self, d_model: int, num_heads: int, num_levels: int, num_points: int,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.d_model, self.num_heads = d_model, num_heads
         self.num_levels, self.num_points = num_levels, num_points
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(d_model, num_heads * num_levels * num_points)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.dtype = dtype
+        self.value_proj = Dense(d_model, d_model, dtype=dtype)
+        self.sampling_offsets = Dense(d_model, num_heads * num_levels * num_points * 2, dtype=dtype)
+        self.attention_weights = Dense(d_model, num_heads * num_levels * num_points, dtype=dtype)
+        self.output_proj = Dense(d_model, d_model, dtype=dtype)
 
     def forward(
         self,
@@ -146,10 +159,10 @@ class MsdaAttention(nn.Module):
         value = value.reshape(b, value.shape[1], heads, self.d_model // heads)
         offsets = self.sampling_offsets(hs).reshape(b, q, heads, levels, points, 2)
         attn = self.attention_weights(hs).reshape(b, q, heads, levels * points)
-        attn = torch.softmax(attn.to(torch.float32), dim=-1)
+        attn = torch.softmax(attn.to(torch.float32), dim=-1).to(self.dtype)
         if reference_points.shape[-1] == 2:
             normalizer = _static_table(_level_wh, offsets.device, spatial_shapes)
-            loc = reference_points[:, :, None, :, None, :] + offsets / normalizer
+            loc = reference_points[:, :, None, :, None, :] + offsets / normalizer.to(offsets.dtype)
         else:
             ref_xy = reference_points[:, :, None, :, None, :2]
             ref_wh = reference_points[:, :, None, :, None, 2:]
@@ -162,15 +175,15 @@ class MsdaAttention(nn.Module):
 class DeformableEncoderLayer(nn.Module):
     """Post-norm encoder layer: MSDA self-attention + FFN."""
 
-    def __init__(self, cfg: DeformableDetrConfig) -> None:
+    def __init__(self, cfg: DeformableDetrConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         d, eps = cfg.d_model, cfg.layer_norm_eps
         self.self_attn = MsdaAttention(
-            d, cfg.encoder_attention_heads, cfg.num_feature_levels, cfg.encoder_n_points)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.fc1 = nn.Linear(d, cfg.encoder_ffn_dim)
-        self.fc2 = nn.Linear(cfg.encoder_ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+            d, cfg.encoder_attention_heads, cfg.num_feature_levels, cfg.encoder_n_points, dtype)
+        self.self_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.fc1 = Dense(d, cfg.encoder_ffn_dim, dtype=dtype)
+        self.fc2 = Dense(cfg.encoder_ffn_dim, d, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, eps, dtype)
         self.act = get_activation(cfg.activation_function)
 
     def forward(self, hidden, pos, reference_points, spatial_shapes, value_mask):
@@ -184,17 +197,17 @@ class DeformableEncoderLayer(nn.Module):
 class DeformableDecoderLayer(nn.Module):
     """Post-norm decoder layer: query self-attention + MSDA cross-attention + FFN."""
 
-    def __init__(self, cfg: DeformableDetrConfig) -> None:
+    def __init__(self, cfg: DeformableDetrConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         d, eps = cfg.d_model, cfg.layer_norm_eps
-        self.self_attn = MultiHeadAttention(d, cfg.decoder_attention_heads)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps)
+        self.self_attn = MultiHeadAttention(d, cfg.decoder_attention_heads, dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(d, eps, dtype)
         self.encoder_attn = MsdaAttention(
-            d, cfg.decoder_attention_heads, cfg.num_feature_levels, cfg.decoder_n_points)
-        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.fc1 = nn.Linear(d, cfg.decoder_ffn_dim)
-        self.fc2 = nn.Linear(cfg.decoder_ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+            d, cfg.decoder_attention_heads, cfg.num_feature_levels, cfg.decoder_n_points, dtype)
+        self.encoder_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.fc1 = Dense(d, cfg.decoder_ffn_dim, dtype=dtype)
+        self.fc2 = Dense(cfg.decoder_ffn_dim, d, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, eps, dtype)
         self.act = get_activation(cfg.activation_function)
 
     def forward(self, hidden, query_pos, memory, reference_points, spatial_shapes, value_mask):
@@ -211,41 +224,47 @@ class DeformableDetrDetector(nn.Module):
     """Full Deformable-DETR detector: pixels (B, H, W, 3) NHWC and an optional
     (B, H, W) pixel mask -> logits (B, Q, C), pred_boxes (B, Q, 4) normalized
     cxcywh of the valid region, aux_logits/aux_boxes stacked over decoder
-    layers, and (two-stage) enc_outputs_class/enc_outputs_coord_logits."""
+    layers, and (two-stage) enc_outputs_class/enc_outputs_coord_logits, all
+    fp32. `dtype` and `backbone_dtype` are the flax module's fields."""
 
-    def __init__(self, config: DeformableDetrConfig) -> None:
+    def __init__(self, config: DeformableDetrConfig, dtype: torch.dtype = torch.float32,
+                 backbone_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         cfg = self.config = config
         d = cfg.d_model
-        self.backbone = ResNetBackbone(cfg.backbone)
+        self.dtype = dtype
+        self.backbone_dtype = backbone_dtype or dtype
+        self.backbone = ResNetBackbone(cfg.backbone, self.backbone_dtype)
         chans = self.backbone.out_channels
         for i in range(cfg.num_feature_levels):
             if i < len(chans):
-                conv = nn.Conv2d(chans[i], d, 1)
+                conv = nn.Conv2d(chans[i], d, 1, dtype=dtype)
             else:
-                conv = nn.Conv2d(chans[-1] if i == len(chans) else d, d, 3, stride=2, padding=1)
+                conv = nn.Conv2d(chans[-1] if i == len(chans) else d, d, 3, stride=2, padding=1,
+                                 dtype=dtype)
             setattr(self, f"input_proj{i}_conv", conv)
-            setattr(self, f"input_proj{i}_norm", GroupNorm(32, d, eps=cfg.layer_norm_eps))
+            setattr(self, f"input_proj{i}_norm", GroupNorm(32, d, cfg.layer_norm_eps, dtype))
+        # fp32, as flax's params; cast at use
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         for i in range(cfg.encoder_layers):
-            setattr(self, f"encoder_layer{i}", DeformableEncoderLayer(cfg))
+            setattr(self, f"encoder_layer{i}", DeformableEncoderLayer(cfg, dtype))
         if cfg.with_box_refine:
             for i in range(cfg.num_pred_heads):
-                setattr(self, f"class_head{i}", nn.Linear(d, cfg.num_labels))
-                setattr(self, f"bbox_head{i}", MLPHead(d, d, 4, 3))
+                setattr(self, f"class_head{i}", Dense(d, cfg.num_labels, dtype=dtype))
+                setattr(self, f"bbox_head{i}", MLPHead(d, d, 4, 3, dtype=dtype))
         else:  # one pair shared by every layer (and the proposals)
-            self.class_head = nn.Linear(d, cfg.num_labels)
-            self.bbox_head = MLPHead(d, d, 4, 3)
+            self.class_head = Dense(d, cfg.num_labels, dtype=dtype)
+            self.bbox_head = MLPHead(d, d, 4, 3, dtype=dtype)
         if cfg.two_stage:
-            self.enc_output = nn.Linear(d, d)
-            self.enc_output_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-            self.pos_trans = nn.Linear(2 * d, 2 * d)
-            self.pos_trans_norm = nn.LayerNorm(2 * d, eps=cfg.layer_norm_eps)
+            self.enc_output = Dense(d, d, dtype=dtype)
+            self.enc_output_norm = LayerNorm(d, cfg.layer_norm_eps, dtype)
+            self.pos_trans = Dense(2 * d, 2 * d, dtype=dtype)
+            self.pos_trans_norm = LayerNorm(2 * d, cfg.layer_norm_eps, dtype)
         else:
             self.query_embeddings = nn.Parameter(torch.zeros(cfg.num_queries, 2 * d))
-            self.reference_points_proj = nn.Linear(d, 2)
+            self.reference_points_proj = Dense(d, 2)  # fp32 under every policy
         for i in range(cfg.decoder_layers):
-            setattr(self, f"decoder_layer{i}", DeformableDecoderLayer(cfg))
+            setattr(self, f"decoder_layer{i}", DeformableDecoderLayer(cfg, dtype))
 
     def _heads(self, i: int) -> tuple[nn.Module, nn.Module]:
         if self.config.with_box_refine:
@@ -261,7 +280,9 @@ class DeformableDetrDetector(nn.Module):
         if full_mask:
             pixel_mask = torch.ones((b, h, w), dtype=torch.float32, device=pixel_values.device)
         pixel_mask = pixel_mask.to(torch.float32)
-        features = self.backbone(pixel_values.permute(0, 3, 1, 2).contiguous())
+        dtype = self.dtype
+        features = [f.to(dtype) for f in
+                    self.backbone(pixel_values.permute(0, 3, 1, 2).contiguous())]
 
         sources = []
         for i in range(cfg.num_feature_levels):
@@ -278,8 +299,8 @@ class DeformableDetrDetector(nn.Module):
         for lvl, (source, mask) in enumerate(zip(sources, masks)):
             sh, sw = spatial_shapes[lvl]
             pos = sine_position_from_mask_offset(
-                mask, cfg.d_model // 2, cfg.positional_encoding_temperature)
-            pos_list.append(pos.reshape(b, sh * sw, cfg.d_model) + self.level_embed[lvl])
+                mask, cfg.d_model // 2, cfg.positional_encoding_temperature).to(dtype)
+            pos_list.append(pos.reshape(b, sh * sw, cfg.d_model) + self.level_embed[lvl].to(dtype))
             src_list.append(source.flatten(2).transpose(1, 2))
             mask_list.append(mask.reshape(b, sh * sw))
         source_flatten = torch.cat(src_list, dim=1)
@@ -312,8 +333,8 @@ class DeformableDetrDetector(nn.Module):
             outputs["enc_outputs_class"] = enc_class.to(torch.float32)
             outputs["enc_outputs_coord_logits"] = enc_coord_logits.to(torch.float32)
         else:
-            query_pos = self.query_embeddings[None, :, : cfg.d_model].expand(b, -1, -1)
-            target = self.query_embeddings[None, :, cfg.d_model:].expand(b, -1, -1)
+            query_pos = self.query_embeddings[None, :, : cfg.d_model].expand(b, -1, -1).to(dtype)
+            target = self.query_embeddings[None, :, cfg.d_model:].expand(b, -1, -1).to(dtype)
             ref = torch.sigmoid(self.reference_points_proj(query_pos.to(torch.float32)))
 
         # decoder, with the reference boxes iterated in fp32
@@ -321,7 +342,7 @@ class DeformableDetrDetector(nn.Module):
         aux_logits, aux_boxes = [], []
         for i in range(cfg.decoder_layers):
             vr = torch.cat([valid_ratios, valid_ratios], -1) if ref.shape[-1] == 4 else valid_ratios
-            ref_input = ref[:, :, None] * vr[:, None]
+            ref_input = (ref[:, :, None] * vr[:, None]).to(dtype)
             hq = getattr(self, f"decoder_layer{i}")(
                 hq, query_pos, memory, ref_input, spatial_shapes, value_mask)
             class_head, bbox_head = self._heads(i)
@@ -383,7 +404,7 @@ class DeformableDetrDetector(nn.Module):
             enc_coord_logits, 1, topk_ind[..., None].expand(-1, -1, 4)).detach()
         ref = torch.sigmoid(topk_coords_logits)
         pos_embed = proposal_position_embedding(
-            topk_coords_logits, cfg.d_model, cfg.positional_encoding_temperature)
+            topk_coords_logits, cfg.d_model, cfg.positional_encoding_temperature).to(self.dtype)
         pos_trans = self.pos_trans_norm(self.pos_trans(pos_embed))
         query_pos, target = pos_trans[..., : cfg.d_model], pos_trans[..., cfg.d_model:]
         return target, query_pos, ref, enc_class, enc_coord_logits

@@ -1,7 +1,9 @@
 """DETR and Table-Transformer detectors (port of spotter_tpu.models.detr).
 
-Same architecture and numerics as the flax module under the "float32"
-policy: a frozen-BN "v1" ResNet backbone, mask-aware sine position
+Same architecture and numerics as the flax module, under each precision
+policy (the backbone at `backbone_dtype`, its last map cast to `dtype` for
+the transformer, the softmaxes and the outputs in fp32): a frozen-BN "v1"
+ResNet backbone, mask-aware sine position
 embeddings (cumsum over the pixel mask), transformer layers where the
 position embeddings are added to queries and keys only (post-norm for
 DETR, pre-norm with a closing encoder LayerNorm for Table-Transformer),
@@ -30,7 +32,13 @@ import torch
 from torch import nn
 
 from spotter_tpu_torch.models.configs import DetrConfig
-from spotter_tpu_torch.models.layers import MLPHead, MultiHeadAttention, get_activation
+from spotter_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
+    MLPHead,
+    MultiHeadAttention,
+    get_activation,
+)
 from spotter_tpu_torch.models.resnet import ResNetBackbone
 
 
@@ -89,36 +97,37 @@ def additive_mask(mask_flat: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_inputs(backbone: ResNetBackbone, projection: nn.Conv2d, pixel_values: torch.Tensor,
-                   pixel_mask: Optional[torch.Tensor], d_model: int, temperature):
-    """The DETR lineage's encoder inputs: the backbone's last map through
-    the 1x1 projection as (B, S, D) tokens, their sine positions (B, S, D)
-    and the additive mask (B, 1, 1, S). Without a pixel mask every pixel
-    is valid, and the mask is still built."""
+                   pixel_mask: Optional[torch.Tensor], d_model: int, temperature,
+                   dtype: torch.dtype = torch.float32):
+    """The DETR lineage's encoder inputs: the backbone's last map, cast to
+    `dtype`, through the 1x1 projection as (B, S, D) tokens, their sine
+    positions (B, S, D) at `dtype` and the additive fp32 mask (B, 1, 1, S).
+    Without a pixel mask every pixel is valid, and the mask is still built."""
     b, h, w, _ = pixel_values.shape
     if pixel_mask is None:
         pixel_mask = torch.ones((b, h, w), dtype=torch.float32, device=pixel_values.device)
     pixel_mask = pixel_mask.to(torch.float32)
-    feat = backbone(pixel_values.permute(0, 3, 1, 2).contiguous())[-1]
+    feat = backbone(pixel_values.permute(0, 3, 1, 2).contiguous())[-1].to(dtype)
     fh, fw = feat.shape[2], feat.shape[3]
     mask = nearest_downsample_mask(pixel_mask, (fh, fw))
-    pos = sine_position_from_mask(mask, d_model // 2, temperature)
+    pos = sine_position_from_mask(mask, d_model // 2, temperature).to(dtype)
     src = projection(feat).flatten(2).transpose(1, 2)
     return src, pos.reshape(b, fh * fw, d_model), additive_mask(mask.reshape(b, fh * fw))
 
 
 class DetrEncoderLayer(nn.Module):
     """Encoder layer: self-attention + FFN, post-norm (DETR) or pre-norm
-    (Table-Transformer) by `config.pre_norm`."""
+    (Table-Transformer) by `config.pre_norm`, at `dtype`."""
 
-    def __init__(self, cfg: DetrConfig) -> None:
+    def __init__(self, cfg: DetrConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         d, eps = cfg.d_model, cfg.layer_norm_eps
         self.pre_norm = cfg.pre_norm
-        self.self_attn = MultiHeadAttention(d, cfg.encoder_attention_heads)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.fc1 = nn.Linear(d, cfg.encoder_ffn_dim)
-        self.fc2 = nn.Linear(cfg.encoder_ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+        self.self_attn = MultiHeadAttention(d, cfg.encoder_attention_heads, dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.fc1 = Dense(d, cfg.encoder_ffn_dim, dtype=dtype)
+        self.fc2 = Dense(cfg.encoder_ffn_dim, d, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, eps, dtype)
         self.activation = get_activation(cfg.activation_function)
 
     def forward(self, hidden, pos, attn_mask):
@@ -133,19 +142,19 @@ class DetrEncoderLayer(nn.Module):
 
 class DetrDecoderLayer(nn.Module):
     """Decoder layer: self-attention over the queries + cross-attention to
-    the encoder's memory + FFN, post-norm or pre-norm."""
+    the encoder's memory + FFN, post-norm or pre-norm, at `dtype`."""
 
-    def __init__(self, cfg: DetrConfig) -> None:
+    def __init__(self, cfg: DetrConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         d, eps = cfg.d_model, cfg.layer_norm_eps
         self.pre_norm = cfg.pre_norm
-        self.self_attn = MultiHeadAttention(d, cfg.decoder_attention_heads)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.encoder_attn = MultiHeadAttention(d, cfg.decoder_attention_heads)
-        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=eps)
-        self.fc1 = nn.Linear(d, cfg.decoder_ffn_dim)
-        self.fc2 = nn.Linear(cfg.decoder_ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+        self.self_attn = MultiHeadAttention(d, cfg.decoder_attention_heads, dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.encoder_attn = MultiHeadAttention(d, cfg.decoder_attention_heads, dtype=dtype)
+        self.encoder_attn_layer_norm = LayerNorm(d, eps, dtype)
+        self.fc1 = Dense(d, cfg.decoder_ffn_dim, dtype=dtype)
+        self.fc2 = Dense(cfg.decoder_ffn_dim, d, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, eps, dtype)
         self.activation = get_activation(cfg.activation_function)
 
     def forward(self, queries, query_pos, memory, memory_pos, memory_mask):
@@ -170,24 +179,27 @@ class DetrDecoderLayer(nn.Module):
 
 class DetrDetector(nn.Module):
     """DETR: pixels (B, H, W, 3) NHWC and an optional (B, H, W) pixel mask ->
-    logits (B, Q, num_labels + 1), pred_boxes (B, Q, 4) normalized cxcywh."""
+    logits (B, Q, num_labels + 1), pred_boxes (B, Q, 4) normalized cxcywh,
+    both fp32. `dtype` and `backbone_dtype` are the flax module's fields."""
 
-    def __init__(self, config: DetrConfig) -> None:
+    def __init__(self, config: DetrConfig, dtype: torch.dtype = torch.float32,
+                 backbone_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         cfg = self.config = config
         d = cfg.d_model
-        self.backbone = ResNetBackbone(cfg.backbone)
-        self.input_projection = nn.Conv2d(self.backbone.out_channels[-1], d, 1)
+        self.dtype = dtype
+        self.backbone = ResNetBackbone(cfg.backbone, backbone_dtype or dtype)
+        self.input_projection = nn.Conv2d(self.backbone.out_channels[-1], d, 1, dtype=dtype)
         for i in range(cfg.encoder_layers):
-            setattr(self, f"encoder_layer{i}", DetrEncoderLayer(cfg))
+            setattr(self, f"encoder_layer{i}", DetrEncoderLayer(cfg, dtype))
         if cfg.pre_norm:  # Table-Transformer closes the pre-norm encoder
-            self.encoder_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.query_pos = nn.Parameter(torch.zeros(cfg.num_queries, d))
+            self.encoder_layernorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
+        self.query_pos = nn.Parameter(torch.zeros(cfg.num_queries, d))  # fp32; cast at use
         for i in range(cfg.decoder_layers):
-            setattr(self, f"decoder_layer{i}", DetrDecoderLayer(cfg))
-        self.decoder_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.class_labels_classifier = nn.Linear(d, cfg.num_labels + 1)
-        self.bbox_predictor = MLPHead(d, d, 4, 3)
+            setattr(self, f"decoder_layer{i}", DetrDecoderLayer(cfg, dtype))
+        self.decoder_layernorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
+        self.class_labels_classifier = Dense(d, cfg.num_labels + 1, dtype=dtype)
+        self.bbox_predictor = MLPHead(d, d, 4, 3, dtype=dtype)
 
     def forward(
         self, pixel_values: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None
@@ -195,13 +207,13 @@ class DetrDetector(nn.Module):
         cfg = self.config
         src, pos, attn_mask = encoder_inputs(
             self.backbone, self.input_projection, pixel_values, pixel_mask, cfg.d_model,
-            cfg.positional_encoding_temperature)
+            cfg.positional_encoding_temperature, self.dtype)
         for i in range(cfg.encoder_layers):
             src = getattr(self, f"encoder_layer{i}")(src, pos, attn_mask)
         if cfg.pre_norm:
             src = self.encoder_layernorm(src)
 
-        query_pos = self.query_pos[None].expand(src.shape[0], -1, -1)
+        query_pos = self.query_pos[None].expand(src.shape[0], -1, -1).to(self.dtype)
         queries = torch.zeros_like(query_pos)
         for i in range(cfg.decoder_layers):
             queries = getattr(self, f"decoder_layer{i}")(queries, query_pos, src, pos, attn_mask)

@@ -95,6 +95,18 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return torch.log(x1 / x2)
 
 
+def version_key(*tensors: torch.Tensor) -> Optional[tuple]:
+    """What a value derived from `tensors` depends on: their storage, their
+    version counters (an in-place change bumps them) and devices. A module
+    that keeps such a value recomputes it when the key changes. None when
+    one is an inference tensor (made under torch.inference_mode, e.g. a
+    module moved to the card there), which has no version counter: the
+    value is then recomputed every call, never kept."""
+    if any(t.is_inference() for t in tensors):
+        return None
+    return tuple((t.data_ptr(), t._version, t.device) for t in tensors)
+
+
 def fold_bn(
     scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,26 +118,45 @@ def fold_bn(
 class FrozenBatchNorm(nn.Module):
     """Inference-mode batch norm on NCHW: y = (x - mean) / sqrt(var + eps) * weight + bias.
 
-    The four statistics are buffers (flax's scale/bias/mean/var params)."""
+    The four statistics are fp32 buffers (flax's scale/bias/mean/var params),
+    folded to one (mul, add) pair in fp32 and cast to `dtype` before they
+    meet x, as the flax module does: a bf16 x stays bf16. The folded pair is
+    kept until a statistic changes (each buffer's version counter) or the
+    module moves: folding anew every forward costs seven launches a layer,
+    which at B = 1 (and under the bf16 policies at B = 8 too) is host time
+    the card waits for."""
 
-    def __init__(self, features: int, eps: float = 1e-5) -> None:
+    def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.register_buffer("weight", torch.ones(features))
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self._folded = None  # (key, mul, add) at dtype, shaped (1, C, 1, 1)
+
+    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The fp32 (mul, add) pair, (C,) each."""
+        return fold_bn(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul, add = fold_bn(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
-        return x * mul.view(1, -1, 1, 1) + add.view(1, -1, 1, 1)
+        key = version_key(self.weight, self.bias, self.running_mean, self.running_var)
+        if key is None or self._folded is None or self._folded[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                mul, add = self.folded()
+                self._folded = (key, mul.to(self.dtype).view(1, -1, 1, 1),
+                                add.to(self.dtype).view(1, -1, 1, 1))
+        return (x * self._folded[1] + self._folded[2]).to(self.dtype)
 
 
 class ConvNorm(nn.Module):
     """Conv (no bias) + frozen BN + optional activation, NCHW.
 
     Conv k, stride s, padding (k-1)//2 unless given, as the RT-DETR lineage's
-    ConvNormLayer.
+    ConvNormLayer. The convolution runs at `dtype`, input and kernel (stored
+    at `dtype`: flax's cast at use, done once), so a bf16 ConvNorm is a bf16
+    convolution (on the card, cuDNN's on the tensor cores).
     """
 
     def __init__(
@@ -137,17 +168,19 @@ class ConvNorm(nn.Module):
         padding: Optional[int] = None,
         activation: Optional[str] = None,
         eps: float = 1e-5,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         pad = (kernel_size - 1) // 2 if padding is None else padding
         self.conv = nn.Conv2d(
-            in_features, features, kernel_size, stride=stride, padding=pad, bias=False
+            in_features, features, kernel_size, stride=stride, padding=pad, bias=False,
+            dtype=dtype,
         )
-        self.bn = FrozenBatchNorm(features, eps)
+        self.bn = FrozenBatchNorm(features, eps, dtype)
         self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(self.conv(x.to(self.conv.weight.dtype))))
 
 
 def flash_attention_enabled(x: torch.Tensor) -> bool:

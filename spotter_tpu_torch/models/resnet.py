@@ -5,8 +5,12 @@ Style "d" matches RT-DETR's presnet: deep 3-conv stem, 3x3/2 max pool, and
 shortcuts when downsampling. Style "v1" is the classic ResNet of the DETR
 family (HF ResNetBackbone / timm resnet): a single 7x7 stride-2 stem, the
 same max pool, and strided 1x1 projection shortcuts. NCHW inside; frozen
-BN. The space-to-depth stem (off by default in the JAX package) is not
-ported.
+BN. `dtype` is the backbone's compute dtype (bf16 under the "mixed" and
+"bfloat16" policies): the pixels are cast to it on entry and every
+convolution runs at it, as in the flax module. The JAX package's
+SPOTTER_TPU_S2D_STEM (the first stem conv as space-to-depth + a 2x2 conv,
+the same function laid out for the TPU's MXU) is not ported and is
+ignored: on the card cuDNN runs the 3x3 stride-2 conv itself.
 """
 
 import torch
@@ -28,17 +32,18 @@ class BasicBlock(nn.Module):
 
     def __init__(
         self, in_channels: int, out_channels: int, stride: int = 1,
-        shortcut: str = "none", hidden_act: str = "relu",
+        shortcut: str = "none", hidden_act: str = "relu", dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.shortcut_kind = shortcut
         self.act = get_activation(hidden_act)
-        self.conv0 = ConvNorm(in_channels, out_channels, 3, stride, activation=hidden_act)
-        self.conv1 = ConvNorm(out_channels, out_channels, 3, 1)
+        self.conv0 = ConvNorm(in_channels, out_channels, 3, stride, activation=hidden_act,
+                              dtype=dtype)
+        self.conv1 = ConvNorm(out_channels, out_channels, 3, 1, dtype=dtype)
         if shortcut == "proj":
-            self.shortcut = ConvNorm(in_channels, out_channels, 1, stride)
+            self.shortcut = ConvNorm(in_channels, out_channels, 1, stride, dtype=dtype)
         elif shortcut == "avgpool_proj":
-            self.shortcut = ConvNorm(in_channels, out_channels, 1, 1)
+            self.shortcut = ConvNorm(in_channels, out_channels, 1, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(self.conv0(x))
@@ -56,7 +61,7 @@ class BottleneckBlock(nn.Module):
     def __init__(
         self, in_channels: int, out_channels: int, stride: int = 1,
         shortcut: str = "none", downsample_in_bottleneck: bool = False,
-        hidden_act: str = "relu",
+        hidden_act: str = "relu", dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         reduced = out_channels // 4
@@ -64,13 +69,13 @@ class BottleneckBlock(nn.Module):
         s2 = stride if not downsample_in_bottleneck else 1
         self.shortcut_kind = shortcut
         self.act = get_activation(hidden_act)
-        self.conv0 = ConvNorm(in_channels, reduced, 1, s1, activation=hidden_act)
-        self.conv1 = ConvNorm(reduced, reduced, 3, s2, activation=hidden_act)
-        self.conv2 = ConvNorm(reduced, out_channels, 1, 1)
+        self.conv0 = ConvNorm(in_channels, reduced, 1, s1, activation=hidden_act, dtype=dtype)
+        self.conv1 = ConvNorm(reduced, reduced, 3, s2, activation=hidden_act, dtype=dtype)
+        self.conv2 = ConvNorm(reduced, out_channels, 1, 1, dtype=dtype)
         if shortcut == "proj":
-            self.shortcut = ConvNorm(in_channels, out_channels, 1, stride)
+            self.shortcut = ConvNorm(in_channels, out_channels, 1, stride, dtype=dtype)
         elif shortcut == "avgpool_proj":
-            self.shortcut = ConvNorm(in_channels, out_channels, 1, 1)
+            self.shortcut = ConvNorm(in_channels, out_channels, 1, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv2(self.conv1(self.conv0(x)))
@@ -108,22 +113,23 @@ def _bottleneck_shortcut(in_ch: int, out_ch: int, stride: int) -> str:
 
 class ResNetBackbone(nn.Module):
     """NCHW pixels -> feature maps at `config.out_indices` of
-    (stem_out, stage1, stage2, stage3, stage4)."""
+    (stem_out, stage1, stage2, stage3, stage4), at `dtype`."""
 
-    def __init__(self, config: ResNetConfig) -> None:
+    def __init__(self, config: ResNetConfig, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if config.style not in ("d", "v1"):
             raise ValueError(f"unknown ResNet style {config.style!r}")
         cfg = self.config = config
+        self.dtype = dtype
         act = cfg.hidden_act
         emb = cfg.embedding_size
         v1 = cfg.style == "v1"
         if v1:  # classic stem: one 7x7 stride-2 conv
-            self.stem0 = ConvNorm(cfg.num_channels, emb, 7, 2, activation=act)
+            self.stem0 = ConvNorm(cfg.num_channels, emb, 7, 2, activation=act, dtype=dtype)
         else:  # deep stem: 3x3 s2 -> 3x3 -> 3x3
-            self.stem0 = ConvNorm(cfg.num_channels, emb // 2, 3, 2, activation=act)
-            self.stem1 = ConvNorm(emb // 2, emb // 2, 3, 1, activation=act)
-            self.stem2 = ConvNorm(emb // 2, emb, 3, 1, activation=act)
+            self.stem0 = ConvNorm(cfg.num_channels, emb // 2, 3, 2, activation=act, dtype=dtype)
+            self.stem1 = ConvNorm(emb // 2, emb // 2, 3, 1, activation=act, dtype=dtype)
+            self.stem2 = ConvNorm(emb // 2, emb, 3, 1, activation=act, dtype=dtype)
         in_ch = emb
         for stage_idx, (out_ch, depth) in enumerate(zip(cfg.hidden_sizes, cfg.depths)):
             stride = 2 if (stage_idx > 0 or cfg.downsample_in_first_stage) else 1
@@ -139,7 +145,7 @@ class ResNetBackbone(nn.Module):
                         shortcut = _bottleneck_shortcut(block_in, out_ch, block_stride)
                     block = BottleneckBlock(
                         block_in, out_ch, block_stride, shortcut,
-                        cfg.downsample_in_bottleneck, act,
+                        cfg.downsample_in_bottleneck, act, dtype,
                     )
                 else:
                     if v1:
@@ -147,7 +153,7 @@ class ResNetBackbone(nn.Module):
                                     if block_idx == 0 else "none")
                     else:
                         shortcut = _basic_shortcut(block_in, out_ch, block_stride, block_idx == 0)
-                    block = BasicBlock(block_in, out_ch, block_stride, shortcut, act)
+                    block = BasicBlock(block_in, out_ch, block_stride, shortcut, act, dtype)
                 setattr(self, f"stage{stage_idx}_block{block_idx}", block)
             in_ch = out_ch
         channels = (emb, *cfg.hidden_sizes)
@@ -155,7 +161,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor) -> list[torch.Tensor]:
         cfg = self.config
-        x = self.stem0(pixel_values)
+        x = self.stem0(pixel_values.to(self.dtype))
         if cfg.style == "d":
             x = self.stem2(self.stem1(x))
         x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf, as flax's max_pool

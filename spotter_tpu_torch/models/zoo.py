@@ -19,13 +19,16 @@ Weights come from one of three sources:
 `tiny=True` (or SPOTTER_TPU_TINY=1) builds the zoo's tiny config, as the
 JAX package does.
 
-Each build function applies the precision policy (utils/precision.py) and refuses
-the knobs whose computation the port lacks: the int8 knobs, and for the
-MSDA families (RT-DETR, Deformable-DETR) and the DETR lineage a non-float32
-policy. The MSDA families' builders check SPOTTER_TPU_MSDA and
-SPOTTER_TPU_MSDA_PRECISION with the JAX package's error texts (the
-precision's "default" is refused as not ported); both are read again when
-a forward runs (ops/msda.py).
+Each build function applies the precision policy (utils/precision.py) as
+the JAX zoo does: every family is built at `compute_dtype()` with its
+backbone (YOLOS's ViT body, OWL's vision tower) at `backbone_dtype()`. The
+seeded init draws fp32 from the seed stream and rounds it into bf16
+weights, and carried-over params are cast as they load, so a bf16 model
+stores what flax casts its fp32 params to at use. Each builder refuses the
+int8 knobs, whose computation the port lacks. The MSDA families' builders
+check SPOTTER_TPU_MSDA and SPOTTER_TPU_MSDA_PRECISION with the JAX
+package's error texts; both are read again when a forward runs
+(ops/msda.py).
 """
 
 import dataclasses
@@ -89,12 +92,7 @@ from spotter_tpu_torch.ops.preprocess import (
     PreprocessSpec,
 )
 from spotter_tpu_torch.taxonomy import AMENITIES_MAPPING
-from spotter_tpu_torch.utils.precision import (
-    backbone_dtype,
-    compute_dtype,
-    refuse_int8,
-    require_float32,
-)
+from spotter_tpu_torch.utils.precision import backbone_dtype, compute_dtype, refuse_int8
 
 TINY_ENV = "SPOTTER_TPU_TINY"
 
@@ -188,10 +186,9 @@ def build_rtdetr(
     seed: int = 0,
     params: Optional[Mapping] = None,
 ) -> BuiltDetector:
-    """RT-DETR family builder. The model is built on the CPU; the engine
-    moves it to its device."""
+    """RT-DETR family builder, at the policy's two dtypes. The model is
+    built on the CPU; the engine moves it to its device."""
     refuse_int8()
-    require_float32("RT-DETR")
     check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
     check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
@@ -202,7 +199,7 @@ def build_rtdetr(
     else:
         cfg, params = full_width(model_name, params, loader.load_rtdetr_from_hf, rtdetr_preset)
         spec = RTDETR_SPEC
-    model = RTDetrDetector(cfg).eval()
+    model = RTDetrDetector(cfg, dtype=compute_dtype(), backbone_dtype=backbone_dtype()).eval()
     if params is not None:
         load_from_jax(model, params)
     else:
@@ -509,10 +506,9 @@ def build_deformable_detr(
 ) -> BuiltDetector:
     """Deformable-DETR family builder: the shortest-edge spec (the 1333x1333
     bucket with a pixel mask; tiny: 48/64 in 64x64), the sigmoid top-k
-    postprocess at HF's top_k = 100. The model is built on the CPU; the
-    engine moves it to its device."""
+    postprocess at HF's top_k = 100, at the policy's two dtypes. The model
+    is built on the CPU; the engine moves it to its device."""
     refuse_int8()
-    require_float32("Deformable-DETR")
     check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
     check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
@@ -522,7 +518,8 @@ def build_deformable_detr(
     else:
         cfg, params = full_width(model_name, params, loader.load_deformable_detr_from_hf,
                                  deformable_detr_preset)
-    model = DeformableDetrDetector(cfg).eval()
+    model = DeformableDetrDetector(
+        cfg, dtype=compute_dtype(), backbone_dtype=backbone_dtype()).eval()
     if params is not None:
         load_from_jax(model, params)
     else:
@@ -641,20 +638,19 @@ def init_dab_detr(model: DabDetrDetector, seed: int = 0) -> DabDetrDetector:
     return _init_lineage(model, seed, model.query_refpoints)
 
 
-def _build_lineage(model_name, *, tiny, seed, params, family, tiny_config, preset, load,
+def _build_lineage(model_name, *, tiny, seed, params, tiny_config, preset, load,
                    detector, init, postprocess, num_top_queries) -> BuiltDetector:
     """A DETR-lineage builder: the shortest-edge spec with a pixel mask (the
-    1333x1333 bucket; tiny: 48/64 in 64x64), float32 only. The model is
-    built on the CPU; the engine moves it to its device."""
+    1333x1333 bucket; tiny: 48/64 in 64x64), at the policy's two dtypes.
+    The model is built on the CPU; the engine moves it to its device."""
     refuse_int8()
-    require_float32(family)
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     if tiny:
         cfg = tiny_config()
     else:
         cfg, params = full_width(model_name, params, load, preset)
-    model = detector(cfg).eval()
+    model = detector(cfg, dtype=compute_dtype(), backbone_dtype=backbone_dtype()).eval()
     if params is not None:
         load_from_jax(model, params)
     else:
@@ -675,7 +671,7 @@ def build_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 0,
     """DETR and Table-Transformer: the softmax postprocess ("no object" last)
     over every query."""
     return _build_lineage(
-        model_name, tiny=tiny, seed=seed, params=params, family="DETR",
+        model_name, tiny=tiny, seed=seed, params=params,
         tiny_config=tiny_detr_config, preset=detr_preset, load=loader.load_detr_from_hf,
         detector=DetrDetector,
         init=init_detr, postprocess="softmax", num_top_queries=lambda cfg: cfg.num_queries)
@@ -685,7 +681,7 @@ def build_conditional_detr(model_name: str, *, tiny: Optional[bool] = None, seed
                            params: Optional[Mapping] = None) -> BuiltDetector:
     """Conditional-DETR: the sigmoid top-k at HF's top_k = 100."""
     return _build_lineage(
-        model_name, tiny=tiny, seed=seed, params=params, family="Conditional-DETR",
+        model_name, tiny=tiny, seed=seed, params=params,
         tiny_config=tiny_conditional_detr_config, preset=conditional_detr_preset,
         load=loader.load_conditional_detr_from_hf, detector=ConditionalDetrDetector, init=init_conditional_detr,
         postprocess="sigmoid_topk", num_top_queries=lambda cfg: min(100, cfg.num_queries))
@@ -696,7 +692,7 @@ def build_dab_detr(model_name: str, *, tiny: Optional[bool] = None, seed: int = 
     """DAB-DETR: the sigmoid top-k at the top_k = 100 of the processor its
     checkpoints pair with (ConditionalDetrImageProcessor)."""
     return _build_lineage(
-        model_name, tiny=tiny, seed=seed, params=params, family="DAB-DETR",
+        model_name, tiny=tiny, seed=seed, params=params,
         tiny_config=tiny_dab_detr_config, preset=dab_detr_preset,
         load=loader.load_dab_detr_from_hf, detector=DabDetrDetector,
         init=init_dab_detr, postprocess="sigmoid_topk",

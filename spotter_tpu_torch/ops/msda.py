@@ -50,11 +50,24 @@ wrapper runs its plain version (`*_reference`); on a CUDA tensor it launches
 the kernel or raises.
 
 `SPOTTER_TPU_MSDA_PRECISION` is the JAX package's MXU pass count for its
-one-hot contraction. Every kernel here sums fp32 products in fp32, which is
-its "highest"; "default" (one bf16 pass) is not ported and raises when a
-forward runs (`check_msda_precision`), as does any other value, with the
-JAX package's text. Unset, the JAX default follows the dtype policy, and
-every policy the MSDA families serve here ("float32") makes it "highest".
+one-hot contraction, read when a forward runs (`msda_precision`, from
+`MSDA_PRECISION` and the policy): "highest" sums fp32 products in fp32;
+"default" is the TPU's one bf16 pass, which rows 1-4 compute in a one-pass
+mode of their own (each kernel's `*_onepass` entry point): both operands of
+the contraction rounded to bf16 (round to nearest even), products exact,
+sums in fp32. Rows 1-3 round each term's weight and each value element
+(the TPU rounds a one-hot entry, the sum of the terms of one query that
+land on one source row: the two differ only where two terms of a
+(query, head, level) share a row, by at most a bf16 rounding of each of
+those weights); row 3 also rounds its prologue's two projections (hidden
+states and weights, fp32 sums, the bias added in fp32); row 4 rounds its
+x weights and value band before its first dot and each row's point sum
+before its 0/1 group-sum dot, as the TPU does. Unset, the knob follows
+the policy: "default" under "mixed", "bfloat16" and "bf16", "highest"
+otherwise; any other value raises with the JAX package's text. The
+explicit SPOTTER_TPU_MSDA=xla backend ignores it, as the JAX package's
+row gathers do, and the lane gather (`pallas_gather`) takes none, as its
+TPU kernel takes none.
 
 Layouts follow the JAX package at the public function: value (B, S, H, hd),
 loc (B, Q, H, LP, 2), attn (B, Q, H, LP), output (B, Q, H*hd). Each
@@ -73,6 +86,7 @@ import numpy as np
 import torch
 
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
+from spotter_tpu_torch.utils.precision import policy_name
 
 MSDA_PREP_VALUES = ("xla", "kernel", "fused")
 
@@ -112,29 +126,32 @@ MSDA_BACKEND = check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
 
 
 MSDA_PRECISION_ENV = "SPOTTER_TPU_MSDA_PRECISION"
+MSDA_PRECISIONS = ("default", "highest")
 # the raw env value (None when unset), checked when a forward runs: like the
 # two knobs above, tests and callers switch it by setting this attribute
 MSDA_PRECISION = os.environ.get(MSDA_PRECISION_ENV)
+# the dtype policies under which the unset knob means "default" (the JAX
+# package's `_mxu_precision`)
+ONE_PASS_POLICIES = ("mixed", "bfloat16", "bf16")
 
 
 def check_msda_precision(raw: str | None) -> str:
-    """The SPOTTER_TPU_MSDA_PRECISION value the port runs: "highest" (also
-    when unset). "default" raises as not ported; any other value raises
-    with the JAX package's text."""
+    """The SPOTTER_TPU_MSDA_PRECISION value a forward runs, "default" or
+    "highest". Unset (None), it follows SPOTTER_TPU_DTYPE as the JAX
+    package's default does; any other value raises with the JAX text."""
     if raw is None:
-        return "highest"
+        return "default" if policy_name() in ONE_PASS_POLICIES else "highest"
     name = raw.strip().lower()
-    if name not in ("default", "highest"):
+    if name not in MSDA_PRECISIONS:
         raise ValueError(
             f"Unsupported {MSDA_PRECISION_ENV}={name!r}; expected one of ['default', 'highest']"
         )
-    if name == "default":
-        raise ValueError(
-            f"{MSDA_PRECISION_ENV}='default' (one bf16 MXU pass) is not ported, comes with "
-            f"ROADMAP Queue 1 item 9; the port's MSDA kernels accumulate in fp32, which is "
-            f"'highest'"
-        )
     return name
+
+
+def msda_precision() -> str:
+    """The precision a forward's MSDA kernels run now."""
+    return check_msda_precision(MSDA_PRECISION)
 
 
 def msda_backend() -> str:
@@ -143,6 +160,24 @@ def msda_backend() -> str:
     check of SPOTTER_TPU_MSDA_PRECISION: both sampling entry points ask."""
     check_msda_precision(MSDA_PRECISION)
     return check_msda_backend(MSDA_BACKEND)
+
+
+def backend_precision(backend: str) -> str:
+    """What `backend`'s kernels run: "highest" for the explicit `xla`
+    backend (the JAX package's row gathers take no precision), else
+    `msda_precision()`."""
+    return "highest" if backend == "xla" else msda_precision()
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in MSDA_PRECISIONS:
+        raise ValueError(f"precision must be one of {list(MSDA_PRECISIONS)}, got {precision!r}")
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """`t` rounded to bf16 (round to nearest even) and back to fp32: one
+    operand of the TPU's one bf16 MXU pass."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def msda_prep_fused() -> bool:
@@ -241,28 +276,37 @@ def prepare_msda_gather(
     four bilinear corners, adjacent) and J = LP for "discrete".
     """
     _check_samples(loc.shape[3], spatial_shapes, num_points, method)
-    tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, loc.device, loc.dtype)
+    # fp32 tables: a bf16 loc's corners are worked out in fp32, as the JAX
+    # package's numpy fp32 tables promote them
+    tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, loc.device,
+                          torch.float32)
     idx, w = loc_corners(*_bh_layout(loc, attn), *tables, method)
     return idx.contiguous(), w.contiguous()
 
 
 def msda_gather_sum_reference(
-    rows: torch.Tensor, idx: torch.Tensor, w: torch.Tensor
+    rows: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, precision: str = "highest"
 ) -> torch.Tensor:
     """Plain version of the kernel (port of `_onehot_ref_math`).
 
     rows (BH, S, hd) f32/bf16; idx (BH, Q, J) int32; w (BH, Q, J) f32 ->
     (BH, Q, hd) fp32: out[bh, q] = sum_j w[bh, q, j] * rows[bh, idx[bh, q, j]],
     with terms whose index lies outside [0, S) skipped, as the kernel does.
+    precision="default" rounds each weight and each gathered value to bf16
+    first (the one-pass mode; products exact, sums fp32).
     """
+    _check_precision(precision)
     bh, s, hd = rows.shape
     _, q, j = idx.shape
     valid = (idx >= 0) & (idx < s)
     base = torch.arange(bh, device=rows.device).view(bh, 1, 1) * s
     flat = torch.where(valid, idx.long(), 0) + base
     g = rows.reshape(bh * s, hd).index_select(0, flat.reshape(-1)).reshape(bh, q, j, hd)
+    g = g.to(torch.float32)
     wv = torch.where(valid, w.to(torch.float32), 0.0)
-    return (g.to(torch.float32) * wv[..., None]).sum(dim=2)
+    if precision == "default":
+        g, wv = bf16_round(g), bf16_round(wv)
+    return (g * wv[..., None]).sum(dim=2)
 
 
 def loc_corners(
@@ -292,11 +336,12 @@ def msda_loc_reference(
     level_w: torch.Tensor,
     level_off: torch.Tensor,
     method: str = "default",
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Port of `_loc_ref`: `loc_corners`, then the weighted row gather-sum.
     Returns (BH, Q, hd) fp32."""
     return msda_gather_sum_reference(
-        rows, *loc_corners(xy, attn, level_h, level_w, level_off, method)
+        rows, *loc_corners(xy, attn, level_h, level_w, level_off, method), precision
     )
 
 
@@ -329,30 +374,37 @@ def fused_prologue_reference(
     b_att_h: torch.Tensor,  # (H, 1, LP)
     base: torch.Tensor,  # (B, Q, 2*LP)
     scale: torch.Tensor,  # (B, Q, 2*LP)
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused kernel's prologue (`_fused_ref`'s einsums, summed in the
     kernel's order): xy (B*H, Q, 2*LP) = base + (hs @ w_off + b_off) * scale
-    and attn (B*H, Q, LP) = softmax(hs @ w_att + b_att), both fp32."""
+    and attn (B*H, Q, LP) = softmax(hs @ w_att + b_att), both fp32.
+    precision="default" rounds hs and the two weights to bf16 first (their
+    products are then exact; sums and the bias stay fp32)."""
+    _check_precision(precision)
     h_axis = w_off_h.shape[0]
     b, q, _ = hs.shape
     lp = w_att_h.shape[-1]
     f32 = torch.float32
-    hs32 = hs.to(f32)
-    offs = _fma_chain(hs32, w_off_h.to(f32)) + b_off_h.to(f32)[None]
+    hs32, w_off32, w_att32 = hs.to(f32), w_off_h.to(f32), w_att_h.to(f32)
+    if precision == "default":
+        hs32, w_off32, w_att32 = bf16_round(hs32), bf16_round(w_off32), bf16_round(w_att32)
+    offs = _fma_chain(hs32, w_off32) + b_off_h.to(f32)[None]
     xy = base[:, None] + offs * scale[:, None]  # (B, H, Q, 2*LP)
-    logits = _fma_chain(hs32, w_att_h.to(f32)) + b_att_h.to(f32)[None]
+    logits = _fma_chain(hs32, w_att32) + b_att_h.to(f32)[None]
     at = torch.softmax(logits, dim=-1)
     return xy.reshape(b * h_axis, q, 2 * lp), at.reshape(b * h_axis, q, lp)
 
 
 def msda_fused_reference(
     rows, hs, w_off_h, b_off_h, w_att_h, b_att_h, base, scale,
-    level_h, level_w, level_off, method: str = "default",
+    level_h, level_w, level_off, method: str = "default", precision: str = "highest",
 ) -> torch.Tensor:
     """Port of `_fused_ref`: `fused_prologue_reference`, then
     `msda_loc_reference`. rows (B*H, S, hd) -> (B*H, Q, hd) fp32."""
-    xy, at = fused_prologue_reference(hs, w_off_h, b_off_h, w_att_h, b_att_h, base, scale)
-    return msda_loc_reference(rows, xy, at, level_h, level_w, level_off, method)
+    xy, at = fused_prologue_reference(hs, w_off_h, b_off_h, w_att_h, b_att_h, base, scale,
+                                      precision)
+    return msda_loc_reference(rows, xy, at, level_h, level_w, level_off, method, precision)
 
 
 def _value_rows(value: torch.Tensor) -> torch.Tensor:
@@ -368,39 +420,40 @@ def _heads_out(out: torch.Tensor, b: int, h_axis: int) -> torch.Tensor:
 
 
 def msda_gather_sum_plain(
-    value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor
+    value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, precision: str = "highest"
 ) -> torch.Tensor:
     """Plain version of `msda_gather_sum` on its layouts: value (B, S, H, hd),
     idx/w (B*H, Q, J) -> (B, Q, H, hd) fp32, through
     `msda_gather_sum_reference` on the per-head rows."""
     b, _, h_axis, _ = value.shape
-    return _heads_out(msda_gather_sum_reference(_value_rows(value), idx, w), b, h_axis)
+    return _heads_out(msda_gather_sum_reference(_value_rows(value), idx, w, precision), b,
+                      h_axis)
 
 
 def msda_loc_sum_plain(
     value: torch.Tensor, loc: torch.Tensor, attn: torch.Tensor,
     level_h: torch.Tensor, level_w: torch.Tensor, level_off: torch.Tensor,
-    method: str = "default",
+    method: str = "default", precision: str = "highest",
 ) -> torch.Tensor:
     """Plain version of `msda_loc_sum` on its layouts: value (B, S, H, hd),
     loc (B, Q, H, LP, 2), attn (B, Q, H, LP) -> (B, Q, H, hd) fp32, through
     `msda_loc_reference` on the per-head rows."""
     b, _, h_axis, _ = value.shape
     out = msda_loc_reference(_value_rows(value), *_bh_layout(loc, attn), level_h, level_w,
-                             level_off, method)
+                             level_off, method, precision)
     return _heads_out(out, b, h_axis)
 
 
 def msda_fused_sum_plain(
     value, hs, w_off_h, b_off_h, w_att_h, b_att_h, base, scale,
-    level_h, level_w, level_off, method: str = "default",
+    level_h, level_w, level_off, method: str = "default", precision: str = "highest",
 ) -> torch.Tensor:
     """Plain version of `msda_fused_sum` on its layouts: value (B, S, H, hd)
     -> (B, Q, H, hd) fp32, through `msda_fused_reference` on the per-head
     rows."""
     b, _, h_axis, _ = value.shape
     out = msda_fused_reference(_value_rows(value), hs, w_off_h, b_off_h, w_att_h, b_att_h, base,
-                               scale, level_h, level_w, level_off, method)
+                               scale, level_h, level_w, level_off, method, precision)
     return _heads_out(out, b, h_axis)
 
 
@@ -423,14 +476,21 @@ def bind_msda_library(loaded: KernelLibrary) -> KernelLibrary:
         "msda_loc_sum": [ptr] * 7 + [i32] * 7 + [ptr],
         "msda_fused_sum": [ptr] * 12 + [i32] * 8 + [ptr],
     }
+    _bind_entries(lib, signatures)
+    return loaded
+
+
+def _bind_entries(lib, signatures: dict) -> None:
+    """Set the ctypes signatures of each kernel's four C entries (f32 and
+    bf16 rows, "highest" and the one-pass "default" mode) and of
+    msda_error_string."""
     for name, args in signatures.items():
-        for suffix in ("f32", "bf16"):
+        for suffix in ("f32", "bf16", "f32_onepass", "bf16_onepass"):
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = args
             fn.restype = ctypes.c_int
     lib.msda_error_string.argtypes = [ctypes.c_int]
     lib.msda_error_string.restype = ctypes.c_char_p
-    return loaded
 
 
 def _check_cuda_tensors(rows: torch.Tensor, **tensors) -> None:
@@ -466,13 +526,15 @@ def _check_value(name: str, value: torch.Tensor, **tensors) -> None:
     _check_cuda_tensors(value.view(b, s * h_axis, hd), **tensors)
 
 
-def _launch(name: str, rows: torch.Tensor, *args, build=None) -> None:
-    """Call `name`'s f32 or bf16 entry point (by `rows`' dtype) in the
-    library `build` returns (this module's first one by default) on the
-    current stream; raise with the CUDA error string if the launch was
-    refused."""
+def _launch(name: str, rows: torch.Tensor, *args, build=None, precision: str = "highest") -> None:
+    """Call `name`'s f32 or bf16 entry point (by `rows`' dtype; its one-pass
+    form under precision="default") in the library `build` returns (this
+    module's first one by default) on the current stream; raise with the
+    CUDA error string if the launch was refused."""
+    _check_precision(precision)
     lib = (build or build_msda_kernel)().lib
-    fn = getattr(lib, f"{name}_{'f32' if rows.dtype == torch.float32 else 'bf16'}")
+    suffix = "f32" if rows.dtype == torch.float32 else "bf16"
+    fn = getattr(lib, f"{name}_{suffix}{'_onepass' if precision == 'default' else ''}")
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         code = fn(*args, stream)
@@ -504,14 +566,17 @@ MSDA_MAX_SAMPLES = 32
 MSDA_MAX_TERMS = 4 * MSDA_MAX_SAMPLES
 
 
-def msda_gather_sum(value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def msda_gather_sum(value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
     """value (B, S, H, hd) f32/bf16, read in place; idx (B*H, Q, J) int32,
     global row indices into S from `prepare_msda_gather`; w (B*H, Q, J) f32
-    -> (B, Q, H, hd) f32. CUDA tensors launch `csrc/msda.cu` (J <= 128);
-    CPU tensors take `msda_gather_sum_plain`; anything else raises."""
+    -> (B, Q, H, hd) f32, in `precision` ("highest", or the one-pass
+    "default"). CUDA tensors launch `csrc/msda.cu` (J <= 128); CPU tensors
+    take `msda_gather_sum_plain`; anything else raises."""
+    _check_precision(precision)
     if value.device.type == "cpu":
         _require_cpu("msda_gather_sum", idx, w)
-        return msda_gather_sum_plain(value, idx, w)
+        return msda_gather_sum_plain(value, idx, w, precision)
     _require_cuda("msda_gather_sum", value)
     _check_value("msda_gather_sum", value, idx=(idx, torch.int32, 3), w=(w, torch.float32, 3))
     b, s, h_axis, hd = value.shape
@@ -525,7 +590,7 @@ def msda_gather_sum(value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> 
     if out.numel() == 0:
         return out
     _launch("msda_gather_sum", value, value.data_ptr(), idx.data_ptr(), w.data_ptr(),
-            out.data_ptr(), b, h_axis, s, hd, q, j)
+            out.data_ptr(), b, h_axis, s, hd, q, j, precision=precision)
     msda_gather_sum.launches += 1
     return out
 
@@ -550,19 +615,22 @@ def msda_loc_sum(
     level_w: torch.Tensor,
     level_off: torch.Tensor,
     method: str = "default",
+    precision: str = "highest",
 ) -> torch.Tensor:
     """MSDA sampling with the corner prep in the kernel.
 
     value (B, S, H, hd) f32/bf16; loc (B, Q, H, LP, 2) f32 normalized
     sample points, level-major; attn (B, Q, H, LP) f32; per-sample level
-    tables (LP,) -> (B, Q, H, hd) f32. All read in place. CUDA tensors
-    launch `csrc/msda.cu`; CPU tensors take `msda_loc_sum_plain`; anything
-    else raises.
+    tables (LP,) -> (B, Q, H, hd) f32, in `precision`. All read in place.
+    CUDA tensors launch `csrc/msda.cu`; CPU tensors take
+    `msda_loc_sum_plain`; anything else raises.
     """
     code = _method_code(method)
+    _check_precision(precision)
     if value.device.type == "cpu":
         _require_cpu("msda_loc_sum", loc, attn, level_h, level_w, level_off)
-        return msda_loc_sum_plain(value, loc, attn, level_h, level_w, level_off, method)
+        return msda_loc_sum_plain(value, loc, attn, level_h, level_w, level_off, method,
+                                  precision)
     _require_cuda("msda_loc_sum", value)
     f32 = torch.float32
     _check_value(
@@ -585,7 +653,7 @@ def msda_loc_sum(
         return out
     _launch("msda_loc_sum", value, value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
             level_h.data_ptr(), level_w.data_ptr(), level_off.data_ptr(), out.data_ptr(),
-            b, h_axis, s, hd, q, lp, code)
+            b, h_axis, s, hd, q, lp, code, precision=precision)
     msda_loc_sum.launches += 1
     return out
 
@@ -595,7 +663,7 @@ msda_loc_sum.launches = 0
 
 def msda_fused_sum(
     value, hs, w_off_h, b_off_h, w_att_h, b_att_h, base, scale,
-    level_h, level_w, level_off, method: str = "default",
+    level_h, level_w, level_off, method: str = "default", precision: str = "highest",
 ) -> torch.Tensor:
     """MSDA sampling with the projection, softmax and location prologue in
     the kernel.
@@ -603,15 +671,17 @@ def msda_fused_sum(
     value (B, S, H, hd) f32/bf16, read in place; hs (B, Q, D) f32; per-head
     weights w_off_h (H, D, 2*LP), b_off_h (H, 1, 2*LP), w_att_h (H, D, LP),
     b_att_h (H, 1, LP), f32; base/scale (B, Q, 2*LP) f32; per-sample level
-    tables (LP,) -> (B, Q, H, hd) f32. CUDA tensors launch `csrc/msda.cu`;
-    CPU tensors take `msda_fused_sum_plain`; anything else raises.
+    tables (LP,) -> (B, Q, H, hd) f32, in `precision`. CUDA tensors launch
+    `csrc/msda.cu`; CPU tensors take `msda_fused_sum_plain`; anything else
+    raises.
     """
     code = _method_code(method)
+    _check_precision(precision)
     args = (value, hs, w_off_h, b_off_h, w_att_h, b_att_h, base, scale, level_h, level_w,
             level_off)
     if value.device.type == "cpu":
         _require_cpu("msda_fused_sum", *args[1:])
-        return msda_fused_sum_plain(*args, method)
+        return msda_fused_sum_plain(*args, method, precision)
     _require_cuda("msda_fused_sum", value)
     f32 = torch.float32
     _check_value(
@@ -640,7 +710,7 @@ def msda_fused_sum(
     if out.numel() == 0:
         return out
     _launch("msda_fused_sum", value, *(t.data_ptr() for t in args), out.data_ptr(),
-            b, h_axis, s, hd, q, d, lp, code)
+            b, h_axis, s, hd, q, d, lp, code, precision=precision)
     msda_fused_sum.launches += 1
     return out
 
@@ -739,13 +809,21 @@ def msda_sep_reference(
     level_hw: tuple[int, int],
     r_band: int,
     n_points: int,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Plain version of `msda_sep_sum`, `pallas_sep_sampling`'s function on
     gathers: out[bh, q] = sum over points p, rows y0 + dy and columns
     x0 + dx (dy, dx in {0, 1}) of xw_dx * V[y, x] * yw_dy, where a row counts
     only inside the level and inside a band whose mask bit is set, and a
     column only inside the level. Returns (BH, n_qt*64, hd) fp32; pad
-    queries come out 0."""
+    queries come out 0.
+
+    precision="default" is the TPU's two bf16 passes: per point and row,
+    g = bf16(xw0) * bf16(V[y, x0]) + bf16(xw1) * bf16(V[y, x0 + 1]) (products
+    exact, one fp32 sum), times yw in fp32; the points' terms of each row
+    summed in fp32 in point order, that sum rounded to bf16, and the rows
+    summed in fp32 (`_sep_one_pass`)."""
+    _check_precision(precision)
     lh, lw = level_hw
     bh, _, hd = rows.shape
     n_qt, n_bands = mask.shape[1], mask.shape[2]
@@ -761,19 +839,61 @@ def msda_sep_reference(
     tile = torch.arange(nq, device=rows.device) // SEP_Q_TILE  # (n_qt*64,)
     band_on = mask.ne(0)
     bh_idx = torch.arange(bh, device=rows.device).view(bh, 1, 1)
+
+    def corner(y, row_on, dx):  # (BH, P, nq, hd) values of column x0 + dx, 0 where off
+        x = xi_u + dx
+        valid = row_on & (x >= 0) & (x < lw)
+        flat = torch.where(valid, y * lw + x, 0) + bh_idx * (lh * lw)
+        g = rows.reshape(bh * lh * lw, hd).index_select(0, flat.reshape(-1))
+        g = g.reshape(bh, n_points, nq, hd).to(torch.float32)
+        return torch.where(valid[..., None], g, 0.0)
+
+    def row_on_of(y):
+        band = torch.div(y, r_band, rounding_mode="floor").clamp(0, n_bands - 1)
+        return (y >= 0) & (y < lh) & band_on[bh_idx, tile.view(1, 1, nq), band]
+
+    if precision == "default":
+        return _sep_one_pass(corner, row_on_of, xw, yw, yi_u, (bh, nq, hd))
     out = torch.zeros((bh, nq, hd), dtype=torch.float32, device=rows.device)
     for dy in (0, 1):
         y = yi_u + dy
-        band = torch.div(y, r_band, rounding_mode="floor").clamp(0, n_bands - 1)
-        row_on = (y >= 0) & (y < lh) & band_on[bh_idx, tile.view(1, 1, nq), band]
+        row_on = row_on_of(y)
         for dx in (0, 1):
-            x = xi_u + dx
-            valid = row_on & (x >= 0) & (x < lw)
-            flat = torch.where(valid, y * lw + x, 0) + bh_idx * (lh * lw)
-            g = rows.reshape(bh * lh * lw, hd).index_select(0, flat.reshape(-1))
-            g = g.reshape(bh, n_points, nq, hd).to(torch.float32)
-            term = g * xw[dx][..., None] * torch.where(valid, yw[dy], 0.0)[..., None]
+            term = corner(y, row_on, dx) * xw[dx][..., None] * torch.where(
+                row_on, yw[dy], 0.0)[..., None]
             out += term.sum(dim=1)
+    return out
+
+
+def _sep_one_pass(corner, row_on_of, xw, yw, yi_u, out_shape) -> torch.Tensor:
+    """`msda_sep_reference`'s "default" mode. The 2P candidate rows of a
+    query, (p, dy) in order, each carry m = fp32(g * yw) with g the x-dot of
+    that row (bf16 operands, products exact, one fp32 sum). A candidate whose
+    row no earlier candidate has takes the fp32 sum, in order, of its own m
+    and every later candidate's m on the same row, rounds it to bf16 and adds
+    it to the output; a candidate whose row came earlier adds nothing. That
+    is the TPU's per-row point sum `acc` and its rounding before the group-sum
+    dot, with rows that no point hits contributing 0, as they do there."""
+    n_points = yi_u.shape[1]
+    xr = (bf16_round(xw[0]), bf16_round(xw[1]))
+    cands = []  # (row, m) per (p, dy), rows (BH, nq), m (BH, nq, hd)
+    for dy in (0, 1):
+        y = yi_u + dy
+        row_on = row_on_of(y)
+        g = (bf16_round(corner(y, row_on, 0)) * xr[0][..., None]
+             + bf16_round(corner(y, row_on, 1)) * xr[1][..., None])
+        m = g * torch.where(row_on, yw[dy], 0.0)[..., None]
+        cands.append((y, m))
+    order = [(cands[dy][0][:, p], cands[dy][1][:, p]) for p in range(n_points) for dy in (0, 1)]
+    out = torch.zeros(out_shape, dtype=torch.float32, device=yi_u.device)
+    for c, (row, m) in enumerate(order):
+        first = torch.ones_like(row, dtype=torch.bool)
+        for row_e, _ in order[:c]:
+            first &= row_e != row
+        acc = m
+        for row_l, m_l in order[c + 1:]:
+            acc = acc + torch.where((row_l == row)[..., None], m_l, 0.0)
+        out = out + torch.where(first[..., None], bf16_round(acc), 0.0)
     return out
 
 
@@ -792,7 +912,7 @@ def prepare_msda_gather_lanes(
     b, q, h_axis, lp, _ = loc.shape
     _check_samples(lp, spatial_shapes, num_points, method)
     lvl_h, lvl_w, lvl_off = level_tables(
-        tuple(map(tuple, spatial_shapes)), num_points, loc.device, loc.dtype)
+        tuple(map(tuple, spatial_shapes)), num_points, loc.device, torch.float32)
     loc_t = loc.permute(0, 2, 3, 1, 4)  # (B, H, LP, Q, 2)
     corners = _corner_terms(
         loc_t[..., 0], loc_t[..., 1], attn.permute(0, 2, 3, 1),
@@ -835,17 +955,11 @@ def build_msda_backends_kernel() -> KernelLibrary:
     loaded = load_kernel_library("msda_backends", ("msda_backends.cu",))
     lib = loaded.lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        "msda_sep_sum": [ptr] * 9 + [i32] * 8 + [ptr],
-        "msda_hd_gather_sum": [ptr] * 4 + [i32] * 6 + [ptr],
-    }
-    for name, args in signatures.items():
-        for suffix in ("f32", "bf16"):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-    lib.msda_error_string.argtypes = [ctypes.c_int]
-    lib.msda_error_string.restype = ctypes.c_char_p
+    _bind_entries(lib, {"msda_sep_sum": [ptr] * 9 + [i32] * 8 + [ptr]})
+    for suffix in ("f32", "bf16"):  # the lane gather takes no precision
+        fn = getattr(lib, f"msda_hd_gather_sum_{suffix}")
+        fn.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        fn.restype = ctypes.c_int
     return loaded
 
 
@@ -857,6 +971,7 @@ def msda_sep_sum(
     level_hw: tuple[int, int],
     r_band: int,
     n_points: int,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Separable bilinear sampling over one level.
 
@@ -864,13 +979,15 @@ def msda_sep_sum(
     JAX kernel's (W, R*hd) band transpose exists for its MXU dot and is not
     taken); xi/yi (BH, n_qt*P*64, 1) int32 and xw0/xw1/yw0/yw1 of the same
     shape fp32, from `sep_level_operands`; mask (BH, n_qt, n_bands) int32 ->
-    (BH, n_qt*64, hd) fp32. CUDA tensors launch `csrc/msda_backends.cu`;
-    CPU tensors take `msda_sep_reference`; anything else raises.
+    (BH, n_qt*64, hd) fp32, in `precision`. CUDA tensors launch
+    `csrc/msda_backends.cu`; CPU tensors take `msda_sep_reference`;
+    anything else raises.
     """
     ops = (xi, xw0, xw1, yi, yw0, yw1)
+    _check_precision(precision)
     if rows.device.type == "cpu":
         _require_cpu("msda_sep_sum", *ops, mask)
-        return msda_sep_reference(rows, *ops, mask, level_hw, r_band, n_points)
+        return msda_sep_reference(rows, *ops, mask, level_hw, r_band, n_points, precision)
     _require_cuda("msda_sep_sum", rows)
     f32, i32 = torch.float32, torch.int32
     _check_cuda_tensors(
@@ -893,7 +1010,7 @@ def msda_sep_sum(
         return out
     _launch("msda_sep_sum", rows, rows.data_ptr(), *(t.data_ptr() for t in ops),
             mask.data_ptr(), out.data_ptr(), bh, n_qt, n_points, lh, lw, hd, r_band, n_bands,
-            build=build_msda_backends_kernel)
+            build=build_msda_backends_kernel, precision=precision)
     msda_sep_sum.launches += 1
     return out
 
@@ -933,7 +1050,8 @@ def msda_hd_gather_sum(
 msda_hd_gather_sum.launches = 0
 
 
-def _sep_sampling(value, loc, attn, spatial_shapes, num_points, method) -> torch.Tensor:
+def _sep_sampling(value, loc, attn, spatial_shapes, num_points, method,
+                  precision: str = "highest") -> torch.Tensor:
     """The pallas_sep path: one `msda_sep_sum` per level, summed in level
     order -> (B*H, Q, hd) fp32."""
     b, s, h_axis, hd = value.shape
@@ -947,7 +1065,8 @@ def _sep_sampling(value, loc, attn, spatial_shapes, num_points, method) -> torch
         operands, mask, r_band = sep_level_operands(
             loc[:, :, :, pts], attn[:, :, :, pts], lh, lw, method)
         rows_l = rows_all[:, offs[lvl]:offs[lvl] + lh * lw].contiguous()
-        part = msda_sep_sum(rows_l, *operands, mask, (lh, lw), r_band, num_points)[:, :q]
+        part = msda_sep_sum(rows_l, *operands, mask, (lh, lw), r_band, num_points,
+                            precision)[:, :q]
         out = part if out is None else out + part
     return out
 
@@ -968,7 +1087,8 @@ def deformable_sampling(
     per level and =pallas_gather `msda_hd_gather_sum`, whatever the prep
     setting; otherwise SPOTTER_TPU_MSDA_PREP=kernel runs the corner prep
     inside `msda_loc_sum`, and the rest feeds `prepare_msda_gather` to
-    `msda_gather_sum`. Every branch but pallas_sep hands its kernel the
+    `msda_gather_sum`. Each kernel but the lane gather runs the forward's
+    precision (`backend_precision`). Every branch but pallas_sep hands its kernel the
     value, loc and attn as they are (`contiguous()` copies only for a
     caller whose tensors are not) and gets (B, Q, H, hd) back, whose
     reshape to (B, Q, H*hd) is a view. The JAX package takes its loc-prep
@@ -982,9 +1102,10 @@ def deformable_sampling(
     b, _, h_axis, hd = value.shape
     q, lp = loc.shape[1], loc.shape[3]
     backend = msda_backend()
+    precision = backend_precision(backend)
     if backend == "pallas_sep":
-        out = _heads_out(_sep_sampling(value, loc, attn, spatial_shapes, num_points, method),
-                         b, h_axis)
+        out = _heads_out(_sep_sampling(value, loc, attn, spatial_shapes, num_points, method,
+                                       precision), b, h_axis)
     elif backend == "pallas_gather":
         idx, w = prepare_msda_gather_lanes(loc, attn, spatial_shapes, num_points, method)
         out = msda_hd_gather_sum(value.contiguous(), idx, w, lp, q)
@@ -993,10 +1114,11 @@ def deformable_sampling(
         f32 = torch.float32
         tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, loc.device, f32)
         out = msda_loc_sum(value.contiguous(), loc.to(f32).contiguous(),
-                           attn.to(f32).contiguous(), *tables, method)
+                           attn.to(f32).contiguous(), *tables, method, precision)
     else:
         out = msda_gather_sum(
-            value.contiguous(), *prepare_msda_gather(loc, attn, spatial_shapes, num_points, method))
+            value.contiguous(), *prepare_msda_gather(loc, attn, spatial_shapes, num_points, method),
+            precision)
     return out.reshape(b, q, h_axis * hd).to(value.dtype)
 
 
@@ -1071,7 +1193,8 @@ def deformable_sampling_fused(
     lp = len(spatial_shapes) * num_points
     heads = fused_head_weights(w_off, b_off, w_att, b_att, h_axis)
     base, scale = fused_anchors(reference_points, lp, num_points, offset_scale)
-    if msda_backend() in ("pallas_sep", "pallas_gather"):
+    backend = msda_backend()
+    if backend in ("pallas_sep", "pallas_gather"):
         # the JAX package's fallback: the prologue in plain tensor code, then
         # whatever core the backend names
         hs32 = hs.to(torch.float32)
@@ -1087,6 +1210,6 @@ def deformable_sampling_fused(
     tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, hs.device, torch.float32)
     out = msda_fused_sum(
         value.contiguous(), hs.to(torch.float32).contiguous(), *heads, base, scale, *tables,
-        method,
+        method, backend_precision(backend),
     )
     return out.reshape(b, q, h_axis * hd).to(value.dtype)

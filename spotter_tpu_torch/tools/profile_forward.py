@@ -1,7 +1,8 @@
 """Where the device time of one detector forward goes, on the card.
 
-Builds the full-width model from a seed (as chip_smoke.py does), runs the
-float32 policy (TF32 off) at batch B, and reports, under each
+Builds the full-width model from a seed (as chip_smoke.py does), under the
+SPOTTER_TPU_DTYPE policy (float32 when unset; TF32 off under every
+policy) at batch B, and reports, under each
 SPOTTER_TPU_MSDA backend asked for:
 
 - per-stage device time from CUDA events recorded by forward hooks on the
@@ -39,7 +40,7 @@ from spotter_tpu_torch.ops.preprocess import (
     device_rescale_normalize,
     device_rescale_normalize_masked,
 )
-from spotter_tpu_torch.utils.precision import use_exact_float32
+from spotter_tpu_torch.utils.precision import policy_name, use_exact_float32
 
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 5  # timed forwards per measurement
@@ -203,6 +204,13 @@ def profile_backend(model_name: str, model, inputs: tuple) -> dict:
         key=lambda r: -r[1],
     )
     device_ms = sum(r[1] for r in rows)
+    # the host side: the ops whose own CPU time (launch and dispatch, not
+    # their children's) is largest, where a host-bound forward goes
+    cpu_rows = sorted(
+        ((e.key, e.self_cpu_time_total / 1e3 / ITERS, e.count // ITERS)
+         for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+        key=lambda r: -r[1],
+    )
     return {
         "forward_wall_ms_median": statistics.median(walls),
         "forward_wall_ms": walls,
@@ -216,6 +224,9 @@ def profile_backend(model_name: str, model, inputs: tuple) -> dict:
             "kernel_kinds": len(rows),
             "top_kernels": [{"name": n[:120], "ms_per_forward": ms, "calls_per_forward": c}
                             for n, ms, c in rows[:25]],
+            "host_ms_per_forward": sum(r[1] for r in cpu_rows),
+            "top_host_ops": [{"name": n[:80], "self_cpu_ms_per_forward": ms,
+                              "calls_per_forward": c} for n, ms, c in cpu_rows[:15]],
             "msda_launches_per_forward": {k: (after[k] - before[k]) / ITERS
                                           for k in after if after[k] != before[k]},
         },
@@ -240,7 +251,8 @@ def main(argv=None) -> int:
     model = built.module.to("cuda").eval()
     inputs = model_inputs(args.model, built.preprocess_spec, args.batch, args.seed)
     rec = {"device": torch.cuda.get_device_name(0), "model": args.model,
-           "batch": args.batch, "policy": "float32 (TF32 off)", "backends": {}}
+           "batch": args.batch, "policy": f"{policy_name() or 'float32'} (TF32 off)",
+           "backends": {}}
     try:
         with torch.inference_mode():
             for backend in backends:

@@ -104,7 +104,7 @@ def sass_counts() -> dict:
     """Instructions and global loads (LDG) in the SASS of the first kernel
     (variant 0) and of the redesigned kernel, fp32 rows, vector path."""
     kernels = {"warp_per_query": (build_sep_probe_kernel, "sep_variant_kernelILb0ELb0ELb0E"),
-               "redesigned": (build_msda_backends_kernel, "msda_sep_sum_kernelIfLb1E")}
+               "redesigned": (build_msda_backends_kernel, "msda_sep_sum_kernelIfLb1ELb0E")}
     out = {}
     for name, (build, tag) in kernels.items():
         body = next(b for fn, b in sass_functions(disassemble(build().path)).items() if tag in fn)

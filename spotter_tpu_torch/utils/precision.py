@@ -10,13 +10,16 @@ The same three policies and the same env knob as the JAX package:
 - "bfloat16": bf16 activations everywhere.
 
 Each family's build function (models/zoo.py) applies the policy as the JAX
-package's does. YOLOS takes all three: its ViT body runs at
-`backbone_dtype()`, so bf16 under "mixed" and "bfloat16", with fp32 heads.
-RT-DETR runs only "float32" so far and its build function refuses the other two
-names (`require_float32`) rather than serve them as fp32. The int8 knobs
-(SPOTTER_TPU_INT8, _INT8_DENSE, _INT8_ATTN) change what the JAX package
-computes and are not ported: building any model with one of them set
-raises (`refuse_int8`).
+package's does: the CNN backbone (or YOLOS's ViT body, OWL's vision tower)
+at `backbone_dtype()`, the rest at `compute_dtype()`, with box refinement
+and the outputs in fp32 under every policy. Under "mixed" and "bfloat16"
+the MSDA sampling follows the policy too (SPOTTER_TPU_MSDA_PRECISION,
+ops/msda.py), and under "bfloat16" RT-DETR fuses its RepVGG blocks
+(SPOTTER_TPU_REP_FUSE, models/rtdetr.py). The fp32 half of every policy is
+exact fp32 on the card (`use_exact_float32`), which the engine sets on
+every card whatever the policy. The int8 knobs (SPOTTER_TPU_INT8,
+_INT8_DENSE, _INT8_ATTN) change what the JAX package computes and are not
+ported: building any model with one of them set raises (`refuse_int8`).
 """
 
 import os
@@ -61,14 +64,10 @@ def backbone_dtype(override: str | None = None) -> torch.dtype:
     return _policy(override)[1]
 
 
-def require_float32(family: str) -> None:
-    """Raise unless the policy is "float32": `family` runs no other yet."""
-    if compute_dtype() != torch.float32 or backbone_dtype() != torch.float32:
-        raise ValueError(
-            f"{DTYPE_ENV}={os.environ.get(DTYPE_ENV)!r}: the port runs the {family} family "
-            f"only under the float32 policy; its mixed and bfloat16 policies are "
-            f"ROADMAP Queue 1 item 9"
-        )
+def policy_name() -> str:
+    """The SPOTTER_TPU_DTYPE value as the JAX package's policy defaults read
+    it (stripped, lower case; "" when unset)."""
+    return os.environ.get(DTYPE_ENV, "").strip().lower()
 
 
 INT8_KNOBS = ("SPOTTER_TPU_INT8", "SPOTTER_TPU_INT8_DENSE", "SPOTTER_TPU_INT8_ATTN")
@@ -88,11 +87,16 @@ def refuse_int8() -> None:
 
 
 def use_exact_float32() -> None:
-    """Make "float32" mean exact fp32 on the card.
+    """Make "float32" mean exact fp32 on the card, and bf16 products sum in
+    fp32 as the TPU's matrix unit sums them.
 
     torch.backends.cuda.matmul.allow_tf32 is already False by default, but
     torch.backends.cudnn.allow_tf32 is True, which would round every fp32
-    convolution's inputs to TF32. Both are process-wide switches; set both.
+    convolution's inputs to TF32. And cuBLAS may sum a bf16 matmul's partial
+    products in bf16 (allow_bf16_reduced_precision_reduction, True by
+    default), which no policy of the JAX package does. All are process-wide
+    switches; set all three.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

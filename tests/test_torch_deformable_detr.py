@@ -225,9 +225,11 @@ def test_presets_registry_and_policy(monkeypatch):
     assert built.needs_mask and built.postprocess == "sigmoid_topk"
     assert built.num_top_queries == 9 and built.preprocess_spec.input_hw == (64, 64)
     assert tpre.DETR_SPEC.input_hw == (1333, 1333)
+    # formerly a refusal: "mixed" builds, its backbone at bf16
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", "mixed")
-    with pytest.raises(ValueError, match="Deformable-DETR family only under the float32"):
-        registry.build_detector("SenseTime/deformable-detr", tiny=True)
+    model = registry.build_detector("SenseTime/deformable-detr", tiny=True).module
+    assert model.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert model.encoder_layer0.fc1.weight.dtype == torch.float32
 
 
 def test_seeded_init_is_deterministic_and_flax_shaped():

@@ -218,9 +218,11 @@ def test_full_width_build_on_the_cpu(monkeypatch):
     built = registry.build_detector("microsoft/table-transformer-detection", tiny=False)
     assert built.preprocess_spec.input_hw == (1333, 1333) and built.num_top_queries == 15
     assert next(built.module.parameters()).device.type == "cpu"
+    # formerly a refusal: "mixed" builds, its backbone at bf16
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", "mixed")
-    with pytest.raises(ValueError, match="DETR family only under the float32"):
-        registry.build_detector(MODEL, tiny=True)
+    model = registry.build_detector(MODEL, tiny=True).module
+    assert model.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert model.input_projection.weight.dtype == torch.float32
 
 
 def test_seeded_init_is_deterministic_and_flax_keyed():

@@ -200,9 +200,12 @@ def test_presets_and_builders(name, family, queries, monkeypatch):
     assert built.num_top_queries == 9 and built.preprocess_spec == tzoo.TINY_DETR_SPEC
     full = registry.build_detector(name, tiny=False)
     assert full.num_top_queries == 100 and full.preprocess_spec.input_hw == (1333, 1333)
+    # formerly a refusal: "bfloat16" builds, every dense and conv at bf16
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", "bfloat16")
-    with pytest.raises(ValueError, match="only under the float32"):
-        registry.build_detector(name, tiny=True)
+    model = registry.build_detector(name, tiny=True).module
+    assert model.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert model.decoder_layer0.fc1.weight.dtype == torch.bfloat16
+    assert model.decoder_layernorm.weight.dtype == torch.float32
 
 
 @pytest.mark.parametrize("name", ["IDEA-Research/dab-detr-resnet-50-pat3",

@@ -6,10 +6,9 @@ ignored.
   the item, when one of their knobs asks for the plane; the knobs' off
   values serve. `/healthz` says integrity is off, since the JAX package's
   default is on.
-- `SPOTTER_TPU_MSDA_PRECISION`: "highest" (what the port's kernels do)
-  serves; "default" (one bf16 pass, ROADMAP Queue 1 item 9) raises at build
-  and when a forward runs; any other value raises with the JAX package's
-  own text.
+- `SPOTTER_TPU_MSDA_PRECISION`: "highest" and "default" (one bf16 pass,
+  the MSDA kernels' one-pass mode) serve; any other value raises with the
+  JAX package's own text, at build and when a forward runs.
 """
 
 import asyncio
@@ -108,14 +107,19 @@ def test_msda_precision_highest_serves(clean_env):
 
 @pytest.mark.parametrize("family", [MODEL, "SenseTime/deformable-detr"])
 def test_msda_precision_default_raises_at_build_and_forward(clean_env, family):
+    """Formerly a refusal: SPOTTER_TPU_MSDA_PRECISION=default (the one-pass
+    mode of MSDA rows 1-4) now builds and serves through
+    build_detector_app, and each MSDA op of the forward runs it."""
     clean_env.setenv("SPOTTER_TPU_MSDA_PRECISION", "default")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
-        tapp.build_detector_app(family, tiny=True, device="cpu")
-    clean_env.delenv("SPOTTER_TPU_MSDA_PRECISION")
-    det = tapp.build_detector_app(family, tiny=True, device="cpu", batch_buckets=(1,))
     clean_env.setattr(msda, "MSDA_PRECISION", "default")
-    with pytest.raises(ValueError, match="not ported, comes with ROADMAP Queue 1 item 9"):
-        det.engine.detect([_photo(1)])
+    seen = []
+    real = msda.msda_gather_sum
+    clean_env.setattr(msda, "msda_gather_sum",
+                      lambda *a, **k: seen.append(k.get("precision", a[-1])) or real(*a, **k))
+    det = tapp.build_detector_app(family, tiny=True, device="cpu", batch_buckets=(1,))
+    (dets,) = det.engine.detect([_photo(1)])
+    assert isinstance(dets, list)
+    assert seen and set(seen) == {"default"}
 
 
 def test_msda_precision_bogus_raises_with_the_jax_text(clean_env):

@@ -273,9 +273,20 @@ def test_yolos_builds_its_body_at_the_backbone_dtype(monkeypatch, policy, dtype)
 
 @pytest.mark.parametrize("policy", ["mixed", "bfloat16"])
 def test_rtdetr_refuses_non_float32_policies(monkeypatch, policy):
+    """Formerly a refusal: RT-DETR now builds under "mixed" and "bfloat16"
+    (its backbone bf16 under both, the rest bf16 under "bfloat16") and
+    serves a photo through the engine, with fp32 outputs."""
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", policy)
-    with pytest.raises(ValueError, match="only under the float32 policy.*Queue 1 item 9"):
-        registry.build_detector("PekingU/rtdetr_v2_r101vd", tiny=True)
+    built = registry.build_detector("PekingU/rtdetr_v2_r101vd", tiny=True)
+    model = built.module
+    compute = torch.bfloat16 if policy == "bfloat16" else torch.float32
+    assert model.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert model.decoder_layer0.fc1.weight.dtype == compute
+    with torch.inference_mode():
+        out = model(torch.zeros((1, 64, 64, 3)))
+    assert out["logits"].dtype == out["pred_boxes"].dtype == torch.float32
+    (dets,) = InferenceEngine(built, device="cpu").detect([_photo(4)])
+    assert isinstance(dets, list)
 
 
 @pytest.mark.parametrize("knob", ["SPOTTER_TPU_INT8", "SPOTTER_TPU_INT8_DENSE",
