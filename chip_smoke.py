@@ -9,18 +9,21 @@ Deformable-DETR (SenseTime/deformable-detr, photos staged into the
 the DETR lineage in the same bucket (DETR-R50, Table-Transformer,
 Conditional-DETR, DAB-DETR: masked attention, no hand-written kernel), and
 OWLv2 (owlv2-base-patch16-ensemble, 960x960, both policies) with
-OWL-ViT B/32; then the port's three measurement tools. Holds its eleven
-hand-written kernels against their plain PyTorch versions: csrc/msda.cu
+OWL-ViT B/32; RT-DETRv2-R101 and the other families with int8
+quantization on (SPOTTER_TPU_INT8, _INT8_DENSE, _INT8_ATTN); then the
+port's three measurement tools. Holds its fifteen hand-written kernels
+against their plain PyTorch versions: csrc/msda.cu
 (MSDA gather-sum, loc-prep and fused-prologue sampling),
 csrc/msda_backends.cu (the pallas_sep separable sampling and the
 pallas_gather lane gather), csrc/attention.cu (flash attention, fp32 and
-bf16), csrc/class_logits.cu (the OWL class-logit head), and the probes'
-csrc/int8_gemm.cu, csrc/pack_tile.cu and csrc/launch_probe.cu. Phases,
-each printing JSON lines:
+bf16), csrc/class_logits.cu (the OWL class-logit head), csrc/quant.cu
+(the int8 path's amax, quantize and dequant passes) with csrc/int8_gemm.cu's
+K-major entry, and the probes' csrc/int8_gemm.cu, csrc/pack_tile.cu and
+csrc/launch_probe.cu. Phases, each printing JSON lines:
 
 1. device  — card name, `nvidia-smi` name and power limit, and whether the
              serving layer's packages (PIL, aiohttp, httpx, pydantic) import;
-2. build   — nvcc builds of the seven kernel libraries for sm_90a, started
+2. build   — nvcc builds of the eight kernel libraries for sm_90a, started
              together, with their seconds;
 3. kernel  — each kernel against its plain version: the MSDA kernels at the
              decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
@@ -138,7 +141,28 @@ each printing JSON lines:
              seeded model's and its kernels' launches; each load's seconds
              (config, file read and conversion, load_from_jax apart) and
              bytes;
-20. probes — the three measurement tools through their `main`, each with
+20. precision — the "mixed" and "bfloat16" policies (`phase_precision`);
+21. int8  — int8 quantization: tools/bench_int8_conv.py at the JAX probe's
+             seven conv shapes, a dense shape (YOLOS-base's 34,408 rows,
+             ragged) and an attention shape (B·H 64, Tq = Tk = 300, hd 32),
+             every pass exact against its plain version (amax, codes, int32
+             products, dequant bit for bit), timed beside cuDNN's bf16 conv,
+             torch.linalg.vector_norm and torch._int_mm; int8_gemm's SASS
+             with IGMMA and no IMMA; RT-DETRv2-R101 under "bfloat16" with
+             SPOTTER_TPU_INT8=1, then with all three knobs, and under
+             "float32" with INT8=1: the B = 8 quantized forward bit equal to
+             its plain witness (every int8 wrapper routed to its plain
+             version on the same card tensors) and beside the float one
+             (encoder scores within the "bfloat16" policy's 25 %), its
+             quantized calls equal to the module
+             tree's count and each int8 kernel's launches to them, B = 1
+             (below the batch floor) bit equal to the float forward, device
+             ms and stages; the engine on 8 photos and /detect for 8 URLs in
+             the throughput bucket (buckets (8,)); YOLOS-base "mixed" +
+             INT8_DENSE against its float forward, and one B = 8 forward of
+             each other family with every knob on, each bit equal to its
+             plain witness;
+22. probes — the three measurement tools through their `main`, each with
              its kernel's count set to 0 just before: bench_int8 (int8_gemm
              exactly equal to its plain version at n = 4096, 8192 and 4000,
              with its transpose pass equal to b.t().contiguous(), beside
@@ -167,7 +191,7 @@ this file; exits non-zero without either.
                                             ddetr_parity,ddetr_serve,ddetr_http,
                                             detr_parity,detr_serve,detr_http,
                                             owl_parity,owl_serve,owl_http,load,precision,
-                                            probes]
+                                            int8,probes]
 
 The full record is also written to build/chip_smoke.json (or --out).
 """
@@ -193,7 +217,7 @@ REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
           "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
-          "load", "precision", "probes")
+          "load", "precision", "int8", "probes")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
 YOLOS_NAME = "hustvl/yolos-base"
@@ -268,7 +292,11 @@ MIXED_ATOL_BOXES = 0.05
 CLASS_LOGITS_RTOL = 1e-5
 
 
+T0 = time.perf_counter()  # the run's start: each record carries its seconds since (`t_s`)
+
+
 def emit(record: dict, log: list) -> None:
+    record.setdefault("t_s", time.perf_counter() - T0)
     log.append(record)
     print(json.dumps(record), flush=True)
 
@@ -318,17 +346,17 @@ def phase_device(log: list) -> dict:
 
 
 def phase_build(log: list) -> dict:
-    """The seven kernel libraries, one nvcc each, started together."""
+    """The eight kernel libraries, one nvcc each, started together."""
     from spotter_tpu_torch.ops.attention import build_attention_kernel
+    from spotter_tpu_torch.ops.int8 import build_int8_gemm_kernel, build_quant_kernel
     from spotter_tpu_torch.ops.msda import build_msda_backends_kernel, build_msda_kernel
     from spotter_tpu_torch.ops.openvocab import build_class_logits_kernel
-    from spotter_tpu_torch.tools.bench_int8 import build_int8_gemm_kernel
     from spotter_tpu_torch.tools.bench_pack_probe import build_pack_tile_kernel
     from spotter_tpu_torch.tools.profile_r101 import build_launch_probe_kernel
 
     builds = (build_msda_kernel, build_msda_backends_kernel, build_attention_kernel,
-              build_class_logits_kernel, build_int8_gemm_kernel, build_pack_tile_kernel,
-              build_launch_probe_kernel)
+              build_class_logits_kernel, build_int8_gemm_kernel, build_quant_kernel,
+              build_pack_tile_kernel, build_launch_probe_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(build) for build in builds]
@@ -1204,7 +1232,7 @@ def check_class_logits_design() -> dict:
 
 
 def kernel_counters():
-    from spotter_tpu_torch.ops import attention, msda, openvocab
+    from spotter_tpu_torch.ops import attention, int8, msda, openvocab
     from spotter_tpu_torch.tools import bench_int8, bench_pack_probe, profile_r101
 
     return {"msda_gather_sum": msda.msda_gather_sum, "msda_loc_sum": msda.msda_loc_sum,
@@ -1215,7 +1243,9 @@ def kernel_counters():
             "flash_attn_bf16": attention.flash_attn_bf16,
             "owl_class_logits": openvocab.owl_class_logits,
             "int8_gemm": bench_int8.int8_gemm, "pack_tile": bench_pack_probe.pack_tile,
-            "launch_probe": profile_r101.launch_probe}
+            "launch_probe": profile_r101.launch_probe,
+            "amax_s8": int8.amax_s8, "quantize_s8": int8.quantize_s8,
+            "int8_gemm_kmajor": int8.int8_gemm_kmajor, "dequant_s32": int8.dequant_s32}
 
 
 def reset_counts() -> None:
@@ -1231,8 +1261,9 @@ def phase_kernel(log: list, seed: int) -> list:
     import torch
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
-    # every kernel of a served path; the probes' kernels run in their own phase
-    probes = {kernel for kernel, *_ in PROBE_TOOLS}
+    # every kernel of a served path; the probes' and the int8 path's kernels
+    # run in their own phases
+    probes = {kernel for kernel, *_ in PROBE_TOOLS} | set(INT8_KERNELS)
     counters = {n: fn for n, fn in kernel_counters().items() if n not in probes}
     before = {name: fn.launches for name, fn in counters.items()}
     cases = []
@@ -2628,8 +2659,10 @@ def phase_owl_http(log: list, seed: int, device: str = "cuda") -> dict:
         det = build_detector_app(OWLV2_NAME, device=device, seed=seed, warmup=True)
     bringup_s = time.perf_counter() - t0
     model = det.engine.built.module
-    runs = [("default", lambda: None, [("1", 1, 3, 1), ("8", 8, 3, 1)]),
-            ("queries", lambda: None, [("8q", 8, 3, 1, OWL_QUERIES)])]
+    # two rounds of 8 URLs each: a random-init OWLv2 draws thousands of boxes
+    # on every photo, ~30 s a request on the host
+    runs = [("default", lambda: None, [("1", 1, 3, 1), ("8", 8, 2, 1)]),
+            ("queries", lambda: None, [("8q", 8, 2, 1, OWL_QUERIES)])]
     with tempfile.TemporaryDirectory() as photo_dir:
         write_photos(photo_dir, rng)
         out = asyncio.run(drive_http(det, photo_dir, runs))
@@ -3020,10 +3053,11 @@ def rtdetr_policy_leg(policy: str, rep_fuse, seed: int, photos, x8, ref_scores, 
         built = build_detector(MODEL_NAME, tiny=False, seed=seed)
         module = built.module
         layers = module.config.decoder_layers
-        dtypes = {"backbone": module.backbone.stem0.conv.weight.dtype,
-                  "encoder": module.fpn_block0.bottleneck0.conv1.conv.weight.dtype,
+        # the layers' compute dtypes (ConvNorm kernels are fp32 masters, cast at use)
+        dtypes = {"backbone": module.backbone.stem0.dtype,
+                  "encoder": module.fpn_block0.bottleneck0.conv1.dtype,
                   "decoder": module.decoder_layer0.fc1.weight.dtype}
-        rec["weight_dtypes"] = {k: str(v).removeprefix("torch.") for k, v in dtypes.items()}
+        rec["compute_dtypes"] = {k: str(v).removeprefix("torch.") for k, v in dtypes.items()}
         if dtypes != {"backbone": torch.bfloat16, "encoder": compute, "decoder": compute}:
             raise AssertionError(f"RT-DETR under {policy} built at {dtypes}")
         rec["rep_fuse"] = rep_fuse_default(compute)
@@ -3269,12 +3303,403 @@ def phase_precision(log: list, seed: int, device: str = "cuda") -> dict:
             out["checkpoint_mixed"] = {
                 "bit_equal": equal,
                 "bf16_tensors": sum(v.dtype == torch.bfloat16 for v in got.values()),
+                "bf16_layers": sum(getattr(m, "dtype", None) == torch.bfloat16
+                                   for m in loaded.modules()),
                 "tensors": len(got)}
             if not equal:
                 raise AssertionError("the mixed RT-DETR loaded from a checkpoint differs from "
                                      "the seeded mixed model")
     summary = {k: v for k, v in out.items() if k not in ("rtdetr", "families")}
     emit(summary, log)
+    return out
+
+
+# --- int8 quantization ----------------------------------------------------------
+
+# the int8 kernels of the served path (ops/int8.py), in the `kernels` line
+INT8_KERNELS = ("amax_s8", "quantize_s8", "int8_gemm_kmajor", "dequant_s32")
+# --int8 level -> the switches of utils/quant.py it turns on
+INT8_LEVELS = {"conv": ("INT8",), "dense": ("INT8", "INT8_DENSE"),
+               "attn": ("INT8", "INT8_DENSE", "INT8_ATTN")}
+# RT-DETRv2-R101's legs: (policy, level); the JAX package's headline
+# deployment first (bf16 + int8 convs), then every knob, then fp32 + int8
+INT8_LEGS = (("bfloat16", "conv"), ("bfloat16", "attn"), ("float32", "conv"))
+# the other families' B = 8 forwards: (name, policy, level)
+INT8_FAMILIES = ((YOLOS_NAME, "mixed", "dense"), (DDETR_NAME, "mixed", "attn"),
+                 (DETR_NAME, "mixed", "attn"), ("microsoft/conditional-detr-resnet-50", "mixed",
+                                               "attn"),
+                 ("IDEA-Research/dab-detr-resnet-50", "mixed", "attn"),
+                 (OWLV2_NAME, "mixed", "attn"))
+INT8_ROUNDS = 3  # timed engine requests and /detect rounds a leg
+
+
+@contextlib.contextmanager
+def int8_knobs(level):
+    """The int8 switches of `level` on (None: all off) while the block runs;
+    the module attributes utils/quant.py reads at every call."""
+    from spotter_tpu_torch.utils import quant
+
+    names = ("INT8", "INT8_DENSE", "INT8_ATTN")
+    saved = {name: getattr(quant, name) for name in names}
+    for name in names:
+        setattr(quant, name, level is not None and name in INT8_LEVELS[level])
+    try:
+        yield quant
+    finally:
+        for name, value in saved.items():
+            setattr(quant, name, value)
+
+
+def int8_plan(model, level: str) -> dict:
+    """The quantized calls one RT-DETR forward at B >= INT8_MIN_BATCH makes
+    under `level`, counted from the module tree (no forward): every ConvNorm
+    with INT8_MIN_CH input channels or more outside a fused RepVGG block,
+    every fused block, every QuantDense with enough input features, and
+    QKᵀ and attn·V of every MultiHeadAttention with a wide enough head."""
+    from spotter_tpu_torch.models.layers import ConvNorm, MultiHeadAttention, QuantDense
+    from spotter_tpu_torch.models.rtdetr import RepVggBlock, rep_fuse_default
+    from spotter_tpu_torch.utils import quant
+
+    on = INT8_LEVELS[level]
+    plan = {"conv": 0, "dense": 0, "qk": 0, "av": 0}
+    fused = set()
+    for module in model.modules():
+        if isinstance(module, RepVggBlock) and rep_fuse_default(module.dtype):
+            fused.update(id(m) for m in module.modules() if m is not module)
+            plan["conv"] += module.conv1.conv.in_channels >= quant.INT8_MIN_CH
+    for module in model.modules():
+        if isinstance(module, ConvNorm) and id(module) not in fused:
+            plan["conv"] += module.conv.in_channels >= quant.INT8_MIN_CH
+        elif isinstance(module, QuantDense) and "INT8_DENSE" in on:
+            plan["dense"] += module.in_features >= quant.INT8_MIN_CH
+        elif isinstance(module, MultiHeadAttention) and "INT8_ATTN" in on:
+            wide = module.embed_dim // module.num_heads >= quant.INT8_ATTN_MIN_HD
+            plan["qk"] += wide
+            plan["av"] += wide
+    return plan
+
+
+def int8_launches(calls: dict) -> dict:
+    """The int8 kernels' launches for `calls` quantized calls, the weights
+    already kept: an amax and a quantize pass per activation (two
+    activations for QKᵀ and attn·V), one GEMM and one dequant per product."""
+    products = sum(calls.values())
+    activations = products + calls["qk"] + calls["av"]
+    return {"amax_s8": activations, "quantize_s8": activations,
+            "int8_gemm_kmajor": products, "dequant_s32": products}
+
+
+# the int8 wrappers that the models reach (utils/quant.py calls them through
+# the ops/int8 module), each with its plain version
+PLAIN_INT8 = {name: f"{name}_reference" for name in (
+    "amax_samples", "im2col_codes", "quantize_rows", "quantize_heads", "int8_gemm_kmajor",
+    "dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw")}
+
+
+def drop_weight_codes(model) -> None:
+    for module in model.modules():
+        module.__dict__.pop("_quantized", None)
+
+
+@contextlib.contextmanager
+def plain_int8(model):
+    """The witness a quantized forward is held against: while the block
+    runs, every int8 wrapper of ops/int8.py computes its plain version on
+    the same card tensors (no kernel launches), and the model's kept weight
+    codes are dropped before and after, so that the block quantizes the
+    weights through the plain version too and the kernels' path then makes
+    its own again. Only this check routes so; the port has no such switch."""
+    from spotter_tpu_torch.ops import int8
+
+    saved = {name: getattr(int8, name) for name in PLAIN_INT8}
+    drop_weight_codes(model)
+    for name, plain in PLAIN_INT8.items():
+        setattr(int8, name, getattr(int8, plain))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(int8, name, fn)
+        drop_weight_codes(model)
+
+
+def witness_record(got: dict, plain: dict, what: str) -> dict:
+    """The quantized forward's outputs against its plain witness's: every
+    output bit equal (each kernel is exact against its plain version, and
+    the rest of the forward is the same code on the same card), else it
+    raises. The largest difference of each output is recorded."""
+    import torch
+
+    rec = {"bit_equal": all(torch.equal(got[k], plain[k]) for k in plain),
+           "max_abs_diff": {k: (got[k].float() - plain[k].float()).abs().max().item()
+                            for k in plain}}
+    if not rec["bit_equal"] or set(got) != set(plain):
+        raise AssertionError(f"{what}: the kernels' forward differs from its plain witness: "
+                             f"{rec}")
+    return rec
+
+
+def int8_forward(model, inputs, expected_other: dict, what: str):
+    """One forward with the counts set to 0 just before: the int8 kernels
+    must launch as the quantized calls say, the other kernels as
+    `expected_other`; returns (outputs, calls, launches)."""
+    import torch
+
+    from spotter_tpu_torch.utils import quant
+
+    reset_counts()
+    quant.reset_calls()
+    out = model(*inputs)
+    torch.cuda.synchronize()
+    counts, calls = read_counts(), dict(quant.CALLS)
+    check_counts(counts, {**expected_other, **int8_launches(calls)}, what)
+    return out, calls, {k: v for k, v in counts.items() if v}
+
+
+def rtdetr_int8_leg(policy: str, level: str, seed: int, photos, photo_dir: str, flush,
+                    device: str) -> dict:
+    """RT-DETRv2-R101 at full width under `policy` with `level`'s switches:
+    the B = 8 quantized forward bit equal to its plain witness (`plain_int8`)
+    and beside the same model's float forward (the encoder scores within the
+    "bfloat16" policy's bound; the decoder's matched queries recorded), its
+    quantized calls equal to `int8_plan` and the kernels' launches to them;
+    B = 1 (below the
+    batch floor) bit equal to the float forward with no int8 launch; device
+    ms and stages at B = 8, int8 and float; the first leg also serves 8
+    photos through the engine and /detect for 8 URLs in the throughput
+    bucket (buckets (8,): every forward at B = 8)."""
+    import asyncio
+
+    import torch
+
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.serving.app import build_detector_app
+    from spotter_tpu_torch.tools import profile_forward
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
+
+    rec = {"policy": policy, "level": level}
+    with precision_policy(policy):
+        built = build_detector(MODEL_NAME, tiny=False, seed=seed)
+        model = built.module.to(device).eval()
+        layers = model.config.decoder_layers
+        (x8,) = model_inputs(built, photos[:8], device)
+        msda_other = {"msda_gather_sum": layers}
+        with torch.inference_mode():
+            with int8_knobs(None):
+                ref8, ref_scores = forward_with_scores(model, x8)
+                ref1 = model(x8[:1])
+                rec["float_device_ms_b8"] = cuda_time_ms(lambda: model(x8), 5, flush)
+                if level == "conv":
+                    rec["float_stages_ms_b8"] = profile_forward.profile_backend(
+                        MODEL_NAME, model, (x8,))["stages_ms"]
+            with int8_knobs(level):
+                model(x8)  # the weights' codes, kept from here on
+                plan = int8_plan(model, level)
+                got8, calls, launches = int8_forward(model, (x8,), msda_other,
+                                                     f"RT-DETR {policy} int8 {level} B = 8")
+                rec.update({"plan": plan, "calls_per_forward": calls,
+                            "launches_per_forward": launches})
+                if calls != plan:
+                    raise AssertionError(f"RT-DETR {policy} {level}: calls {calls}, plan {plan}")
+                with plain_int8(model):
+                    plain8 = model(x8)
+                rec["plain_witness_b8"] = witness_record(
+                    got8, plain8, f"RT-DETR {policy} int8 {level} B = 8")
+                del plain8
+                _, scores8 = forward_with_scores(model, x8)
+                match = matched_record(ref8, got8, 8)
+                match["scores_max_abs_err"] = (scores8 - ref_scores).abs().max().item()
+                match["scores_abs_max"] = ref_scores.abs().max().item()
+                rec["vs_float_b8"] = match
+                # the kernels are held above, bit for bit, by the plain witness.
+                # Against the float forward, as the precision phase holds a
+                # policy against float32 at B = 8: the encoder scores before selection and the
+                # sorted top-k scores within the "bfloat16" policy's 25 % of the
+                # largest score. The decoder's logits and boxes over the queries
+                # both select, and the matched share, are recorded: they measure
+                # int8 itself on this random-init model, whose top-k sits on near
+                # ties that the 7-bit per-sample grid moves (PERF.md)
+                tol = POLICY_TOL["bfloat16"][0] * match["scores_abs_max"]
+                if not (match["scores_max_abs_err"] <= tol
+                        and match["sorted_topk_max_abs_err"] <= tol):
+                    raise AssertionError(f"RT-DETR {policy} int8 {level} vs float at B = 8: "
+                                         f"scores outside {tol}: {match}")
+                got1, calls1, _ = int8_forward(model, (x8[:1],), msda_other,
+                                               f"RT-DETR {policy} int8 {level} B = 1")
+                rec["b1_bit_equal"] = all(torch.equal(got1[k], ref1[k]) for k in ref1)
+                if not rec["b1_bit_equal"] or any(calls1.values()):
+                    raise AssertionError(f"RT-DETR {policy} int8 {level}: B = 1 is not the float "
+                                         f"forward ({calls1})")
+                rec["device_ms_b8"] = cuda_time_ms(lambda: model(x8), 5, flush)
+                prof = profile_forward.profile_backend(MODEL_NAME, model, (x8,))
+                rec.update({"stages_ms_b8": prof["stages_ms"],
+                            "busy_share_b8": prof["profiler"]["busy_share"],
+                            "top_kernels_b8": prof["profiler"]["top_kernels"][:12],
+                            "host_ms_b8": prof["profiler"]["host_ms_per_forward"]})
+                if not all(torch.isfinite(got8[k]).all() for k in ("logits", "pred_boxes")):
+                    raise AssertionError(f"RT-DETR {policy} int8 {level}: non-finite outputs")
+                quant_calls_b8 = calls
+        del ref8, got8, ref1, got1
+        if level == "conv" and policy == "bfloat16":
+            with int8_knobs(level):
+                engine = InferenceEngine(built, device=device)
+                engine.warmup()
+                engine.detect(photos[:8])
+                reset_counts()
+                lat = []
+                for _ in range(INT8_ROUNDS):
+                    t0 = time.perf_counter()
+                    engine.detect(photos[:8])
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                counts = read_counts()
+                per = int8_launches(quant_calls_b8)
+                check_counts(counts, {k: v * INT8_ROUNDS for k, v in {**msda_other, **per}.items()},
+                             f"RT-DETR {policy} int8 engine")
+                rec["engine_batch8_p50_ms"] = statistics.median(lat)
+                rec["engine_launches"] = {k: counts[k] for k in INT8_KERNELS}
+                del engine, model, built
+                release_cuda_memory()
+                det = build_detector_app(MODEL_NAME, device=device, seed=seed, warmup=True,
+                                         batch_buckets=(8,), max_delay_ms=20.0)
+                http = asyncio.run(drive_http(det, photo_dir, [
+                    ("int8", lambda: None, [("8", 8, INT8_ROUNDS, 1)])]))
+                forwards = http["int8"]["forwards"]
+                check_counts(http["int8"]["launches"],
+                             {k: v * forwards for k, v in {**msda_other, **per}.items()},
+                             f"RT-DETR {policy} int8 /detect")
+                rec["http"] = {"latency_ms": latency_summary(http["latency_ms"]),
+                               "forwards": forwards,
+                               "launches": {k: http["int8"]["launches"][k] for k in INT8_KERNELS}}
+                del det
+    release_cuda_memory()
+    return rec
+
+
+def yolos_expected(model) -> dict:
+    """YOLOS's kernels a forward under a bf16 body: the attention kernel once
+    a layer where the sequence reaches the cutover (yolos-base's 4301)."""
+    from spotter_tpu_torch.models.layers import FLASH_ATTN_MIN_SEQ
+
+    cfg = model.config
+    gh, gw = cfg.grid_hw
+    if gh * gw + cfg.num_detection_tokens + 1 < FLASH_ATTN_MIN_SEQ:
+        return {}
+    return {"flash_attn_bf16": cfg.num_hidden_layers}
+
+
+def int8_family_forward(name: str, policy: str, level: str, seed: int, photos, flush,
+                        device: str) -> dict:
+    """Another family at full width, B = 8, under `policy` with `level`'s
+    switches: finite outputs bit equal to the plain witness's
+    (`plain_int8`), the int8 kernels' launches equal to the quantized
+    calls, the float forward beside it (YOLOS: within the "bfloat16"
+    policy's bounds), device ms of both."""
+    import torch
+
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.tools.timing import cuda_time_ms
+
+    rec = {"model": name, "policy": policy, "level": level}
+    with precision_policy(policy):
+        built = build_detector(name, tiny=False, seed=seed)
+        model = built.module.to(device).eval()
+        inputs = model_inputs(built, photos[:8], device)
+        other = (ddetr_expected(model, "xla", 1) if name == DDETR_NAME else
+                 owl_expected(model, 1, "flash_attn_bf16") if name == OWLV2_NAME else
+                 yolos_expected(model) if name == YOLOS_NAME else {})
+        with torch.inference_mode():
+            with int8_knobs(None):
+                ref = {k: v.float() for k, v in model(*inputs).items()}
+                rec["float_device_ms_b8"] = cuda_time_ms(lambda: model(*inputs), 5, flush)
+            with int8_knobs(level):
+                model(*inputs)
+                got, calls, launches = int8_forward(model, inputs, other,
+                                                    f"{name} {policy} int8 {level} B = 8")
+                with plain_int8(model):
+                    plain = model(*inputs)
+                rec["plain_witness_b8"] = witness_record(
+                    got, plain, f"{name} {policy} int8 {level} B = 8")
+                del plain
+                rec.update({"calls_per_forward": calls, "launches_per_forward": launches,
+                            "device_ms_b8": cuda_time_ms(lambda: model(*inputs), 5, flush)})
+        if not sum(calls.values()):
+            raise AssertionError(f"{name} {policy} int8 {level}: nothing quantized")
+        if not all(torch.isfinite(v.float()).all() for v in got.values()):
+            raise AssertionError(f"{name} {policy} int8 {level}: non-finite outputs")
+        rec["logits_max_abs_err"] = (got["logits"].float() - ref["logits"]).abs().max().item()
+        rec["logits_abs_max"] = ref["logits"].abs().max().item()
+        rec["boxes_max_abs_err"] = (got["pred_boxes"].float()
+                                    - ref["pred_boxes"]).abs().max().item()
+        if name == YOLOS_NAME:
+            check_policy_record(rec, *POLICY_TOL["bfloat16"], f"{name} int8 vs float at B = 8")
+        del model, built, inputs, got, ref
+    release_cuda_memory()
+    return rec
+
+
+def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
+    """int8 quantization on the card (module docstring, phase 21): the conv
+    probe at its seven shapes, the dense and attention shapes
+    (tools/bench_int8_conv.py, every kernel exact against its plain version;
+    int8_gemm's SASS with IGMMA and no IMMA); RT-DETRv2-R101's legs
+    (`rtdetr_int8_leg`); the other families' B = 8 forwards. Returns the
+    kernel cases and the launches of the served path."""
+    import torch
+
+    from spotter_tpu_torch.tools import bench_int8, bench_int8_conv
+    from spotter_tpu_torch.utils.precision import use_exact_float32
+
+    use_exact_float32()
+    out = {"phase": "int8", "device": device,
+           "card": nvidia_smi("name,power.limit") if device == "cuda" else None}
+    tool_out = REPO / "build" / "probes" / "bench_int8_conv.json"
+    reset_counts()
+    rc = bench_int8_conv.main(["--seed", str(seed), "--out", str(tool_out)])
+    counts = read_counts()
+    record = json.loads(tool_out.read_text())
+    wrong = [c for c in record["cases"] if not c["exact"]]
+    if rc != 0 or wrong:
+        raise AssertionError(f"bench_int8_conv: exit {rc}, not exact: {wrong}")
+    check_counts(counts, record["calls"], "the bench_int8_conv tool")
+    sass = bench_int8.sass_evidence(torch.device(device))
+    if device == "cuda" and sass["verdict"] != bench_int8.SASS_WGMMA_VERDICT:
+        raise AssertionError(f"int8_gemm's SASS: {sass}")
+    out["tool"] = {"cases": record["cases"], "calls": record["calls"], "sass": sass}
+    for case in record["cases"]:
+        emit({"phase": "int8", "tool": "bench_int8_conv", **case}, log)
+    rng = np.random.default_rng(seed + 40)
+    photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
+    out["rtdetr"] = {}
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        for policy, level in INT8_LEGS:
+            rec = rtdetr_int8_leg(policy, level, seed, photos, photo_dir, flush, device)
+            emit({"phase": "int8", "model": MODEL_NAME, **rec}, log)
+            out["rtdetr"][f"{policy}_{level}"] = rec
+    out["families"] = {}
+    with token_cache(seed, names=(OWLV2_NAME,)):
+        for name, policy, level in INT8_FAMILIES:
+            rec = int8_family_forward(name, policy, level, seed, photos, flush, device)
+            emit({"phase": "int8", **rec}, log)
+            out["families"][name] = rec
+    conv = next(c for c in record["cases"] if c.get("shape") == bench_int8_conv.MAIN_SHAPE)
+    dense = next(c for c in record["cases"] if c["part"] == "dense")
+    served = out["rtdetr"]["bfloat16_conv"]["http"]["launches"]
+    ms = "_ms" if device == "cuda" else "_cpu_ms"  # the tool's keys (tools/timing.py ms_key)
+    out["kernel_cases"] = [
+        {"phase": "int8", "kernel": name, "main": True, "launches": served[name],
+         "max_abs_err": 0.0, "kernel_ms": case[name + ms],
+         "plain_ms": case.get(f"plain_{name}{ms}"), "library_ms": library,
+         "bound_ms": case["bounds"][name]["bound_ms"],
+         "bound_by": case["bounds"][name]["bound_by"]}
+        for name, case, library in (
+            ("amax_s8", conv, conv.get("library_vector_norm" + ms)),
+            ("quantize_s8", conv, None),
+            ("int8_gemm_kmajor", dense, dense.get("library_int_mm" + ms)),
+            ("dequant_s32", conv, None))]
+    emit({k: v for k, v in out.items() if k not in ("tool", "rtdetr", "families")}, log)
     return out
 
 
@@ -3418,6 +3843,12 @@ REPLACES = {
     "int8_gemm": "tools/bench_int8.py:142",
     "pack_tile": "tools/bench_pack_probe.py:78",
     "launch_probe": "tools/profile_r101.py:320",
+    # no Pallas counterpart: the passes and the GEMM entry of the int8 path,
+    # which XLA's s8 convolution and dot_general compute on the TPU
+    "amax_s8": "spotter_tpu/utils/quant.py:136",
+    "quantize_s8": "spotter_tpu/utils/quant.py:124",
+    "int8_gemm_kmajor": "spotter_tpu/utils/quant.py:146",
+    "dequant_s32": "spotter_tpu/utils/quant.py:154",
 }
 SOURCES = {name: "spotter_tpu_torch/csrc/msda.cu" for name in REPLACES if name.startswith("msda")}
 SOURCES.update({name: "spotter_tpu_torch/csrc/attention.cu"
@@ -3426,6 +3857,10 @@ SOURCES["owl_class_logits"] = "spotter_tpu_torch/csrc/class_logits.cu"
 SOURCES.update({name: "spotter_tpu_torch/csrc/msda_backends.cu" for name in BACKEND_KERNEL.values()})
 SOURCES.update({name: f"spotter_tpu_torch/csrc/{name}.cu"
                 for name in ("int8_gemm", "pack_tile", "launch_probe")})
+SOURCES.update({"amax_s8": "spotter_tpu_torch/csrc/quant.cu",
+                "quantize_s8": "spotter_tpu_torch/csrc/quant.cu",
+                "int8_gemm_kmajor": "spotter_tpu_torch/csrc/int8_gemm.cu",
+                "dequant_s32": "spotter_tpu_torch/csrc/quant.cu"})
 
 
 def is_main_case(c: dict, precision: str = "highest") -> bool:
@@ -3518,7 +3953,7 @@ def main(argv=None) -> int:
         return 2
     if not all((REPO / "spotter_tpu_torch" / "csrc" / src).exists()
                for src in ("msda.cu", "msda_backends.cu", "attention.cu", "class_logits.cu",
-                           "int8_gemm.cu", "pack_tile.cu", "launch_probe.cu")):
+                           "int8_gemm.cu", "quant.cu", "pack_tile.cu", "launch_probe.cu")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -3567,13 +4002,16 @@ def main(argv=None) -> int:
                 owl_http = phase_owl_http(log, args.seed)
     load = phase_load(log, args.seed) if "load" in phases else None
     precision = phase_precision(log, args.seed) if "precision" in phases else None
+    int8 = phase_int8(log, args.seed) if "int8" in phases else None
+    if int8:
+        cases += int8["kernel_cases"]
     if "probes" in phases:
         cases += phase_probes(log, args.seed)
     # each kernel's launches on the path that runs it: slice 1's engine path
     # under xla, the HTTP /detect path under fused and under kernel, YOLOS's
     # /detect path under float32 (fp32) and mixed (bf16), and OWLv2's /detect
     # path against its default vocabulary; each probe's on its tool's path
-    launches = {c["kernel"]: c["launches"] for c in cases if c.get("phase") == "probes"}
+    launches = {c["kernel"]: c["launches"] for c in cases if c.get("phase") in ("probes", "int8")}
     if serve:
         launches["msda_gather_sum"] = serve["msda_launches"]
     if http:
@@ -3599,6 +4037,10 @@ def main(argv=None) -> int:
 
     if cases:
         summary = kernel_summary(cases, launches)
+        if int8:  # row 9's kernel on the int8 /detect path, through its K-major entry
+            for row in summary["kernels"]:
+                if row["name"] == "int8_gemm":
+                    row["served_launches"] = launches["int8_gemm_kmajor"]
         if load:  # rows 1-3's launches on the loaded checkpoint's engine and /detect paths
             for row in summary["kernels"]:
                 if row["name"] in load["launches"]:

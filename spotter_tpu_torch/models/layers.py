@@ -22,6 +22,12 @@ switch them by setting the attribute):
 - SPOTTER_TPU_FLASH_IMPL=auto|splash|flash (`FLASH_IMPL`): which TPU kernel
   the JAX package takes. Validated and accepted here; both names are the
   same Hopper kernel, whose instantiation follows the tensor's dtype.
+
+The int8 knobs (SPOTTER_TPU_INT8, _INT8_DENSE, _INT8_ATTN and their floors)
+live in utils/quant.py. Where flax keeps an fp32 param that a quantized
+path reads at fp32 (every `ConvNorm` kernel, every `QuantDense` kernel and
+bias), the port keeps it as an fp32 master too, and keeps its cast to the
+compute dtype and its quantized codes (`kept`) until it changes.
 """
 
 import math
@@ -34,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from spotter_tpu_torch.ops.attention import flash_attn_bf16, flash_attn_fp32
+from spotter_tpu_torch.ops.int8 import QuantizedWeight, quantize_weight_rows
+from spotter_tpu_torch.utils import quant
 
 
 def parse_gelu_mode(raw: str) -> str:
@@ -107,6 +115,26 @@ def version_key(*tensors: torch.Tensor) -> Optional[tuple]:
     return tuple((t.data_ptr(), t._version, t.device) for t in tensors)
 
 
+def kept(module: nn.Module, name: str, sources: tuple, make: Callable, grad: bool = True):
+    """`make()`, a value derived from the tensors `sources`, kept on `module`
+    as `name` until their `version_key` changes, made without autograd and
+    outside inference mode. A value that carries gradients (`grad`: a cast
+    or a fold of the params) is not kept in a forward that tracks them
+    (grad mode on and a source requiring grad): `make()` then runs in that
+    forward, so the gradient reaches the fp32 masters under every policy.
+    Quantized codes pass `grad=False`: they carry none (the straight-through
+    backward belongs to training and is not ported)."""
+    if grad and torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return make()
+    key = version_key(*sources)
+    cached = getattr(module, name, None)
+    if key is None or cached is None or cached[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            cached = (key, make())
+        setattr(module, name, cached)
+    return cached[1]
+
+
 def fold_bn(
     scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,29 +162,29 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
-        self._folded = None  # (key, mul, add) at dtype, shaped (1, C, 1, 1)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The fp32 (mul, add) pair, (C,) each."""
         return fold_bn(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        key = version_key(self.weight, self.bias, self.running_mean, self.running_var)
-        if key is None or self._folded is None or self._folded[0] != key:
-            with torch.inference_mode(False), torch.no_grad():
-                mul, add = self.folded()
-                self._folded = (key, mul.to(self.dtype).view(1, -1, 1, 1),
-                                add.to(self.dtype).view(1, -1, 1, 1))
-        return (x * self._folded[1] + self._folded[2]).to(self.dtype)
+        stats = (self.weight, self.bias, self.running_mean, self.running_var)
+        mul, add = kept(self, "_folded", stats, lambda: tuple(
+            t.to(self.dtype).view(1, -1, 1, 1) for t in self.folded()))  # at dtype, (1, C, 1, 1)
+        return (x * mul + add).to(self.dtype)
 
 
 class ConvNorm(nn.Module):
     """Conv (no bias) + frozen BN + optional activation, NCHW.
 
     Conv k, stride s, padding (k-1)//2 unless given, as the RT-DETR lineage's
-    ConvNormLayer. The convolution runs at `dtype`, input and kernel (stored
-    at `dtype`: flax's cast at use, done once), so a bf16 ConvNorm is a bf16
-    convolution (on the card, cuDNN's on the tensor cores).
+    ConvNormLayer. The kernel is an fp32 master (flax's fp32 param); the
+    float convolution runs at `dtype`, input and kernel (its cast kept), so
+    a bf16 ConvNorm is a bf16 convolution (on the card, cuDNN's on the
+    tensor cores). With SPOTTER_TPU_INT8 on, at least INT8_MIN_CH input
+    channels and INT8_MIN_BATCH samples, the convolution is
+    `quant.int8_conv` on the kept codes of the fp32 kernel, dequantized to
+    `dtype`, feeding the same BN.
     """
 
     def __init__(
@@ -171,16 +199,30 @@ class ConvNorm(nn.Module):
         dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
-        pad = (kernel_size - 1) // 2 if padding is None else padding
-        self.conv = nn.Conv2d(
-            in_features, features, kernel_size, stride=stride, padding=pad, bias=False,
-            dtype=dtype,
-        )
+        self.dtype = dtype
+        self.kernel_size, self.stride = kernel_size, stride
+        self.pad = (kernel_size - 1) // 2 if padding is None else padding
+        self.conv = nn.Conv2d(in_features, features, kernel_size, stride=stride,
+                              padding=self.pad, bias=False)
         self.bn = FrozenBatchNorm(features, eps, dtype)
         self.act = get_activation(activation)
 
+    def kernel_at_dtype(self) -> torch.Tensor:
+        w = self.conv.weight
+        return kept(self, "_cast", (w,), lambda: w.to(self.dtype))
+
+    def quantized_kernel(self) -> QuantizedWeight:
+        w = self.conv.weight
+        return kept(self, "_quantized", (w,), lambda: quantize_weight_rows(w.to(torch.float32)),
+                    grad=False)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(self.conv(x.to(self.conv.weight.dtype))))
+        if quant.int8_wanted(x.shape[1], batch=x.shape[0]):
+            y = quant.int8_conv(x, self.quantized_kernel(), self.kernel_size, self.stride,
+                                self.pad, self.dtype)
+        else:
+            y = F.conv2d(x.to(self.dtype), self.kernel_at_dtype(), None, self.stride, self.pad)
+        return self.act(self.bn(y))
 
 
 def flash_attention_enabled(x: torch.Tensor) -> bool:
@@ -202,9 +244,9 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 
 
 class Dense(nn.Linear):
-    """flax's nn.Dense(dtype=...), and QuantDense's float path: input and
-    weights at the compute dtype (the weights are stored in it, which is
-    flax's cast at use done once), bias added in the same product."""
+    """flax's nn.Dense(dtype=...): input and weights at the compute dtype
+    (the weights are stored in it, which is flax's cast at use done once),
+    bias added in the same product."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -212,6 +254,37 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class QuantDense(nn.Linear):
+    """flax's QuantDense (the ViT projections, MultiHeadAttention's q/k/v/out):
+    fp32 master kernel and bias. The float path is `Dense`'s, on the kept
+    casts to `dtype`. With SPOTTER_TPU_INT8 and _INT8_DENSE on, at least
+    INT8_MIN_CH input features and INT8_MIN_BATCH samples (`x.shape[0]`), the
+    product is `quant.int8_dense` on the kept codes of the fp32 kernel,
+    dequantized to `dtype`, and the bias adds after it in `dtype`."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(in_features, features, bias=bias)
+        self.dtype = dtype
+
+    def params_at_dtype(self) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        w, b = self.weight, self.bias
+        sources = (w,) if b is None else (w, b)
+        return kept(self, "_cast", sources,
+                    lambda: (w.to(self.dtype), None if b is None else b.to(self.dtype)))
+
+    def quantized_kernel(self) -> QuantizedWeight:
+        w = self.weight
+        return kept(self, "_quantized", (w,), lambda: quantize_weight_rows(w), grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.params_at_dtype()
+        if quant.int8_dense_wanted(x.shape[-1], batch=x.shape[0]):
+            y = quant.int8_dense(x, self.quantized_kernel(), self.dtype)
+            return y if b is None else y + b
+        return F.linear(x.to(self.dtype), w, b)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -298,7 +371,12 @@ class MultiHeadAttention(nn.Module):
     self-attention over FLASH_ATTN_MIN_SEQ tokens or more on a CUDA tensor
     runs the attention kernel (`flash_self_attention`); everything else
     materialises the scores. RT-DETR's sequences (AIFI 400 tokens, decoder
-    300) never reach the cutover; the OWLv2 vision tower's 3601 do.
+    300) never reach the cutover; the OWLv2 vision tower's 3601 do. The
+    projections are `QuantDense`. Past the attention kernel's branch, with
+    SPOTTER_TPU_INT8 and _INT8_ATTN on, a head dim of at least
+    INT8_ATTN_MIN_HD and INT8_MIN_BATCH samples, QKᵀ and attn·V are
+    `quant.int8_qk` and `quant.int8_av` (per-(sample, head) scales), as in
+    the JAX package, where the flash branch comes first too.
 
     `dtype` is the projections' compute dtype (fp32 by default, RT-DETR's);
     an additive `attention_mask` is cast to the scores' dtype and added to
@@ -310,10 +388,11 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
-        self.q_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.k_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.dtype = dtype
+        self.q_proj = QuantDense(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = QuantDense(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = QuantDense(embed_dim, embed_dim, dtype=dtype)
+        self.out_proj = QuantDense(embed_dim, embed_dim, dtype=dtype)
 
     def forward(
         self,
@@ -348,6 +427,13 @@ class MultiHeadAttention(nn.Module):
             and q.shape[1] >= FLASH_ATTN_MIN_SEQ
         ):
             out = flash_self_attention(q, k, v)
+            return self.out_proj(out.reshape(*out.shape[:-2], self.embed_dim))
+        if quant.int8_attn_wanted(head_dim, batch=q.shape[0]):
+            logits = quant.int8_qk(q, k)  # (B, H, Tq, Tk) fp32
+            if attention_mask is not None:
+                logits = logits + attention_mask.to(logits.dtype)
+            weights = torch.softmax(logits.to(torch.float32), dim=-1).to(self.dtype)
+            out = quant.int8_av(weights, v, self.dtype)  # (B, Tq, H, hd)
             return self.out_proj(out.reshape(*out.shape[:-2], self.embed_dim))
         q, k, v = (t.transpose(-3, -2) for t in (q, k, v))  # (B, H, T, hd)
         logits = torch.matmul(q, k.transpose(-1, -2))  # (B, H, Tq, Tk)

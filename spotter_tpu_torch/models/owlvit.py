@@ -41,6 +41,7 @@ from spotter_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadAttention,
     PatchEmbed,
+    QuantDense,
     get_activation,
 )
 from spotter_tpu_torch.ops import openvocab
@@ -90,8 +91,8 @@ class OwlViTLayer(nn.Module):
         self.layer_norm1 = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype=dtype)
         self.layer_norm2 = LayerNorm(hidden_size, layer_norm_eps, dtype)
-        self.fc1 = Dense(hidden_size, intermediate_size, dtype=dtype)
-        self.fc2 = Dense(intermediate_size, hidden_size, dtype=dtype)
+        self.fc1 = QuantDense(hidden_size, intermediate_size, dtype=dtype)
+        self.fc2 = QuantDense(intermediate_size, hidden_size, dtype=dtype)
         self.act = get_activation(hidden_act)
 
     def forward(

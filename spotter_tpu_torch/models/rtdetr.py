@@ -41,13 +41,15 @@ from spotter_tpu_torch.models.layers import (
     MultiHeadAttention,
     get_activation,
     inverse_sigmoid,
+    kept,
     sincos_2d_position_embedding,
-    version_key,
 )
 from spotter_tpu_torch.models.resnet import ResNetBackbone
 from spotter_tpu_torch.ops import msda
+from spotter_tpu_torch.ops.int8 import quantize_weight_rows
 from spotter_tpu_torch.ops.postprocess import stable_top_k
 from spotter_tpu_torch.utils.precision import compute_dtype
+from spotter_tpu_torch.utils import quant
 
 REP_FUSE_ENV = "SPOTTER_TPU_REP_FUSE"
 
@@ -130,9 +132,13 @@ class RepVggBlock(nn.Module):
     """conv3x3+BN + conv1x1+BN, summed, then the activation. Fused
     (`rep_fuse_default`), the same parameters run as one 3x3 convolution:
     kernel w3 * mul3 with w1 * mul1 added at its centre and bias add3 + add1,
-    folded in fp32 and cast to `dtype`, as the JAX package's fused block
-    computes them. The fused kernel and bias are kept until a parameter
-    changes (each tensor's version counter) or the block moves."""
+    folded in fp32 from the fp32 master kernels and cast to `dtype` once, as
+    the JAX package's fused block computes them; with SPOTTER_TPU_INT8 on
+    (the channel and batch floors of utils/quant.py) the fused fp32 kernel
+    is quantized and the convolution is `quant.int8_conv`, dequantized to
+    `dtype`, before the bias. The fused kernel, its cast and its codes are
+    kept until a parameter changes (each tensor's version counter) or the
+    block moves."""
 
     def __init__(self, features: int, activation: str = "silu", eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -141,28 +147,40 @@ class RepVggBlock(nn.Module):
         self.conv1 = ConvNorm(features, features, 3, 1, padding=1, eps=eps, dtype=dtype)
         self.conv2 = ConvNorm(features, features, 1, 1, padding=0, eps=eps, dtype=dtype)
         self.act = get_activation(activation)
-        self._fused = None  # (key, kernel, bias)
 
-    def fused_params(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The fused (kernel (C, C, 3, 3), bias (C,)) at `dtype`."""
+    def _sources(self) -> tuple:
         sources = [self.conv1.conv.weight, self.conv2.conv.weight]
         for bn in (self.conv1.bn, self.conv2.bn):
             sources += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
-        key = version_key(*sources)
-        if key is None or self._fused is None or self._fused[0] != key:
-            with torch.inference_mode(False), torch.no_grad():
-                mul3, add3 = self.conv1.bn.folded()
-                mul1, add1 = self.conv2.bn.folded()
-                kernel = self.conv1.conv.weight.to(torch.float32) * mul3.view(-1, 1, 1, 1)
-                kernel[:, :, 1:2, 1:2] += (
-                    self.conv2.conv.weight.to(torch.float32) * mul1.view(-1, 1, 1, 1))
-                self._fused = (key, kernel.to(self.dtype), (add3 + add1).to(self.dtype))
-        return self._fused[1], self._fused[2]
+        return tuple(sources)
+
+    def fused_fp32(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The fused (kernel (C, C, 3, 3), bias (C,)) in fp32."""
+
+        def fold():
+            mul3, add3 = self.conv1.bn.folded()
+            mul1, add1 = self.conv2.bn.folded()
+            kernel = self.conv1.conv.weight.to(torch.float32) * mul3.view(-1, 1, 1, 1)
+            centre = self.conv2.conv.weight.to(torch.float32) * mul1.view(-1, 1, 1, 1)
+            kernel[:, :, 1:2, 1:2] += centre
+            return kernel, add3 + add1
+
+        return kept(self, "_fused32", self._sources(), fold)
+
+    def fused_params(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The fused (kernel (C, C, 3, 3), bias (C,)) at `dtype`."""
+        return kept(self, "_fused", self._sources(),
+                    lambda: tuple(t.to(self.dtype) for t in self.fused_fp32()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if rep_fuse_default(self.dtype):
             kernel, bias = self.fused_params()
-            y = F.conv2d(x.to(self.dtype), kernel, padding=1)
+            if quant.int8_wanted(x.shape[1], batch=x.shape[0]):
+                codes = kept(self, "_quantized", self._sources(),
+                             lambda: quantize_weight_rows(self.fused_fp32()[0]), grad=False)
+                y = quant.int8_conv(x, codes, 3, 1, 1, self.dtype)
+            else:
+                y = F.conv2d(x.to(self.dtype), kernel, padding=1)
             return self.act(y + bias.view(1, -1, 1, 1))
         return self.act(self.conv1(x) + self.conv2(x))
 

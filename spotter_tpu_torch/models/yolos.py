@@ -29,10 +29,10 @@ from torch import nn
 from spotter_tpu_torch.models.configs import YolosConfig
 from spotter_tpu_torch.models.layers import (
     FLASH_ATTN_MIN_SEQ,
-    Dense,
     LayerNorm,
     MLPHead,
     PatchEmbed,
+    QuantDense,
     flash_attention_enabled,
     flash_self_attention,
     get_activation,
@@ -47,10 +47,10 @@ class YolosAttention(nn.Module):
         d = config.hidden_size
         self.heads = config.num_attention_heads
         self.head_dim = d // self.heads
-        self.query = Dense(d, d, bias=config.qkv_bias, dtype=dtype)
-        self.key = Dense(d, d, bias=config.qkv_bias, dtype=dtype)
-        self.value = Dense(d, d, bias=config.qkv_bias, dtype=dtype)
-        self.out = Dense(d, d, dtype=dtype)
+        self.query = QuantDense(d, d, bias=config.qkv_bias, dtype=dtype)
+        self.key = QuantDense(d, d, bias=config.qkv_bias, dtype=dtype)
+        self.value = QuantDense(d, d, bias=config.qkv_bias, dtype=dtype)
+        self.out = QuantDense(d, d, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -75,8 +75,8 @@ class YolosLayer(nn.Module):
         self.layernorm_before = LayerNorm(d, eps, dtype)
         self.attention = YolosAttention(config, dtype)
         self.layernorm_after = LayerNorm(d, eps, dtype)
-        self.fc1 = Dense(d, config.intermediate_size, dtype=dtype)
-        self.fc2 = Dense(config.intermediate_size, d, dtype=dtype)
+        self.fc1 = QuantDense(d, config.intermediate_size, dtype=dtype)
+        self.fc2 = QuantDense(config.intermediate_size, d, dtype=dtype)
         self.act = get_activation(config.hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,11 @@ JAX package does.
 Each build function applies the precision policy (utils/precision.py) as
 the JAX zoo does: every family is built at `compute_dtype()` with its
 backbone (YOLOS's ViT body, OWL's vision tower) at `backbone_dtype()`. The
-seeded init draws fp32 from the seed stream and rounds it into bf16
-weights, and carried-over params are cast as they load, so a bf16 model
-stores what flax casts its fp32 params to at use. Each builder refuses the
-int8 knobs, whose computation the port lacks. The MSDA families' builders
+seeded init draws fp32 from the seed stream and carried-over params are
+cast as they load: into the fp32 masters where flax's param is read at
+fp32 by a quantized path (`ConvNorm`, `QuantDense`), else into bf16
+weights, so a bf16 model stores what flax casts its fp32 params to at use.
+The int8 knobs (utils/quant.py) act when a forward runs. The MSDA families' builders
 check SPOTTER_TPU_MSDA and SPOTTER_TPU_MSDA_PRECISION with the JAX
 package's error texts; both are read again when a forward runs
 (ops/msda.py).
@@ -92,7 +93,7 @@ from spotter_tpu_torch.ops.preprocess import (
     PreprocessSpec,
 )
 from spotter_tpu_torch.taxonomy import AMENITIES_MAPPING
-from spotter_tpu_torch.utils.precision import backbone_dtype, compute_dtype, refuse_int8
+from spotter_tpu_torch.utils.precision import backbone_dtype, compute_dtype
 
 TINY_ENV = "SPOTTER_TPU_TINY"
 
@@ -188,7 +189,6 @@ def build_rtdetr(
 ) -> BuiltDetector:
     """RT-DETR family builder, at the policy's two dtypes. The model is
     built on the CPU; the engine moves it to its device."""
-    refuse_int8()
     check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
     check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
@@ -277,7 +277,6 @@ def build_yolos(
     dtype (bf16 under "mixed" and "bfloat16"), as the JAX zoo builds it; the
     spec warp-resizes to the config's image size with ImageNet mean/std.
     The model is built on the CPU; the engine moves it to its device."""
-    refuse_int8()
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     if tiny:
@@ -382,7 +381,6 @@ def build_owlvit(
     from the JAX package's tokenization cache, keyed by MODEL_NAME (a
     checkpoint directory's path too; convert/tokens.py); tiny builds hash
     them. The model is built on the CPU; the engine moves it."""
-    refuse_int8()
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     labels = owlvit_query_labels()
@@ -508,7 +506,6 @@ def build_deformable_detr(
     bucket with a pixel mask; tiny: 48/64 in 64x64), the sigmoid top-k
     postprocess at HF's top_k = 100, at the policy's two dtypes. The model
     is built on the CPU; the engine moves it to its device."""
-    refuse_int8()
     check_msda_backend(os.environ.get(MSDA_ENV, "auto"))
     check_msda_precision(os.environ.get(MSDA_PRECISION_ENV))
     if tiny is None:
@@ -643,7 +640,6 @@ def _build_lineage(model_name, *, tiny, seed, params, tiny_config, preset, load,
     """A DETR-lineage builder: the shortest-edge spec with a pixel mask (the
     1333x1333 bucket; tiny: 48/64 in 64x64), at the policy's two dtypes.
     The model is built on the CPU; the engine moves it to its device."""
-    refuse_int8()
     if tiny is None:
         tiny = bool(os.environ.get(TINY_ENV))
     if tiny:

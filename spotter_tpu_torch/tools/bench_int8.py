@@ -9,7 +9,8 @@ three, for Hopper:
    events, and the host's cost per eager launch);
 2. per size n (4096 and 8192 by default; n = 4000, a size that is not a
    multiple of the 128 x 256 tile, is checked too): the hand-written kernel
-   `int8_gemm` (`csrc/int8_gemm.cu`: a transpose pass that writes B K-major,
+   `int8_gemm` (`csrc/int8_gemm.cu`, bound in `ops/int8.py`, where the
+   served int8 path runs its K-major entry: a transpose pass that writes B K-major,
    then wgmma m64n256k32 s32.s8.s8 fed by TMA; the port of `pallas_int8`)
    against its plain version, exactly, its transpose pass against
    `b.t().contiguous()`, exactly, and its time in TOP/s (the transpose
@@ -35,8 +36,6 @@ time). Prints one JSON line per measurement and writes the record.
 """
 
 import argparse
-import ctypes
-import functools
 import json
 import re
 import time
@@ -45,6 +44,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from spotter_tpu_torch.ops.int8 import (  # noqa: F401  (the tool's kernel, bound in ops/)
+    MAX_K,
+    TILE_MULTIPLE,
+    _check_kernel_operands,
+    build_int8_gemm_kernel,
+    empty_launch,
+    int8_gemm,
+    int8_gemm_reference,
+    transpose_s8,
+    transpose_s8_reference,
+)
 from spotter_tpu_torch.tools.timing import (
     PEAK_BYTES_PER_S,
     PEAK_INT8_OPS,
@@ -54,142 +64,12 @@ from spotter_tpu_torch.tools.timing import (
     resolve_device,
     time_ms,
 )
-from spotter_tpu_torch.utils.cuda_build import (
-    KernelLibrary,
-    disassemble,
-    load_kernel_library,
-    sass_functions,
-)
+from spotter_tpu_torch.utils.cuda_build import disassemble, sass_functions
 
 REPO = Path(__file__).resolve().parents[2]
 DEFAULT_SIZES = (4096, 8192)
 EDGE_SIZE = 4000
-TILE_MULTIPLE = 16  # M, N and K the kernel takes
-MAX_K = (2**31 - 1) // 128**2  # beyond it an int32 sum of int8 products could overflow
 SASS_WGMMA_VERDICT = "int8 wgmma path EMITTED (IGMMA, no IMMA)"
-
-
-@functools.cache
-def build_int8_gemm_kernel() -> KernelLibrary:
-    """Build (first call only), load and bind the kernel library."""
-    loaded = load_kernel_library("int8_gemm", ("int8_gemm.cu",))
-    lib = loaded.lib
-    lib.int8_gemm_s8s8s32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.int8_gemm_s8s8s32.restype = ctypes.c_int
-    lib.int8_transpose_s8.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.int8_transpose_s8.restype = ctypes.c_int
-    lib.int8_gemm_empty_launch.argtypes = [ctypes.c_void_p]
-    lib.int8_gemm_empty_launch.restype = ctypes.c_int
-    lib.int8_gemm_error_string.argtypes = [ctypes.c_int]
-    lib.int8_gemm_error_string.restype = ctypes.c_char_p
-    return loaded
-
-
-def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"int8_gemm: expected a (M, K) and b (K, N), got {tuple(a.shape)} "
-                         f"and {tuple(b.shape)}")
-    if a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise TypeError(f"int8_gemm: operands must be int8, got {a.dtype} and {b.dtype}")
-    if a.device != b.device:
-        raise ValueError(f"int8_gemm: a is on {a.device}, b on {b.device}")
-    if a.shape[1] > MAX_K:
-        raise ValueError(f"int8_gemm: K = {a.shape[1]} > {MAX_K} could overflow int32")
-
-
-def int8_gemm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version: a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact:
-    an int64 product on the CPU, a float64 one on the card (cuBLAS has no
-    integer GEMM; every partial sum is an integer below 2**53)."""
-    _check_operands(a, b)
-    if a.device.type == "cuda":
-        return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
-    return torch.matmul(a.to(torch.int64), b.to(torch.int64)).to(torch.int32)
-
-
-def _check_kernel_operands(name: str, *tensors: torch.Tensor) -> None:
-    """What the kernels take: dims that are positive multiples of 16 (TMA's
-    16-byte row strides, the transpose's 16-byte chunks), contiguous and
-    16-byte aligned."""
-    dims = [d for t in tensors for d in t.shape]
-    if any(d % TILE_MULTIPLE for d in dims) or min(dims) == 0:
-        raise ValueError(f"{name}: every dimension must be a positive multiple of "
-                         f"{TILE_MULTIPLE}, got {[tuple(t.shape) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors) or any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
-
-
-def _raise_on(lib, name: str, code: int) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.int8_gemm_error_string(code).decode()} ({code})")
-
-
-def transpose_s8_reference(b: torch.Tensor) -> torch.Tensor:
-    """Plain version of the transpose pass: b (K, N) -> (N, K), contiguous."""
-    return b.t().contiguous()
-
-
-def transpose_s8(b: torch.Tensor) -> torch.Tensor:
-    """b (K, N) int8 -> b^T (N, K) int8, contiguous: the pass that puts B
-    K-major for `int8_gemm`'s wgmma. On a CUDA tensor its kernel (K and N
-    multiples of 16, contiguous, 16-byte aligned); on a CPU tensor the plain
-    version; any other device raises."""
-    if b.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"transpose_s8 runs on cuda or cpu, not {b.device}")
-    if b.dim() != 2 or b.dtype != torch.int8:
-        raise TypeError(f"transpose_s8: expected a 2-D int8 tensor, got {b.dtype} "
-                        f"{tuple(b.shape)}")
-    if b.device.type == "cpu":
-        return transpose_s8_reference(b)
-    _check_kernel_operands("transpose_s8", b)
-    k, n = b.shape
-    bt = torch.empty((n, k), dtype=torch.int8, device=b.device)
-    lib = build_int8_gemm_kernel().lib
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        _raise_on(lib, "transpose_s8", lib.int8_transpose_s8(b.data_ptr(), bt.data_ptr(), k, n,
-                                                             stream))
-    transpose_s8.launches += 1
-    return bt
-
-
-transpose_s8.launches = 0  # kernel launches since the count was last reset
-
-
-def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact, both row-major.
-    Replaces the Pallas kernel of `tools/bench_int8.py:142`. On a CUDA tensor
-    the kernel, its transpose pass first (M, N, K multiples of 16,
-    contiguous, 16-byte aligned); on a CPU tensor the plain version; any
-    other device raises."""
-    if a.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"int8_gemm runs on cuda or cpu, not {a.device}")
-    _check_operands(a, b)
-    if a.device.type == "cpu":
-        return int8_gemm_reference(a, b)
-    _check_kernel_operands("int8_gemm", a, b)
-    (m, k), n = a.shape, b.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    bt = torch.empty((n, k), dtype=torch.int8, device=a.device)  # the transpose's scratch
-    lib = build_int8_gemm_kernel().lib
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        _raise_on(lib, "int8_gemm", lib.int8_gemm_s8s8s32(
-            a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k, stream))
-    int8_gemm.launches += 1
-    return out
-
-
-int8_gemm.launches = 0  # kernel launches since the count was last reset
-
-
-def empty_launch() -> None:
-    """One launch of an empty kernel on the current stream (the floor)."""
-    lib = build_int8_gemm_kernel().lib
-    code = lib.int8_gemm_empty_launch(torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"empty launch failed: {lib.int8_gemm_error_string(code).decode()}")
 
 
 def operands(n: int, seed: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,294 @@
+"""The int8 convolution path on the card at the model's shapes
+(counterpart of tools/bench_int8_conv.py).
+
+The JAX tool times XLA's bf16 and int8 `conv_general_dilated` at the seven
+shapes that dominate the RT-DETRv2-R101 forward (the CSP RepVGG 3x3 convs
+at 384 channels on 80², 40² and 20²; the backbone's 3x3 at 160²x64, 80²x128
+and 40²x256; a 1x1 projection 40² 256 -> 1024; B = 8, stride 1, "SAME"
+padding). Here the same seven, through the port's int8 conv path (the
+hand-written passes of ops/int8.py, the route utils/quant.py's `int8_conv`
+takes): `quantize_im2col` (`amax_samples`, then `im2col_codes`),
+`int8_gemm_kmajor` on the layer's kept weight codes, `dequant_nchw`. Per
+shape:
+
+- each kernel against its plain version on the same card inputs: the amax,
+  codes and scales exact, int32 products exact, the dequantized output bit
+  equal;
+- each kernel's time (CUDA events, a cold L2) and its bound (bytes or
+  operations, whichever takes longer); the plain versions' times; the im2col
+  matrix's bytes;
+- the whole path's time beside cuDNN's bf16 convolution of the same
+  operands (`F.conv2d`), and the amax pass's beside
+  `torch.linalg.vector_norm(x, inf)` over each sample: yardsticks only, the
+  port never calls them on an int8 path.
+
+Two more cases put the GEMM and the passes at the served paths' other
+shapes: a dense projection at YOLOS-base's M = 8 x 4301 = 34,408 rows
+(ragged), 768 -> 3072, beside `torch._int_mm` (cuBLASLt's int8 GEMM, B
+column-major, the faster layout), and the attention products at RT-DETR's
+decoder (B·H 64, Tq = Tk = 300, hd 32: QKᵀ and attn·V, batched).
+
+    python -m spotter_tpu_torch.tools.bench_int8_conv [--iters 10] [--seed 0]
+        [--shapes csp80,bb_s1] [--device cpu] [--out build/bench_int8_conv.json]
+
+Runs on cuda unless --device cpu is given (then the wrappers take their
+plain versions, every time is a host-clock CPU time, and --shapes should
+name small ones). Prints one JSON line per case and writes the record.
+"""
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from spotter_tpu_torch.ops import int8
+from spotter_tpu_torch.tools.timing import (
+    PEAK_BYTES_PER_S,
+    PEAK_INT8_OPS,
+    device_record,
+    l2_flush_buffer,
+    ms_key,
+    resolve_device,
+    time_ms,
+)
+from spotter_tpu_torch.utils import quant
+
+REPO = Path(__file__).resolve().parents[2]
+# (name, B, H, W, Cin, Cout, k, stride): the JAX tool's seven
+SHAPES = (
+    ("csp80", 8, 80, 80, 384, 384, 3, 1),
+    ("csp40", 8, 40, 40, 384, 384, 3, 1),
+    ("csp20", 8, 20, 20, 384, 384, 3, 1),
+    ("bb_s1", 8, 160, 160, 64, 64, 3, 1),
+    ("bb_s2", 8, 80, 80, 128, 128, 3, 1),
+    ("bb_s3", 8, 40, 40, 256, 256, 3, 1),
+    ("bb_p3", 8, 40, 40, 256, 1024, 1, 1),
+)
+MAIN_SHAPE = "csp80"  # the case the kernels line reports for the quantize and dequant passes
+DENSE_SHAPE = (8, 4301, 768, 3072)  # YOLOS-base fc1 at B = 8: (B, T, K, N)
+ATTN_SHAPE = (8, 300, 8, 32)  # RT-DETR decoder self-attention: (B, T, H, hd)
+WARMUP = {"cuda": 3, "cpu": 1}  # the calls time_ms makes before it times, by device
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def _equal(a, b) -> bool:
+    return bool(torch.equal(a, b))
+
+
+def conv_case(shape, seed: int, iters: int, device, flush, calls: dict) -> dict:
+    """One of the seven shapes: each kernel exact against its plain version
+    on the card's inputs; times and bounds; cuDNN's bf16 conv beside."""
+    name, b, h, w, cin, cout, k, stride = shape
+    pad = (k - 1) // 2  # "SAME" at stride 1
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, cin, h, w), dtype=np.float32)).to(device)
+    x = x.to(torch.bfloat16)
+    wt = torch.from_numpy((rng.standard_normal((cout, cin, k, k), dtype=np.float32)
+                           / np.sqrt(cin * k * k)).astype(np.float32)).to(device)
+    qw = int8.quantize_weight_rows(wt)
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+
+    def amax():
+        calls["amax_s8"] += 1
+        return int8.amax_samples(x)
+
+    def quantize():
+        calls["quantize_s8"] += 1
+        return int8.im2col_codes(x, ax, k, stride, pad, qw.k_pad)
+
+    def gemm():
+        calls["int8_gemm_kmajor"] += 1
+        return int8.int8_gemm_kmajor(codes, qw.codes)
+
+    def dequant():
+        calls["dequant_s32"] += 1
+        return int8.dequant_nchw(y, sx, qw.scale, b, ho, wo, torch.bfloat16)
+
+    calls["amax_s8"] += 1  # the weight's codes above
+    calls["quantize_s8"] += 1
+    ax = amax()
+    want_ax = int8.amax_samples_reference(x)
+    codes, sx = quantize()
+    want_codes, want_sx = int8.quantize_im2col_reference(x, k, stride, pad, qw.k_pad)
+    want_w = quant.quantize_weight(wt)
+    y = gemm()
+    want_y = int8.int8_gemm_kmajor_reference(codes, qw.codes)
+    out = dequant()
+    n_out = out.numel()
+    want_out = int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, torch.bfloat16)
+    m, kk = codes.shape
+    rec = {
+        "part": "conv", "shape": name, "b": b, "h": h, "w": w, "cin": cin, "cout": cout, "k": k,
+        "stride": stride, "im2col_bytes": m * kk, "k_pad": kk,
+        "amax_exact": _equal(ax, want_ax),
+        "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
+        "weight_codes_exact": (_equal(qw.codes[:, :cin * k * k], want_w[0].reshape(cout, -1))
+                               and _equal(qw.scale, want_w[1])),
+        "gemm_exact": _equal(y, want_y),
+        "dequant_bit_equal": _equal(out, want_out),
+    }
+    rec["exact"] = all(rec[key] for key in ("amax_exact", "codes_exact", "weight_codes_exact",
+                                            "gemm_exact", "dequant_bit_equal"))
+    del want_codes, want_y, want_out
+    ops = 2 * m * cout * cin * k * k
+    rec["bounds"] = {
+        "amax_s8": bound(x.numel() * 2 + b * 4, 0),
+        "quantize_s8": bound(x.numel() * 2 + 2 * b * 4 + m * kk, 0),
+        "int8_gemm_kmajor": bound(m * kk + cout * kk + m * cout * 4, ops),
+        "dequant_s32": bound(m * cout * 4 + n_out * 2, 0),
+        "path": bound(x.numel() * 2 + cout * kk + n_out * 2, ops),
+    }
+    wbf = wt.to(torch.bfloat16)
+    times = {
+        "amax_s8": time_ms(amax, iters, device, flush),
+        "quantize_s8": time_ms(quantize, iters, device, flush),
+        "int8_gemm_kmajor": time_ms(gemm, iters, device, flush),
+        "dequant_s32": time_ms(dequant, iters, device, flush),
+        "path": time_ms(lambda: quant.int8_conv(x, qw, k, stride, pad, torch.bfloat16), iters,
+                        device, flush),
+        "plain_amax_s8": time_ms(lambda: int8.amax_samples_reference(x), 2, device, flush),
+        "plain_quantize_s8": time_ms(
+            lambda: int8.im2col_codes_reference(x, ax, k, stride, pad, qw.k_pad), 2, device,
+            flush),
+        "plain_int8_gemm_kmajor": time_ms(
+            lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush),
+        "plain_dequant_s32": time_ms(
+            lambda: int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, torch.bfloat16), 2,
+            device, flush),
+        "library_cudnn_bf16": time_ms(lambda: F.conv2d(x, wbf, None, stride, pad), iters,
+                                      device, flush),
+        "library_vector_norm": time_ms(
+            lambda: torch.linalg.vector_norm(x, float("inf"), dim=(1, 2, 3)), iters, device,
+            flush),
+    }
+    for kernel in ("amax_s8", "quantize_s8", "int8_gemm_kmajor", "dequant_s32"):
+        calls[kernel] += iters + WARMUP[device.type]  # the path's calls
+    rec.update({ms_key(key, device): value for key, value in times.items()})
+    return rec
+
+
+def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
+    """The dense product at YOLOS-base's fc1 (M ragged): quantize (rows),
+    the GEMM, dequant (rows), exact; the GEMM beside torch._int_mm."""
+    b, t, kdim, n = DENSE_SHAPE
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.standard_normal((b * t, kdim), dtype=np.float32)).to(device)
+    x = x.to(torch.bfloat16)
+    wt = torch.from_numpy(rng.standard_normal((n, kdim), dtype=np.float32)).to(device)
+    calls["amax_s8"] += 2
+    calls["quantize_s8"] += 2
+    qw = int8.quantize_weight_rows(wt)
+    codes, sx = int8.quantize_rows(x, t, qw.k_pad)
+    want_codes, want_sx = int8.quantize_rows_reference(x, t, qw.k_pad)
+    calls["int8_gemm_kmajor"] += 1
+    y = int8.int8_gemm_kmajor(codes, qw.codes)
+    calls["dequant_s32"] += 1
+    out = int8.dequant_rows(y, sx, qw.scale, t, torch.bfloat16)
+    want_out = int8.dequant_rows_reference(y, sx, qw.scale, t, torch.bfloat16)
+    m = b * t
+    rec = {"part": "dense", "m": m, "k": kdim, "n": n,
+           "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
+           "gemm_exact": _equal(y, int8.int8_gemm_kmajor_reference(codes, qw.codes)),
+           "dequant_bit_equal": _equal(out, want_out)}
+    rec["exact"] = rec["codes_exact"] and rec["gemm_exact"] and rec["dequant_bit_equal"]
+    ops = 2 * m * n * kdim
+    rec["bounds"] = {"amax_s8": bound(m * kdim * 2 + b * 4, 0),
+                     "quantize_s8": bound(m * kdim * 2 + 2 * b * 4 + m * kdim, 0),
+                     "int8_gemm_kmajor": bound(m * kdim + n * kdim + m * n * 4, ops),
+                     "dequant_s32": bound(m * n * 4 + m * n * 2, 0)}
+
+    def gemm():
+        calls["int8_gemm_kmajor"] += 1
+        return int8.int8_gemm_kmajor(codes, qw.codes)
+
+    times = {"int8_gemm_kmajor": time_ms(gemm, iters, device, flush),
+             "plain_int8_gemm_kmajor": time_ms(
+                 lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush)}
+    if device.type == "cuda":  # cuBLASLt's int8 GEMM, B column-major (K-major)
+        times["library_int_mm"] = time_ms(lambda: torch._int_mm(codes, qw.codes.t()), iters,
+                                          device, flush)
+        rec["library_exact"] = _equal(torch._int_mm(codes, qw.codes.t()), y)
+    rec.update({ms_key(key, device): value for key, value in times.items()})
+    return rec
+
+
+def attention_case(seed: int, device, calls: dict) -> dict:
+    """QKᵀ and attn·V at RT-DETR's decoder, batched over B·H: each pass and
+    the GEMM exact against their plain versions."""
+    b, t, h, hd = ATTN_SHAPE
+    rng = np.random.default_rng(seed + 2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, hd), dtype=np.float32))
+               .to(device) for _ in range(3))
+    rec = {"part": "attention", "b": b, "t": t, "h": h, "hd": hd}
+    logits = quant.int8_qk(q, k)
+    w = torch.softmax(logits, -1)
+    out = quant.int8_av(w, v, torch.float32)
+    # the plain versions on the same card tensors (utils/quant.py's, which the
+    # CPU tests hold bit equal to the JAX package's)
+    rec["qk_exact"] = _equal(logits, quant.int8_qk_reference(q, k))
+    rec["av_exact"] = _equal(out, quant.int8_av_reference(w, v, torch.float32))
+    codes_ok = True
+    for transpose in (False, True):
+        got, s = int8.quantize_heads(v, transpose)
+        ref = int8.quantize_heads_reference(v, transpose)
+        codes_ok &= _equal(got, ref[0]) and _equal(s, ref[1])
+    rec["codes_exact"] = codes_ok
+    rec["exact"] = rec["qk_exact"] and rec["av_exact"] and codes_ok
+    calls["amax_s8"] += 6  # q, k, v twice, v and the weights for attn·V
+    calls["quantize_s8"] += 6
+    calls["int8_gemm_kmajor"] += 2
+    calls["dequant_s32"] += 2
+    return rec
+
+
+def run(args) -> dict:
+    device = resolve_device(args.device)
+    flush = l2_flush_buffer(device) if device.type == "cuda" else None
+    calls = {"amax_s8": 0, "quantize_s8": 0, "int8_gemm_kmajor": 0, "dequant_s32": 0}
+    record = {"tool": "bench_int8_conv", **device_record(device), "seed": args.seed, "cases": []}
+
+    def emit(rec):
+        record["cases"].append(rec)
+        print(json.dumps(rec), flush=True)
+
+    shapes = [s for s in SHAPES if not args.shapes or s[0] in args.shapes]
+    for shape in shapes:
+        emit(conv_case(shape, args.seed, args.iters, device, flush, calls))
+    if not args.shapes:
+        emit(dense_case(args.seed, args.iters, device, flush, calls))
+        emit(attention_case(args.seed, device, calls))
+    record["calls"] = calls  # the wrappers' calls: on the card, their launches
+    return record
+
+
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shapes", default="", type=lambda s: [v for v in s.split(",") if v],
+                    help="names of SHAPES to run (default: all, and the dense and attention cases)")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--out", default=str(REPO / "build" / "bench_int8_conv.json"))
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    record = run(args)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

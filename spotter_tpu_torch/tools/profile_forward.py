@@ -19,8 +19,13 @@ microsoft/conditional-detr-resnet-50, IDEA-Research/dab-detr-resnet-50; their
 shared box head, which DAB-DETR also runs inside its decoder loop, counts
 as "heads").
 
+With --int8 conv|dense|attn the forward runs with SPOTTER_TPU_INT8 (conv),
+also _INT8_DENSE (dense), also _INT8_ATTN (attn) switched on in
+utils/quant.py, so the stage table is the int8 forward's; the record counts
+the quantized calls a forward makes.
+
     python -m spotter_tpu_torch.tools.profile_forward [--model NAME] [--batch 8]
-        [--msda-backends xla,pallas_sep,pallas_gather] [--seed 0]
+        [--msda-backends xla,pallas_sep,pallas_gather] [--int8 conv|dense|attn] [--seed 0]
 
 Needs a CUDA device. Writes build/profile_forward.json (or --out).
 """
@@ -40,8 +45,12 @@ from spotter_tpu_torch.ops.preprocess import (
     device_rescale_normalize,
     device_rescale_normalize_masked,
 )
+from spotter_tpu_torch.utils import quant
 from spotter_tpu_torch.utils.precision import policy_name, use_exact_float32
 
+# --int8 level -> the knobs it switches on
+INT8_LEVELS = {"conv": ("INT8",), "dense": ("INT8", "INT8_DENSE"),
+               "attn": ("INT8", "INT8_DENSE", "INT8_ATTN")}
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 5  # timed forwards per measurement
 RTDETR = "PekingU/rtdetr_v2_r101vd"
@@ -240,6 +249,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--msda-backends", default="auto",
                     help="comma-separated SPOTTER_TPU_MSDA values, profiled in turn")
+    ap.add_argument("--int8", choices=sorted(INT8_LEVELS), default=None,
+                    help="the int8 knobs on: conv (SPOTTER_TPU_INT8), +dense, +attn")
     ap.add_argument("--out", default=str(REPO / "build" / "profile_forward.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -252,15 +263,24 @@ def main(argv=None) -> int:
     inputs = model_inputs(args.model, built.preprocess_spec, args.batch, args.seed)
     rec = {"device": torch.cuda.get_device_name(0), "model": args.model,
            "batch": args.batch, "policy": f"{policy_name() or 'float32'} (TF32 off)",
-           "backends": {}}
+           "int8": args.int8, "backends": {}}
+    knobs = {name: getattr(quant, name) for name in ("INT8", "INT8_DENSE", "INT8_ATTN")}
     try:
+        if args.int8:
+            for name in knobs:
+                setattr(quant, name, name in INT8_LEVELS[args.int8])
         with torch.inference_mode():
             for backend in backends:
                 msda.MSDA_BACKEND = backend
+                quant.reset_calls()
+                model(*inputs)
+                rec.setdefault("int8_calls_per_forward", {})[backend] = dict(quant.CALLS)
                 rec["backends"][backend] = profile_backend(args.model, model, inputs)
                 print(json.dumps({backend: rec["backends"][backend]}), flush=True)
     finally:
         msda.MSDA_BACKEND = "auto"
+        for name, value in knobs.items():
+            setattr(quant, name, value)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rec, indent=1))

@@ -18,8 +18,7 @@ ops/msda.py), and under "bfloat16" RT-DETR fuses its RepVGG blocks
 (SPOTTER_TPU_REP_FUSE, models/rtdetr.py). The fp32 half of every policy is
 exact fp32 on the card (`use_exact_float32`), which the engine sets on
 every card whatever the policy. The int8 knobs (SPOTTER_TPU_INT8,
-_INT8_DENSE, _INT8_ATTN) change what the JAX package computes and are not
-ported: building any model with one of them set raises (`refuse_int8`).
+_INT8_DENSE, _INT8_ATTN) combine with any policy: utils/quant.py.
 """
 
 import os
@@ -68,22 +67,6 @@ def policy_name() -> str:
     """The SPOTTER_TPU_DTYPE value as the JAX package's policy defaults read
     it (stripped, lower case; "" when unset)."""
     return os.environ.get(DTYPE_ENV, "").strip().lower()
-
-
-INT8_KNOBS = ("SPOTTER_TPU_INT8", "SPOTTER_TPU_INT8_DENSE", "SPOTTER_TPU_INT8_ATTN")
-
-
-def refuse_int8() -> None:
-    """Raise when an int8 knob is set (any value but "0", as the JAX package
-    reads them): int8 quantization is not ported, and serving the float
-    model under it would silently compute something else."""
-    for knob in INT8_KNOBS:
-        raw = os.environ.get(knob, "0")
-        if raw.strip() != "0":
-            raise ValueError(
-                f"{knob}={raw!r}: int8 quantization is not ported "
-                f"(ROADMAP Queue 1 item 9); unset it to serve the float model"
-            )
 
 
 def use_exact_float32() -> None:

@@ -221,7 +221,7 @@ def test_full_width_build_on_the_cpu(monkeypatch):
     # formerly a refusal: "mixed" builds, its backbone at bf16
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", "mixed")
     model = registry.build_detector(MODEL, tiny=True).module
-    assert model.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert model.backbone.stem0.dtype == torch.bfloat16  # (an fp32 master kernel)
     assert model.input_projection.weight.dtype == torch.float32
 
 

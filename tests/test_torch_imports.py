@@ -100,6 +100,19 @@ PROBE_MODULES = (
 )
 
 
+# the int8 slice's modules: the knobs and plain versions, the kernels'
+# wrappers, and the conv probe
+INT8_MODULES = (
+    "spotter_tpu_torch.utils.quant",
+    "spotter_tpu_torch.ops.int8",
+    "spotter_tpu_torch.tools.bench_int8_conv",
+)
+
+
+def test_every_int8_module_is_covered():
+    assert set(INT8_MODULES) <= set(MODULES)
+
+
 def test_every_probe_module_is_covered():
     assert set(PROBE_MODULES) <= set(MODULES)
 

@@ -1,0 +1,139 @@
+"""chip_smoke.py's `int8` phase and tools/bench_int8_conv.py, rehearsed on
+the CPU at the tiny width. The card run takes the models at full width and
+launches the kernels; here each int8 wrapper computes its plain version,
+and counting shims stand in for the launch counts (the rows and heads
+quantize wrappers count one amax and one quantize pass, as their kernels
+launch; the im2col's `amax_samples` and `im2col_codes` one each; a dequant
+of any layout on `dequant_s32`).
+The floors are lowered so that the tiny models' layers quantize
+(INT8_MIN_CH 8, INT8_ATTN_MIN_HD 4; the batch floor stays 8, so B = 1 runs
+the float path). The conv probe runs at tiny shapes on the CPU, and the
+stage profile, which needs CUDA events, is stubbed.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from spotter_tpu_torch.ops import int8 as tint8
+from spotter_tpu_torch.tools import bench_int8_conv
+from spotter_tpu_torch.utils import quant as tquant
+from tests.test_torch_precision_smoke import cpu_rehearsal  # noqa: F401  (a fixture)
+
+TINY_SHAPES = (("tiny3", 2, 9, 7, 16, 8, 3, 1), ("tiny1", 2, 6, 6, 24, 40, 1, 1))
+
+
+@pytest.fixture
+def tiny_tool(monkeypatch):
+    monkeypatch.setattr(bench_int8_conv, "SHAPES", TINY_SHAPES)
+    monkeypatch.setattr(bench_int8_conv, "MAIN_SHAPE", "tiny3")
+    monkeypatch.setattr(bench_int8_conv, "DENSE_SHAPE", (2, 5, 32, 24))
+    monkeypatch.setattr(bench_int8_conv, "ATTN_SHAPE", (2, 7, 2, 16))
+    return bench_int8_conv
+
+
+def test_bench_int8_conv_runs_on_the_cpu(tiny_tool, tmp_path, capsys):
+    """Every case exact against the plain versions (here the wrappers take
+    them too); host-clock times under *_cpu_ms; the calls it made."""
+    out = tmp_path / "bench_int8_conv.json"
+    assert tiny_tool.main(["--device", "cpu", "--iters", "1", "--out", str(out)]) == 0
+    record = json.loads(out.read_text())
+    parts = [c["part"] for c in record["cases"]]
+    assert parts == ["conv", "conv", "dense", "attention"]
+    assert all(c["exact"] for c in record["cases"])
+    conv = record["cases"][0]
+    assert conv["im2col_bytes"] == 2 * 9 * 7 * 144 and conv["k_pad"] == 144
+    assert {"amax_s8_cpu_ms", "quantize_s8_cpu_ms", "int8_gemm_kmajor_cpu_ms", "path_cpu_ms",
+            "library_cudnn_bf16_cpu_ms", "library_vector_norm_cpu_ms"} <= set(conv)
+    assert conv["amax_exact"] and conv["bounds"]["amax_s8"]["bound_by"] == "bytes"
+    assert conv["bounds"]["int8_gemm_kmajor"]["bound_by"] in ("bytes", "operations")
+    assert all(v > 0 for v in record["calls"].values())
+    assert len(capsys.readouterr().out.splitlines()) == 4
+
+
+def _counting_wrappers(monkeypatch):
+    """Shims that count each int8 wrapper call (and the class-logit head's)
+    as its kernel's launch."""
+    def counted(fn, *holders):
+        def shim(*args, **kwargs):
+            for holder in holders:
+                holder.launches += 1
+            return fn(*args, **kwargs)
+
+        return shim
+
+    for name in ("quantize_rows", "quantize_heads"):
+        monkeypatch.setattr(tint8, name, counted(getattr(tint8, name), tint8.amax_s8,
+                                                 tint8.quantize_s8))
+    monkeypatch.setattr(tint8, "amax_samples", counted(tint8.amax_samples, tint8.amax_s8))
+    monkeypatch.setattr(tint8, "im2col_codes", counted(tint8.im2col_codes, tint8.quantize_s8))
+    for name in ("dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw"):
+        monkeypatch.setattr(tint8, name, counted(getattr(tint8, name), tint8.dequant_s32))
+    gemm = tint8.int8_gemm_kmajor
+
+    def gemm_shim(*args, **kwargs):
+        gemm_shim.launches += 1
+        return gemm(*args, **kwargs)
+
+    gemm_shim.launches = 0
+    monkeypatch.setattr(tint8, "int8_gemm_kmajor", gemm_shim)
+    # OWLv2's class-logit head, where the model and the counts look it up
+    from spotter_tpu_torch.models import owlvit
+    from spotter_tpu_torch.ops import openvocab
+
+    head = openvocab.owl_class_logits
+
+    def head_shim(*args, **kwargs):
+        head_shim.launches += 1
+        return head(*args, **kwargs)
+
+    head_shim.launches = 0
+    monkeypatch.setattr(openvocab, "owl_class_logits", head_shim)
+    monkeypatch.setattr(owlvit, "owl_class_logits", head_shim)
+
+
+def test_int8_phase_rehearses_on_the_cpu(cpu_rehearsal, monkeypatch, tiny_tool):  # noqa: F811
+    """RT-DETR's three legs (the quantized calls equal the module tree's
+    plan, the launches equal the calls, B = 8 within the "bfloat16" bounds
+    of the float forward, B = 8 bit equal to the plain witness, B = 1 bit
+    equal to the float forward; the engine and /detect in the throughput
+    bucket under the first leg), the other families' B = 8 forwards (each
+    bit equal to its witness), and the kernels line's four new rows."""
+    chip_smoke = cpu_rehearsal
+    monkeypatch.setattr(chip_smoke, "INT8_ROUNDS", 1)
+    monkeypatch.setattr(tquant, "INT8_MIN_CH", 8)
+    monkeypatch.setattr(tquant, "INT8_ATTN_MIN_HD", 4)
+    monkeypatch.setattr(tquant, "INT8_MIN_BATCH", 8)
+    _counting_wrappers(monkeypatch)
+    tool_main = tiny_tool.main
+    monkeypatch.setattr(tiny_tool, "main",
+                        lambda argv: tool_main(["--device", "cpu", "--iters", "1", *argv]))
+    log = []
+    out = chip_smoke.phase_int8(log, 0, device="cpu")
+    legs = out["rtdetr"]
+    assert set(legs) == {"bfloat16_conv", "bfloat16_attn", "float32_conv"}
+    for rec in legs.values():
+        assert rec["calls_per_forward"] == rec["plan"] and rec["plan"]["conv"] > 0
+        assert rec["b1_bit_equal"] and rec["plain_witness_b8"]["bit_equal"]
+        assert rec["launches_per_forward"]["amax_s8"] == rec["launches_per_forward"]["quantize_s8"]
+    assert legs["bfloat16_attn"]["plan"]["qk"] == legs["bfloat16_attn"]["plan"]["av"] > 0
+    assert legs["bfloat16_conv"]["plan"]["dense"] == 0
+    http = legs["bfloat16_conv"]["http"]
+    assert http["forwards"] > 0 and http["launches"]["int8_gemm_kmajor"] > 0
+    assert legs["bfloat16_conv"]["engine_launches"]["quantize_s8"] > 0
+    assert set(out["families"]) == {name for name, *_ in chip_smoke.INT8_FAMILIES}
+    assert all(rec["plain_witness_b8"]["bit_equal"] for rec in out["families"].values())
+    yolos = out["families"][chip_smoke.YOLOS_NAME]
+    assert yolos["calls_per_forward"]["dense"] > 0 and yolos["calls_per_forward"]["conv"] == 0
+    rows = {c["kernel"]: c for c in out["kernel_cases"]}
+    assert set(rows) == set(chip_smoke.INT8_KERNELS)
+    assert rows["int8_gemm_kmajor"]["launches"] == http["launches"]["int8_gemm_kmajor"]
+    summary = chip_smoke.kernel_summary(out["kernel_cases"],
+                                        {c["kernel"]: c["launches"] for c in out["kernel_cases"]})
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    for row in summary["kernels"]:
+        assert keys <= set(row) and row["replaces"].startswith("spotter_tpu/utils/quant.py:")
+    assert not (tquant.INT8 or tquant.INT8_DENSE or tquant.INT8_ATTN)
+    assert np.isfinite(legs["float32_conv"]["vs_float_b8"]["logits_max_abs_err"])

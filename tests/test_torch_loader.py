@@ -588,3 +588,35 @@ def test_chip_smoke_load_phase_rehearses_on_the_cpu(monkeypatch):
     assert expected["the loaded engine"] == {"msda_gather_sum": 2 * 5}  # 2 tiny decoder layers
     assert expected["yolos loaded from its checkpoint"] == {"flash_attn_fp32": 2}
     assert expected["detr loaded from its checkpoint"] == {}
+
+
+def test_checkpoint_loads_into_the_fp32_masters_under_int8(tmp_path, monkeypatch):
+    """A tiny RT-DETR checkpoint written from the seeded fp32 model, loaded
+    under "bfloat16" with every int8 knob on: the loaded state equals the
+    seeded "bfloat16" model's bit for bit (the ConvNorm and QuantDense
+    masters fp32, the rest bf16), and both quantized forwards are equal."""
+    from spotter_tpu_torch.utils import quant as tquant
+    from tests.test_torch_int8 import set_knobs
+
+    set_knobs(monkeypatch)  # every knob on, floors the tiny model reaches
+    name = "PekingU/rtdetr_v2_r18vd"
+    monkeypatch.setenv("SPOTTER_TPU_DTYPE", "float32")
+    path = tmp_path / "PekingU" / "rtdetr_v2_r18vd"
+    hf_checkpoint.write_checkpoint(registry.build_detector(name, tiny=True, seed=5).module,
+                                   "rtdetr", path)
+    monkeypatch.setenv("SPOTTER_TPU_DTYPE", "bfloat16")
+    seeded = registry.build_detector(name, tiny=True, seed=5).module.eval()
+    loaded = registry.build_detector(str(path), tiny=False).module.eval()
+    want, got = seeded.state_dict(), loaded.state_dict()
+    assert set(got) == set(want)
+    for key, tensor in want.items():
+        assert got[key].dtype == tensor.dtype and torch.equal(got[key], tensor), key
+    assert want["backbone.stem0.conv.weight"].dtype == torch.float32
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3))
+                         .astype(np.float32))
+    tquant.reset_calls()
+    with torch.inference_mode():
+        a, b = seeded(x), loaded(x)
+    assert tquant.CALLS["conv"] > 0
+    for key in a:
+        assert torch.equal(a[key], b[key]), key

@@ -348,9 +348,17 @@ def test_build_follows_the_policy_and_the_vocabulary(monkeypatch, policy, vision
 
 
 def test_owl_refuses_int8(monkeypatch):
-    monkeypatch.setenv("SPOTTER_TPU_INT8", "1")
-    with pytest.raises(ValueError, match="int8 quantization is not ported"):
-        registry.build_detector(OWLV2, tiny=True)
+    """Formerly a refusal: SPOTTER_TPU_INT8 now builds OWLv2; alone it
+    quantizes nothing there (no ConvNorm layer: the towers' projections
+    wait for _INT8_DENSE), so the forward is the float one bit for bit, and
+    "0" keeps the float path."""
+    from tests.test_torch_int8 import assert_knob_serves
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3))
+                         .astype(np.float32))
+    assert_knob_serves(monkeypatch, "SPOTTER_TPU_INT8",
+                       lambda: registry.build_detector(OWLV2, tiny=True),
+                       lambda b: b.module.eval()(x, b.query_embeds, None), quantizes=False)
 
 
 # --- engine, query sets and /detect ---------------------------------------

@@ -178,14 +178,18 @@ def _check_stored_weights(model, params, dtype, backbone_dtype):
     computes it at: backbone convolutions at the backbone dtype, the other
     convolutions and dense layers at the compute dtype, norm statistics and
     scales and the raw tables fp32 (flax keeps its params fp32 and casts
-    them at use; those it does not cast, the port keeps fp32)."""
+    them at use; those it does not cast, the port keeps fp32), and so are
+    the ConvNorm and QuantDense kernels, which the port keeps as fp32
+    masters (an int8 path quantizes the fp32 param) and casts at use."""
     ref = state_dict_from_jax(params, model)  # fp32-valued, at the port's dtypes
     wide = {k: torch.from_numpy(np.asarray(v)) for k, v in _flat_fp32(params, model).items()}
-    norms = set()
+    norms = set()  # and the fp32 masters of ConvNorm and QuantDense
     for name, module in model.named_modules():
         if isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)) or \
-                type(module).__name__ == "FrozenBatchNorm":
+                type(module).__name__ in ("FrozenBatchNorm", "QuantDense"):
             norms.update(f"{name}.{p}" for p, _ in module.state_dict().items())
+        elif type(module).__name__ == "ConvNorm":
+            norms.add(f"{name}.conv.weight")
     for key, tensor in model.state_dict().items():
         if key in norms or _fp32_key(key):
             want = torch.float32
@@ -333,7 +337,8 @@ def test_seeded_model_under_mixed_stores_the_rounded_float32_draws(monkeypatch, 
     f32 = registry.build_detector(name, tiny=True, seed=0).module.state_dict()
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", "mixed")
     mixed = registry.build_detector(name, tiny=True, seed=0).module.state_dict()
-    assert any(t.dtype == torch.bfloat16 for t in mixed.values())
+    model = registry.build_detector(name, tiny=True, seed=0).module
+    assert any(getattr(m, "dtype", None) == torch.bfloat16 for m in model.modules())
     for key, tensor in mixed.items():
         assert torch.equal(tensor, f32[key].to(tensor.dtype)), key
 
@@ -372,14 +377,19 @@ def test_checkpoint_loaded_under_policy_equals_the_seeded_model(tmp_path, monkey
                                   "microsoft/conditional-detr-resnet-50",
                                   "IDEA-Research/dab-detr-resnet-50"])
 def test_int8_knobs_still_raise_under_every_policy_family(monkeypatch, knob, name):
-    """int8 stays unported (ROADMAP Queue 1 item 9): each knob
-    raises for the families this slice opened to "mixed"/"bfloat16"."""
+    """Formerly a refusal: under "mixed" each int8 knob builds these
+    families. SPOTTER_TPU_INT8 takes their ResNet's ConvNorm layers to the
+    int8 path, _INT8_DENSE or _INT8_ATTN alone is a no-op (the float forward
+    bit for bit), and "0" keeps the float path."""
     from spotter_tpu_torch.models import registry
+    from tests.test_torch_int8 import assert_knob_serves
 
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", "mixed")
-    monkeypatch.setenv(knob, "1")
-    with pytest.raises(ValueError, match=f"{knob}='1': int8 quantization is not ported"):
-        registry.build_detector(name, tiny=True)
+    monkeypatch.setattr(tmsda, "MSDA_PRECISION", None)
+    args = [torch.from_numpy(a) for a in _inputs((64, 64), True)]
+    assert_knob_serves(monkeypatch, knob,
+                       lambda: registry.build_detector(name, tiny=True).module.eval(),
+                       lambda m: m(*args), quantizes=knob == "SPOTTER_TPU_INT8")
 
 
 @pytest.mark.parametrize("policy", list(POLICIES))
@@ -409,7 +419,7 @@ def test_family_serves_through_the_engine_and_detect_under_policy(monkeypatch, t
     for i, p in enumerate(photos):
         Image.fromarray(p).save(tmp_path / f"p{i}.png")
     det = build_detector_app(name, tiny=True, device="cpu", batch_buckets=(1, 2))
-    assert det.engine.built.module.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert det.engine.built.module.backbone.stem0.dtype == torch.bfloat16  # (an fp32 master kernel)
     assert len(det.engine.detect(photos)) == 2
 
     async def run():

@@ -122,17 +122,20 @@ def test_every_yolos_leaf_is_carried_across():
 
 
 def test_mixed_body_stores_what_flax_casts():
-    """Under a bf16 body the dense weights are bf16 (flax casts them at
-    use); LayerNorm params, the patch conv and the tables stay fp32, as flax
-    keeps and applies them."""
+    """Under a bf16 body the head's dense weights are bf16 (flax casts them
+    at use); the QuantDense projections keep fp32 masters (an int8 path
+    quantizes the fp32 param) and use their bf16 casts; LayerNorm params,
+    the patch conv and the tables stay fp32, as flax keeps and applies them."""
     model = YolosDetector(tzoo.tiny_yolos_config(), dtype=torch.bfloat16)
     dtypes = {k: v.dtype for k, v in model.state_dict().items()}
-    assert dtypes["layer0.attention.key.weight"] == torch.bfloat16
-    assert dtypes["layer0.fc2.bias"] == torch.bfloat16
     assert dtypes["bbox_predictor.layer0.weight"] == torch.bfloat16
     for key in ("layer0.layernorm_before.weight", "layernorm.bias", "patch_projection.weight",
-                "patch_projection.bias", "cls_token", "mid_position_embeddings"):
+                "patch_projection.bias", "cls_token", "mid_position_embeddings",
+                "layer0.attention.key.weight", "layer0.fc2.bias"):
         assert dtypes[key] == torch.float32, key
+    w, b = model.layer0.fc2.params_at_dtype()
+    assert w.dtype == b.dtype == torch.bfloat16
+    assert torch.equal(w, model.layer0.fc2.weight.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -266,7 +269,7 @@ def test_yolos_builds_its_body_at_the_backbone_dtype(monkeypatch, policy, dtype)
     monkeypatch.setenv("SPOTTER_TPU_DTYPE", policy)
     built = registry.build_detector(MODEL, tiny=True)
     assert built.module.dtype == dtype
-    assert built.module.layer0.fc1.weight.dtype == dtype
+    assert built.module.layer0.fc1.dtype == dtype  # an fp32 master kernel, cast at use
     out = InferenceEngine(built, device="cpu").detect([_photo(3)])
     assert len(out) == 1
 
@@ -280,7 +283,7 @@ def test_rtdetr_refuses_non_float32_policies(monkeypatch, policy):
     built = registry.build_detector("PekingU/rtdetr_v2_r101vd", tiny=True)
     model = built.module
     compute = torch.bfloat16 if policy == "bfloat16" else torch.float32
-    assert model.backbone.stem0.conv.weight.dtype == torch.bfloat16
+    assert model.backbone.stem0.dtype == torch.bfloat16  # (an fp32 master kernel)
     assert model.decoder_layer0.fc1.weight.dtype == compute
     with torch.inference_mode():
         out = model(torch.zeros((1, 64, 64, 3)))
@@ -293,11 +296,17 @@ def test_rtdetr_refuses_non_float32_policies(monkeypatch, policy):
                                   "SPOTTER_TPU_INT8_ATTN"])
 @pytest.mark.parametrize("model_name", [MODEL, "PekingU/rtdetr_v2_r101vd"])
 def test_int8_knobs_raise(monkeypatch, knob, model_name):
-    monkeypatch.setenv(knob, "1")
-    with pytest.raises(ValueError, match=f"{knob}='1': int8 quantization is not ported"):
-        registry.build_detector(model_name, tiny=True)
-    monkeypatch.setenv(knob, "0")  # the JAX package's "off"
-    registry.build_detector(model_name, tiny=True)
+    """Formerly a refusal: each int8 knob now builds. SPOTTER_TPU_INT8 takes
+    RT-DETR's ConvNorm layers to the int8 path (YOLOS has none, so its
+    forward stays float), _INT8_DENSE or _INT8_ATTN alone is a no-op (the
+    float forward bit for bit), and "0" keeps the float path."""
+    from tests.test_torch_int8 import assert_knob_serves
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (2, 32, 48, 3) if model_name == MODEL else (2, 64, 64, 3)).astype(np.float32))
+    assert_knob_serves(monkeypatch, knob, lambda: registry.build_detector(model_name, tiny=True)
+                       .module.eval(), lambda m: m(x),
+                       quantizes=knob == "SPOTTER_TPU_INT8" and model_name != MODEL)
 
 
 @pytest.mark.parametrize("backend,wrapper", [("pallas_sep", "msda_sep_sum"),
