@@ -68,7 +68,21 @@ csrc/launch_probe.cu. Phases, each printing JSON lines:
 5. serve   — slice 1's path under xla: InferenceEngine on cuda, warmed,
              answering requests of 1, 3 and 8 synthetic photos (480x640 to
              1080x1440) through detect + response assembly; the gather-sum
-             count, reset just before, must grow by 6 per forward;
+             count, reset just before, must grow by 6 per forward (every
+             forward past warmup is a replay of the bucket's CUDA graph,
+             which adds its captured launches);
+5b. engine — the engine's full form at full width, buckets (1, 2, 4, 8),
+             under "float32" and "bfloat16" (and "bfloat16" +
+             SPOTTER_TPU_INT8 at B = 8): warmup captures one CUDA graph per
+             bucket (the capture ledger's count and wall per bucket); each
+             replay bit equal to the eager forward; host, wall and kernel ms
+             a forward and the busy share at B = 1 and 8, eager against
+             replay (torch.profiler); a 24-photo detect (three B = 8 chunks
+             in flight) equal to three serial calls, counts reset just
+             before; mfu_pct and the HBM gauges; attest() ok, naming
+             device:0 after corrupt_weights(1), ok after reload_weights();
+             a knob change (MSDA_PREP xla -> kernel) capturing anew and
+             launching row 2;
 6. http    — the replica's entry point: the port's standalone server on
              localhost (full-width model) answering POST /detect for JPEGs
              served by a local HTTP server: 1, 3 and 8 URLs, then 4
@@ -186,7 +200,7 @@ and last `{"ok": true, "device": {...}}`. Any failure raises and the exit
 code is non-zero. Needs one CUDA card and the repository checkout around
 this file; exits non-zero without either.
 
-    python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,http,
+    python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,engine,http,
                                             yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
                                             detr_parity,detr_serve,detr_http,
@@ -214,7 +228,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernel", "parity", "serve", "http", "yolos_parity",
+PHASES = ("device", "build", "kernel", "parity", "serve", "engine", "http", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
           "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
           "load", "precision", "int8", "probes")
@@ -1512,7 +1526,8 @@ def phase_serve(log: list, seed: int, built, device: str = "cuda") -> dict:
 
     # where a batch-8 request's time goes: host resize vs device forward
     t0 = time.perf_counter()
-    pixels, _, tsizes = batch_images_uint8(photos[:8], built.preprocess_spec)
+    pixels, _, tsizes = batch_images_uint8(photos[:8], built.preprocess_spec,
+                                           pool=engine.decode_pool)
     host_ms = (time.perf_counter() - t0) * 1e3
     px = torch.from_numpy(pixels).to(device)
     sz = torch.from_numpy(tsizes).to(device)
@@ -1544,6 +1559,227 @@ def phase_serve(log: list, seed: int, built, device: str = "cuda") -> dict:
     }
     emit(rec, log)
     return rec
+
+
+ENGINE_POLICIES = ("float32", "bfloat16")
+ENGINE_PROFILE_ITERS = 5  # forwards a profiled loop runs, back to back
+
+
+def forward_profile(fn, iters: int = ENGINE_PROFILE_ITERS) -> dict:
+    """`iters` calls of `fn` back to back, twice: by the host clock alone,
+    host ms a forward (until the call returns, before any wait) and wall ms
+    a forward (until the card is done); then under torch.profiler, kernel ms
+    a forward (the device events' own time) and the busy share (kernel over
+    that loop's wall). Where the profiler shows no device time (a graph's
+    kernels untraced), CUDA events around one call give the kernel ms
+    instead, and `kernel_ms_from` says so."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    def loop() -> tuple[float, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        return host, (time.perf_counter() - t0) * 1e3 / iters
+
+    fn()
+    host_ms, wall_ms = loop()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_wall_ms = loop()
+    kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    source = "profiler"
+    if kernel_ms <= 0:
+        from spotter_tpu_torch.tools.timing import cuda_time_ms
+
+        kernel_ms, source = cuda_time_ms(fn, iters, None, warmup=1), "cuda_events"
+    return {"host_ms": host_ms, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "profiled_wall_ms": prof_wall_ms, "busy_share": kernel_ms / prof_wall_ms,
+            "kernel_ms_from": source}
+
+
+def replay_equal(engine, graph_key, px, sz, what: str) -> dict:
+    """The captured graph of `graph_key` replayed on (px, sz) against the
+    eager `_forward` on the same tensors: every output bit equal, else it
+    raises. Counted launches of the replay are not this check's business:
+    the caller resets the counts before the main path."""
+    import torch
+
+    graph = engine.graphs[graph_key]
+    eager = engine._forward(px, sz)
+    replayed = [t.clone() for t in graph.replay((px, sz, None, None, None))]
+    torch.cuda.synchronize()
+    diffs = [(e.float() - r.float()).abs().max().item() for e, r in zip(eager, replayed)]
+    if not all(torch.equal(e, r) for e, r in zip(eager, replayed)):
+        raise AssertionError(f"{what}: the graph replay differs from the eager forward: {diffs}")
+    return {"bit_equal": True, "max_abs_diff": diffs}
+
+
+def engine_photos(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [synthetic_photo(rng, *PHOTO_SIZES[i % len(PHOTO_SIZES)]) for i in range(n)]
+
+
+def phase_engine(log: list, seed: int, built=None, device: str = "cuda") -> dict:
+    """The engine's full form at full-width RT-DETRv2-R101, buckets (1, 2,
+    4, 8), under `float32` and `bfloat16` (and `bfloat16` + SPOTTER_TPU_INT8
+    at B = 8): `warmup` captures one graph per bucket; each replay is bit
+    equal to the eager `_forward`; host, wall and kernel ms a forward, eager
+    against replay, and the busy share at B = 1 and 8; the capture ledger
+    and the perf gauges; a 24-photo `detect` (three B = 8 chunks in flight)
+    equal to three serial 8-photo calls, the launch counts the forwards'
+    (replays included); `attest()` ok, then naming `device:0` after
+    `corrupt_weights(1)`, then ok after `reload_weights()`; and a knob change
+    (MSDA_PREP xla -> kernel) that captures anew and launches row 2."""
+    import torch
+
+    from spotter_tpu_torch.engine import graphs
+    from spotter_tpu_torch.engine.engine import InferenceEngine
+    from spotter_tpu_torch.models.registry import build_detector
+    from spotter_tpu_torch.ops import msda
+    from spotter_tpu_torch.ops.preprocess import batch_images_uint8
+
+    msda.MSDA_PREP = "xla"
+    photos = engine_photos(seed + 16, 24)
+    rec = {"phase": "engine", "model": MODEL_NAME, "nvidia_smi": nvidia_smi("name,power.limit"),
+           "policies": {}}
+    for policy in ENGINE_POLICIES:
+        leg = {}
+        with precision_policy(policy):
+            if policy != "float32" or built is None:
+                built = build_detector(MODEL_NAME, tiny=False, seed=seed)
+            engine = InferenceEngine(built, device=device)
+            layers = built.module.config.decoder_layers
+            t0 = time.perf_counter()
+            engine.warmup()
+            leg["warmup_s"] = time.perf_counter() - t0
+            snap = engine.metrics.snapshot()
+            leg["captures"] = [{k: s[k] for k in ("shape", "source", "wall_s", "count")}
+                               for s in snap["compile_shapes"]]
+            if len(engine.graphs) != len(engine.batch_buckets) or snap["compiles_total"] != len(
+                    engine.batch_buckets) or {s["source"] for s in leg["captures"]} != {"warmup"}:
+                raise AssertionError(f"engine {policy}: warmup captured {leg['captures']}")
+            leg["flops_per_forward"] = {s: engine.metrics.perf.flops_for(s)
+                                        for s in (engine._shape_key(b, 640, 640)
+                                                  for b in engine.batch_buckets)}
+            pixels, _, sizes = batch_images_uint8(photos[:8], built.preprocess_spec,
+                                                  pool=engine.decode_pool)
+            px = torch.from_numpy(pixels).to(device)
+            sz = torch.from_numpy(sizes).to(device)
+            leg["replay_vs_eager"], leg["profile"] = {}, {}
+            with torch.inference_mode():
+                for b in engine.batch_buckets:
+                    key = graphs.graph_key(engine._shape_key(b, 640, 640))
+                    leg["replay_vs_eager"][b] = replay_equal(engine, key, px[:b], sz[:b],
+                                                             f"engine {policy} B = {b}")
+                    if b in (1, 8):
+                        graph = engine.graphs[key]
+                        leg["profile"][b] = {
+                            "eager": forward_profile(lambda: engine._forward(px[:b], sz[:b])),
+                            "replay": forward_profile(
+                                lambda: graph.replay((px[:b], sz[:b], None, None, None))),
+                        }
+            # the main path: 24 photos, three B = 8 chunks in flight two at a
+            # time, against three serial calls; every forward a replay
+            reset_counts()
+            t0 = time.perf_counter()
+            got = engine.detect(photos)
+            leg["detect24_ms"] = (time.perf_counter() - t0) * 1e3
+            serial = []
+            for i in range(0, 24, 8):
+                serial += engine.detect(photos[i:i + 8])
+            counts = read_counts()
+            if got != serial:
+                raise AssertionError(f"engine {policy}: the pipelined detect of 24 photos "
+                                     f"differs from three serial calls")
+            check_counts(counts, {"msda_gather_sum": layers * 6}, f"engine {policy} detect")
+            snap = engine.metrics.snapshot()
+            leg["launches"] = {k: v for k, v in counts.items() if v}
+            leg["perf"] = {k: snap[k] for k in (
+                "mfu_pct", "useful_mfu_pct", "device_duty_cycle_pct", "peak_tflops",
+                "device_kind", "hbm_bytes_in_use", "hbm_peak_bytes", "hbm_limit_bytes",
+                "compiles_total", "program_cache_hits_total", "h2d_bytes_per_image",
+                "decode_pool_queue_depth")}
+            leg["stages_ms_p50"] = {k: v for k, v in snap.items() if k.startswith("stage_")
+                                    and k.endswith("_p50")}
+            if policy == "float32":
+                leg["attest"] = engine_attest(engine)
+                leg["knob_change"] = engine_knob_change(engine, photos[:8], layers)
+            else:
+                leg["int8_b8"] = engine_int8_b8(engine, photos[:8], px, sz, layers)
+            del engine, px, sz
+        rec["policies"][policy] = leg
+        release_cuda_memory()
+    emit(rec, log)
+    return rec
+
+
+def engine_attest(engine) -> dict:
+    """attest() ok, then `device:0` named after corrupt_weights(1), then ok
+    after reload_weights()."""
+    ok = engine.attest()
+    engine.corrupt_weights(1)
+    bad = engine.attest()
+    engine.reload_weights()
+    again = engine.attest()
+    if not ok["ok"] or bad["mismatched"] != ["device:0"] or not again["ok"]:
+        raise AssertionError(f"attestation: {ok}, after corruption {bad}, after reload {again}")
+    return {"fresh": ok["ok"], "corrupted_mismatched": bad["mismatched"],
+            "reloaded": again["ok"], "digest": engine.weights_digest()}
+
+
+def engine_knob_change(engine, photos: list, layers: int) -> dict:
+    """SPOTTER_TPU_MSDA_PREP xla -> kernel: the first forward of the new key
+    runs eager and its graph is captured behind it (source `traffic`), the
+    second and third replay; row 2 launches every time and row 1 never."""
+    from spotter_tpu_torch.engine import graphs
+    from spotter_tpu_torch.ops import msda
+
+    before = engine.metrics.snapshot()["compiles_total"]
+    msda.MSDA_PREP = "kernel"
+    try:
+        reset_counts()
+        for _ in range(3):
+            engine.detect(photos)
+        counts = read_counts()
+        key = graphs.graph_key(engine._shape_key(8, 640, 640))
+        graph = engine.graphs.get(key)
+    finally:
+        msda.MSDA_PREP = "xla"
+    captures = engine.metrics.snapshot()["compiles_total"] - before
+    check_counts(counts, {"msda_loc_sum": 3 * layers}, "engine knob change")
+    if captures != 1 or graph is None or graph.counts != {"msda_loc_sum": layers}:
+        raise AssertionError(f"knob change: {captures} captures, graph {graph and graph.counts}")
+    return {"new_captures": captures, "msda_loc_sum_launches": counts["msda_loc_sum"],
+            "graph_counts": graph.counts}
+
+
+def engine_int8_b8(engine, photos: list, px, sz, layers: int) -> dict:
+    """`bfloat16` + SPOTTER_TPU_INT8 at B = 8: the int8 key's graph, made
+    behind its first forward, bit equal to the eager int8 forward, its
+    counts the int8 kernels' once per quantized call."""
+    import torch
+
+    from spotter_tpu_torch.engine import graphs
+
+    with int8_knobs("conv"):
+        for _ in range(2):
+            engine.detect(photos)
+        key = graphs.graph_key(engine._shape_key(8, 640, 640))
+        with torch.inference_mode():
+            eq = replay_equal(engine, key, px, sz, "engine bfloat16 + INT8 B = 8")
+            graph = engine.graphs[key]
+            prof = {"eager": forward_profile(lambda: engine._forward(px, sz)),
+                    "replay": forward_profile(lambda: graph.replay((px, sz, None, None, None)))}
+    counts = graph.counts
+    calls = {name: counts.get(f"quant.{name}", 0) for name in ("conv", "dense", "qk", "av")}
+    want = {"msda_gather_sum": layers, **int8_launches(calls)}
+    if {k: v for k, v in counts.items() if not k.startswith("quant.")} != want:
+        raise AssertionError(f"int8 graph counts {counts}, expected {want}")
+    return {"replay_vs_eager": eq, "graph_counts": counts, "profile": prof}
 
 
 async def drive_http(det, photo_dir: str, runs: list) -> dict:
@@ -1867,7 +2103,8 @@ def phase_yolos_serve(log: list, seed: int, device: str = "cuda") -> dict:
                        f"yolos engine path under {policy}")
         # device time per forward, after the counts were read
         t0 = time.perf_counter()
-        pixels, _, sizes = batch_images_uint8(photos[:8], built.preprocess_spec)
+        pixels, _, sizes = batch_images_uint8(photos[:8], built.preprocess_spec,
+                                           pool=engine.decode_pool)
         host_ms = (time.perf_counter() - t0) * 1e3
         px = torch.from_numpy(pixels).to(device)
         sz = torch.from_numpy(sizes).to(device)
@@ -2060,7 +2297,8 @@ def phase_ddetr_serve(log: list, seed: int, device: str = "cuda") -> dict:
     rec = {"phase": "ddetr_serve", "model": DDETR_NAME, "device": device,
            "warmup_s": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    pixels, valid, sizes = batch_images_uint8(photos[:8], built.preprocess_spec)
+    pixels, valid, sizes = batch_images_uint8(photos[:8], built.preprocess_spec,
+                                             pool=engine.decode_pool)
     rec["batch8_host_resize_ms"] = (time.perf_counter() - t0) * 1e3
     rec["valid_hw"] = valid.tolist()
     px, vd, sz = (torch.from_numpy(a).to(device) for a in (pixels, valid, sizes))
@@ -2228,11 +2466,13 @@ def phase_detr_parity(log: list, seed: int, device: str = "cuda") -> list:
     return records
 
 
-def phase_detr_serve(log: list, seed: int, device: str = "cuda") -> list:
+def phase_detr_serve(log: list, seed: int, device: str = "cuda", rounds: int = 3,
+                     timing_iters: int = 5) -> list:
     """The four DETR-lineage models through InferenceEngine.detect and the
-    response assembly: requests of 1 and 8 listing photos, the counts set to
-    0 just before each model's requests and read just after (no kernel may
-    launch); then the device ms per forward at B = 1 and 8."""
+    response assembly: `rounds` requests of 1 listing photo and of 8, the
+    counts set to 0 just before each model's requests and read just after
+    (no kernel may launch); then the device ms per forward at B = 1 and 8,
+    the median of `timing_iters`."""
     import torch
 
     from spotter_tpu_torch.engine.engine import InferenceEngine
@@ -2243,7 +2483,7 @@ def phase_detr_serve(log: list, seed: int, device: str = "cuda") -> list:
 
     rng = np.random.default_rng(seed + 15)
     photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
-    requests = [photos[:1]] * 3 + [photos[:8]] * 3
+    requests = [photos[:1]] * rounds + [photos[:8]] * rounds
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
     records = []
     for name in DETR_LINEAGE:
@@ -2269,7 +2509,7 @@ def phase_detr_serve(log: list, seed: int, device: str = "cuda") -> list:
         check_counts(counts, {}, f"{name} engine path")
         with torch.inference_mode():
             device_ms = {b: cuda_time_ms(
-                lambda b=b: engine._forward(px[:b], sz[:b], valid=vd[:b]), 5, flush)
+                lambda b=b: engine._forward(px[:b], sz[:b], valid=vd[:b]), timing_iters, flush)
                 for b in (1, 8)}
         rec.update({
             "forwards": forwards, "launches": counts,
@@ -2287,9 +2527,9 @@ def phase_detr_serve(log: list, seed: int, device: str = "cuda") -> list:
     return records
 
 
-def phase_detr_http(log: list, seed: int, device: str = "cuda") -> dict:
-    """facebook/detr-resnet-50 behind the port's standalone server: requests
-    of 1 and 8 URLs, the counts set to 0 just before and read just after (no
+def phase_detr_http(log: list, seed: int, device: str = "cuda", rounds: int = 10) -> dict:
+    """facebook/detr-resnet-50 behind the port's standalone server: `rounds`
+    requests of 1 URL and of 8, the counts set to 0 just before and read just after (no
     kernel may launch). The score threshold stays the reference's: with
     random weights DETR's softmax over 92 classes keeps few boxes or none,
     and the response schema is checked all the same."""
@@ -2301,7 +2541,7 @@ def phase_detr_http(log: list, seed: int, device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     det = build_detector_app(DETR_NAME, device=device, seed=seed, warmup=True)
     bringup_s = time.perf_counter() - t0
-    runs = [("detr", lambda: None, [("1", 1, 10, 1), ("8", 8, 10, 1)])]
+    runs = [("detr", lambda: None, [("1", 1, rounds, 1), ("8", 8, rounds, 1)])]
     with tempfile.TemporaryDirectory() as photo_dir:
         write_photos(photo_dir, rng)
         out = asyncio.run(drive_http(det, photo_dir, runs))
@@ -2610,7 +2850,8 @@ def phase_owl_serve(log: list, seed: int, device: str = "cuda") -> dict:
                                  f"{list(OWL_QUERIES)}")
         # host preprocess and device time per forward, after the counts were read
         t0 = time.perf_counter()
-        pixels, sizes = batch_images_float(photos[:8], built.preprocess_spec)
+        pixels, sizes = batch_images_float(photos[:8], built.preprocess_spec,
+                                           pool=engine.decode_pool)
         host_ms = (time.perf_counter() - t0) * 1e3
         px = torch.from_numpy(pixels).to(device)
         sz = torch.from_numpy(sizes).to(device)
@@ -2845,7 +3086,8 @@ def load_family(family: str, name: str, fmt: str, root: str, seed: int, photo,
     return rec
 
 
-def phase_load(log: list, seed: int, device: str = "cuda") -> dict:
+def phase_load(log: list, seed: int, device: str = "cuda", rounds: int = 5,
+               kernel_rounds: int = 3) -> dict:
     """Every family built from a local HF checkpoint (MODEL_NAME=<dir>), as
     a user serves a trained model, with the seeded model written into that
     directory first (tools/hf_checkpoint.py: model.safetensors without the
@@ -2859,7 +3101,9 @@ def phase_load(log: list, seed: int, device: str = "cuda") -> dict:
     Conditional-DETR, DAB-DETR without its bbox_predictor twin, OWLv2) at
     full width: built from their checkpoints and one B = 1 forward equal to
     the seeded model's. Prints each load's seconds (config, file read and
-    conversion, load_from_jax apart) and the checkpoint's bytes."""
+    conversion, load_from_jax apart) and the checkpoint's bytes. `rounds`:
+    the timed engine requests and the /detect rounds under `fused`;
+    `kernel_rounds` those under `kernel`."""
     import asyncio
 
     import torch
@@ -2888,18 +3132,18 @@ def phase_load(log: list, seed: int, device: str = "cuda") -> dict:
                                      **outputs_diff(raw["seeded"], raw["loaded"])}
         check_parity(rec["batch8_forward"], "loaded RT-DETR vs seeded at B = 8")
         del raw
-        # the engine path: 5 requests of 8 photos each, the first one untimed
+        # the engine path: `rounds` requests of 8 photos each after an untimed one
         dets, lat, counts = {}, {}, {}
         for key, engine in engines.items():
             engine.detect(photos)
             reset_counts()
             lat[key] = []
-            for _ in range(5):
+            for _ in range(rounds):
                 t = time.perf_counter()
                 dets[key] = engine.detect(photos)
                 lat[key].append((time.perf_counter() - t) * 1e3)
             counts[key] = read_counts()
-        check_launches(counts["loaded"], "msda_gather_sum", layers * 5, "the loaded engine")
+        check_launches(counts["loaded"], "msda_gather_sum", layers * rounds, "the loaded engine")
         if dets["loaded"] != dets["seeded"]:
             raise AssertionError("the loaded engine's detections differ from the seeded one's")
         rec.update({
@@ -2917,8 +3161,9 @@ def phase_load(log: list, seed: int, device: str = "cuda") -> dict:
         def prep(name: str):
             return lambda: setattr(msda, "MSDA_PREP", name)
 
-        runs = [("fused", prep("fused"), [("1", 1, 5, 1), ("8", 8, 5, 1)]),
-                ("kernel", prep("kernel"), [("1", 1, 3, 1), ("8", 8, 3, 1)])]
+        runs = [("fused", prep("fused"), [("1", 1, rounds, 1), ("8", 8, rounds, 1)]),
+                ("kernel", prep("kernel"), [("1", 1, kernel_rounds, 1),
+                                            ("8", 8, kernel_rounds, 1)])]
         with tempfile.TemporaryDirectory() as photo_dir:
             write_photos(photo_dir, rng)
             try:
@@ -3966,11 +4211,12 @@ def main(argv=None) -> int:
         phase_build(log)
     cases = phase_kernel(log, args.seed) if "kernel" in phases else []
     built = None
-    if "parity" in phases or "serve" in phases:
+    if "parity" in phases or "serve" in phases or "engine" in phases:
         built = build_detector(MODEL_NAME, tiny=False, seed=args.seed)
     if "parity" in phases:
         phase_parity(log, args.seed, built)
     serve = phase_serve(log, args.seed, built) if "serve" in phases else None
+    engine = phase_engine(log, args.seed, built) if "engine" in phases else None
     http = phase_http(log, args.seed) if "http" in phases else None
     del built
     if "yolos_parity" in phases:
@@ -4041,6 +4287,11 @@ def main(argv=None) -> int:
             for row in summary["kernels"]:
                 if row["name"] == "int8_gemm":
                     row["served_launches"] = launches["int8_gemm_kmajor"]
+        if engine:  # row 1 on the engine phase's pipelined detect (graph replays)
+            for row in summary["kernels"]:
+                if row["name"] == "msda_gather_sum":
+                    row["engine_launches"] = engine["policies"]["float32"]["launches"][
+                        "msda_gather_sum"]
         if load:  # rows 1-3's launches on the loaded checkpoint's engine and /detect paths
             for row in summary["kernels"]:
                 if row["name"] in load["launches"]:

@@ -2,11 +2,13 @@
 counters (lean port of spotter_tpu.engine.metrics).
 
 Keeps the counters and the snapshot that the batcher, the detector and the
-engine touch, and the open-vocabulary text cache's hits, misses and resolve
-times. The JAX package's device-efficiency ledger (`obs.perf`), result
-caching and wire counters, latency exemplars and mergeable histograms are
-not ported yet. Lock-light counters plus a bounded
-reservoir; `snapshot()` is what /metrics serves.
+engine touch, the open-vocabulary text cache's hits, misses and resolve
+times, and the device-efficiency ledger (`metrics.perf`, the port's
+`obs.perf`: MFU, duty cycle, the capture ledger, memory gauges, SLO burn),
+the H2D bytes, the decode pool's queue gauge and the weights digest of the
+identity block. The JAX package's result caching and wire counters,
+latency exemplars and mergeable histograms are not ported yet. Lock-light
+counters plus a bounded reservoir; `snapshot()` is what /metrics serves.
 """
 
 import os
@@ -15,9 +17,13 @@ import threading
 import time
 from collections import deque
 
+from spotter_tpu_torch.obs.perf import PerfLedger
+
 REPLICA_ID_ENV = "SPOTTER_TPU_REPLICA_ID"
 BUILD_VERSION_ENV = "SPOTTER_TPU_BUILD_VERSION"
 DEFAULT_BUILD_VERSION = "dev"
+# an operator-pinned weights digest outranks the engine's computed one
+WEIGHTS_DIGEST_ENV = "SPOTTER_TPU_WEIGHTS_DIGEST"
 
 
 def default_replica_id() -> str:
@@ -35,6 +41,12 @@ def default_replica_id() -> str:
 def default_build_version() -> str:
     """The deploy version this process serves (env, else "dev")."""
     return os.environ.get(BUILD_VERSION_ENV, "").strip() or DEFAULT_BUILD_VERSION
+
+
+def default_weights_digest() -> str | None:
+    """The operator-pinned weights digest, or None to let the engine's own
+    `weights_digest()` stand."""
+    return os.environ.get(WEIGHTS_DIGEST_ENV, "").strip() or None
 
 
 def _quantiles(values) -> dict[str, float]:
@@ -69,6 +81,7 @@ class Metrics:
         self._replica_id = default_replica_id()
         self._model: str | None = None
         self._version = default_build_version()
+        self._weights_digest = default_weights_digest()
         self._generation = 0
         # resilience: sheds, deadlines, watchdog, breaker, drain
         self._shed_total = 0
@@ -98,6 +111,17 @@ class Metrics:
         self._text_cache_misses_total = 0
         self._text_hit_ms: deque[float] = deque(maxlen=window)
         self._text_miss_ms: deque[float] = deque(maxlen=window)
+        # host -> device bytes the engine staged, and the decode pool's
+        # submitted-but-unfinished photos when it last staged
+        self._h2d_bytes_total = 0
+        self._h2d_images_total = 0
+        self._decode_queue_depth = 0
+        # the device-efficiency ledger: the engine feeds dispatches and
+        # captures directly (`metrics.perf.record_dispatch(...)`); the SLO
+        # burn windows are fed below (completed images good, sheds and
+        # deadline misses bad). SPOTTER_TPU_PERF_LEDGER=0 makes every perf
+        # record a no-op while the snapshot keys stay present.
+        self.perf = PerfLedger()
 
     def record_batch(
         self, batch_size: int, latency_s: float, stages: dict[str, float] | None = None
@@ -110,6 +134,8 @@ class Metrics:
             self._batch_sizes.append(batch_size)
             self._latencies_ms.append(latency_s * 1000.0)
             self._arrivals.append((time.monotonic(), batch_size))
+            if self.perf.enabled:
+                self.perf.slo.good(batch_size)
             for name, secs in (stages or {}).items():
                 self._stage(name).append(secs * 1000.0)
 
@@ -134,10 +160,14 @@ class Metrics:
         """A request rejected at admission (queue full / breaker open / drain)."""
         with self._lock:
             self._shed_total += n
+        if self.perf.enabled:  # sheds spend SLO error budget
+            self.perf.slo.bad(n)
 
     def record_deadline_exceeded(self, n: int = 1) -> None:
         with self._lock:
             self._deadline_exceeded_total += n
+        if self.perf.enabled:  # deadline misses spend SLO error budget
+            self.perf.slo.bad(n)
 
     def record_batch_timeout(self, n_images: int) -> None:
         """Watchdog fired on a hung engine call; images count as errors too."""
@@ -153,6 +183,16 @@ class Metrics:
     def set_draining(self, draining: bool) -> None:
         with self._lock:
             self._draining = draining
+
+    def record_h2d_bytes(self, nbytes: int, n_images: int) -> None:
+        """One staged chunk: the bytes uploaded and the real images in it."""
+        with self._lock:
+            self._h2d_bytes_total += nbytes
+            self._h2d_images_total += n_images
+
+    def set_decode_queue_depth(self, depth: int) -> None:
+        with self._lock:
+            self._decode_queue_depth = depth
 
     def record_poison_isolated(self, n: int = 1) -> None:
         with self._lock:
@@ -224,12 +264,20 @@ class Metrics:
             self._restarts_total = n
             self._generation = int(n)
 
-    def set_identity(self, model: str | None = None, version: str | None = None) -> None:
+    def set_identity(
+        self,
+        model: str | None = None,
+        version: str | None = None,
+        weights_digest: str | None = None,
+    ) -> None:
+        """Stamp the snapshot identity block; only non-None fields change."""
         with self._lock:
             if model is not None:
                 self._model = model
             if version is not None:
                 self._version = version
+            if weights_digest is not None:
+                self._weights_digest = weights_digest
 
     @property
     def version(self) -> str:
@@ -242,6 +290,8 @@ class Metrics:
             return self._replica_id
 
     def snapshot(self) -> dict:
+        # outside the metrics lock: the perf ledger locks itself
+        perf_snap = self.perf.snapshot()
         with self._lock:
             now = time.monotonic()
             recent = [(t, n) for t, n in self._arrivals if now - t <= 30.0]
@@ -257,6 +307,7 @@ class Metrics:
                 for tag, v in _quantiles(ring).items()
             }
             return {
+                **perf_snap,
                 **stages,
                 "replica": {
                     "replica_id": self._replica_id,
@@ -265,7 +316,14 @@ class Metrics:
                     "uptime_s": round(now - self._started, 3),
                     "model": self._model,
                     "version": self._version,
+                    "weights_digest": self._weights_digest,
                 },
+                "h2d_bytes_total": self._h2d_bytes_total,
+                "h2d_bytes_per_image": (
+                    self._h2d_bytes_total / self._h2d_images_total
+                    if self._h2d_images_total else 0.0
+                ),
+                "decode_pool_queue_depth": self._decode_queue_depth,
                 "slack_at_dispatch_ms": (
                     _quantiles(self._slack_at_dispatch_ms)
                     if self._slack_at_dispatch_ms else None

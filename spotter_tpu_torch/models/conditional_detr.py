@@ -28,6 +28,7 @@ from spotter_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     MLPHead,
+    device_table,
     inverse_sigmoid,
     make_activation,
 )
@@ -38,7 +39,7 @@ def query_sine_embedding(pos: torch.Tensor, d_model: int) -> torch.Tensor:
     """Sine embedding of normalized (x, y) points, (B, Q, d_model): scale
     2 pi, half the channels for y then x, interleaved sin/cos
     (gen_sine_position_embeddings)."""
-    denom = torch.from_numpy(dim_t(d_model // 2, 10000.0)).to(pos.device)
+    denom = device_table(dim_t, pos.device, d_model // 2, 10000.0)
     x = pos[..., 0:1] * (2 * math.pi) / denom
     y = pos[..., 1:2] * (2 * math.pi) / denom
     return torch.cat([interleave(y), interleave(x)], dim=-1)

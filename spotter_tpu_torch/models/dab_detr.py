@@ -35,6 +35,7 @@ from spotter_tpu_torch.models.layers import (
     MLPHead,
     MultiHeadAttention,
     PReLU,
+    device_table,
     inverse_sigmoid,
 )
 from spotter_tpu_torch.models.resnet import ResNetBackbone
@@ -43,7 +44,7 @@ from spotter_tpu_torch.models.resnet import ResNetBackbone
 def anchor_sine_embedding(boxes: torch.Tensor, d_model: int) -> torch.Tensor:
     """Sine embedding of normalized (x, y, w, h) anchors, (B, Q, 2 * d_model):
     scale 2 pi, d_model / 2 channels a coordinate, concatenated [y, x, w, h]."""
-    denom = torch.from_numpy(dim_t(d_model // 2, 10000.0)).to(boxes.device)
+    denom = device_table(dim_t, boxes.device, d_model // 2, 10000.0)
 
     def emb(coord):
         return interleave(coord[..., None] * (2 * math.pi) / denom)

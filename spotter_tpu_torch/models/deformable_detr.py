@@ -20,7 +20,6 @@ it only orders the queries for its TPU kernels' hit tables, and the
 decoder is permutation-equivariant over queries.
 """
 
-import functools
 import math
 from typing import Optional
 
@@ -35,6 +34,7 @@ from spotter_tpu_torch.models.layers import (
     LayerNorm,
     MLPHead,
     MultiHeadAttention,
+    device_table,
     get_activation,
     inverse_sigmoid,
 )
@@ -54,7 +54,7 @@ def sine_position_from_mask_offset(
     x = torch.cumsum(mask, dim=2)
     y = (y - 0.5) / (y[:, -1:, :] + 1e-6) * scale
     x = (x - 0.5) / (x[:, :, -1:] + 1e-6) * scale
-    denom = torch.from_numpy(dim_t(embed_dim, temperature)).to(mask.device)
+    denom = device_table(dim_t, mask.device, embed_dim, temperature)
     return torch.cat([interleave(y[..., None] / denom), interleave(x[..., None] / denom)],
                      dim=-1)
 
@@ -76,21 +76,11 @@ def proposal_position_embedding(
     coord_logits: torch.Tensor, d_model: int, temperature: float = 10000.0
 ) -> torch.Tensor:
     """get_proposal_pos_embed: (B, K, 4) box logits -> (B, K, 2 * d_model) sines."""
-    denom = torch.from_numpy(dim_t(d_model // 2, temperature)).to(coord_logits.device)
+    denom = device_table(dim_t, coord_logits.device, d_model // 2, temperature)
     proposals = torch.sigmoid(coord_logits) * (2.0 * math.pi)
     pos = proposals[..., None] / denom  # (B, K, 4, d_model / 2)
     pos = torch.stack([torch.sin(pos[..., 0::2]), torch.cos(pos[..., 1::2])], dim=-1)
     return pos.reshape(*coord_logits.shape[:2], -1)
-
-
-@functools.lru_cache(maxsize=64)
-def _static_table(fn, device: torch.device, *args) -> torch.Tensor:
-    """`fn(*args)`'s numpy array on `device`, made once per shape: a fresh
-    host copy on every forward would make the host wait for the stream.
-    Made outside inference mode, so it also serves forwards that track
-    gradients."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(fn(*args)).to(device)
 
 
 def _level_of(spatial_shapes: tuple[tuple[int, int], ...]) -> np.ndarray:
@@ -161,7 +151,7 @@ class MsdaAttention(nn.Module):
         attn = self.attention_weights(hs).reshape(b, q, heads, levels * points)
         attn = torch.softmax(attn.to(torch.float32), dim=-1).to(self.dtype)
         if reference_points.shape[-1] == 2:
-            normalizer = _static_table(_level_wh, offsets.device, spatial_shapes)
+            normalizer = device_table(_level_wh, offsets.device, spatial_shapes)
             loc = reference_points[:, :, None, :, None, :] + offsets / normalizer.to(offsets.dtype)
         else:
             ref_xy = reference_points[:, :, None, :, None, :2]
@@ -316,8 +306,8 @@ class DeformableDetrDetector(nn.Module):
 
         # encoder: reference points are the cell centres, normalized by their
         # own level's valid extent and projected into every level's
-        base = _static_table(encoder_reference_base, pixel_values.device, spatial_shapes)
-        level_of = _static_table(_level_of, pixel_values.device, spatial_shapes)
+        base = device_table(encoder_reference_base, pixel_values.device, spatial_shapes)
+        level_of = device_table(_level_of, pixel_values.device, spatial_shapes)
         own_vr = valid_ratios[:, level_of, :]  # (B, S, 2)
         enc_ref = (base[None] / own_vr)[:, :, None, :] * valid_ratios[:, None]
         hidden = source_flatten
@@ -381,7 +371,7 @@ class DeformableDetrDetector(nn.Module):
             mask_l = mask_flatten[:, start:start + sh * sw].reshape(b, sh, sw)
             valid_h = mask_l[:, :, 0].sum(dim=1)
             valid_w = mask_l[:, 0, :].sum(dim=1)
-            grid = _static_table(_proposal_grid, memory.device, sh, sw)  # (sh, sw, 2)
+            grid = device_table(_proposal_grid, memory.device, sh, sw)  # (sh, sw, 2)
             scale = torch.stack([valid_w, valid_h], dim=-1)[:, None, None, :]
             grid_n = grid[None] / scale
             wh = torch.full_like(grid_n, 0.05 * (2.0**level))

@@ -37,9 +37,15 @@ from spotter_tpu_torch.models.layers import (
     LayerNorm,
     MLPHead,
     MultiHeadAttention,
+    device_table,
     get_activation,
 )
 from spotter_tpu_torch.models.resnet import ResNetBackbone
+
+
+def nearest_index(n_out: int, n_in: int) -> np.ndarray:
+    """The legacy nearest's source rows, floor(dst * in / out)."""
+    return np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
 
 
 def nearest_downsample_mask(mask: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -48,10 +54,8 @@ def nearest_downsample_mask(mask: torch.Tensor, out_hw: tuple[int, int]) -> torc
     numpy from the static shapes, as the JAX package computes them."""
     _, h_in, w_in = mask.shape
     h_out, w_out = out_hw
-    idx_h = np.floor(np.arange(h_out) * (h_in / h_out)).astype(np.int64)
-    idx_w = np.floor(np.arange(w_out) * (w_in / w_out)).astype(np.int64)
-    return mask[:, torch.from_numpy(idx_h).to(mask.device)][
-        :, :, torch.from_numpy(idx_w).to(mask.device)]
+    return mask[:, device_table(nearest_index, mask.device, h_out, h_in)][
+        :, :, device_table(nearest_index, mask.device, w_out, w_in)]
 
 
 def dim_t(num_feats: int, temperature: float) -> np.ndarray:
@@ -83,8 +87,8 @@ def sine_position_from_mask(
     x = torch.cumsum(mask, dim=2)
     y = y / (y[:, -1:, :] + 1e-6) * scale
     x = x / (x[:, :, -1:] + 1e-6) * scale
-    dim_y = torch.from_numpy(dim_t(embed_dim, temp_y)).to(mask.device)
-    dim_x = torch.from_numpy(dim_t(embed_dim, temp_x)).to(mask.device)
+    dim_y = device_table(dim_t, mask.device, embed_dim, temp_y)
+    dim_x = device_table(dim_t, mask.device, embed_dim, temp_x)
     return torch.cat([interleave(y[..., None] / dim_y), interleave(x[..., None] / dim_x)],
                      dim=-1)
 

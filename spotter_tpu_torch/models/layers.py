@@ -30,6 +30,7 @@ bias), the port keeps it as an fp32 master too, and keeps its cast to the
 compute dtype and its quantized codes (`kept`) until it changes.
 """
 
+import functools
 import math
 import os
 from typing import Callable, Optional
@@ -115,6 +116,33 @@ def version_key(*tensors: torch.Tensor) -> Optional[tuple]:
     return tuple((t.data_ptr(), t._version, t.device) for t in tensors)
 
 
+@functools.cache
+def device_table(fn: Callable, device: torch.device, *args):
+    """`fn(*args)`'s numpy array(s) (a static table: index maps, sine
+    denominators, anchors) as tensors on `device`, made once per arguments
+    and device. A host copy on every forward would make the host wait for
+    the stream, and cannot run inside a CUDA graph's capture; the table is
+    never evicted, because a captured graph reads it in place. Made outside
+    inference mode, so it also serves forwards that track gradients."""
+    out = fn(*args)
+    with torch.inference_mode(False):
+        if isinstance(out, tuple):
+            return tuple(torch.from_numpy(a).to(device) for a in out)
+        return torch.from_numpy(out).to(device)
+
+
+# the attribute names `kept` has stored values under (`kept_values` reads them)
+KEPT_NAMES: set[str] = set()
+
+
+def kept_values(root: nn.Module) -> list:
+    """Every value `kept` holds on `root`'s modules now. A captured CUDA
+    graph holds on to them: it reads their storage on every replay, even
+    after a module keeps a newer value."""
+    return [getattr(m, name) for m in root.modules() for name in KEPT_NAMES
+            if name in vars(m)]
+
+
 def kept(module: nn.Module, name: str, sources: tuple, make: Callable, grad: bool = True):
     """`make()`, a value derived from the tensors `sources`, kept on `module`
     as `name` until their `version_key` changes, made without autograd and
@@ -132,6 +160,7 @@ def kept(module: nn.Module, name: str, sources: tuple, make: Callable, grad: boo
         with torch.inference_mode(False), torch.no_grad():
             cached = (key, make())
         setattr(module, name, cached)
+        KEPT_NAMES.add(name)
     return cached[1]
 
 

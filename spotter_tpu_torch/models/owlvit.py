@@ -68,12 +68,12 @@ def owlvit_box_bias(grid_h: int, grid_w: int) -> np.ndarray:
     return np.concatenate([coord_bias, size_bias], axis=-1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _box_bias_table(grid_h: int, grid_w: int, device: torch.device) -> torch.Tensor:
     """`owlvit_box_bias` as an fp32 tensor on `device`, made once per grid
     and device (a host copy on every forward would make the host wait for
     the stream). Made outside inference mode, so it also serves forwards
-    that track gradients."""
+    that track gradients. Never evicted: a captured CUDA graph reads it in place."""
     with torch.inference_mode(False):
         return torch.from_numpy(owlvit_box_bias(grid_h, grid_w)).to(device)
 

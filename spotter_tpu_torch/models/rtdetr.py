@@ -23,7 +23,6 @@ in the JAX package. Attribute names follow the flax module names
 encoder_attn.value_proj`, ...) so JAX params carry over mechanically.
 """
 
-import functools
 import os
 from typing import Optional
 
@@ -39,6 +38,7 @@ from spotter_tpu_torch.models.layers import (
     LayerNorm,
     MLPHead,
     MultiHeadAttention,
+    device_table,
     get_activation,
     inverse_sigmoid,
     kept,
@@ -79,21 +79,6 @@ def generate_anchors(
     anchors_logit = np.log(anchors / (1 - anchors))
     anchors_logit = np.where(valid, anchors_logit, np.finfo(np.float32).max)
     return anchors_logit.astype(np.float32), valid.astype(np.float32)
-
-
-@functools.lru_cache(maxsize=64)
-def _device_table(fn, device: torch.device, *args):
-    """`fn(*args)`'s numpy array(s) as tensors on `device`, cached per shape.
-
-    The tables depend only on static shapes; copying them to the card on
-    every forward would make the host wait for the stream each time. Made
-    outside inference mode, so they also serve forwards that track gradients.
-    """
-    out = fn(*args)
-    with torch.inference_mode(False):
-        if isinstance(out, tuple):
-            return tuple(torch.from_numpy(a).to(device) for a in out)
-        return torch.from_numpy(out).to(device)
 
 
 class EncoderLayer(nn.Module):
@@ -400,7 +385,7 @@ class RTDetrDetector(nn.Module):
         for i, enc_ind in enumerate(cfg.encode_proj_layers):
             b, c, h, w = proj[enc_ind].shape
             src = proj[enc_ind].flatten(2).transpose(1, 2)  # (B, h*w, C), y-major
-            pos = _device_table(
+            pos = device_table(
                 sincos_2d_position_embedding, src.device,
                 w, h, cfg.encoder_hidden_dim, cfg.positional_encoding_temperature,
             ).to(dtype)
@@ -433,7 +418,7 @@ class RTDetrDetector(nn.Module):
         source_flatten = torch.cat([s.flatten(2).transpose(1, 2) for s in sources], dim=1)
 
         # --- encoder head: anchor scoring + top-k query selection ---
-        anchors, valid_mask = _device_table(
+        anchors, valid_mask = device_table(
             generate_anchors, source_flatten.device, spatial_shapes, cfg.anchor_grid_size
         )
         anchors, valid_mask = anchors.to(dtype), valid_mask.to(dtype)

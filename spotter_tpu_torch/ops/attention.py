@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from spotter_tpu_torch.obs.perf import note_kernel_flops
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
 HEAD_DIMS = (64, 128)  # the kernels' instantiations: YOLOS/OWLv2 heads, and 128
@@ -153,6 +154,13 @@ def _require_cuda_inputs(name: str, dtype: torch.dtype, q, k, v) -> None:
         raise ValueError(f"{name}: empty input {tuple(q.shape)}")
 
 
+def attention_flops(q: torch.Tensor) -> int:
+    """The standard count of self-attention over (B, S, H, hd) q, k and v:
+    4·B·H·S²·hd (QKᵀ and P·V), what XLA counts for the JAX side's dots."""
+    b, s, h, hd = q.shape
+    return 4 * b * h * s * s * hd
+
+
 def split_kv_tf32(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """The fp32 attention kernel's split pass: fp32 (B, S, H, hd) k, v ->
     (k_hi, k_lo, vt_hi, vt_lo) as `split_kv_reference` lays them out. CUDA
@@ -185,10 +193,14 @@ def flash_attn_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """fp32 (B, S, H, hd) pre-scaled q, k, v -> fp32 (B, S, H, hd), the
     products as split TF32 on the tensor cores (fp32-accurate), the sums and
     the softmax in fp32. On the card every call runs `split_kv_tf32` first.
-    Replaces the Pallas flash_attention of `spotter_tpu/models/layers.py:126`."""
+    Replaces the Pallas flash_attention of `spotter_tpu/models/layers.py:126`.
+    Every call notes its FLOPs (`attention_flops`)."""
     if q.device.type == "cpu":
-        return _cpu_reference("flash_attn_fp32", torch.float32, q, k, v)
+        out = _cpu_reference("flash_attn_fp32", torch.float32, q, k, v)
+        note_kernel_flops("flash_attn_fp32", attention_flops(q))
+        return out
     _require_cuda_inputs("flash_attn_fp32", torch.float32, q, k, v)
+    note_kernel_flops("flash_attn_fp32", attention_flops(q))
     b, s, h, hd = q.shape
     terms = split_kv_tf32(k, v)
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
@@ -205,10 +217,14 @@ flash_attn_fp32.launches = 0  # kernel launches since the count was last reset
 def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """bf16 (B, S, H, hd) pre-scaled q, k, v -> bf16 (B, S, H, hd), the
     products on the tensor cores with fp32 sums and the softmax in fp32.
-    Replaces the Pallas splash kernel of `spotter_tpu/models/layers.py:185`."""
+    Replaces the Pallas splash kernel of `spotter_tpu/models/layers.py:185`.
+    Every call notes its FLOPs (`attention_flops`)."""
     if q.device.type == "cpu":
-        return _cpu_reference("flash_attn_bf16", torch.bfloat16, q, k, v)
+        out = _cpu_reference("flash_attn_bf16", torch.bfloat16, q, k, v)
+        note_kernel_flops("flash_attn_bf16", attention_flops(q))
+        return out
     _require_cuda_inputs("flash_attn_bf16", torch.bfloat16, q, k, v)
+    note_kernel_flops("flash_attn_bf16", attention_flops(q))
     b, s, h, hd = q.shape
     out = torch.empty((b, s, h, hd), dtype=torch.bfloat16, device=q.device)
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]

@@ -40,6 +40,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from spotter_tpu_torch.obs.perf import note_kernel_flops
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
 TILE_MULTIPLE = 16  # M, N and K the tool's entry takes; K the served entry takes
@@ -199,6 +200,7 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     other device raises."""
     _device_of("int8_gemm", a)
     _check_operands(a, b)
+    note_kernel_flops("int8_gemm", 2 * a.shape[0] * a.shape[1] * b.shape[1])
     if a.device.type == "cpu":
         return int8_gemm_reference(a, b)
     _check_kernel_operands("int8_gemm", a, b)
@@ -234,7 +236,8 @@ def int8_gemm_kmajor(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     of row 9's kernel, both operands K-major as the quantize passes write
     them, K a multiple of 16, any M and N. On a CUDA tensor the kernel
     (contiguous, 16-byte aligned operands); on a CPU tensor the plain
-    version; any other device raises."""
+    version; any other device raises. Every call notes its FLOPs, the
+    standard 2·M·N·K a product (the count XLA gives the JAX side's dot)."""
     _device_of("int8_gemm_kmajor", a)
     if a.dtype != torch.int8 or bt.dtype != torch.int8:
         raise TypeError(f"int8_gemm_kmajor: operands must be int8, got {a.dtype}, {bt.dtype}")
@@ -246,6 +249,9 @@ def int8_gemm_kmajor(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"int8_gemm_kmajor: a is on {a.device}, bt on {bt.device}")
     if a.shape[-1] > MAX_K:
         raise ValueError(f"int8_gemm_kmajor: K = {a.shape[-1]} > {MAX_K} could overflow int32")
+    groups = a.shape[0] if a.dim() == 3 else 1
+    note_kernel_flops("int8_gemm_kmajor",
+                      2 * groups * a.shape[-2] * bt.shape[-2] * a.shape[-1])
     if a.device.type == "cpu":
         return int8_gemm_kmajor_reference(a, bt)
     out = _launch_gemm_kmajor(a, bt)

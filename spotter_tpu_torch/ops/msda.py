@@ -85,6 +85,7 @@ import os
 import numpy as np
 import torch
 
+from spotter_tpu_torch.obs.perf import note_kernel_flops
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 from spotter_tpu_torch.utils.precision import policy_name
 
@@ -191,14 +192,14 @@ def level_offsets(spatial_shapes: tuple[tuple[int, int], ...]) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def level_tables(spatial_shapes, num_points: int, device: torch.device, dtype: torch.dtype):
     """Per-sample level height, width and flat offset, (LP,) each, on `device`.
 
     Cached per shape and device: building them anew would copy host memory
     to the card three times per decoder layer, and each such pageable copy
     makes the host wait for the stream. Made outside inference mode, so the
-    cached tensors also serve forwards that track gradients.
+    cached tensors also serve forwards that track gradients. Never evicted: a captured CUDA graph reads it in place.
     """
     with torch.inference_mode(False):
         lvl_h = torch.tensor(
@@ -566,13 +567,34 @@ MSDA_MAX_SAMPLES = 32
 MSDA_MAX_TERMS = 4 * MSDA_MAX_SAMPLES
 
 
+# the JAX package's default tiles (SPOTTER_TPU_MSDA_QTILE, _STILE), which
+# its one-hot kernels' FLOPs formula counts in
+ONEHOT_Q_TILE = 64
+ONEHOT_S_TILE = 640
+
+
+def onehot_flops(bh: int, q: int, hd: int, spatial_shapes, jc: int) -> int:
+    """The analytic FLOPs the JAX package notes for its merged one-hot
+    kernels (`spotter_tpu/ops/msda.py` `pallas_onehot_sampling_merged` and
+    `_loc`): per level, 2·BH·spans·(Qp·tile·hd + jc·Qp·tile), Qp the query
+    count padded to its query tile, each level's span padded to its source
+    tile, jc the corner terms a level takes. A dense one-hot product's
+    count: the port's kernels gather instead, and do far less."""
+    qp = -(-q // ONEHOT_Q_TILE) * ONEHOT_Q_TILE
+    return sum(2 * bh * (-(-(lh * lw) // ONEHOT_S_TILE)) * (qp * ONEHOT_S_TILE * hd
+                                                          + jc * qp * ONEHOT_S_TILE)
+               for lh, lw in spatial_shapes)
+
+
 def msda_gather_sum(value: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                     precision: str = "highest") -> torch.Tensor:
     """value (B, S, H, hd) f32/bf16, read in place; idx (B*H, Q, J) int32,
     global row indices into S from `prepare_msda_gather`; w (B*H, Q, J) f32
     -> (B, Q, H, hd) f32, in `precision` ("highest", or the one-pass
     "default"). CUDA tensors launch `csrc/msda.cu` (J <= 128); CPU tensors
-    take `msda_gather_sum_plain`; anything else raises."""
+    take `msda_gather_sum_plain`; anything else raises. (The FLOPs of a
+    call depend on the value's levels, which only the caller knows:
+    `deformable_sampling` notes them.)"""
     _check_precision(precision)
     if value.device.type == "cpu":
         _require_cpu("msda_gather_sum", idx, w)
@@ -623,7 +645,8 @@ def msda_loc_sum(
     sample points, level-major; attn (B, Q, H, LP) f32; per-sample level
     tables (LP,) -> (B, Q, H, hd) f32, in `precision`. All read in place.
     CUDA tensors launch `csrc/msda.cu`; CPU tensors take
-    `msda_loc_sum_plain`; anything else raises.
+    `msda_loc_sum_plain`; anything else raises (`deformable_sampling`
+    notes its FLOPs).
     """
     code = _method_code(method)
     _check_precision(precision)
@@ -673,7 +696,7 @@ def msda_fused_sum(
     b_att_h (H, 1, LP), f32; base/scale (B, Q, 2*LP) f32; per-sample level
     tables (LP,) -> (B, Q, H, hd) f32, in `precision`. CUDA tensors launch
     `csrc/msda.cu`; CPU tensors take `msda_fused_sum_plain`; anything else
-    raises.
+    raises (`deformable_sampling_fused` notes its FLOPs).
     """
     code = _method_code(method)
     _check_precision(precision)
@@ -981,13 +1004,16 @@ def msda_sep_sum(
     shape fp32, from `sep_level_operands`; mask (BH, n_qt, n_bands) int32 ->
     (BH, n_qt*64, hd) fp32, in `precision`. CUDA tensors launch
     `csrc/msda_backends.cu`; CPU tensors take `msda_sep_reference`;
-    anything else raises.
+    anything else raises. Every call notes the JAX package's FLOPs for
+    `pallas_sep_sampling`: 2·BH·bands·(n_qt·P·64·W·R·hd + Qp·R·hd·hd).
     """
     ops = (xi, xw0, xw1, yi, yw0, yw1)
     _check_precision(precision)
     if rows.device.type == "cpu":
         _require_cpu("msda_sep_sum", *ops, mask)
-        return msda_sep_reference(rows, *ops, mask, level_hw, r_band, n_points, precision)
+        out = msda_sep_reference(rows, *ops, mask, level_hw, r_band, n_points, precision)
+        _note_sep_flops(rows, mask, level_hw, r_band, n_points)
+        return out
     _require_cuda("msda_sep_sum", rows)
     f32, i32 = torch.float32, torch.int32
     _check_cuda_tensors(
@@ -1005,6 +1031,7 @@ def msda_sep_sum(
             f"ceil({lh}/{r_band})); got {tuple(rows.shape)}, "
             f"{[tuple(t.shape) for t in ops]}, {tuple(mask.shape)}"
         )
+    _note_sep_flops(rows, mask, level_hw, r_band, n_points)
     out = torch.empty((bh, n_qt * SEP_Q_TILE, hd), dtype=f32, device=rows.device)
     if out.numel() == 0:
         return out
@@ -1016,6 +1043,13 @@ def msda_sep_sum(
 
 
 msda_sep_sum.launches = 0
+
+
+def _note_sep_flops(rows, mask, level_hw, r_band: int, n_points: int) -> None:
+    bh, hd = rows.shape[0], rows.shape[2]
+    n_qt, rhd = mask.shape[1], r_band * hd
+    note_kernel_flops("msda_sep_sum", 2 * bh * mask.shape[2] * (
+        n_qt * n_points * SEP_Q_TILE * level_hw[1] * rhd + n_qt * SEP_Q_TILE * rhd * hd))
 
 
 def msda_hd_gather_sum(
@@ -1113,9 +1147,14 @@ def deformable_sampling(
         _check_samples(lp, spatial_shapes, num_points, method)
         f32 = torch.float32
         tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, loc.device, f32)
+        note_kernel_flops("msda_loc_sum", onehot_flops(
+            b * h_axis, q, hd, spatial_shapes, (1 if method == "discrete" else 4) * num_points))
         out = msda_loc_sum(value.contiguous(), loc.to(f32).contiguous(),
                            attn.to(f32).contiguous(), *tables, method, precision)
     else:
+        # the JAX package stages four corners a sample whatever the method
+        note_kernel_flops("msda_gather_sum",
+                          onehot_flops(b * h_axis, q, hd, spatial_shapes, 4 * num_points))
         out = msda_gather_sum(
             value.contiguous(), *prepare_msda_gather(loc, attn, spatial_shapes, num_points, method),
             precision)
@@ -1208,6 +1247,10 @@ def deformable_sampling_fused(
                                    num_points, method=method, presorted=presorted)
     del presorted
     tables = level_tables(tuple(map(tuple, spatial_shapes)), num_points, hs.device, torch.float32)
+    # the prologue's three projections, then the one-hot core
+    qp = -(-q // ONEHOT_Q_TILE) * ONEHOT_Q_TILE
+    note_kernel_flops("msda_fused_sum", 2 * b * h_axis * qp * hs.shape[2] * 3 * lp + onehot_flops(
+        b * h_axis, q, hd, spatial_shapes, (1 if method == "discrete" else 4) * num_points))
     out = msda_fused_sum(
         value.contiguous(), hs.to(torch.float32).contiguous(), *heads, base, scale, *tables,
         method, backend_precision(backend),

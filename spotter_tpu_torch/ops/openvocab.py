@@ -28,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from spotter_tpu_torch.obs.perf import note_kernel_flops
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -148,10 +149,16 @@ def owl_class_logits(
     """img (B, P, Dt) fp32 or bf16, queries (Q, Dt) fp32 pre-normalized,
     shift and scale (B, P), mask (Q,) 1 = valid or None -> (B, P, Q) fp32
     logits, masked columns exactly NEG_INF. Replaces the Pallas kernel of
-    `spotter_tpu/ops/openvocab.py:87`. On a CPU tensor: the plain version."""
+    `spotter_tpu/ops/openvocab.py:87`. On a CPU tensor: the plain version.
+    Every call notes the JAX package's FLOPs for its kernel,
+    2·B·Pp·Dt·Qp + 5·B·Pp·(Dt + Qp), patches padded to its 128-row tile and
+    queries to its 128 lanes."""
     if img.device.type not in ("cuda", "cpu"):
         raise ValueError(f"owl_class_logits runs on cuda or cpu, not {img.device}")
     _check_inputs(img, queries, shift, scale, mask)
+    b, p, dt = img.shape
+    pp, qp = -(-p // 128) * 128, -(-queries.shape[0] // 128) * 128
+    note_kernel_flops("owl_class_logits", 2 * b * pp * dt * qp + 5 * b * pp * (dt + qp))
     if img.device.type == "cpu":
         return class_logits_reference(img, queries, shift, scale, mask)
     b, p, dt = img.shape

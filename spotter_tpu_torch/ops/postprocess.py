@@ -6,16 +6,33 @@ The device side returns fixed-k (scores, labels, boxes) tensors; the host
 thresholds them into the reference's detection dicts (`to_detections`).
 """
 
+import os
+
 import numpy as np
 import torch
 
 from spotter_tpu_torch.ops.boxes import center_to_corners, scale_boxes
 
+# the JAX package's top-k selector; every valid value computes lax.top_k's
+# result, which the stable sort below equals
+TOPK_ENV = "SPOTTER_TPU_TOPK"
+
+
+def topk_mode() -> str:
+    """SPOTTER_TPU_TOPK, checked with the JAX package's values and text."""
+    name = os.environ.get(TOPK_ENV, "auto").strip().lower()
+    if name not in ("auto", "lax", "bisect"):
+        raise ValueError(f"{TOPK_ENV} must be auto|lax|bisect, got {name!r}")
+    return name
+
 
 def stable_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis with `jax.lax.top_k`'s order: values
     descending, ties broken by the lower index. `torch.topk` promises no
-    order among equal values, so this sorts stably and slices."""
+    order among equal values, so this sorts stably and slices. A value of
+    SPOTTER_TPU_TOPK outside auto|lax|bisect raises here, as the JAX
+    package's top-k call does."""
+    topk_mode()
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
 

@@ -24,6 +24,7 @@ Arrays are NHWC at this module's interface, as in the JAX package.
 
 import functools
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -192,32 +193,65 @@ def stage_uint8(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarray, tu
 DECODE_WORKERS_ENV = "SPOTTER_TPU_DECODE_WORKERS"
 
 
-@functools.cache
-def staging_pool() -> ThreadPoolExecutor | None:
-    """The threads that stage a batch's photos at once (None: one worker).
-    PIL's resize releases the GIL, so they scale with the cores. Workers:
-    SPOTTER_TPU_DECODE_WORKERS, else the JAX package's DecodePool heuristic,
-    min(8, max(2, cores - 1))."""
-    raw = os.environ.get(DECODE_WORKERS_ENV, "").strip()
-    workers = max(1, int(raw) if raw else min(8, max(2, (os.cpu_count() or 2) - 1)))
-    if workers == 1:
-        return None
-    return ThreadPoolExecutor(max_workers=workers, thread_name_prefix="spotter-stage")
+class DecodePool:
+    """Thread pool for the host's per-photo work: the uint8 resize and
+    staging, and OWLv2's float pad-to-square warp. PIL's resize and scipy's
+    filters release the GIL, so threads scale with the cores. Workers:
+    `workers`, else SPOTTER_TPU_DECODE_WORKERS, else the JAX package's
+    heuristic, min(8, max(2, cores - 1)); one worker runs serially.
+    `queue_depth()` (submitted but unfinished photos) feeds the
+    `decode_pool_queue_depth` gauge, which shows when the host, not the
+    device, binds."""
+
+    def __init__(self, workers: int | None = None) -> None:
+        if workers is None:
+            raw = os.environ.get(DECODE_WORKERS_ENV, "").strip()
+            workers = int(raw) if raw else min(8, max(2, (os.cpu_count() or 2) - 1))
+        self.workers = max(1, workers)
+        self._pool = (
+            ThreadPoolExecutor(max_workers=self.workers, thread_name_prefix="spotter-decode")
+            if self.workers > 1 else None
+        )
+        self._pending = 0
+        self._lock = threading.Lock()
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return self._pending
+
+    def map(self, fn, items: list) -> list:
+        """Ordered map over the pool (serial for 1 worker or 1 item)."""
+        if self._pool is None or len(items) <= 1:
+            return [fn(item) for item in items]
+        with self._lock:
+            self._pending += len(items)
+
+        def run(item):
+            try:
+                return fn(item)
+            finally:
+                with self._lock:
+                    self._pending -= 1
+
+        return list(self._pool.map(run, items))
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
 
 
 def batch_images_uint8(
-    images: list[np.ndarray], spec: PreprocessSpec
+    images: list[np.ndarray], spec: PreprocessSpec, pool: DecodePool | None = None,
+    out: np.ndarray | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Resize and stack -> (pixels (B,H,W,3) u8, valid (B,2) i32, sizes (B,2) f32 [orig h,w]),
-    the photos staged at once on `staging_pool`'s threads."""
+    the photos staged on `pool`'s threads (None: one after another). `out`,
+    when given, receives the pixels (the engine's pinned buffer)."""
     if not device_preprocess_supported(spec):
         raise ValueError(f"preprocess mode {spec.mode!r} has no uint8 path")
-    pool = staging_pool()
-    if pool is None or len(images) < 2:
-        staged = [stage_uint8(img, spec) for img in images]
-    else:
-        staged = list(pool.map(stage_uint8, images, [spec] * len(images)))
-    pixels = np.stack([px for px, _ in staged])
+    stage = functools.partial(stage_uint8, spec=spec)
+    staged = pool.map(stage, images) if pool is not None else [stage(img) for img in images]
+    pixels = np.stack([px for px, _ in staged], out=out)
     valid = np.asarray([hw for _, hw in staged], dtype=np.int32).reshape(len(images), 2)
     sizes = np.asarray([img.shape[:2] for img in images], dtype=np.float32)
     return pixels, valid, sizes
@@ -252,24 +286,27 @@ def pad_square_float(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarra
 
 
 def batch_images_float(
-    images: list[np.ndarray], spec: PreprocessSpec
+    images: list[np.ndarray], spec: PreprocessSpec, pool: DecodePool | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """The host float path (pad_square) -> (pixels (B,H,W,3) f32 normalized,
-    sizes (B,2) f32 [h, w] the boxes are scaled to)."""
+    sizes (B,2) f32 [h, w] the boxes are scaled to), the photos warped on
+    `pool`'s threads (None: one after another)."""
     if spec.mode != "pad_square":
         raise ValueError(f"preprocess mode {spec.mode!r} takes the uint8 path")
-    done = [pad_square_float(img, spec) for img in images]
+    warp = functools.partial(pad_square_float, spec=spec)
+    done = pool.map(warp, images) if pool is not None else [warp(img) for img in images]
     return (
         np.stack([arr for arr, _ in done]),
         np.asarray([hw for _, hw in done], dtype=np.float32),
     )
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _channel_table(values: tuple[float, ...], device: torch.device) -> torch.Tensor:
     """`values` as an fp32 tensor on `device`, made once: a fresh host copy on
     every forward would make the host wait for the stream. Made outside
-    inference mode, so it also serves forwards that track gradients."""
+    inference mode, so it also serves forwards that track gradients.
+    Never evicted: a captured CUDA graph reads it in place."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.float32, device=device)
 

@@ -6,17 +6,18 @@ MODEL_NAME is required and raises if unset, as in the reference's bootstrap
 GPUs come with the port's multi-GPU work) and runs on `cuda` unless the
 caller asks for the CPU: with no GPU and no such request, it raises.
 
-The JAX replica's tenancy, result-cache and output-integrity planes are not
-ported (ROADMAP Queue 1 item 6). Their knobs change what a replica does,
-so bring-up refuses them rather than serve as if they were unset
-(`refuse_unported_planes`); integrity, on by default in the JAX package,
-is off here and `/healthz` says so.
+The JAX replica's tenancy, result-cache and output-integrity planes, its
+stub engine and its fault injection are not ported (ROADMAP Queue 1 item
+6). Their knobs change what a replica does, so bring-up refuses them rather
+than serve as if they were unset (`refuse_unported_planes`); integrity, on
+by default in the JAX package, is off here and `/healthz` says so.
 """
 
 import os
 
 from spotter_tpu_torch.engine.batcher import MicroBatcher
 from spotter_tpu_torch.engine.engine import InferenceEngine
+from spotter_tpu_torch.engine.profiler import refuse_profiler_port
 from spotter_tpu_torch.models.registry import build_detector
 from spotter_tpu_torch.serving.detector import AmenitiesDetector
 
@@ -34,14 +35,28 @@ TENANCY_KNOBS = (
 )
 CACHE_MAX_MB_ENV = "SPOTTER_TPU_CACHE_MAX_MB"
 INTEGRITY_ENV = "SPOTTER_TPU_INTEGRITY"
+# spotter_tpu/testing/stub_engine.py and testing/faults.py
+STUB_ENGINE_ENV = "SPOTTER_TPU_STUB_ENGINE"
+FAULTS_ENV = "SPOTTER_TPU_FAULTS"
+# the fault names the JAX package's plan accepts; any other raises its text
+FAULT_NAMES = (
+    "fetch_error", "fetch_delay_s", "malformed_image", "engine_error", "engine_hang_s",
+    "poison_item", "engine_oom", "shard_dead", "cache_error", "preempt_storm",
+    "overload_spike", "slow_stage", "slow_replica", "flaky", "corrupt_frame",
+    "only_replica", "controller_crash", "journal_corrupt", "sdc", "corrupt_weights",
+    "corrupt_compile_cache", "tenant_flood", "tenant_retry_storm",
+)
 UNPORTED_PLANES = "not ported (ROADMAP Queue 1 item 6); unset it to serve without it"
 
 
 def refuse_unported_planes() -> None:
     """Raise when a knob of an unported serving plane asks for it: a tenancy
     knob set and not empty, SPOTTER_TPU_CACHE_MAX_MB above 0 (0 is the JAX
-    default and keeps the cache off), or SPOTTER_TPU_INTEGRITY set to
-    anything but "" or "0" (the JAX package's two off values)."""
+    default and keeps the cache off), SPOTTER_TPU_INTEGRITY or
+    SPOTTER_TPU_STUB_ENGINE set to anything but "" or "0" (the JAX
+    package's two off values), or SPOTTER_TPU_FAULTS set and not empty (an
+    unknown fault in it raises the JAX package's own text first); and
+    SPOTTER_TPU_PROFILER_PORT set (`profiler.refuse_profiler_port`)."""
     for knob in TENANCY_KNOBS:
         raw = os.environ.get(knob, "")
         if raw.strip():
@@ -56,6 +71,17 @@ def refuse_unported_planes() -> None:
     raw = os.environ.get(INTEGRITY_ENV)
     if raw is not None and raw.strip() not in ("", "0"):
         raise ValueError(f"{INTEGRITY_ENV}={raw!r}: output integrity is {UNPORTED_PLANES}")
+    raw = os.environ.get(STUB_ENGINE_ENV, "0")
+    if raw not in ("", "0"):
+        raise ValueError(f"{STUB_ENGINE_ENV}={raw!r}: the stub engine is {UNPORTED_PLANES}")
+    raw = os.environ.get(FAULTS_ENV, "").strip()
+    if raw:
+        for part in raw.split(","):
+            key = part.strip().partition("=")[0].strip()
+            if part.strip() and key not in FAULT_NAMES:
+                raise ValueError(f"unknown {FAULTS_ENV} fault {key!r}")
+        raise ValueError(f"{FAULTS_ENV}={raw!r}: fault injection is {UNPORTED_PLANES}")
+    refuse_profiler_port()
 
 
 def parse_batch_buckets(spec: str) -> tuple[int, ...]:
@@ -82,8 +108,11 @@ def build_detector_app(
     seed: int = 0,
 ) -> AmenitiesDetector:
     """Build the replica's detector. `device` None means `cuda` (raising
-    where there is none); `tiny` None reads SPOTTER_TPU_TINY; the weights are
-    drawn from `seed` (no checkpoint loader is ported yet)."""
+    where there is none); `tiny` None reads SPOTTER_TPU_TINY. A MODEL_NAME
+    naming a local HF checkpoint directory loads its weights
+    (`convert/loader.py`); a hub name builds the family with weights drawn
+    from `seed`. `warmup` captures each bucket's CUDA graph before the
+    detector is handed back."""
     refuse_unported_planes()
     model_name = model_name or os.environ.get("MODEL_NAME")
     if not model_name:

@@ -22,7 +22,7 @@ fatal device error exits `FATAL_ENGINE_EXIT_CODE` (85); a preemption
 (SIGTERM or `SPOTTER_TPU_PREEMPTION_FILE`) drains and exits 83.
 
     MODEL_NAME=PekingU/rtdetr_v2_r101vd python -m spotter_tpu_torch.serving.standalone \\
-        [--port 8000] [--device cpu] [--no-warmup]
+        [--port 8000] [--device cpu] [--no-warmup] [--decode-workers N]
 
 MODEL_NAME picks the family: RT-DETR (`PekingU/rtdetr_v2_*`), YOLOS
 (`hustvl/yolos-base`), OWL-ViT (`google/owlvit-base-patch32`, `-patch16`)
@@ -30,9 +30,12 @@ or OWLv2 (`google/owlv2-base-patch16-ensemble`). The OWL families read
 their prompts' token ids from `$SPOTTER_TPU_CACHE/<model>--v3/tokenized.json`
 (convert/tokens.py). `SPOTTER_TPU_TINY=1` serves the family's tiny
 config (random weights) for smoke runs. The model runs on `cuda` unless
-`--device cpu` is given; with no GPU it raises. Tenancy, the result cache,
-output integrity, `/profile`, `/debug/*` and the stub engine are not
-ported yet: `make_app` refuses the first three's knobs
+`--device cpu` is given; with no GPU it raises. Warmup captures each
+bucket's CUDA graph before the replica reports ready; the identity block of
+/metrics carries the engine's `weights_digest()` (or
+SPOTTER_TPU_WEIGHTS_DIGEST when set). Tenancy, the result cache, output
+integrity, fault injection, the stub engine, `/profile` and `/debug/*` are
+not ported yet: `make_app` refuses their knobs
 (`app.refuse_unported_planes`), and `/healthz` reports `"integrity": "off"`.
 """
 
@@ -46,6 +49,8 @@ import os
 import pydantic
 from aiohttp import web
 
+from spotter_tpu_torch.engine.metrics import default_weights_digest
+from spotter_tpu_torch.ops.preprocess import DECODE_WORKERS_ENV
 from spotter_tpu_torch.serving import lifecycle
 from spotter_tpu_torch.serving.detector import QueriesUnsupportedError
 from spotter_tpu_torch.serving.overload import BULK, SLO
@@ -134,6 +139,10 @@ def make_app(
         det.engine.metrics.set_restarts(lifecycle.restarts_from_env())
         model = model_name or os.environ.get("MODEL_NAME") or det.engine.built.model_name
         det.engine.metrics.set_identity(model=model)
+        # an operator-pinned SPOTTER_TPU_WEIGHTS_DIGEST (stamped at Metrics
+        # init) outranks the engine's computed one
+        if default_weights_digest() is None:
+            det.engine.metrics.set_identity(weights_digest=det.engine.weights_digest())
         if det.batcher.fatal_exit_cb is None:
             det.batcher.fatal_exit_cb = fatal_exit_cb
 
@@ -279,8 +288,14 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default=None,
                         help="torch device to serve on (default cuda; 'cpu' to run without a GPU)")
     parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument("--decode-workers", type=int, default=None,
+                        help=f"host decode/resize pool size ({DECODE_WORKERS_ENV})")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # the flag lands in the env: bring-up reads it there, so flag and env
+    # behave identically
+    if args.decode_workers is not None:
+        os.environ[DECODE_WORKERS_ENV] = str(args.decode_workers)
     web.run_app(
         make_app(model_name=args.model, warmup=not args.no_warmup, preemption=True,
                  device=args.device),

@@ -34,10 +34,13 @@ element (`CHAIN_READ_VARIANTS`: one 8-byte LDS per k and j). No PyTorch call bui
 the tile in this order, so there is no library column.
 
     python -m spotter_tpu_torch.tools.bench_pack_probe [--bh 16] [--iters 30]
-        [--seed 0] [--device cpu] [--out build/bench_pack_probe.json]
+        [--seed 0] [--device cpu] [--reps 32] [--out build/bench_pack_probe.json]
 
 Runs on cuda unless --device cpu is given (then only the plain versions
-run, and every time is a host-clock CPU time).
+run, and every time is a host-clock CPU time). `--reps` sets the chain's k
+repetitions, 32 by default, the JAX tool's and the kernel's: a smaller
+count shortens a CPU run of the plain versions (the card's kernel takes 32
+only).
 """
 
 import argparse
@@ -110,11 +113,12 @@ def build_pack_tile_kernel() -> KernelLibrary:
     return loaded
 
 
-def pack_tile_reference(idx: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
+def pack_tile_reference(idx: torch.Tensor, w: torch.Tensor, variant: str,
+                        reps: int = REPS) -> torch.Tensor:
     """Plain version: idx (bh, 64, 16) int32, w (bh, 64, 16) fp32 ->
-    (bh, 64, 640) fp32, the JAX kernel's arithmetic op for op: per k, `oh`
-    sums the 16 chains from zero in the accumulator dtype, then `acc` adds
-    `oh` (each bf16 add rounds to bf16)."""
+    (bh, 64, 640) fp32, the JAX kernel's arithmetic op for op: per k of
+    `reps`, `oh` sums the 16 chains from zero in the accumulator dtype, then
+    `acc` adds `oh` (each bf16 add rounds to bf16)."""
     _check_inputs(idx, w, variant)
     form, cmp_dtype, acc_dtype = VARIANTS[variant]
     bh = idx.shape[0]
@@ -124,7 +128,7 @@ def pack_tile_reference(idx: torch.Tensor, w: torch.Tensor, variant: str) -> tor
     w_a = w.to(acc_dtype)
     zero = torch.zeros((), dtype=acc_dtype, device=idx.device)
     acc = torch.zeros((bh, QT, TS), dtype=acc_dtype, device=idx.device)
-    for k in range(REPS):
+    for k in range(reps):
         col = col0 + torch.tensor(k, dtype=cmp_dtype, device=idx.device)
         if form == "null":
             oh = col.to(acc_dtype)
@@ -154,17 +158,20 @@ def _check_inputs(idx: torch.Tensor, w: torch.Tensor, variant: str) -> None:
         raise ValueError(f"pack_tile: idx is on {idx.device}, w on {w.device}")
 
 
-def pack_tile(idx: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
+def pack_tile(idx: torch.Tensor, w: torch.Tensor, variant: str,
+              reps: int = REPS) -> torch.Tensor:
     """idx (bh, 64, 16) int32 in [0, 640), w (bh, 64, 16) fp32 -> the
     (bh, 64, 640) fp32 one-hot tiles of `variant` (a key of VARIANTS).
     Replaces the Pallas kernel of `tools/bench_pack_probe.py:78`. On a CUDA
-    tensor the kernel (contiguous inputs); on a CPU tensor the plain
-    version; any other device raises."""
+    tensor the kernel (contiguous inputs, `reps` 32); on a CPU tensor the
+    plain version at `reps`; any other device raises."""
     if idx.device.type not in ("cuda", "cpu"):
         raise ValueError(f"pack_tile runs on cuda or cpu, not {idx.device}")
     _check_inputs(idx, w, variant)
     if idx.device.type == "cpu":
-        return pack_tile_reference(idx, w, variant)
+        return pack_tile_reference(idx, w, variant, reps)
+    if reps != REPS:
+        raise ValueError(f"pack_tile: the kernel takes {REPS} repetitions, got {reps}")
     bh = idx.shape[0]
     if not 1 <= bh <= 65535 or not (idx.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"pack_tile: needs contiguous inputs and 1 <= bh <= 65535, got bh {bh}")
@@ -192,12 +199,12 @@ def probe_inputs(bh: int, seed: int, device: torch.device) -> tuple[torch.Tensor
     return idx.to(device), w.to(device)
 
 
-def chain_elements(bh: int) -> int:
+def chain_elements(bh: int, reps: int = REPS) -> int:
     """The JAX tool's `el`: compare-select-add chain elements a call."""
-    return bh * REPS * JC * QT * TS
+    return bh * reps * JC * QT * TS
 
 
-def bound(variant: str, bh: int) -> dict:
+def bound(variant: str, bh: int, reps: int = REPS) -> dict:
     """Least time: the fewest lane-instructions the function needs over the
     card's issue rate, against its compares over the 64-lane integer pipe
     and the tile's bytes. One column a lane, a chain element is a compare
@@ -206,9 +213,9 @@ def bound(variant: str, bh: int) -> dict:
     them a compare. Two columns a lane share a compare, a mask and an add:
     1.5, half a compare. The null body converts and adds per column and k."""
     form, cmp_dtype, _ = VARIANTS[variant]
-    el = chain_elements(bh)
+    el = chain_elements(bh, reps)
     if form == "null":
-        instructions, compares = 2 * bh * REPS * QT * TS, 0
+        instructions, compares = 2 * bh * reps * QT * TS, 0
     elif cmp_dtype == torch.int16:
         instructions, compares = 3 * el // 2, el // 2
     else:
@@ -250,30 +257,30 @@ def run(args) -> dict:
     device = resolve_device(args.device)
     idx, w = probe_inputs(args.bh, args.seed, device)
     calls = {"pack_tile": 0}
-    el = chain_elements(args.bh)
+    el = chain_elements(args.bh, args.reps)
     record = {"tool": "bench_pack_probe", **device_record(device), "seed": args.seed,
-              "bh": args.bh, "reps": REPS, "jc": JC, "tile": [QT, TS], "chain_elements": el,
+              "bh": args.bh, "reps": args.reps, "jc": JC, "tile": [QT, TS], "chain_elements": el,
               "cases": []}
     print(json.dumps({k: v for k, v in record.items() if k != "cases"}), flush=True)
     sass = sass_counts() if device.type == "cuda" else {}
     for variant in VARIANTS:
         def build(variant=variant):
             calls["pack_tile"] += 1
-            return pack_tile(idx, w, variant)
+            return pack_tile(idx, w, variant, args.reps)
 
         got = build()
-        want = pack_tile_reference(idx, w, variant)
+        want = pack_tile_reference(idx, w, variant, args.reps)
         rec = {"part": "tile", "kernel": "pack_tile", "variant": variant,
                "exact": bool(torch.equal(got, want)),
                "max_abs_err": (got - want).abs().max().item(),
                "main": variant == MAIN_VARIANT,
                "columns_per_thread": COLUMNS_PER_THREAD[variant],
                "threads_per_block": TS // COLUMNS_PER_THREAD[variant],
-               **bound(variant, args.bh)}
+               **bound(variant, args.bh, args.reps)}
         kernel_ms = time_ms(build, args.iters, device)
         rec[ms_key("kernel", device)] = kernel_ms
         rec[ms_key("plain", device)] = time_ms(
-            lambda variant=variant: pack_tile_reference(idx, w, variant), 3, device)
+            lambda variant=variant: pack_tile_reference(idx, w, variant, args.reps), 3, device)
         rec["gel_per_s" if device.type == "cuda" else "cpu_gel_per_s"] = el / (kernel_ms * 1e-3) / 1e9
         rec["library_ms"] = None  # no one PyTorch call builds the tile in this order
         if variant in sass:
@@ -290,6 +297,8 @@ def parse_args(argv):
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--reps", type=int, default=REPS,
+                    help=f"the chain's k repetitions ({REPS}, the kernel's; fewer only on the CPU)")
     ap.add_argument("--out", default=str(REPO / "build" / "bench_pack_probe.json"))
     return ap.parse_args(argv)
 

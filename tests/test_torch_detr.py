@@ -377,10 +377,13 @@ def test_chip_smoke_detr_phases_rehearse_on_the_cpu(monkeypatch):
     assert [r["model"] for r in parity] == list(chip_smoke.DETR_LINEAGE)
     assert all(r["logits_max_abs_err"] == 0.0 for r in parity)
     assert "aux_boxes_max_abs_err" in parity[-1]
-    serve = chip_smoke.phase_detr_serve(log, 0, device="cpu")
+    # one round of each request size (the card run takes 3, and 10 over HTTP)
+    serve = chip_smoke.phase_detr_serve(log, 0, device="cpu", rounds=1, timing_iters=1)
     assert all(set(r["device_forward_ms"]) == {1, 8} for r in serve)
-    http = chip_smoke.phase_detr_http(log, 0, device="cpu")
+    assert all(r["forwards"] == 2 and r["latency_ms"][8]["n"] == 1 for r in serve)
+    http = chip_smoke.phase_detr_http(log, 0, device="cpu", rounds=1)
     assert http["healthz"] == 200 and set(http["latency_ms"]) == {"detr:1", "detr:8"}
+    assert all(v["n"] == 1 for v in http["latency_ms"].values())
     assert not any(chip_smoke.read_counts().values())
 
 

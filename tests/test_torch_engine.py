@@ -45,8 +45,8 @@ from spotter_tpu_torch.ops.preprocess import (
     batch_images_uint8,
     device_rescale_normalize,
     resize_uint8,
+    DecodePool,
     stage_uint8,
-    staging_pool,
 )
 from spotter_tpu_torch.serving.detector import assemble_response
 from tests.torch_parity import random_flax_params
@@ -73,21 +73,23 @@ def test_resize_uint8_matches_pil_within_one_lsb(hw):
 
 @pytest.mark.parametrize("workers", ["1", "4"])
 def test_batch_staging_on_threads_equals_one_photo_at_a_time(monkeypatch, workers):
-    """The staging pool changes who resizes, not what: the batch equals each
-    photo staged alone, in order, with one worker or several."""
+    """The decode pool changes who resizes, not what: the batch equals each
+    photo staged alone, in order, with one worker or several (the count
+    read from SPOTTER_TPU_DECODE_WORKERS)."""
     monkeypatch.setenv("SPOTTER_TPU_DECODE_WORKERS", workers)
-    staging_pool.cache_clear()
+    pool = DecodePool()
     try:
-        assert (staging_pool() is None) == (workers == "1")
+        assert pool.workers == int(workers)
         hws = [(480, 640), (300, 400), (800, 600), (40, 30), (1080, 1440)]
         imgs = [_photo(h, w, seed=i) for i, (h, w) in enumerate(hws)]
-        pixels, valid, sizes = batch_images_uint8(imgs, RTDETR_SPEC)
+        pixels, valid, sizes = batch_images_uint8(imgs, RTDETR_SPEC, pool=pool)
+        assert pool.queue_depth() == 0
         for i, img in enumerate(imgs):
             px, hw = stage_uint8(img, RTDETR_SPEC)
             np.testing.assert_array_equal(pixels[i], px)
             assert tuple(valid[i]) == hw and tuple(sizes[i]) == img.shape[:2]
     finally:
-        staging_pool.cache_clear()
+        pool.close()
 
 
 def test_batch_and_device_rescale_match_jax_host_float_path():

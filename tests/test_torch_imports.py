@@ -109,8 +109,23 @@ INT8_MODULES = (
 )
 
 
+# the engine slice's modules: the CUDA graphs, the profiler and the perf
+# ledger (the port's own copy of spotter_tpu/obs/perf.py, which is
+# stdlib-only there and still not imported)
+ENGINE_MODULES = (
+    "spotter_tpu_torch.engine.graphs",
+    "spotter_tpu_torch.engine.profiler",
+    "spotter_tpu_torch.obs",
+    "spotter_tpu_torch.obs.perf",
+)
+
+
 def test_every_int8_module_is_covered():
     assert set(INT8_MODULES) <= set(MODULES)
+
+
+def test_every_engine_module_is_covered():
+    assert set(ENGINE_MODULES) <= set(MODULES)
 
 
 def test_every_probe_module_is_covered():

@@ -285,14 +285,17 @@ def test_bench_int8_main_on_the_cpu(tmp_path, capsys):
 def test_pack_probe_main_on_the_cpu(tmp_path, capsys):
     out = tmp_path / "pack.json"
     assert bench_pack_probe.main(["--device", "cpu", "--bh", "1", "--iters", "1",
-                                  "--out", str(out)]) == 0
+                                  "--reps", "1", "--out", str(out)]) == 0
     lines = _json_lines(capsys.readouterr().out)
     tiles = [r for r in lines if r.get("part") == "tile"]
     assert [r["variant"] for r in tiles] == list(bench_pack_probe.VARIANTS)
     assert all(r["exact"] and r["library_ms"] is None for r in tiles)
     assert sum(r["main"] for r in tiles) == 1
     record = json.loads(out.read_text())
-    assert record["chain_elements"] == 32 * 16 * 64 * 640
+    # one k repetition: bh 1 x reps 1 x 16 chains x the 64 x 640 tile
+    assert record["reps"] == 1 and record["chain_elements"] == 1 * 1 * 16 * 64 * 640
+    assert record["chain_elements"] == bench_pack_probe.chain_elements(1, 1)
+    assert bench_pack_probe.chain_elements(1) == 32 * 16 * 64 * 640  # the default, 32
     assert record["calls"] == {"pack_tile": 8 * (1 + 1 + 1)}
 
 
