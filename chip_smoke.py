@@ -157,11 +157,16 @@ csrc/launch_probe.cu. Phases, each printing JSON lines:
              bytes;
 20. precision — the "mixed" and "bfloat16" policies (`phase_precision`);
 21. int8  — int8 quantization: tools/bench_int8_conv.py at the JAX probe's
-             seven conv shapes, a dense shape (YOLOS-base's 34,408 rows,
-             ragged) and an attention shape (B·H 64, Tq = Tk = 300, hd 32),
-             every pass exact against its plain version (amax, codes, int32
-             products, dequant bit for bit), timed beside cuDNN's bf16 conv,
-             torch.linalg.vector_norm and torch._int_mm; int8_gemm's SASS
+             seven conv shapes in bf16 (and `csp80` in fp32), the im2col
+             entry's coverage list (ragged tiles, C not a multiple of 16,
+             k_pad past K, kernel sizes 1, 3 and 7 at strides 1 and 2,
+             NCHW and channels-last, fp32 and bf16), a dense shape
+             (YOLOS-base's 34,408 rows, ragged) and an attention shape (B·H
+             64, Tq = Tk = 300, hd 32), every pass exact against its plain
+             version (amax, codes, int32 products, dequant bit for bit),
+             timed beside its bound, cuDNN's bf16 conv,
+             torch.linalg.vector_norm and torch._int_mm, and which path of
+             the amax and im2col passes served each case; int8_gemm's SASS
              with IGMMA and no IMMA; RT-DETRv2-R101 under "bfloat16" with
              SPOTTER_TPU_INT8=1, then with all three knobs, and under
              "float32" with INT8=1: the B = 8 quantized forward bit equal to
@@ -3913,6 +3918,11 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
     out["tool"] = {"cases": record["cases"], "calls": record["calls"], "sass": sass}
     for case in record["cases"]:
         emit({"phase": "int8", "tool": "bench_int8_conv", **case}, log)
+    # which path of the amax and im2col passes served each case
+    emit({"phase": "int8", "tool": "bench_int8_conv", "paths": [
+        {"part": c["part"], "case": c.get("shape") or c.get("x"), "dtype": c.get("dtype"),
+         "channels_last": c.get("channels_last", False), **c.get("paths", {})}
+        for c in record["cases"]]}, log)
     rng = np.random.default_rng(seed + 40)
     photos = [synthetic_photo(rng, h, w) for h, w in PHOTO_SIZES]
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)

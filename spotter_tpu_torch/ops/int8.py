@@ -7,13 +7,16 @@ with XLA's s8 convolution and dot_general, which fuse the quantize and the
 dequant; PyTorch has no int8 convolution or batched int8 matmul on CUDA,
 so the port runs hand-written passes around each quantized product:
 
-- `amax_s8`: the exact amax of each scale's group (a memset of the group
-  words, then one amax kernel), which every quantize wrapper runs first;
+- `amax_s8`: each scale's group's amax as partial maxima, (groups, parts)
+  fp32, in one launch (no memset, no atomics), which every quantize
+  wrapper runs first; max is order-free, so the max of the partials is
+  the exact amax;
 - `quantize_s8` (one counter for its entries `quantize_rows`,
   `quantize_heads`, `quantize_im2col`, `quantize_weight_rows`): the codes,
-  written in the GEMM's K-major layout from the amax words, rows padded
+  written in the GEMM's K-major layout from the partials, rows padded
   with zero codes to a multiple of 16 (TMA's row pitch; the int32 sums do
-  not change);
+  not change); the im2col entry quantizes each value of a block's patch
+  once, in shared memory;
 - `int8_gemm_kmajor`: row 9's wgmma kernel on K-major operands (A (G, M, K),
   Bᵀ (N, K) shared or (G, N, K)), batched over G, any M and N;
 - `dequant_s32` (entries `dequant_rows`, `dequant_heads`, `dequant_av`,
@@ -26,13 +29,15 @@ so the port runs hand-written passes around each quantized product:
 `int8_gemm` (B row-major: `transpose_s8`, then the same GEMM) is the
 measurement tool's entry (tools/bench_int8.py). Each counter adds one where
 its kernel launches (`<wrapper>.launches`; the quantize wrappers add one to
-`amax_s8` and one to `quantize_s8`); on a CPU tensor a wrapper computes its
-plain version, on a CUDA tensor it launches its kernel or raises.
+`amax_s8` and one to `quantize_s8`, whose `paths` count the launches by the
+path each took); on a CPU tensor a wrapper computes its plain version, on a
+CUDA tensor it launches its kernel or raises.
 
 `scale_of` and `codes_of` are the numeric rule of every plain version here
 and in utils/quant.py: scale = max(amax, 1e-12) / 127 by a true fp32
 division, code = clip(round_half_even(x / scale), -127, 127).
 """
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -44,6 +49,7 @@ from spotter_tpu_torch.obs.perf import note_kernel_flops
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
 TILE_MULTIPLE = 16  # M, N and K the tool's entry takes; K the served entry takes
+IM2COL_KERNEL_SIZES, IM2COL_STRIDES = (1, 3, 7), (1, 2)  # the im2col kernel's tiles
 MAX_K = (2**31 - 1) // 128**2  # beyond it an int32 sum of int8 products could overflow
 # quantize_s8's output layouts (csrc/quant.cu)
 LAYOUT_ROWS, LAYOUT_HEADS, LAYOUT_HEADS_T = 0, 1, 2
@@ -82,9 +88,9 @@ def build_quant_kernel() -> KernelLibrary:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for suffix in SUFFIX.values():
         signatures = {
-            "amax_s8": [ptr] * 3 + [i32] + [ptr] * 2,
-            "quantize_s8": [ptr] * 3 + [i32] * 3 + [ptr] * 4,
-            "quantize_im2col_s8": [ptr] * 3 + [i32] * 4 + [ptr] * 4,
+            "amax_s8": [ptr] * 3 + [i32] * 2 + [ptr] * 3,
+            "quantize_s8": [ptr] * 3 + [i32] * 3 + [ptr, i32] + [ptr] * 3,
+            "quantize_im2col_s8": [ptr] * 3 + [i32] * 4 + [ptr, i32] + [ptr] * 4,
             "dequant_rows": [ptr] * 3 + [i64, i32, i64, ptr, ptr],
             "dequant_heads": [ptr] * 3 + [i32, i64, i32, i32, ptr, ptr],
             "dequant_nchw": [ptr] * 3 + [i32, i32, i64, ptr, ptr],
@@ -304,41 +310,94 @@ def _check_float(name: str, x: torch.Tensor) -> None:
 
 
 class LaunchCount:
-    """The launch count of a kernel that several wrappers launch."""
+    """The launch count of a kernel that several wrappers launch, and the
+    launches by the path each took (`paths`)."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.paths = collections.Counter()
+
+    def count(self, path: str) -> None:
+        self.launches += 1
+        self.paths[path] += 1
 
 
-amax_s8 = LaunchCount()  # the amax pass, every layout
-quantize_s8 = LaunchCount()  # the quantize pass, every layout
+# the amax pass, every layout; its paths (csrc/quant.cu `amax_pass`): through
+# the strides, or 16-byte loads where each group fills one run of memory
+amax_s8 = LaunchCount()
+AMAX_PATHS = ("general", "fast")
+# the quantize pass, every layout; paths "rows" (the rows and heads
+# layouts), and the im2col's IM2COL_PATHS
+quantize_s8 = LaunchCount()
 dequant_s32 = LaunchCount()  # the dequant pass, every layout
+# how the im2col pass reads a block's patch (csrc/quant.cu `PatchLoad`):
+# lanes along channels through any strides, lanes along a contiguous x, or
+# 16-byte asynchronous copies (x contiguous, base and strides 16-byte aligned)
+IM2COL_PATHS = ("general", "along_x", "async")
+
+AMAX_BLOCKS_PER_SM = 8  # the amax pass's grid: this many 256-thread blocks a multiprocessor
+AMAX_MIN_SHARE = 256 * 16  # values a block of the amax pass reads at least, but the last
+
+
+def amax_parts(size: int, groups: int, multiprocessors: int) -> int:
+    """The amax pass's partial maxima a group, each one block's: enough
+    blocks to fill the card, but no more than a group's AMAX_MIN_SHARE-value
+    shares (a weight's row is one block)."""
+    fill = -(-multiprocessors * AMAX_BLOCKS_PER_SM // groups)
+    return max(1, min(fill, -(-size // AMAX_MIN_SHARE)))
+
+
+@functools.cache
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _view_args(sizes, strides):
     return (ctypes.c_longlong * 4)(*sizes), (ctypes.c_longlong * 4)(*strides)
 
 
-def _launch_amax(x: torch.Tensor, sizes, strides, head_axis: int, groups: int) -> torch.Tensor:
-    """The amax pass over a 4-D strided view of x: (groups,) fp32, max |x|
-    of each group (group g = i0 * heads + the head index, or i0 alone when
-    head_axis is 0), exact."""
-    amax = torch.empty((groups,), dtype=torch.float32, device=x.device)
+def amax_view(x: torch.Tensor, sizes, strides, head_axis: int, groups: int) -> torch.Tensor:
+    """The amax pass over a 4-D strided view of x (a CUDA tensor): (groups,
+    parts) fp32 partial maxima of |x| of each group (group g = i0 * heads +
+    the head index, or i0 alone when head_axis is 0), whose max over parts
+    is the group's amax, exact."""
+    size = sizes[0] * sizes[1] * sizes[2] * sizes[3] // groups
+    parts = amax_parts(size, groups, _multiprocessors(x.device))
+    partials = torch.empty((groups, parts), dtype=torch.float32, device=x.device)
+    path = ctypes.c_int(-1)
     _quant_call("amax_s8", x.dtype, x.device, x.data_ptr(), *_view_args(sizes, strides),
-                head_axis, amax.data_ptr())
-    amax_s8.launches += 1
-    return amax
+                head_axis, parts, partials.data_ptr(), ctypes.byref(path))
+    amax_s8.count(AMAX_PATHS[path.value])
+    return partials
+
+
+def quantize_view(x: torch.Tensor, sizes, strides, head_axis: int, layout: int, cols_pad: int,
+                  out_shape: tuple, partials: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quantize pass over the same view (a CUDA tensor), from
+    `amax_view`'s partials: codes `out_shape` int8 in `layout`, (groups,)
+    fp32 scales."""
+    codes = torch.empty(out_shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((partials.shape[0],), dtype=torch.float32, device=x.device)
+    _quant_call("quantize_s8", x.dtype, x.device, x.data_ptr(), *_view_args(sizes, strides),
+                head_axis, layout, cols_pad, partials.data_ptr(), partials.shape[1],
+                codes.data_ptr(), scales.data_ptr())
+    quantize_s8.count("rows")
+    return codes, scales
 
 
 def _launch_quantize(x: torch.Tensor, sizes, strides, head_axis: int, layout: int,
                      cols_pad: int, out_shape: tuple, groups: int):
-    amax = _launch_amax(x, sizes, strides, head_axis, groups)
-    codes = torch.empty(out_shape, dtype=torch.int8, device=x.device)
-    scales = torch.empty((groups,), dtype=torch.float32, device=x.device)
-    _quant_call("quantize_s8", x.dtype, x.device, x.data_ptr(), *_view_args(sizes, strides),
-                head_axis, layout, cols_pad, amax.data_ptr(), codes.data_ptr(), scales.data_ptr())
-    quantize_s8.launches += 1
-    return codes, scales
+    partials = amax_view(x, sizes, strides, head_axis, groups)
+    return quantize_view(x, sizes, strides, head_axis, layout, cols_pad, out_shape, partials)
+
+
+def rows_view(x: torch.Tensor, rows_per_group: int):
+    """x (M, K) as the rows layout's 4-D view: (sizes, strides, groups), one
+    group of `rows_per_group` rows a scale."""
+    m, k = x.shape
+    groups = m // rows_per_group
+    return ((groups, rows_per_group, 1, k),
+            (x.stride(0) * rows_per_group, x.stride(0), 0, x.stride(1)), groups)
 
 
 def quantize_rows_reference(x: torch.Tensor, rows_per_group: int,
@@ -366,9 +425,7 @@ def quantize_rows(x: torch.Tensor, rows_per_group: int,
                          f"padded to {cols_pad}")
     if x.device.type == "cpu":
         return quantize_rows_reference(x, rows_per_group, cols_pad)
-    groups = m // rows_per_group
-    sizes = (groups, rows_per_group, 1, k)
-    strides = (x.stride(0) * rows_per_group, x.stride(0), 0, x.stride(1))
+    sizes, strides, groups = rows_view(x, rows_per_group)
     return _launch_quantize(x, sizes, strides, 0, LAYOUT_ROWS, cols_pad, (m, cols_pad), groups)
 
 
@@ -407,13 +464,15 @@ def quantize_heads(x: torch.Tensor, transpose: bool) -> tuple[torch.Tensor, torc
 
 
 def amax_samples_reference(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of `amax_samples`."""
-    return x.to(torch.float32).abs().amax(dim=tuple(range(1, x.dim())))
+    """Plain version of `amax_samples`: one partial a sample, its amax."""
+    return x.to(torch.float32).abs().amax(dim=tuple(range(1, x.dim()))).view(-1, 1)
 
 
 def amax_samples(x: torch.Tensor) -> torch.Tensor:
-    """x (B, C, H, W) fp32 or bf16 (any strides) -> (B,) fp32, max |x| of
-    each sample, exact: the amax pass of `quantize_im2col`."""
+    """x (B, C, H, W) fp32 or bf16 (any strides) -> (B, parts) fp32 partial
+    maxima of |x|, whose max over parts is each sample's amax, exact: the
+    amax pass of `quantize_im2col` (parts is the kernel's grid a sample on
+    the card, 1 in the plain version)."""
     name = "amax_samples"
     _device_of(name, x)
     _check_float(name, x)
@@ -421,15 +480,22 @@ def amax_samples(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: expected (B, C, H, W), got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return amax_samples_reference(x)
-    return _launch_amax(x, tuple(x.shape), x.stride(), 0, x.shape[0])
+    return amax_view(x, tuple(x.shape), x.stride(), 0, x.shape[0])
 
 
-def _im2col_checks(name: str, x: torch.Tensor, kernel_size: int, k_pad: int) -> None:
+def _im2col_checks(name: str, x: torch.Tensor, kernel_size: int, stride: int,
+                   k_pad: int) -> None:
+    """The im2col wrappers' operand checks; on the card also the kernel's
+    tiles (kernel sizes and strides), before anything launches."""
     _device_of(name, x)
     _check_float(name, x)
     if x.dim() != 4 or k_pad < x.shape[1] * kernel_size**2 or k_pad % TILE_MULTIPLE:
         raise ValueError(f"{name}: expected NCHW x and k_pad >= C*k*k, a multiple of "
                          f"{TILE_MULTIPLE}; got {tuple(x.shape)}, k {kernel_size}, {k_pad}")
+    if x.device.type == "cuda" and (kernel_size not in IM2COL_KERNEL_SIZES
+                                    or stride not in IM2COL_STRIDES):
+        raise ValueError(f"{name}: the kernel takes kernel sizes {IM2COL_KERNEL_SIZES} at "
+                         f"strides {IM2COL_STRIDES}, got {kernel_size} at {stride}")
 
 
 def im2col_codes_reference(x: torch.Tensor, amax: torch.Tensor, kernel_size: int, stride: int,
@@ -438,7 +504,7 @@ def im2col_codes_reference(x: torch.Tensor, amax: torch.Tensor, kernel_size: int
     (F.unfold's (c, ky, kx) column order), (B*Ho*Wo, k_pad), and (B,) fp32
     scales."""
     b = x.shape[0]
-    scale = scale_of(amax.view(b, 1, 1, 1))
+    scale = scale_of(amax.amax(dim=1).view(b, 1, 1, 1))
     cols = F.unfold(codes_of(x.to(torch.float32), scale).to(torch.float32), kernel_size,
                     padding=padding, stride=stride)  # (B, K, L), the codes copied exactly
     cols = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
@@ -447,24 +513,28 @@ def im2col_codes_reference(x: torch.Tensor, amax: torch.Tensor, kernel_size: int
 
 def im2col_codes(x: torch.Tensor, amax: torch.Tensor, kernel_size: int, stride: int,
                  padding: int, k_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """NCHW x fp32 or bf16 (any strides) and its per-sample amax (B,) fp32
-    -> (codes (B*Ho*Wo, k_pad) int8, scales (B,) fp32): the quantize pass of
-    `quantize_im2col`."""
+    """NCHW x fp32 or bf16 (any strides) and the amax pass's (B, parts)
+    partial maxima of it (`amax_samples`) -> (codes (B*Ho*Wo, k_pad) int8,
+    scales (B,) fp32): the quantize pass of `quantize_im2col`. On the card
+    kernel sizes 1, 3 and 7 at strides 1 and 2."""
     name = "im2col_codes"
-    _im2col_checks(name, x, kernel_size, k_pad)
+    _im2col_checks(name, x, kernel_size, stride, k_pad)
+    b, _, h, w = x.shape
+    if (amax.dtype != torch.float32 or amax.dim() != 2 or amax.shape[0] != b
+            or not amax.is_contiguous()):
+        raise ValueError(f"{name}: amax must be ({b}, parts) fp32, contiguous")
     if x.device.type == "cpu":
         return im2col_codes_reference(x, amax, kernel_size, stride, padding, k_pad)
-    if amax.shape != (x.shape[0],) or amax.dtype != torch.float32 or not amax.is_contiguous():
-        raise ValueError(f"{name}: amax must be ({x.shape[0]},) fp32, contiguous")
-    b, _, h, w = x.shape
     ho = (h + 2 * padding - kernel_size) // stride + 1
     wo = (w + 2 * padding - kernel_size) // stride + 1
     codes = torch.empty((b * ho * wo, k_pad), dtype=torch.int8, device=x.device)
     scales = torch.empty((b,), dtype=torch.float32, device=x.device)
+    path = ctypes.c_int(-1)
     _quant_call("quantize_im2col_s8", x.dtype, x.device, x.data_ptr(),
                 *_view_args(x.shape, x.stride()), kernel_size, stride, padding, k_pad,
-                amax.data_ptr(), codes.data_ptr(), scales.data_ptr())
-    quantize_s8.launches += 1
+                amax.data_ptr(), amax.numel() // b, codes.data_ptr(), scales.data_ptr(),
+                ctypes.byref(path))
+    quantize_s8.count(IM2COL_PATHS[path.value])
     return codes, scales
 
 
@@ -482,7 +552,7 @@ def quantize_im2col(x: torch.Tensor, kernel_size: int, stride: int, padding: int
     kernel_size convolution (zero padding, stride), column (c, ky, kx) as the
     OIHW weight flattens, zero past C*k*k. `amax_samples`, then
     `im2col_codes`."""
-    _im2col_checks("quantize_im2col", x, kernel_size, k_pad)
+    _im2col_checks("quantize_im2col", x, kernel_size, stride, k_pad)
     return im2col_codes(x, amax_samples(x), kernel_size, stride, padding, k_pad)
 
 

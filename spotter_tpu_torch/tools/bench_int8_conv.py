@@ -22,22 +22,35 @@ shape:
   `torch.linalg.vector_norm(x, inf)` over each sample: yardsticks only, the
   port never calls them on an int8 path.
 
+Each conv case records which path of the amax and im2col passes served it
+(`fast`, or `general`: a strided view) and the amax's partials a sample.
+MAIN_SHAPE runs in float32 too (the `float32` + INT8 path), and the im2col
+entry is held exact at its COVERAGE list (ragged tiles, C not a multiple of
+16, k_pad past K, kernel sizes 1, 3 and 7 at strides 1 and 2, NCHW and
+channels-last inputs, fp32 and bf16).
+
 Two more cases put the GEMM and the passes at the served paths' other
 shapes: a dense projection at YOLOS-base's M = 8 x 4301 = 34,408 rows
 (ragged), 768 -> 3072, beside `torch._int_mm` (cuBLASLt's int8 GEMM, B
 column-major, the faster layout), and the attention products at RT-DETR's
-decoder (B·H 64, Tq = Tk = 300, hd 32: QKᵀ and attn·V, batched).
+decoder (B·H 64, Tq = Tk = 300, hd 32: QKᵀ and attn·V, batched); on the
+card each times the amax pass and its quantize entry (`rows`; `heads` and
+`heads_t`) apart, beside their bounds and the entries' plain versions.
 
     python -m spotter_tpu_torch.tools.bench_int8_conv [--iters 10] [--seed 0]
         [--shapes csp80,bb_s1] [--device cpu] [--out build/bench_int8_conv.json]
 
-Runs on cuda unless --device cpu is given (then the wrappers take their
-plain versions, every time is a host-clock CPU time, and --shapes should
-name small ones). Prints one JSON line per case and writes the record.
+`--shapes` runs only the named conv shapes (the float32 case among them if
+MAIN_SHAPE is named), without the coverage list and the dense and attention
+cases. Runs on cuda unless --device cpu is given (then the wrappers take
+their plain versions, every time is a host-clock CPU time, and --shapes
+should name small ones). Prints one JSON line per case and writes the
+record.
 """
 
 import argparse
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -70,6 +83,21 @@ SHAPES = (
 MAIN_SHAPE = "csp80"  # the case the kernels line reports for the quantize and dequant passes
 DENSE_SHAPE = (8, 4301, 768, 3072)  # YOLOS-base fc1 at B = 8: (B, T, K, N)
 ATTN_SHAPE = (8, 300, 8, 32)  # RT-DETR decoder self-attention: (B, T, H, hd)
+# the im2col entry's coverage list: (x NCHW, k, stride, padding, k_pad past
+# pad16(K)), each in fp32 and bf16, NCHW and channels-last
+COVERAGE = (
+    ((8, 64, 40, 40), 3, 1, 1, 0),
+    ((2, 64, 33, 31), 3, 2, 1, 0),
+    ((3, 72, 17, 9), 1, 1, 0, 0),
+    ((2, 3, 30, 30), 7, 2, 3, 0),
+    ((2, 20, 19, 23), 3, 1, 1, 32),
+    ((2, 40, 21, 18), 1, 2, 0, 16),
+    ((1, 24, 15, 13), 7, 1, 3, 0),
+    ((2, 20, 19, 24), 3, 1, 1, 32),
+    ((2, 40, 22, 16), 3, 2, 1, 0),
+    ((2, 200, 10, 24), 1, 1, 0, 16),
+    ((2, 3, 32, 32), 7, 2, 3, 0),
+)
 WARMUP = {"cuda": 3, "cpu": 1}  # the calls time_ms makes before it times, by device
 
 
@@ -84,14 +112,27 @@ def _equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def conv_case(shape, seed: int, iters: int, device, flush, calls: dict) -> dict:
-    """One of the seven shapes: each kernel exact against its plain version
-    on the card's inputs; times and bounds; cuDNN's bf16 conv beside."""
+def _paths(before: dict, device) -> dict:
+    """The path of each pass that served the calls since `before` (the
+    kernels' path counts), or "plain" on the CPU."""
+    if device.type != "cuda":
+        return {name: "plain" for name in before}
+    return {name: ",".join(sorted(getattr(int8, name).paths - n)) for name, n in before.items()}
+
+
+def _path_counts() -> dict:
+    return {"amax_s8": int8.amax_s8.paths.copy(), "quantize_s8": int8.quantize_s8.paths.copy()}
+
+
+def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -> dict:
+    """One of the seven shapes in `dtype`: each kernel exact against its
+    plain version on the card's inputs; times and bounds; cuDNN's bf16 conv
+    beside."""
     name, b, h, w, cin, cout, k, stride = shape
     pad = (k - 1) // 2  # "SAME" at stride 1
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((b, cin, h, w), dtype=np.float32)).to(device)
-    x = x.to(torch.bfloat16)
+    x = x.to(dtype)
     wt = torch.from_numpy((rng.standard_normal((cout, cin, k, k), dtype=np.float32)
                            / np.sqrt(cin * k * k)).astype(np.float32)).to(device)
     qw = int8.quantize_weight_rows(wt)
@@ -111,25 +152,28 @@ def conv_case(shape, seed: int, iters: int, device, flush, calls: dict) -> dict:
 
     def dequant():
         calls["dequant_s32"] += 1
-        return int8.dequant_nchw(y, sx, qw.scale, b, ho, wo, torch.bfloat16)
+        return int8.dequant_nchw(y, sx, qw.scale, b, ho, wo, dtype)
 
     calls["amax_s8"] += 1  # the weight's codes above
     calls["quantize_s8"] += 1
+    before = _path_counts()
     ax = amax()
     want_ax = int8.amax_samples_reference(x)
     codes, sx = quantize()
+    paths = _paths(before, device)
     want_codes, want_sx = int8.quantize_im2col_reference(x, k, stride, pad, qw.k_pad)
     want_w = quant.quantize_weight(wt)
     y = gemm()
     want_y = int8.int8_gemm_kmajor_reference(codes, qw.codes)
     out = dequant()
     n_out = out.numel()
-    want_out = int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, torch.bfloat16)
+    want_out = int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, dtype)
     m, kk = codes.shape
     rec = {
-        "part": "conv", "shape": name, "b": b, "h": h, "w": w, "cin": cin, "cout": cout, "k": k,
-        "stride": stride, "im2col_bytes": m * kk, "k_pad": kk,
-        "amax_exact": _equal(ax, want_ax),
+        "part": "conv", "shape": name, "dtype": str(dtype).removeprefix("torch."), "b": b,
+        "h": h, "w": w, "cin": cin, "cout": cout, "k": k, "stride": stride,
+        "im2col_bytes": m * kk, "k_pad": kk, "amax_parts": ax.shape[1], "paths": paths,
+        "amax_exact": _equal(ax.amax(1), want_ax.amax(1)),
         "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
         "weight_codes_exact": (_equal(qw.codes[:, :cin * k * k], want_w[0].reshape(cout, -1))
                                and _equal(qw.scale, want_w[1])),
@@ -140,20 +184,21 @@ def conv_case(shape, seed: int, iters: int, device, flush, calls: dict) -> dict:
                                             "gemm_exact", "dequant_bit_equal"))
     del want_codes, want_y, want_out
     ops = 2 * m * cout * cin * k * k
+    x_bytes, part_bytes = x.numel() * x.element_size(), ax.numel() * 4
     rec["bounds"] = {
-        "amax_s8": bound(x.numel() * 2 + b * 4, 0),
-        "quantize_s8": bound(x.numel() * 2 + 2 * b * 4 + m * kk, 0),
+        "amax_s8": bound(x_bytes + part_bytes, 0),
+        "quantize_s8": bound(x_bytes + part_bytes + b * 4 + m * kk, 0),
         "int8_gemm_kmajor": bound(m * kk + cout * kk + m * cout * 4, ops),
-        "dequant_s32": bound(m * cout * 4 + n_out * 2, 0),
-        "path": bound(x.numel() * 2 + cout * kk + n_out * 2, ops),
+        "dequant_s32": bound(m * cout * 4 + n_out * out.element_size(), 0),
+        "path": bound(x_bytes + cout * kk + n_out * out.element_size(), ops),
     }
-    wbf = wt.to(torch.bfloat16)
+    xbf, wbf = x.to(torch.bfloat16), wt.to(torch.bfloat16)
     times = {
         "amax_s8": time_ms(amax, iters, device, flush),
         "quantize_s8": time_ms(quantize, iters, device, flush),
         "int8_gemm_kmajor": time_ms(gemm, iters, device, flush),
         "dequant_s32": time_ms(dequant, iters, device, flush),
-        "path": time_ms(lambda: quant.int8_conv(x, qw, k, stride, pad, torch.bfloat16), iters,
+        "path": time_ms(lambda: quant.int8_conv(x, qw, k, stride, pad, dtype), iters,
                         device, flush),
         "plain_amax_s8": time_ms(lambda: int8.amax_samples_reference(x), 2, device, flush),
         "plain_quantize_s8": time_ms(
@@ -162,9 +207,9 @@ def conv_case(shape, seed: int, iters: int, device, flush, calls: dict) -> dict:
         "plain_int8_gemm_kmajor": time_ms(
             lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush),
         "plain_dequant_s32": time_ms(
-            lambda: int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, torch.bfloat16), 2,
+            lambda: int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, dtype), 2,
             device, flush),
-        "library_cudnn_bf16": time_ms(lambda: F.conv2d(x, wbf, None, stride, pad), iters,
+        "library_cudnn_bf16": time_ms(lambda: F.conv2d(xbf, wbf, None, stride, pad), iters,
                                       device, flush),
         "library_vector_norm": time_ms(
             lambda: torch.linalg.vector_norm(x, float("inf"), dim=(1, 2, 3)), iters, device,
@@ -176,9 +221,36 @@ def conv_case(shape, seed: int, iters: int, device, flush, calls: dict) -> dict:
     return rec
 
 
+def coverage_case(shape, k: int, stride: int, pad: int, dtype, channels_last: bool,
+                  extra_pad: int, seed: int, device, calls: dict) -> dict:
+    """The im2col entry at one shape of its coverage list (ragged tiles, C
+    not a multiple of 16, k_pad past K, kernel sizes 1, 3 and 7 at strides
+    1 and 2; a channels-last input takes the general path): the amax and
+    the codes and scales exact against the plain versions."""
+    rng = np.random.default_rng(seed + sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    k_pad = int8.pad16(shape[1] * k * k) + extra_pad
+    calls["amax_s8"] += 1
+    calls["quantize_s8"] += 1
+    before = _path_counts()
+    ax = int8.amax_samples(x)
+    codes, sx = int8.im2col_codes(x, ax, k, stride, pad, k_pad)
+    want_codes, want_sx = int8.quantize_im2col_reference(x, k, stride, pad, k_pad)
+    rec = {"part": "coverage", "x": list(shape), "k": k, "stride": stride, "pad": pad,
+           "k_pad": k_pad, "dtype": str(dtype).removeprefix("torch."),
+           "channels_last": channels_last, "paths": _paths(before, device),
+           "amax_exact": _equal(ax.amax(1), int8.amax_samples_reference(x).amax(1)),
+           "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx)}
+    rec["exact"] = rec["amax_exact"] and rec["codes_exact"]
+    return rec
+
+
 def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
     """The dense product at YOLOS-base's fc1 (M ragged): quantize (rows),
-    the GEMM, dequant (rows), exact; the GEMM beside torch._int_mm."""
+    the GEMM, dequant (rows), exact; each pass timed beside its bound; the
+    GEMM beside torch._int_mm."""
     b, t, kdim, n = DENSE_SHAPE
     rng = np.random.default_rng(seed + 1)
     x = torch.from_numpy(rng.standard_normal((b * t, kdim), dtype=np.float32)).to(device)
@@ -199,10 +271,41 @@ def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
            "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
            "gemm_exact": _equal(y, int8.int8_gemm_kmajor_reference(codes, qw.codes)),
            "dequant_bit_equal": _equal(out, want_out)}
-    rec["exact"] = rec["codes_exact"] and rec["gemm_exact"] and rec["dequant_bit_equal"]
     ops = 2 * m * n * kdim
-    rec["bounds"] = {"amax_s8": bound(m * kdim * 2 + b * 4, 0),
-                     "quantize_s8": bound(m * kdim * 2 + 2 * b * 4 + m * kdim, 0),
+    parts = 1
+    times = {}
+    if device.type == "cuda":  # the two passes apart, through the wrappers' own views
+        sizes, strides, groups = int8.rows_view(x, t)
+        calls["amax_s8"] += 1
+        before = {"amax_s8": int8.amax_s8.paths.copy()}
+        partials = int8.amax_view(x, sizes, strides, 0, groups)
+        rec["paths"] = _paths(before, device)
+        parts = partials.shape[1]
+        rec["amax_exact"] = _equal(partials.amax(1),
+                                   x.float().abs().view(groups, -1).amax(1))
+
+        def amax():
+            calls["amax_s8"] += 1
+            return int8.amax_view(x, sizes, strides, 0, groups)
+
+        def quantize():
+            calls["quantize_s8"] += 1
+            return int8.quantize_view(x, sizes, strides, 0, int8.LAYOUT_ROWS, qw.k_pad,
+                                      (m, qw.k_pad), partials)
+
+        times["amax_s8"] = time_ms(amax, iters, device, flush)
+        times["quantize_s8_rows"] = time_ms(quantize, iters, device, flush)
+        times["plain_quantize_s8_rows"] = time_ms(
+            lambda: int8.quantize_rows_reference(x, t, qw.k_pad), 2, device, flush)
+        times["library_int_mm"] = time_ms(lambda: torch._int_mm(codes, qw.codes.t()), iters,
+                                          device, flush)
+        rec["library_exact"] = _equal(torch._int_mm(codes, qw.codes.t()), y)
+    rec["exact"] = (rec["codes_exact"] and rec["gemm_exact"] and rec["dequant_bit_equal"]
+                    and rec.get("amax_exact", True))
+    x_bytes = m * kdim * 2
+    rec["bounds"] = {"amax_s8": bound(x_bytes + b * parts * 4, 0),
+                     "quantize_s8_rows": bound(x_bytes + b * parts * 4 + b * 4 + m * qw.k_pad,
+                                               0),
                      "int8_gemm_kmajor": bound(m * kdim + n * kdim + m * n * 4, ops),
                      "dequant_s32": bound(m * n * 4 + m * n * 2, 0)}
 
@@ -210,20 +313,18 @@ def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
         calls["int8_gemm_kmajor"] += 1
         return int8.int8_gemm_kmajor(codes, qw.codes)
 
-    times = {"int8_gemm_kmajor": time_ms(gemm, iters, device, flush),
-             "plain_int8_gemm_kmajor": time_ms(
-                 lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush)}
-    if device.type == "cuda":  # cuBLASLt's int8 GEMM, B column-major (K-major)
-        times["library_int_mm"] = time_ms(lambda: torch._int_mm(codes, qw.codes.t()), iters,
-                                          device, flush)
-        rec["library_exact"] = _equal(torch._int_mm(codes, qw.codes.t()), y)
+    times["int8_gemm_kmajor"] = time_ms(gemm, iters, device, flush)
+    times["plain_int8_gemm_kmajor"] = time_ms(
+        lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush)
     rec.update({ms_key(key, device): value for key, value in times.items()})
     return rec
 
 
-def attention_case(seed: int, device, calls: dict) -> dict:
+def attention_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
     """QKᵀ and attn·V at RT-DETR's decoder, batched over B·H: each pass and
-    the GEMM exact against their plain versions."""
+    the GEMM exact against their plain versions; on the card the amax pass
+    over V's heads (the general path) and the heads and heads_t quantize
+    entries timed beside their bounds."""
     b, t, h, hd = ATTN_SHAPE
     rng = np.random.default_rng(seed + 2)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, hd), dtype=np.float32))
@@ -242,11 +343,50 @@ def attention_case(seed: int, device, calls: dict) -> dict:
         ref = int8.quantize_heads_reference(v, transpose)
         codes_ok &= _equal(got, ref[0]) and _equal(s, ref[1])
     rec["codes_exact"] = codes_ok
-    rec["exact"] = rec["qk_exact"] and rec["av_exact"] and codes_ok
     calls["amax_s8"] += 6  # q, k, v twice, v and the weights for attn·V
     calls["quantize_s8"] += 6
     calls["int8_gemm_kmajor"] += 2
     calls["dequant_s32"] += 2
+    if device.type == "cuda":
+        sizes, strides = tuple(v.shape), v.stride()
+        calls["amax_s8"] += 1
+        before = {"amax_s8": int8.amax_s8.paths.copy()}
+        partials = int8.amax_view(v, sizes, strides, 2, b * h)
+        rec["paths"] = _paths(before, device)
+        rec["amax_parts"] = partials.shape[1]
+        rec["amax_exact"] = _equal(partials.amax(1),
+                                   v.abs().amax(dim=(1, 3)).reshape(-1))
+
+        def amax():
+            calls["amax_s8"] += 1
+            return int8.amax_view(v, sizes, strides, 2, b * h)
+
+        def quantize(layout, shape):
+            def call():
+                calls["quantize_s8"] += 1
+                return int8.quantize_view(v, sizes, strides, 2, layout, shape[-1], shape,
+                                          partials)
+            return call
+
+        heads, heads_t = (b * h, t, int8.pad16(hd)), (b * h, hd, int8.pad16(t))
+        times = {"amax_s8": time_ms(amax, iters, device, flush),
+                 "quantize_s8_heads": time_ms(quantize(int8.LAYOUT_HEADS, heads), iters,
+                                              device, flush),
+                 "quantize_s8_heads_t": time_ms(quantize(int8.LAYOUT_HEADS_T, heads_t), iters,
+                                                device, flush),
+                 "plain_quantize_s8_heads": time_ms(
+                     lambda: int8.quantize_heads_reference(v, False), 2, device, flush),
+                 "plain_quantize_s8_heads_t": time_ms(
+                     lambda: int8.quantize_heads_reference(v, True), 2, device, flush)}
+        rec.update({ms_key(key, device): value for key, value in times.items()})
+        v_bytes, part_bytes = v.numel() * 4, partials.numel() * 4
+        rec["bounds"] = {
+            "amax_s8": bound(v_bytes + part_bytes, 0),
+            "quantize_s8_heads": bound(v_bytes + part_bytes + b * h * 4 + math.prod(heads), 0),
+            "quantize_s8_heads_t": bound(
+                v_bytes + part_bytes + b * h * 4 + math.prod(heads_t), 0)}
+    rec["exact"] = (rec["qk_exact"] and rec["av_exact"] and codes_ok
+                    and rec.get("amax_exact", True))
     return rec
 
 
@@ -262,10 +402,18 @@ def run(args) -> dict:
 
     shapes = [s for s in SHAPES if not args.shapes or s[0] in args.shapes]
     for shape in shapes:
-        emit(conv_case(shape, args.seed, args.iters, device, flush, calls))
+        emit(conv_case(shape, torch.bfloat16, args.seed, args.iters, device, flush, calls))
+    for shape in shapes:
+        if shape[0] == MAIN_SHAPE:
+            emit(conv_case(shape, torch.float32, args.seed, args.iters, device, flush, calls))
     if not args.shapes:
+        for xshape, k, stride, pad, extra in COVERAGE:
+            for dtype in (torch.float32, torch.bfloat16):
+                for channels_last in (False, True):
+                    emit(coverage_case(xshape, k, stride, pad, dtype, channels_last, extra,
+                                       args.seed, device, calls))
         emit(dense_case(args.seed, args.iters, device, flush, calls))
-        emit(attention_case(args.seed, device, calls))
+        emit(attention_case(args.seed, args.iters, device, flush, calls))
     record["calls"] = calls  # the wrappers' calls: on the card, their launches
     return record
 
@@ -275,7 +423,8 @@ def parse_args(argv):
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--shapes", default="", type=lambda s: [v for v in s.split(",") if v],
-                    help="names of SHAPES to run (default: all, and the dense and attention cases)")
+                    help="names of SHAPES to run (default: all, the coverage list, and the "
+                         "dense and attention cases)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=str(REPO / "build" / "bench_int8_conv.json"))
     return ap.parse_args(argv)

@@ -101,11 +101,12 @@ PROBE_MODULES = (
 
 
 # the int8 slice's modules: the knobs and plain versions, the kernels'
-# wrappers, and the conv probe
+# wrappers, the conv probe and the two-tree timing of the quantize entries
 INT8_MODULES = (
     "spotter_tpu_torch.utils.quant",
     "spotter_tpu_torch.ops.int8",
     "spotter_tpu_torch.tools.bench_int8_conv",
+    "spotter_tpu_torch.tools.ab_int8_quant",
 )
 
 

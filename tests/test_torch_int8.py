@@ -267,13 +267,13 @@ def test_im2col_layout_is_the_unfold_of_the_codes():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_im2col_is_the_amax_pass_then_the_codes(dtype):
     """`amax_samples` (the amax kernel's plain form) is each sample's max
-    |x|; `im2col_codes` from it is `quantize_im2col`; the numeric rule is
-    one, shared by utils/quant.py."""
+    |x|, as one partial maximum a sample; `im2col_codes` from it is
+    `quantize_im2col`; the numeric rule is one, shared by utils/quant.py."""
     x = torch.from_numpy(_edge_input(np.random.default_rng(16), (3, 4, 6, 5))).to(dtype)
     amax = tint8.amax_samples(x)
-    assert amax.dtype == torch.float32
-    assert torch.equal(amax, x.float().abs().reshape(3, -1).amax(1))
-    assert amax[1] == 0  # the all-zero sample: the scale takes the 1e-12 floor
+    assert amax.dtype == torch.float32 and amax.shape == (3, 1)
+    assert torch.equal(amax.amax(1), x.float().abs().reshape(3, -1).amax(1))
+    assert amax[1, 0] == 0  # the all-zero sample: the scale takes the 1e-12 floor
     codes, scales = tint8.im2col_codes(x, amax, 3, 1, 1, 48)
     want_codes, want_scales = tint8.quantize_im2col(x, 3, 1, 1, 48)
     assert torch.equal(codes, want_codes) and torch.equal(scales, want_scales)

@@ -4,8 +4,10 @@ each against its plain version on the same inputs: amax, codes and scales exact,
 int32 products exact, dequantized outputs bit equal (the same fp32 product
 of the same int32 and scales, rounded once to the output dtype); and
 utils/quant.py's four products through them against their runs on the
-CPU. This file imports torch and the port only, so it runs on a machine
-with a card and no JAX:
+CPU; the amax pass's partials and the im2col pass's tiles at their
+coverage list and at the model's shapes, their launches (one each, no
+memset) and a CUDA graph of the quantized convolution. This file imports
+torch and the port only, so it runs on a machine with a card and no JAX:
 
     python -m pytest -m cuda tests/test_torch_int8_cuda.py
 """
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from spotter_tpu_torch.ops import int8 as tint8
+from spotter_tpu_torch.tools.bench_int8_conv import COVERAGE
 from spotter_tpu_torch.utils import quant as tquant
 
 
@@ -41,7 +44,7 @@ def test_im2col_conv_path_is_exact_on_the_card(dtype, shape, k, stride, pad):
     qw_cpu = tint8.quantize_weight_rows(w)
     qw = tint8.quantize_weight_rows(w.to(dev))
     assert torch.equal(qw.codes.cpu(), qw_cpu.codes) and torch.equal(qw.scale.cpu(), qw_cpu.scale)
-    assert torch.equal(tint8.amax_samples(x.to(dev)).cpu(), tint8.amax_samples(x))
+    assert torch.equal(tint8.amax_samples(x.to(dev)).amax(1).cpu(), tint8.amax_samples(x).amax(1))
     before = (tint8.amax_s8.launches, tint8.quantize_s8.launches)
     codes, sx = tint8.quantize_im2col(x.to(dev), k, stride, pad, qw.k_pad)
     assert (tint8.amax_s8.launches, tint8.quantize_s8.launches) == (before[0] + 1, before[1] + 1)
@@ -151,3 +154,161 @@ def test_int8_gemm_sass_is_wgmma_and_wrappers_raise_on_bad_card_inputs():
     x = torch.zeros((2, 8, 5, 5), dtype=torch.float16, device=dev)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tint8.quantize_im2col(x, 3, 1, 1, 80)
+
+
+# the im2col entry's coverage list (tools/bench_int8_conv.py COVERAGE), then
+# csp80 and bb_s1, the RT-DETRv2-R101 shapes at B = 8
+IM2COL_CASES = list(COVERAGE) + [((8, 384, 80, 80), 3, 1, 1, 0),
+                                 ((8, 64, 160, 160), 3, 1, 1, 0)]
+
+
+def im2col_path(shape, k: int, stride: int, dtype, channels_last: bool) -> str:
+    """The patch loader csrc/quant.cu picks: lanes along channels for a
+    channels-last input; 16-byte asynchronous copies where each stride is a
+    multiple of 16 bytes and the tile's raw patch fits (not a 1x1 conv at
+    stride 2); else lanes along x."""
+    if channels_last:
+        return "general"
+    size = torch.finfo(dtype).bits // 8
+    b, c, h, w = shape
+    aligned = all(s * size % 16 == 0 for s in (w, h * w, c * h * w))
+    return "async" if aligned and not (k == 1 and stride == 2) else "along_x"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,stride,pad,extra", IM2COL_CASES)
+def test_amax_and_im2col_passes_are_exact_on_the_card(shape, k, stride, pad, extra, dtype,
+                                                      channels_last):
+    """The amax pass's partials reduce to each sample's max |x| and the
+    im2col pass's codes and scales equal the plain version's; one launch
+    each, the amax on its fast path (a dense sample in either layout), the
+    im2col on the loader `im2col_path` names."""
+    dev = _card()
+    rng = np.random.default_rng(sum(shape) + k)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
+    x[0, :, : shape[2] // 2] = 0.0  # zeros beside the values, as a ReLU's output has
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    k_pad = tint8.pad16(shape[1] * k * k) + extra
+    counters = (tint8.amax_s8, tint8.quantize_s8)
+    before = [(c.launches, c.paths.copy()) for c in counters]
+    partials = tint8.amax_samples(x)
+    codes, scales = tint8.im2col_codes(x, partials, k, stride, pad, k_pad)
+    path = im2col_path(shape, k, stride, dtype, channels_last)
+    assert [(c.launches - n, dict(c.paths - p)) for c, (n, p) in zip(counters, before)] == [
+        (1, {"fast": 1}), (1, {path: 1})]
+    assert partials.shape[0] == shape[0] and partials.dtype == torch.float32
+    assert torch.equal(partials.amax(1), tint8.amax_samples_reference(x).amax(1))
+    want_codes, want_scales = tint8.quantize_im2col_reference(x, k, stride, pad, k_pad)
+    assert torch.equal(codes, want_codes) and torch.equal(scales, want_scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,rows", [((34408, 768), 4301), ((3072, 768), 1), ((37, 40), 1)])
+def test_amax_pass_on_rows_is_exact_and_fast(dtype, shape, rows):
+    """The rows view (a sample's rows, or a weight's row, a group): the
+    contiguous fast path, the general one where a group's rows have gaps;
+    the partials reduce to each group's max |x|."""
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal(shape).astype(np.float32))
+    x = x.to(dev).to(dtype)
+    sizes, strides, groups = tint8.rows_view(x, rows)
+    general = tint8.amax_s8.paths["general"]
+    partials = tint8.amax_view(x, sizes, strides, 0, groups)
+    assert tint8.amax_s8.paths["general"] == general
+    assert torch.equal(partials.amax(1), x.float().abs().view(groups, -1).amax(1))
+    # an odd offset: the run's unaligned ends go through block 0
+    y = x.reshape(-1)[1:1 + groups * ((x.numel() - 1) // groups)].view(groups, -1)
+    sizes, strides, _ = tint8.rows_view(y, 1)
+    assert torch.equal(tint8.amax_view(y, sizes, strides, 0, groups).amax(1),
+                       y.float().abs().amax(1))
+    assert tint8.amax_s8.paths["general"] == general
+    # a row pitch past K: a group of several rows is not one run (general)
+    if rows > 1 and shape[1] > 8:
+        z = x[:, : shape[1] - 8]
+        sizes, strides, _ = tint8.rows_view(z, rows)
+        assert torch.equal(tint8.amax_view(z, sizes, strides, 0, groups).amax(1),
+                           z.float().abs().reshape(groups, -1).amax(1))
+        assert tint8.amax_s8.paths["general"] == general + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hd", [(8, 300, 8, 32), (2, 17, 3, 64)])
+def test_amax_pass_on_heads_takes_the_general_path(b, t, h, hd):
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(t).standard_normal((b, t, h, hd))
+                         .astype(np.float32)).to(dev)
+    general = tint8.amax_s8.paths["general"]
+    partials = tint8.amax_view(x, tuple(x.shape), x.stride(), 2, b * h)
+    assert tint8.amax_s8.paths["general"] == general + 1
+    assert torch.equal(partials.amax(1), x.abs().amax(dim=(1, 3)).reshape(-1))
+
+
+@pytest.mark.cuda
+def test_quantize_im2col_is_two_kernels_and_no_memset():
+    """A torch.profiler trace of one quantize_im2col at csp80: the amax
+    kernel and the im2col kernel, nothing else on the device (no memset)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    x = torch.randn((8, 384, 80, 80), device=dev, dtype=torch.bfloat16)
+    tint8.quantize_im2col(x, 3, 1, 1, 3456)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tint8.quantize_im2col(x, 3, 1, 1, 3456)
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in device_events]
+    assert not any("memset" in n.lower() for n in names), names
+    assert len(names) == 2 and "amax_contiguous_kernel" in names[0] and "im2col_kernel" in names[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_graph_replay_is_bit_equal_to_eager(dtype):
+    """utils/quant.py's `int8_conv` captured in a CUDA graph: each replay on
+    new inputs copied into the captured one equals the eager call bit for
+    bit; two graphs of the same call replayed back to back on two streams
+    keep their own buffers."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal((96, 64, 3, 3)).astype(np.float32)).to(dev)
+    qw = tint8.quantize_weight_rows(w)
+    xs = [torch.from_numpy(rng.standard_normal((8, 64, 40, 40)).astype(np.float32))
+          .to(dev).to(dtype) for _ in range(3)]
+    static = [xs[0].clone(), xs[0].clone()]
+    graphs, outs = [], []
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(2):
+            tquant.int8_conv(static[i], qw, 3, 1, 1, dtype)  # warm the allocator
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                outs.append(tquant.int8_conv(static[i], qw, 3, 1, 1, dtype))
+            graphs.append(graph)
+    torch.cuda.current_stream().wait_stream(stream)
+    side = torch.cuda.Stream()
+    for x in xs[1:]:
+        static[0].copy_(x)
+        static[1].copy_(xs[0] if x is xs[1] else xs[1])
+        torch.cuda.synchronize()
+        graphs[0].replay()
+        with torch.cuda.stream(side):
+            graphs[1].replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], tquant.int8_conv(x, qw, 3, 1, 1, dtype))
+        assert torch.equal(outs[1], tquant.int8_conv(static[1], qw, 3, 1, 1, dtype))
+
+
+@pytest.mark.cuda
+def test_im2col_raises_on_a_kernel_size_it_has_no_tile_for():
+    dev = _card()
+    x = torch.zeros((2, 8, 9, 9), device=dev)
+    launches = tint8.amax_s8.launches
+    with pytest.raises(ValueError, match="kernel sizes"):
+        tint8.quantize_im2col(x, 5, 1, 2, 208)
+    assert tint8.amax_s8.launches == launches

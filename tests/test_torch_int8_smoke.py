@@ -40,7 +40,10 @@ def test_bench_int8_conv_runs_on_the_cpu(tiny_tool, tmp_path, capsys):
     assert tiny_tool.main(["--device", "cpu", "--iters", "1", "--out", str(out)]) == 0
     record = json.loads(out.read_text())
     parts = [c["part"] for c in record["cases"]]
-    assert parts == ["conv", "conv", "dense", "attention"]
+    n_coverage = 4 * len(tiny_tool.COVERAGE)  # fp32 and bf16, NCHW and channels-last
+    assert parts == ["conv", "conv", "conv"] + ["coverage"] * n_coverage + ["dense", "attention"]
+    assert [c.get("dtype") for c in record["cases"][:3]] == ["bfloat16", "bfloat16", "float32"]
+    assert record["cases"][2]["shape"] == "tiny3"  # MAIN_SHAPE in float32
     assert all(c["exact"] for c in record["cases"])
     conv = record["cases"][0]
     assert conv["im2col_bytes"] == 2 * 9 * 7 * 144 and conv["k_pad"] == 144
@@ -49,7 +52,7 @@ def test_bench_int8_conv_runs_on_the_cpu(tiny_tool, tmp_path, capsys):
     assert conv["amax_exact"] and conv["bounds"]["amax_s8"]["bound_by"] == "bytes"
     assert conv["bounds"]["int8_gemm_kmajor"]["bound_by"] in ("bytes", "operations")
     assert all(v > 0 for v in record["calls"].values())
-    assert len(capsys.readouterr().out.splitlines()) == 4
+    assert len(capsys.readouterr().out.splitlines()) == len(parts)
 
 
 def _counting_wrappers(monkeypatch):
