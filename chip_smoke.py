@@ -17,13 +17,14 @@ against their plain PyTorch versions: csrc/msda.cu
 csrc/msda_backends.cu (the pallas_sep separable sampling and the
 pallas_gather lane gather), csrc/attention.cu (flash attention, fp32 and
 bf16), csrc/class_logits.cu (the OWL class-logit head), csrc/quant.cu
-(the int8 path's amax, quantize and dequant passes) with csrc/int8_gemm.cu's
-K-major entry, and the probes' csrc/int8_gemm.cu, csrc/pack_tile.cu and
-csrc/launch_probe.cu. Phases, each printing JSON lines:
+(the int8 path's amax, quantize and dequant passes) with csrc/int8_conv.cu
+(the int8 convolution) and csrc/int8_gemm.cu's K-major entry, and the
+probes' csrc/int8_gemm.cu, csrc/pack_tile.cu and csrc/launch_probe.cu.
+Phases, each printing JSON lines:
 
 1. device  — card name, `nvidia-smi` name and power limit, and whether the
              serving layer's packages (PIL, aiohttp, httpx, pydantic) import;
-2. build   — nvcc builds of the eight kernel libraries for sm_90a, started
+2. build   — nvcc builds of the nine kernel libraries for sm_90a, started
              together, with their seconds;
 3. kernel  — each kernel against its plain version: the MSDA kernels at the
              decoder's shapes (B = 1 and 8; fp32 and bf16 rows; default and
@@ -157,17 +158,22 @@ csrc/launch_probe.cu. Phases, each printing JSON lines:
              bytes;
 20. precision — the "mixed" and "bfloat16" policies (`phase_precision`);
 21. int8  — int8 quantization: tools/bench_int8_conv.py at the JAX probe's
-             seven conv shapes in bf16 (and `csp80` in fp32), the im2col
+             seven conv shapes in bf16 (and `csp80` in fp32), through the
+             served three-kernel path (amax, NHWC quantize, conv_s8) and
+             the four-kernel path it replaced (amax, im2col, the GEMM, the
+             NCHW dequant), both timed in the same run, the im2col
              entry's coverage list (ragged tiles, C not a multiple of 16,
              k_pad past K, kernel sizes 1, 3 and 7 at strides 1 and 2,
-             NCHW and channels-last, fp32 and bf16), a dense shape
+             NCHW and channels-last, fp32 and bf16), conv_s8 at every
+             served conv shape of the seven families, a dense shape
              (YOLOS-base's 34,408 rows, ragged) and an attention shape (B·H
              64, Tq = Tk = 300, hd 32), every pass exact against its plain
-             version (amax, codes, int32 products, dequant bit for bit),
-             timed beside its bound, cuDNN's bf16 conv,
+             version (amax, codes, int32 products, dequant and conv_s8 bit
+             for bit), timed beside its bound, cuDNN's bf16 conv,
              torch.linalg.vector_norm and torch._int_mm, and which path of
-             the amax and im2col passes served each case; int8_gemm's SASS
-             with IGMMA and no IMMA; RT-DETRv2-R101 under "bfloat16" with
+             the amax and im2col passes and which conv_s8 tile served each
+             case; int8_gemm's and conv_s8's SASS with IGMMA and no IMMA;
+             RT-DETRv2-R101 under "bfloat16" with
              SPOTTER_TPU_INT8=1, then with all three knobs, and under
              "float32" with INT8=1: the B = 8 quantized forward bit equal to
              its plain witness (every int8 wrapper routed to its plain
@@ -365,17 +371,21 @@ def phase_device(log: list) -> dict:
 
 
 def phase_build(log: list) -> dict:
-    """The eight kernel libraries, one nvcc each, started together."""
+    """The nine kernel libraries, one nvcc each, started together."""
     from spotter_tpu_torch.ops.attention import build_attention_kernel
-    from spotter_tpu_torch.ops.int8 import build_int8_gemm_kernel, build_quant_kernel
+    from spotter_tpu_torch.ops.int8 import (
+        build_int8_conv_kernel,
+        build_int8_gemm_kernel,
+        build_quant_kernel,
+    )
     from spotter_tpu_torch.ops.msda import build_msda_backends_kernel, build_msda_kernel
     from spotter_tpu_torch.ops.openvocab import build_class_logits_kernel
     from spotter_tpu_torch.tools.bench_pack_probe import build_pack_tile_kernel
     from spotter_tpu_torch.tools.profile_r101 import build_launch_probe_kernel
 
     builds = (build_msda_kernel, build_msda_backends_kernel, build_attention_kernel,
-              build_class_logits_kernel, build_int8_gemm_kernel, build_quant_kernel,
-              build_pack_tile_kernel, build_launch_probe_kernel)
+              build_class_logits_kernel, build_int8_gemm_kernel, build_int8_conv_kernel,
+              build_quant_kernel, build_pack_tile_kernel, build_launch_probe_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(build) for build in builds]
@@ -1264,7 +1274,8 @@ def kernel_counters():
             "int8_gemm": bench_int8.int8_gemm, "pack_tile": bench_pack_probe.pack_tile,
             "launch_probe": profile_r101.launch_probe,
             "amax_s8": int8.amax_s8, "quantize_s8": int8.quantize_s8,
-            "int8_gemm_kmajor": int8.int8_gemm_kmajor, "dequant_s32": int8.dequant_s32}
+            "int8_gemm_kmajor": int8.int8_gemm_kmajor, "dequant_s32": int8.dequant_s32,
+            "conv_s8": int8.conv_s8}
 
 
 def reset_counts() -> None:
@@ -1781,7 +1792,7 @@ def engine_int8_b8(engine, photos: list, px, sz, layers: int) -> dict:
                     "replay": forward_profile(lambda: graph.replay((px, sz, None, None, None)))}
     counts = graph.counts
     calls = {name: counts.get(f"quant.{name}", 0) for name in ("conv", "dense", "qk", "av")}
-    want = {"msda_gather_sum": layers, **int8_launches(calls)}
+    want = {k: v for k, v in {"msda_gather_sum": layers, **int8_launches(calls)}.items() if v}
     if {k: v for k, v in counts.items() if not k.startswith("quant.")} != want:
         raise AssertionError(f"int8 graph counts {counts}, expected {want}")
     return {"replay_vs_eager": eq, "graph_counts": counts, "profile": prof}
@@ -3566,8 +3577,8 @@ def phase_precision(log: list, seed: int, device: str = "cuda") -> dict:
 
 # --- int8 quantization ----------------------------------------------------------
 
-# the int8 kernels of the served path (ops/int8.py), in the `kernels` line
-INT8_KERNELS = ("amax_s8", "quantize_s8", "int8_gemm_kmajor", "dequant_s32")
+# the int8 kernels of the served paths (ops/int8.py), in the `kernels` line
+INT8_KERNELS = ("amax_s8", "quantize_s8", "int8_gemm_kmajor", "dequant_s32", "conv_s8")
 # --int8 level -> the switches of utils/quant.py it turns on
 INT8_LEVELS = {"conv": ("INT8",), "dense": ("INT8", "INT8_DENSE"),
                "attn": ("INT8", "INT8_DENSE", "INT8_ATTN")}
@@ -3631,19 +3642,20 @@ def int8_plan(model, level: str) -> dict:
 
 def int8_launches(calls: dict) -> dict:
     """The int8 kernels' launches for `calls` quantized calls, the weights
-    already kept: an amax and a quantize pass per activation (two
-    activations for QKᵀ and attn·V), one GEMM and one dequant per product."""
-    products = sum(calls.values())
-    activations = products + calls["qk"] + calls["av"]
+    already kept: per convolution an amax, an NHWC quantize pass and one
+    `conv_s8`; per other product an amax and a quantize pass per activation
+    (two for QKᵀ and attn·V), one GEMM and one dequant."""
+    products = calls["dense"] + calls["qk"] + calls["av"]
+    activations = calls["conv"] + products + calls["qk"] + calls["av"]
     return {"amax_s8": activations, "quantize_s8": activations,
-            "int8_gemm_kmajor": products, "dequant_s32": products}
+            "int8_gemm_kmajor": products, "dequant_s32": products, "conv_s8": calls["conv"]}
 
 
 # the int8 wrappers that the models reach (utils/quant.py calls them through
 # the ops/int8 module), each with its plain version
 PLAIN_INT8 = {name: f"{name}_reference" for name in (
     "amax_samples", "im2col_codes", "quantize_rows", "quantize_heads", "int8_gemm_kmajor",
-    "dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw")}
+    "dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw", "conv_s8")}
 
 
 def drop_weight_codes(model) -> None:
@@ -3912,9 +3924,11 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
     if rc != 0 or wrong:
         raise AssertionError(f"bench_int8_conv: exit {rc}, not exact: {wrong}")
     check_counts(counts, record["calls"], "the bench_int8_conv tool")
-    sass = bench_int8.sass_evidence(torch.device(device))
-    if device == "cuda" and sass["verdict"] != bench_int8.SASS_WGMMA_VERDICT:
-        raise AssertionError(f"int8_gemm's SASS: {sass}")
+    sass = {"int8_gemm": bench_int8.sass_evidence(torch.device(device)),
+            "conv_s8": bench_int8.sass_evidence(torch.device(device), "conv_s8")}
+    if device == "cuda" and any(v["verdict"] != bench_int8.SASS_WGMMA_VERDICT
+                                for v in sass.values()):
+        raise AssertionError(f"the int8 kernels' SASS: {sass}")
     out["tool"] = {"cases": record["cases"], "calls": record["calls"], "sass": sass}
     for case in record["cases"]:
         emit({"phase": "int8", "tool": "bench_int8_conv", **case}, log)
@@ -3940,20 +3954,39 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
             emit({"phase": "int8", **rec}, log)
             out["families"][name] = rec
     conv = next(c for c in record["cases"] if c.get("shape") == bench_int8_conv.MAIN_SHAPE)
+    main_label = f"{bench_int8_conv.MAIN_SHAPE}_{conv['dtype']}"
     dense = next(c for c in record["cases"] if c["part"] == "dense")
+    # launches: the convolution's kernels on the /detect path of the headline
+    # deployment (bfloat16 + INT8), the GEMM and the dequant, which only the
+    # other products reach, a forward of the all-knobs leg
     served = out["rtdetr"]["bfloat16_conv"]["http"]["launches"]
+    all_knobs = out["rtdetr"]["bfloat16_attn"]["launches_per_forward"]
     ms = "_ms" if device == "cuda" else "_cpu_ms"  # the tool's keys (tools/timing.py ms_key)
+    # each row names the function it timed (`case`): a kernel's row keeps its
+    # name when the pass the served path takes changes (the quantize row once
+    # timed the im2col at k = 3, the dequant row the NCHW entry)
     out["kernel_cases"] = [
-        {"phase": "int8", "kernel": name, "main": True, "launches": served[name],
-         "max_abs_err": 0.0, "kernel_ms": case[name + ms],
-         "plain_ms": case.get(f"plain_{name}{ms}"), "library_ms": library,
-         "bound_ms": case["bounds"][name]["bound_ms"],
-         "bound_by": case["bounds"][name]["bound_by"]}
-        for name, case, library in (
-            ("amax_s8", conv, conv.get("library_vector_norm" + ms)),
-            ("quantize_s8", conv, None),
-            ("int8_gemm_kmajor", dense, dense.get("library_int_mm" + ms)),
-            ("dequant_s32", conv, None))]
+        {"phase": "int8", "kernel": name, "main": True, "launches": launches,
+         "case": label, "max_abs_err": 0.0, "kernel_ms": case[key + ms],
+         "plain_ms": case.get(f"plain_{key}{ms}"), "library_ms": library,
+         "bound_ms": case["bounds"][key]["bound_ms"],
+         "bound_by": case["bounds"][key]["bound_by"]}
+        for name, key, label, case, library, launches in (
+            ("amax_s8", "amax_s8", f"samples_{main_label}", conv,
+             conv.get("library_vector_norm" + ms), served["amax_s8"]),
+            ("quantize_s8", "quantize_s8_nhwc", f"nhwc_{main_label}", conv, None,
+             served["quantize_s8"]),
+            ("int8_gemm_kmajor", "int8_gemm_kmajor", "kmajor_yolos_fc1", dense,
+             dense.get("library_int_mm" + ms), all_knobs.get("int8_gemm_kmajor", 0)),
+            ("dequant_s32", "dequant_s32_rows", "rows_yolos_fc1", dense, None,
+             all_knobs.get("dequant_s32", 0)),
+            ("conv_s8", "conv_s8", f"implicit_gemm_{main_label}", conv, None, served["conv_s8"]))]
+    # conv_s8's yardsticks, beside its row: no one PyTorch call computes an
+    # int8 convolution, so cuDNN's bf16 convolution of the same operands and
+    # the two paths' times stand next to it
+    out["kernel_cases"][-1].update({
+        "cudnn_bf16_ms": conv.get("library_cudnn_bf16" + ms), "path_ms": conv.get("path" + ms),
+        "path4_ms": conv.get("path4" + ms), "tile_n": conv["conv_s8_tile_n"]})
     emit({k: v for k, v in out.items() if k not in ("tool", "rtdetr", "families")}, log)
     return out
 
@@ -4104,6 +4137,7 @@ REPLACES = {
     "quantize_s8": "spotter_tpu/utils/quant.py:124",
     "int8_gemm_kmajor": "spotter_tpu/utils/quant.py:146",
     "dequant_s32": "spotter_tpu/utils/quant.py:154",
+    "conv_s8": "spotter_tpu/utils/quant.py:146-154",
 }
 SOURCES = {name: "spotter_tpu_torch/csrc/msda.cu" for name in REPLACES if name.startswith("msda")}
 SOURCES.update({name: "spotter_tpu_torch/csrc/attention.cu"
@@ -4115,7 +4149,8 @@ SOURCES.update({name: f"spotter_tpu_torch/csrc/{name}.cu"
 SOURCES.update({"amax_s8": "spotter_tpu_torch/csrc/quant.cu",
                 "quantize_s8": "spotter_tpu_torch/csrc/quant.cu",
                 "int8_gemm_kmajor": "spotter_tpu_torch/csrc/int8_gemm.cu",
-                "dequant_s32": "spotter_tpu_torch/csrc/quant.cu"})
+                "dequant_s32": "spotter_tpu_torch/csrc/quant.cu",
+                "conv_s8": "spotter_tpu_torch/csrc/int8_conv.cu"})
 
 
 def is_main_case(c: dict, precision: str = "highest") -> bool:
@@ -4187,6 +4222,10 @@ def kernel_summary(cases: list, launches: dict) -> dict:
         if "bound_cuda_cores_ms" in main_case:
             rows[-1]["bound_name"] = main_case["bound_name"]
             rows[-1]["bound_cuda_cores_ms"] = main_case["bound_cuda_cores_ms"]
+        # the int8 rows' measured function; conv_s8's yardsticks
+        for key in ("case", "cudnn_bf16_ms", "path_ms", "path4_ms", "tile_n"):
+            if key in main_case and (key != "case" or main_case.get("phase") == "int8"):
+                rows[-1][key] = main_case[key]
     return {"kernels": rows}
 
 
@@ -4208,7 +4247,8 @@ def main(argv=None) -> int:
         return 2
     if not all((REPO / "spotter_tpu_torch" / "csrc" / src).exists()
                for src in ("msda.cu", "msda_backends.cu", "attention.cu", "class_logits.cu",
-                           "int8_gemm.cu", "quant.cu", "pack_tile.cu", "launch_probe.cu")):
+                           "int8_gemm.cu", "int8_conv.cu", "quant.cu", "pack_tile.cu",
+                           "launch_probe.cu")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))

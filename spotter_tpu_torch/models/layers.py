@@ -41,7 +41,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from spotter_tpu_torch.ops.attention import flash_attn_bf16, flash_attn_fp32
-from spotter_tpu_torch.ops.int8 import QuantizedWeight, quantize_weight_rows
+from spotter_tpu_torch.ops.int8 import (
+    QuantizedConvWeight,
+    QuantizedWeight,
+    quantize_conv_weight,
+    quantize_weight_rows,
+)
 from spotter_tpu_torch.utils import quant
 
 
@@ -240,9 +245,9 @@ class ConvNorm(nn.Module):
         w = self.conv.weight
         return kept(self, "_cast", (w,), lambda: w.to(self.dtype))
 
-    def quantized_kernel(self) -> QuantizedWeight:
+    def quantized_kernel(self) -> QuantizedConvWeight:
         w = self.conv.weight
-        return kept(self, "_quantized", (w,), lambda: quantize_weight_rows(w.to(torch.float32)),
+        return kept(self, "_quantized", (w,), lambda: quantize_conv_weight(w.to(torch.float32)),
                     grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

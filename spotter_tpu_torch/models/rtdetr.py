@@ -46,7 +46,7 @@ from spotter_tpu_torch.models.layers import (
 )
 from spotter_tpu_torch.models.resnet import ResNetBackbone
 from spotter_tpu_torch.ops import msda
-from spotter_tpu_torch.ops.int8 import quantize_weight_rows
+from spotter_tpu_torch.ops.int8 import quantize_conv_weight
 from spotter_tpu_torch.ops.postprocess import stable_top_k
 from spotter_tpu_torch.utils.precision import compute_dtype
 from spotter_tpu_torch.utils import quant
@@ -162,7 +162,7 @@ class RepVggBlock(nn.Module):
             kernel, bias = self.fused_params()
             if quant.int8_wanted(x.shape[1], batch=x.shape[0]):
                 codes = kept(self, "_quantized", self._sources(),
-                             lambda: quantize_weight_rows(self.fused_fp32()[0]), grad=False)
+                             lambda: quantize_conv_weight(self.fused_fp32()[0]), grad=False)
                 y = quant.int8_conv(x, codes, 3, 1, 1, self.dtype)
             else:
                 y = F.conv2d(x.to(self.dtype), kernel, padding=1)

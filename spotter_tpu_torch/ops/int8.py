@@ -1,6 +1,6 @@
-"""The int8 kernels of the port: the GEMM (`csrc/int8_gemm.cu`) and the
-quantize and dequant passes around it (`csrc/quant.cu`), with their plain
-PyTorch versions.
+"""The int8 kernels of the port: the convolution (`csrc/int8_conv.cu`), the
+GEMM (`csrc/int8_gemm.cu`) and the quantize and dequant passes around them
+(`csrc/quant.cu`), with their plain PyTorch versions.
 
 The JAX package computes its int8 quantization (spotter_tpu/utils/quant.py)
 with XLA's s8 convolution and dot_general, which fuse the quantize and the
@@ -22,9 +22,16 @@ so the port runs hand-written passes around each quantized product:
 - `dequant_s32` (entries `dequant_rows`, `dequant_heads`, `dequant_av`,
   `dequant_nchw`): float(y) * (sa * sb) cast to the output dtype, a
   separate pass (the GEMM's epilogue stays the redesigned kernel's; fusing
-  it is a later speed question). The convolution's dequant writes NCHW
-  through a shared-memory tile, so the frozen BN that follows sees the
-  float path's layout.
+  it is a later speed question). `dequant_nchw` writes NCHW through a
+  shared-memory tile;
+- `conv_s8`: the quantized convolution as one implicit-GEMM kernel on
+  wgmma: NHWC codes (`im2col_codes` at kernel size 1, one byte a value)
+  gathered in place, the tap-major weight codes of `quantize_conv_weight`,
+  the dequant and the NCHW store (the float path's layout, for the frozen
+  BN that follows) in its epilogue. The served convolution is
+  `amax_samples`, that NHWC quantize and `conv_s8`; the im2col matrix,
+  the GEMM on it and `dequant_nchw` are the measurement tool's four-kernel
+  path (tools/bench_int8_conv.py).
 
 `int8_gemm` (B row-major: `transpose_s8`, then the same GEMM) is the
 measurement tool's entry (tools/bench_int8.py). Each counter adds one where
@@ -41,6 +48,7 @@ import collections
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +85,21 @@ def build_int8_gemm_kernel() -> KernelLibrary:
     lib.int8_gemm_empty_launch.restype = i32
     lib.int8_gemm_error_string.argtypes = [i32]
     lib.int8_gemm_error_string.restype = ctypes.c_char_p
+    return loaded
+
+
+@functools.cache
+def build_int8_conv_kernel() -> KernelLibrary:
+    """Build (first call only), load and bind the convolution library."""
+    loaded = load_kernel_library("int8_conv", ("int8_conv.cu",))
+    lib = loaded.lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for suffix in SUFFIX.values():
+        fn = getattr(lib, f"conv_s8_{suffix}")
+        fn.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
+        fn.restype = i32
+    lib.conv_s8_error_string.argtypes = [i32]
+    lib.conv_s8_error_string.restype = ctypes.c_char_p
     return loaded
 
 
@@ -575,6 +598,148 @@ def quantize_weight_rows(w: torch.Tensor) -> QuantizedWeight:
     flat = w.reshape(w.shape[0], -1)
     codes, scale = quantize_rows(flat, 1, pad16(flat.shape[1]))
     return QuantizedWeight(codes, scale)
+
+
+@dataclass
+class QuantizedConvWeight(QuantizedWeight):
+    """A convolution's weight as `conv_s8` takes it: codes (N, k*k*C_pad)
+    int8, tap-major ((ky, kx, c), the channel fastest, zero past C), and
+    (N,) fp32 scales."""
+
+    kernel_size: int = 1
+
+    @property
+    def c_pad(self) -> int:
+        return self.codes.shape[1] // self.kernel_size**2
+
+
+def quantize_conv_weight(w: torch.Tensor) -> QuantizedConvWeight:
+    """An OIHW weight (N, C, k, k) fp32 -> its tap-major codes and
+    per-output-channel scales, through the rows layout. The zero channels
+    past C change no amax, so the codes are the OIHW codes permuted."""
+    n, c, k, _ = w.shape
+    taps = F.pad(w.permute(0, 2, 3, 1), (0, pad16(c) - c)).reshape(n, -1)
+    codes, scale = quantize_rows(taps, 1, taps.shape[1])
+    return QuantizedConvWeight(codes, scale, k)
+
+
+# --- conv_s8 ------------------------------------------------------------------------
+
+CONV_TILE_NS = (64, 128, 192)  # conv_s8's tile widths in output channels
+CONV_TILE_M = 128  # conv_s8's output pixels a block
+
+
+def conv_tile_n(n: int, m: int, multiprocessors: int) -> int:
+    """`conv_s8`'s tile width for N output channels and M output pixels:
+    the fewest idle columns, then the widest tile (N = 384: two tiles of
+    192), unless that leaves multiprocessors idle and a narrower tile as
+    frugal gives more blocks (csp20: 75 blocks of 128 beat 50 of 192)."""
+    rank = sorted(CONV_TILE_NS, key=lambda bn: (-(-n // bn) * bn, -bn))
+    m_tiles = -(-m // CONV_TILE_M)
+    best = rank[0]
+    if m_tiles * -(-n // best) < multiprocessors:
+        narrower = [bn for bn in rank if bn < best and -(-n // bn) * bn == -(-n // best) * best]
+        best = narrower[0] if narrower else best
+    return best
+
+
+def default_tile_n(n: int, m: int, device: torch.device) -> int:
+    """The tile width `conv_s8` takes on `device` when none is given."""
+    return conv_tile_n(n, m, _multiprocessors(device))
+
+
+def conv_out_hw(h: int, w: int, kernel_size: int, stride: int, padding: int) -> tuple[int, int]:
+    return ((h + 2 * padding - kernel_size) // stride + 1,
+            (w + 2 * padding - kernel_size) // stride + 1)
+
+
+def conv_s8_reference(x: torch.Tensor, w: torch.Tensor, sa: torch.Tensor, sw: torch.Tensor,
+                      kernel_size: int, stride: int, padding: int,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of `conv_s8`: the codes convolved in float64, a
+    product a tap (exact: |sum| <= K * 127**2 < 2**53), then
+    (y.float() * (sa[b] * sw[n])).to(out_dtype), contiguous NCHW."""
+    b, h, wd, cp = x.shape
+    n, k = w.shape[0], kernel_size
+    ho, wo = conv_out_hw(h, wd, k, stride, padding)
+    xf = F.pad(x.to(torch.float64), (0, 0, padding, padding, padding, padding))
+    wf = w.to(torch.float64).view(n, k, k, cp)
+    y = torch.zeros((b * ho * wo, n), dtype=torch.float64, device=x.device)
+    for ky in range(k):
+        for kx in range(k):
+            rows = slice(ky, ky + stride * (ho - 1) + 1, stride)
+            cols = slice(kx, kx + stride * (wo - 1) + 1, stride)
+            y += xf[:, rows, cols].reshape(-1, cp) @ wf[:, ky, kx].t()
+    s = sa.view(-1, 1, 1, 1) * sw.view(1, 1, 1, n)
+    out = (y.view(b, ho, wo, n).to(torch.float32) * s).to(out_dtype)
+    return out.permute(0, 3, 1, 2).contiguous()
+
+
+def _conv_checks(x, w, sa, sw, kernel_size: int, stride: int, padding: int, out_dtype) -> None:
+    name = "conv_s8"
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"{name}: codes must be int8, got {x.dtype}, {w.dtype}")
+    if sa.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be fp32, got {sa.dtype}, {sw.dtype}")
+    if out_dtype not in SUFFIX:
+        raise TypeError(f"{name}: writes float32 or bfloat16, not {out_dtype}")
+    if x.dim() != 4 or w.dim() != 2 or x.shape[3] % TILE_MULTIPLE or x.shape[3] == 0:
+        raise ValueError(f"{name}: expected NHWC codes (B, H, W, C_pad), C_pad a multiple of "
+                         f"{TILE_MULTIPLE}, and (N, k*k*C_pad) weight codes; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    k = w.shape[1]
+    if k != kernel_size**2 * x.shape[3] or sa.shape != (x.shape[0],) or sw.shape != (w.shape[0],):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} is not {kernel_size}x{kernel_size} "
+                         f"over {x.shape[3]} channels, or scales {tuple(sa.shape)}, "
+                         f"{tuple(sw.shape)} do not fit")
+    if k > MAX_K:
+        raise ValueError(f"{name}: K = {k} > {MAX_K} could overflow int32")
+    if stride < 1 or padding < 0 or min(conv_out_hw(x.shape[1], x.shape[2], kernel_size, stride,
+                                                     padding)) < 1:
+        raise ValueError(f"{name}: no output at stride {stride}, padding {padding} on "
+                         f"{tuple(x.shape)}")
+    if len({t.device for t in (x, w, sa, sw)}) != 1:
+        raise ValueError(f"{name}: operands on {[str(t.device) for t in (x, w, sa, sw)]}")
+
+
+def conv_s8(x: torch.Tensor, w: torch.Tensor, sa: torch.Tensor, sw: torch.Tensor,
+            kernel_size: int, stride: int, padding: int, out_dtype: torch.dtype,
+            tile_n: Optional[int] = None) -> torch.Tensor:
+    """The quantized convolution: NHWC codes x (B, H, W, C_pad) int8 and the
+    tap-major weight codes w (N, k*k*C_pad) int8 (`quantize_conv_weight`),
+    per-sample scales sa (B,) and per-output-channel scales sw (N,) fp32
+    -> float(conv) * (sa[b] * sw[n]) as contiguous NCHW (B, N, Ho, Wo)
+    `out_dtype`, zero padding, stride. On a CUDA tensor the kernel
+    (contiguous, 16-byte aligned operands), `tile_n` output channels a
+    tile (default `conv_tile_n`), as many blocks as the card holds at once
+    walking the tiles; on a CPU tensor the plain version; any other device
+    raises. Every call notes its FLOPs, 2·M·N·K."""
+    _device_of("conv_s8", x)
+    _conv_checks(x, w, sa, sw, kernel_size, stride, padding, out_dtype)
+    b, h, wd, cp = x.shape
+    n = w.shape[0]
+    ho, wo = conv_out_hw(h, wd, kernel_size, stride, padding)
+    note_kernel_flops("conv_s8", 2 * b * ho * wo * n * w.shape[1])
+    if x.device.type == "cpu":
+        return conv_s8_reference(x, w, sa, sw, kernel_size, stride, padding, out_dtype)
+    if tile_n is None:
+        tile_n = default_tile_n(n, b * ho * wo, x.device)
+    if tile_n not in CONV_TILE_NS:
+        raise ValueError(f"conv_s8: tile widths are {CONV_TILE_NS}, not {tile_n}")
+    if not all(t.is_contiguous() for t in (x, w, sa, sw)) or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("conv_s8: operands must be contiguous and 16-byte aligned")
+    out = torch.empty((b, n, ho, wo), dtype=out_dtype, device=x.device)
+    lib = build_int8_conv_kernel().lib
+    with torch.cuda.device(x.device):
+        code = getattr(lib, f"conv_s8_{SUFFIX[out_dtype]}")(
+            x.data_ptr(), w.data_ptr(), sa.data_ptr(), sw.data_ptr(), out.data_ptr(), b, h, wd,
+            cp, n, kernel_size, stride, padding, tile_n, _stream(x.device))
+    _raise_on("conv_s8", code, lib.conv_s8_error_string)
+    conv_s8.launches += 1
+    return out
+
+
+conv_s8.launches = 0  # kernel launches since the count was last reset
 
 
 # --- dequant_s32 ------------------------------------------------------------------

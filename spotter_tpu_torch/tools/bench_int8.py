@@ -48,6 +48,7 @@ from spotter_tpu_torch.ops.int8 import (  # noqa: F401  (the tool's kernel, boun
     MAX_K,
     TILE_MULTIPLE,
     _check_kernel_operands,
+    build_int8_conv_kernel,
     build_int8_gemm_kernel,
     empty_launch,
     int8_gemm,
@@ -155,24 +156,35 @@ def size_case(n: int, seed: int, iters: int, device: torch.device, flush, calls:
     return rec
 
 
-def sass_evidence(device: torch.device) -> dict:
-    """The built GEMM kernel's SASS, grepped for the int8 tensor-core ops:
-    the wgmma path is IGMMA; IMMA (mma.sync) or a float MMA (HMMA, HGMMA)
-    would mean the kernel is not the wgmma int8 path."""
+# the wgmma int8 kernels whose SASS `sass_evidence` reads: (library build,
+# the kernel's name in the listing); every instantiation of it is read
+SASS_KERNELS = {"int8_gemm": (build_int8_gemm_kernel, "int8_gemm_kernel"),
+                "conv_s8": (build_int8_conv_kernel, "conv_s8_kernel")}
+
+
+def sass_evidence(device: torch.device, kernel: str = "int8_gemm") -> dict:
+    """The built kernel's SASS (int8_gemm's GEMM, or every instantiation of
+    conv_s8), grepped for the int8 tensor-core ops: the wgmma path is IGMMA;
+    IMMA (mma.sync) or a float MMA (HMMA, HGMMA) would mean the kernel is
+    not the wgmma int8 path."""
     if device.type != "cuda":
         return {"part": "sass", "verdict": "not available on the CPU (no CUDA toolkit)"}
-    functions = sass_functions(disassemble(build_int8_gemm_kernel().path))
-    gemm = next(body for name, body in functions.items() if "int8_gemm_kernel" in name)
-    opcodes = [line.split()[1] if line.startswith("@") else line.split()[0] for line in gemm]
+    build, fragment = SASS_KERNELS[kernel]
+    functions = sass_functions(disassemble(build().path))
+    bodies = [body for name, body in functions.items() if fragment in name]
+    code = [line for body in bodies for line in body]
+    opcodes = [line.split()[1] if line.startswith("@") else line.split()[0] for line in code]
     igmma = [op for op in opcodes if op.startswith("IGMMA")]
     imma = [op for op in opcodes if op.startswith("IMMA")]
     float_mma = [op for op in opcodes if re.match(r"H(G)?MMA", op)]
+    each_igmma = all(any("IGMMA" in line for line in body) for body in bodies)
     return {
-        "part": "sass", "instructions": len(opcodes), "igmma_ops": len(igmma),
+        "part": "sass", "sass_of": kernel, "functions": len(bodies),
+        "instructions": len(opcodes), "igmma_ops": len(igmma),
         "imma_ops": len(imma), "int8_mma_kinds": sorted(set(igmma + imma)),
         "float_mma_ops": len(float_mma),
-        "examples": [line for line in gemm if "MMA" in line][:4],
-        "verdict": (SASS_WGMMA_VERDICT if igmma and not imma and not float_mma
+        "examples": [line for line in code if "MMA" in line][:4],
+        "verdict": (SASS_WGMMA_VERDICT if bodies and each_igmma and not imma and not float_mma
                     else "int8 wgmma path NOT in the SASS"),
     }
 

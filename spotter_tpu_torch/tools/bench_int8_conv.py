@@ -1,51 +1,64 @@
-"""The int8 convolution path on the card at the model's shapes
-(counterpart of tools/bench_int8_conv.py).
+"""The int8 convolution on the card at the model's shapes (counterpart of
+tools/bench_int8_conv.py).
 
 The JAX tool times XLA's bf16 and int8 `conv_general_dilated` at the seven
 shapes that dominate the RT-DETRv2-R101 forward (the CSP RepVGG 3x3 convs
 at 384 channels on 80², 40² and 20²; the backbone's 3x3 at 160²x64, 80²x128
 and 40²x256; a 1x1 projection 40² 256 -> 1024; B = 8, stride 1, "SAME"
-padding). Here the same seven, through the port's int8 conv path (the
-hand-written passes of ops/int8.py, the route utils/quant.py's `int8_conv`
-takes): `quantize_im2col` (`amax_samples`, then `im2col_codes`),
-`int8_gemm_kmajor` on the layer's kept weight codes, `dequant_nchw`. Per
-shape:
+padding). Here the same seven, through the port's two int8 conv paths:
+
+- the served path, utils/quant.py's `int8_conv` (three kernels):
+  `amax_samples`, `im2col_codes` at kernel size 1 (the NHWC codes, one byte
+  a value), and `conv_s8` on the layer's kept tap-major weight codes
+  (`quantize_conv_weight`), which gathers the codes in place and
+  dequantizes in its epilogue;
+- the four-kernel path it replaced, kept here as a yardstick:
+  `amax_samples`, `im2col_codes` at the conv's kernel size (the im2col
+  matrix), `int8_gemm_kmajor` on the OIHW weight codes
+  (`quantize_weight_rows`), `dequant_nchw`.
+
+Per shape:
 
 - each kernel against its plain version on the same card inputs: the amax,
-  codes and scales exact, int32 products exact, the dequantized output bit
-  equal;
+  codes and scales exact, int32 products exact, the dequantized outputs
+  bit equal; both paths' outputs bit equal to each other;
 - each kernel's time (CUDA events, a cold L2) and its bound (bytes or
   operations, whichever takes longer); the plain versions' times; the im2col
   matrix's bytes;
-- the whole path's time beside cuDNN's bf16 convolution of the same
-  operands (`F.conv2d`), and the amax pass's beside
+- on the card, `conv_s8` at each of its tile widths and with a block a
+  tile (not the persistent grid it launches by default);
+- both paths' times beside cuDNN's bf16 convolution of the same operands
+  (`F.conv2d`), and the amax pass's beside
   `torch.linalg.vector_norm(x, inf)` over each sample: yardsticks only, the
   port never calls them on an int8 path.
 
 Each conv case records which path of the amax and im2col passes served it
-(`fast`, or `general`: a strided view) and the amax's partials a sample.
-MAIN_SHAPE runs in float32 too (the `float32` + INT8 path), and the im2col
-entry is held exact at its COVERAGE list (ragged tiles, C not a multiple of
-16, k_pad past K, kernel sizes 1, 3 and 7 at strides 1 and 2, NCHW and
-channels-last inputs, fp32 and bf16).
+(`fast`, or `general`: a strided view), the amax's partials a sample and
+`conv_s8`'s tile width. MAIN_SHAPE runs in float32 too (the `float32` +
+INT8 path). The im2col entry is held exact at its COVERAGE list (ragged
+tiles, C not a multiple of 16, k_pad past K, kernel sizes 1, 3 and 7 at
+strides 1 and 2, NCHW and channels-last inputs, fp32 and bf16), and
+`conv_s8` at every SERVED_CONVS shape (the seven families' quantized
+convolutions) in fp32 and bf16.
 
 Two more cases put the GEMM and the passes at the served paths' other
 shapes: a dense projection at YOLOS-base's M = 8 x 4301 = 34,408 rows
 (ragged), 768 -> 3072, beside `torch._int_mm` (cuBLASLt's int8 GEMM, B
 column-major, the faster layout), and the attention products at RT-DETR's
 decoder (B·H 64, Tq = Tk = 300, hd 32: QKᵀ and attn·V, batched); on the
-card each times the amax pass and its quantize entry (`rows`; `heads` and
-`heads_t`) apart, beside their bounds and the entries' plain versions.
+card each times the amax pass and its quantize entry (`rows`, with the
+dense dequant; `heads` and `heads_t`) apart, beside their bounds and the
+entries' plain versions.
 
     python -m spotter_tpu_torch.tools.bench_int8_conv [--iters 10] [--seed 0]
         [--shapes csp80,bb_s1] [--device cpu] [--out build/bench_int8_conv.json]
 
 `--shapes` runs only the named conv shapes (the float32 case among them if
-MAIN_SHAPE is named), without the coverage list and the dense and attention
-cases. Runs on cuda unless --device cpu is given (then the wrappers take
-their plain versions, every time is a host-clock CPU time, and --shapes
-should name small ones). Prints one JSON line per case and writes the
-record.
+MAIN_SHAPE is named), without the coverage and served lists and the dense
+and attention cases. Runs on cuda unless --device cpu is given (then the
+wrappers take their plain versions, every time is a host-clock CPU time,
+and --shapes should name small ones). Prints one JSON line per case and
+writes the record.
 """
 
 import argparse
@@ -98,7 +111,24 @@ COVERAGE = (
     ((2, 200, 10, 24), 1, 1, 0, 16),
     ((2, 3, 32, 32), 7, 2, 3, 0),
 )
-WARMUP = {"cuda": 3, "cpu": 1}  # the calls time_ms makes before it times, by device
+# every quantized convolution (C, N, k, stride, padding) of the seven
+# families at full width (RT-DETRv2-R101 under each policy, the ResNet-50
+# backbones and input projections of Deformable-DETR and the DETR lineage;
+# YOLOS and the OWL models quantize no convolution), from a walk of their
+# module trees with utils/quant.py's channel floor; conv_s8 is held exact at
+# each, on SERVED_HW inputs at the batch floor
+SERVED_CONVS = (
+    (64, 64, 1, 1, 0), (64, 64, 3, 1, 1), (64, 256, 1, 1, 0), (128, 128, 3, 1, 1),
+    (128, 128, 3, 2, 1), (128, 512, 1, 1, 0), (256, 64, 1, 1, 0), (256, 128, 1, 1, 0),
+    (256, 256, 3, 1, 1), (256, 256, 3, 2, 1), (256, 512, 1, 1, 0), (256, 512, 1, 2, 0),
+    (256, 1024, 1, 1, 0), (384, 256, 1, 1, 0), (384, 384, 1, 1, 0), (384, 384, 3, 1, 1),
+    (384, 384, 3, 2, 1), (512, 128, 1, 1, 0), (512, 256, 1, 1, 0), (512, 384, 1, 1, 0),
+    (512, 512, 3, 1, 1), (512, 512, 3, 2, 1), (512, 1024, 1, 1, 0), (512, 1024, 1, 2, 0),
+    (512, 2048, 1, 1, 0), (768, 384, 1, 1, 0), (1024, 256, 1, 1, 0), (1024, 384, 1, 1, 0),
+    (1024, 512, 1, 1, 0), (1024, 2048, 1, 1, 0), (1024, 2048, 1, 2, 0), (2048, 384, 1, 1, 0),
+    (2048, 512, 1, 1, 0),
+)
+SERVED_HW = (8, 21, 17)  # B at the batch floor; H x W odd, so tiles straddle samples
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -124,19 +154,38 @@ def _path_counts() -> dict:
     return {"amax_s8": int8.amax_s8.paths.copy(), "quantize_s8": int8.quantize_s8.paths.copy()}
 
 
+def _tile_n(n: int, m: int, device):
+    """The tile width conv_s8 takes at N, M on the card, or "plain"."""
+    return int8.default_tile_n(n, m, device) if device.type == "cuda" else "plain"
+
+
+def _weights(rng, cin: int, cout: int, k: int, device):
+    wt = torch.from_numpy((rng.standard_normal((cout, cin, k, k), dtype=np.float32)
+                           / np.sqrt(cin * k * k)).astype(np.float32)).to(device)
+    return wt, int8.quantize_conv_weight(wt)
+
+
+def _tap_codes_exact(qc, wt) -> bool:
+    """The tap-major weight codes and scales against utils/quant.py's
+    OIHW codes, permuted and zero past C."""
+    codes, scale = quant.quantize_weight(wt)
+    cout, cin, k, _ = wt.shape
+    want = F.pad(codes.permute(0, 2, 3, 1), (0, qc.c_pad - cin)).reshape(cout, -1)
+    return _equal(qc.codes, want) and _equal(qc.scale, scale)
+
+
 def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -> dict:
-    """One of the seven shapes in `dtype`: each kernel exact against its
-    plain version on the card's inputs; times and bounds; cuDNN's bf16 conv
-    beside."""
+    """One of the seven shapes in `dtype`: each kernel of both paths exact
+    against its plain version on the card's inputs, the two paths' outputs
+    bit equal; times and bounds; cuDNN's bf16 conv beside."""
     name, b, h, w, cin, cout, k, stride = shape
     pad = (k - 1) // 2  # "SAME" at stride 1
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((b, cin, h, w), dtype=np.float32)).to(device)
     x = x.to(dtype)
-    wt = torch.from_numpy((rng.standard_normal((cout, cin, k, k), dtype=np.float32)
-                           / np.sqrt(cin * k * k)).astype(np.float32)).to(device)
+    wt, qc = _weights(rng, cin, cout, k, device)
     qw = int8.quantize_weight_rows(wt)
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    ho, wo = int8.conv_out_hw(h, w, k, stride, pad)
 
     def amax():
         calls["amax_s8"] += 1
@@ -146,6 +195,10 @@ def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -
         calls["quantize_s8"] += 1
         return int8.im2col_codes(x, ax, k, stride, pad, qw.k_pad)
 
+    def quantize_nhwc():
+        calls["quantize_s8"] += 1
+        return int8.im2col_codes(x, ax, 1, 1, 0, qc.c_pad)
+
     def gemm():
         calls["int8_gemm_kmajor"] += 1
         return int8.int8_gemm_kmajor(codes, qw.codes)
@@ -154,8 +207,27 @@ def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -
         calls["dequant_s32"] += 1
         return int8.dequant_nchw(y, sx, qw.scale, b, ho, wo, dtype)
 
-    calls["amax_s8"] += 1  # the weight's codes above
-    calls["quantize_s8"] += 1
+    def conv():
+        calls["conv_s8"] += 1
+        return int8.conv_s8(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
+
+    def path():  # the served route, three kernels
+        calls["amax_s8"] += 1
+        calls["quantize_s8"] += 1
+        calls["conv_s8"] += 1
+        return quant.int8_conv(x, qc, k, stride, pad, dtype)
+
+    def path4():  # the route it replaced, four kernels
+        calls["amax_s8"] += 1
+        calls["quantize_s8"] += 1
+        calls["int8_gemm_kmajor"] += 1
+        calls["dequant_s32"] += 1
+        c4, s4 = int8.quantize_im2col(x, k, stride, pad, qw.k_pad)
+        return int8.dequant_nchw(int8.int8_gemm_kmajor(c4, qw.codes), s4, qw.scale, b, ho, wo,
+                                 dtype)
+
+    calls["amax_s8"] += 2  # the weights' codes above, both layouts
+    calls["quantize_s8"] += 2
     before = _path_counts()
     ax = amax()
     want_ax = int8.amax_samples_reference(x)
@@ -168,56 +240,112 @@ def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -
     out = dequant()
     n_out = out.numel()
     want_out = int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, dtype)
+    nhwc, sx_nhwc = quantize_nhwc()
+    want_nhwc, want_sx_nhwc = int8.im2col_codes_reference(x, ax, 1, 1, 0, qc.c_pad)
+    nhwc = nhwc.view(b, h, w, -1)
+    out3 = conv()
+    want_out3 = int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
     m, kk = codes.shape
     rec = {
         "part": "conv", "shape": name, "dtype": str(dtype).removeprefix("torch."), "b": b,
         "h": h, "w": w, "cin": cin, "cout": cout, "k": k, "stride": stride,
-        "im2col_bytes": m * kk, "k_pad": kk, "amax_parts": ax.shape[1], "paths": paths,
+        "im2col_bytes": m * kk, "k_pad": kk, "c_pad": qc.c_pad, "amax_parts": ax.shape[1],
+        "paths": paths, "conv_s8_tile_n": _tile_n(cout, b * ho * wo, device),
         "amax_exact": _equal(ax.amax(1), want_ax.amax(1)),
         "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
+        "nhwc_codes_exact": (_equal(nhwc.view(-1, qc.c_pad), want_nhwc)
+                             and _equal(sx_nhwc, want_sx_nhwc) and _equal(sx_nhwc, sx)),
         "weight_codes_exact": (_equal(qw.codes[:, :cin * k * k], want_w[0].reshape(cout, -1))
-                               and _equal(qw.scale, want_w[1])),
+                               and _equal(qw.scale, want_w[1]) and _tap_codes_exact(qc, wt)),
         "gemm_exact": _equal(y, want_y),
         "dequant_bit_equal": _equal(out, want_out),
+        "conv_s8_bit_equal": _equal(out3, want_out3),
+        "paths_bit_equal": _equal(out3, out),
     }
-    rec["exact"] = all(rec[key] for key in ("amax_exact", "codes_exact", "weight_codes_exact",
-                                            "gemm_exact", "dequant_bit_equal"))
-    del want_codes, want_y, want_out
+    rec["exact"] = all(rec[key] for key in (
+        "amax_exact", "codes_exact", "nhwc_codes_exact", "weight_codes_exact", "gemm_exact",
+        "dequant_bit_equal", "conv_s8_bit_equal", "paths_bit_equal"))
+    del want_codes, want_y, want_out, want_out3
     ops = 2 * m * cout * cin * k * k
     x_bytes, part_bytes = x.numel() * x.element_size(), ax.numel() * 4
+    nhwc_bytes, out_bytes = nhwc.numel(), n_out * out.element_size()
     rec["bounds"] = {
         "amax_s8": bound(x_bytes + part_bytes, 0),
         "quantize_s8": bound(x_bytes + part_bytes + b * 4 + m * kk, 0),
+        "quantize_s8_nhwc": bound(x_bytes + part_bytes + b * 4 + nhwc_bytes, 0),
         "int8_gemm_kmajor": bound(m * kk + cout * kk + m * cout * 4, ops),
-        "dequant_s32": bound(m * cout * 4 + n_out * out.element_size(), 0),
-        "path": bound(x_bytes + cout * kk + n_out * out.element_size(), ops),
+        "dequant_s32": bound(m * cout * 4 + out_bytes, 0),
+        "conv_s8": bound(nhwc_bytes + qc.codes.numel() + (b + cout) * 4 + out_bytes, ops),
+        "path": bound(x_bytes + qc.codes.numel() + out_bytes, ops),
     }
     xbf, wbf = x.to(torch.bfloat16), wt.to(torch.bfloat16)
     times = {
         "amax_s8": time_ms(amax, iters, device, flush),
         "quantize_s8": time_ms(quantize, iters, device, flush),
+        "quantize_s8_nhwc": time_ms(quantize_nhwc, iters, device, flush),
         "int8_gemm_kmajor": time_ms(gemm, iters, device, flush),
         "dequant_s32": time_ms(dequant, iters, device, flush),
-        "path": time_ms(lambda: quant.int8_conv(x, qw, k, stride, pad, dtype), iters,
-                        device, flush),
+        "conv_s8": time_ms(conv, iters, device, flush),
+        "path": time_ms(path, iters, device, flush),
+        "path4": time_ms(path4, iters, device, flush),
         "plain_amax_s8": time_ms(lambda: int8.amax_samples_reference(x), 2, device, flush),
         "plain_quantize_s8": time_ms(
             lambda: int8.im2col_codes_reference(x, ax, k, stride, pad, qw.k_pad), 2, device,
             flush),
+        "plain_quantize_s8_nhwc": time_ms(
+            lambda: int8.im2col_codes_reference(x, ax, 1, 1, 0, qc.c_pad), 2, device, flush),
         "plain_int8_gemm_kmajor": time_ms(
             lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush),
         "plain_dequant_s32": time_ms(
             lambda: int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, dtype), 2,
             device, flush),
+        "plain_conv_s8": time_ms(
+            lambda: int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype),
+            2, device, flush),
         "library_cudnn_bf16": time_ms(lambda: F.conv2d(xbf, wbf, None, stride, pad), iters,
                                       device, flush),
         "library_vector_norm": time_ms(
             lambda: torch.linalg.vector_norm(x, float("inf"), dim=(1, 2, 3)), iters, device,
             flush),
     }
-    for kernel in ("amax_s8", "quantize_s8", "int8_gemm_kmajor", "dequant_s32"):
-        calls[kernel] += iters + WARMUP[device.type]  # the path's calls
+    if device.type == "cuda":  # conv_s8 at each tile width
+        for tile_n in int8.CONV_TILE_NS:
+            times[f"conv_s8_tile{tile_n}"] = time_ms(
+                lambda: int8.conv_s8(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype,
+                                     tile_n=tile_n), iters, device, flush)
+        calls["conv_s8"] += len(int8.CONV_TILE_NS) * (iters + 3)  # cuda_time_ms's warmup
     rec.update({ms_key(key, device): value for key, value in times.items()})
+    return rec
+
+
+def served_case(shape, dtype, seed: int, device, calls: dict) -> dict:
+    """`conv_s8` at one SERVED_CONVS shape on SERVED_HW inputs, through the
+    served route's passes: the NHWC codes and the output bit equal to the
+    plain versions on the same card inputs."""
+    cin, cout, k, stride, pad = shape
+    b, h, w = SERVED_HW
+    rng = np.random.default_rng(seed + sum(shape))
+    x = torch.from_numpy(rng.standard_normal((b, cin, h, w), dtype=np.float32)).to(device)
+    x = x.to(dtype)
+    wt, qc = _weights(rng, cin, cout, k, device)
+    calls["amax_s8"] += 2  # the weight's codes, and x's
+    calls["quantize_s8"] += 2
+    calls["conv_s8"] += 1
+    ax = int8.amax_samples(x)
+    nhwc, sx = int8.im2col_codes(x, ax, 1, 1, 0, qc.c_pad)
+    want_nhwc, want_sx = int8.im2col_codes_reference(x, ax, 1, 1, 0, qc.c_pad)
+    nhwc = nhwc.view(b, h, w, -1)
+    out = int8.conv_s8(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
+    want = int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
+    rec = {"part": "served", "cin": cin, "cout": cout, "k": k, "stride": stride, "pad": pad,
+           "x": [b, cin, h, w], "dtype": str(dtype).removeprefix("torch."),
+           "conv_s8_tile_n": _tile_n(cout, out.shape[0] * out.shape[2] * out.shape[3], device),
+           "nhwc_codes_exact": (_equal(nhwc.view(-1, qc.c_pad), want_nhwc)
+                                and _equal(sx, want_sx)),
+           "weight_codes_exact": _tap_codes_exact(qc, wt),
+           "conv_s8_bit_equal": _equal(out, want)}
+    rec["exact"] = (rec["nhwc_codes_exact"] and rec["weight_codes_exact"]
+                    and rec["conv_s8_bit_equal"])
     return rec
 
 
@@ -307,13 +435,21 @@ def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
                      "quantize_s8_rows": bound(x_bytes + b * parts * 4 + b * 4 + m * qw.k_pad,
                                                0),
                      "int8_gemm_kmajor": bound(m * kdim + n * kdim + m * n * 4, ops),
-                     "dequant_s32": bound(m * n * 4 + m * n * 2, 0)}
+                     "dequant_s32_rows": bound(m * n * 4 + m * n * 2, 0)}
 
     def gemm():
         calls["int8_gemm_kmajor"] += 1
         return int8.int8_gemm_kmajor(codes, qw.codes)
 
+    def dequant():
+        calls["dequant_s32"] += 1
+        return int8.dequant_rows(y, sx, qw.scale, t, torch.bfloat16)
+
     times["int8_gemm_kmajor"] = time_ms(gemm, iters, device, flush)
+    times["dequant_s32_rows"] = time_ms(dequant, iters, device, flush)
+    times["plain_dequant_s32_rows"] = time_ms(
+        lambda: int8.dequant_rows_reference(y, sx, qw.scale, t, torch.bfloat16), 2, device,
+        flush)
     times["plain_int8_gemm_kmajor"] = time_ms(
         lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush)
     rec.update({ms_key(key, device): value for key, value in times.items()})
@@ -393,7 +529,8 @@ def attention_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
 def run(args) -> dict:
     device = resolve_device(args.device)
     flush = l2_flush_buffer(device) if device.type == "cuda" else None
-    calls = {"amax_s8": 0, "quantize_s8": 0, "int8_gemm_kmajor": 0, "dequant_s32": 0}
+    calls = {"amax_s8": 0, "quantize_s8": 0, "int8_gemm_kmajor": 0, "dequant_s32": 0,
+             "conv_s8": 0}
     record = {"tool": "bench_int8_conv", **device_record(device), "seed": args.seed, "cases": []}
 
     def emit(rec):
@@ -412,6 +549,9 @@ def run(args) -> dict:
                 for channels_last in (False, True):
                     emit(coverage_case(xshape, k, stride, pad, dtype, channels_last, extra,
                                        args.seed, device, calls))
+        for shape in SERVED_CONVS:
+            for dtype in (torch.float32, torch.bfloat16):
+                emit(served_case(shape, dtype, args.seed, device, calls))
         emit(dense_case(args.seed, args.iters, device, flush, calls))
         emit(attention_case(args.seed, args.iters, device, flush, calls))
     record["calls"] = calls  # the wrappers' calls: on the card, their launches
@@ -423,8 +563,8 @@ def parse_args(argv):
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--shapes", default="", type=lambda s: [v for v in s.split(",") if v],
-                    help="names of SHAPES to run (default: all, the coverage list, and the "
-                         "dense and attention cases)")
+                    help="names of SHAPES to run (default: all, the coverage and served "
+                         "lists, and the dense and attention cases)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=str(REPO / "build" / "bench_int8_conv.json"))
     return ap.parse_args(argv)

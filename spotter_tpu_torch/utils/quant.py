@@ -31,8 +31,9 @@ always quantized from its fp32 master, whatever the policy.
 The functions here are the plain PyTorch versions, which the tests hold
 against the JAX package: products in float64 on the codes, exact since
 |sum| <= K * 127**2 < 2**53. The models call `int8_conv`, `int8_dense`,
-`int8_qk` and `int8_av`, which run the kernels of ops/int8.py (a quantize
-pass, the int8 GEMM, a dequant pass) on a CUDA tensor and their plain
+`int8_qk` and `int8_av`, which run the kernels of ops/int8.py on a CUDA
+tensor (the convolution: an amax and an NHWC quantize pass, then `conv_s8`;
+the others: a quantize pass, the int8 GEMM, a dequant pass) and their plain
 versions on a CPU tensor. The straight-through backward of the JAX
 package's custom_vjp belongs to training and is not ported.
 """
@@ -163,19 +164,22 @@ def int8_av_reference(w: torch.Tensor, v: torch.Tensor, out_dtype: torch.dtype) 
 # --- the models' entry points -----------------------------------------------------
 
 
-def int8_conv(x: torch.Tensor, weight: kernels.QuantizedWeight, kernel_size: int, stride: int,
-              padding: int, out_dtype: torch.dtype) -> torch.Tensor:
+def int8_conv(x: torch.Tensor, weight: kernels.QuantizedConvWeight, kernel_size: int,
+              stride: int, padding: int, out_dtype: torch.dtype) -> torch.Tensor:
     """The quantized convolution of ConvNorm and the fused RepVGG block:
     NCHW x -> NCHW `out_dtype`. `weight` is the layer's kept quantized
-    kernel (`kernels.quantize_weight_rows` of its fp32 master). Kernels: the
-    im2col quantize pass, the int8 GEMM, the NCHW dequant."""
+    kernel (`kernels.quantize_conv_weight` of its fp32 master, tap-major).
+    Kernels: the amax pass, the quantize pass into NHWC codes (the im2col
+    entry at kernel size 1: one byte a value), then `conv_s8`, which
+    gathers the codes in place and dequantizes in its epilogue."""
+    if weight.kernel_size != kernel_size:
+        raise ValueError(f"int8_conv: a {weight.kernel_size}x{weight.kernel_size} weight "
+                         f"for a {kernel_size}x{kernel_size} convolution")
     CALLS["conv"] += 1
-    xq, sx = kernels.quantize_im2col(x, kernel_size, stride, padding, weight.k_pad)
-    y = kernels.int8_gemm_kmajor(xq, weight.codes)
     b, _, h, w = x.shape
-    ho = (h + 2 * padding - kernel_size) // stride + 1
-    wo = (w + 2 * padding - kernel_size) // stride + 1
-    return kernels.dequant_nchw(y, sx, weight.scale, b, ho, wo, out_dtype)
+    xq, sx = kernels.im2col_codes(x, kernels.amax_samples(x), 1, 1, 0, weight.c_pad)
+    return kernels.conv_s8(xq.view(b, h, w, -1), weight.codes, sx, weight.scale, kernel_size,
+                           stride, padding, out_dtype)
 
 
 def int8_dense(x: torch.Tensor, weight: kernels.QuantizedWeight,

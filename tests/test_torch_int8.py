@@ -190,7 +190,7 @@ def test_int8_conv_is_bit_equal_to_jax(dtype, k, stride, pad):
     xt = torch.from_numpy(x).to(td)
     wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
     ref = tquant.int8_conv_reference(xt, wt, stride, pad, td)
-    got = tquant.int8_conv(xt, tint8.quantize_weight_rows(wt), k, stride, pad, td)
+    got = tquant.int8_conv(xt, tint8.quantize_conv_weight(wt), k, stride, pad, td)
     assert got.dtype == td and got.is_contiguous()
     np.testing.assert_array_equal(_np(ref), want)
     np.testing.assert_array_equal(_np(got), want)
@@ -585,12 +585,17 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_raise_elsewhere(monkeypa
     builds = []
     monkeypatch.setattr(tint8, "build_quant_kernel", lambda: builds.append(1))
     monkeypatch.setattr(tint8, "build_int8_gemm_kernel", lambda: builds.append(1))
+    monkeypatch.setattr(tint8, "build_int8_conv_kernel", lambda: builds.append(1))
     x = torch.ones((2, 3, 4, 16))
-    counters = (tint8.amax_s8, tint8.quantize_s8, tint8.int8_gemm_kmajor, tint8.dequant_s32)
+    counters = (tint8.amax_s8, tint8.quantize_s8, tint8.int8_gemm_kmajor, tint8.dequant_s32,
+                tint8.conv_s8)
     before = [c.launches for c in counters]
     codes, s = tint8.quantize_heads(x, transpose=False)
     tint8.dequant_heads(tint8.int8_gemm_kmajor(codes, codes), s, s, torch.float32)
     tint8.quantize_im2col(x, 3, 1, 1, 48)
+    qc = tint8.quantize_conv_weight(torch.ones((5, 3, 3, 3)))
+    nhwc = torch.ones((2, 4, 16, 16), dtype=torch.int8)
+    tint8.conv_s8(nhwc, qc.codes, s[:2], qc.scale, 3, 1, 1, torch.float32)
     assert builds == [] and before == [c.launches for c in counters]
     meta = x.to("meta")
     for call in (lambda: tint8.quantize_heads(meta, transpose=True),
@@ -598,6 +603,8 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_raise_elsewhere(monkeypa
                  lambda: tint8.quantize_im2col(meta, 3, 1, 1, 48),
                  lambda: tint8.amax_samples(meta),
                  lambda: tint8.int8_gemm_kmajor(codes.to("meta"), codes.to("meta")),
+                 lambda: tint8.conv_s8(nhwc.to("meta"), qc.codes.to("meta"), s[:2].to("meta"),
+                                       qc.scale.to("meta"), 3, 1, 1, torch.float32),
                  lambda: tint8.dequant_rows(torch.ones((2, 2), dtype=torch.int32,
                                                        device="meta"), s, s, 1, torch.float32)):
         with pytest.raises(ValueError, match="runs on cuda or cpu"):

@@ -1,5 +1,6 @@
 """The int8 path's kernels on the card (ops/int8.py: the amax and quantize
-passes of csrc/quant.cu, the K-major entry of csrc/int8_gemm.cu, the dequant passes),
+passes of csrc/quant.cu, the convolution of csrc/int8_conv.cu, the K-major
+entry of csrc/int8_gemm.cu, the dequant passes),
 each against its plain version on the same inputs: amax, codes and scales exact,
 int32 products exact, dequantized outputs bit equal (the same fp32 product
 of the same int32 and scales, rounded once to the output dtype); and
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from spotter_tpu_torch.ops import int8 as tint8
-from spotter_tpu_torch.tools.bench_int8_conv import COVERAGE
+from spotter_tpu_torch.tools.bench_int8_conv import COVERAGE, SERVED_CONVS, SERVED_HW, SHAPES
 from spotter_tpu_torch.utils import quant as tquant
 
 
@@ -276,7 +277,7 @@ def test_int8_conv_graph_replay_is_bit_equal_to_eager(dtype):
     dev = _card()
     rng = np.random.default_rng(3)
     w = torch.from_numpy(rng.standard_normal((96, 64, 3, 3)).astype(np.float32)).to(dev)
-    qw = tint8.quantize_weight_rows(w)
+    qw = tint8.quantize_conv_weight(w)
     xs = [torch.from_numpy(rng.standard_normal((8, 64, 40, 40)).astype(np.float32))
           .to(dev).to(dtype) for _ in range(3)]
     static = [xs[0].clone(), xs[0].clone()]
@@ -312,3 +313,121 @@ def test_im2col_raises_on_a_kernel_size_it_has_no_tile_for():
     with pytest.raises(ValueError, match="kernel sizes"):
         tint8.quantize_im2col(x, 5, 1, 2, 208)
     assert tint8.amax_s8.launches == launches
+
+
+# --- conv_s8 ------------------------------------------------------------------------
+
+
+def _conv_operands(dev, b, cin, h, w, cout, k, dtype, seed):
+    """NCHW x at `dtype` through the served route's passes (amax, the NHWC
+    quantize), and the tap-major weight: (nhwc codes, sa, weight, x, the
+    fp32 OIHW weight)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, cin, h, w)).astype(np.float32)).to(dev)
+    wt = torch.from_numpy((rng.standard_normal((cout, cin, k, k)) / np.sqrt(cin * k * k))
+                          .astype(np.float32)).to(dev)
+    qc = tint8.quantize_conv_weight(wt)
+    x = x.to(dtype)
+    codes, sa = tint8.im2col_codes(x, tint8.amax_samples(x), 1, 1, 0, qc.c_pad)
+    return codes.view(b, h, w, -1), sa, qc, x, wt
+
+
+def _conv_exact(nhwc, sa, qc, stride, pad, dtype, tile_n=None) -> bool:
+    k = qc.kernel_size
+    got = tint8.conv_s8(nhwc, qc.codes, sa, qc.scale, k, stride, pad, dtype, tile_n=tile_n)
+    want = tint8.conv_s8_reference(nhwc, qc.codes, sa, qc.scale, k, stride, pad, dtype)
+    return got.dtype == dtype and got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+def test_conv_s8_is_bit_equal_at_the_probe_shapes(shape, dtype):
+    """The JAX probe's seven shapes at B = 8, through each tile width: bit
+    equal to the plain version on the same card codes, and to the
+    four-kernel path (im2col, GEMM, NCHW dequant)."""
+    dev = _card()
+    _, b, h, w, cin, cout, k, stride = shape
+    pad = (k - 1) // 2
+    nhwc, sa, qc, x, wt = _conv_operands(dev, b, cin, h, w, cout, k, dtype, sum(shape[1:]))
+    for tile_n in (None, *tint8.CONV_TILE_NS):
+        assert _conv_exact(nhwc, sa, qc, stride, pad, dtype, tile_n), tile_n
+    qw = tint8.quantize_weight_rows(wt)
+    codes, sx = tint8.quantize_im2col(x, k, stride, pad, qw.k_pad)
+    ho, wo = tint8.conv_out_hw(h, w, k, stride, pad)
+    four = tint8.dequant_nchw(tint8.int8_gemm_kmajor(codes, qw.codes), sx, qw.scale, b, ho, wo,
+                              dtype)
+    assert torch.equal(tquant.int8_conv(x, qc, k, stride, pad, dtype), four)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SERVED_CONVS, ids=[str(s) for s in SERVED_CONVS])
+def test_conv_s8_is_bit_equal_at_every_served_conv(shape, dtype):
+    """Every quantized convolution the seven families run (C, N, k, stride,
+    padding) on SERVED_HW inputs: 21 x 17 pixels a sample, so tiles
+    straddle samples and Ho*Wo is no multiple of the 16-byte run."""
+    dev = _card()
+    cin, cout, k, stride, pad = shape
+    b, h, w = SERVED_HW
+    nhwc, sa, qc, _, _ = _conv_operands(dev, b, cin, h, w, cout, k, dtype, sum(shape))
+    assert _conv_exact(nhwc, sa, qc, stride, pad, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,h,w,cout,k,stride,pad", [
+    (2, 64, 16, 12, 64, 3, 1, 1),   # C_pad 64: two taps in one 128-byte K step
+    (3, 48, 9, 7, 40, 3, 2, 1),     # C_pad 48, ragged N, tiles across three samples
+    (2, 16, 33, 31, 24, 3, 1, 0),   # C_pad 16: eight taps a K step, no padding
+    (5, 80, 8, 8, 200, 1, 1, 0),    # 64 pixels a sample: a tile holds two samples
+    (1, 32, 40, 24, 72, 3, 2, 1),   # one sample, K = 288 not a multiple of 128
+])
+def test_conv_s8_edges_are_bit_equal(b, cin, h, w, cout, k, stride, pad, dtype):
+    """Each tile width. (The persistent grid's walk of many tiles through
+    one ring is held at the served shapes, hundreds of tiles a call.)"""
+    dev = _card()
+    nhwc, sa, qc, _, _ = _conv_operands(dev, b, cin, h, w, cout, k, dtype, b * cin + h)
+    for tile_n in tint8.CONV_TILE_NS:
+        assert _conv_exact(nhwc, sa, qc, stride, pad, dtype, tile_n), tile_n
+
+
+@pytest.mark.cuda
+def test_conv_s8_sass_is_wgmma_and_int8_conv_is_three_kernels():
+    """conv_s8's SASS shows IGMMA in every instantiation and no IMMA; one
+    utils/quant.int8_conv at csp80 counts the amax, the NHWC quantize and
+    conv_s8 once each, and two of them show only those kernels in a
+    torch.profiler trace (no memset; the trace may miss its first kernel);
+    a CUDA tensor the kernel cannot take raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spotter_tpu_torch.tools import bench_int8
+
+    dev = _card()
+    sass = bench_int8.sass_evidence(dev, "conv_s8")
+    assert sass["verdict"] == bench_int8.SASS_WGMMA_VERDICT and sass["functions"] == 6, sass
+    x = torch.randn((8, 384, 80, 80), device=dev, dtype=torch.bfloat16)
+    qc = tint8.quantize_conv_weight(torch.randn((384, 384, 3, 3), device=dev))
+    tquant.int8_conv(x, qc, 3, 1, 1, torch.bfloat16)
+    torch.cuda.synchronize()
+    before = (tint8.amax_s8.launches, tint8.quantize_s8.launches, tint8.conv_s8.launches,
+              tint8.int8_gemm_kmajor.launches, tint8.dequant_s32.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            tquant.int8_conv(x, qc, 3, 1, 1, torch.bfloat16)
+        torch.cuda.synchronize()
+    after = (tint8.amax_s8.launches, tint8.quantize_s8.launches, tint8.conv_s8.launches,
+             tint8.int8_gemm_kmajor.launches, tint8.dequant_s32.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 0, 0]
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = ("amax_contiguous_kernel", "im2col_kernel", "conv_s8_kernel")
+    assert all(any(kind in n for kind in kinds) for n in names), names
+    assert 5 <= len(names) <= 6 and "conv_s8_kernel" in names[-1], names
+    nhwc = torch.zeros((2, 5, 5, 32), dtype=torch.int8, device=dev)
+    w = torch.zeros((8, 9 * 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="tile widths"):
+        tint8.conv_s8(nhwc, w, torch.ones(2, device=dev), torch.ones(8, device=dev), 3, 1, 1,
+                      torch.float32, tile_n=96)
+    with pytest.raises(ValueError, match="contiguous"):
+        tint8.conv_s8(nhwc.transpose(1, 2), w, torch.ones(2, device=dev),
+                      torch.ones(8, device=dev), 3, 1, 1, torch.float32)

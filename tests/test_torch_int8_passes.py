@@ -94,8 +94,9 @@ def test_conv_passes_equal_jax_int8_conv(shape, k, stride, pad, extra, dtype, ch
     out = tint8.dequant_nchw(yt, scales, qw.scale, shape[0], ho, wo, td)
     assert out.dtype == td and out.is_contiguous()
     np.testing.assert_array_equal(_np(out), want.transpose(0, 3, 1, 2))
-    # and the models' entry, which takes that route
-    np.testing.assert_array_equal(_np(tquant.int8_conv(xt, qw, k, stride, pad, td)),
+    # and the models' entry (the amax, the NHWC quantize and conv_s8), bit equal too
+    np.testing.assert_array_equal(_np(tquant.int8_conv(xt, tint8.quantize_conv_weight(wt), k,
+                                                       stride, pad, td)),
                                   want.transpose(0, 3, 1, 2))
 
 

@@ -4,7 +4,7 @@ launches the kernels; here each int8 wrapper computes its plain version,
 and counting shims stand in for the launch counts (the rows and heads
 quantize wrappers count one amax and one quantize pass, as their kernels
 launch; the im2col's `amax_samples` and `im2col_codes` one each; a dequant
-of any layout on `dequant_s32`).
+of any layout on `dequant_s32`; the convolution on `conv_s8`).
 The floors are lowered so that the tiny models' layers quantize
 (INT8_MIN_CH 8, INT8_ATTN_MIN_HD 4; the batch floor stays 8, so B = 1 runs
 the float path). The conv probe runs at tiny shapes on the CPU, and the
@@ -30,6 +30,8 @@ def tiny_tool(monkeypatch):
     monkeypatch.setattr(bench_int8_conv, "MAIN_SHAPE", "tiny3")
     monkeypatch.setattr(bench_int8_conv, "DENSE_SHAPE", (2, 5, 32, 24))
     monkeypatch.setattr(bench_int8_conv, "ATTN_SHAPE", (2, 7, 2, 16))
+    monkeypatch.setattr(bench_int8_conv, "SERVED_CONVS", ((16, 24, 3, 2, 1), (24, 40, 1, 1, 0)))
+    monkeypatch.setattr(bench_int8_conv, "SERVED_HW", (2, 7, 5))
     return bench_int8_conv
 
 
@@ -41,18 +43,34 @@ def test_bench_int8_conv_runs_on_the_cpu(tiny_tool, tmp_path, capsys):
     record = json.loads(out.read_text())
     parts = [c["part"] for c in record["cases"]]
     n_coverage = 4 * len(tiny_tool.COVERAGE)  # fp32 and bf16, NCHW and channels-last
-    assert parts == ["conv", "conv", "conv"] + ["coverage"] * n_coverage + ["dense", "attention"]
+    n_served = 2 * len(tiny_tool.SERVED_CONVS)  # fp32 and bf16
+    assert parts == (["conv", "conv", "conv"] + ["coverage"] * n_coverage
+                     + ["served"] * n_served + ["dense", "attention"])
     assert [c.get("dtype") for c in record["cases"][:3]] == ["bfloat16", "bfloat16", "float32"]
     assert record["cases"][2]["shape"] == "tiny3"  # MAIN_SHAPE in float32
     assert all(c["exact"] for c in record["cases"])
     conv = record["cases"][0]
     assert conv["im2col_bytes"] == 2 * 9 * 7 * 144 and conv["k_pad"] == 144
+    assert conv["c_pad"] == 16 and conv["conv_s8_tile_n"] == "plain"
+    assert conv["conv_s8_bit_equal"] and conv["paths_bit_equal"]
     assert {"amax_s8_cpu_ms", "quantize_s8_cpu_ms", "int8_gemm_kmajor_cpu_ms", "path_cpu_ms",
+            "quantize_s8_nhwc_cpu_ms", "conv_s8_cpu_ms", "path4_cpu_ms", "plain_conv_s8_cpu_ms",
             "library_cudnn_bf16_cpu_ms", "library_vector_norm_cpu_ms"} <= set(conv)
+    assert conv["bounds"]["conv_s8"]["bound_by"] in ("bytes", "operations")
     assert conv["amax_exact"] and conv["bounds"]["amax_s8"]["bound_by"] == "bytes"
     assert conv["bounds"]["int8_gemm_kmajor"]["bound_by"] in ("bytes", "operations")
     assert all(v > 0 for v in record["calls"].values())
     assert len(capsys.readouterr().out.splitlines()) == len(parts)
+
+
+def _counted_kernel(kernel):
+    """A shim that counts each call of a kernel's wrapper as its launch."""
+    def shim(*args, **kwargs):
+        shim.launches += 1
+        return kernel(*args, **kwargs)
+
+    shim.launches = 0
+    return shim
 
 
 def _counting_wrappers(monkeypatch):
@@ -73,14 +91,8 @@ def _counting_wrappers(monkeypatch):
     monkeypatch.setattr(tint8, "im2col_codes", counted(tint8.im2col_codes, tint8.quantize_s8))
     for name in ("dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw"):
         monkeypatch.setattr(tint8, name, counted(getattr(tint8, name), tint8.dequant_s32))
-    gemm = tint8.int8_gemm_kmajor
-
-    def gemm_shim(*args, **kwargs):
-        gemm_shim.launches += 1
-        return gemm(*args, **kwargs)
-
-    gemm_shim.launches = 0
-    monkeypatch.setattr(tint8, "int8_gemm_kmajor", gemm_shim)
+    for name in ("int8_gemm_kmajor", "conv_s8"):
+        monkeypatch.setattr(tint8, name, _counted_kernel(getattr(tint8, name)))
     # OWLv2's class-logit head, where the model and the counts look it up
     from spotter_tpu_torch.models import owlvit
     from spotter_tpu_torch.ops import openvocab
@@ -123,20 +135,30 @@ def test_int8_phase_rehearses_on_the_cpu(cpu_rehearsal, monkeypatch, tiny_tool):
     assert legs["bfloat16_attn"]["plan"]["qk"] == legs["bfloat16_attn"]["plan"]["av"] > 0
     assert legs["bfloat16_conv"]["plan"]["dense"] == 0
     http = legs["bfloat16_conv"]["http"]
-    assert http["forwards"] > 0 and http["launches"]["int8_gemm_kmajor"] > 0
+    assert http["forwards"] > 0 and http["launches"]["conv_s8"] > 0
+    assert http["launches"]["int8_gemm_kmajor"] == http["launches"]["dequant_s32"] == 0
     assert legs["bfloat16_conv"]["engine_launches"]["quantize_s8"] > 0
+    for rec in legs.values():  # one conv_s8 a quantized convolution
+        assert rec["launches_per_forward"]["conv_s8"] == rec["calls_per_forward"]["conv"]
+    all_knobs = legs["bfloat16_attn"]["launches_per_forward"]
+    assert all_knobs["int8_gemm_kmajor"] == all_knobs["dequant_s32"] > 0
     assert set(out["families"]) == {name for name, *_ in chip_smoke.INT8_FAMILIES}
     assert all(rec["plain_witness_b8"]["bit_equal"] for rec in out["families"].values())
     yolos = out["families"][chip_smoke.YOLOS_NAME]
     assert yolos["calls_per_forward"]["dense"] > 0 and yolos["calls_per_forward"]["conv"] == 0
     rows = {c["kernel"]: c for c in out["kernel_cases"]}
     assert set(rows) == set(chip_smoke.INT8_KERNELS)
-    assert rows["int8_gemm_kmajor"]["launches"] == http["launches"]["int8_gemm_kmajor"]
+    assert rows["int8_gemm_kmajor"]["launches"] == all_knobs["int8_gemm_kmajor"]
+    assert rows["conv_s8"]["launches"] == http["launches"]["conv_s8"]
+    assert {"cudnn_bf16_ms", "path_ms", "path4_ms"} <= set(rows["conv_s8"])
     summary = chip_smoke.kernel_summary(out["kernel_cases"],
                                         {c["kernel"]: c["launches"] for c in out["kernel_cases"]})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     for row in summary["kernels"]:
         assert keys <= set(row) and row["replaces"].startswith("spotter_tpu/utils/quant.py:")
+    cases = {row["name"]: row["case"] for row in summary["kernels"]}  # the function timed
+    assert cases["quantize_s8"] == f"nhwc_{bench_int8_conv.MAIN_SHAPE}_bfloat16"
+    assert cases["dequant_s32"] == "rows_yolos_fc1"
     assert not (tquant.INT8 or tquant.INT8_DENSE or tquant.INT8_ATTN)
     assert np.isfinite(legs["float32_conv"]["vs_float_b8"]["logits_max_abs_err"])
