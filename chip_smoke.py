@@ -159,20 +159,21 @@ Phases, each printing JSON lines:
 20. precision — the "mixed" and "bfloat16" policies (`phase_precision`);
 21. int8  — int8 quantization: tools/bench_int8_conv.py at the JAX probe's
              seven conv shapes in bf16 (and `csp80` in fp32), through the
-             served three-kernel path (amax, NHWC quantize, conv_s8) and
-             the four-kernel path it replaced (amax, im2col, the GEMM, the
-             NCHW dequant), both timed in the same run, the im2col
-             entry's coverage list (ragged tiles, C not a multiple of 16,
-             k_pad past K, kernel sizes 1, 3 and 7 at strides 1 and 2,
-             NCHW and channels-last, fp32 and bf16), conv_s8 at every
-             served conv shape of the seven families, a dense shape
-             (YOLOS-base's 34,408 rows, ragged) and an attention shape (B·H
-             64, Tq = Tk = 300, hd 32), every pass exact against its plain
-             version (amax, codes, int32 products, dequant and conv_s8 bit
-             for bit), timed beside its bound, cuDNN's bf16 conv,
-             torch.linalg.vector_norm and torch._int_mm, and which path of
-             the amax and im2col passes and which conv_s8 tile served each
-             case; int8_gemm's and conv_s8's SASS with IGMMA and no IMMA;
+             served three-kernel path (amax, NHWC quantize, conv_s8), the
+             NHWC entry's coverage list (ragged H*W, C not a multiple of
+             16 or wider than a tile, c_pad past C, NCHW and
+             channels-last, fp32 and bf16, with the route at kernel sizes
+             1, 3 and 7, strides 1 and 2), conv_s8 at every served conv
+             shape of the seven families, the heads entries' coverage list
+             (one launch and two, contiguous, packed and unaligned views),
+             a dense shape (YOLOS-base's 34,408 rows, ragged) and an
+             attention shape (B·H 64, Tq = Tk = 300, hd 32), every pass
+             exact against its plain version (amax, codes, int32 products,
+             dequant and conv_s8 bit for bit), timed beside its bound,
+             cuDNN's bf16 conv, torch.linalg.vector_norm and
+             torch._int_mm, and which path of the amax and quantize passes
+             and which conv_s8 tile served each case; int8_gemm's and
+             conv_s8's SASS with IGMMA and no IMMA;
              RT-DETRv2-R101 under "bfloat16" with
              SPOTTER_TPU_INT8=1, then with all three knobs, and under
              "float32" with INT8=1: the B = 8 quantized forward bit equal to
@@ -1274,6 +1275,7 @@ def kernel_counters():
             "int8_gemm": bench_int8.int8_gemm, "pack_tile": bench_pack_probe.pack_tile,
             "launch_probe": profile_r101.launch_probe,
             "amax_s8": int8.amax_s8, "quantize_s8": int8.quantize_s8,
+            "quantize_nhwc_s8": int8.quantize_nhwc_s8,
             "int8_gemm_kmajor": int8.int8_gemm_kmajor, "dequant_s32": int8.dequant_s32,
             "conv_s8": int8.conv_s8}
 
@@ -2916,10 +2918,10 @@ def phase_owl_http(log: list, seed: int, device: str = "cuda") -> dict:
         det = build_detector_app(OWLV2_NAME, device=device, seed=seed, warmup=True)
     bringup_s = time.perf_counter() - t0
     model = det.engine.built.module
-    # two rounds of 8 URLs each: a random-init OWLv2 draws thousands of boxes
+    # one round of 8 URLs each: a random-init OWLv2 draws thousands of boxes
     # on every photo, ~30 s a request on the host
-    runs = [("default", lambda: None, [("1", 1, 3, 1), ("8", 8, 2, 1)]),
-            ("queries", lambda: None, [("8q", 8, 2, 1, OWL_QUERIES)])]
+    runs = [("default", lambda: None, [("1", 1, 3, 1), ("8", 8, 1, 1)]),
+            ("queries", lambda: None, [("8q", 8, 1, 1, OWL_QUERIES)])]
     with tempfile.TemporaryDirectory() as photo_dir:
         write_photos(photo_dir, rng)
         out = asyncio.run(drive_http(det, photo_dir, runs))
@@ -3578,7 +3580,8 @@ def phase_precision(log: list, seed: int, device: str = "cuda") -> dict:
 # --- int8 quantization ----------------------------------------------------------
 
 # the int8 kernels of the served paths (ops/int8.py), in the `kernels` line
-INT8_KERNELS = ("amax_s8", "quantize_s8", "int8_gemm_kmajor", "dequant_s32", "conv_s8")
+INT8_KERNELS = ("amax_s8", "quantize_s8", "quantize_nhwc_s8", "int8_gemm_kmajor", "dequant_s32",
+                "conv_s8")
 # --int8 level -> the switches of utils/quant.py it turns on
 INT8_LEVELS = {"conv": ("INT8",), "dense": ("INT8", "INT8_DENSE"),
                "attn": ("INT8", "INT8_DENSE", "INT8_ATTN")}
@@ -3640,22 +3643,49 @@ def int8_plan(model, level: str) -> dict:
     return plan
 
 
-def int8_launches(calls: dict) -> dict:
+def int8_launches(calls: dict, heads=()) -> dict:
     """The int8 kernels' launches for `calls` quantized calls, the weights
     already kept: per convolution an amax, an NHWC quantize pass and one
     `conv_s8`; per other product an amax and a quantize pass per activation
-    (two for QKᵀ and attn·V), one GEMM and one dequant."""
+    (two for QKᵀ and attn·V), one GEMM and one dequant; but a heads call
+    (`heads`: the (T, hd, dtype) of each, Q and K for QKᵀ, V for attn·V)
+    whose (sample, head) group fits one block (`heads_one_launch`) is one
+    quantize launch and no amax."""
+    from spotter_tpu_torch.ops.int8 import heads_one_launch
+
     products = calls["dense"] + calls["qk"] + calls["av"]
-    activations = calls["conv"] + products + calls["qk"] + calls["av"]
-    return {"amax_s8": activations, "quantize_s8": activations,
-            "int8_gemm_kmajor": products, "dequant_s32": products, "conv_s8": calls["conv"]}
+    activations = products + calls["qk"] + calls["av"]
+    one_launch = sum(heads_one_launch(*call) for call in heads)
+    return {"amax_s8": calls["conv"] + activations - one_launch, "quantize_s8": activations,
+            "quantize_nhwc_s8": calls["conv"], "int8_gemm_kmajor": products,
+            "dequant_s32": products, "conv_s8": calls["conv"]}
+
+
+@contextlib.contextmanager
+def heads_calls():
+    """The (T, hd, dtype) of each `quantize_heads` call while the block runs
+    (utils/quant.py calls it through the ops/int8 module), for
+    `int8_launches`."""
+    from spotter_tpu_torch.ops import int8
+
+    real, seen = int8.quantize_heads, []
+
+    def record(x, transpose):
+        seen.append((x.shape[1], x.shape[3], x.dtype))
+        return real(x, transpose)
+
+    int8.quantize_heads = record
+    try:
+        yield seen
+    finally:
+        int8.quantize_heads = real
 
 
 # the int8 wrappers that the models reach (utils/quant.py calls them through
 # the ops/int8 module), each with its plain version
 PLAIN_INT8 = {name: f"{name}_reference" for name in (
-    "amax_samples", "im2col_codes", "quantize_rows", "quantize_heads", "int8_gemm_kmajor",
-    "dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw", "conv_s8")}
+    "amax_samples", "nhwc_codes", "quantize_rows", "quantize_heads", "int8_gemm_kmajor",
+    "dequant_rows", "dequant_heads", "dequant_av", "conv_s8")}
 
 
 def drop_weight_codes(model) -> None:
@@ -3711,10 +3741,13 @@ def int8_forward(model, inputs, expected_other: dict, what: str):
 
     reset_counts()
     quant.reset_calls()
-    out = model(*inputs)
+    with heads_calls() as heads:
+        out = model(*inputs)
     torch.cuda.synchronize()
     counts, calls = read_counts(), dict(quant.CALLS)
-    check_counts(counts, {**expected_other, **int8_launches(calls)}, what)
+    if len(heads) != 2 * calls["qk"] + calls["av"]:
+        raise AssertionError(f"{what}: {len(heads)} heads quantize calls for {calls}")
+    check_counts(counts, {**expected_other, **int8_launches(calls, heads)}, what)
     return out, calls, {k: v for k, v in counts.items() if v}
 
 
@@ -3932,7 +3965,7 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
     out["tool"] = {"cases": record["cases"], "calls": record["calls"], "sass": sass}
     for case in record["cases"]:
         emit({"phase": "int8", "tool": "bench_int8_conv", **case}, log)
-    # which path of the amax and im2col passes served each case
+    # which path of the amax and quantize passes served each case
     emit({"phase": "int8", "tool": "bench_int8_conv", "paths": [
         {"part": c["part"], "case": c.get("shape") or c.get("x"), "dtype": c.get("dtype"),
          "channels_last": c.get("channels_last", False), **c.get("paths", {})}
@@ -3963,8 +3996,9 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
     all_knobs = out["rtdetr"]["bfloat16_attn"]["launches_per_forward"]
     ms = "_ms" if device == "cuda" else "_cpu_ms"  # the tool's keys (tools/timing.py ms_key)
     # each row names the function it timed (`case`): a kernel's row keeps its
-    # name when the pass the served path takes changes (the quantize row once
-    # timed the im2col at k = 3, the dequant row the NCHW entry)
+    # name when the pass the served path takes changes (the quantize row
+    # times the rows entry, the NHWC pass its own kernel's row)
+    attn = next(c for c in record["cases"] if c["part"] == "attention")
     out["kernel_cases"] = [
         {"phase": "int8", "kernel": name, "main": True, "launches": launches,
          "case": label, "max_abs_err": 0.0, "kernel_ms": case[key + ms],
@@ -3974,8 +4008,10 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
         for name, key, label, case, library, launches in (
             ("amax_s8", "amax_s8", f"samples_{main_label}", conv,
              conv.get("library_vector_norm" + ms), served["amax_s8"]),
-            ("quantize_s8", "quantize_s8_nhwc", f"nhwc_{main_label}", conv, None,
-             served["quantize_s8"]),
+            ("quantize_nhwc_s8", "quantize_nhwc_s8", f"nhwc_{main_label}", conv, None,
+             served["quantize_nhwc_s8"]),
+            ("quantize_s8", "quantize_s8_rows", "rows_yolos_fc1", dense, None,
+             all_knobs.get("quantize_s8", 0)),
             ("int8_gemm_kmajor", "int8_gemm_kmajor", "kmajor_yolos_fc1", dense,
              dense.get("library_int_mm" + ms), all_knobs.get("int8_gemm_kmajor", 0)),
             ("dequant_s32", "dequant_s32_rows", "rows_yolos_fc1", dense, None,
@@ -3986,7 +4022,13 @@ def phase_int8(log: list, seed: int, device: str = "cuda") -> dict:
     # the two paths' times stand next to it
     out["kernel_cases"][-1].update({
         "cudnn_bf16_ms": conv.get("library_cudnn_bf16" + ms), "path_ms": conv.get("path" + ms),
-        "path4_ms": conv.get("path4" + ms), "tile_n": conv["conv_s8_tile_n"]})
+        "tile_n": conv["conv_s8_tile_n"]})
+    # the quantize row's heads entries, each wrapper call whole, beside it
+    quantize_row = next(c for c in out["kernel_cases"] if c["kernel"] == "quantize_s8")
+    for key in ("heads", "heads_t"):
+        quantize_row[f"{key}_ms"] = attn.get(f"quantize_s8_{key}{ms}")
+        quantize_row[f"{key}_bound_ms"] = attn.get("bounds", {}).get(
+            f"quantize_s8_{key}", {}).get("bound_ms")
     emit({k: v for k, v in out.items() if k not in ("tool", "rtdetr", "families")}, log)
     return out
 
@@ -4135,6 +4177,7 @@ REPLACES = {
     # which XLA's s8 convolution and dot_general compute on the TPU
     "amax_s8": "spotter_tpu/utils/quant.py:136",
     "quantize_s8": "spotter_tpu/utils/quant.py:124",
+    "quantize_nhwc_s8": "spotter_tpu/utils/quant.py:124",
     "int8_gemm_kmajor": "spotter_tpu/utils/quant.py:146",
     "dequant_s32": "spotter_tpu/utils/quant.py:154",
     "conv_s8": "spotter_tpu/utils/quant.py:146-154",
@@ -4148,6 +4191,7 @@ SOURCES.update({name: f"spotter_tpu_torch/csrc/{name}.cu"
                 for name in ("int8_gemm", "pack_tile", "launch_probe")})
 SOURCES.update({"amax_s8": "spotter_tpu_torch/csrc/quant.cu",
                 "quantize_s8": "spotter_tpu_torch/csrc/quant.cu",
+                "quantize_nhwc_s8": "spotter_tpu_torch/csrc/quant.cu",
                 "int8_gemm_kmajor": "spotter_tpu_torch/csrc/int8_gemm.cu",
                 "dequant_s32": "spotter_tpu_torch/csrc/quant.cu",
                 "conv_s8": "spotter_tpu_torch/csrc/int8_conv.cu"})
@@ -4223,7 +4267,8 @@ def kernel_summary(cases: list, launches: dict) -> dict:
             rows[-1]["bound_name"] = main_case["bound_name"]
             rows[-1]["bound_cuda_cores_ms"] = main_case["bound_cuda_cores_ms"]
         # the int8 rows' measured function; conv_s8's yardsticks
-        for key in ("case", "cudnn_bf16_ms", "path_ms", "path4_ms", "tile_n"):
+        for key in ("case", "cudnn_bf16_ms", "path_ms", "tile_n", "heads_ms", "heads_t_ms",
+                    "heads_bound_ms", "heads_t_bound_ms"):
             if key in main_case and (key != "case" or main_case.get("phase") == "int8"):
                 rows[-1][key] = main_case[key]
     return {"kernels": rows}

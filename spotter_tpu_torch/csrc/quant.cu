@@ -1,9 +1,9 @@
-// The passes around the int8 GEMM (csrc/int8_gemm.cu) that make the JAX
-// package's int8 quantization (spotter_tpu/utils/quant.py) on Hopper: the
-// TPU's XLA quantizes and dequantizes inside its s8 convolution and dot;
-// PyTorch has no int8 convolution or batched int8 matmul on CUDA, so the
-// port quantizes into the GEMM's K-major operands here and dequantizes its
-// int32 product after it.
+// The passes around the int8 products (csrc/int8_conv.cu, csrc/int8_gemm.cu)
+// that make the JAX package's int8 quantization (spotter_tpu/utils/quant.py)
+// on Hopper: the TPU's XLA quantizes and dequantizes inside its s8
+// convolution and dot; PyTorch has no int8 convolution or batched int8
+// matmul on CUDA, so the port quantizes into the products' operands here
+// and dequantizes the GEMM's int32 product after it.
 //
 // 1. amax_s8 (replaces the amax of spotter_tpu/utils/quant.py:136): max |x|
 //    over each group (a sample, a (sample, head) pair, or a weight's output
@@ -14,16 +14,18 @@
 //    see only their own buffers). Bound by bytes: a group that fills one
 //    run of memory (the fast path: a sample in either layout, a weight's
 //    row) is read with 16-byte streaming loads, four in flight a thread,
-//    over a grid the wrapper sizes to fill the card; a strided view (Q, K,
-//    V's heads: the general path) is read an element at a time through its
+//    over a grid the wrapper sizes to fill the card; a strided view (the
+//    two-launch heads path) is read an element at a time through its
 //    strides. Max is order-free, so the amax is exact.
 //
-// 2. quantize_s8 (replaces quantize_activation / quantize_per_head,
-//    quant.py:124), from the partials of 1: amax = max of the group's
-//    partials, scale = max(amax, 1e-12) / 127 and code =
-//    clip(rint(x / scale), -127, 127), in fp32 with an IEEE division (this
+// 2. quantize_s8 and quantize_nhwc_s8 (replace quantize_activation /
+//    quantize_per_head, quant.py:124), from the partials of 1: amax = max of
+//    the group's partials, scale = max(amax, 1e-12) / 127 and code =
+//    clip(rint(x / scale), -127, 127), in fp32 as an IEEE division (this
 //    file is built without --use_fast_math, so `/` is div.rn.f32) and
-//    round-half-even (rintf), as jnp.round and jnp's `/` compute it. Rows
+//    round-half-even (rintf) give it, as jnp.round and jnp's `/` compute it
+//    (`code_of`: a product by the reciprocal, the division only near a
+//    half-integer). Rows
 //    are padded with zero codes to a multiple of 16 (TMA's row pitch), which
 //    leaves every int32 sum unchanged. Output layouts:
 //      rows:     a (d0, d1, d2, d3) view -> (d0*d1*d2, K_pad), K = d3: dense
@@ -31,41 +33,43 @@
 //      heads:    x (B, T, H, hd) -> (B*H, T, hd_pad): Q and K for QKᵀ;
 //      heads_t:  x (B, T, H, hd) -> (B*H, hd, T_pad): V transposed, so that
 //                attn·V's B operand arrives K-major;
-//    each thread writes 16 codes (one 16-byte store) of an output row, the
-//    block's groups' scales reduced once into shared memory;
-//      im2col:   NCHW x -> (B*Ho*Wo, K_pad), K = C*kh*kw in (c, ky, kx)
-//                order (the OIHW weight's own), zero padding and stride.
-//    The im2col is bound by the bytes it writes (a 3x3 conv writes 9 bytes
-//    a value read). A block owns a tile of output pixels and a chunk of
-//    channels: it loads the input patch with its halo once, quantizes each
-//    value once (one division, not one a tap) into int8 codes in shared
-//    memory, gathers each pixel's (c, ky, kx) row from there at offsets
-//    fixed at compile time (kernel size and stride are template
-//    arguments), stages the rows in shared memory and writes them out in
-//    16-byte stores that run along each row. Where x is contiguous along W
-//    the patch arrives by 16-byte asynchronous copies (cp.async, zeros
-//    outside the input), all in flight at once, or, where rows are not
-//    whole 16-byte chunks, by loads with lanes along x; any other strides
-//    take the general path, lanes along channels (channels-last coalesces).
+//      nhwc:     NCHW x -> (B, H, W, C_pad): the convolution's codes, which
+//                conv_s8 gathers in place.
+//    All are bound by bytes: each value is read once and written as one
+//    byte. Three kernels serve them:
+//    - the rows kernel (rows and heads, and an nhwc whose channels are
+//      contiguous, channels-last, or whose pixels are at no one stride):
+//      16-byte loads where each output row is one aligned run of the
+//      input, two 16-code chunks in flight a thread, 32-bit index
+//      arithmetic, the block's groups' scales reduced once into shared
+//      memory;
+//    - the transpose kernel (nhwc from NCHW, where each channel's H*W plane
+//      is one run; heads_t, where each token's hd values are): a streaming
+//      transpose through a 64-byte-wide shared-memory tile tiled over the
+//      run, loads along it, codes out as 16-byte rows (its comment below);
+//    - the one-launch heads kernel (heads and heads_t where a (sample,
+//      head) group fits a block's shared memory, ops/int8.py
+//      `heads_one_launch`): the group read once into shared memory, its
+//      amax, scale and codes from there, with no amax launch before it.
+//    Any strides are taken: the rows and transpose kernels read a value at
+//    a time through the view's strides where 16-byte loads do not fit.
 //
 // 3. dequant_s32: y (int32) -> float(y) * (sa * sb), the scale product formed
 //    first (__int2float_rn, then an fp32 product), cast to the output dtype
 //    (rounded to nearest even for bf16):
 //      rows:  y (M, N) -> (M, N), sa[m / rows_per_group], sb[n]: dense;
 //      heads: y (G, M, N) -> (G, M, N) (QKᵀ, fp32), or with H > 0 ->
-//             (B, M, H, N), g = b*H + h (attn·V), sa[g] * sb[g];
-//      nchw:  y (B*HW, N) -> (B, N, HW), sa[b] * sb[n], through a 32 x 32
-//             tile in shared memory so that both the int32 reads and the
-//             NCHW writes are coalesced: the convolution's output arrives in
-//             the layout the float path gives the frozen BN that follows.
+//             (B, M, H, N), g = b*H + h (attn·V), sa[g] * sb[g].
+//    (A convolution dequantizes in conv_s8's epilogue.)
 //
-// What bounds them on an H100: bytes. The largest at RT-DETRv2-R101, B = 8,
-// is layer 1's 3x3 conv at 160x160x64: 26 MB of bf16 input read and a 118 MB
-// im2col written; its dequant reads 52 MB of int32 and writes 26 MB.
+// The largest at RT-DETRv2-R101, B = 8: the nhwc pass of layer 1's 3x3
+// conv reads 26 MB of bf16 at 160x160x64 and writes 13 MB of codes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -214,14 +218,40 @@ amax_contiguous_kernel(const T* __restrict__ x, long long group_stride, long lon
   block_max_to(m, partials + static_cast<long long>(g) * parts + blockIdx.x);
 }
 
-// ---- quantize_s8 -------------------------------------------------------------------
+// ---- quantize_s8 and quantize_nhwc_s8 ----------------------------------------------
 
 __device__ __forceinline__ float scale_from(float amax) {
   return fmaxf(amax, 1e-12f) / 127.0f;
 }
 
-__device__ __forceinline__ uint32_t code_of(float x, float scale) {
-  const float r = fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f);
+// A group's scale and its reciprocal (rounded to nearest: the scale is at
+// least 1e-12 / 127, so it is finite).
+struct Scale {
+  float s, inv;
+};
+
+__device__ __forceinline__ Scale scale_of_amax(float amax) {
+  const float s = scale_from(amax);
+  return {s, __frcp_rn(s)};
+}
+
+// clip(rint(x / s), -127, 127) exactly as div.rn.f32 and rintf give it,
+// mostly without the division. q = x * inv lies within |x / s| * 1.6e-7 of
+// the true quotient, and div.rn within |x / s| * 6e-8, so below |q| = 128
+// the two are within 2.3e-5 of each other: where q is further than 2^-10
+// from a half-integer both round to rint(q); nearer (and for NaN) the IEEE
+// division decides; from |q| = 128 up both clip. The card's tests hold it
+// against the plain version at every bf16 value and around every k + 0.5.
+__device__ __forceinline__ uint32_t code_of(float x, Scale scale) {
+  const float q = __fmul_rn(x, scale.inv);
+  float r;
+  if (fabsf(q) >= 128.0f) {
+    r = copysignf(127.0f, q);
+  } else {
+    r = rintf(q);
+    if (!(fabsf(fabsf(q - r) - 0.5f) > 0x1p-10f)) r = rintf(x / scale.s);
+    r = fminf(fmaxf(r, -127.0f), 127.0f);
+  }
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(static_cast<int>(r))));
 }
 
@@ -240,99 +270,221 @@ __device__ __forceinline__ float warp_group_amax(const float* partials, int part
   return warp_max(m);
 }
 
-enum Layout { kRows = 0, kHeads = 1, kHeadsT = 2 };
-
-// The group of output row r (rows: one group a sample, head_axis 0). It
-// never decreases along r, so a block's rows cover a run of groups.
-__device__ __forceinline__ int row_group(const View& v, int layout, long long r) {
-  if (layout == kRows) return static_cast<int>(r / (v.n[1] * v.n[2]));
-  return static_cast<int>(r / (layout == kHeads ? v.n[1] : v.n[3]));
+// The e-th value packed in 16 bytes (fp32: 4 a chunk, bf16: 8), as fp32.
+__device__ __forceinline__ float value_at(uint4 r, int e, float) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  return __uint_as_float(w[e]);
+}
+__device__ __forceinline__ float value_at(uint4 r, int e, __nv_bfloat16) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  const uint32_t word = w[e / 2];
+  return __uint_as_float(e % 2 ? word & 0xffff0000u : word << 16);
 }
 
-// Codes of the (rows, cols_pad) output of `layout`, 16 a thread, one chunk
-// of 16 a thread in row order; threads below the group count also write
-// the groups' scales.
+__device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+// Up to 16 bytes of values p[0], p[stride], ... (n of them, n <= 16 /
+// sizeof(T)) packed as a 16-byte chunk would hold them, zeros past n.
 template <typename T>
+__device__ __forceinline__ uint4 load_values(const T* p, long long stride, int n) {
+  constexpr int kVe = 16 / sizeof(T);
+  constexpr int kBits = 8 * sizeof(T);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < kVe; ++e) {
+    if (e < n) w[e * kBits / 32] |= bits_of(p[e * stride]) << (e * kBits % 32);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+enum Layout { kRows = 0, kHeads = 1, kHeadsT = 2 };
+// The kernel that served a quantize call, written to *path: the rows or the
+// transpose kernel, each with 16-byte loads or a value at a time, or the
+// one-launch heads kernel.
+enum QuantPath { kPathRows = 0, kPathRowsScalar = 1, kPathTranspose = 2, kPathTransposeScalar = 3,
+                 kPathGroup = 4 };
+
+// ---- the rows kernel --------------------------------------------------------------
+
+// Row r = (i0, i1, i2) (i2 fastest, i0 up to rows / (n1 * n2)) starts at
+// i0*a0 + i1*a1 + i2*a2 and holds `cols` values `cs` apart; group r /
+// rows_per_group.
+struct RowView {
+  unsigned n1, n2;
+  long long a0, a1, a2, cs;
+  int cols, rows_per_group;
+};
+
+constexpr int kRowsUnroll = 2;                   // 16-code chunks a thread
+constexpr int kRowsItems = kThreads * kRowsUnroll;  // chunks a block
+constexpr int kBlockGroups = 64;                 // groups a block reduces once, in shared memory
+
+// Block b takes chunks [b * kRowsItems, +kRowsItems) of the (rows,
+// cols_pad / 16) output in row order, kRowsUnroll a thread, each 16 values
+// read in 16-byte loads where the columns are contiguous and every row
+// starts 16-byte aligned (kVec: 4 in fp32, 2 in bf16; a ragged row end a
+// value at a time, zeros past cols), else a value at a time through the
+// column stride (any view), all in flight before the first is used. Index
+// arithmetic is 32-bit (the host keeps rows * chunks below 2^31). The
+// warps reduce the block's groups' scales once into shared memory, where
+// they also write them out (a group spans blocks: each writes the same
+// bits); past kBlockGroups groups a block (rows of fewer than 8 chunks,
+// a scale a row) each thread reduces its own.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const T* __restrict__ x, View v, int layout, long long rows, int cols,
-                int cols_pad, const float* __restrict__ partials, int parts, int groups,
-                int8_t* __restrict__ out, float* __restrict__ scales) {
-  const int chunks = cols_pad / 16;
-  const long long total = rows * chunks;
-  const long long t0 = static_cast<long long>(blockIdx.x) * kThreads;
-  const long long t = t0 + threadIdx.x;
-  if (t < groups) scales[t] = scale_from(group_amax(partials, parts, static_cast<int>(t)));
-  // the scales of the block's first kWarps groups, a warp a group
-  __shared__ float block_scale[kWarps];
-  const long long t1 = (t0 + kThreads < total ? t0 + kThreads : total) - 1;
-  const int g0 = t0 < total ? row_group(v, layout, t0 / chunks) : 0;
-  const int g1 = t0 < total ? row_group(v, layout, t1 / chunks) : -1;
-  const int warp = threadIdx.x / 32;
-  if (g0 + warp <= g1) {
-    const float s = scale_from(warp_group_amax(partials, parts, g0 + warp));
-    if (threadIdx.x % 32 == 0) block_scale[warp] = s;
-  }
-  __syncthreads();
-  if (t >= total) return;
-  const long long r = t / chunks;
-  const int c0 = static_cast<int>(t % chunks) * 16;
-  // the row's input coordinates (i0, i1, i2, i3) but for the column's axis
-  long long i[4] = {0, 0, 0, 0};
-  int col_axis;
-  const int g = row_group(v, layout, r);
-  if (layout == kRows) {  // r = flat (i0, i1, i2), column = i3
-    long long q = r;
-    i[2] = q % v.n[2];
-    q /= v.n[2];
-    i[1] = q % v.n[1];
-    i[0] = q / v.n[1];
-    col_axis = 3;
-  } else {
-    if (layout == kHeads) {  // r = (b*H + h)*T + t, column = d
-      i[1] = r % v.n[1];
-      col_axis = 3;
-    } else {  // r = (b*H + h)*hd + d, column = t
-      i[3] = r % v.n[3];
-      col_axis = 1;
+quantize_rows_kernel(const T* __restrict__ x, RowView v, int total, int chunks,
+                     const float* __restrict__ partials, int parts,
+                     int8_t* __restrict__ out, float* __restrict__ scales) {
+  constexpr int kVe = 16 / sizeof(T);
+  constexpr int kLoads = 16 / kVe;
+  const int first = blockIdx.x * kRowsItems;
+  uint4 raw[kRowsUnroll][kLoads];
+  int row[kRowsUnroll], col0[kRowsUnroll];
+#pragma unroll
+  for (int u = 0; u < kRowsUnroll; ++u) {
+    const int i = first + u * kThreads + threadIdx.x;
+    row[u] = i < total ? static_cast<int>(static_cast<unsigned>(i) / chunks) : -1;
+    const unsigned r = row[u] < 0 ? 0u : static_cast<unsigned>(row[u]);
+    col0[u] = (i - static_cast<int>(r) * chunks) * 16;
+    const unsigned q = r / v.n2;
+    const T* p = x + static_cast<long long>(q / v.n1) * v.a0 + (q % v.n1) * v.a1 +
+                 (r % v.n2) * v.a2 + col0[u] * v.cs;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int left = v.cols - col0[u] - l * kVe;  // values of this load inside the row
+      raw[u][l] = row[u] < 0 || left <= 0 ? make_uint4(0u, 0u, 0u, 0u)
+                  : kVec && left >= kVe  ? load16_streaming(reinterpret_cast<const uint4*>(p) + l)
+                                         : load_values(p + l * kVe * v.cs, v.cs, left);
     }
-    i[0] = g / v.n[2];
-    i[2] = g % v.n[2];
   }
-  const float scale = g - g0 < kWarps ? block_scale[g - g0]
-                                      : scale_from(group_amax(partials, parts, g));
-  const long long base = i[0] * v.s[0] + i[1] * v.s[1] + i[2] * v.s[2] + i[3] * v.s[3];
-  uint32_t w[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    uint32_t packed = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = c0 + 4 * q + e;
-      if (c < cols) {
-        const float xv = to_float(x[base + c * v.s[col_axis]]);
-        packed |= code_of(xv, scale) << (8 * e);
+  __shared__ Scale block_scale[kBlockGroups];
+  const int last = (first + kRowsItems < total ? first + kRowsItems : total) - 1;
+  const int g0 = first / chunks / v.rows_per_group;
+  const int ng = last / chunks / v.rows_per_group - g0 + 1;
+  const bool shared_table = ng <= kBlockGroups;
+  if (shared_table) {
+    for (int gi = threadIdx.x / 32; gi < ng; gi += kWarps) {
+      const Scale s = scale_of_amax(warp_group_amax(partials, parts, g0 + gi));
+      if (threadIdx.x % 32 == 0) {
+        block_scale[gi] = s;
+        scales[g0 + gi] = s.s;
       }
     }
-    w[q] = packed;
+    __syncthreads();
   }
-  *reinterpret_cast<uint4*>(out + r * cols_pad + c0) = make_uint4(w[0], w[1], w[2], w[3]);
+#pragma unroll
+  for (int u = 0; u < kRowsUnroll; ++u) {
+    if (row[u] < 0) continue;
+    const int g = row[u] / v.rows_per_group;
+    Scale scale;
+    if (shared_table) {
+      scale = block_scale[g - g0];
+    } else {
+      scale = scale_of_amax(group_amax(partials, parts, g));
+      if (col0[u] == 0) scales[g] = scale.s;
+    }
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      w[e / 4] |= code_of(value_at(raw[u][e / kVe], e % kVe, T()), scale) << (8 * (e % 4));
+    }
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(row[u]) * (chunks * 16) + col0[u]) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
-// ---- quantize_s8, the im2col ---------------------------------------------------------
+// ---- the transpose kernel -----------------------------------------------------------
 
-// How a block reads its patch: through the strides with lanes along
-// channels (the general path), with lanes along x (x contiguous), or in
-// 16-byte asynchronous copies, all in flight at once (x contiguous, the
-// tensor's base and strides 16-byte aligned).
-enum PatchLoad { kLoadGeneral = 0, kLoadAlongX = 1, kLoadAsync = 2 };
+// Per group g, R rows of L values: value (r, l) at (g / heads) * gs0 +
+// (g % heads) * gs1 + r * rs + l * ls. The output is (L, r_pad) a group,
+// value (r, l) at byte l * r_pad + r, zero for r in [R, r_pad).
+struct TransposeView {
+  int heads;
+  long long gs0, gs1;
+  int r_n, l_n;
+  long long rs, ls;
+};
 
-// 16 bytes from global to shared memory, asynchronously (L2 only, which
-// fetches the 128-byte line around them); zeros when !valid (src is then
-// not read)
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
+constexpr int kTileR = 64;   // input rows (output bytes a row) a tile
+constexpr int kTileSteps = 4;  // 16-byte loads in flight a thread
+
+// A streaming transpose through shared memory. Block (l tile, r tile, g)
+// takes kTileR input rows and kTileL = 4 * kVe * kTileSteps values of each
+// (64 in fp32, 128 in bf16). A warp reads 8 rows, four lanes a row side by
+// side (64 contiguous bytes), kTileSteps loads in flight a thread: 16-byte
+// streaming loads where every row run is 16-byte aligned (kVec), else a
+// value at a time through the strides. Each value is quantized once, in
+// registers, and its code stored as byte [l][r] of a 64-byte row a value
+// of l, the row's four 16-byte segments rotated by (l / kVe) % 4 so that
+// the four lanes of a row, kVe values of l apart, store to other banks.
+// Then each thread reads 16 bytes of an output row (8 lanes: two whole
+// rows, all 32 banks) and stores them: a tile's row is 64 contiguous bytes
+// of the output, and a tile that spans r_pad a contiguous run.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+quantize_transpose_kernel(const T* __restrict__ x, TransposeView v, int r_pad,
+                          const float* __restrict__ partials, int parts,
+                          int8_t* __restrict__ out, float* __restrict__ scales) {
+  constexpr int kVe = 16 / sizeof(T);
+  constexpr int kTileL = 4 * kVe * kTileSteps;
+  __shared__ __align__(16) uint8_t tile[kTileL * kTileR];
+  const int g = blockIdx.z;
+  const int l0 = blockIdx.x * kTileL;
+  const int r0 = blockIdx.y * kTileR;
+  const int lane = threadIdx.x % 32;
+  const int rr = threadIdx.x / 32 * 8 + lane / 4;  // the thread's row in the tile
+  const int k = lane % 4;
+  const int r = r0 + rr;
+  const T* xr = x + static_cast<long long>(g / v.heads) * v.gs0 +
+                static_cast<long long>(g % v.heads) * v.gs1 + static_cast<long long>(r) * v.rs;
+  uint4 raw[kTileSteps];
+#pragma unroll
+  for (int u = 0; u < kTileSteps; ++u) {
+    const int l = l0 + (4 * u + k) * kVe;
+    const int left = v.l_n - l;
+    if (r >= v.r_n || left <= 0) {
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+    } else if (kVec) {  // past L inside the chunk: never stored
+      raw[u] = load16_streaming(reinterpret_cast<const uint4*>(xr + l));
+    } else {
+      raw[u] = load_values(xr + l * v.ls, v.ls, left);
+    }
+  }
+  const Scale scale = scale_of_amax(warp_group_amax(partials, parts, g));
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) scales[g] = scale.s;
+  const int seg = rr / 16;
+  const int byte = rr % 16;
+#pragma unroll
+  for (int u = 0; u < kTileSteps; ++u) {
+    const int lc = (4 * u + k) * kVe;  // the chunk's first l in the tile
+    uint8_t* dst = tile + lc * kTileR + ((seg ^ k) * 16) + byte;  // (lc / kVe) % 4 == k
+#pragma unroll
+    for (int e = 0; e < kVe; ++e) {
+      dst[e * kTileR] = static_cast<uint8_t>(code_of(value_at(raw[u], e, T()), scale));
+    }
+  }
+  __syncthreads();
+  const int segs = (r_pad - r0 < kTileR ? r_pad - r0 : kTileR) / 16;
+  const int l_end = v.l_n - l0 < kTileL ? v.l_n - l0 : kTileL;
+  int8_t* og = out + static_cast<long long>(g) * v.l_n * r_pad + r0;
+  for (int i = threadIdx.x; i < kTileL * 4; i += kThreads) {
+    const int ll = i / 4;
+    const int s = i % 4;
+    if (ll >= l_end || s >= segs) continue;
+    const uint4 val =
+        *reinterpret_cast<const uint4*>(tile + ll * kTileR + ((s ^ ((ll / kVe) % 4)) * 16));
+    *reinterpret_cast<uint4*>(og + static_cast<long long>(l0 + ll) * r_pad + 16 * s) = val;
+  }
+}
+
+// ---- the one-launch heads kernel ----------------------------------------------------
+
+// 16 bytes from global to shared memory, asynchronously (L2 only)
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0)
+               "l"(src)
                : "memory");
 }
 
@@ -340,186 +492,94 @@ __device__ __forceinline__ void copies_landed() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// A block's tile for a KS x KS kernel at stride S on T inputs: TH x TW
-// output pixels of one sample and CC input channels. Shared memory holds the
-// patch's codes (CC x IH x IW bytes, the halo included) and the staged rows
-// (a pixel's CC*KS*KS bytes, its pitch an odd number of 16-byte units so
-// that a warp's 16-byte accesses 32 pitches apart spread over the banks);
-// the raw patch of the asynchronous copies (RW values a row: the 16-byte
-// chunks around IW values at any offset) shares the staging region, which
-// it leaves before the rows are built. A thread
-// builds a unit: U channels of one pixel, U*KS*KS bytes, a whole number of
-// 32-bit words (of 16-byte chunks where U*KS*KS allows).
-template <typename T, int KS, int S>
-struct Im2colTile {
-  static constexpr int CC = KS == 1 ? 128 : (KS == 3 ? 32 : 16);
-  static constexpr int TH = 8;
-  static constexpr int TW = KS == 7 ? 8 : 16;
-  static constexpr int U = KS == 7 ? 4 : 16;
-  static constexpr int IH = (TH - 1) * S + KS;
-  static constexpr int IW = (TW - 1) * S + KS;
-  static constexpr int TP = TH * TW;
-  static constexpr int SEG = CC * KS * KS;  // staged bytes a pixel, a multiple of 16
-  static constexpr int PITCH = (SEG / 16 | 1) * 16;
-  static constexpr int IN_BYTES = (CC * IH * IW + 15) / 16 * 16;
-  static constexpr int VE = 16 / sizeof(T);            // values a 16-byte chunk
-  static constexpr int RCH = (IW + 2 * VE - 2) / VE;    // chunks a raw row
-  static constexpr int RW = RCH * VE;
-  static constexpr int RAW_BYTES = CC * IH * RW * sizeof(T);
-  static constexpr bool ASYNC = RAW_BYTES <= 96 * 1024;  // else the plain loads
-  static constexpr int STAGE = TP * PITCH;
-  static constexpr int REGION = ASYNC && RAW_BYTES > STAGE ? RAW_BYTES : STAGE;
-  static constexpr int SMEM = REGION + IN_BYTES;
-};
-
-// Block (channel chunk, pixel tile, sample): (1) every warp reduces the
-// sample's amax partials; (2) the patch is read once, each value quantized
-// once (zero codes for the padding, the ragged edge and channels past C);
-// (3) each unit gathers its pixel's (c, ky, kx) bytes at compile-time
-// offsets into the staging rows; (4) the rows go out as 16-byte stores
-// along each row, the block's columns [c0*KS*KS, +SEG), and for the last
-// channel chunk up to k_pad (zero past K).
-template <typename T, int KS, int S, int kLoad>
+// Block g holds (sample, head) group g of x (B, T, H, hd) whole in shared
+// memory, [t][d] in x's dtype: one read of the group (16-byte asynchronous
+// copies, all in flight at once, where each row of hd values is whole
+// 16-byte chunks, kAsync; else a value at a time, lanes along d), its amax
+// from there, its scale, its codes: heads (T, hd_pad), a thread 16 codes
+// of a row, or heads_t (hd, T_pad), lanes along d so that each of the 16
+// reads a thread makes, 32 consecutive values of a row, is free of bank
+// conflicts. No partials, no second launch.
+template <typename T, bool kAsync>
 __global__ void __launch_bounds__(kThreads)
-im2col_kernel(const T* __restrict__ x, View v, int pad, int ho_n, int wo_n, int tiles_w,
-              int k_pad, const float* __restrict__ partials, int parts,
-              int8_t* __restrict__ out, float* __restrict__ scales) {
-  using Tile = Im2colTile<T, KS, S>;
-  constexpr int kPlane = Tile::IH * Tile::IW;
-  constexpr int kPatch = Tile::CC * kPlane;
-  constexpr int kLoads = 8;  // loads in flight a thread on the plain paths
+quantize_heads_group_kernel(const T* __restrict__ x, View v, int layout, int cols_pad,
+                            int8_t* __restrict__ out, float* __restrict__ scales) {
+  constexpr int kVe = 16 / sizeof(T);
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* stage = smem;
-  uint8_t* patch = smem + Tile::REGION;
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.x * Tile::CC;
-  const int oy0 = static_cast<int>(blockIdx.y / tiles_w) * Tile::TH;
-  const int ox0 = static_cast<int>(blockIdx.y % tiles_w) * Tile::TW;
-  const int y_base = oy0 * S - pad;
-  const int x_base = ox0 * S - pad;
-  const int n_c = static_cast<int>(v.n[1]);
-  const int h = static_cast<int>(v.n[2]);
-  const int w = static_cast<int>(v.n[3]);
-  const T* xb = x + b * v.s[0];
-  // the raw patch's rows start at the 16-byte chunk holding x_base (chunks
-  // lie wholly inside or outside a row: W is a whole number of chunks)
-  const int x_chunk = (x_base >= 0 ? x_base : x_base - Tile::VE + 1) / Tile::VE * Tile::VE;
-  if constexpr (kLoad == kLoadAsync) {  // every copy of the patch in flight at once
-    for (int q = threadIdx.x; q < Tile::CC * Tile::IH * Tile::RCH; q += kThreads) {
-      const int row = q / Tile::RCH;  // (cu, iy)
-      const int c = c0 + row / Tile::IH;
-      const int yy = y_base + row % Tile::IH;
-      const int xx = x_chunk + q % Tile::RCH * Tile::VE;
-      const bool inside = c < n_c && static_cast<unsigned>(yy) < static_cast<unsigned>(h) &&
-                          static_cast<unsigned>(xx) < static_cast<unsigned>(w);
-      copy16_async(stage + static_cast<size_t>(q) * 16,
-                   inside ? xb + c * v.s[1] + yy * v.s[2] + xx : x, inside);
+  T* vals = reinterpret_cast<T*>(smem);
+  __shared__ float amax;
+  const int g = blockIdx.x;
+  const int heads = static_cast<int>(v.n[2]);
+  const int t_n = static_cast<int>(v.n[1]);
+  const int hd = static_cast<int>(v.n[3]);
+  const int n = t_n * hd;
+  const T* xg = x + static_cast<long long>(g / heads) * v.s[0] +
+                static_cast<long long>(g % heads) * v.s[2];
+  float m = 0.f;
+  if constexpr (kAsync) {
+    const int per_row = hd / kVe;
+    for (int q = threadIdx.x; q < t_n * per_row; q += kThreads) {
+      const int t = q / per_row;
+      const int c = (q - t * per_row) * kVe;
+      copy16_async(vals + t * hd + c, xg + t * v.s[1] + c);
     }
-  }
-  const float scale = scale_from(warp_group_amax(partials, parts, b));
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) scales[b] = scale;
-
-  if constexpr (kLoad == kLoadAsync) {
     copies_landed();
     __syncthreads();
-    const T* raw = reinterpret_cast<const T*>(stage);
-    const int skew = x_base - x_chunk;
-    for (int e = threadIdx.x; e < kPatch; e += kThreads) {
-      const int row = e / Tile::IW;  // (cu, iy)
-      const float val = to_float(raw[row * Tile::RW + skew + e % Tile::IW]);
-      patch[e] = static_cast<uint8_t>(val == 0.f ? 0u : code_of(val, scale));
+    for (int q = threadIdx.x; q < n / kVe; q += kThreads) {
+      m = fmaxf(m, absmax16(reinterpret_cast<const uint4*>(vals)[q], T()));
     }
   } else {
-    for (int e0 = threadIdx.x; e0 < kPatch; e0 += kLoads * kThreads) {
-      float val[kLoads];
-      int at[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int e = e0 + u * kThreads;
-        int cu, iy, ix;
-        if (kLoad == kLoadAlongX) {  // e = (cu, iy, ix), x fastest
-          cu = e / kPlane;
-          iy = e % kPlane / Tile::IW;
-          ix = e % Tile::IW;
-        } else {  // e = (iy, ix, cu), channels fastest
-          cu = e % Tile::CC;
-          iy = e / Tile::CC / Tile::IW;
-          ix = e / Tile::CC % Tile::IW;
-        }
-        const int c = c0 + cu;
-        const int yy = y_base + iy;
-        const int xx = x_base + ix;
-        at[u] = e < kPatch ? cu * kPlane + iy * Tile::IW + ix : -1;
-        const bool inside = e < kPatch && c < n_c &&
-                            static_cast<unsigned>(yy) < static_cast<unsigned>(h) &&
-                            static_cast<unsigned>(xx) < static_cast<unsigned>(w);
-        val[u] = inside ? to_float(xb[c * v.s[1] + yy * v.s[2] + xx * v.s[3]]) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        if (at[u] >= 0) {
-          patch[at[u]] = static_cast<uint8_t>(val[u] == 0.f ? 0u : code_of(val[u], scale));
-        }
-      }
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int t = i / hd;
+      const int d = i - t * hd;
+      const T val = xg[t * v.s[1] + d * v.s[3]];
+      vals[i] = val;
+      m = fmaxf(m, fabsf(to_float(val)));
     }
   }
+  block_max_to(m, &amax);  // its barrier also lands the scalar path's stores
   __syncthreads();
-
-  constexpr int kTaps = KS * KS;
-  constexpr int kUnitBytes = Tile::U * kTaps;
-  constexpr int kWords = kUnitBytes / 4;
-  constexpr int kUnits = Tile::TP * (Tile::CC / Tile::U);
-  for (int unit = threadIdx.x; unit < kUnits; unit += kThreads) {
-    const int p = unit % Tile::TP;
-    const int gu = unit / Tile::TP;
-    const int py = p / Tile::TW;
-    const int px = p % Tile::TW;
-    if (oy0 + py >= ho_n || ox0 + px >= wo_n) continue;
-    const uint8_t* src = patch + gu * Tile::U * kPlane + py * S * Tile::IW + px * S;
-    uint8_t* dst = stage + p * Tile::PITCH + gu * kUnitBytes;
-    uint32_t word[kWords];
+  const Scale scale = scale_of_amax(amax);
+  if (threadIdx.x == 0) scales[g] = scale.s;
+  const int chunks = cols_pad / 16;
+  if (layout == kHeads) {
+    int8_t* og = out + static_cast<long long>(g) * t_n * cols_pad;
+    for (int i = threadIdx.x; i < t_n * chunks; i += kThreads) {
+      const int t = i / chunks;
+      const int c0 = (i - t * chunks) * 16;
+      const T* src = vals + t * hd + c0;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (kAsync && c0 + 16 <= hd) {  // whole 16-byte reads of the row
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      uint32_t packed = 0;
+        for (int l = 0; l < 16 / kVe; ++l) {
+          const uint4 r = reinterpret_cast<const uint4*>(src)[l];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * k + e;  // (cu, ky, kx) of the unit's byte
-        const int tap = col % kTaps;
-        packed |= static_cast<uint32_t>(src[col / kTaps * kPlane + tap / KS * Tile::IW + tap % KS])
-                  << (8 * e);
+          for (int e = 0; e < kVe; ++e) {
+            const int c = l * kVe + e;
+            w[c / 4] |= code_of(value_at(r, e, T()), scale) << (8 * (c % 4));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          if (c0 + c < hd) w[c / 4] |= code_of(to_float(src[c]), scale) << (8 * (c % 4));
+        }
       }
-      word[k] = packed;
+      *reinterpret_cast<uint4*>(og + t * cols_pad + c0) = make_uint4(w[0], w[1], w[2], w[3]);
     }
-    if constexpr (kWords % 4 == 0) {
+  } else {
+    int8_t* og = out + static_cast<long long>(g) * hd * cols_pad;
+    for (int i = threadIdx.x; i < hd * chunks; i += kThreads) {
+      const int j = i / hd;
+      const int d = i - j * hd;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int q = 0; q < kWords / 4; ++q) {
-        *reinterpret_cast<uint4*>(dst + 16 * q) =
-            make_uint4(word[4 * q], word[4 * q + 1], word[4 * q + 2], word[4 * q + 3]);
+      for (int c = 0; c < 16; ++c) {
+        const int t = j * 16 + c;
+        if (t < t_n) w[c / 4] |= code_of(to_float(vals[t * hd + d]), scale) << (8 * (c % 4));
       }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) *reinterpret_cast<uint32_t*>(dst + 4 * k) = word[k];
+      *reinterpret_cast<uint4*>(og + d * cols_pad + j * 16) = make_uint4(w[0], w[1], w[2], w[3]);
     }
-  }
-  __syncthreads();
-
-  constexpr int kSegChunks = Tile::SEG / 16;
-  const int col0 = c0 * kTaps;
-  // the last channel chunk writes on to k_pad: its staged channels past C
-  // are zero codes, and any columns past its staging zero
-  const int chunks = c0 + Tile::CC >= n_c ? (k_pad - col0) / 16 : kSegChunks;
-  const long long row0 = static_cast<long long>(b) * ho_n * wo_n;
-  for (int i = threadIdx.x; i < Tile::TP * chunks; i += kThreads) {
-    const int p = chunks == kSegChunks ? i / kSegChunks : i / chunks;
-    const int j = i - p * chunks;
-    const int oy = oy0 + p / Tile::TW;
-    const int ox = ox0 + p % Tile::TW;
-    if (oy >= ho_n || ox >= wo_n) continue;
-    const uint4 val = j < kSegChunks
-                          ? *reinterpret_cast<const uint4*>(stage + p * Tile::PITCH + 16 * j)
-                          : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(out + (row0 + static_cast<long long>(oy) * wo_n + ox) * k_pad +
-                              col0 + 16 * j) = val;
   }
 }
 
@@ -558,38 +618,6 @@ dequant_heads_kernel(const int32_t* __restrict__ y, const float* __restrict__ sa
       o = ((static_cast<long long>(g / heads) * m + row) * heads + g % heads) * n + within % n;
     }
     out[o] = from_float<T>(v);
-  }
-}
-
-constexpr int kTile = 32;
-
-// y (B*HW, N) -> out (B, N, HW): block (32, 8) over a 32 (hw) x 32 (n) tile
-template <typename T>
-__global__ void __launch_bounds__(kTile * 8)
-dequant_nchw_kernel(const int32_t* __restrict__ y, const float* __restrict__ sa,
-                    const float* __restrict__ sb, int n, long long hw, T* __restrict__ out) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int b = blockIdx.z;
-  const long long p0 = static_cast<long long>(blockIdx.y) * kTile;
-  const int n0 = blockIdx.x * kTile;
-  const int col = n0 + threadIdx.x;
-  const float sx = sa[b];
-  const float s = col < n ? sx * sb[col] : 0.f;
-#pragma unroll
-  for (int r = threadIdx.y; r < kTile; r += 8) {
-    const long long p = p0 + r;
-    if (p < hw && col < n) {
-      tile[r][threadIdx.x] = __int2float_rn(y[(b * hw + p) * n + col]) * s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = threadIdx.y; r < kTile; r += 8) {
-    const int c = n0 + r;
-    const long long p = p0 + threadIdx.x;
-    if (c < n && p < hw) {
-      out[(static_cast<long long>(b) * n + c) * hw + p] = from_float<T>(tile[threadIdx.x][r]);
-    }
   }
 }
 
@@ -643,6 +671,17 @@ bool groups_dense(const View& v) {
   return true;
 }
 
+// x 16-byte aligned, and the stride of every axis of v longer than 1 among
+// `axes` a whole number of 16-byte units
+template <typename T>
+bool runs_aligned(const void* x, const View& v, std::initializer_list<int> axes) {
+  if (reinterpret_cast<uintptr_t>(x) % 16) return false;
+  for (int a : axes) {
+    if (v.n[a] > 1 && (v.s[a] * static_cast<long long>(sizeof(T))) % 16) return false;
+  }
+  return true;
+}
+
 // the amax pass: `parts` partial maxima a group into partials (groups, parts),
 // by the contiguous kernel where the groups are dense (*path 1), else by the
 // general one (*path 0)
@@ -666,104 +705,140 @@ int amax_pass(const void* x_, const long long* sizes, const long long* strides, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The rows kernel over `rv`, (rows, cols_pad) codes: with 16-byte loads
+// where `vec`, else a value at a time.
+template <typename T>
+int launch_rows(const void* x, const RowView& rv, long long rows, int cols_pad, bool vec,
+                const float* partials, int parts, void* codes, void* scales,
+                cudaStream_t stream) {
+  const int chunks = cols_pad / 16;
+  const long long total = rows * chunks;
+  if (total + kRowsItems > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>((total + kRowsItems - 1) / kRowsItems);
+  auto kernel = vec ? quantize_rows_kernel<T, true> : quantize_rows_kernel<T, false>;
+  kernel<<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), rv, static_cast<int>(total), chunks, partials, parts,
+      static_cast<int8_t*>(codes), static_cast<float*>(scales));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transpose kernel over `tv`, `groups` groups of (L, r_pad) codes: with
+// 16-byte loads where `vec`, else a value at a time.
+template <typename T>
+int launch_transpose(const void* x, const TransposeView& tv, int groups, int r_pad, bool vec,
+                     const float* partials, int parts, void* codes, void* scales,
+                     cudaStream_t stream) {
+  constexpr int kTileL = 4 * (16 / sizeof(T)) * kTileSteps;
+  const long long r_tiles = (r_pad + kTileR - 1) / kTileR;
+  const long long l_tiles = (tv.l_n + kTileL - 1) / kTileL;
+  if (groups > 65535 || r_tiles > 65535 || l_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(l_tiles), static_cast<unsigned>(r_tiles), groups);
+  auto kernel = vec ? quantize_transpose_kernel<T, true> : quantize_transpose_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), tv, r_pad, partials, parts,
+                                        static_cast<int8_t*>(codes),
+                                        static_cast<float*>(scales));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The quantize pass of the rows, heads and heads_t layouts from the amax
+// pass's partials: the rows kernel for rows and heads (16-byte loads where
+// each row is one aligned run), the transpose kernel for heads_t (16-byte
+// loads where each token's hd values are).
 template <typename T>
 int quantize(const void* x, const long long* sizes, const long long* strides, int head_axis,
-             int layout, int cols_pad, const void* partials, int parts, void* codes,
-             void* scales, cudaStream_t stream) {
+             int layout, int cols_pad, const void* partials_, int parts, void* codes,
+             void* scales, int* path, cudaStream_t stream) {
   const View v = make_view(sizes, strides, head_axis);
   if (!valid_view(v) || cols_pad % 16 || cols_pad <= 0 || parts < 1) return cudaErrorInvalidValue;
   if ((layout == kRows) != (head_axis == 0) || (layout != kRows && head_axis != 2)) {
     return cudaErrorInvalidValue;
   }
   const int groups = groups_of(v);
-  if (groups < 1) return cudaErrorInvalidValue;
-  long long rows;
-  int cols;
-  if (layout == kRows) {
-    rows = v.n[0] * v.n[1] * v.n[2];
-    cols = static_cast<int>(v.n[3]);
-  } else if (layout == kHeads) {
-    rows = static_cast<long long>(groups) * v.n[1];
-    cols = static_cast<int>(v.n[3]);
-  } else {
-    rows = static_cast<long long>(groups) * v.n[3];
-    cols = static_cast<int>(v.n[1]);
+  if (groups < 1 || (layout == kHeadsT ? v.n[1] : v.n[3]) > cols_pad) return cudaErrorInvalidValue;
+  const float* partials = static_cast<const float*>(partials_);
+  const bool vec = (v.n[3] == 1 || v.s[3] == 1) && runs_aligned<T>(x, v, {0, 1, 2});
+  if (layout == kHeadsT) {  // a group's T rows of hd values, transposed
+    *path = vec ? kPathTranspose : kPathTransposeScalar;
+    const TransposeView tv{static_cast<int>(v.n[2]), v.s[0], v.s[2], static_cast<int>(v.n[1]),
+                           static_cast<int>(v.n[3]), v.s[1], v.s[3]};
+    return launch_transpose<T>(x, tv, groups, cols_pad, vec, partials, parts, codes, scales,
+                               stream);
   }
-  if (cols > cols_pad) return cudaErrorInvalidValue;
-  const long long work = rows * (cols_pad / 16);
-  const long long blocks = ((work > groups ? work : groups) + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  quantize_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), v, layout, rows, cols, cols_pad,
-      static_cast<const float*>(partials), parts, groups, static_cast<int8_t*>(codes),
-      static_cast<float*>(scales));
-  return static_cast<int>(cudaGetLastError());
+  *path = vec ? kPathRows : kPathRowsScalar;
+  const int cols = static_cast<int>(v.n[3]);
+  // rows: (d0, d1, d2), d2 fastest; heads: (b, h, t), t fastest
+  const RowView rv =
+      layout == kRows
+          ? RowView{static_cast<unsigned>(v.n[1]), static_cast<unsigned>(v.n[2]), v.s[0], v.s[1],
+                    v.s[2], v.s[3], cols, static_cast<int>(v.n[1] * v.n[2])}
+          : RowView{static_cast<unsigned>(v.n[2]), static_cast<unsigned>(v.n[1]), v.s[0], v.s[2],
+                    v.s[1], v.s[3], cols, static_cast<int>(v.n[1])};
+  return launch_rows<T>(x, rv, v.n[0] * v.n[1] * v.n[2], cols_pad, vec, partials, parts, codes,
+                        scales, stream);
 }
 
-// The patch's loader for x: where x is contiguous along W, the asynchronous
-// copies if the tile's raw patch fits and the base and strides are 16-byte
-// aligned, else loads with lanes along x; otherwise the general path. Its
-// choice goes to *path.
-template <typename T, int KS, int S>
-int im2col_tiles(const T* x, const View& v, int pad, int ho, int wo, int k_pad,
-                 const float* partials, int parts, int8_t* codes, float* scales,
-                 int* path, cudaStream_t stream) {
-  using Tile = Im2colTile<T, KS, S>;
-  const int tiles_w = (wo + Tile::TW - 1) / Tile::TW;
-  const long long tiles = static_cast<long long>((ho + Tile::TH - 1) / Tile::TH) * tiles_w;
-  const long long chunks = (v.n[1] + Tile::CC - 1) / Tile::CC;
-  if (tiles > 65535 || chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       (v.s[0] * sizeof(T)) % 16 == 0 && (v.s[1] * sizeof(T)) % 16 == 0 &&
-                       (v.s[2] * sizeof(T)) % 16 == 0 && (v.n[3] * sizeof(T)) % 16 == 0;
-  const bool along_x = v.s[3] == 1 || v.n[3] == 1;
-  const int load = !along_x                   ? kLoadGeneral
-                   : Tile::ASYNC && aligned   ? kLoadAsync
-                                              : kLoadAlongX;
-  void (*kernel)(const T*, View, int, int, int, int, int, const float*, int, int8_t*, float*) =
-      load == kLoadAsync    ? im2col_kernel<T, KS, S, kLoadAsync>
-      : load == kLoadAlongX ? im2col_kernel<T, KS, S, kLoadAlongX>
-                            : im2col_kernel<T, KS, S, kLoadGeneral>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(tiles),
-                  static_cast<unsigned>(v.n[0]));
-  kernel<<<grid, kThreads, Tile::SMEM, stream>>>(x, v, pad, ho, wo, tiles_w, k_pad, partials,
-                                                  parts, codes, scales);
-  *path = load;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// kernel sizes 1, 3 and 7 at strides 1 and 2
+// The NHWC codes (B, H, W, c_pad) of NCHW x from the amax pass's partials:
+// the transpose kernel over each sample's C rows of H*W pixels where the
+// pixels flatten to one stride and the channels are not contiguous
+// (16-byte loads where the planes are 16-byte-aligned runs); otherwise the
+// rows kernel over the (b, h, w) rows of C values (a channels-last input:
+// no transpose, 16-byte loads where aligned).
 template <typename T>
-int im2col(const void* x, const long long* sizes, const long long* strides, int ks, int stride,
-           int pad, int k_pad, const void* partials, int parts, void* codes,
-           void* scales, int* path, cudaStream_t stream) {
+int quantize_nhwc(const void* x, const long long* sizes, const long long* strides, int c_pad,
+                  const void* partials_, int parts, void* codes, void* scales, int* path,
+                  cudaStream_t stream) {
   const View v = make_view(sizes, strides, 0);
-  if (!valid_view(v) || pad < 0 || parts < 1 || k_pad % 16 || k_pad < v.n[1] * ks * ks ||
-      v.n[0] > 65535) {
+  if (!valid_view(v) || c_pad % 16 || c_pad < v.n[1] || parts < 1 || v.n[0] > 65535 ||
+      v.n[2] * v.n[3] > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  const int ho = static_cast<int>((v.n[2] + 2 * pad - ks) / stride + 1);
-  const int wo = static_cast<int>((v.n[3] + 2 * pad - ks) / stride + 1);
-  if (ho < 1 || wo < 1) return cudaErrorInvalidValue;
-  const T* xt = static_cast<const T*>(x);
-  const float* p = static_cast<const float*>(partials);
-  int8_t* c = static_cast<int8_t*>(codes);
-  float* s = static_cast<float*>(scales);
-#define IM2COL_CASE(K, ST)                                                                     \
-  if (ks == K && stride == ST) {                                                              \
-    return im2col_tiles<T, K, ST>(xt, v, pad, ho, wo, k_pad, p, parts, c, s, path, stream);   \
+  const int b = static_cast<int>(v.n[0]);
+  const float* partials = static_cast<const float*>(partials_);
+  const long long pixels = v.n[2] * v.n[3];
+  const bool flat = v.n[2] == 1 || v.n[3] == 1 || v.s[2] == v.n[3] * v.s[3];
+  if (v.s[1] != 1 && flat) {  // pixels at one stride
+    const long long ls = v.n[3] == 1 ? v.s[2] : v.s[3];
+    const bool vec = ls == 1 && runs_aligned<T>(x, v, {0, 1});
+    *path = vec ? kPathTranspose : kPathTransposeScalar;
+    const TransposeView tv{1, v.s[0], 0, static_cast<int>(v.n[1]), static_cast<int>(pixels),
+                           v.s[1], ls};
+    return launch_transpose<T>(x, tv, b, c_pad, vec, partials, parts, codes, scales, stream);
   }
-  IM2COL_CASE(1, 1)
-  IM2COL_CASE(1, 2)
-  IM2COL_CASE(3, 1)
-  IM2COL_CASE(3, 2)
-  IM2COL_CASE(7, 1)
-  IM2COL_CASE(7, 2)
-#undef IM2COL_CASE
-  return cudaErrorInvalidValue;
+  const bool vec = v.s[1] == 1 && runs_aligned<T>(x, v, {0, 2, 3});
+  *path = vec ? kPathRows : kPathRowsScalar;
+  const RowView rv{static_cast<unsigned>(v.n[2]), static_cast<unsigned>(v.n[3]), v.s[0], v.s[2],
+                   v.s[3], v.s[1], static_cast<int>(v.n[1]), static_cast<int>(pixels)};
+  return launch_rows<T>(x, rv, b * pixels, c_pad, vec, partials, parts, codes, scales, stream);
+}
+
+constexpr int kHeadsGroupMaxBytes = 96 * 1024;  // ops/int8.py HEADS_GROUP_MAX_BYTES
+
+// The heads and heads_t layouts in one launch, where a (sample, head)
+// group's T * hd values fit kHeadsGroupMaxBytes of shared memory.
+template <typename T>
+int quantize_heads_group(const void* x, const long long* sizes, const long long* strides,
+                         int layout, int cols_pad, void* codes, void* scales,
+                         cudaStream_t stream) {
+  const View v = make_view(sizes, strides, 2);
+  const int groups = groups_of(v);
+  if (!valid_view(v) || groups < 1 || cols_pad % 16 || (layout != kHeads && layout != kHeadsT)) {
+    return cudaErrorInvalidValue;
+  }
+  if ((layout == kHeads ? v.n[3] : v.n[1]) > cols_pad) return cudaErrorInvalidValue;
+  const long long bytes = (v.n[1] * v.n[3] * static_cast<long long>(sizeof(T)) + 15) / 16 * 16;
+  if (bytes > kHeadsGroupMaxBytes) return cudaErrorInvalidValue;
+  const bool async = v.s[3] == 1 && (v.n[3] * sizeof(T)) % 16 == 0 &&
+                     runs_aligned<T>(x, v, {0, 1, 2});
+  auto kernel = async ? quantize_heads_group_kernel<T, true>
+                      : quantize_heads_group_kernel<T, false>;
+  // past 48 KB with the static words too: the opt-in limit, set every call
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kHeadsGroupMaxBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<groups, kThreads, static_cast<size_t>(bytes), stream>>>(
+      static_cast<const T*>(x), v, layout, cols_pad, static_cast<int8_t*>(codes),
+      static_cast<float*>(scales));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -771,9 +846,9 @@ int im2col(const void* x, const long long* sizes, const long long* strides, int 
 // Plain C interface, loaded with ctypes. Inputs are read through their
 // strides (in elements); outputs are contiguous. `partials` holds `parts`
 // fp32 words a group: amax_s8 writes each group's partial maxima there, the
-// quantize entries reduce them. The amax and im2col entries write the path
-// they took to *path (`amax_pass`, `PatchLoad`). The stream is the caller's
-// current CUDA stream. Each returns the error of its launches (0 on
+// quantize entries reduce them. The amax and quantize entries write the
+// path they took to *path (`amax_pass`, `QuantPath`). The stream is the
+// caller's current CUDA stream. Each returns the error of its launches (0 on
 // success); nothing synchronises or allocates.
 
 #define QUANT_ENTRIES(SUFFIX, T)                                                            \
@@ -786,16 +861,23 @@ int im2col(const void* x, const long long* sizes, const long long* strides, int 
   extern "C" int quantize_s8_##SUFFIX(const void* x, const long long* sizes,               \
                                       const long long* strides, int head_axis, int layout,  \
                                       int cols_pad, void* partials, int parts, void* codes, \
-                                      void* scales, void* stream) {                         \
+                                      void* scales, int* path, void* stream) {              \
     return quantize<T>(x, sizes, strides, head_axis, layout, cols_pad, partials, parts,     \
-                       codes, scales, static_cast<cudaStream_t>(stream));                   \
+                       codes, scales, path, static_cast<cudaStream_t>(stream));             \
   }                                                                                         \
-  extern "C" int quantize_im2col_s8_##SUFFIX(                                               \
-      const void* x, const long long* sizes, const long long* strides, int ks, int stride,  \
-      int pad, int k_pad, void* partials, int parts, void* codes, void* scales, int* path,  \
-      void* stream) {                                                                       \
-    return im2col<T>(x, sizes, strides, ks, stride, pad, k_pad, partials, parts, codes,     \
-                     scales, path, static_cast<cudaStream_t>(stream));                      \
+  extern "C" int quantize_heads_s8_##SUFFIX(const void* x, const long long* sizes,         \
+                                            const long long* strides, int layout,           \
+                                            int cols_pad, void* codes, void* scales,        \
+                                            void* stream) {                                 \
+    return quantize_heads_group<T>(x, sizes, strides, layout, cols_pad, codes, scales,      \
+                                   static_cast<cudaStream_t>(stream));                      \
+  }                                                                                         \
+  extern "C" int quantize_nhwc_s8_##SUFFIX(const void* x, const long long* sizes,          \
+                                           const long long* strides, int c_pad,             \
+                                           void* partials, int parts, void* codes,          \
+                                           void* scales, int* path, void* stream) {         \
+    return quantize_nhwc<T>(x, sizes, strides, c_pad, partials, parts, codes, scales, path, \
+                            static_cast<cudaStream_t>(stream));                             \
   }                                                                                         \
   extern "C" int dequant_rows_##SUFFIX(const void* y, const void* sa, const void* sb,      \
                                        long long m, int n, long long rows_per_group,        \
@@ -817,19 +899,6 @@ int im2col(const void* x, const long long* sizes, const long long* strides, int 
                               static_cast<cudaStream_t>(stream)>>>(                         \
         static_cast<const int32_t*>(y), static_cast<const float*>(sa),                      \
         static_cast<const float*>(sb), groups, m, n, heads, static_cast<T*>(out));          \
-    return static_cast<int>(cudaGetLastError());                                            \
-  }                                                                                         \
-  extern "C" int dequant_nchw_##SUFFIX(const void* y, const void* sa, const void* sb,      \
-                                       int batch, int n, long long hw, void* out,           \
-                                       void* stream) {                                      \
-    if (batch < 1 || batch > 65535 || n < 1 || hw < 1 || (hw + kTile - 1) / kTile > 65535) { \
-      return cudaErrorInvalidValue;                                                         \
-    }                                                                                       \
-    const dim3 grid((n + kTile - 1) / kTile, static_cast<unsigned>((hw + kTile - 1) / kTile), \
-                    batch);                                                                 \
-    dequant_nchw_kernel<T><<<grid, dim3(kTile, 8), 0, static_cast<cudaStream_t>(stream)>>>( \
-        static_cast<const int32_t*>(y), static_cast<const float*>(sa),                      \
-        static_cast<const float*>(sb), n, hw, static_cast<T*>(out));                        \
     return static_cast<int>(cudaGetLastError());                                            \
   }
 

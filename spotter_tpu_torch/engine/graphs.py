@@ -59,7 +59,7 @@ def kernel_wrappers() -> dict:
         "flash_attn_bf16": attention.flash_attn_bf16,
         "owl_class_logits": openvocab.owl_class_logits,
         "amax_s8": int8.amax_s8, "quantize_s8": int8.quantize_s8,
-        "transpose_s8": int8.transpose_s8, "int8_gemm": int8.int8_gemm,
+        "quantize_nhwc_s8": int8.quantize_nhwc_s8, "transpose_s8": int8.transpose_s8, "int8_gemm": int8.int8_gemm,
         "int8_gemm_kmajor": int8.int8_gemm_kmajor, "dequant_s32": int8.dequant_s32,
         "conv_s8": int8.conv_s8,
     }

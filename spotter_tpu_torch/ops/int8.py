@@ -12,33 +12,35 @@ so the port runs hand-written passes around each quantized product:
   wrapper runs first; max is order-free, so the max of the partials is
   the exact amax;
 - `quantize_s8` (one counter for its entries `quantize_rows`,
-  `quantize_heads`, `quantize_im2col`, `quantize_weight_rows`): the codes,
-  written in the GEMM's K-major layout from the partials, rows padded
-  with zero codes to a multiple of 16 (TMA's row pitch; the int32 sums do
-  not change); the im2col entry quantizes each value of a block's patch
-  once, in shared memory;
+  `quantize_heads`, `quantize_weight_rows`): the codes, written in the
+  GEMM's K-major layout from the partials, rows padded with zero codes to a
+  multiple of 16 (TMA's row pitch; the int32 sums do not change); a heads
+  call whose (sample, head) group fits a block's shared memory
+  (`heads_one_launch`) is one launch of its own kernel, amax and codes
+  from one read, and no `amax_s8`;
+- `quantize_nhwc_s8` (`nhwc_codes`): the convolution's NHWC codes from
+  NCHW x and its amax partials, a streaming transpose through shared
+  memory;
 - `int8_gemm_kmajor`: row 9's wgmma kernel on K-major operands (A (G, M, K),
   Bᵀ (N, K) shared or (G, N, K)), batched over G, any M and N;
-- `dequant_s32` (entries `dequant_rows`, `dequant_heads`, `dequant_av`,
-  `dequant_nchw`): float(y) * (sa * sb) cast to the output dtype, a
-  separate pass (the GEMM's epilogue stays the redesigned kernel's; fusing
-  it is a later speed question). `dequant_nchw` writes NCHW through a
-  shared-memory tile;
+- `dequant_s32` (entries `dequant_rows`, `dequant_heads`, `dequant_av`):
+  float(y) * (sa * sb) cast to the output dtype, a separate pass (the
+  GEMM's epilogue stays the redesigned kernel's; fusing it is a later
+  speed question);
 - `conv_s8`: the quantized convolution as one implicit-GEMM kernel on
-  wgmma: NHWC codes (`im2col_codes` at kernel size 1, one byte a value)
-  gathered in place, the tap-major weight codes of `quantize_conv_weight`,
-  the dequant and the NCHW store (the float path's layout, for the frozen
-  BN that follows) in its epilogue. The served convolution is
-  `amax_samples`, that NHWC quantize and `conv_s8`; the im2col matrix,
-  the GEMM on it and `dequant_nchw` are the measurement tool's four-kernel
-  path (tools/bench_int8_conv.py).
+  wgmma: the NHWC codes of `nhwc_codes` gathered in place, the tap-major
+  weight codes of `quantize_conv_weight`, the dequant and the NCHW store
+  (the float path's layout, for the frozen BN that follows) in its
+  epilogue. The served convolution is `amax_samples`, `nhwc_codes` and
+  `conv_s8`.
 
 `int8_gemm` (B row-major: `transpose_s8`, then the same GEMM) is the
 measurement tool's entry (tools/bench_int8.py). Each counter adds one where
 its kernel launches (`<wrapper>.launches`; the quantize wrappers add one to
-`amax_s8` and one to `quantize_s8`, whose `paths` count the launches by the
-path each took); on a CPU tensor a wrapper computes its plain version, on a
-CUDA tensor it launches its kernel or raises.
+`amax_s8` and one to `quantize_s8` or `quantize_nhwc_s8`, a heads call in
+one launch one to `quantize_s8` alone; their `paths` count the launches by
+the path each took); on a CPU tensor a wrapper computes its plain version,
+on a CUDA tensor it launches its kernel or raises.
 
 `scale_of` and `codes_of` are the numeric rule of every plain version here
 and in utils/quant.py: scale = max(amax, 1e-12) / 127 by a true fp32
@@ -57,7 +59,6 @@ from spotter_tpu_torch.obs.perf import note_kernel_flops
 from spotter_tpu_torch.utils.cuda_build import KernelLibrary, load_kernel_library
 
 TILE_MULTIPLE = 16  # M, N and K the tool's entry takes; K the served entry takes
-IM2COL_KERNEL_SIZES, IM2COL_STRIDES = (1, 3, 7), (1, 2)  # the im2col kernel's tiles
 MAX_K = (2**31 - 1) // 128**2  # beyond it an int32 sum of int8 products could overflow
 # quantize_s8's output layouts (csrc/quant.cu)
 LAYOUT_ROWS, LAYOUT_HEADS, LAYOUT_HEADS_T = 0, 1, 2
@@ -112,11 +113,11 @@ def build_quant_kernel() -> KernelLibrary:
     for suffix in SUFFIX.values():
         signatures = {
             "amax_s8": [ptr] * 3 + [i32] * 2 + [ptr] * 3,
-            "quantize_s8": [ptr] * 3 + [i32] * 3 + [ptr, i32] + [ptr] * 3,
-            "quantize_im2col_s8": [ptr] * 3 + [i32] * 4 + [ptr, i32] + [ptr] * 4,
+            "quantize_s8": [ptr] * 3 + [i32] * 3 + [ptr, i32] + [ptr] * 4,
+            "quantize_heads_s8": [ptr] * 3 + [i32] * 2 + [ptr] * 3,
+            "quantize_nhwc_s8": [ptr] * 3 + [i32, ptr, i32] + [ptr] * 4,
             "dequant_rows": [ptr] * 3 + [i64, i32, i64, ptr, ptr],
             "dequant_heads": [ptr] * 3 + [i32, i64, i32, i32, ptr, ptr],
-            "dequant_nchw": [ptr] * 3 + [i32, i32, i64, ptr, ptr],
         }
         for name, args in signatures.items():
             fn = getattr(lib, f"{name}_{suffix}")
@@ -349,14 +350,17 @@ class LaunchCount:
 # the strides, or 16-byte loads where each group fills one run of memory
 amax_s8 = LaunchCount()
 AMAX_PATHS = ("general", "fast")
-# the quantize pass, every layout; paths "rows" (the rows and heads
-# layouts), and the im2col's IM2COL_PATHS
-quantize_s8 = LaunchCount()
+# the quantize passes' kernels (csrc/quant.cu `QuantPath`): the rows kernel
+# and the transpose kernel, each with 16-byte loads or a value at a time
+# through any strides (`_scalar`), and the one-launch heads kernel
+QUANT_PATHS = ("rows", "rows_scalar", "transpose", "transpose_scalar", "group")
+quantize_s8 = LaunchCount()  # the rows, heads and heads_t layouts
+quantize_nhwc_s8 = LaunchCount()  # the convolution's NHWC codes
 dequant_s32 = LaunchCount()  # the dequant pass, every layout
-# how the im2col pass reads a block's patch (csrc/quant.cu `PatchLoad`):
-# lanes along channels through any strides, lanes along a contiguous x, or
-# 16-byte asynchronous copies (x contiguous, base and strides 16-byte aligned)
-IM2COL_PATHS = ("general", "along_x", "async")
+# a (sample, head) group of at most this many bytes is one launch of the
+# heads kernel (csrc/quant.cu kHeadsGroupMaxBytes): read once into a
+# block's shared memory, its amax and codes from there
+HEADS_GROUP_MAX_BYTES = 96 * 1024
 
 AMAX_BLOCKS_PER_SM = 8  # the amax pass's grid: this many 256-thread blocks a multiprocessor
 AMAX_MIN_SHARE = 256 * 16  # values a block of the amax pass reads at least, but the last
@@ -401,10 +405,11 @@ def quantize_view(x: torch.Tensor, sizes, strides, head_axis: int, layout: int, 
     fp32 scales."""
     codes = torch.empty(out_shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((partials.shape[0],), dtype=torch.float32, device=x.device)
+    path = ctypes.c_int(-1)
     _quant_call("quantize_s8", x.dtype, x.device, x.data_ptr(), *_view_args(sizes, strides),
                 head_axis, layout, cols_pad, partials.data_ptr(), partials.shape[1],
-                codes.data_ptr(), scales.data_ptr())
-    quantize_s8.count("rows")
+                codes.data_ptr(), scales.data_ptr(), ctypes.byref(path))
+    quantize_s8.count(QUANT_PATHS[path.value])
     return codes, scales
 
 
@@ -466,11 +471,20 @@ def quantize_heads_reference(x: torch.Tensor, transpose: bool) -> tuple[torch.Te
     return codes, scale.reshape(-1)
 
 
+def heads_one_launch(t: int, hd: int, dtype: torch.dtype) -> bool:
+    """Whether a heads call on (B, t, H, hd) `dtype` is one launch: its
+    (sample, head) group of t * hd values, rounded up to 16 bytes, is at
+    most HEADS_GROUP_MAX_BYTES. Else it is two: the amax pass, then the
+    quantize pass."""
+    return pad16(t * hd * torch.finfo(dtype).bits // 8) <= HEADS_GROUP_MAX_BYTES
+
+
 def quantize_heads(x: torch.Tensor, transpose: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, H, hd) fp32 or bf16 (any strides) -> per-(sample, head)
     codes, head-major: (B*H, T, hd_pad) (Q and K of QKᵀ), or with
     `transpose` (B*H, hd, T_pad) (V of attn·V, K-major over T); and the
-    (B*H,) fp32 scales, b-major."""
+    (B*H,) fp32 scales, b-major. On the card one launch where
+    `heads_one_launch` says so, else the amax pass and the quantize pass."""
     name = "quantize_heads"
     _device_of(name, x)
     _check_float(name, x)
@@ -483,7 +497,15 @@ def quantize_heads(x: torch.Tensor, transpose: bool) -> tuple[torch.Tensor, torc
         layout, shape = LAYOUT_HEADS_T, (b * h, hd, pad16(t))
     else:
         layout, shape = LAYOUT_HEADS, (b * h, t, pad16(hd))
-    return _launch_quantize(x, tuple(x.shape), x.stride(), 2, layout, shape[-1], shape, b * h)
+    if not heads_one_launch(t, hd, x.dtype):
+        return _launch_quantize(x, tuple(x.shape), x.stride(), 2, layout, shape[-1], shape, b * h)
+    codes = torch.empty(shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((b * h,), dtype=torch.float32, device=x.device)
+    _quant_call("quantize_heads_s8", x.dtype, x.device, x.data_ptr(),
+                *_view_args(x.shape, x.stride()), layout, shape[-1], codes.data_ptr(),
+                scales.data_ptr())
+    quantize_s8.count("group")
+    return codes, scales
 
 
 def amax_samples_reference(x: torch.Tensor) -> torch.Tensor:
@@ -494,8 +516,8 @@ def amax_samples_reference(x: torch.Tensor) -> torch.Tensor:
 def amax_samples(x: torch.Tensor) -> torch.Tensor:
     """x (B, C, H, W) fp32 or bf16 (any strides) -> (B, parts) fp32 partial
     maxima of |x|, whose max over parts is each sample's amax, exact: the
-    amax pass of `quantize_im2col` (parts is the kernel's grid a sample on
-    the card, 1 in the plain version)."""
+    amax pass of the convolution's quantize (parts is the kernel's grid a
+    sample on the card, 1 in the plain version)."""
     name = "amax_samples"
     _device_of(name, x)
     _check_float(name, x)
@@ -506,77 +528,44 @@ def amax_samples(x: torch.Tensor) -> torch.Tensor:
     return amax_view(x, tuple(x.shape), x.stride(), 0, x.shape[0])
 
 
-def _im2col_checks(name: str, x: torch.Tensor, kernel_size: int, stride: int,
-                   k_pad: int) -> None:
-    """The im2col wrappers' operand checks; on the card also the kernel's
-    tiles (kernel sizes and strides), before anything launches."""
-    _device_of(name, x)
-    _check_float(name, x)
-    if x.dim() != 4 or k_pad < x.shape[1] * kernel_size**2 or k_pad % TILE_MULTIPLE:
-        raise ValueError(f"{name}: expected NCHW x and k_pad >= C*k*k, a multiple of "
-                         f"{TILE_MULTIPLE}; got {tuple(x.shape)}, k {kernel_size}, {k_pad}")
-    if x.device.type == "cuda" and (kernel_size not in IM2COL_KERNEL_SIZES
-                                    or stride not in IM2COL_STRIDES):
-        raise ValueError(f"{name}: the kernel takes kernel sizes {IM2COL_KERNEL_SIZES} at "
-                         f"strides {IM2COL_STRIDES}, got {kernel_size} at {stride}")
-
-
-def im2col_codes_reference(x: torch.Tensor, amax: torch.Tensor, kernel_size: int, stride: int,
-                           padding: int, k_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of `im2col_codes`: the per-sample codes unfolded
-    (F.unfold's (c, ky, kx) column order), (B*Ho*Wo, k_pad), and (B,) fp32
-    scales."""
+def nhwc_codes_reference(x: torch.Tensor, amax: torch.Tensor,
+                         c_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `nhwc_codes`: the per-sample codes of x permuted to
+    NHWC, zero past C, and the (B,) fp32 scales."""
     b = x.shape[0]
     scale = scale_of(amax.amax(dim=1).view(b, 1, 1, 1))
-    cols = F.unfold(codes_of(x.to(torch.float32), scale).to(torch.float32), kernel_size,
-                    padding=padding, stride=stride)  # (B, K, L), the codes copied exactly
-    cols = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
-    return _pad_cols(cols, k_pad), scale.reshape(b)
+    codes = codes_of(x.to(torch.float32), scale).permute(0, 2, 3, 1)
+    return _pad_cols(codes, c_pad), scale.reshape(b)
 
 
-def im2col_codes(x: torch.Tensor, amax: torch.Tensor, kernel_size: int, stride: int,
-                 padding: int, k_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+def nhwc_codes(x: torch.Tensor, amax: torch.Tensor,
+               c_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
     """NCHW x fp32 or bf16 (any strides) and the amax pass's (B, parts)
-    partial maxima of it (`amax_samples`) -> (codes (B*Ho*Wo, k_pad) int8,
-    scales (B,) fp32): the quantize pass of `quantize_im2col`. On the card
-    kernel sizes 1, 3 and 7 at strides 1 and 2."""
-    name = "im2col_codes"
-    _im2col_checks(name, x, kernel_size, stride, k_pad)
+    partial maxima of it (`amax_samples`) -> (codes (B, H, W, c_pad) int8,
+    zero past C, scales (B,) fp32): the convolution's quantize pass, whose
+    codes `conv_s8` takes as they are. On a CUDA tensor its kernel (which
+    path served the call: `quantize_nhwc_s8.paths`); on a CPU tensor the
+    plain version; any other device raises."""
+    name = "nhwc_codes"
+    _device_of(name, x)
+    _check_float(name, x)
+    if x.dim() != 4 or c_pad < x.shape[1] or c_pad % TILE_MULTIPLE:
+        raise ValueError(f"{name}: expected NCHW x and c_pad >= C, a multiple of "
+                         f"{TILE_MULTIPLE}; got {tuple(x.shape)}, {c_pad}")
     b, _, h, w = x.shape
     if (amax.dtype != torch.float32 or amax.dim() != 2 or amax.shape[0] != b
             or not amax.is_contiguous()):
         raise ValueError(f"{name}: amax must be ({b}, parts) fp32, contiguous")
     if x.device.type == "cpu":
-        return im2col_codes_reference(x, amax, kernel_size, stride, padding, k_pad)
-    ho = (h + 2 * padding - kernel_size) // stride + 1
-    wo = (w + 2 * padding - kernel_size) // stride + 1
-    codes = torch.empty((b * ho * wo, k_pad), dtype=torch.int8, device=x.device)
+        return nhwc_codes_reference(x, amax, c_pad)
+    codes = torch.empty((b, h, w, c_pad), dtype=torch.int8, device=x.device)
     scales = torch.empty((b,), dtype=torch.float32, device=x.device)
     path = ctypes.c_int(-1)
-    _quant_call("quantize_im2col_s8", x.dtype, x.device, x.data_ptr(),
-                *_view_args(x.shape, x.stride()), kernel_size, stride, padding, k_pad,
-                amax.data_ptr(), amax.numel() // b, codes.data_ptr(), scales.data_ptr(),
-                ctypes.byref(path))
-    quantize_s8.count(IM2COL_PATHS[path.value])
+    _quant_call("quantize_nhwc_s8", x.dtype, x.device, x.data_ptr(),
+                *_view_args(x.shape, x.stride()), c_pad, amax.data_ptr(), amax.shape[1],
+                codes.data_ptr(), scales.data_ptr(), ctypes.byref(path))
+    quantize_nhwc_s8.count(QUANT_PATHS[path.value])
     return codes, scales
-
-
-def quantize_im2col_reference(x: torch.Tensor, kernel_size: int, stride: int, padding: int,
-                              k_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of `quantize_im2col`."""
-    return im2col_codes_reference(x, amax_samples_reference(x), kernel_size, stride, padding,
-                                  k_pad)
-
-
-def quantize_im2col(x: torch.Tensor, kernel_size: int, stride: int, padding: int,
-                    k_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """NCHW x fp32 or bf16 (any strides) -> (codes (B*Ho*Wo, k_pad) int8,
-    per-sample scales (B,) fp32): the im2col matrix of a kernel_size x
-    kernel_size convolution (zero padding, stride), column (c, ky, kx) as the
-    OIHW weight flattens, zero past C*k*k. `amax_samples`, then
-    `im2col_codes`."""
-    _im2col_checks("quantize_im2col", x, kernel_size, stride, k_pad)
-    return im2col_codes(x, amax_samples(x), kernel_size, stride, padding, k_pad)
 
 
 @dataclass
@@ -775,14 +764,6 @@ def dequant_av_reference(y, sa, sb, b: int, h: int, out_dtype) -> torch.Tensor:
     return out.view(b, h, *y.shape[1:]).transpose(1, 2).to(out_dtype)
 
 
-def dequant_nchw_reference(y, sa, sb, b: int, ho: int, wo: int, out_dtype) -> torch.Tensor:
-    """Plain version of `dequant_nchw`."""
-    n = y.shape[1]
-    s = sa.view(-1, 1, 1, 1) * sb.view(1, 1, 1, n)
-    out = (y.view(b, ho, wo, n).to(torch.float32) * s).to(out_dtype)
-    return out.permute(0, 3, 1, 2).contiguous()
-
-
 def dequant_rows(y: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor, rows_per_group: int,
                  out_dtype: torch.dtype) -> torch.Tensor:
     """y (M, N) int32 -> float(y) * (sa[m / rows_per_group] * sb[n]), (M, N)
@@ -821,19 +802,5 @@ def dequant_av(y: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor, b: int, h: i
     out = torch.empty((b, m, h, n), dtype=out_dtype, device=y.device)
     _quant_call("dequant_heads", out_dtype, y.device, y.data_ptr(), sa.data_ptr(),
                 sb.data_ptr(), g, m, n, h, out.data_ptr())
-    dequant_s32.launches += 1
-    return out
-
-
-def dequant_nchw(y: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor, b: int, ho: int, wo: int,
-                 out_dtype: torch.dtype) -> torch.Tensor:
-    """y (B*Ho*Wo, N) int32 -> float(y) * (sa[b] * sb[n]) as NCHW (B, N, Ho,
-    Wo) `out_dtype`, contiguous: a convolution's output."""
-    if _dequant_checks("dequant_nchw", y, sa, sb, out_dtype=out_dtype) == "cpu":
-        return dequant_nchw_reference(y, sa, sb, b, ho, wo, out_dtype)
-    n = y.shape[1]
-    out = torch.empty((b, n, ho, wo), dtype=out_dtype, device=y.device)
-    _quant_call("dequant_nchw", out_dtype, y.device, y.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-                b, n, ho * wo, out.data_ptr())
     dequant_s32.launches += 1
     return out

@@ -5,50 +5,47 @@ The JAX tool times XLA's bf16 and int8 `conv_general_dilated` at the seven
 shapes that dominate the RT-DETRv2-R101 forward (the CSP RepVGG 3x3 convs
 at 384 channels on 80², 40² and 20²; the backbone's 3x3 at 160²x64, 80²x128
 and 40²x256; a 1x1 projection 40² 256 -> 1024; B = 8, stride 1, "SAME"
-padding). Here the same seven, through the port's two int8 conv paths:
-
-- the served path, utils/quant.py's `int8_conv` (three kernels):
-  `amax_samples`, `im2col_codes` at kernel size 1 (the NHWC codes, one byte
-  a value), and `conv_s8` on the layer's kept tap-major weight codes
-  (`quantize_conv_weight`), which gathers the codes in place and
-  dequantizes in its epilogue;
-- the four-kernel path it replaced, kept here as a yardstick:
-  `amax_samples`, `im2col_codes` at the conv's kernel size (the im2col
-  matrix), `int8_gemm_kmajor` on the OIHW weight codes
-  (`quantize_weight_rows`), `dequant_nchw`.
+padding). Here the same seven, through the port's int8 conv path,
+utils/quant.py's `int8_conv` (three kernels): `amax_samples`, `nhwc_codes`
+(the NHWC codes, one byte a value) and `conv_s8` on the layer's kept
+tap-major weight codes (`quantize_conv_weight`), which gathers the codes
+in place and dequantizes in its epilogue.
 
 Per shape:
 
 - each kernel against its plain version on the same card inputs: the amax,
-  codes and scales exact, int32 products exact, the dequantized outputs
-  bit equal; both paths' outputs bit equal to each other;
+  codes and scales exact, the outputs bit equal; the route whole bit equal
+  to its kernels' output;
 - each kernel's time (CUDA events, a cold L2) and its bound (bytes or
-  operations, whichever takes longer); the plain versions' times; the im2col
-  matrix's bytes;
-- on the card, `conv_s8` at each of its tile widths and with a block a
-  tile (not the persistent grid it launches by default);
-- both paths' times beside cuDNN's bf16 convolution of the same operands
+  operations, whichever takes longer); the plain versions' times;
+- on the card, `conv_s8` at each of its tile widths;
+- the route's time beside cuDNN's bf16 convolution of the same operands
   (`F.conv2d`), and the amax pass's beside
   `torch.linalg.vector_norm(x, inf)` over each sample: yardsticks only, the
   port never calls them on an int8 path.
 
-Each conv case records which path of the amax and im2col passes served it
-(`fast`, or `general`: a strided view), the amax's partials a sample and
+Each conv case records which path of the amax and NHWC passes served it
+(`fast` or `general` for the amax; `transpose`, `transpose_scalar`, `rows`
+or `rows_scalar` for the NHWC codes), the amax's partials a sample and
 `conv_s8`'s tile width. MAIN_SHAPE runs in float32 too (the `float32` +
-INT8 path). The im2col entry is held exact at its COVERAGE list (ragged
-tiles, C not a multiple of 16, k_pad past K, kernel sizes 1, 3 and 7 at
-strides 1 and 2, NCHW and channels-last inputs, fp32 and bf16), and
-`conv_s8` at every SERVED_CONVS shape (the seven families' quantized
-convolutions) in fp32 and bf16.
+INT8 path). The NHWC entry and the route are held exact at the COVERAGE
+list (ragged H*W, C not a multiple of 16 or wider than a tile, c_pad past
+C, kernel sizes 1, 3 and 7 at strides 1 and 2, NCHW and channels-last
+inputs, fp32 and bf16), `conv_s8` at every SERVED_CONVS shape (the seven
+families' quantized convolutions) in fp32 and bf16, and the heads and
+heads_t entries at HEADS_COVERAGE (B = 1 and 8, T not a multiple of 16,
+hd 32 and 64, groups at, just below and just above the one-launch limit,
+contiguous, packed and unaligned views).
 
 Two more cases put the GEMM and the passes at the served paths' other
 shapes: a dense projection at YOLOS-base's M = 8 x 4301 = 34,408 rows
 (ragged), 768 -> 3072, beside `torch._int_mm` (cuBLASLt's int8 GEMM, B
 column-major, the faster layout), and the attention products at RT-DETR's
 decoder (B·H 64, Tq = Tk = 300, hd 32: QKᵀ and attn·V, batched); on the
-card each times the amax pass and its quantize entry (`rows`, with the
-dense dequant; `heads` and `heads_t`) apart, beside their bounds and the
-entries' plain versions.
+card the dense case times the amax pass and the `rows` quantize entry
+apart, with the dense dequant, and the attention case each heads wrapper
+call whole (`heads` and `heads_t`: one launch at this shape), beside their
+bounds and the entries' plain versions.
 
     python -m spotter_tpu_torch.tools.bench_int8_conv [--iters 10] [--seed 0]
         [--shapes csp80,bb_s1] [--device cpu] [--out build/bench_int8_conv.json]
@@ -63,7 +60,6 @@ writes the record.
 
 import argparse
 import json
-import math
 from pathlib import Path
 
 import numpy as np
@@ -96,8 +92,10 @@ SHAPES = (
 MAIN_SHAPE = "csp80"  # the case the kernels line reports for the quantize and dequant passes
 DENSE_SHAPE = (8, 4301, 768, 3072)  # YOLOS-base fc1 at B = 8: (B, T, K, N)
 ATTN_SHAPE = (8, 300, 8, 32)  # RT-DETR decoder self-attention: (B, T, H, hd)
-# the im2col entry's coverage list: (x NCHW, k, stride, padding, k_pad past
-# pad16(K)), each in fp32 and bf16, NCHW and channels-last
+# the NHWC entry's coverage list: (x NCHW, the conv's k, stride, padding,
+# c_pad past pad16(C)), each in fp32 and bf16, NCHW and channels-last: H*W
+# ragged against the tile and the 16-byte run, C under 16, not a multiple
+# of 16, and wider than a 64-channel tile
 COVERAGE = (
     ((8, 64, 40, 40), 3, 1, 1, 0),
     ((2, 64, 33, 31), 3, 2, 1, 0),
@@ -107,10 +105,18 @@ COVERAGE = (
     ((2, 40, 21, 18), 1, 2, 0, 16),
     ((1, 24, 15, 13), 7, 1, 3, 0),
     ((2, 20, 19, 24), 3, 1, 1, 32),
-    ((2, 40, 22, 16), 3, 2, 1, 0),
+    ((2, 136, 22, 16), 3, 2, 1, 0),
     ((2, 200, 10, 24), 1, 1, 0, 16),
-    ((2, 3, 32, 32), 7, 2, 3, 0),
+    ((8, 384, 20, 20), 7, 2, 3, 0),
 )
+# the heads entries' coverage list: (B, T, H, hd), each in fp32 and bf16,
+# in both layouts, as a contiguous tensor, a packed q/k/v slice (aligned
+# strides) and an unaligned view: RT-DETR's decoder and AIFI, B = 1 with T
+# ragged, and groups at the one-launch limit in fp32 (768 x 32 x 4 bytes),
+# just above it, and above it in bf16 too
+HEADS_COVERAGE = ((8, 300, 8, 32), (8, 400, 8, 32), (1, 17, 3, 64), (2, 768, 2, 32),
+                  (2, 769, 2, 32), (2, 1537, 2, 32))
+HEADS_VIEWS = ("contiguous", "packed", "unaligned")
 # every quantized convolution (C, N, k, stride, padding) of the seven
 # families at full width (RT-DETRv2-R101 under each policy, the ResNet-50
 # backbones and input projections of Deformable-DETR and the DETR lineage;
@@ -147,11 +153,13 @@ def _paths(before: dict, device) -> dict:
     kernels' path counts), or "plain" on the CPU."""
     if device.type != "cuda":
         return {name: "plain" for name in before}
-    return {name: ",".join(sorted(getattr(int8, name).paths - n)) for name, n in before.items()}
+    return {name: ",".join(sorted(getattr(int8, name).paths - n)) for name, n in before.items()
+            if getattr(int8, name).paths != n}
 
 
 def _path_counts() -> dict:
-    return {"amax_s8": int8.amax_s8.paths.copy(), "quantize_s8": int8.quantize_s8.paths.copy()}
+    return {name: getattr(int8, name).paths.copy()
+            for name in ("amax_s8", "quantize_s8", "quantize_nhwc_s8")}
 
 
 def _tile_n(n: int, m: int, device):
@@ -175,16 +183,16 @@ def _tap_codes_exact(qc, wt) -> bool:
 
 
 def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -> dict:
-    """One of the seven shapes in `dtype`: each kernel of both paths exact
-    against its plain version on the card's inputs, the two paths' outputs
-    bit equal; times and bounds; cuDNN's bf16 conv beside."""
+    """One of the seven shapes in `dtype`: each kernel of the route exact
+    against its plain version on the card's inputs, the route whole bit
+    equal to its kernels' output; times and bounds; cuDNN's bf16 conv
+    beside."""
     name, b, h, w, cin, cout, k, stride = shape
     pad = (k - 1) // 2  # "SAME" at stride 1
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((b, cin, h, w), dtype=np.float32)).to(device)
     x = x.to(dtype)
     wt, qc = _weights(rng, cin, cout, k, device)
-    qw = int8.quantize_weight_rows(wt)
     ho, wo = int8.conv_out_hw(h, w, k, stride, pad)
 
     def amax():
@@ -192,20 +200,8 @@ def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -
         return int8.amax_samples(x)
 
     def quantize():
-        calls["quantize_s8"] += 1
-        return int8.im2col_codes(x, ax, k, stride, pad, qw.k_pad)
-
-    def quantize_nhwc():
-        calls["quantize_s8"] += 1
-        return int8.im2col_codes(x, ax, 1, 1, 0, qc.c_pad)
-
-    def gemm():
-        calls["int8_gemm_kmajor"] += 1
-        return int8.int8_gemm_kmajor(codes, qw.codes)
-
-    def dequant():
-        calls["dequant_s32"] += 1
-        return int8.dequant_nchw(y, sx, qw.scale, b, ho, wo, dtype)
+        calls["quantize_nhwc_s8"] += 1
+        return int8.nhwc_codes(x, ax, qc.c_pad)
 
     def conv():
         calls["conv_s8"] += 1
@@ -213,92 +209,53 @@ def conv_case(shape, dtype, seed: int, iters: int, device, flush, calls: dict) -
 
     def path():  # the served route, three kernels
         calls["amax_s8"] += 1
-        calls["quantize_s8"] += 1
+        calls["quantize_nhwc_s8"] += 1
         calls["conv_s8"] += 1
         return quant.int8_conv(x, qc, k, stride, pad, dtype)
 
-    def path4():  # the route it replaced, four kernels
-        calls["amax_s8"] += 1
-        calls["quantize_s8"] += 1
-        calls["int8_gemm_kmajor"] += 1
-        calls["dequant_s32"] += 1
-        c4, s4 = int8.quantize_im2col(x, k, stride, pad, qw.k_pad)
-        return int8.dequant_nchw(int8.int8_gemm_kmajor(c4, qw.codes), s4, qw.scale, b, ho, wo,
-                                 dtype)
-
-    calls["amax_s8"] += 2  # the weights' codes above, both layouts
-    calls["quantize_s8"] += 2
+    calls["amax_s8"] += 1  # the weight's codes above
+    calls["quantize_s8"] += 1
     before = _path_counts()
     ax = amax()
     want_ax = int8.amax_samples_reference(x)
-    codes, sx = quantize()
+    nhwc, sx = quantize()
     paths = _paths(before, device)
-    want_codes, want_sx = int8.quantize_im2col_reference(x, k, stride, pad, qw.k_pad)
-    want_w = quant.quantize_weight(wt)
-    y = gemm()
-    want_y = int8.int8_gemm_kmajor_reference(codes, qw.codes)
-    out = dequant()
-    n_out = out.numel()
-    want_out = int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, dtype)
-    nhwc, sx_nhwc = quantize_nhwc()
-    want_nhwc, want_sx_nhwc = int8.im2col_codes_reference(x, ax, 1, 1, 0, qc.c_pad)
-    nhwc = nhwc.view(b, h, w, -1)
-    out3 = conv()
-    want_out3 = int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
-    m, kk = codes.shape
+    want_nhwc, want_sx = int8.nhwc_codes_reference(x, ax, qc.c_pad)
+    out = conv()
+    want_out = int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
     rec = {
         "part": "conv", "shape": name, "dtype": str(dtype).removeprefix("torch."), "b": b,
         "h": h, "w": w, "cin": cin, "cout": cout, "k": k, "stride": stride,
-        "im2col_bytes": m * kk, "k_pad": kk, "c_pad": qc.c_pad, "amax_parts": ax.shape[1],
+        "c_pad": qc.c_pad, "amax_parts": ax.shape[1],
         "paths": paths, "conv_s8_tile_n": _tile_n(cout, b * ho * wo, device),
         "amax_exact": _equal(ax.amax(1), want_ax.amax(1)),
-        "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
-        "nhwc_codes_exact": (_equal(nhwc.view(-1, qc.c_pad), want_nhwc)
-                             and _equal(sx_nhwc, want_sx_nhwc) and _equal(sx_nhwc, sx)),
-        "weight_codes_exact": (_equal(qw.codes[:, :cin * k * k], want_w[0].reshape(cout, -1))
-                               and _equal(qw.scale, want_w[1]) and _tap_codes_exact(qc, wt)),
-        "gemm_exact": _equal(y, want_y),
-        "dequant_bit_equal": _equal(out, want_out),
-        "conv_s8_bit_equal": _equal(out3, want_out3),
-        "paths_bit_equal": _equal(out3, out),
+        "nhwc_codes_exact": _equal(nhwc, want_nhwc) and _equal(sx, want_sx),
+        "weight_codes_exact": _tap_codes_exact(qc, wt),
+        "conv_s8_bit_equal": _equal(out, want_out),
+        "route_bit_equal": _equal(path(), out),
     }
     rec["exact"] = all(rec[key] for key in (
-        "amax_exact", "codes_exact", "nhwc_codes_exact", "weight_codes_exact", "gemm_exact",
-        "dequant_bit_equal", "conv_s8_bit_equal", "paths_bit_equal"))
-    del want_codes, want_y, want_out, want_out3
-    ops = 2 * m * cout * cin * k * k
+        "amax_exact", "nhwc_codes_exact", "weight_codes_exact", "conv_s8_bit_equal",
+        "route_bit_equal"))
+    del want_nhwc, want_out
+    ops = 2 * b * ho * wo * cout * cin * k * k
     x_bytes, part_bytes = x.numel() * x.element_size(), ax.numel() * 4
-    nhwc_bytes, out_bytes = nhwc.numel(), n_out * out.element_size()
+    nhwc_bytes, out_bytes = nhwc.numel(), out.numel() * out.element_size()
     rec["bounds"] = {
         "amax_s8": bound(x_bytes + part_bytes, 0),
-        "quantize_s8": bound(x_bytes + part_bytes + b * 4 + m * kk, 0),
-        "quantize_s8_nhwc": bound(x_bytes + part_bytes + b * 4 + nhwc_bytes, 0),
-        "int8_gemm_kmajor": bound(m * kk + cout * kk + m * cout * 4, ops),
-        "dequant_s32": bound(m * cout * 4 + out_bytes, 0),
+        "quantize_nhwc_s8": bound(x_bytes + part_bytes + b * 4 + nhwc_bytes, 0),
         "conv_s8": bound(nhwc_bytes + qc.codes.numel() + (b + cout) * 4 + out_bytes, ops),
         "path": bound(x_bytes + qc.codes.numel() + out_bytes, ops),
     }
     xbf, wbf = x.to(torch.bfloat16), wt.to(torch.bfloat16)
     times = {
         "amax_s8": time_ms(amax, iters, device, flush),
-        "quantize_s8": time_ms(quantize, iters, device, flush),
-        "quantize_s8_nhwc": time_ms(quantize_nhwc, iters, device, flush),
-        "int8_gemm_kmajor": time_ms(gemm, iters, device, flush),
-        "dequant_s32": time_ms(dequant, iters, device, flush),
+        "quantize_nhwc_s8": time_ms(quantize, iters, device, flush),
         "conv_s8": time_ms(conv, iters, device, flush),
         "path": time_ms(path, iters, device, flush),
-        "path4": time_ms(path4, iters, device, flush),
         "plain_amax_s8": time_ms(lambda: int8.amax_samples_reference(x), 2, device, flush),
-        "plain_quantize_s8": time_ms(
-            lambda: int8.im2col_codes_reference(x, ax, k, stride, pad, qw.k_pad), 2, device,
-            flush),
-        "plain_quantize_s8_nhwc": time_ms(
-            lambda: int8.im2col_codes_reference(x, ax, 1, 1, 0, qc.c_pad), 2, device, flush),
-        "plain_int8_gemm_kmajor": time_ms(
-            lambda: int8.int8_gemm_kmajor_reference(codes, qw.codes), 2, device, flush),
-        "plain_dequant_s32": time_ms(
-            lambda: int8.dequant_nchw_reference(y, sx, qw.scale, b, ho, wo, dtype), 2,
-            device, flush),
+        "plain_quantize_nhwc_s8": time_ms(
+            lambda: int8.nhwc_codes_reference(x, ax, qc.c_pad), 2, device, flush),
         "plain_conv_s8": time_ms(
             lambda: int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype),
             2, device, flush),
@@ -329,19 +286,18 @@ def served_case(shape, dtype, seed: int, device, calls: dict) -> dict:
     x = x.to(dtype)
     wt, qc = _weights(rng, cin, cout, k, device)
     calls["amax_s8"] += 2  # the weight's codes, and x's
-    calls["quantize_s8"] += 2
+    calls["quantize_s8"] += 1
+    calls["quantize_nhwc_s8"] += 1
     calls["conv_s8"] += 1
     ax = int8.amax_samples(x)
-    nhwc, sx = int8.im2col_codes(x, ax, 1, 1, 0, qc.c_pad)
-    want_nhwc, want_sx = int8.im2col_codes_reference(x, ax, 1, 1, 0, qc.c_pad)
-    nhwc = nhwc.view(b, h, w, -1)
+    nhwc, sx = int8.nhwc_codes(x, ax, qc.c_pad)
+    want_nhwc, want_sx = int8.nhwc_codes_reference(x, ax, qc.c_pad)
     out = int8.conv_s8(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
     want = int8.conv_s8_reference(nhwc, qc.codes, sx, qc.scale, k, stride, pad, dtype)
     rec = {"part": "served", "cin": cin, "cout": cout, "k": k, "stride": stride, "pad": pad,
            "x": [b, cin, h, w], "dtype": str(dtype).removeprefix("torch."),
            "conv_s8_tile_n": _tile_n(cout, out.shape[0] * out.shape[2] * out.shape[3], device),
-           "nhwc_codes_exact": (_equal(nhwc.view(-1, qc.c_pad), want_nhwc)
-                                and _equal(sx, want_sx)),
+           "nhwc_codes_exact": _equal(nhwc, want_nhwc) and _equal(sx, want_sx),
            "weight_codes_exact": _tap_codes_exact(qc, wt),
            "conv_s8_bit_equal": _equal(out, want)}
     rec["exact"] = (rec["nhwc_codes_exact"] and rec["weight_codes_exact"]
@@ -351,27 +307,72 @@ def served_case(shape, dtype, seed: int, device, calls: dict) -> dict:
 
 def coverage_case(shape, k: int, stride: int, pad: int, dtype, channels_last: bool,
                   extra_pad: int, seed: int, device, calls: dict) -> dict:
-    """The im2col entry at one shape of its coverage list (ragged tiles, C
-    not a multiple of 16, k_pad past K, kernel sizes 1, 3 and 7 at strides
-    1 and 2; a channels-last input takes the general path): the amax and
-    the codes and scales exact against the plain versions."""
+    """The NHWC entry at one shape of its coverage list: the amax and the
+    codes (c_pad past pad16(C) by `extra_pad`) and scales exact against the
+    plain versions, and the route at the conv's k, stride and padding bit
+    equal to `conv_s8`'s plain version on the plain codes."""
     rng = np.random.default_rng(seed + sum(shape))
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device).to(dtype)
+    x[0, :, : shape[2] // 2] = 0.0  # zeros beside the values, as a ReLU's output has
     if channels_last:
         x = x.contiguous(memory_format=torch.channels_last)
-    k_pad = int8.pad16(shape[1] * k * k) + extra_pad
-    calls["amax_s8"] += 1
+    c_pad = int8.pad16(shape[1]) + extra_pad
+    wt, qc = _weights(rng, shape[1], 24, k, device)
+    calls["amax_s8"] += 3  # x's twice, the weight's once
     calls["quantize_s8"] += 1
+    calls["quantize_nhwc_s8"] += 2
+    calls["conv_s8"] += 1
     before = _path_counts()
     ax = int8.amax_samples(x)
-    codes, sx = int8.im2col_codes(x, ax, k, stride, pad, k_pad)
-    want_codes, want_sx = int8.quantize_im2col_reference(x, k, stride, pad, k_pad)
+    codes, sx = int8.nhwc_codes(x, ax, c_pad)
+    paths = _paths(before, device)
+    want_codes, want_sx = int8.nhwc_codes_reference(x, int8.amax_samples_reference(x), c_pad)
+    got = quant.int8_conv(x, qc, k, stride, pad, dtype)
+    want_nhwc, want_sa = int8.nhwc_codes_reference(x, int8.amax_samples_reference(x), qc.c_pad)
+    want = int8.conv_s8_reference(want_nhwc, qc.codes, want_sa, qc.scale, k, stride, pad, dtype)
     rec = {"part": "coverage", "x": list(shape), "k": k, "stride": stride, "pad": pad,
-           "k_pad": k_pad, "dtype": str(dtype).removeprefix("torch."),
-           "channels_last": channels_last, "paths": _paths(before, device),
+           "c_pad": c_pad, "dtype": str(dtype).removeprefix("torch."),
+           "channels_last": channels_last, "paths": paths,
            "amax_exact": _equal(ax.amax(1), int8.amax_samples_reference(x).amax(1)),
-           "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx)}
-    rec["exact"] = rec["amax_exact"] and rec["codes_exact"]
+           "codes_exact": _equal(codes, want_codes) and _equal(sx, want_sx),
+           "route_bit_equal": _equal(got, want)}
+    rec["exact"] = rec["amax_exact"] and rec["codes_exact"] and rec["route_bit_equal"]
+    return rec
+
+
+def heads_view(shape, dtype, view: str, rng, device) -> torch.Tensor:
+    """x (B, T, H, hd) as a contiguous tensor, as the first of a packed
+    (B, T, 3, H, hd) q/k/v (strides past the row, 16-byte aligned), or as
+    the first hd values of (B, T, H, hd + 1) (no stride but hd's a whole
+    number of 16-byte units)."""
+    b, t, h, hd = shape
+    if view == "contiguous":
+        full, index = (b, t, h, hd), (...,)
+    elif view == "packed":
+        full, index = (b, t, 3, h, hd), (slice(None), slice(None), 0)
+    else:
+        full, index = (b, t, h, hd + 1), (..., slice(0, hd))
+    x = torch.from_numpy(rng.standard_normal(full, dtype=np.float32)).to(device).to(dtype)
+    return x[index]
+
+
+def heads_case(shape, dtype, view: str, seed: int, device, calls: dict) -> dict:
+    """The heads and heads_t entries at one HEADS_COVERAGE shape and view:
+    codes and scales exact against the plain version, each call one launch
+    or two as `int8.heads_one_launch` says."""
+    b, t, h, hd = shape
+    x = heads_view(shape, dtype, view, np.random.default_rng(seed + sum(shape)), device)
+    one = int8.heads_one_launch(t, hd, dtype)
+    rec = {"part": "heads", "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+           "view": view, "one_launch": one, "exact": True}
+    before = _path_counts()
+    for transpose in (False, True):
+        calls["amax_s8"] += 0 if one else 1
+        calls["quantize_s8"] += 1
+        codes, scales = int8.quantize_heads(x, transpose)
+        want_codes, want_scales = int8.quantize_heads_reference(x, transpose)
+        rec["exact"] &= _equal(codes, want_codes) and _equal(scales, want_scales)
+    rec["paths"] = _paths(before, device)
     return rec
 
 
@@ -405,8 +406,11 @@ def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
     if device.type == "cuda":  # the two passes apart, through the wrappers' own views
         sizes, strides, groups = int8.rows_view(x, t)
         calls["amax_s8"] += 1
-        before = {"amax_s8": int8.amax_s8.paths.copy()}
+        calls["quantize_s8"] += 1
+        before = _path_counts()
         partials = int8.amax_view(x, sizes, strides, 0, groups)
+        int8.quantize_view(x, sizes, strides, 0, int8.LAYOUT_ROWS, qw.k_pad, (m, qw.k_pad),
+                           partials)
         rec["paths"] = _paths(before, device)
         parts = partials.shape[1]
         rec["amax_exact"] = _equal(partials.amax(1),
@@ -423,11 +427,18 @@ def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
 
         times["amax_s8"] = time_ms(amax, iters, device, flush)
         times["quantize_s8_rows"] = time_ms(quantize, iters, device, flush)
-        times["plain_quantize_s8_rows"] = time_ms(
-            lambda: int8.quantize_rows_reference(x, t, qw.k_pad), 2, device, flush)
         times["library_int_mm"] = time_ms(lambda: torch._int_mm(codes, qw.codes.t()), iters,
                                           device, flush)
         rec["library_exact"] = _equal(torch._int_mm(codes, qw.codes.t()), y)
+    else:  # the wrapper whole, its plain version here
+        def quantize_rows():
+            calls["amax_s8"] += 1
+            calls["quantize_s8"] += 1
+            return int8.quantize_rows(x, t, qw.k_pad)
+
+        times["quantize_s8_rows"] = time_ms(quantize_rows, iters, device, flush)
+    times["plain_quantize_s8_rows"] = time_ms(
+        lambda: int8.quantize_rows_reference(x, t, qw.k_pad), 2, device, flush)
     rec["exact"] = (rec["codes_exact"] and rec["gemm_exact"] and rec["dequant_bit_equal"]
                     and rec.get("amax_exact", True))
     x_bytes = m * kdim * 2
@@ -459,13 +470,15 @@ def dense_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
 def attention_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
     """QKᵀ and attn·V at RT-DETR's decoder, batched over B·H: each pass and
     the GEMM exact against their plain versions; on the card the amax pass
-    over V's heads (the general path) and the heads and heads_t quantize
-    entries timed beside their bounds."""
+    over V's heads exact (the general path, which the two-launch heads
+    calls take), and each heads wrapper call whole (one launch here) timed
+    beside its bound."""
     b, t, h, hd = ATTN_SHAPE
     rng = np.random.default_rng(seed + 2)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, hd), dtype=np.float32))
                .to(device) for _ in range(3))
-    rec = {"part": "attention", "b": b, "t": t, "h": h, "hd": hd}
+    one = int8.heads_one_launch(t, hd, v.dtype)
+    rec = {"part": "attention", "b": b, "t": t, "h": h, "hd": hd, "heads_one_launch": one}
     logits = quant.int8_qk(q, k)
     w = torch.softmax(logits, -1)
     out = quant.int8_av(w, v, torch.float32)
@@ -479,48 +492,38 @@ def attention_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
         ref = int8.quantize_heads_reference(v, transpose)
         codes_ok &= _equal(got, ref[0]) and _equal(s, ref[1])
     rec["codes_exact"] = codes_ok
-    calls["amax_s8"] += 6  # q, k, v twice, v and the weights for attn·V
+    # heads calls: q, k, v, and v twice above; the attention weights' rows
+    calls["amax_s8"] += 1 + (0 if one else 5)
     calls["quantize_s8"] += 6
     calls["int8_gemm_kmajor"] += 2
     calls["dequant_s32"] += 2
     if device.type == "cuda":
-        sizes, strides = tuple(v.shape), v.stride()
         calls["amax_s8"] += 1
-        before = {"amax_s8": int8.amax_s8.paths.copy()}
-        partials = int8.amax_view(v, sizes, strides, 2, b * h)
+        before = _path_counts()
+        partials = int8.amax_view(v, tuple(v.shape), v.stride(), 2, b * h)
         rec["paths"] = _paths(before, device)
         rec["amax_parts"] = partials.shape[1]
         rec["amax_exact"] = _equal(partials.amax(1),
                                    v.abs().amax(dim=(1, 3)).reshape(-1))
 
-        def amax():
-            calls["amax_s8"] += 1
-            return int8.amax_view(v, sizes, strides, 2, b * h)
-
-        def quantize(layout, shape):
+        def heads(transpose):
             def call():
+                calls["amax_s8"] += 0 if one else 1
                 calls["quantize_s8"] += 1
-                return int8.quantize_view(v, sizes, strides, 2, layout, shape[-1], shape,
-                                          partials)
+                return int8.quantize_heads(v, transpose)
             return call
 
-        heads, heads_t = (b * h, t, int8.pad16(hd)), (b * h, hd, int8.pad16(t))
-        times = {"amax_s8": time_ms(amax, iters, device, flush),
-                 "quantize_s8_heads": time_ms(quantize(int8.LAYOUT_HEADS, heads), iters,
-                                              device, flush),
-                 "quantize_s8_heads_t": time_ms(quantize(int8.LAYOUT_HEADS_T, heads_t), iters,
-                                                device, flush),
+        times = {"quantize_s8_heads": time_ms(heads(False), iters, device, flush),
+                 "quantize_s8_heads_t": time_ms(heads(True), iters, device, flush),
                  "plain_quantize_s8_heads": time_ms(
                      lambda: int8.quantize_heads_reference(v, False), 2, device, flush),
                  "plain_quantize_s8_heads_t": time_ms(
                      lambda: int8.quantize_heads_reference(v, True), 2, device, flush)}
         rec.update({ms_key(key, device): value for key, value in times.items()})
-        v_bytes, part_bytes = v.numel() * 4, partials.numel() * 4
+        v_bytes, scale_bytes = v.numel() * 4, b * h * 4
         rec["bounds"] = {
-            "amax_s8": bound(v_bytes + part_bytes, 0),
-            "quantize_s8_heads": bound(v_bytes + part_bytes + b * h * 4 + math.prod(heads), 0),
-            "quantize_s8_heads_t": bound(
-                v_bytes + part_bytes + b * h * 4 + math.prod(heads_t), 0)}
+            "quantize_s8_heads": bound(v_bytes + scale_bytes + b * h * t * int8.pad16(hd), 0),
+            "quantize_s8_heads_t": bound(v_bytes + scale_bytes + b * h * hd * int8.pad16(t), 0)}
     rec["exact"] = (rec["qk_exact"] and rec["av_exact"] and codes_ok
                     and rec.get("amax_exact", True))
     return rec
@@ -529,8 +532,8 @@ def attention_case(seed: int, iters: int, device, flush, calls: dict) -> dict:
 def run(args) -> dict:
     device = resolve_device(args.device)
     flush = l2_flush_buffer(device) if device.type == "cuda" else None
-    calls = {"amax_s8": 0, "quantize_s8": 0, "int8_gemm_kmajor": 0, "dequant_s32": 0,
-             "conv_s8": 0}
+    calls = {"amax_s8": 0, "quantize_s8": 0, "quantize_nhwc_s8": 0, "int8_gemm_kmajor": 0,
+             "dequant_s32": 0, "conv_s8": 0}
     record = {"tool": "bench_int8_conv", **device_record(device), "seed": args.seed, "cases": []}
 
     def emit(rec):
@@ -552,6 +555,10 @@ def run(args) -> dict:
         for shape in SERVED_CONVS:
             for dtype in (torch.float32, torch.bfloat16):
                 emit(served_case(shape, dtype, args.seed, device, calls))
+        for shape in HEADS_COVERAGE:
+            for dtype in (torch.float32, torch.bfloat16):
+                for view in HEADS_VIEWS:
+                    emit(heads_case(shape, dtype, view, args.seed, device, calls))
         emit(dense_case(args.seed, args.iters, device, flush, calls))
         emit(attention_case(args.seed, args.iters, device, flush, calls))
     record["calls"] = calls  # the wrappers' calls: on the card, their launches
@@ -563,8 +570,8 @@ def parse_args(argv):
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--shapes", default="", type=lambda s: [v for v in s.split(",") if v],
-                    help="names of SHAPES to run (default: all, the coverage and served "
-                         "lists, and the dense and attention cases)")
+                    help="names of SHAPES to run (default: all, the coverage, served and "
+                         "heads lists, and the dense and attention cases)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=str(REPO / "build" / "bench_int8_conv.json"))
     return ap.parse_args(argv)

@@ -169,17 +169,16 @@ def int8_conv(x: torch.Tensor, weight: kernels.QuantizedConvWeight, kernel_size:
     """The quantized convolution of ConvNorm and the fused RepVGG block:
     NCHW x -> NCHW `out_dtype`. `weight` is the layer's kept quantized
     kernel (`kernels.quantize_conv_weight` of its fp32 master, tap-major).
-    Kernels: the amax pass, the quantize pass into NHWC codes (the im2col
-    entry at kernel size 1: one byte a value), then `conv_s8`, which
-    gathers the codes in place and dequantizes in its epilogue."""
+    Kernels: the amax pass, the quantize pass into NHWC codes
+    (`nhwc_codes`: one byte a value), then `conv_s8`, which gathers the
+    codes in place and dequantizes in its epilogue."""
     if weight.kernel_size != kernel_size:
         raise ValueError(f"int8_conv: a {weight.kernel_size}x{weight.kernel_size} weight "
                          f"for a {kernel_size}x{kernel_size} convolution")
     CALLS["conv"] += 1
-    b, _, h, w = x.shape
-    xq, sx = kernels.im2col_codes(x, kernels.amax_samples(x), 1, 1, 0, weight.c_pad)
-    return kernels.conv_s8(xq.view(b, h, w, -1), weight.codes, sx, weight.scale, kernel_size,
-                           stride, padding, out_dtype)
+    xq, sx = kernels.nhwc_codes(x, kernels.amax_samples(x), weight.c_pad)
+    return kernels.conv_s8(xq, weight.codes, sx, weight.scale, kernel_size, stride, padding,
+                           out_dtype)
 
 
 def int8_dense(x: torch.Tensor, weight: kernels.QuantizedWeight,

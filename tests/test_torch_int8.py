@@ -202,9 +202,15 @@ def test_int8_conv_is_bit_equal_to_jax(dtype, k, stride, pad):
     y = jax.lax.conv_general_dilated(xq, wq, (stride, stride), [(pad, pad), (pad, pad)],
                                      dimension_numbers=("NHWC", "HWIO", "NHWC"),
                                      preferred_element_type=jnp.int32)
-    codes, _ = tint8.quantize_im2col(torch.from_numpy(x), k, stride, pad, tint8.pad16(12 * k * k))
-    yt = tint8.int8_gemm_kmajor(codes, tint8.quantize_weight_rows(wt).codes)
-    np.testing.assert_array_equal(yt.numpy(), np.asarray(y).reshape(-1, 10))
+    x32 = torch.from_numpy(x)
+    nhwc, sx = tint8.nhwc_codes(x32, tint8.amax_samples(x32), 16)
+    np.testing.assert_array_equal(nhwc[..., :12].numpy(), np.asarray(xq))
+    # conv_s8's plain version on the NHWC codes, at unit scales: the int32 product
+    qc = tint8.quantize_conv_weight(wt)
+    ones = torch.ones(3), torch.ones(10)
+    yt = tint8.conv_s8_reference(nhwc, qc.codes, *ones, k, stride, pad, torch.float32)
+    np.testing.assert_array_equal(yt.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(y).astype(np.float32))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -253,30 +259,32 @@ def test_int8_attention_products_are_bit_equal_to_jax(dtype):
 # --- quantize_s8's layouts in their plain form -----------------------------------------
 
 
-def test_im2col_layout_is_the_unfold_of_the_codes():
+def test_nhwc_layout_is_the_codes_permuted():
     x = torch.from_numpy(_edge_input(np.random.default_rng(6), (3, 5, 9, 8)))
-    codes, scales = tint8.quantize_im2col(x, 3, 2, 1, 48)
+    codes, scales = tint8.nhwc_codes(x, tint8.amax_samples(x), 48)
     xq, sx = tquant.quantize_activation(x)
-    want = F.unfold(xq.double(), 3, padding=1, stride=2).transpose(1, 2).reshape(-1, 45)
-    assert codes.shape == (3 * 5 * 4, 48) and codes.dtype == torch.int8
-    np.testing.assert_array_equal(codes[:, :45].numpy(), want.to(torch.int8).numpy())
-    assert (codes[:, 45:] == 0).all()
+    assert codes.shape == (3, 9, 8, 48) and codes.dtype == torch.int8 and codes.is_contiguous()
+    np.testing.assert_array_equal(codes[..., :5].numpy(), xq.permute(0, 2, 3, 1).numpy())
+    assert (codes[..., 5:] == 0).all()
     np.testing.assert_array_equal(scales.numpy(), sx.reshape(-1).numpy())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantize_im2col_is_the_amax_pass_then_the_codes(dtype):
+def test_nhwc_codes_is_the_amax_pass_then_the_codes(dtype):
     """`amax_samples` (the amax kernel's plain form) is each sample's max
-    |x|, as one partial maximum a sample; `im2col_codes` from it is
-    `quantize_im2col`; the numeric rule is one, shared by utils/quant.py."""
+    |x|, as one partial maximum a sample; `nhwc_codes` from any partials
+    whose max is that amax gives the same codes and scales; the numeric rule
+    is one, shared by utils/quant.py."""
     x = torch.from_numpy(_edge_input(np.random.default_rng(16), (3, 4, 6, 5))).to(dtype)
     amax = tint8.amax_samples(x)
     assert amax.dtype == torch.float32 and amax.shape == (3, 1)
     assert torch.equal(amax.amax(1), x.float().abs().reshape(3, -1).amax(1))
     assert amax[1, 0] == 0  # the all-zero sample: the scale takes the 1e-12 floor
-    codes, scales = tint8.im2col_codes(x, amax, 3, 1, 1, 48)
-    want_codes, want_scales = tint8.quantize_im2col(x, 3, 1, 1, 48)
-    assert torch.equal(codes, want_codes) and torch.equal(scales, want_scales)
+    codes, scales = tint8.nhwc_codes(x, amax, 16)
+    split = torch.cat([amax, amax / 2, torch.zeros_like(amax)], dim=1)  # three partials a sample
+    assert all(torch.equal(a, b) for a, b in zip(tint8.nhwc_codes(x, split, 16), (codes, scales)))
+    xq, sx = tquant.quantize_activation(x)
+    assert torch.equal(codes[..., :4], xq.permute(0, 2, 3, 1)) and torch.equal(scales, sx.view(-1))
     assert tquant.scale_of is tint8.scale_of and tquant.codes_of is tint8.codes_of
 
 
@@ -317,10 +325,6 @@ def test_gemm_kmajor_and_dequant_plain_versions():
     got = tint8.dequant_rows(y.reshape(10, 7), sa, sb, 5, torch.float32)
     want = (y.float() * (sa.view(2, 1, 1) * sb)).reshape(10, 7)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    nchw = tint8.dequant_nchw(y.reshape(10, 7), sa, sb, 2, 1, 5, torch.bfloat16)
-    assert nchw.shape == (2, 7, 1, 5) and nchw.is_contiguous()
-    want = got.to(torch.bfloat16).float().view(2, 1, 5, 7).permute(0, 3, 1, 2)
-    np.testing.assert_array_equal(nchw.float().numpy(), want.numpy())
     with pytest.raises(TypeError, match="int32"):
         tint8.dequant_rows(y.float(), sa, sb, 1, torch.float32)
 
@@ -587,12 +591,12 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_raise_elsewhere(monkeypa
     monkeypatch.setattr(tint8, "build_int8_gemm_kernel", lambda: builds.append(1))
     monkeypatch.setattr(tint8, "build_int8_conv_kernel", lambda: builds.append(1))
     x = torch.ones((2, 3, 4, 16))
-    counters = (tint8.amax_s8, tint8.quantize_s8, tint8.int8_gemm_kmajor, tint8.dequant_s32,
-                tint8.conv_s8)
+    counters = (tint8.amax_s8, tint8.quantize_s8, tint8.quantize_nhwc_s8, tint8.int8_gemm_kmajor,
+                tint8.dequant_s32, tint8.conv_s8)
     before = [c.launches for c in counters]
     codes, s = tint8.quantize_heads(x, transpose=False)
     tint8.dequant_heads(tint8.int8_gemm_kmajor(codes, codes), s, s, torch.float32)
-    tint8.quantize_im2col(x, 3, 1, 1, 48)
+    tint8.nhwc_codes(x, tint8.amax_samples(x), 16)
     qc = tint8.quantize_conv_weight(torch.ones((5, 3, 3, 3)))
     nhwc = torch.ones((2, 4, 16, 16), dtype=torch.int8)
     tint8.conv_s8(nhwc, qc.codes, s[:2], qc.scale, 3, 1, 1, torch.float32)
@@ -600,7 +604,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_raise_elsewhere(monkeypa
     meta = x.to("meta")
     for call in (lambda: tint8.quantize_heads(meta, transpose=True),
                  lambda: tint8.quantize_rows(meta.reshape(-1, 16), 1, 16),
-                 lambda: tint8.quantize_im2col(meta, 3, 1, 1, 48),
+                 lambda: tint8.nhwc_codes(meta, torch.ones((2, 1), device="meta"), 16),
                  lambda: tint8.amax_samples(meta),
                  lambda: tint8.int8_gemm_kmajor(codes.to("meta"), codes.to("meta")),
                  lambda: tint8.conv_s8(nhwc.to("meta"), qc.codes.to("meta"), s[:2].to("meta"),

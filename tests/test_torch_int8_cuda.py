@@ -5,9 +5,10 @@ each against its plain version on the same inputs: amax, codes and scales exact,
 int32 products exact, dequantized outputs bit equal (the same fp32 product
 of the same int32 and scales, rounded once to the output dtype); and
 utils/quant.py's four products through them against their runs on the
-CPU; the amax pass's partials and the im2col pass's tiles at their
-coverage list and at the model's shapes, their launches (one each, no
-memset) and a CUDA graph of the quantized convolution. This file imports
+CPU; the amax pass's partials and the NHWC pass at its coverage list and
+at the model's shapes, the heads entries at theirs, on either side of the
+one-launch limit, their launches (no memset) and a CUDA graph of the
+quantized convolution. This file imports
 torch and the port only, so it runs on a machine with a card and no JAX:
 
     python -m pytest -m cuda tests/test_torch_int8_cuda.py
@@ -18,7 +19,14 @@ import pytest
 import torch
 
 from spotter_tpu_torch.ops import int8 as tint8
-from spotter_tpu_torch.tools.bench_int8_conv import COVERAGE, SERVED_CONVS, SERVED_HW, SHAPES
+from spotter_tpu_torch.tools.bench_int8_conv import (
+    COVERAGE,
+    HEADS_VIEWS,
+    SERVED_CONVS,
+    SERVED_HW,
+    SHAPES,
+    heads_view,
+)
 from spotter_tpu_torch.utils import quant as tquant
 
 
@@ -34,33 +42,32 @@ def _card():
                                                 ((2, 64, 33, 31), 3, 2, 1),
                                                 ((3, 72, 17, 9), 1, 1, 0),
                                                 ((2, 3, 30, 30), 7, 2, 3)])
-def test_im2col_conv_path_is_exact_on_the_card(dtype, shape, k, stride, pad):
-    """Amax and codes exact, int32 products exact, dequant (NCHW) bit equal,
-    each kernel against its plain version on the same card inputs; one amax
-    and one quantize launch a call."""
+def test_conv_route_is_exact_on_the_card(dtype, shape, k, stride, pad):
+    """Amax and NHWC codes exact, conv_s8 bit equal, each kernel against its
+    plain version on the same card inputs, and the route whole against its
+    run on the CPU; one amax and one NHWC launch a call; a channels-last
+    input gives the same codes."""
     dev = _card()
     rng = np.random.default_rng(sum(shape))
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
     w = torch.from_numpy(rng.standard_normal((24, shape[1], k, k)).astype(np.float32))
-    qw_cpu = tint8.quantize_weight_rows(w)
-    qw = tint8.quantize_weight_rows(w.to(dev))
-    assert torch.equal(qw.codes.cpu(), qw_cpu.codes) and torch.equal(qw.scale.cpu(), qw_cpu.scale)
+    qc_cpu = tint8.quantize_conv_weight(w)
+    qc = tint8.quantize_conv_weight(w.to(dev))
+    assert torch.equal(qc.codes.cpu(), qc_cpu.codes) and torch.equal(qc.scale.cpu(), qc_cpu.scale)
     assert torch.equal(tint8.amax_samples(x.to(dev)).amax(1).cpu(), tint8.amax_samples(x).amax(1))
-    before = (tint8.amax_s8.launches, tint8.quantize_s8.launches)
-    codes, sx = tint8.quantize_im2col(x.to(dev), k, stride, pad, qw.k_pad)
-    assert (tint8.amax_s8.launches, tint8.quantize_s8.launches) == (before[0] + 1, before[1] + 1)
-    want_codes, want_sx = tint8.quantize_im2col(x, k, stride, pad, qw.k_pad)
+    before = (tint8.amax_s8.launches, tint8.quantize_nhwc_s8.launches)
+    codes, sx = tint8.nhwc_codes(x.to(dev), tint8.amax_samples(x.to(dev)), qc.c_pad)
+    assert (tint8.amax_s8.launches, tint8.quantize_nhwc_s8.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want_codes, want_sx = tint8.nhwc_codes(x, tint8.amax_samples(x), qc.c_pad)
     assert torch.equal(codes.cpu(), want_codes) and torch.equal(sx.cpu(), want_sx)
-    y = tint8.int8_gemm_kmajor(codes, qw.codes)
-    assert torch.equal(y.cpu(), tint8.int8_gemm_kmajor(want_codes, qw_cpu.codes))
-    b, _, h, wd = shape
-    ho, wo = (h + 2 * pad - k) // stride + 1, (wd + 2 * pad - k) // stride + 1
-    out = tint8.dequant_nchw(y, sx, qw.scale, b, ho, wo, dtype)
-    assert torch.equal(out.cpu(), tint8.dequant_nchw(y.cpu(), want_sx, qw_cpu.scale, b, ho, wo,
-                                                     dtype))
-    # a channels-last input reads through its strides
+    out = tint8.conv_s8(codes, qc.codes, sx, qc.scale, k, stride, pad, dtype)
+    assert torch.equal(out.cpu(), tint8.conv_s8(want_codes, qc_cpu.codes, want_sx, qc_cpu.scale,
+                                                k, stride, pad, dtype))
+    assert torch.equal(tquant.int8_conv(x.to(dev), qc, k, stride, pad, dtype), out)
+    # a channels-last input reads along its channels
     cl = x.to(dev).contiguous(memory_format=torch.channels_last)
-    assert torch.equal(tint8.quantize_im2col(cl, k, stride, pad, qw.k_pad)[0], codes)
+    assert torch.equal(tint8.nhwc_codes(cl, tint8.amax_samples(cl), qc.c_pad)[0], codes)
 
 
 @pytest.mark.cuda
@@ -154,56 +161,102 @@ def test_int8_gemm_sass_is_wgmma_and_wrappers_raise_on_bad_card_inputs():
         tint8.int8_gemm_kmajor(a, a)
     x = torch.zeros((2, 8, 5, 5), dtype=torch.float16, device=dev)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tint8.quantize_im2col(x, 3, 1, 1, 80)
+        tint8.nhwc_codes(x, torch.ones((2, 1), device=dev), 16)
+    with pytest.raises(ValueError, match="c_pad"):
+        tint8.nhwc_codes(x.float(), torch.ones((2, 1), device=dev), 8)
 
 
-# the im2col entry's coverage list (tools/bench_int8_conv.py COVERAGE), then
+# the NHWC entry's coverage list (tools/bench_int8_conv.py COVERAGE), then
 # csp80 and bb_s1, the RT-DETRv2-R101 shapes at B = 8
-IM2COL_CASES = list(COVERAGE) + [((8, 384, 80, 80), 3, 1, 1, 0),
-                                 ((8, 64, 160, 160), 3, 1, 1, 0)]
+NHWC_CASES = list(COVERAGE) + [((8, 384, 80, 80), 3, 1, 1, 0),
+                               ((8, 64, 160, 160), 3, 1, 1, 0)]
 
 
-def im2col_path(shape, k: int, stride: int, dtype, channels_last: bool) -> str:
-    """The patch loader csrc/quant.cu picks: lanes along channels for a
-    channels-last input; 16-byte asynchronous copies where each stride is a
-    multiple of 16 bytes and the tile's raw patch fits (not a 1x1 conv at
-    stride 2); else lanes along x."""
-    if channels_last:
-        return "general"
+def nhwc_path(shape, dtype, channels_last: bool) -> str:
+    """The kernel csrc/quant.cu picks for the NHWC codes: the rows kernel
+    for a channels-last input, with 16-byte loads where its pixel rows are
+    16-byte aligned; the transpose kernel with 16-byte loads where each
+    channel's plane and each sample are whole 16-byte runs, else a value
+    at a time."""
     size = torch.finfo(dtype).bits // 8
     b, c, h, w = shape
-    aligned = all(s * size % 16 == 0 for s in (w, h * w, c * h * w))
-    return "async" if aligned and not (k == 1 and stride == 2) else "along_x"
+    if channels_last:
+        return "rows" if c * size % 16 == 0 else "rows_scalar"
+    aligned = all(s * size % 16 == 0 for s in (h * w, c * h * w))
+    return "transpose" if aligned else "transpose_scalar"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels_last", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,k,stride,pad,extra", IM2COL_CASES)
-def test_amax_and_im2col_passes_are_exact_on_the_card(shape, k, stride, pad, extra, dtype,
-                                                      channels_last):
+@pytest.mark.parametrize("shape,k,stride,pad,extra", NHWC_CASES)
+def test_amax_and_nhwc_passes_are_exact_on_the_card(shape, k, stride, pad, extra, dtype,
+                                                    channels_last):
     """The amax pass's partials reduce to each sample's max |x| and the
-    im2col pass's codes and scales equal the plain version's; one launch
+    NHWC pass's codes and scales equal the plain version's; one launch
     each, the amax on its fast path (a dense sample in either layout), the
-    im2col on the loader `im2col_path` names."""
+    NHWC codes on the kernel `nhwc_path` names."""
     dev = _card()
     rng = np.random.default_rng(sum(shape) + k)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
     x[0, :, : shape[2] // 2] = 0.0  # zeros beside the values, as a ReLU's output has
     if channels_last:
         x = x.contiguous(memory_format=torch.channels_last)
-    k_pad = tint8.pad16(shape[1] * k * k) + extra
-    counters = (tint8.amax_s8, tint8.quantize_s8)
+    c_pad = tint8.pad16(shape[1]) + extra
+    counters = (tint8.amax_s8, tint8.quantize_nhwc_s8)
     before = [(c.launches, c.paths.copy()) for c in counters]
     partials = tint8.amax_samples(x)
-    codes, scales = tint8.im2col_codes(x, partials, k, stride, pad, k_pad)
-    path = im2col_path(shape, k, stride, dtype, channels_last)
+    codes, scales = tint8.nhwc_codes(x, partials, c_pad)
+    path = nhwc_path(shape, dtype, channels_last)
     assert [(c.launches - n, dict(c.paths - p)) for c, (n, p) in zip(counters, before)] == [
         (1, {"fast": 1}), (1, {path: 1})]
     assert partials.shape[0] == shape[0] and partials.dtype == torch.float32
     assert torch.equal(partials.amax(1), tint8.amax_samples_reference(x).amax(1))
-    want_codes, want_scales = tint8.quantize_im2col_reference(x, k, stride, pad, k_pad)
+    want_codes, want_scales = tint8.nhwc_codes_reference(x, tint8.amax_samples_reference(x),
+                                                         c_pad)
     assert torch.equal(codes, want_codes) and torch.equal(scales, want_scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nhwc_pass_takes_any_strides_on_the_card(dtype):
+    """A view whose pixels are at no one stride (a crop of W, a transpose of
+    H and W) takes the rows kernel through its strides; one with H = 1 the
+    transpose kernel (its planes still 16-byte runs); all exact."""
+    dev = _card()
+    x = torch.randn((3, 40, 9, 24), device=dev).to(dtype)
+    for view, path in ((x[..., 3:20], "rows_scalar"), (x[:, :, :1], "transpose"),
+                       (x.permute(0, 1, 3, 2), "rows_scalar")):
+        before = tint8.quantize_nhwc_s8.paths.copy()
+        codes, scales = tint8.nhwc_codes(view, tint8.amax_samples(view), 48)
+        assert dict(tint8.quantize_nhwc_s8.paths - before) == {path: 1}
+        want = tint8.nhwc_codes_reference(view, tint8.amax_samples_reference(view), 48)
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+
+
+@pytest.mark.cuda
+def test_nhwc_codes_take_every_bf16_value_exactly():
+    """Every finite bf16 value at several scales, and fp32 values on and
+    around the k + 0.5 steps of the scale: the kernel's IEEE division,
+    rint and clip give the plain version's code for each."""
+    dev = _card()
+    bits = torch.arange(0, 2**16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    finite = bits[torch.isfinite(bits.float())]
+    pad = (-finite.numel()) % 64
+    plane = torch.cat([finite, finite[:pad]]).view(1, 64, 1, -1)
+    for amax in (1e-30, 1e-3, 1.0, 3.0e4, 3.3e38):
+        x = torch.cat([plane, plane.flip(-1)]).to(dev)
+        partials = torch.full((2, 1), amax, device=dev)
+        codes, scales = tint8.nhwc_codes(x, partials, 64)
+        want = tint8.nhwc_codes_reference(x, partials, 64)
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1]), amax
+    scale = tint8.scale_of(torch.tensor([31.75]))  # 0.25: x / scale lands on halves
+    steps = (torch.arange(-127, 128, dtype=torch.float32) + 0.5) * scale
+    near = torch.cat([steps, torch.nextafter(steps, steps + 1), torch.nextafter(steps, steps - 1)])
+    x = near.repeat(16).view(1, 16, 1, -1).to(dev)
+    partials = torch.full((1, 1), 31.75, device=dev)
+    codes, _ = tint8.nhwc_codes(x, partials, 16)
+    assert torch.equal(codes, tint8.nhwc_codes_reference(x, partials, 16)[0])
 
 
 @pytest.mark.cuda
@@ -248,23 +301,89 @@ def test_amax_pass_on_heads_takes_the_general_path(b, t, h, hd):
     assert torch.equal(partials.amax(1), x.abs().amax(dim=(1, 3)).reshape(-1))
 
 
-@pytest.mark.cuda
-def test_quantize_im2col_is_two_kernels_and_no_memset():
-    """A torch.profiler trace of one quantize_im2col at csp80: the amax
-    kernel and the im2col kernel, nothing else on the device (no memset)."""
+def _device_kernels(fn) -> list:
+    """The names of the device events of one call of `fn` (after a warm
+    call), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = _card()
-    x = torch.randn((8, 384, 80, 80), device=dev, dtype=torch.bfloat16)
-    tint8.quantize_im2col(x, 3, 1, 1, 3456)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tint8.quantize_im2col(x, 3, 1, 1, 3456)
+        fn()
         torch.cuda.synchronize()
-    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    names = [e.name for e in device_events]
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_nhwc_quantize_is_two_kernels_and_no_memset():
+    """A torch.profiler trace of the amax and NHWC passes at csp80: the amax
+    kernel and the transpose kernel, nothing else on the device (no
+    memset)."""
+    dev = _card()
+    x = torch.randn((8, 384, 80, 80), device=dev, dtype=torch.bfloat16)
+    names = _device_kernels(lambda: tint8.nhwc_codes(x, tint8.amax_samples(x), 384))
     assert not any("memset" in n.lower() for n in names), names
-    assert len(names) == 2 and "amax_contiguous_kernel" in names[0] and "im2col_kernel" in names[1]
+    assert len(names) == 2 and "amax_contiguous_kernel" in names[0], names
+    assert "quantize_transpose_kernel" in names[1], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_fitting_heads_call_is_one_kernel_and_no_memset(transpose):
+    """One quantize_heads at RT-DETR's decoder V (8, 300, 8, 32) fp32: one
+    launch of the one-launch heads kernel, nothing else on the device."""
+    dev = _card()
+    v = torch.randn((8, 300, 8, 32), device=dev)
+    assert tint8.heads_one_launch(300, 32, torch.float32)
+    before = (tint8.amax_s8.launches, tint8.quantize_s8.launches)
+    names = _device_kernels(lambda: tint8.quantize_heads(v, transpose))
+    assert (tint8.amax_s8.launches, tint8.quantize_s8.launches) == (before[0], before[1] + 2)
+    assert len(names) == 1 and "quantize_heads_group_kernel" in names[0], names
+
+
+# (B, T, H, hd): RT-DETR's decoder, B = 1 with T ragged, hd 64, and fp32
+# groups at the one-launch limit (768 x 32 x 4 bytes) and just above it
+HEADS_CASES = [(8, 300, 8, 32), (1, 17, 3, 64), (8, 45, 4, 64), (2, 768, 2, 32),
+               (2, 769, 2, 32), (1, 1537, 2, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", HEADS_VIEWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HEADS_CASES)
+def test_heads_entries_are_exact_on_the_card(shape, dtype, view):
+    """Both layouts, codes and scales equal to the plain version's, in one
+    launch or two as `heads_one_launch` says, on contiguous, packed and
+    unaligned views."""
+    dev = _card()
+    b, t, h, hd = shape
+    x = heads_view(shape, dtype, view, np.random.default_rng(t + hd), dev)
+    x[0, : t // 3] = 0.0
+    one = tint8.heads_one_launch(t, hd, dtype)
+    for transpose in (False, True):
+        before = (tint8.amax_s8.launches, tint8.quantize_s8.launches)
+        codes, scales = tint8.quantize_heads(x, transpose)
+        assert (tint8.amax_s8.launches - before[0], tint8.quantize_s8.launches - before[1]) == (
+            0 if one else 1, 1)
+        want = tint8.quantize_heads_reference(x, transpose)
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_entry_takes_views_on_the_card(dtype):
+    """The rows entry on a row pitch past K (16-byte loads), rows at an odd
+    offset and a transposed view (a value at a time, through the strides),
+    a ragged K: each exact."""
+    dev = _card()
+    x = torch.randn((96, 88), device=dev).to(dtype)
+    for view, rows, path in ((x[:, :72], 12, "rows"), (x[:, 1:41], 8, "rows_scalar"),
+                             (x.t(), 11, "rows_scalar"), (x[:, :37], 1, "rows")):
+        before = tint8.quantize_s8.paths.copy()
+        codes, scales = tint8.quantize_rows(view, rows, tint8.pad16(view.shape[1]))
+        assert dict(tint8.quantize_s8.paths - before) == {path: 1}, path
+        want = tint8.quantize_rows_reference(view, rows, tint8.pad16(view.shape[1]))
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
 
 
 @pytest.mark.cuda
@@ -305,16 +424,6 @@ def test_int8_conv_graph_replay_is_bit_equal_to_eager(dtype):
         assert torch.equal(outs[1], tquant.int8_conv(static[1], qw, 3, 1, 1, dtype))
 
 
-@pytest.mark.cuda
-def test_im2col_raises_on_a_kernel_size_it_has_no_tile_for():
-    dev = _card()
-    x = torch.zeros((2, 8, 9, 9), device=dev)
-    launches = tint8.amax_s8.launches
-    with pytest.raises(ValueError, match="kernel sizes"):
-        tint8.quantize_im2col(x, 5, 1, 2, 208)
-    assert tint8.amax_s8.launches == launches
-
-
 # --- conv_s8 ------------------------------------------------------------------------
 
 
@@ -328,8 +437,8 @@ def _conv_operands(dev, b, cin, h, w, cout, k, dtype, seed):
                           .astype(np.float32)).to(dev)
     qc = tint8.quantize_conv_weight(wt)
     x = x.to(dtype)
-    codes, sa = tint8.im2col_codes(x, tint8.amax_samples(x), 1, 1, 0, qc.c_pad)
-    return codes.view(b, h, w, -1), sa, qc, x, wt
+    codes, sa = tint8.nhwc_codes(x, tint8.amax_samples(x), qc.c_pad)
+    return codes, sa, qc, x, wt
 
 
 def _conv_exact(nhwc, sa, qc, stride, pad, dtype, tile_n=None) -> bool:
@@ -344,20 +453,16 @@ def _conv_exact(nhwc, sa, qc, stride, pad, dtype, tile_n=None) -> bool:
 @pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
 def test_conv_s8_is_bit_equal_at_the_probe_shapes(shape, dtype):
     """The JAX probe's seven shapes at B = 8, through each tile width: bit
-    equal to the plain version on the same card codes, and to the
-    four-kernel path (im2col, GEMM, NCHW dequant)."""
+    equal to the plain version on the same card codes; the route whole bit
+    equal to utils/quant.py's plain convolution of the fp32 weight."""
     dev = _card()
     _, b, h, w, cin, cout, k, stride = shape
     pad = (k - 1) // 2
     nhwc, sa, qc, x, wt = _conv_operands(dev, b, cin, h, w, cout, k, dtype, sum(shape[1:]))
     for tile_n in (None, *tint8.CONV_TILE_NS):
         assert _conv_exact(nhwc, sa, qc, stride, pad, dtype, tile_n), tile_n
-    qw = tint8.quantize_weight_rows(wt)
-    codes, sx = tint8.quantize_im2col(x, k, stride, pad, qw.k_pad)
-    ho, wo = tint8.conv_out_hw(h, w, k, stride, pad)
-    four = tint8.dequant_nchw(tint8.int8_gemm_kmajor(codes, qw.codes), sx, qw.scale, b, ho, wo,
-                              dtype)
-    assert torch.equal(tquant.int8_conv(x, qc, k, stride, pad, dtype), four)
+    assert torch.equal(tquant.int8_conv(x, qc, k, stride, pad, dtype),
+                       tquant.int8_conv_reference(x, wt, stride, pad, dtype))
 
 
 @pytest.mark.cuda
@@ -410,17 +515,17 @@ def test_conv_s8_sass_is_wgmma_and_int8_conv_is_three_kernels():
     qc = tint8.quantize_conv_weight(torch.randn((384, 384, 3, 3), device=dev))
     tquant.int8_conv(x, qc, 3, 1, 1, torch.bfloat16)
     torch.cuda.synchronize()
-    before = (tint8.amax_s8.launches, tint8.quantize_s8.launches, tint8.conv_s8.launches,
+    before = (tint8.amax_s8.launches, tint8.quantize_nhwc_s8.launches, tint8.conv_s8.launches,
               tint8.int8_gemm_kmajor.launches, tint8.dequant_s32.launches)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             tquant.int8_conv(x, qc, 3, 1, 1, torch.bfloat16)
         torch.cuda.synchronize()
-    after = (tint8.amax_s8.launches, tint8.quantize_s8.launches, tint8.conv_s8.launches,
+    after = (tint8.amax_s8.launches, tint8.quantize_nhwc_s8.launches, tint8.conv_s8.launches,
              tint8.int8_gemm_kmajor.launches, tint8.dequant_s32.launches)
     assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 0, 0]
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kinds = ("amax_contiguous_kernel", "im2col_kernel", "conv_s8_kernel")
+    kinds = ("amax_contiguous_kernel", "quantize_transpose_kernel", "conv_s8_kernel")
     assert all(any(kind in n for kind in kinds) for n in names), names
     assert 5 <= len(names) <= 6 and "conv_s8_kernel" in names[-1], names
     nhwc = torch.zeros((2, 5, 5, 32), dtype=torch.int8, device=dev)

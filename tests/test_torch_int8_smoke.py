@@ -3,8 +3,10 @@ the CPU at the tiny width. The card run takes the models at full width and
 launches the kernels; here each int8 wrapper computes its plain version,
 and counting shims stand in for the launch counts (the rows and heads
 quantize wrappers count one amax and one quantize pass, as their kernels
-launch; the im2col's `amax_samples` and `im2col_codes` one each; a dequant
-of any layout on `dequant_s32`; the convolution on `conv_s8`).
+launch, but a heads call whose group fits one block, `heads_one_launch`,
+one quantize launch alone; the convolution's `amax_samples` and
+`nhwc_codes` one each; a dequant of any layout on `dequant_s32`; the
+convolution on `conv_s8`).
 The floors are lowered so that the tiny models' layers quantize
 (INT8_MIN_CH 8, INT8_ATTN_MIN_HD 4; the batch floor stays 8, so B = 1 runs
 the float path). The conv probe runs at tiny shapes on the CPU, and the
@@ -44,21 +46,24 @@ def test_bench_int8_conv_runs_on_the_cpu(tiny_tool, tmp_path, capsys):
     parts = [c["part"] for c in record["cases"]]
     n_coverage = 4 * len(tiny_tool.COVERAGE)  # fp32 and bf16, NCHW and channels-last
     n_served = 2 * len(tiny_tool.SERVED_CONVS)  # fp32 and bf16
+    # fp32 and bf16, three views
+    n_heads = 2 * len(tiny_tool.HEADS_COVERAGE) * len(tiny_tool.HEADS_VIEWS)
     assert parts == (["conv", "conv", "conv"] + ["coverage"] * n_coverage
-                     + ["served"] * n_served + ["dense", "attention"])
+                     + ["served"] * n_served + ["heads"] * n_heads + ["dense", "attention"])
     assert [c.get("dtype") for c in record["cases"][:3]] == ["bfloat16", "bfloat16", "float32"]
     assert record["cases"][2]["shape"] == "tiny3"  # MAIN_SHAPE in float32
     assert all(c["exact"] for c in record["cases"])
     conv = record["cases"][0]
-    assert conv["im2col_bytes"] == 2 * 9 * 7 * 144 and conv["k_pad"] == 144
     assert conv["c_pad"] == 16 and conv["conv_s8_tile_n"] == "plain"
-    assert conv["conv_s8_bit_equal"] and conv["paths_bit_equal"]
-    assert {"amax_s8_cpu_ms", "quantize_s8_cpu_ms", "int8_gemm_kmajor_cpu_ms", "path_cpu_ms",
-            "quantize_s8_nhwc_cpu_ms", "conv_s8_cpu_ms", "path4_cpu_ms", "plain_conv_s8_cpu_ms",
+    assert conv["conv_s8_bit_equal"] and conv["route_bit_equal"] and conv["nhwc_codes_exact"]
+    assert {"amax_s8_cpu_ms", "path_cpu_ms", "quantize_nhwc_s8_cpu_ms", "conv_s8_cpu_ms",
+            "plain_quantize_nhwc_s8_cpu_ms", "plain_conv_s8_cpu_ms",
             "library_cudnn_bf16_cpu_ms", "library_vector_norm_cpu_ms"} <= set(conv)
     assert conv["bounds"]["conv_s8"]["bound_by"] in ("bytes", "operations")
     assert conv["amax_exact"] and conv["bounds"]["amax_s8"]["bound_by"] == "bytes"
-    assert conv["bounds"]["int8_gemm_kmajor"]["bound_by"] in ("bytes", "operations")
+    assert conv["bounds"]["quantize_nhwc_s8"]["bound_by"] == "bytes"
+    heads = [c for c in record["cases"] if c["part"] == "heads"]
+    assert {c["one_launch"] for c in heads} == {True, False}  # both sides of the limit
     assert all(v > 0 for v in record["calls"].values())
     assert len(capsys.readouterr().out.splitlines()) == len(parts)
 
@@ -84,12 +89,20 @@ def _counting_wrappers(monkeypatch):
 
         return shim
 
-    for name in ("quantize_rows", "quantize_heads"):
-        monkeypatch.setattr(tint8, name, counted(getattr(tint8, name), tint8.amax_s8,
-                                                 tint8.quantize_s8))
+    monkeypatch.setattr(tint8, "quantize_rows", counted(tint8.quantize_rows, tint8.amax_s8,
+                                                        tint8.quantize_s8))
+    heads = tint8.quantize_heads
+
+    def heads_shim(x, transpose):
+        one = tint8.heads_one_launch(x.shape[1], x.shape[3], x.dtype)
+        tint8.amax_s8.launches += 0 if one else 1
+        tint8.quantize_s8.launches += 1
+        return heads(x, transpose)
+
+    monkeypatch.setattr(tint8, "quantize_heads", heads_shim)
     monkeypatch.setattr(tint8, "amax_samples", counted(tint8.amax_samples, tint8.amax_s8))
-    monkeypatch.setattr(tint8, "im2col_codes", counted(tint8.im2col_codes, tint8.quantize_s8))
-    for name in ("dequant_rows", "dequant_heads", "dequant_av", "dequant_nchw"):
+    monkeypatch.setattr(tint8, "nhwc_codes", counted(tint8.nhwc_codes, tint8.quantize_nhwc_s8))
+    for name in ("dequant_rows", "dequant_heads", "dequant_av"):
         monkeypatch.setattr(tint8, name, counted(getattr(tint8, name), tint8.dequant_s32))
     for name in ("int8_gemm_kmajor", "conv_s8"):
         monkeypatch.setattr(tint8, name, _counted_kernel(getattr(tint8, name)))
@@ -131,13 +144,19 @@ def test_int8_phase_rehearses_on_the_cpu(cpu_rehearsal, monkeypatch, tiny_tool):
     for rec in legs.values():
         assert rec["calls_per_forward"] == rec["plan"] and rec["plan"]["conv"] > 0
         assert rec["b1_bit_equal"] and rec["plain_witness_b8"]["bit_equal"]
-        assert rec["launches_per_forward"]["amax_s8"] == rec["launches_per_forward"]["quantize_s8"]
+        launches = rec["launches_per_forward"]
+        calls = rec["calls_per_forward"]
+        # every heads call of RT-DETR's attention fits one block: no amax for it
+        assert launches["amax_s8"] == launches["quantize_nhwc_s8"] + launches.get(
+            "quantize_s8", 0) - 2 * calls["qk"] - calls["av"]
+        assert launches["quantize_nhwc_s8"] == calls["conv"]
     assert legs["bfloat16_attn"]["plan"]["qk"] == legs["bfloat16_attn"]["plan"]["av"] > 0
     assert legs["bfloat16_conv"]["plan"]["dense"] == 0
     http = legs["bfloat16_conv"]["http"]
     assert http["forwards"] > 0 and http["launches"]["conv_s8"] > 0
     assert http["launches"]["int8_gemm_kmajor"] == http["launches"]["dequant_s32"] == 0
-    assert legs["bfloat16_conv"]["engine_launches"]["quantize_s8"] > 0
+    assert legs["bfloat16_conv"]["engine_launches"]["quantize_nhwc_s8"] > 0
+    assert legs["bfloat16_conv"]["engine_launches"]["quantize_s8"] == 0
     for rec in legs.values():  # one conv_s8 a quantized convolution
         assert rec["launches_per_forward"]["conv_s8"] == rec["calls_per_forward"]["conv"]
     all_knobs = legs["bfloat16_attn"]["launches_per_forward"]
@@ -150,7 +169,9 @@ def test_int8_phase_rehearses_on_the_cpu(cpu_rehearsal, monkeypatch, tiny_tool):
     assert set(rows) == set(chip_smoke.INT8_KERNELS)
     assert rows["int8_gemm_kmajor"]["launches"] == all_knobs["int8_gemm_kmajor"]
     assert rows["conv_s8"]["launches"] == http["launches"]["conv_s8"]
-    assert {"cudnn_bf16_ms", "path_ms", "path4_ms"} <= set(rows["conv_s8"])
+    assert {"cudnn_bf16_ms", "path_ms"} <= set(rows["conv_s8"])
+    assert rows["quantize_nhwc_s8"]["launches"] == http["launches"]["quantize_nhwc_s8"]
+    assert rows["quantize_s8"]["launches"] == all_knobs["quantize_s8"] > 0
     summary = chip_smoke.kernel_summary(out["kernel_cases"],
                                         {c["kernel"]: c["launches"] for c in out["kernel_cases"]})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -158,7 +179,35 @@ def test_int8_phase_rehearses_on_the_cpu(cpu_rehearsal, monkeypatch, tiny_tool):
     for row in summary["kernels"]:
         assert keys <= set(row) and row["replaces"].startswith("spotter_tpu/utils/quant.py:")
     cases = {row["name"]: row["case"] for row in summary["kernels"]}  # the function timed
-    assert cases["quantize_s8"] == f"nhwc_{bench_int8_conv.MAIN_SHAPE}_bfloat16"
+    assert cases["quantize_nhwc_s8"] == f"nhwc_{bench_int8_conv.MAIN_SHAPE}_bfloat16"
+    assert cases["quantize_s8"] == "rows_yolos_fc1"
     assert cases["dequant_s32"] == "rows_yolos_fc1"
     assert not (tquant.INT8 or tquant.INT8_DENSE or tquant.INT8_ATTN)
     assert np.isfinite(legs["float32_conv"]["vs_float_b8"]["logits_max_abs_err"])
+
+
+@pytest.mark.parametrize("calls,heads,want", [
+    # RT-DETRv2-R101 under `bfloat16` + INT8: three kernels a convolution
+    ({"conv": 133, "dense": 0, "qk": 0, "av": 0}, [],
+     {"amax_s8": 133, "quantize_s8": 0, "quantize_nhwc_s8": 133, "int8_gemm_kmajor": 0,
+      "dequant_s32": 0, "conv_s8": 133}),
+    # all knobs: 21 heads calls at (300 or 400, 32) fit one block each, no amax
+    ({"conv": 133, "dense": 28, "qk": 7, "av": 7}, [(300, 32, "float32")] * 21,
+     {"amax_s8": 168, "quantize_s8": 56, "quantize_nhwc_s8": 133, "int8_gemm_kmajor": 42,
+      "dequant_s32": 42, "conv_s8": 133}),
+    # a group past the limit (fp32 769 x 32): its amax pass comes back
+    ({"conv": 0, "dense": 2, "qk": 1, "av": 1},
+     [(769, 32, "float32"), (300, 32, "float32"), (769, 32, "bfloat16")],
+     {"amax_s8": 4, "quantize_s8": 6, "quantize_nhwc_s8": 0, "int8_gemm_kmajor": 4,
+      "dequant_s32": 4, "conv_s8": 0}),
+])
+def test_int8_launches_plan_with_the_heads_rule(calls, heads, want):
+    """chip_smoke.int8_launches: the launches a forward's quantized calls
+    make, a heads call one launch where `heads_one_launch` says so."""
+    import torch
+
+    import chip_smoke
+
+    heads = [(t, hd, getattr(torch, dtype)) for t, hd, dtype in heads]
+    assert chip_smoke.int8_launches(calls, heads) == want
+    assert set(want) == set(chip_smoke.INT8_KERNELS)
