@@ -91,8 +91,26 @@ Phases, each printing JSON lines:
              kernel. Each run's counts are reset just before it; the fused
              (resp. loc) kernel must launch 6 times per forward and no other
              kernel at all. p50/p99 per request size, img/s, images per
-             forward (how well the batcher coalesced), /healthz (which must
-             report integrity "off": the plane is not ported);
+             forward (how well the batcher coalesced), /healthz 200 and no
+             integrity snapshot in /metrics (the injected detector skips the
+             verifying gate, as the JAX package's does);
+6b. integrity — the replica's output-integrity plane on RT-DETRv2-R101 at
+             full width, each replica brought up through make_app (its
+             bring-up, not an injected detector): under "float32" /startupz
+             passes loading -> warming -> verifying -> ready, the gate's
+             attest and probe seconds and the pinned detections per bucket,
+             the golden probe alone (msda_gather_sum 6 launches) and
+             co-batched with 1, 3 and 7 photos (buckets 2, 4, 8), each
+             within compare's tolerance of its bucket's pin (and its drift
+             from the bucket-1 pin), a traced request's spans, Server-Timing
+             and Prometheus /metrics, /detect p50/p99 over a burst with the
+             plane's 1 s loop running and stopped, sdc=100 (/detect 200, the
+             periodic probe exits 86) and one bit of a kept value flipped
+             (the periodic attest exits 86); under "bfloat16" +
+             SPOTTER_TPU_INT8 the gate and the probe by bucket;
+             SPOTTER_TPU_FAULTS=corrupt_weights=1 (exit 86 before READY, no
+             /detect answering 200) and corrupt_compile_cache=1 (attest
+             clean, the probe fails, exit 86);
 7. yolos_parity — yolos-base at B = 1 on the card against the same model on
              the CPU under "float32" (TF32 off), then the card under "mixed"
              (bf16 body) against the card under "float32" at B = 8;
@@ -213,7 +231,7 @@ code is non-zero. Needs one CUDA card and the repository checkout around
 this file; exits non-zero without either.
 
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,engine,http,
-                                            yolos_parity,yolos_serve,yolos_http,
+                                            integrity,yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
                                             detr_parity,detr_serve,detr_http,
                                             owl_parity,owl_serve,owl_http,load,precision,
@@ -223,6 +241,7 @@ The full record is also written to build/chip_smoke.json (or --out).
 """
 
 import argparse
+import asyncio
 import contextlib
 import functools
 import importlib
@@ -240,7 +259,8 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernel", "parity", "serve", "engine", "http", "yolos_parity",
+PHASES = ("device", "build", "kernel", "parity", "serve", "engine", "http", "integrity",
+          "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
           "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
           "load", "precision", "int8", "probes")
@@ -1863,7 +1883,7 @@ async def drive_http(det, photo_dir: str, runs: list) -> dict:
                 out[label] = {"launches": read_counts(), "forwards": batches() - batches0,
                               "images_per_forward": images_per_forward}
             health = await client.get(f"{api}/healthz")
-            out["healthz"], out["integrity"] = health.status_code, health.json().get("integrity")
+            out["healthz"], out["healthz_keys"] = health.status_code, sorted(health.json())
             out["metrics"] = (await client.get(f"{api}/metrics")).json()
             # where a batch-8 request's host time goes: fetch and decode of
             # its 8 photos, one after another, as the server does them
@@ -1933,7 +1953,7 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
     lat = out["latency_ms"]
     rec = {
         "phase": "http", "model": MODEL_NAME, "device": device, "bringup_s": bringup_s,
-        "healthz": out["healthz"], "integrity": out["integrity"],
+        "healthz": out["healthz"], "integrity": out["metrics"].get("integrity"),
         "latency_ms": latency_summary(lat),
         "img_per_s_8_urls": 8e3 / statistics.median(lat["fused:8"]),
         "img_per_s_4x8_concurrent": 32e3 / statistics.median(lat["fused:4x8"]),
@@ -1944,13 +1964,523 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
         "fused": out["fused"], "kernel": out["kernel"],
     }
     emit(rec, log)
-    if out["healthz"] != 200 or out["integrity"] != "off":
-        raise AssertionError(f"/healthz answered {out['healthz']}, integrity {out['integrity']!r} "
-                             f"(the plane is not ported: it must say off)")
+    # the injected detector skips the verifying gate, as the JAX package's
+    # does: no plane, so no integrity snapshot in /metrics and none in /healthz
+    if out["healthz"] != 200 or "integrity" in out["metrics"] or "integrity" in out["healthz_keys"]:
+        raise AssertionError(f"/healthz answered {out['healthz']} with keys {out['healthz_keys']}, "
+                             f"/metrics integrity {out['metrics'].get('integrity')!r}")
     for prep_name, name in (("fused", "msda_fused_sum"), ("kernel", "msda_loc_sum")):
         run_rec = out[prep_name]
         check_launches(run_rec["launches"], name, layers * run_rec["forwards"],
                        f"under {prep_name}")
+    return rec
+
+
+# the periodic re-verification's cadence in the integrity phase (seconds)
+INTEGRITY_INTERVAL_S = 1.0
+# the latency burst: concurrent clients each POSTing /detect of 8 URLs, in
+# segments of INTEGRITY_SEGMENT requests that alternate the loop at 1 s and
+# the loop stopped over INTEGRITY_ROUNDS rounds; then the default cadence
+# (probe 30 s, attest 60 s) for INTEGRITY_DEFAULT_S, which holds its first
+# attest and two probes
+INTEGRITY_CLIENTS = 4
+INTEGRITY_SEGMENT = 50
+INTEGRITY_ROUNDS = 2
+INTEGRITY_DEFAULT_S = 62.0
+# ~0.5 s of queued work on the engine's stream ahead of a fresh kept value
+ATTEST_ORDER_SLEEP_CYCLES = 1_000_000_000
+
+
+def brief(text):
+    """The head of a reason text (a probe's holds its whole answer)."""
+    return None if text is None else text[:200]
+
+
+def probe_drift(ref: list, got: list) -> dict:
+    """How far `got` (a probe's detections) sits from `ref`: the largest
+    difference of their score-sorted scores, and over `got`'s detections
+    the largest distance (max coordinate difference, px) to the nearest
+    same-label detection of `ref`; and whether the label multisets agree."""
+    scores = [abs(a - b) for a, b in zip(sorted(d["score"] for d in ref),
+                                         sorted(d["score"] for d in got))]
+    boxes = []
+    for d in got:
+        near = [max(abs(x - y) for x, y in zip(d["box"], r["box"]))
+                for r in ref if r["label"] == d["label"]]
+        if near:
+            boxes.append(min(near))
+    return {"n": len(got), "n_ref": len(ref), "score": max(scores, default=0.0),
+            "box_px": max(boxes, default=0.0),
+            "labels_equal": sorted(d["label"] for d in ref) == sorted(d["label"] for d in got)}
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text exposition -> {sample name: count}; raises on a line
+    that is neither a comment nor `name[{labels}] value [# exemplar]`."""
+    import math
+    import re
+
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+    names: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line.split(" # ", 1)[0])
+        if m is None:
+            raise AssertionError(f"unparsable exposition line {line!r}")
+        value = float(m.group(3))
+        if math.isnan(value):
+            raise AssertionError(f"NaN sample {line!r}")
+        names[m.group(1)] = names.get(m.group(1), 0) + 1
+    return names
+
+
+def flip_kept_bit(engine) -> str:
+    """Flip the lowest bit of the first word of one kept value every graph
+    reads (the first fp32 folded BN pair's scale), in place on the card.
+    Returns its label."""
+    import torch
+
+    from spotter_tpu_torch.models.layers import kept_entries
+
+    held = {id(entry) for graph in engine.graphs.values() for _, entry in graph.held}
+    for label, entry in kept_entries(engine.model):
+        if label.endswith("._folded") and id(entry) in held and entry[1][0].dtype == torch.float32:
+            with torch.no_grad():
+                entry[1][0].view(torch.int32).view(-1)[:1].bitwise_xor_(1)
+            torch.cuda.synchronize()
+            return label
+    raise AssertionError("no fp32 folded BN pair held by the graphs")
+
+
+@contextlib.contextmanager
+def replica_env(env: dict):
+    """Environment variables set for a bring-up (None unsets), restored
+    after; the fault plan and the flight recorder start clean."""
+    from spotter_tpu_torch import obs
+    from spotter_tpu_torch.testing import faults
+
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    faults._active = None
+    obs.reset_recorder()
+    try:
+        yield
+    finally:
+        faults._active = None
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+async def bring_up_replica(photo_dir: str, exits: list, watch_detect: bool = False):
+    """The replica through `make_app(model_name=..., warmup=True,
+    device="cuda")` (its bring-up, not an injected detector) behind a local
+    server, with the photos on a static route. Polls /startupz every 50 ms
+    until ready, failed or an exit code lands, recording the states seen;
+    with `watch_detect`, also POSTs /detect at every poll and records the
+    statuses. Returns (runners, api url, photo urls, record)."""
+    import httpx
+    from aiohttp import web
+
+    from spotter_tpu_torch.serving.standalone import make_app
+
+    images = web.Application()
+    images.router.add_static("/img", photo_dir)
+    app = make_app(model_name=MODEL_NAME, warmup=True, device="cuda",
+                   bringup_exit_cb=exits.append, integrity_exit_cb=exits.append,
+                   fatal_exit_cb=exits.append)
+    runners = []
+    for a in (images, app):
+        runner = web.AppRunner(a)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        runners.append(runner)
+    img_port, api_port = (r.addresses[0][1] for r in runners)
+    urls = [f"http://127.0.0.1:{img_port}/img/p{i}.jpg" for i in range(len(PHOTO_SIZES))]
+    api = f"http://127.0.0.1:{api_port}"
+    states, detect_statuses = [], []
+    t0 = time.perf_counter()
+    async with httpx.AsyncClient(timeout=300.0) as client:
+        while time.perf_counter() - t0 < 600:
+            snap = (await client.get(f"{api}/startupz")).json()
+            if not states or states[-1] != snap["state"]:
+                states.append(snap["state"])
+            if watch_detect:
+                resp = await client.post(f"{api}/detect", json={"image_urls": urls[:1]})
+                detect_statuses.append(resp.status_code)
+            if snap["state"] in ("ready", "failed") or exits:
+                break
+            await asyncio.sleep(0.05)
+    rec = {"states": states, "bringup_s": time.perf_counter() - t0, "exits": list(exits),
+           "startupz": snap, "detect_statuses": sorted(set(detect_statuses))}
+    return runners, app, api, urls, rec
+
+
+async def wait_for_exit(exits: list, timeout_s: float) -> float:
+    """Seconds until an exit code lands in `exits` (raises past the timeout)."""
+    t0 = time.perf_counter()
+    while not exits:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"no exit within {timeout_s} s")
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def probe_buckets(plane, batcher, photos: list) -> dict:
+    """The golden probe alone (bucket 1, its kernel launches counted) and
+    co-batched with 1, 3 and 7 live photos (buckets 2, 4 and 8) through the
+    real batcher: each answer held by the plane's own comparison to the pin
+    of the bucket it ran in (which must pass), and its drift from the
+    bucket-1 pin recorded; where the engine puts the bucket in bucket 1's
+    answer class (every bucket of one function under `float32`), the
+    answer must also pass the comparison with bucket 1's pin."""
+    from spotter_tpu_torch.obs import compare
+    from spotter_tpu_torch.serving.overload import BULK
+
+    probe = plane.probe
+    engine = batcher.engine
+    reset_counts()
+    if await probe.run(batcher) is not None:
+        raise AssertionError(f"the probe alone failed: {probe.last_error}")
+    launches = read_counts()
+    out = {"alone_launches": launches, "buckets": {}}
+    for k in (1, 3, 7):
+        info = {}
+        dets, *_ = await asyncio.gather(
+            batcher.submit(probe.image, cls=BULK, info=info),
+            *(batcher.submit(p) for p in photos[:k]))
+        bucket = info["bucket"]
+        pin = probe.pins[bucket]
+        reason = probe._diff(pin, dets)
+        cls = engine.answer_class(bucket)
+        held_to_1 = cls is not None and cls == engine.answer_class(1)
+        vs_1 = compare.diff_detections(probe.pins[1], dets)
+        out["buckets"][str(bucket)] = {
+            "with_photos": k, "vs_bucket_pin": brief(reason),
+            "drift_vs_bucket_pin": probe_drift(pin, dets),
+            "answer_class": cls, "held_to_bucket1": held_to_1,
+            "drift_vs_bucket1_pin": probe_drift(probe.pins[1], dets),
+            "bucket1_pin_diff": brief(vs_1),
+        }
+        if (bucket != engine.bucket_for(k + 1) or reason is not None
+                or (held_to_1 and vs_1 is not None)):
+            raise AssertionError(f"probe with {k} photos (bucket {bucket}): {reason or vs_1}")
+    return out
+
+
+async def detect_burst(client, api: str, urls: list, n: int = 0,
+                       seconds: float = 0.0) -> list:
+    """/detect latencies (ms) of 8-URL requests from INTEGRITY_CLIENTS
+    concurrent clients: `n` requests in all, or (with `seconds`) every
+    request started within that many seconds."""
+    lat: list = []
+    t_end = time.perf_counter() + seconds
+    left = [n]
+
+    async def one_client():
+        while (time.perf_counter() < t_end) if seconds else left[0] > 0:
+            left[0] -= 1
+            t = time.perf_counter()
+            resp = await client.post(f"{api}/detect", json={"image_urls": urls[:8]})
+            resp.raise_for_status()
+            lat.append((time.perf_counter() - t) * 1e3)
+
+    await asyncio.gather(*(one_client() for _ in range(INTEGRITY_CLIENTS)))
+    return lat
+
+
+async def integrity_burst(client, api: str, urls: list, plane) -> dict:
+    """/detect latency with the plane's loop at 1 s and stopped, in
+    alternating segments over INTEGRITY_ROUNDS rounds, then at the default
+    cadence; each mode's p50/p99 over all its requests, and the probes and
+    attests that ran while it was measured."""
+    from spotter_tpu_torch.serving import integrity
+
+    lat = {"loop_1s": [], "stopped": [], "default_cadence": []}
+    ran = {mode: {"probes": 0, "attests": 0} for mode in lat}
+    segments = []
+
+    async def segment(mode: str, probe_s: float, attest_s: float, **burst) -> None:
+        if probe_s or attest_s:
+            plane.probe_interval_s, plane.attest_interval_s = probe_s, attest_s
+            await plane.start()
+        before = plane.snapshot()
+        t0 = time.perf_counter()
+        got = await detect_burst(client, api, urls, **burst)
+        after = plane.snapshot()
+        await plane.aclose()
+        probes = after["probe"]["probes_total"] - before["probe"]["probes_total"]
+        attests = after["attest"]["attests_total"] - before["attest"]["attests_total"]
+        lat[mode] += got
+        ran[mode]["probes"] += probes
+        ran[mode]["attests"] += attests
+        segments.append({"mode": mode, "seconds": time.perf_counter() - t0, "probes": probes,
+                         "attests": attests, **latency_summary({mode: got})[mode]})
+
+    await plane.aclose()
+    await client.post(f"{api}/detect", json={"image_urls": urls[:8]})
+    for _ in range(INTEGRITY_ROUNDS):
+        await segment("loop_1s", INTEGRITY_INTERVAL_S, INTEGRITY_INTERVAL_S,
+                      n=INTEGRITY_SEGMENT)
+        await segment("stopped", 0.0, 0.0, n=INTEGRITY_SEGMENT)
+    await segment("default_cadence", integrity.DEFAULT_PROBE_INTERVAL_S,
+                  integrity.DEFAULT_ATTEST_INTERVAL_S, seconds=INTEGRITY_DEFAULT_S)
+    plane.probe_interval_s = plane.attest_interval_s = INTEGRITY_INTERVAL_S
+    out = {"clients": INTEGRITY_CLIENTS, "urls": 8, "segments": segments,
+           "attest_last_s": plane.snapshot()["attest"]["last_duration_s"]}
+    for mode, summary in latency_summary(lat).items():
+        out[mode] = {**summary, **ran[mode]}
+    if ran["default_cadence"]["attests"] < 1 or ran["default_cadence"]["probes"] < 2:
+        raise AssertionError(f"the default cadence's segment missed its checks: {ran}")
+    return out
+
+
+def attest_after_engine_stream(engine) -> dict:
+    """A kept value made on the engine's stream behind ~0.5 s of queued
+    work (a statistic's version moved, then the BN layer run there), then
+    `engine.attest()` at once from this thread: it must wait for that
+    stream, re-derive the new value bit equal and pin it."""
+    import torch
+
+    from spotter_tpu_torch.models.layers import FrozenBatchNorm
+
+    bn = next(m for m in engine.model.modules() if isinstance(m, FrozenBatchNorm))
+    old = vars(bn)["_folded"]
+    with torch.cuda.stream(engine._stream):
+        torch.cuda._sleep(ATTEST_ORDER_SLEEP_CYCLES)
+        with torch.no_grad():
+            bn.running_var.add_(0)
+        with torch.inference_mode():
+            bn(torch.zeros((1, bn.running_var.shape[0], 1, 1), device=engine.device,
+                           dtype=bn.dtype))
+    t0 = time.perf_counter()
+    result = engine.attest()
+    out = {"attest_s": time.perf_counter() - t0, "ok": result["ok"],
+           "mismatched": result["mismatched"][:4], "kept_checked": result["kept_checked"],
+           "new_entry_pinned": id(vars(bn)["_folded"]) in engine._kept_pins}
+    if vars(bn)["_folded"] is old or not result["ok"] or not out["new_entry_pinned"]:
+        raise AssertionError(f"attest after the engine's stream: {out}")
+    return out
+
+
+def phase_integrity(log: list, seed: int) -> dict:
+    """The replica's output-integrity plane on RT-DETRv2-R101 at full width
+    with seed-0 weights, each replica brought up through `make_app` (its
+    bring-up path, not an injected detector):
+
+    1. float32, the full ladder, probe and attest every second: /startupz
+       passes loading -> warming -> verifying -> ready; the gate's attest
+       and probe seconds and the pinned detections per bucket; the probe
+       alone (msda_gather_sum 6 launches) and co-batched with 1, 3 and 7
+       photos, each within the tolerance of its bucket's pin; a traced
+       request (X-Request-ID) whose trace holds every stage's span, its
+       Server-Timing, and /metrics?format=prometheus parsed with the
+       integrity counters; /detect p50/p99 of 8-URL requests from
+       concurrent clients, the loop at 1 s and stopped alternating over
+       rounds, then at the default cadence (`integrity_burst`); then
+       `sdc=100`: /detect answers 200 and the periodic probe exits 86; a
+       kept value made on the engine's stream behind queued work, attested
+       at once from another stream (`attest_after_engine_stream`); then a
+       new plane on the same engine and one bit of a kept value flipped:
+       the periodic attest exits 86;
+    2. "bfloat16" + SPOTTER_TPU_INT8: the gate and the probe by bucket;
+    3. SPOTTER_TPU_FAULTS=corrupt_weights=1 (buckets (1,)): exit 86 before
+       READY, no /detect answering 200 on the way;
+    4. corrupt_compile_cache=1 (buckets (1,)): the gate's attest clean, the
+       probe failing, exit 86.
+    """
+    import tempfile
+
+    import httpx
+    import torch
+
+    from spotter_tpu_torch.serving import integrity
+    from spotter_tpu_torch.testing import faults
+    from spotter_tpu_torch.utils import quant
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 20)
+    photos = [Image.fromarray(synthetic_photo(rng, 480, 640)) for _ in range(7)]
+    intervals = {"SPOTTER_TPU_PROBE_INTERVAL_S": str(INTEGRITY_INTERVAL_S),
+                 "SPOTTER_TPU_ATTEST_INTERVAL_S": str(INTEGRITY_INTERVAL_S),
+                 "SPOTTER_TPU_INTEGRITY": None, "SPOTTER_TPU_FAULTS": None,
+                 "SPOTTER_TPU_BATCH_BUCKETS": None}
+    rec: dict = {"phase": "integrity", "model": MODEL_NAME,
+                 "nvidia_smi": nvidia_smi("name,power.limit")}
+
+    def gate_record(plane, bring: dict) -> dict:
+        snap = plane.snapshot()
+        pins = {str(b): len(p) for b, p in sorted(plane.probe.pins.items())}
+        return {**bring, "verify_s": snap["last_verify_s"],
+                "attest_s": snap["attest"]["last_duration_s"],
+                "probe_s": snap["last_verify_s"] - snap["attest"]["last_duration_s"],
+                "pinned_detections": len(plane.probe.reference), "pins_by_bucket": pins,
+                "kept_checked": plane.engine.attest()["kept_checked"]}
+
+    def check_ready(bring: dict, what: str) -> None:
+        if bring["states"] != ["loading", "warming", "verifying", "ready"] or bring["exits"]:
+            raise AssertionError(f"{what}: bring-up states {bring['states']}, exits "
+                                 f"{bring['exits']}")
+
+    async def float32_replica(photo_dir: str) -> dict:
+        exits: list = []
+        runners, app, api, urls, bring = await bring_up_replica(photo_dir, exits)
+        out = {}
+        try:
+            check_ready(bring, "float32")
+            det, plane = app["detector"], app["integrity"]
+            out["gate"] = gate_record(plane, bring)
+            if not plane.probe.reference:
+                emit({"phase": "integrity", "note": "the float32 pin is empty"}, log)
+            # the loop stays off while the probe is held by bucket: a
+            # periodic probe would join those batches and the counts
+            await plane.aclose()
+            out["probe"] = await probe_buckets(plane, det.batcher, photos)
+            await plane.start()
+            check_counts(out["probe"]["alone_launches"],
+                         {"msda_gather_sum": det.engine.built.module.config.decoder_layers},
+                         "the probe alone")
+            async with httpx.AsyncClient(timeout=300.0) as client:
+                # one traced request: its spans, Server-Timing, Prometheus view
+                rid = f"chip-smoke-{seed}"
+                resp = await client.post(f"{api}/detect", json={"image_urls": urls[:2]},
+                                         headers={"X-Request-ID": rid})
+                resp.raise_for_status()
+                traces = (await client.get(f"{api}/debug/traces",
+                                           params={"request_id": rid})).json()["traces"]
+                spans = sorted({s["name"] for t in traces for s in t["spans"]})
+                prom_text = (await client.get(f"{api}/metrics",
+                                              params={"format": "prometheus"})).text
+                names = parse_prometheus(prom_text)
+                out["trace"] = {
+                    "request_id": resp.headers.get("X-Request-ID"), "spans": spans,
+                    "server_timing": resp.headers.get("Server-Timing"),
+                    "prometheus_samples": len(names),
+                    "integrity_samples": sorted(n for n in names if "_integrity_" in n),
+                }
+                want = {"fetch", "decode", "queue_wait", "h2d", "device", "postprocess"}
+                if (out["trace"]["request_id"] != rid or not want <= set(spans)
+                        or not out["trace"]["server_timing"]
+                        or "spotter_tpu_integrity_verifications_total" not in names
+                        or "spotter_tpu_integrity_attest_attests_total" not in names):
+                    raise AssertionError(f"trace / exposition check: {out['trace']}")
+                out["burst"] = await integrity_burst(client, api, urls, plane)
+                await plane.start()
+                # sdc=100: answers stay 200, the periodic probe exits 86
+                with faults.inject(sdc=100):
+                    resp = await client.post(f"{api}/detect", json={"image_urls": urls[:1]})
+                    out["sdc"] = {"detect_status": resp.status_code,
+                                  "exit_after_s": await wait_for_exit(exits, 10.0),
+                                  "exits": list(exits), "last_error": brief(plane.last_error)}
+                if (resp.status_code != 200 or exits != [86]
+                        or "periodic-probe" not in (plane.last_error or "")):
+                    raise AssertionError(f"sdc check: {out['sdc']}")
+            await plane.aclose()
+            out["attest_order"] = attest_after_engine_stream(det.engine)
+            # a new plane on the same engine (its gate re-pins nothing the
+            # engine pinned), then one bit of a kept value flipped: the next
+            # periodic attest exits 86
+            exits.clear()
+            plane = integrity.IntegrityPlane(det.engine, det.batcher, probe_interval_s=0,
+                                             attest_interval_s=INTEGRITY_INTERVAL_S,
+                                             exit_cb=exits.append)
+            if not await plane.verify("cold-start"):
+                raise AssertionError(f"re-verification failed: {plane.last_error}")
+            await plane.start()
+            label = flip_kept_bit(det.engine)
+            out["kept_bit_flip"] = {"kept": label,
+                                    "exit_after_s": await wait_for_exit(exits, 10.0),
+                                    "exits": list(exits), "last_error": brief(plane.last_error)}
+            await plane.aclose()
+            if exits != [86] or label not in (plane.last_error or ""):
+                raise AssertionError(f"kept-value check: {out['kept_bit_flip']}")
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+        return out
+
+    async def policy_replica(photo_dir: str) -> dict:
+        exits: list = []
+        runners, app, api, urls, bring = await bring_up_replica(photo_dir, exits)
+        try:
+            check_ready(bring, "bfloat16 + INT8")
+            plane = app["integrity"]
+            return {"gate": gate_record(plane, bring),
+                    "probe": await probe_buckets(plane, app["detector"].batcher, photos)}
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+
+    async def corrupt_weights_replica(photo_dir: str) -> dict:
+        exits: list = []
+        runners, app, api, urls, bring = await bring_up_replica(photo_dir, exits,
+                                                                watch_detect=True)
+        try:
+            await wait_for_exit(exits, 60.0)
+            out = {**bring, "exits": list(exits), "error": brief(app["startup"].error)}
+            if (exits != [86] or "ready" in bring["states"] or 200 in bring["detect_statuses"]
+                    or "checksum mismatch" not in (out["error"] or "")):
+                raise AssertionError(f"corrupt_weights check: {out}")
+            return out
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+
+    async def corrupt_cache_replica(photo_dir: str) -> dict:
+        exits: list = []
+        runners, app, api, urls, bring = await bring_up_replica(photo_dir, exits)
+        try:
+            plane = app["integrity"]
+            attest_clean = plane.attestor.failures_total == 0 and plane.attestor.attests_total >= 1
+            exit_s = await wait_for_exit(exits, 10.0)
+            out = {**bring, "attest_clean": attest_clean, "exit_after_s": exit_s,
+                   "exits": list(exits), "probe_failures": plane.probe.failures_total,
+                   "last_error": brief(plane.last_error)}
+            if exits != [86] or not attest_clean or plane.probe.failures_total != 1:
+                raise AssertionError(f"corrupt_compile_cache check: {out}")
+            return out
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        steps = (
+            ("float32", intervals, float32_replica, False),
+            ("bfloat16_int8", {**intervals, "SPOTTER_TPU_PROBE_INTERVAL_S": "0",
+                               "SPOTTER_TPU_ATTEST_INTERVAL_S": "0"}, policy_replica, True),
+            ("corrupt_weights", {**intervals, "SPOTTER_TPU_FAULTS": "corrupt_weights=1",
+                                 "SPOTTER_TPU_BATCH_BUCKETS": "1"},
+             corrupt_weights_replica, False),
+            ("corrupt_compile_cache", {**intervals, "SPOTTER_TPU_FAULTS":
+                                       "corrupt_compile_cache=1",
+                                       "SPOTTER_TPU_BATCH_BUCKETS": "1"},
+             corrupt_cache_replica, False),
+        )
+        for name, env, fn, bf16_int8 in steps:
+            t0 = time.perf_counter()
+            saved_int8 = quant.INT8
+            policy = precision_policy("bfloat16") if bf16_int8 else contextlib.nullcontext()
+            try:
+                with replica_env(env), policy:
+                    quant.INT8 = bf16_int8 or saved_int8
+                    rec[name] = asyncio.run(fn(photo_dir))
+            finally:
+                quant.INT8 = saved_int8
+                release_cuda_memory()
+            rec[name]["seconds"] = time.perf_counter() - t0
+            emit({"phase": "integrity", "step": name, **rec[name]}, log)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "integrity", "seconds": rec["seconds"]}, log)
     return rec
 
 
@@ -4313,6 +4843,8 @@ def main(argv=None) -> int:
     serve = phase_serve(log, args.seed, built) if "serve" in phases else None
     engine = phase_engine(log, args.seed, built) if "engine" in phases else None
     http = phase_http(log, args.seed) if "http" in phases else None
+    if "integrity" in phases:
+        phase_integrity(log, args.seed)
     del built
     if "yolos_parity" in phases:
         phase_yolos_parity(log, args.seed)

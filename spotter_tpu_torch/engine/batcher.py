@@ -22,8 +22,15 @@ What it keeps of the JAX batcher:
   (`SPOTTER_TPU_ADMIT_TARGET_MS`: AIMD limiter and
   brownout ladder).
 
-Not ported yet: keyed coalescing and the result cache, tenancy, the fault
-injection hooks and the flight-recorder spans.
+It carries each request's trace (obs/trace.py): the item's `queue_wait`
+span, and the batch's traces handed to the engine's worker thread, which
+fans its stage windows out to them; a failed item pins its trace, and a
+fatal exit records the batch's traces and dumps the flight recorder. The
+fault seams `on_engine_batch` and `slow_stage=queue_wait` sit where the
+JAX batcher has them.
+
+Not ported yet: keyed coalescing and the result cache, tenancy, and the
+degraded-dp rebuild with its integrity recheck (ROADMAP Queue 1 item 10).
 """
 
 import asyncio
@@ -39,6 +46,7 @@ from spotter_tpu_torch.engine.errors import (
     PoisonImageError,
     TransientEngineError,
 )
+from spotter_tpu_torch import obs
 from spotter_tpu_torch.engine.engine import RAGGED_SHORTEST_EDGE_ERROR
 from spotter_tpu_torch.engine.scheduler import QueueItem, Scheduler
 from spotter_tpu_torch.serving.overload import (
@@ -66,10 +74,9 @@ from spotter_tpu_torch.serving.resilience import (
     _env_int,
     jittered_retry_after,
 )
+from spotter_tpu_torch.testing import faults
 
 logger = logging.getLogger(__name__)
-
-QUEUE_WAIT = "queue_wait"  # the stage name of submit -> dispatch
 
 # default for MicroBatcher(limiter=/brownout=...): build from the env knobs
 # (None when SPOTTER_TPU_ADMIT_TARGET_MS is unset/0). Pass None to force
@@ -152,6 +159,7 @@ class MicroBatcher:
         # True while the pump holds a dequeued-but-undispatched batch: drain()
         # must not read "queue empty, nothing in flight" as done meanwhile
         self._pump_busy = False
+        self._fatal_traces: list = []
 
     @property
     def draining(self) -> bool:
@@ -232,7 +240,7 @@ class MicroBatcher:
 
     async def submit(
         self, image, deadline: Optional[Deadline] = None, cls: Optional[str] = None,
-        qset=None,
+        qset=None, info: Optional[dict] = None,
     ) -> list[dict]:
         """One image in, its detections out (awaits the batched device call).
 
@@ -243,7 +251,8 @@ class MicroBatcher:
         None means slo) matters only with the overload tier armed: bulk
         sheds strictly before slo. `qset` (a `caching.text_cache.QuerySet`)
         runs an open-vocabulary model against the request's own queries; it
-        is also the item's batch group.
+        is also the item's batch group. `info` (a dict) gets the bucket the
+        item ran in under "bucket" (the golden probe reads it).
         """
         metrics = self.engine.metrics
         if self.draining:
@@ -268,8 +277,8 @@ class MicroBatcher:
             fut.add_done_callback(lambda f, a=adm: a.release())
         try:
             self._queue.put_nowait(QueueItem(
-                image=image, fut=fut, deadline=deadline, t_submit=time.monotonic(),
-                adm=adm, cls=cls, qset=qset,
+                image=image, fut=fut, deadline=deadline, trace=obs.current_trace(),
+                t_submit=time.monotonic(), adm=adm, cls=cls, qset=qset, info=info,
             ))
         except asyncio.QueueFull:
             metrics.record_shed()
@@ -394,7 +403,8 @@ class MicroBatcher:
         below = [b for b in self.engine.batch_buckets if b < self.max_batch]
         return below[-1] if below else self.max_batch
 
-    def _detect_outcomes(self, images: list, splits_left: int, qset=None) -> list:
+    def _detect_outcomes(self, images: list, splits_left: int, qset=None,
+                         buckets: Optional[list] = None) -> list:
         """Worker-thread engine call with the poison bisect-retry.
 
         Returns one outcome per image: a detections list, or the exception
@@ -403,14 +413,25 @@ class MicroBatcher:
         deterministic per-input failure converges to one `PoisonImageError`
         while every innocent neighbour gets its result. Typed engine errors
         (transient after the engine's own retry, fatal) are never bisected.
+        `buckets`, when given, gets the bucket each image ran in (None for
+        a failed one), in order.
         """
         try:
+            # the fault seam runs at every level, where a wedged or poisoned
+            # device call would fail on a retry too
+            faults.on_engine_batch(images)
             if qset is None:
-                return list(self.engine.detect(images))
-            return list(self.engine.detect(images, qset=qset))
+                out = list(self.engine.detect(images))
+            else:
+                out = list(self.engine.detect(images, qset=qset))
+            if buckets is not None:
+                buckets.extend(self.engine.ran_buckets())
+            return out
         except (FatalEngineError, TransientEngineError):
             raise
         except Exception as exc:
+            if (len(images) == 1 or splits_left <= 0) and buckets is not None:
+                buckets.extend([None] * len(images))
             if len(images) == 1:
                 err = PoisonImageError(f"image poisoned its batch: {exc!r}")
                 err.__cause__ = exc
@@ -420,8 +441,8 @@ class MicroBatcher:
             self.engine.metrics.record_batch_retry()
             mid = len(images) // 2
             return self._detect_outcomes(
-                images[:mid], splits_left - 1, qset
-            ) + self._detect_outcomes(images[mid:], splits_left - 1, qset)
+                images[:mid], splits_left - 1, qset, buckets
+            ) + self._detect_outcomes(images[mid:], splits_left - 1, qset, buckets)
 
     async def _run_batch(self, plan: list[QueueItem]) -> None:
         try:
@@ -432,8 +453,12 @@ class MicroBatcher:
             # the scheduler packs one query group per plan, so the first
             # item's query set is the whole batch's
             qset = batch[0].qset
+            # slow_stage=queue_wait:<ms> lands inside the queue_wait span
+            qw_delay = faults.stage_delay_s(obs.QUEUE_WAIT)
+            if qw_delay > 0.0:
+                await asyncio.sleep(qw_delay)
             t_dispatch = time.monotonic()
-            queue_waits_ms, slack_ms = [], []
+            queue_waits_ms, slack_ms, traces = [], [], []
             for item in batch:
                 wait_ms = (t_dispatch - item.t_submit) * 1000.0
                 queue_waits_ms.append(wait_ms)
@@ -444,12 +469,20 @@ class MicroBatcher:
                 if item.adm is not None:
                     # dispatched work leaves the revocation stack
                     item.adm.make_unrevocable()
+                if item.trace is not None:
+                    item.trace.add_span(obs.QUEUE_WAIT, item.t_submit, t_dispatch)
+                    traces.append(item.trace)
             metrics = self.engine.metrics
-            metrics.record_stage_samples(QUEUE_WAIT, queue_waits_ms)
+            metrics.record_stage_samples(obs.QUEUE_WAIT, queue_waits_ms)
             metrics.record_slack(slack_ms)
+            # the worker thread inherits this through asyncio.to_thread's
+            # context copy and fans its stage windows out to these traces
+            obs.set_batch_traces(traces)
+            # the bucket each image ran in, for the items that ask (the probe)
+            buckets = [] if any(item.info is not None for item in batch) else None
             try:
                 detect = asyncio.to_thread(
-                    self._detect_outcomes, images, self.poison_max_splits, qset)
+                    self._detect_outcomes, images, self.poison_max_splits, qset, buckets)
                 if self.batch_timeout_s is not None:
                     outcomes = await asyncio.wait_for(detect, self.batch_timeout_s)
                 else:
@@ -473,6 +506,9 @@ class MicroBatcher:
                 self.breaker.record_failure()
                 self._fail(batch, exc)
                 return
+            for item, bucket in zip(batch, buckets or ()):
+                if item.info is not None:
+                    item.info["bucket"] = bucket
             self._settle_outcomes(batch, outcomes)
         finally:
             self._slots.release()
@@ -502,6 +538,10 @@ class MicroBatcher:
                 metrics.record_error(len(failed))
         for item, out in zip(batch, outcomes):
             f = item.fut
+            if isinstance(out, BaseException) and item.trace is not None:
+                # pin the trace even when the future is already settled (a
+                # deadline-expired waiter): a poison post-mortem starts there
+                item.trace.set_error(type(out).__name__, str(out))
             if f.done():
                 continue
             if isinstance(out, BaseException):
@@ -522,6 +562,11 @@ class MicroBatcher:
         metrics.record_fatal_engine_error()
         metrics.record_error(len(batch))
         self.breaker.record_failure()
+        self._fatal_traces = []
+        for item in batch:
+            if item.trace is not None:
+                item.trace.set_error("fatal", str(exc))
+                self._fatal_traces.append(item.trace)
         self._fail(batch, exc)
         if self._fatal_fired:
             return
@@ -531,4 +576,10 @@ class MicroBatcher:
                 "fatal engine error; exiting %d for a supervisor restart: %s",
                 FATAL_ENGINE_EXIT_CODE, exc,
             )
+            # the batch's traces never reach an HTTP handler on this path
+            # (the exit is next): record them and dump the recorder, so which
+            # request killed the replica is answerable after the restart
+            for trace in self._fatal_traces:
+                obs.get_recorder().record(trace)
+            obs.dump_for_exit(FATAL_ENGINE_EXIT_CODE)
             self.fatal_exit_cb(FATAL_ENGINE_EXIT_CODE)

@@ -40,10 +40,27 @@ CUDA context included, raises `FatalEngineError`; anything else propagates
 for the batcher's poison bisect.
 
 The engine also keeps the JAX engine's identity and integrity seams:
-`weights_digest()`, `attest()` (an integer checksum of every parameter and
-buffer on the device against a trusted host copy taken at build) and
-`corrupt_weights(n)`; and it feeds `metrics.perf` (the capture ledger,
-FLOPs per shape key, device windows, memory gauges).
+`weights_digest()`, `attest()` and `corrupt_weights(n)`; the fault seams
+(`on_engine_dispatch`, the `slow_stage` sleeps in the stage windows, the
+`sdc` perturbation of the answers); it fans each batch's stage windows out
+to the request traces riding in it, and feeds `metrics.perf` (the capture
+ledger, FLOPs per shape key, device windows, memory gauges).
+
+`attest()` covers every tensor a forward reads on the card. The JAX engine
+checksums its params and recomputes every derived value (casts, folds)
+inside its program on every forward. The port keeps derived values as
+persistent device tensors (`models/layers.py` `kept`: the bf16 casts, the
+folded BN pairs, the fused RepVGG kernels, the int8 weight codes and
+scales), and a captured graph reads their storage on every replay. So after
+the parameters and buffers attest clean against the trusted host copy,
+each kept value (the module's and every graph's) is re-derived on the
+device by its own `make` and must equal the kept copy bit for bit; its
+checksum is then pinned, and later attests hold it to that pin. A
+re-derivation on the device runs the same kernels and is deterministic; a
+host recompute would not be bit equal (rsqrt differs between the CPU and
+the card). The attest reads what the engine's stream wrote: it first makes
+its own stream wait for everything enqueued there (a kept value made by a
+forward included), under the H2D lock, where no capture is in progress.
 
 Not ported yet: sharding and the degraded-dp rebuild (ROADMAP Queue 1
 item 10).
@@ -63,6 +80,7 @@ import torch
 from torch import nn
 from torch.utils.flop_counter import FlopCounterMode
 
+from spotter_tpu_torch import obs
 from spotter_tpu_torch.engine import graphs
 from spotter_tpu_torch.engine.errors import (
     FatalEngineError,
@@ -71,6 +89,7 @@ from spotter_tpu_torch.engine.errors import (
     classify_engine_exception,
 )
 from spotter_tpu_torch.engine.metrics import Metrics
+from spotter_tpu_torch.models.layers import kept_entries
 from spotter_tpu_torch.obs import perf as perf_mod
 from spotter_tpu_torch.obs.perf import sample_hbm_once
 from spotter_tpu_torch.ops.postprocess import (
@@ -88,7 +107,9 @@ from spotter_tpu_torch.ops.preprocess import (
     device_rescale_normalize,
     device_rescale_normalize_masked,
 )
-from spotter_tpu_torch.utils.precision import use_exact_float32
+from spotter_tpu_torch.testing import faults
+from spotter_tpu_torch.utils import quant
+from spotter_tpu_torch.utils.precision import backbone_dtype, compute_dtype, use_exact_float32
 
 POSTPROCESS_KINDS = ("sigmoid_topk", "softmax", "sigmoid_max")  # RT-DETR; DETR/YOLOS; OWL-ViT
 # ragged canvas packing (the JAX scheduler's smaller canvases for
@@ -159,6 +180,43 @@ def _attest_sum(x: torch.Tensor) -> int:
     return int(_bitpattern_words(x.detach().contiguous()).sum() & 0xFFFFFFFF)
 
 
+def _word_sums(tensors: list) -> list[int]:
+    """`_attest_sum` of each tensor, with one device sync for all of them:
+    the sums stay on the device until they come back together."""
+    if not tensors:
+        return []
+    sums = torch.stack([_bitpattern_words(t.detach().contiguous()).sum() & 0xFFFFFFFF
+                        for t in tensors])
+    return [int(v) for v in sums.tolist()]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits as an integer tensor of its width, for bit-equal
+    comparison (NaN payloads and signed zeros included)."""
+    if t.is_floating_point():
+        return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[t.element_size()])
+    return t
+
+
+def _value_tensors(value) -> list:
+    """The tensors of a kept value: a tensor, a tuple or list of them (None
+    entries skipped), or an object holding them as attributes (the int8
+    codes and scales)."""
+    if value is None:
+        return []
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _value_tensors(v)]
+    return [v for v in vars(value).values() if isinstance(v, torch.Tensor)]
+
+
+def _same_layout(a: list, b: list) -> bool:
+    """Two tensor lists of the same length, shapes and dtypes."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype for x, y in zip(a, b))
+
+
 def _host_checksum(a: np.ndarray) -> int:
     """Host mirror of `_attest_sum` over the trusted copy (numpy, no device
     involved): the JAX package's `_host_checksum`, same words, same sum."""
@@ -203,12 +261,20 @@ class InferenceEngine:
         self.built = built
         self.threshold = threshold
         self.batch_buckets = tuple(sorted(batch_buckets))
+        # the policy the model was built under (the zoo reads it at build)
+        self._exact_float32 = compute_dtype() == backbone_dtype() == torch.float32
+        # the buckets each image of this thread's last `detect` ran in
+        self._ran = threading.local()
         # the trusted host copy attestation compares the device against,
         # taken before the move (on the CPU the model's own tensors are the
         # device's, so this is always a copy)
         self._host_state = {
             name: t.detach().to("cpu", copy=True) for name, t in _named_tensors(built.module)
         }
+        self._host_sum: Optional[int] = None  # its checksum, taken at the first attest
+        # attested kept values: id(entry) -> (entry, its tensors' checksums)
+        self._kept_pins: dict[int, tuple] = {}
+        self._pin_lock = threading.Lock()
         self.model = built.module.to(self.device).eval()
         # fixed specs ship uint8 and normalize on the device; pad_square is float on the host
         self.device_preprocess = device_preprocess_supported(built.preprocess_spec)
@@ -245,6 +311,23 @@ class InferenceEngine:
                 return b
         return self.batch_buckets[-1]
 
+    def answer_class(self, bucket: int) -> Optional[str]:
+        """Buckets of one class must give an image the same answer within
+        obs/compare.py's tolerances (the golden probe holds their pins to
+        each other): under `float32` every bucket that runs one function
+        (SPOTTER_TPU_INT8 quantizes only at INT8_MIN_BATCH and above), whose
+        sums differ by ~1e-7 across batch sizes. None under a 16-bit policy:
+        the rounding follows the algorithms cuDNN and cuBLAS pick at each
+        batch size, and each bucket's answer is its own."""
+        if not self._exact_float32:
+            return None
+        return "int8" if quant.INT8 and bucket >= quant.INT8_MIN_BATCH else "float32"
+
+    def ran_buckets(self) -> list[int]:
+        """The bucket each image of this thread's last `detect` ran in, in
+        order (an out-of-memory split runs its halves in smaller buckets)."""
+        return list(getattr(self._ran, "buckets", ()))
+
     # -- identity and attestation -------------------------------------------
 
     def weights_digest(self) -> str:
@@ -262,30 +345,108 @@ class InferenceEngine:
         return h.hexdigest()[:12]
 
     def attest(self) -> dict:
-        """On-device weights attestation: `_attest_sum` over every parameter
-        and buffer where it lives, against `_host_checksum` of the trusted
-        host copy taken at build. Bit exact by construction (an integer sum
-        of the raw bits mod 2^32). Returns {"ok", "checked", "mismatched",
-        "observed", "expected"} with per-device sums keyed `device:<index>`.
+        """On-device attestation of every tensor a forward reads. Returns
+        {"ok", "checked", "mismatched", "observed", "expected",
+        "kept_checked"}, with the parameters' sums keyed `device:<index>`.
 
-        It covers the module's parameters and buffers (the fp32 masters). The
-        values derived from them and kept for speed (`models/layers.py`
-        `kept`: the bf16 casts, folded BN pairs, int8 codes) are not
-        covered: after `corrupt_weights` they still hold the uncorrupted
-        values until their sources' versions change."""
+        1. The parameters and buffers: `_attest_sum` of each where it lives
+           against `_host_checksum` of the trusted host copy taken at build,
+           bit exact by construction (an integer sum of the raw bits mod
+           2^32); a mismatch is `device:<index>`.
+        2. Only when they attest clean, the kept values (the module's and
+           every captured graph's; `models/layers.py` `kept`): one seen for
+           the first time is re-derived on the device by its own `make` and
+           must equal the kept copy bit for bit, and its checksum is then
+           pinned; one seen before must match its pin. A mismatch is
+           `device:<index>:kept:<module path>.<name>`. A value kept from
+           inference tensors has no key: it is recomputed from its sources
+           on every forward (and inside a graph), so there is nothing
+           persistent to hold.
+
+        The device sums come back with one sync per step. The attest's work
+        runs on the calling thread's stream, after everything enqueued on
+        the engine's stream when it started (a kept value a forward made
+        just before is written before it is read)."""
+        with self._h2d_lock:
+            # no capture is in progress on the engine's stream under the lock
+            self._after_engine_stream()
+            entries = self._kept_now()
         key = f"device:{self.device.index or 0}"
-        observed = expected = 0
-        for name, t in _named_tensors(self.model):
-            observed = (observed + _attest_sum(t)) % 2**32
-            expected = (expected + _host_checksum(_host_array(self._host_state[name]))) % 2**32
+        observed = sum(_word_sums([t for _, t in _named_tensors(self.model)])) % 2**32
+        if self._host_sum is None:
+            self._host_sum = sum(_host_checksum(_host_array(t))
+                                 for t in self._host_state.values()) % 2**32
+        expected = self._host_sum
         mismatched = [] if observed == expected else [key]
+        kept_checked = 0
+        if not mismatched:
+            kept_checked, bad = self._attest_kept(entries)
+            mismatched = [f"{key}:kept:{label}" for label in bad]
         return {
             "ok": not mismatched,
             "checked": 1,
             "mismatched": mismatched,
             "observed": {key: observed},
             "expected": {key: expected},
+            "kept_checked": kept_checked,
         }
+
+    def _after_engine_stream(self) -> None:
+        """Make the calling thread's stream wait for everything enqueued on
+        the engine's stream so far (the CPU: no-op). The caller holds the
+        H2D lock."""
+        if self._stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+
+    def _kept_now(self) -> dict[int, tuple]:
+        """id(entry) -> (label, entry) of every kept entry with a key, the
+        module's and every captured graph's."""
+        entries: dict[int, tuple] = {}
+        held = [h for graph in list(self.graphs.values()) for h in graph.held]
+        for label, entry in kept_entries(self.model) + held:
+            if entry[0] is not None:
+                entries.setdefault(id(entry), (label, entry))
+        return entries
+
+    def _attest_kept(self, entries: dict[int, tuple]) -> tuple[int, list[str]]:
+        """(entries checked, labels of the mismatched ones): step 2 of
+        `attest`, over `entries` (`_kept_now`). Pins of entries no longer
+        held anywhere are dropped."""
+        tensors = {i: _value_tensors(entry[1]) for i, (_, entry) in entries.items()}
+        with self._pin_lock:
+            self._kept_pins = {i: p for i, p in self._kept_pins.items() if i in entries}
+            pins = dict(self._kept_pins)
+        remade = {}
+        fresh = [i for i in entries if i not in pins]
+        if fresh:
+            # the re-derivation's launches serve no forward (a replay in
+            # another thread meanwhile loses its counts too; at the gate
+            # there is none, later only a new capture brings fresh entries)
+            with torch.inference_mode(False), torch.no_grad(), graphs.uncounted():
+                remade = {i: _value_tensors(entries[i][1][2]()) for i in fresh}
+        same = {i for i in fresh if _same_layout(tensors[i], remade[i])}
+        # bit equality and checksums on the device, each back in one sync
+        flags = [(_bits(x) == _bits(y)).all() for i in fresh if i in same
+                 for x, y in zip(tensors[i], remade[i])]
+        equal = iter(torch.stack(flags).tolist() if flags else [])
+        sums = iter(_word_sums([t for i in entries if i in pins or i in same
+                                for t in tensors[i]]))
+        bad, new_pins = [], {}
+        for i, (label, entry) in entries.items():
+            if i not in pins and i not in same:
+                bad.append(label)
+                continue
+            entry_sums = [next(sums) for _ in tensors[i]]
+            if i in pins:
+                if entry_sums != pins[i][1]:
+                    bad.append(label)
+            elif all([next(equal) for _ in tensors[i]]):
+                new_pins[i] = (entry, entry_sums)
+            else:
+                bad.append(label)
+        with self._pin_lock:
+            self._kept_pins.update(new_pins)
+        return len(entries), sorted(bad)
 
     @torch.no_grad()
     def corrupt_weights(self, n: int) -> None:
@@ -517,6 +678,7 @@ class InferenceEngine:
         if canvas_hw is not None and self.built.preprocess_spec.mode == "shortest_edge":
             raise ValueError(RAGGED_SHORTEST_EDGE_ERROR)
         arrays = [as_uint8_rgb(img) for img in images]
+        self._ran.buckets = []
         max_b = self.batch_buckets[-1]
         chunks = [arrays[i: i + max_b] for i in range(0, len(arrays), max_b)]
         results: list[list[dict]] = []
@@ -583,6 +745,7 @@ class InferenceEngine:
         buffers of the chunk's bucket on the card; pad rows are zero pixels,
         sizes of ones, and (for a masked model) the whole bucket valid."""
         t0 = time.monotonic()
+        faults.sleep_stage(obs.DECODE)  # slow_stage=decode:<ms>
         n = len(chunk)
         bucket = self.bucket_for(n)
         spec = self.built.preprocess_spec
@@ -601,7 +764,7 @@ class InferenceEngine:
         else:
             px[:n], sz[:n] = batch_images_float(chunk, spec, pool=self.decode_pool)
         px[n:] = 0
-        meta = {"shape": self._shape_key(bucket, h, w, qset),
+        meta = {"shape": self._shape_key(bucket, h, w, qset), "bucket": bucket,
                 "padded_px": bucket * h * w, "valid_px": n * h * w}
         return (pixels, sizes, valid), n, t0, time.monotonic(), meta, qset
 
@@ -616,6 +779,7 @@ class InferenceEngine:
         the device, as a non-blocking copy on the engine's stream (ordered
         before the forward that reads it), plus the H2D accounting."""
         host_tensors, n, t0, t_decode, meta, qset = host_item
+        faults.sleep_stage(obs.H2D)  # slow_stage=h2d:<ms>
         with self._on_stream():
             staged = [None if t is None else t.to(self.device, non_blocking=True)
                       for t in host_tensors]
@@ -631,6 +795,9 @@ class InferenceEngine:
         event behind them. Nothing here waits for the card. Caller holds the
         H2D lock."""
         staged, n, t0, t_decode, t_pre, meta, qset = staged_item
+        # fault seam: an injected device OOM raises here with the marker the
+        # failure classifier reads as transient
+        faults.on_engine_dispatch(n, [self.device.index or 0])
         with torch.inference_mode(), self._on_stream():
             outputs = self._run_forward(meta["shape"], staged)
             if self._cuda:
@@ -648,35 +815,49 @@ class InferenceEngine:
         """Wait for the chunk's D2H (outside the H2D lock), threshold on the
         host, record the stage windows and the dispatch's perf record."""
         host, done, n, t0, t_decode, t_pre, t_disp, meta, qset = dispatched_item
+        faults.sleep_stage(obs.DEVICE)  # slow_stage=device:<ms>
         if done is not None:
             done.synchronize()
         scores, labels, boxes = (t.numpy() for t in host)
         t_dev = time.monotonic()
+        faults.sleep_stage(obs.POSTPROCESS)
         # a query set's detections label from its own (sorted) queries
         id2label = qset.id2label if qset is not None else self.built.id2label
         out = [
             to_detections(scores[j], labels[j], boxes[j], id2label, self.threshold)
             for j in range(n)
         ]
+        # fault seam: sdc=<pct> perturbs this share of the answers into
+        # plausible garbage (identity when no plan is active)
+        out = [faults.corrupt_detections(dets, self.metrics.replica_id) for dets in out]
         t_post = time.monotonic()
         # decode = the decode pool's host work, h2d = the upload's enqueue,
         # device = dispatch -> outputs on the host (under pipelining the next
         # chunk's staging runs inside this window, and so does this chunk's
         # forward), postprocess = the thresholding
         stage_windows = (
-            ("decode", t0, t_decode),
-            ("h2d", t_decode, t_pre),
-            ("device", t_disp, t_dev),
-            ("postprocess", t_dev, t_post),
+            (obs.DECODE, t0, t_decode),
+            (obs.H2D, t_decode, t_pre),
+            (obs.DEVICE, t_disp, t_dev),
+            (obs.POSTPROCESS, t_dev, t_post),
         )
+        # the windows fan out to every traced request in the batch; the
+        # batch's first trace id is the exemplar of its latency bucket and
+        # of its perf record
+        obs.record_engine_spans(stage_windows)
+        trace_id = obs.batch_trace_id()
         self.metrics.record_batch(
-            n, t_post - t0, stages={name: end - start for name, start, end in stage_windows})
+            n, t_post - t0, stages={name: end - start for name, start, end in stage_windows},
+            trace_id=trace_id)
         perf = self.metrics.perf
         perf.record_dispatch(
             device_s=t_dev - t_disp, batch=n, padded_px=meta["padded_px"],
             valid_px=meta["valid_px"], flops=perf.flops_for(meta["shape"]),
-            shape=meta["shape"],
+            trace_id=trace_id, shape=meta["shape"],
         )
+        ran = getattr(self._ran, "buckets", None)
+        if ran is not None:
+            ran.extend([meta["bucket"]] * n)
         return out
 
 

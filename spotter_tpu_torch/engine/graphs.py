@@ -39,7 +39,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from spotter_tpu_torch.models.layers import kept_values
+from spotter_tpu_torch.models.layers import kept_entries
 
 # the knobs read while a forward runs (the module attributes the ops and
 # models read, and the environment variables they read at the call)
@@ -137,7 +137,7 @@ class ForwardGraph:
         self.outputs = outputs
         self.counts = counts
         self.capture_s = capture_s
-        self.held = held  # the kept values the graph reads in place
+        self.held = held  # the kept entries the graph reads in place (path, entry)
         self.replays = 0
 
     def replay(self, inputs: Sequence[Optional[torch.Tensor]]) -> tuple:
@@ -160,8 +160,9 @@ def capture(fn: Callable, inputs: Sequence[Optional[torch.Tensor]], pool,
     """Capture `fn(*inputs)` on `stream` into a graph drawing on `pool`.
 
     Static inputs are fresh copies of `inputs`, allocated outside the pool.
-    The graph holds every value `module` keeps (`models/layers.py` `kept`)
-    at capture, so a newer kept value never frees storage it reads.
+    The graph holds every entry `module` keeps (`models/layers.py` `kept`)
+    at capture, so a newer kept value never frees storage it reads, and the
+    engine's attestation covers what the graph reads.
     The capture's error mode is thread-local, so another thread's event
     wait (an earlier chunk's D2H) does not invalidate it. A failed capture
     raises; the counts are put back either way."""
@@ -184,4 +185,4 @@ def capture(fn: Callable, inputs: Sequence[Optional[torch.Tensor]], pool,
         after = read_counts()
     counts = {k: after[k] - before[k] for k in before if after[k] != before[k]}
     return ForwardGraph(graph, static, outputs, counts, time.monotonic() - t0,
-                        kept_values(module))
+                        kept_entries(module))

@@ -6,8 +6,10 @@ engine touch, the open-vocabulary text cache's hits, misses and resolve
 times, and the device-efficiency ledger (`metrics.perf`, the port's
 `obs.perf`: MFU, duty cycle, the capture ledger, memory gauges, SLO burn),
 the H2D bytes, the decode pool's queue gauge and the weights digest of the
-identity block. The JAX package's result caching and wire counters,
-latency exemplars and mergeable histograms are not ported yet. Lock-light
+identity block, and the batch-latency histogram whose buckets carry
+trace-id exemplars (obs/prom.py renders it). The JAX package's result
+caching and wire counters and its mergeable stage histograms are not
+ported yet. Lock-light
 counters plus a bounded reservoir; `snapshot()` is what /metrics serves.
 """
 
@@ -18,6 +20,14 @@ import time
 from collections import deque
 
 from spotter_tpu_torch.obs.perf import PerfLedger
+
+# Batch-latency histogram bounds (ms): /metrics?format=prometheus renders
+# spotter_tpu_latency_ms_bucket{le="..."} with trace-id exemplars, so a
+# tail bucket links to the flight-recorder trace that landed in it.
+LATENCY_BUCKETS_MS = (
+    5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+    float("inf"),
+)
 
 REPLICA_ID_ENV = "SPOTTER_TPU_REPLICA_ID"
 BUILD_VERSION_ENV = "SPOTTER_TPU_BUILD_VERSION"
@@ -70,6 +80,11 @@ class Metrics:
         self._lock = threading.Lock()
         self._window = window
         self._latencies_ms: deque[float] = deque(maxlen=window)
+        self._latency_bucket_counts = [0] * len(LATENCY_BUCKETS_MS)
+        self._latency_sum_ms = 0.0
+        self._latency_count = 0
+        # bucket label -> the last traced batch that landed in it
+        self._latency_exemplars: dict[str, dict] = {}
         self._batch_sizes: deque[int] = deque(maxlen=window)
         # (timestamp, batch_size) ring for the rate over the last 30 s
         self._arrivals: deque[tuple[float, int]] = deque(maxlen=window)
@@ -124,15 +139,29 @@ class Metrics:
         self.perf = PerfLedger()
 
     def record_batch(
-        self, batch_size: int, latency_s: float, stages: dict[str, float] | None = None
+        self, batch_size: int, latency_s: float, stages: dict[str, float] | None = None,
+        trace_id: str | None = None,
     ) -> None:
         """One engine batch: its size, its latency, and optional per-stage
-        seconds (decode / h2d / device / postprocess)."""
+        seconds (decode / h2d / device / postprocess). `trace_id` (when the
+        batch carried a traced request) becomes the exemplar of the latency
+        bucket this batch landed in."""
+        latency_ms = latency_s * 1000.0
         with self._lock:
             self._images_total += batch_size
             self._batches_total += 1
             self._batch_sizes.append(batch_size)
-            self._latencies_ms.append(latency_s * 1000.0)
+            self._latencies_ms.append(latency_ms)
+            self._latency_sum_ms += latency_ms
+            self._latency_count += 1
+            for i, le in enumerate(LATENCY_BUCKETS_MS):
+                if latency_ms <= le:
+                    self._latency_bucket_counts[i] += 1
+                    if trace_id is not None:
+                        key = "+Inf" if le == float("inf") else f"{le:g}"
+                        self._latency_exemplars[key] = {
+                            "trace_id": trace_id, "value": latency_ms, "ts": time.time()}
+                    break
             self._arrivals.append((time.monotonic(), batch_size))
             if self.perf.enabled:
                 self.perf.slo.good(batch_size)
@@ -301,6 +330,10 @@ class Metrics:
             else:
                 images_per_sec = 0.0
             latency = _quantiles(self._latencies_ms) if self._latencies_ms else {}
+            cumulative, buckets = 0, []
+            for le, count in zip(LATENCY_BUCKETS_MS, self._latency_bucket_counts):
+                cumulative += count
+                buckets.append([None if le == float("inf") else le, cumulative])
             stages = {
                 f"stage_{name}_ms_{tag}": v
                 for name, ring in self._stages.items() if ring
@@ -329,6 +362,12 @@ class Metrics:
                     if self._slack_at_dispatch_ms else None
                 ),
                 "aggregate_bucket": self._aggregate_bucket,
+                "latency_ms_histogram": {
+                    "buckets": buckets,
+                    "sum": self._latency_sum_ms,
+                    "count": self._latency_count,
+                    "exemplars": dict(self._latency_exemplars),
+                },
                 "images_total": self._images_total,
                 "errors_total": self._errors_total,
                 "poison_isolated_total": self._poison_isolated_total,

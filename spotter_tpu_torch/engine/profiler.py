@@ -4,8 +4,8 @@
   host and the card (CPU and CUDA activities), written as a Chrome trace
   into `log_dir`: the device work of whatever traffic is in flight lands
   in it. One capture at a time, and 0 < duration_s <= 60, with the JAX
-  package's checks and texts. The `/profile` endpoint that calls it comes
-  with the replica's obs plane (ROADMAP Queue 1 item 6).
+  package's checks and texts. The replica's admin-guarded `POST /profile`
+  (serving/standalone.py) calls it.
 - `refuse_profiler_port()`: the JAX package starts jax.profiler's
   gRPC server when `SPOTTER_TPU_PROFILER_PORT` is set. torch has no such
   server, so the knob raises at bring-up instead of being ignored.

@@ -50,12 +50,16 @@ class QueueItem:
     image: object  # PIL.Image
     fut: object  # asyncio.Future
     deadline: Optional[object] = None  # resilience.Deadline
+    trace: Optional[object] = None  # obs.Trace
     t_submit: float = 0.0
     adm: Optional[object] = None  # overload.Admission
     cls: str = SLO
     # an open-vocabulary request's caching.text_cache.QuerySet; its key is
     # this item's batch group (None: the deployment's own vocabulary)
     qset: Optional[object] = field(default=None, compare=False)
+    # the caller's dict the batcher writes the bucket the item ran in into
+    # (the golden probe's); None for traffic
+    info: Optional[dict] = field(default=None, compare=False)
 
     @property
     def group(self) -> Optional[str]:

@@ -136,22 +136,24 @@ def device_table(fn: Callable, device: torch.device, *args):
         return torch.from_numpy(out).to(device)
 
 
-# the attribute names `kept` has stored values under (`kept_values` reads them)
+# the attribute names `kept` has stored values under (`kept_entries` reads them)
 KEPT_NAMES: set[str] = set()
 
 
-def kept_values(root: nn.Module) -> list:
-    """Every value `kept` holds on `root`'s modules now. A captured CUDA
-    graph holds on to them: it reads their storage on every replay, even
-    after a module keeps a newer value."""
-    return [getattr(m, name) for m in root.modules() for name in KEPT_NAMES
+def kept_entries(root: nn.Module) -> list[tuple[str, tuple]]:
+    """Every entry `kept` holds on `root`'s modules now, as (module path and
+    name, (key, value, make)). A captured CUDA graph holds on to them: it
+    reads their storage on every replay, even after a module keeps a newer
+    value. The engine's attestation re-derives each value with its `make`."""
+    return [(f"{path}.{name}" if path else name, vars(m)[name])
+            for path, m in root.named_modules() for name in sorted(KEPT_NAMES)
             if name in vars(m)]
 
 
 def kept(module: nn.Module, name: str, sources: tuple, make: Callable, grad: bool = True):
     """`make()`, a value derived from the tensors `sources`, kept on `module`
-    as `name` until their `version_key` changes, made without autograd and
-    outside inference mode. A value that carries gradients (`grad`: a cast
+    as `name` (with its key and `make`) until their `version_key` changes,
+    made without autograd and outside inference mode. A value that carries gradients (`grad`: a cast
     or a fold of the params) is not kept in a forward that tracks them
     (grad mode on and a source requiring grad): `make()` then runs in that
     forward, so the gradient reaches the fp32 masters under every policy.
@@ -163,7 +165,7 @@ def kept(module: nn.Module, name: str, sources: tuple, make: Callable, grad: boo
     cached = getattr(module, name, None)
     if key is None or cached is None or cached[0] != key:
         with torch.inference_mode(False), torch.no_grad():
-            cached = (key, make())
+            cached = (key, make(), make)
         setattr(module, name, cached)
         KEPT_NAMES.add(name)
     return cached[1]

@@ -6,11 +6,13 @@ MODEL_NAME is required and raises if unset, as in the reference's bootstrap
 GPUs come with the port's multi-GPU work) and runs on `cuda` unless the
 caller asks for the CPU: with no GPU and no such request, it raises.
 
-The JAX replica's tenancy, result-cache and output-integrity planes, its
-stub engine and its fault injection are not ported (ROADMAP Queue 1 item
-6). Their knobs change what a replica does, so bring-up refuses them rather
-than serve as if they were unset (`refuse_unported_planes`); integrity, on
-by default in the JAX package, is off here and `/healthz` says so.
+The JAX replica's tenancy and result-cache planes, its stub engine, and
+the faults whose seams lie in planes the port does not have are not ported
+(ROADMAP Queue 1 items 6, 10 and 12). Their knobs change what a replica
+does, so bring-up refuses them rather than serve as if they were unset
+(`refuse_unported_planes`). The output-integrity plane
+(serving/integrity.py, `SPOTTER_TPU_INTEGRITY`, on by default) and the
+other faults (testing/faults.py, `SPOTTER_TPU_FAULTS`) are served.
 """
 
 import os
@@ -20,13 +22,14 @@ from spotter_tpu_torch.engine.engine import InferenceEngine
 from spotter_tpu_torch.engine.profiler import refuse_profiler_port
 from spotter_tpu_torch.models.registry import build_detector
 from spotter_tpu_torch.serving.detector import AmenitiesDetector
+from spotter_tpu_torch.testing import faults
 
 DETECTION_THRESHOLD = 0.5  # serve.py:107
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8)
 BATCH_BUCKETS_ENV = "SPOTTER_TPU_BATCH_BUCKETS"
 MAX_IN_FLIGHT_ENV = "SPOTTER_TPU_MAX_IN_FLIGHT"
 
-# the JAX package's names (spotter_tpu/serving/tenancy.py, integrity.py,
+# the JAX package's names (spotter_tpu/serving/tenancy.py,
 # caching/result_cache.py)
 TENANCY_KNOBS = (
     "SPOTTER_TPU_TENANT_KEYS", "SPOTTER_TPU_TENANT_CONFIG", "SPOTTER_TPU_TENANT_RPS_DEFAULT",
@@ -34,29 +37,19 @@ TENANCY_KNOBS = (
     "SPOTTER_TPU_TENANT_TRUST_HEADER",
 )
 CACHE_MAX_MB_ENV = "SPOTTER_TPU_CACHE_MAX_MB"
-INTEGRITY_ENV = "SPOTTER_TPU_INTEGRITY"
-# spotter_tpu/testing/stub_engine.py and testing/faults.py
+# spotter_tpu/testing/stub_engine.py
 STUB_ENGINE_ENV = "SPOTTER_TPU_STUB_ENGINE"
-FAULTS_ENV = "SPOTTER_TPU_FAULTS"
-# the fault names the JAX package's plan accepts; any other raises its text
-FAULT_NAMES = (
-    "fetch_error", "fetch_delay_s", "malformed_image", "engine_error", "engine_hang_s",
-    "poison_item", "engine_oom", "shard_dead", "cache_error", "preempt_storm",
-    "overload_spike", "slow_stage", "slow_replica", "flaky", "corrupt_frame",
-    "only_replica", "controller_crash", "journal_corrupt", "sdc", "corrupt_weights",
-    "corrupt_compile_cache", "tenant_flood", "tenant_retry_storm",
-)
 UNPORTED_PLANES = "not ported (ROADMAP Queue 1 item 6); unset it to serve without it"
 
 
 def refuse_unported_planes() -> None:
     """Raise when a knob of an unported serving plane asks for it: a tenancy
     knob set and not empty, SPOTTER_TPU_CACHE_MAX_MB above 0 (0 is the JAX
-    default and keeps the cache off), SPOTTER_TPU_INTEGRITY or
-    SPOTTER_TPU_STUB_ENGINE set to anything but "" or "0" (the JAX
-    package's two off values), or SPOTTER_TPU_FAULTS set and not empty (an
-    unknown fault in it raises the JAX package's own text first); and
-    SPOTTER_TPU_PROFILER_PORT set (`profiler.refuse_profiler_port`)."""
+    default and keeps the cache off), SPOTTER_TPU_STUB_ENGINE set to anything
+    but "" or "0" (the JAX package's two off values), a SPOTTER_TPU_FAULTS
+    fault whose seam the port does not have (`faults.parse_spec`: an
+    unknown fault or a bad value raises the JAX package's own text first);
+    and SPOTTER_TPU_PROFILER_PORT set (`profiler.refuse_profiler_port`)."""
     for knob in TENANCY_KNOBS:
         raw = os.environ.get(knob, "")
         if raw.strip():
@@ -68,19 +61,10 @@ def refuse_unported_planes() -> None:
         raise ValueError(f"{CACHE_MAX_MB_ENV} must be a number, got {raw!r}") from None
     if cache_mb > 0:
         raise ValueError(f"{CACHE_MAX_MB_ENV}={raw!r}: the result cache is {UNPORTED_PLANES}")
-    raw = os.environ.get(INTEGRITY_ENV)
-    if raw is not None and raw.strip() not in ("", "0"):
-        raise ValueError(f"{INTEGRITY_ENV}={raw!r}: output integrity is {UNPORTED_PLANES}")
     raw = os.environ.get(STUB_ENGINE_ENV, "0")
     if raw not in ("", "0"):
         raise ValueError(f"{STUB_ENGINE_ENV}={raw!r}: the stub engine is {UNPORTED_PLANES}")
-    raw = os.environ.get(FAULTS_ENV, "").strip()
-    if raw:
-        for part in raw.split(","):
-            key = part.strip().partition("=")[0].strip()
-            if part.strip() and key not in FAULT_NAMES:
-                raise ValueError(f"unknown {FAULTS_ENV} fault {key!r}")
-        raise ValueError(f"{FAULTS_ENV}={raw!r}: fault injection is {UNPORTED_PLANES}")
+    faults.parse_spec(os.environ.get(faults.FAULTS_ENV, "").strip())
     refuse_profiler_port()
 
 

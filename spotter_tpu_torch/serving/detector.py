@@ -31,8 +31,12 @@ memoized `TextQueryResolver` (caching/text_cache.py), in an executor so a
 text-tower encode never blocks the event loop, and every image of the
 request runs against that query set. A closed-set family answers 400.
 
-Not ported yet: the result cache, single-flight fetch coalescing, tenancy
-and the fault-injection hooks.
+Each image's fetch, decode and postprocess (draw and encode) are spans of
+the ambient request trace (obs/trace.py); the fetch goes through the fault
+seam `faults.on_fetch` first.
+
+Not ported yet: the result cache, single-flight fetch coalescing and
+tenancy.
 """
 
 import asyncio
@@ -43,6 +47,7 @@ from io import BytesIO
 import httpx
 from PIL import Image, ImageDraw
 
+from spotter_tpu_torch import obs
 from spotter_tpu_torch.caching.text_cache import TextQueryResolver
 from spotter_tpu_torch.engine.batcher import MicroBatcher
 from spotter_tpu_torch.ops.preprocess import check_image_pixels
@@ -67,6 +72,7 @@ from spotter_tpu_torch.serving.resilience import (
     jittered_retry_after,
 )
 from spotter_tpu_torch.taxonomy import AMENITIES_MAPPING
+from spotter_tpu_torch.testing import faults
 
 # Fetch retry policy (serve.py:84-88). Module-level so tests can zero the
 # backoff instead of sleeping through it.
@@ -194,7 +200,11 @@ class AmenitiesDetector:
     async def _fetch_image_bytes(self, url: str) -> bytes:
         """Streamed fetch with the byte cap enforced as bytes arrive. A
         stand-in client (tests) keeps the plain get() contract and gets the
-        size check after the fact."""
+        size check after the fact. The fault seam may substitute the bytes
+        or raise first."""
+        injected = await faults.on_fetch(url)
+        if injected is not None:
+            return injected
         if type(self.client) is not httpx.AsyncClient:
             response = await self.client.get(url)
             response.raise_for_status()
@@ -254,16 +264,20 @@ class AmenitiesDetector:
         self, url: str, deadline: Deadline | None = None, cls: str | None = None,
         qset=None,
     ) -> ImageResult:
+        # the ambient request trace: None (recorder off, or a bare library
+        # call) makes every span below a no-op
+        trace = obs.current_trace()
         brownout = self.batcher.brownout
         # brownout threshold rung: read once, up front, for the whole image
         boost = brownout.threshold_boost_value() if brownout is not None else 0.0
         try:
-            fetch = self._fetch_with_retries(url, deadline)
-            if deadline is not None:
-                image_bytes = await deadline.wait_for(fetch, "image fetch")
-            else:
-                image_bytes = await fetch
-            with Image.open(BytesIO(image_bytes)) as img_raw:
+            with obs.span(obs.FETCH, trace):
+                fetch = self._fetch_with_retries(url, deadline)
+                if deadline is not None:
+                    image_bytes = await deadline.wait_for(fetch, "image fetch")
+                else:
+                    image_bytes = await fetch
+            with obs.span(obs.DECODE, trace), Image.open(BytesIO(image_bytes)) as img_raw:
                 # decode-bomb guard: the header's pixel count is checked
                 # before convert() decodes anything
                 check_image_pixels(img_raw)
@@ -278,7 +292,8 @@ class AmenitiesDetector:
             else:  # the request's own label set: the taxonomy filter does not apply
                 detections = [{"label": d["label"], "box": list(d["box"])}
                               for d in raw_detections]
-            jpeg = draw_detections(image, detections)
+            with obs.span(obs.POSTPROCESS, trace):
+                jpeg = draw_detections(image, detections)
             return DetectionSuccessResult(
                 url=url,
                 detections=[DetectionResult(**d) for d in detections],

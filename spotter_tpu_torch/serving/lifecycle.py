@@ -1,20 +1,20 @@
 """Replica lifecycle: startup state machine, exit codes, preemption watcher
 (port of spotter_tpu.serving.lifecycle).
 
-- `StartupTracker`: the `loading -> warming -> ready` state machine behind
-  `/startupz`, so a k8s startupProbe can tell "still loading the model and
-  warming the bucket ladder" from "dead". `mark_ready()` records
-  `time_to_ready_s` into the engine metrics.
+- `StartupTracker`: the `loading -> warming -> verifying -> ready` state
+  machine behind `/startupz`, so a k8s startupProbe can tell "still loading
+  the model and warming the bucket ladder" from "dead". `mark_ready()`
+  records `time_to_ready_s` into the engine metrics.
 - `PreemptionWatcher`: SIGTERM plus a maintenance-event source
   (`SPOTTER_TPU_PREEMPTION_FILE`: a path whose appearance signals the event;
   `SPOTTER_TPU_PREEMPTION_URL`: a metadata endpoint polled like GCE's
   maintenance-event URL). On the first signal it drains via the detector's
-  `drain()` and exits with `PREEMPTED_EXIT_CODE`.
+  `drain()`, dumps the flight recorder and exits with
+  `PREEMPTED_EXIT_CODE`.
 
 The JAX package also arms its persistent compile cache here; the port
 compiles nothing per shape (its kernels build once per source hash under
-build/kernels/), so there is nothing to arm. The integrity plane's
-`verifying` state and exit code come with the integrity plane.
+build/kernels/), so there is nothing to arm.
 """
 
 import asyncio
@@ -44,9 +44,14 @@ PREEMPTED_EXIT_CODE = 83
 # Startup states, in order. "ready" is terminal for a healthy bring-up;
 # "failed" is terminal for a bring-up that raised: the server exits non-zero
 # right after marking it so the supervisor/kubelet restart path takes over
-# instead of the replica serving 503s forever.
+# instead of the replica serving 503s forever. "verifying" sits between
+# warming and ready: the weights attestation and the golden probe
+# (serving/integrity.py) must pass before the replica may serve. A warmup
+# that ran fine can still answer wrong (a corrupted restore, a bad
+# program), and readiness is the last gate before clients see it.
 LOADING = "loading"
 WARMING = "warming"
+VERIFYING = "verifying"
 READY = "ready"
 FAILED = "failed"
 
@@ -54,6 +59,13 @@ FAILED = "failed"
 # and the supervisor's CRASH_LOOP_EXIT_CODE (84) so logs tell the three
 # apart; the supervisor treats it as a plain crash (exponential backoff).
 BRINGUP_FAILED_EXIT_CODE = 82
+
+# Exit code for a failed integrity verification: the golden probe or the
+# weights attestation failed, so the replica was about to serve (or was
+# serving) wrong answers. Distinct from every other code because the
+# supervisor's answer is a cold restart: a warm one would restore the very
+# state that just failed.
+INTEGRITY_EXIT_CODE = 86
 
 # Process-start anchor for time_to_ready_s. Module import happens at the top
 # of server bootstrap, so this slightly undercounts interpreter start — the
@@ -77,7 +89,7 @@ def restarts_from_env() -> int:
 
 
 class StartupTracker:
-    """`loading -> warming -> ready` behind /startupz.
+    """`loading -> warming -> verifying -> ready` behind /startupz.
 
     A k8s startupProbe polls /startupz with a generous failureThreshold;
     readiness/liveness probes only take over once startup has succeeded, so
@@ -99,7 +111,7 @@ class StartupTracker:
         return self._state == READY
 
     def mark(self, state: str) -> None:
-        if state not in (LOADING, WARMING, READY):
+        if state not in (LOADING, WARMING, VERIFYING, READY):
             raise ValueError(f"unknown startup state {state!r}")
         self._state = state
         self._since = time.monotonic()
@@ -232,6 +244,11 @@ class PreemptionWatcher:
             await self.on_preempt()
         except Exception:
             logger.exception("drain during preemption failed; exiting anyway")
+        # the trace ring dies with the process: persist it, so what was in
+        # flight when the preemption landed is answerable after the restart
+        from spotter_tpu_torch.obs.recorder import dump_for_exit
+
+        dump_for_exit(PREEMPTED_EXIT_CODE)
         self.exit_cb(PREEMPTED_EXIT_CODE)
 
     async def stop(self) -> None:

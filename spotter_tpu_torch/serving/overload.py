@@ -1,6 +1,6 @@
 """Adaptive overload control: AIMD admission + brownout degradation ladder
-(copy of spotter_tpu.serving.overload, less tenant scoping, fault injection,
-flight-recorder pins and the fleet edge's limiter).
+(copy of spotter_tpu.serving.overload, less tenant scoping and the fleet
+edge's limiter).
 
 - `AdaptiveLimiter`: an AIMD concurrency limiter. The control signal is
   queue_wait p90 (submit -> batch dispatch) against
@@ -25,6 +25,11 @@ flight-recorder pins and the fleet edge's limiter).
   4 bulk_503 (all bulk traffic shed with 503). Each rung is exited one at a
   time after saturation stays clear for `SPOTTER_TPU_BROWNOUT_DISARM_S`.
 
+Each rung transition pins a synthetic trace in the flight recorder, so
+`/debug/traces` answers when this replica browned out and how deep. The
+fault seam `overload_spike=N` (testing/faults.py) makes the limiter's next
+N control ticks see a queue-wait p90 of 10x its target.
+
 Everything here is engine-free and clock-injectable.
 """
 
@@ -33,11 +38,13 @@ import threading
 import time
 from typing import Callable, Optional
 
+from spotter_tpu_torch import obs
 from spotter_tpu_torch.serving.resilience import (
     AdmissionError,
     _env_float,
     _env_int,
 )
+from spotter_tpu_torch.testing import faults
 
 logger = logging.getLogger(__name__)
 
@@ -234,7 +241,12 @@ class AdaptiveLimiter:
             return
         self._last_update = now
         samples, self._samples = self._samples, []
-        if samples:
+        if faults.take_overload_spike():
+            # injected overload: this control tick sees a synthetic
+            # far-over-target p90, the deterministic way to drive the AIMD
+            # cut and the brownout arm without real queue pressure
+            p90 = self.target_ms * 10.0
+        elif samples:
             samples.sort()
             p90 = samples[min(int(0.9 * len(samples)), len(samples) - 1)]
         else:
@@ -435,6 +447,7 @@ class BrownoutController:
         threshold_boost: float = DEFAULT_BROWNOUT_THRESHOLD_BOOST,
         clock=time.monotonic,
         metrics=None,
+        recorder=None,
         hold: Optional[Callable[[], bool]] = None,
     ) -> None:
         self.saturated = saturated
@@ -447,6 +460,7 @@ class BrownoutController:
         self.threshold_boost = max(0.0, threshold_boost)
         self._clock = clock
         self.metrics = metrics
+        self._recorder = recorder
         self._lock = threading.RLock()
         self._rung = RUNG_NONE
         self._sat_since: Optional[float] = None
@@ -537,6 +551,25 @@ class BrownoutController:
             new_rung, RUNG_NAMES.get(new_rung, "?"), direction,
             old, RUNG_NAMES.get(old, "?"),
         )
+        self._pin_transition_trace(old, new_rung)
+
+    def _pin_transition_trace(self, old: int, new: int) -> None:
+        """Pin a synthetic trace in the flight recorder so `/debug/traces`
+        answers when this replica browned out, and how deep. Best effort:
+        recording must never fail a transition."""
+        try:
+            recorder = self._recorder or obs.get_recorder()
+            if not recorder.enabled:
+                return
+            request_id = f"brownout-{self.transitions_total}-rung{old}-to-rung{new}"
+            trace = obs.Trace(obs.trace_id_for_request(request_id), request_id)
+            trace.set_error(
+                "brownout",
+                f"rung {old} ({RUNG_NAMES.get(old)}) -> {new} ({RUNG_NAMES.get(new)})",
+            )
+            recorder.record(trace)
+        except Exception:
+            logger.exception("pinning brownout transition trace failed")
 
     # -- rung effects (queried by batcher / detector) --
 

@@ -8,18 +8,39 @@ Routes:
   admission limit) or 503 (breaker open, draining, brownout bulk shed) with
   Retry-After when the whole request is shed; 400 for a bad body, a
   pydantic-invalid request, or `queries` sent to a closed-set model;
-- `GET /startupz`: the `loading -> warming -> ready` state (503 until ready);
-- `GET /healthz`: readiness (503 while starting, breaker open or draining);
+- `GET /startupz`: the `loading -> warming -> verifying -> ready` state
+  (503 until ready);
+- `GET /healthz`: readiness (503 until ready, and while the breaker is
+  open or a drain runs);
 - `GET /livez`: liveness;
 - `POST /drain`: stop admitting, flush, wait for in-flight batches (body
-  `{"deadline_ms": N}` caps the wait); guarded by `X-Admin-Token` when
-  `SPOTTER_TPU_ADMIN_TOKEN` is set;
-- `GET /metrics`: the engine's metrics snapshot as JSON.
+  `{"deadline_ms": N}` caps the wait);
+- `GET /metrics`: the engine's metrics snapshot with the integrity plane's,
+  as JSON, or as Prometheus text behind `?format=prometheus` or
+  `Accept: text/plain`;
+- `POST /profile`: a `torch.profiler` capture of in-flight device work
+  (body `{"duration_s": x}`, at most 30 s), into a directory the server
+  picks (`SPOTTER_TPU_PROFILE_DIR` or the system temp dir);
+- `GET /debug/traces` (the flight recorder; `?request_id=` or `?trace_id=`
+  for one request) and `GET /debug/perf` (the device-efficiency ledger).
+
+The admin endpoints (/drain, /profile, /debug/*) require `X-Admin-Token`
+when `SPOTTER_TPU_ADMIN_TOKEN` is set. Every /detect response carries its
+`X-Request-ID` (the client's, or minted) and `traceparent`, and a traced
+one its per-stage `Server-Timing`; the trace lands in the flight recorder
+(`SPOTTER_TPU_TRACE_RING`). `SPOTTER_TPU_LOG_JSON=1` makes the logs JSON
+lines carrying the trace id.
 
 The HTTP surface binds before the model loads: bring-up runs as a
-background task, and a failed bring-up exits `BRINGUP_FAILED_EXIT_CODE`. A
-fatal device error exits `FATAL_ENGINE_EXIT_CODE` (85); a preemption
-(SIGTERM or `SPOTTER_TPU_PREEMPTION_FILE`) drains and exits 83.
+background task, and a failed bring-up exits `BRINGUP_FAILED_EXIT_CODE`.
+With the output-integrity plane on (`SPOTTER_TPU_INTEGRITY`, default on),
+the replica passes the `verifying` gate before it serves: on-device
+attestation and the golden probe through the real batcher
+(serving/integrity.py); a failure there, or in the periodic
+re-verification after, exits `INTEGRITY_EXIT_CODE` (86). A fatal device
+error exits `FATAL_ENGINE_EXIT_CODE` (85); a preemption (SIGTERM or
+`SPOTTER_TPU_PREEMPTION_FILE`) drains and exits 83. `SPOTTER_TPU_FAULTS`
+arms the fault injection (testing/faults.py) for chaos staging.
 
     MODEL_NAME=PekingU/rtdetr_v2_r101vd python -m spotter_tpu_torch.serving.standalone \\
         [--port 8000] [--device cpu] [--no-warmup] [--decode-workers N]
@@ -31,12 +52,11 @@ their prompts' token ids from `$SPOTTER_TPU_CACHE/<model>--v3/tokenized.json`
 (convert/tokens.py). `SPOTTER_TPU_TINY=1` serves the family's tiny
 config (random weights) for smoke runs. The model runs on `cuda` unless
 `--device cpu` is given; with no GPU it raises. Warmup captures each
-bucket's CUDA graph before the replica reports ready; the identity block of
+bucket's CUDA graph before the replica verifies; the identity block of
 /metrics carries the engine's `weights_digest()` (or
-SPOTTER_TPU_WEIGHTS_DIGEST when set). Tenancy, the result cache, output
-integrity, fault injection, the stub engine, `/profile` and `/debug/*` are
-not ported yet: `make_app` refuses their knobs
-(`app.refuse_unported_planes`), and `/healthz` reports `"integrity": "off"`.
+SPOTTER_TPU_WEIGHTS_DIGEST when set). Tenancy, the result cache and the
+stub engine are not ported yet: `make_app` refuses their knobs
+(`app.refuse_unported_planes`).
 """
 
 import argparse
@@ -45,21 +65,23 @@ import json
 import logging
 import math
 import os
+import tempfile
 
 import pydantic
 from aiohttp import web
 
 from spotter_tpu_torch.engine.metrics import default_weights_digest
+from spotter_tpu_torch.obs import http as obs_http
+from spotter_tpu_torch.obs import logs as obs_logs
 from spotter_tpu_torch.ops.preprocess import DECODE_WORKERS_ENV
-from spotter_tpu_torch.serving import lifecycle
+from spotter_tpu_torch.serving import integrity, lifecycle
 from spotter_tpu_torch.serving.detector import QueriesUnsupportedError
 from spotter_tpu_torch.serving.overload import BULK, SLO
 from spotter_tpu_torch.serving.resilience import AdmissionError
+from spotter_tpu_torch.testing import faults
 
 logger = logging.getLogger(__name__)
 
-ADMIN_TOKEN_ENV = "SPOTTER_TPU_ADMIN_TOKEN"
-ADMIN_TOKEN_HEADER = "X-Admin-Token"
 REQUEST_CLASS_HEADER = "X-Request-Class"
 REQUEST_CLASS_KEY = "request_class"
 
@@ -76,14 +98,12 @@ def classify_request(headers, payload) -> tuple[str, object]:
     return (cls if cls in (SLO, BULK) else SLO), payload
 
 
-def _admin_rejection(request: web.Request) -> web.Response | None:
-    """401 when SPOTTER_TPU_ADMIN_TOKEN is set and the request lacks it."""
-    token = os.environ.get(ADMIN_TOKEN_ENV, "")
-    if not token or request.headers.get(ADMIN_TOKEN_HEADER, "") == token:
-        return None
-    return web.json_response(
-        {"error": f"admin endpoint requires {ADMIN_TOKEN_HEADER}", "status": 401}, status=401
-    )
+def _rmdir_quiet(path: str) -> None:
+    """Drop a just-created empty trace dir on a failed /profile request."""
+    try:
+        os.rmdir(path)
+    except OSError:  # not empty (trace partly written) or already gone
+        pass
 
 
 def _shed_response(exc: AdmissionError) -> web.Response:
@@ -116,16 +136,23 @@ def make_app(
     device: str | None = None,
     bringup_exit_cb=os._exit,
     fatal_exit_cb=os._exit,
+    integrity_exit_cb=os._exit,
 ) -> web.Application:
     """Build the serving app.
 
     With `detector` given (tests, or a caller that built it), the app is
-    ready at once. Otherwise bring-up (`build_detector_app(model_name,
-    device=device)`) runs as a background task after the HTTP surface binds,
-    and a failure calls `bringup_exit_cb(BRINGUP_FAILED_EXIT_CODE)`. The
-    batcher gets `fatal_exit_cb` for fatal device errors. `preemption=True`
-    (the `main()` path) installs the PreemptionWatcher. Raises at once when
-    a knob of an unported serving plane is set (`refuse_unported_planes`).
+    ready at once and skips verification, as it skips bring-up. Otherwise
+    bring-up (`build_detector_app(model_name, device=device)`) runs as a
+    background task after the HTTP surface binds, and a failure calls
+    `bringup_exit_cb(BRINGUP_FAILED_EXIT_CODE)`. With the integrity plane on,
+    bring-up then passes the `verifying` gate (after the `corrupt_weights`
+    fault seam): attestation and the golden probe must pass before READY,
+    or `integrity_exit_cb(INTEGRITY_EXIT_CODE)` is called; after READY the
+    plane re-verifies on its periods. The replica answers /detect and
+    /healthz only once READY. The batcher gets `fatal_exit_cb` for fatal
+    device errors. `preemption=True` (the `main()` path) installs the
+    PreemptionWatcher. Raises at once when a knob of an unported serving
+    plane is set (`refuse_unported_planes`), and arms SPOTTER_TPU_FAULTS.
     """
     from spotter_tpu_torch.serving.app import refuse_unported_planes
 
@@ -134,6 +161,11 @@ def make_app(
     tracker = lifecycle.StartupTracker()
     app["startup"] = tracker
     app["detector"] = detector
+    if faults.maybe_activate_from_env() is not None:
+        logger.warning(
+            "FAULT INJECTION ACTIVE (%s): this server is a chaos target, never production",
+            faults.FAULTS_ENV,
+        )
 
     def _wire(det) -> None:
         det.engine.metrics.set_restarts(lifecycle.restarts_from_env())
@@ -161,9 +193,30 @@ def make_app(
             tracker.mark(lifecycle.WARMING)
             if warmup:
                 await loop.run_in_executor(None, det.engine.warmup)
-            _wire(det)
             app["detector"] = det
+            _wire(det)
+            # fault seam (chaos only): corrupt the live weights after load and
+            # before verification, the flipped-bit-after-restore shape the
+            # attestation gate must catch
+            n_corrupt = faults.take_corrupt_weights()
+            if n_corrupt:
+                logger.warning("FAULT: corrupting %d weight leaves before verification",
+                               n_corrupt)
+                det.engine.corrupt_weights(n_corrupt)
+            plane = None
+            if integrity.integrity_enabled():
+                tracker.mark(lifecycle.VERIFYING)
+                plane = integrity.IntegrityPlane(
+                    det.engine, det.batcher, exit_cb=integrity_exit_cb)
+                app["integrity"] = plane
+                source = "warm-restore" if lifecycle.restarts_from_env() > 0 else "cold-start"
+                if not await plane.verify(source):
+                    tracker.mark_failed(plane.last_error or "integrity")
+                    plane.integrity_exit(plane.last_error or source)
+                    return
             logger.info("replica ready in %.1f s", tracker.mark_ready(det.engine.metrics))
+            if plane is not None:
+                await plane.start()
         except asyncio.CancelledError:  # server shutdown mid-bring-up
             raise
         except Exception as exc:
@@ -187,51 +240,63 @@ def make_app(
             await watcher.start()
 
     async def detect(request: web.Request) -> web.Response:
+        # the request's trace: continue the caller's traceparent or mint ids
+        # from (or with) X-Request-ID; every branch below echoes the request
+        # id, and the completed trace lands in the flight recorder with its
+        # per-stage Server-Timing on the response
+        trace, request_id = obs_http.begin_http_trace(request)
+
+        def done(resp: web.Response) -> web.Response:
+            return obs_http.finish_http_trace(trace, request_id, resp, server_timing=True)
+
         det = request.app["detector"]
-        if det is None:  # still loading/warming: shed, probe /startupz
-            return _not_ready_response(tracker)
+        if det is None or not tracker.ready:  # loading, warming, verifying or failed
+            return done(_not_ready_response(tracker))
+        if faults.take_flaky(det.engine.metrics.replica_id):
+            # injected intermittent failure (chaos only)
+            return done(web.json_response(
+                {"error": "injected flaky failure", "status": 500}, status=500))
         shed = det.check_admission()
         if shed is not None:  # draining / breaker open: reject before parsing
-            return _shed_response(shed)
+            return done(_shed_response(shed))
         try:
             payload = await request.json()
         except json.JSONDecodeError:
-            return web.Response(status=400, text="Invalid JSON body")
+            return done(web.Response(status=400, text="Invalid JSON body"))
         cls, payload = classify_request(request.headers, payload)
         shed = det.check_admission(cls)
         if shed is not None:  # brownout bulk shed: reject before fetching
-            return _shed_response(shed)
+            return done(_shed_response(shed))
         try:
             response = await det.detect(payload, cls=cls)
         except pydantic.ValidationError as exc:
-            return web.Response(status=400, text=f"Invalid request: {exc}")
+            return done(web.Response(status=400, text=f"Invalid request: {exc}"))
         except QueriesUnsupportedError as exc:
-            return web.Response(status=400, text=str(exc))
+            return done(web.Response(status=400, text=str(exc)))
         except AdmissionError as exc:  # every image shed -> 429/503
-            return _shed_response(exc)
+            return done(_shed_response(exc))
         except Exception:
             logger.exception("detect failed")
-            return web.Response(status=500, text="Internal server error")
-        return web.json_response(response.model_dump(exclude_none=True))
+            return done(web.Response(status=500, text="Internal server error"))
+        return done(web.json_response(response.model_dump(exclude_none=True)))
 
     async def startupz(request: web.Request) -> web.Response:
         return web.json_response(tracker.snapshot(), status=200 if tracker.ready else 503)
 
     async def healthz(request: web.Request) -> web.Response:
         det = request.app["detector"]
-        if det is None:
+        if det is None or not tracker.ready:
             return _not_ready_response(tracker)
         health = det.health()
         health["startup"] = tracker.state
         health["pool"] = lifecycle.pool_from_env()
-        health["integrity"] = "off"  # the plane is not ported (ROADMAP Queue 1 item 6)
         return web.json_response(health, status=200 if health["ready"] else 503)
 
     async def livez(request: web.Request) -> web.Response:
         return web.json_response({"status": "alive"})
 
     async def drain(request: web.Request) -> web.Response:
-        rejected = _admin_rejection(request)
+        rejected = obs_http.admin_rejection(request)
         if rejected is not None:
             return rejected
         det = request.app["detector"]
@@ -252,10 +317,51 @@ def make_app(
     async def metrics(request: web.Request) -> web.Response:
         det = request.app["detector"]
         if det is None:
-            return web.json_response({"startup": tracker.snapshot()})
-        return web.json_response(det.engine.metrics.snapshot())
+            return obs_http.metrics_response(request, {"startup": tracker.snapshot()})
+        snap = det.engine.metrics.snapshot()
+        # the integrity plane's verification, probe and attest counters
+        plane = request.app.get("integrity")
+        if plane is not None:
+            snap["integrity"] = plane.snapshot()
+        return obs_http.metrics_response(request, snap)
+
+    async def profile(request: web.Request) -> web.Response:
+        """A torch.profiler capture of in-flight device work, into a
+        directory the server picks (never a client-supplied path)."""
+        rejected = obs_http.admin_rejection(request)
+        if rejected is not None:
+            return rejected
+        from spotter_tpu_torch.engine import profiler
+
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            body = {}
+        if not isinstance(body, dict):
+            return web.Response(status=400, text="body must be a JSON object")
+        try:
+            duration_s = min(float(body.get("duration_s", 1.0)), 30.0)
+        except (TypeError, ValueError):
+            return web.Response(status=400, text="duration_s must be a number")
+        if not duration_s > 0.0:  # also rejects NaN before any dir is made
+            return web.Response(status=400, text="duration_s must be > 0")
+        base = os.environ.get("SPOTTER_TPU_PROFILE_DIR")
+        log_dir = tempfile.mkdtemp(prefix="spotter-trace-", dir=base or None)
+        try:
+            summary = await asyncio.get_running_loop().run_in_executor(
+                None, profiler.capture, log_dir, duration_s)
+        except ValueError as exc:  # bad duration
+            _rmdir_quiet(log_dir)
+            return web.Response(status=400, text=str(exc))
+        except RuntimeError as exc:  # a capture is already running
+            _rmdir_quiet(log_dir)
+            return web.Response(status=409, text=str(exc))
+        return web.json_response(summary)
 
     async def on_cleanup(app: web.Application) -> None:
+        plane = app.get("integrity")
+        if plane is not None:
+            await plane.aclose()
         task = app.get("bringup_task")
         if task is not None and not task.done():
             task.cancel()
@@ -275,6 +381,10 @@ def make_app(
     app.router.add_get("/livez", livez)
     app.router.add_post("/drain", drain)
     app.router.add_get("/metrics", metrics)
+    app.router.add_post("/profile", profile)
+    app.router.add_get("/debug/traces", obs_http.make_debug_traces_handler())
+    app.router.add_get("/debug/perf", obs_http.make_debug_perf_handler(
+        lambda: app["detector"].engine.metrics if app["detector"] is not None else None))
     app.on_startup.append(on_startup)
     app.on_cleanup.append(on_cleanup)
     return app
@@ -292,6 +402,9 @@ def main(argv=None) -> None:
                         help=f"host decode/resize pool size ({DECODE_WORKERS_ENV})")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # SPOTTER_TPU_LOG_JSON=1: JSON log lines carrying the trace and request
+    # id of whatever request was active when the line was emitted
+    obs_logs.maybe_setup_json_logging()
     # the flag lands in the env: bring-up reads it there, so flag and env
     # behave identically
     if args.decode_workers is not None:

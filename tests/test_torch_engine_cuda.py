@@ -9,7 +9,8 @@ captures, so these skip there):
   a multi-chunk `detect` equals its serial chunks exactly;
 - a knob change (SPOTTER_TPU_MSDA_PREP xla -> kernel) gives a new capture
   (source `traffic`) behind its first forward, never a stale replay;
-- `attest()` on the card names `device:0` after `corrupt_weights(1)`.
+- `attest()` on the card names `device:0` after `corrupt_weights(1)`, and
+  waits for the engine's stream before it reads a kept value made there.
 
 This file imports torch and the port only:
 
@@ -175,3 +176,24 @@ def test_every_family_captures_and_replays(monkeypatch, name, knobs, policy, int
         before = len(eng.graphs)
         got = [eng.detect(photos[:3], qset=qs) for _ in range(2)]
         assert got[0] == got[1] and len(eng.graphs) == before + 1
+
+
+def test_attest_waits_for_a_kept_value_made_on_the_engine_stream(engine):
+    """A kept value made on the engine's stream behind ~0.5 s of queued work,
+    attested at once from this thread's stream: the attest waits for the
+    engine's stream, so the new value is re-derived bit equal and pinned."""
+    from spotter_tpu_torch.models.layers import FrozenBatchNorm
+
+    assert engine.attest()["ok"]
+    bn = next(m for m in engine.model.modules() if isinstance(m, FrozenBatchNorm))
+    old = vars(bn)["_folded"]
+    with torch.cuda.stream(engine._stream):
+        torch.cuda._sleep(1_000_000_000)
+        with torch.no_grad():
+            bn.running_var.add_(0)
+        with torch.inference_mode():
+            bn(torch.zeros((1, bn.running_var.shape[0], 1, 1), device="cuda", dtype=bn.dtype))
+    result = engine.attest()
+    assert vars(bn)["_folded"] is not old
+    assert result["ok"], result["mismatched"]
+    assert id(vars(bn)["_folded"]) in engine._kept_pins

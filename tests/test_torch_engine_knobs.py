@@ -1,10 +1,12 @@
 """Knobs the replica used to ignore, now refused or checked with the JAX
 package's texts, and the knobs a captured graph is keyed by.
 
-- `SPOTTER_TPU_STUB_ENGINE` (the JAX replica's canned-detection engine) and
-  `SPOTTER_TPU_FAULTS` (its fault plan) raise at bring-up, naming ROADMAP
-  item 6; their off values serve. An unknown fault raises the JAX text
-  first, as `spotter_tpu.testing.faults` does.
+- `SPOTTER_TPU_STUB_ENGINE` (the JAX replica's canned-detection engine)
+  and the `SPOTTER_TPU_FAULTS` faults whose seams the port does not have
+  raise at bring-up, naming their ROADMAP item; their off values serve,
+  and so do the faults whose seams are ported (testing/faults.py), which
+  `make_app` arms. An unknown fault raises the JAX text first, as
+  `spotter_tpu.testing.faults` does.
 - `SPOTTER_TPU_TOPK` outside auto|lax|bisect raises at the top-k call with
   the JAX text; every valid value serves (all compute lax.top_k's result).
 - `SPOTTER_TPU_PROFILER_PORT` has no torch counterpart and raises at
@@ -26,6 +28,7 @@ from spotter_tpu_torch.models import layers
 from spotter_tpu_torch.ops import msda, openvocab, postprocess
 from spotter_tpu_torch.serving import app as tapp
 from spotter_tpu_torch.serving import standalone as tstandalone
+from spotter_tpu_torch.testing import faults as tfaults
 from spotter_tpu_torch.utils import quant
 
 MODEL = "PekingU/rtdetr_v2_r101vd"
@@ -42,7 +45,7 @@ def clean_env(monkeypatch):
 
 @pytest.mark.parametrize("knob,value", [
     ("SPOTTER_TPU_STUB_ENGINE", "1"), ("SPOTTER_TPU_STUB_ENGINE", " 0"),
-    ("SPOTTER_TPU_FAULTS", "engine_oom=1"), ("SPOTTER_TPU_FAULTS", "sdc=5,slow_stage=device:10"),
+    ("SPOTTER_TPU_FAULTS", "cache_error=1"), ("SPOTTER_TPU_FAULTS", "sdc=5,tenant_flood=abuser:8"),
     ("SPOTTER_TPU_PROFILER_PORT", "9012"),
 ], ids=str)
 def test_unported_knob_raises_at_bring_up(clean_env, knob, value):
@@ -85,7 +88,25 @@ def test_unknown_fault_raises_the_jax_text(clean_env, spec):
     with pytest.raises(ValueError) as got:
         tapp.refuse_unported_planes()
     assert str(got.value) == str(want.value)
-    assert set(tapp.FAULT_NAMES) >= {"engine_oom", "sdc", "corrupt_weights", "slow_stage"}
+    assert set(tfaults.JAX_FAULTS) >= {"engine_oom", "sdc", "corrupt_weights", "slow_stage"}
+
+
+@pytest.mark.parametrize("spec", ["engine_oom=1", "sdc=5,slow_stage=device:10",
+                                  "corrupt_weights=1,corrupt_compile_cache=1"])
+def test_ported_faults_serve_and_arm(clean_env, spec):
+    """Formerly refusals: faults whose seams are ported pass the bring-up
+    check, and `make_app` arms their plan."""
+    clean_env.setenv("SPOTTER_TPU_FAULTS", spec)
+    tapp.refuse_unported_planes()
+    try:
+        tstandalone.make_app(model_name=MODEL, device="cpu")
+        plan = tfaults.active()
+        assert plan is not None
+        for part in spec.split(","):
+            key, _, value = part.partition("=")
+            assert str(getattr(plan, key)) == (value if key == "slow_stage" else str(int(value)))
+    finally:
+        tfaults._active = None
 
 
 @pytest.mark.parametrize("value", ["bogus", "TOPK", "lax2"])

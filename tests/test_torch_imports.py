@@ -121,6 +121,26 @@ ENGINE_MODULES = (
 )
 
 
+# the integrity slice's modules: the obs tier (tracing, the flight recorder,
+# the comparator, the Prometheus view, JSON logs, the HTTP glue), the fault
+# injection and the output-integrity plane
+INTEGRITY_MODULES = (
+    "spotter_tpu_torch.obs.trace",
+    "spotter_tpu_torch.obs.recorder",
+    "spotter_tpu_torch.obs.compare",
+    "spotter_tpu_torch.obs.prom",
+    "spotter_tpu_torch.obs.logs",
+    "spotter_tpu_torch.obs.http",
+    "spotter_tpu_torch.testing",
+    "spotter_tpu_torch.testing.faults",
+    "spotter_tpu_torch.serving.integrity",
+)
+
+
+def test_every_integrity_module_is_covered():
+    assert set(INTEGRITY_MODULES) <= set(MODULES)
+
+
 def test_every_int8_module_is_covered():
     assert set(INT8_MODULES) <= set(MODULES)
 

@@ -1,11 +1,12 @@
 """Knobs of the JAX package that the port does not serve are refused, not
 ignored.
 
-- The tenancy, result-cache and output-integrity planes (ROADMAP Queue 1
-  item 6): `build_detector_app` and the standalone `make_app` raise, naming
-  the item, when one of their knobs asks for the plane; the knobs' off
-  values serve. `/healthz` says integrity is off, since the JAX package's
-  default is on.
+- The tenancy and result-cache planes (ROADMAP Queue 1 item 6):
+  `build_detector_app` and the standalone `make_app` raise, naming the
+  item, when one of their knobs asks for the plane; the knobs' off values
+  serve. The output-integrity plane is ported: `SPOTTER_TPU_INTEGRITY`
+  serves with the plane on (any value but "" and "0", the default) or off,
+  and the plane's snapshot is in /metrics, not /healthz.
 - `SPOTTER_TPU_MSDA_PRECISION`: "highest" and "default" (one bf16 pass,
   the MSDA kernels' one-pass mode) serve; any other value raises with the
   JAX package's own text, at build and when a forward runs.
@@ -20,6 +21,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from spotter_tpu.ops import msda as jmsda  # imported before any test sets the knob
 from spotter_tpu_torch.ops import msda
 from spotter_tpu_torch.serving import app as tapp
+from spotter_tpu_torch.serving import integrity
 from spotter_tpu_torch.serving import standalone as tstandalone
 
 MODEL = "PekingU/rtdetr_v2_r101vd"
@@ -27,9 +29,8 @@ REFUSED = [(knob, "x") for knob in tapp.TENANCY_KNOBS] + [
     ("SPOTTER_TPU_TENANT_KEYS", "k1:acme"),
     ("SPOTTER_TPU_CACHE_MAX_MB", "64"),
     ("SPOTTER_TPU_CACHE_MAX_MB", "0.5"),
-    ("SPOTTER_TPU_INTEGRITY", "1"),
-    ("SPOTTER_TPU_INTEGRITY", "true"),
 ]
+INTEGRITY_VALUES = [("1", True), ("true", True), ("", False), ("0", False), (" 0 ", False)]
 OFF_VALUES = [(knob, "") for knob in tapp.TENANCY_KNOBS] + [
     ("SPOTTER_TPU_TENANT_KEYS", "  "),
     ("SPOTTER_TPU_CACHE_MAX_MB", "0"),
@@ -39,7 +40,7 @@ OFF_VALUES = [(knob, "") for knob in tapp.TENANCY_KNOBS] + [
     ("SPOTTER_TPU_INTEGRITY", "0"),
     ("SPOTTER_TPU_INTEGRITY", " 0 "),
 ]
-ALL_KNOBS = (*tapp.TENANCY_KNOBS, tapp.CACHE_MAX_MB_ENV, tapp.INTEGRITY_ENV)
+ALL_KNOBS = (*tapp.TENANCY_KNOBS, tapp.CACHE_MAX_MB_ENV, integrity.INTEGRITY_ENV)
 
 
 @pytest.fixture
@@ -74,22 +75,73 @@ def test_cache_size_must_be_a_number(clean_env):
         tapp.refuse_unported_planes()
 
 
-def test_healthz_reports_integrity_off(clean_env):
+async def _bring_up(app, polls: int = 600):
+    """Start `app` (a bring-up app) and wait for /startupz to reach ready or
+    failed; returns the client (caller closes it)."""
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    for _ in range(polls):
+        body = await (await client.get("/startupz")).json()
+        if body["state"] in ("ready", "failed"):
+            break
+        await asyncio.sleep(0.05)
+    return client
+
+
+@pytest.fixture
+def tiny_bring_up(clean_env):
+    """The standalone bring-up path on a tiny RT-DETR at buckets (1, 2)."""
+    clean_env.setenv("SPOTTER_TPU_TINY", "1")
+    clean_env.setenv("SPOTTER_TPU_BATCH_BUCKETS", "1,2")
+    return clean_env
+
+
+@pytest.mark.parametrize("value,plane_on", INTEGRITY_VALUES, ids=repr)
+def test_integrity_knob_serves_with_the_plane_on_or_off(tiny_bring_up, value, plane_on):
+    """Formerly a refusal: any SPOTTER_TPU_INTEGRITY value serves; every value
+    but "" and "0" turns the plane on, which verifies before READY."""
+    tiny_bring_up.setenv("SPOTTER_TPU_INTEGRITY", value)
     det = tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
-    app = tstandalone.make_app(detector=det)
+    assert det.engine.device.type == "cpu"
+    assert integrity.integrity_enabled() is plane_on
+    exits = []
+    app = tstandalone.make_app(model_name=MODEL, device="cpu", bringup_exit_cb=exits.append,
+                               integrity_exit_cb=exits.append)
 
     async def run():
-        client = TestClient(TestServer(app))
-        await client.start_server()
+        client = await _bring_up(app)
         try:
-            resp = await client.get("/healthz")
-            return resp.status, await resp.json()
+            startup = await (await client.get("/startupz")).json()
+            snap = await (await client.get("/metrics")).json()
+            return startup, snap
         finally:
             await client.close()
 
-    status, body = asyncio.run(run())
+    startup, snap = asyncio.run(run())
+    assert startup["state"] == "ready" and not exits
+    assert ("integrity" in snap) is plane_on
+
+
+def test_healthz_reports_integrity_off(tiny_bring_up):
+    """/healthz carries no integrity key (the JAX /healthz has none); the
+    plane's snapshot is in /metrics, after a passed verification."""
+    app = tstandalone.make_app(model_name=MODEL, device="cpu")
+
+    async def run():
+        client = await _bring_up(app)
+        try:
+            resp = await client.get("/healthz")
+            return resp.status, await resp.json(), await (await client.get("/metrics")).json()
+        finally:
+            await client.close()
+
+    status, body, snap = asyncio.run(run())
     assert status == 200 and body["ready"] is True
-    assert body["integrity"] == "off"
+    assert "integrity" not in body
+    integ = snap["integrity"]
+    assert integ["verifications_total"] == 1 and integ["verification_failures_total"] == 0
+    assert integ["probe"]["pinned"] and integ["probe"]["pinned_buckets"] == [1, 2]
+    assert integ["attest"]["attests_total"] == 1 and integ["attest"]["failures_total"] == 0
 
 
 def _photo(seed, h=64, w=64):
