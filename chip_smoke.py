@@ -111,6 +111,15 @@ Phases, each printing JSON lines:
              SPOTTER_TPU_FAULTS=corrupt_weights=1 (exit 86 before READY, no
              /detect answering 200) and corrupt_compile_cache=1 (attest
              clean, the probe fails, exit 86);
+6c. planes — the replica's planes on RT-DETRv2-R101 (`phase_planes`),
+             brought up through make_app with buckets (1, 8), the result
+             cache, two tenants and the integrity gate: an 8-URL request
+             missing then hitting (no forward, no launch on the hit; the miss
+             within compare's tolerance of a cache-off detector), the golden
+             probe with the cache full (6 msda_gather_sum launches), 8
+             coalesced requests (one fetch, one forward), a tenant flooding
+             at 5x its quota (429s with Retry-After and no fetch, none for
+             the other tenant), and an SPTF frame equal to the JSON;
 7. yolos_parity — yolos-base at B = 1 on the card against the same model on
              the CPU under "float32" (TF32 off), then the card under "mixed"
              (bf16 body) against the card under "float32" at B = 8;
@@ -231,7 +240,7 @@ code is non-zero. Needs one CUDA card and the repository checkout around
 this file; exits non-zero without either.
 
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,engine,http,
-                                            integrity,yolos_parity,yolos_serve,yolos_http,
+                                            integrity,planes,yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
                                             detr_parity,detr_serve,detr_http,
                                             owl_parity,owl_serve,owl_http,load,precision,
@@ -260,7 +269,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "engine", "http", "integrity",
-          "yolos_parity",
+          "planes", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
           "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
           "load", "precision", "int8", "probes")
@@ -1984,7 +1993,7 @@ INTEGRITY_INTERVAL_S = 1.0
 # (probe 30 s, attest 60 s) for INTEGRITY_DEFAULT_S, which holds its first
 # attest and two probes
 INTEGRITY_CLIENTS = 4
-INTEGRITY_SEGMENT = 50
+INTEGRITY_SEGMENT = 25
 INTEGRITY_ROUNDS = 2
 INTEGRITY_DEFAULT_S = 62.0
 # ~0.5 s of queued work on the engine's stream ahead of a fresh kept value
@@ -2079,19 +2088,33 @@ def replica_env(env: dict):
                 os.environ[k] = v
 
 
-async def bring_up_replica(photo_dir: str, exits: list, watch_detect: bool = False):
+async def bring_up_replica(photo_dir: str, exits: list, watch_detect: bool = False,
+                           fetches: dict | None = None):
     """The replica through `make_app(model_name=..., warmup=True,
     device="cuda")` (its bring-up, not an injected detector) behind a local
     server, with the photos on a static route. Polls /startupz every 50 ms
     until ready, failed or an exit code lands, recording the states seen;
     with `watch_detect`, also POSTs /detect at every poll and records the
-    statuses. Returns (runners, api url, photo urls, record)."""
+    statuses. With `fetches` (a dict), the static route counts each path
+    and query it serves there, and holds a photo whose name starts with
+    "slow" for PLANES_SLOW_FETCH_S (a slow origin). Returns (runners, api
+    url, photo urls, record)."""
     import httpx
     from aiohttp import web
 
     from spotter_tpu_torch.serving.standalone import make_app
 
-    images = web.Application()
+    middlewares = []
+    if fetches is not None:
+        @web.middleware
+        async def count(request, handler):
+            fetches[request.path_qs] = fetches.get(request.path_qs, 0) + 1
+            if request.path.startswith("/img/slow"):
+                await asyncio.sleep(PLANES_SLOW_FETCH_S)
+            return await handler(request)
+
+        middlewares.append(count)
+    images = web.Application(middlewares=middlewares)
     images.router.add_static("/img", photo_dir)
     app = make_app(model_name=MODEL_NAME, warmup=True, device="cuda",
                    bringup_exit_cb=exits.append, integrity_exit_cb=exits.append,
@@ -2481,6 +2504,294 @@ def phase_integrity(log: list, seed: int) -> dict:
             emit({"phase": "integrity", "step": name, **rec[name]}, log)
     rec["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "integrity", "seconds": rec["seconds"]}, log)
+    return rec
+
+
+# the planes phase: rounds of 8-URL miss-then-hit requests (each round a
+# fresh set of photos); the tenants (acme far above its use, hobby at 2 rps
+# with a burst of 4) and their load: acme POSTs a 1-URL request at
+# PLANES_ACME_RPS for PLANES_LOAD_S alone, then beside hobby's flood at
+# `tenant_flood`'s multiple of its quota, every request a photo of its own
+# (a cache miss, so each admitted one runs a forward); how long the origin
+# holds the coalesced photo, so the 8 concurrent requests all find its fetch
+# in flight
+PLANES_ROUNDS = 3
+PLANES_TENANTS = {"default": {"rps": 1000, "burst": 1000},
+                  "tenants": {"acme": {"rps": 1000, "burst": 1000, "weight": 4},
+                              "hobby": {"rps": 2, "burst": 4}}}
+PLANES_FLOOD = "hobby:5"
+PLANES_ACME_RPS = 4.0
+PLANES_LOAD_S = 3.0
+PLANES_SLOW_FETCH_S = 0.3
+
+
+async def open_loop(rate: float, seconds: float, send) -> list:
+    """`send(i)` started at `rate` a second for `seconds` (open loop: a slow
+    answer delays no later request); the results in order."""
+    t0 = time.perf_counter()
+    tasks = []
+    for i in range(int(rate * seconds)):
+        await asyncio.sleep(max(t0 + i / rate - time.perf_counter(), 0.0))
+        tasks.append(asyncio.create_task(send(i)))
+    return await asyncio.gather(*tasks)
+
+
+def phase_planes(log: list, seed: int) -> dict:
+    """The replica's planes on RT-DETRv2-R101 at full width, float32,
+    seed-0 weights, brought up through `make_app` (its bring-up, the
+    integrity gate included) with buckets (1, 8), the result cache
+    (SPOTTER_TPU_CACHE_MAX_MB=64), two tenants from an inline
+    SPOTTER_TPU_TENANT_CONFIG and a key file (acme, hobby):
+
+    1. miss, then hit: an 8-URL request twice, over PLANES_ROUNDS sets of
+       photos: the first answers `X-Cache: miss` (8 misses counted), its
+       detections within the integrity comparator's tolerance of a
+       cache-off detector's on the same engine; the second `hit`, the same
+       body, no forward and no kernel launched; p50 of each;
+    2. the golden probe (one loop tick) after 1 and after a user /detect
+       of the probe image's own bytes, twice (a miss, then a hit): one
+       forward, 6 msda_gather_sum launches, with the cache full of its
+       bytes and 24 other entries;
+    3. coalescing: 8 concurrent requests for one new photo from a slow
+       origin: one fetch, one forward (6 launches), one `miss` and seven
+       `coalesced`, equal bodies;
+    4. tenancy: acme at a steady rate alone, then beside hobby at 5x its
+       quota (`tenant_flood=hobby:5`), every request a fresh photo (acme's
+       all misses; each admitted hobby request a miss, a forward beside
+       acme's): every hobby shed a 429 with Retry-After and no fetch of its
+       photo, no acme 429; acme's p50 and max (n beside them) with and
+       without the flood (a reading);
+    5. frame: `Accept: application/x-spotter-frame` decodes to the JSON
+       body of the same request; both sizes.
+    """
+    import json
+    import tempfile
+
+    import httpx
+    from PIL import Image
+
+    from spotter_tpu_torch.engine.batcher import MicroBatcher
+    from spotter_tpu_torch.obs import compare
+    from spotter_tpu_torch.serving import integrity, wire
+    from spotter_tpu_torch.serving.detector import AmenitiesDetector
+    from spotter_tpu_torch.testing import faults
+
+    rng = np.random.default_rng(seed + 21)
+    acme, hobby = {"X-API-Key": "key-acme"}, {"X-API-Key": "key-hobby"}
+    rec: dict = {"phase": "planes", "model": MODEL_NAME,
+                 "nvidia_smi": nvidia_smi("name,power.limit")}
+
+    async def run(photo_dir: str) -> dict:
+        exits, fetches = [], {}
+        runners, app, api, urls, bring = await bring_up_replica(photo_dir, exits,
+                                                                fetches=fetches)
+        out = {"bring_up": {k: bring[k] for k in ("states", "bringup_s", "exits")}}
+        try:
+            if bring["states"] != ["loading", "warming", "verifying", "ready"] or exits:
+                raise AssertionError(f"planes bring-up: {bring}")
+            det, plane = app["detector"], app["integrity"]
+            engine = det.engine
+            layers = engine.built.module.config.decoder_layers
+            base = urls[0].rsplit("/", 1)[0]
+            sets = [urls[:8]] + [[f"{base}/r{k}_{i}.jpg" for i in range(8)]
+                                 for k in range(1, PLANES_ROUNDS)]
+
+            def snap() -> dict:
+                return engine.metrics.snapshot()
+
+            def delta(before: dict, key: str) -> int:
+                return snap()[key] - before[key]
+
+            async with httpx.AsyncClient(timeout=300.0) as client:
+                async def post(request_urls, headers=None):
+                    t = time.perf_counter()
+                    resp = await client.post(f"{api}/detect",
+                                             json={"image_urls": request_urls},
+                                             headers=headers or acme)
+                    return resp, (time.perf_counter() - t) * 1e3
+
+                # 1. miss, then hit
+                miss_ms, hit_ms, first = [], [], None
+                for set_urls in sets:
+                    before = snap()
+                    resp, ms = await post(set_urls)
+                    resp.raise_for_status()
+                    body = resp.json()
+                    check_http_response(body, set_urls, PHOTO_SIZES[0])
+                    misses = (resp.headers.get(wire.X_CACHE_HEADER),
+                              delta(before, "cache_misses_total"),
+                              delta(before, "cache_hits_total"))
+                    if misses != ("miss", 8, 0):
+                        raise AssertionError(f"the first request's cache outcome: {misses}")
+                    before = snap()
+                    reset_counts()
+                    again, ms_hit = await post(set_urls)
+                    hit = {"x_cache": again.headers.get(wire.X_CACHE_HEADER),
+                           "hits": delta(before, "cache_hits_total"),
+                           "forward_images": delta(before, "images_total"),
+                           "launches": sum(read_counts().values()),
+                           "same_body": again.content == resp.content}
+                    if hit != {"x_cache": "hit", "hits": 8, "forward_images": 0,
+                               "launches": 0, "same_body": True}:
+                        raise AssertionError(f"the repeat is not a clean hit: {hit}")
+                    miss_ms.append(ms)
+                    hit_ms.append(ms_hit)
+                    first = first or body
+                off = AmenitiesDetector(engine, MicroBatcher(engine, max_delay_ms=5.0), cache=None)
+                try:
+                    ref = (await off.detect({"image_urls": sets[0]})).model_dump(exclude_none=True)
+                finally:
+                    await off.aclose()
+                agree = compare.images_equivalent(first["images"], ref["images"])
+                out["miss_hit"] = {
+                    "rounds": len(sets), "miss_ms": miss_ms, "hit_ms": hit_ms,
+                    "miss_p50_ms": statistics.median(miss_ms),
+                    "hit_p50_ms": statistics.median(hit_ms),
+                    "detections": sum(len(i["detections"]) for i in first["images"]),
+                    "agrees_with_cache_off": agree,
+                }
+                if not agree:
+                    raise AssertionError("the cache-on answer left the comparator's tolerance "
+                                         "of the cache-off one")
+                # 2. the probe runs a forward with the cache full of its bytes
+                Image.fromarray(np.asarray(integrity.probe_image(plane.probe.family))).save(
+                    f"{photo_dir}/probe.png")
+                own = []
+                for _ in range(2):
+                    resp, _ = await post([f"{base}/probe.png"])
+                    resp.raise_for_status()
+                    own.append(resp.headers.get(wire.X_CACHE_HEADER))
+                reset_counts()
+                before = snap()
+                reason = await plane.probe.run(det.batcher)
+                out["probe"] = {"reason": brief(reason), "launches": read_counts(),
+                                "forward_images": delta(before, "images_total"),
+                                "own_bytes_x_cache": own,
+                                "cache_entries": det.cache.stats()["entries"]}
+                if (reason is not None or out["probe"]["forward_images"] != 1
+                        or own != ["miss", "hit"]):
+                    raise AssertionError(f"the probe with the cache full: {out['probe']}")
+                check_counts(out["probe"]["launches"], {"msda_gather_sum": layers},
+                             "the probe with the cache full")
+                # 3. coalescing
+                slow = f"{base}/slow_c.jpg"
+                reset_counts()
+                before = snap()
+                resps = await asyncio.gather(*(post([slow]) for _ in range(8)))
+                out["coalesced"] = {
+                    "fetches": fetches.get("/img/slow_c.jpg", 0),
+                    "forward_images": delta(before, "images_total"),
+                    "launches": read_counts(),
+                    "x_cache": sorted(r.headers.get(wire.X_CACHE_HEADER) for r, _ in resps),
+                    "equal_bodies": len({r.content for r, _ in resps}) == 1,
+                    "statuses": sorted({r.status_code for r, _ in resps}),
+                    "p50_ms": statistics.median(ms for _, ms in resps),
+                }
+                c = out["coalesced"]
+                if (c["fetches"], c["forward_images"], c["x_cache"], c["equal_bodies"],
+                        c["statuses"]) != (1, 1, ["coalesced"] * 7 + ["miss"], True, [200]):
+                    raise AssertionError(f"coalescing: {c}")
+                check_counts(c["launches"], {"msda_gather_sum": layers}, "8 coalesced requests")
+
+                # 4. tenancy, every request a photo of its own (a miss)
+                def fresh(prefix: str, n: int) -> list:
+                    photo = synthetic_photo(rng, 480, 640)
+                    for i in range(n):
+                        Image.fromarray(np.roll(photo, 7 * (i + 1), axis=1)).save(
+                            f"{photo_dir}/{prefix}{i}.jpg", quality=90)
+                    return [f"{prefix}{i}.jpg" for i in range(n)]
+
+                def reading(ms: list) -> dict:
+                    return {"n": len(ms), "p50_ms": statistics.median(ms), "max_ms": max(ms)}
+
+                async def acme_send(name):
+                    resp, ms = await post([f"{base}/{name}"])
+                    return resp.status_code, ms, resp.headers.get(wire.X_CACHE_HEADER)
+
+                async def hobby_send(name):
+                    resp, _ = await post([f"{base}/{name}"], hobby)
+                    return (resp.status_code, "Retry-After" in resp.headers, f"/img/{name}",
+                            resp.headers.get(wire.X_CACHE_HEADER))
+
+                n_acme = int(PLANES_ACME_RPS * PLANES_LOAD_S)
+                acme_alone, acme_beside = fresh("ta", n_acme), fresh("tb", n_acme)
+                alone = await open_loop(PLANES_ACME_RPS, PLANES_LOAD_S,
+                                        lambda i: acme_send(acme_alone[i]))
+                with faults.inject(tenant_flood=PLANES_FLOOD):
+                    tenant, factor = faults.tenant_flood_spec()
+                    rate = factor * PLANES_TENANTS["tenants"][tenant]["rps"]
+                    hobby_names = fresh("th", int(rate * PLANES_LOAD_S))
+                    before = snap()
+                    flood, beside = await asyncio.gather(
+                        open_loop(rate, PLANES_LOAD_S, lambda i: hobby_send(hobby_names[i])),
+                        open_loop(PLANES_ACME_RPS, PLANES_LOAD_S,
+                                  lambda i: acme_send(acme_beside[i])))
+                    flood_forwards = delta(before, "images_total")
+                shed = [f for f in flood if f[0] == 429]
+                out["tenancy"] = {
+                    "flood": PLANES_FLOOD, "hobby_rps": rate, "acme_rps": PLANES_ACME_RPS,
+                    "seconds": PLANES_LOAD_S,
+                    "hobby_statuses": {str(k): sum(1 for f in flood if f[0] == k)
+                                       for k in sorted({f[0] for f in flood})},
+                    "hobby_admitted_x_cache": sorted({f[3] for f in flood if f[0] == 200}),
+                    "hobby_shed_without_retry_after": sum(1 for f in shed if not f[1]),
+                    "hobby_shed_fetched": sum(fetches.get(f[2], 0) for f in shed),
+                    "acme_statuses": sorted({s for s, _, _ in alone + beside}),
+                    "acme_x_cache": sorted({x for _, _, x in alone + beside}),
+                    "forward_images_beside_flood": flood_forwards,
+                    "acme_alone_ms": reading([ms for _, ms, _ in alone]),
+                    "acme_beside_flood_ms": reading([ms for _, ms, _ in beside]),
+                    "tenants": (await client.get(f"{api}/metrics")).json()["tenants"],
+                }
+                t = out["tenancy"]
+                admitted = sum(1 for f in flood if f[0] == 200)
+                if (not shed or t["hobby_shed_without_retry_after"] or t["hobby_shed_fetched"]
+                        or t["acme_statuses"] != [200] or not admitted
+                        or t["acme_x_cache"] != ["miss"]
+                        or t["hobby_admitted_x_cache"] != ["miss"]
+                        or flood_forwards != admitted + n_acme):
+                    raise AssertionError(f"tenancy: {t}")
+                # 5. frame
+                framed, _ = await post(sets[0], {**acme, "Accept": wire.FRAME_CONTENT_TYPE})
+                plain, _ = await post(sets[0])
+                decoded = wire.decode_frame(framed.content)
+                out["frame"] = {"frame_bytes": len(framed.content), "json_bytes": len(plain.content),
+                                "content_type": framed.headers.get("Content-Type"),
+                                "equal": decoded == plain.json()}
+                if not out["frame"]["equal"]:
+                    raise AssertionError(f"frame: {out['frame']}")
+            out["exits"] = list(exits)
+            if exits:
+                raise AssertionError(f"the planes replica exited: {exits}")
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+        return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_photos(photo_dir, rng)
+        for k in range(1, PLANES_ROUNDS):
+            for i, (h, w) in enumerate(PHOTO_SIZES):
+                Image.fromarray(synthetic_photo(rng, h, w)).save(f"{photo_dir}/r{k}_{i}.jpg",
+                                                                quality=90)
+        Image.fromarray(synthetic_photo(rng, 480, 640)).save(f"{photo_dir}/slow_c.jpg",
+                                                             quality=90)
+        keys = f"{photo_dir}/tenant_keys.json"
+        with open(keys, "w") as f:
+            json.dump({"key-acme": "acme", "key-hobby": "hobby"}, f)
+        env = {"SPOTTER_TPU_BATCH_BUCKETS": "1,8", "SPOTTER_TPU_CACHE_MAX_MB": "64",
+               "SPOTTER_TPU_TENANT_CONFIG": json.dumps(PLANES_TENANTS),
+               "SPOTTER_TPU_TENANT_KEYS": keys, "SPOTTER_TPU_INTEGRITY": None,
+               "SPOTTER_TPU_PROBE_INTERVAL_S": "0", "SPOTTER_TPU_ATTEST_INTERVAL_S": "0",
+               "SPOTTER_TPU_FAULTS": None}
+        try:
+            with replica_env(env):
+                rec.update(asyncio.run(run(photo_dir)))
+        finally:
+            release_cuda_memory()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec, log)
     return rec
 
 
@@ -3766,7 +4077,7 @@ POLICY_TOL = {"mixed": (0.1, 0.05), "bfloat16": (0.25, 0.1)}
 POLICY_VS_FLOAT32 = {"mixed": (0.1, 0.05), "bfloat16": (0.25, 0.1)}
 MATCH_RADIUS = 1e-2  # a query matches the other side's nearest selected box within this
 MIN_MATCHED_SHARE = 0.75
-POLICY_ROUNDS = 5  # timed engine requests, and /detect rounds of each size, a leg
+POLICY_ROUNDS = 3  # timed engine requests, and /detect rounds of each size, a leg
 
 
 def forward_with_scores(model, x):
@@ -4845,6 +5156,8 @@ def main(argv=None) -> int:
     http = phase_http(log, args.seed) if "http" in phases else None
     if "integrity" in phases:
         phase_integrity(log, args.seed)
+    if "planes" in phases:
+        phase_planes(log, args.seed)
     del built
     if "yolos_parity" in phases:
         phase_yolos_parity(log, args.seed)

@@ -20,7 +20,19 @@ What it keeps of the JAX batcher:
   which never mixes two open-vocabulary query sets in one batch (each
   batch's `qset` goes to `engine.detect`), and the opt-in overload tier
   (`SPOTTER_TPU_ADMIT_TARGET_MS`: AIMD limiter and
-  brownout ladder).
+  brownout ladder);
+- keyed coalescing: `submit(..., key=<content hash>)` while a keyed entry
+  is in flight attaches a waiter instead of enqueuing the image again, so N
+  byte-identical images cost one engine slot. Every keyed caller awaits a
+  private waiter future (one waiter's deadline never cancels the shared
+  entry) and gets its own copy of the detections. On completion the
+  optional `result_cache` is filled: success -> a positive entry, a
+  `PoisonImageError` -> a negative entry; sheds, deadlines and transient
+  or fatal engine errors are never cached. Unkeyed submits (the cache off,
+  the golden probe) take the plain path;
+- tenancy (`attach_tenancy`): the tenant id rides each `QueueItem`, the
+  scheduler orders tenants by DRR, the limiter revokes the top-occupancy
+  tenant's bulk first, and brownout rung 4 sheds only over-share tenants.
 
 It carries each request's trace (obs/trace.py): the item's `queue_wait`
 span, and the batch's traces handed to the engine's worker thread, which
@@ -29,8 +41,8 @@ fatal exit records the batch's traces and dumps the flight recorder. The
 fault seams `on_engine_batch` and `slow_stage=queue_wait` sit where the
 JAX batcher has them.
 
-Not ported yet: keyed coalescing and the result cache, tenancy, and the
-degraded-dp rebuild with its integrity recheck (ROADMAP Queue 1 item 10).
+Not ported yet: the degraded-dp rebuild with its integrity recheck
+(ROADMAP Queue 1 item 10).
 """
 
 import asyncio
@@ -129,6 +141,9 @@ class MicroBatcher:
             poison_max_splits = _env_int(POISON_MAX_SPLITS_ENV, DEFAULT_POISON_MAX_SPLITS)
         self.poison_max_splits = poison_max_splits
         self.fatal_exit_cb = fatal_exit_cb
+        # a `caching.ResultCache`, filled from keyed submits, which the
+        # detector that owns it sets; keyed coalescing works with or without
+        self.result_cache = None
         # with the limiter armed the queue is unbounded: the adaptive limit
         # is the bound
         if limiter is _FROM_ENV or brownout is _FROM_ENV:
@@ -143,9 +158,13 @@ class MicroBatcher:
         # stop() account for it; under FIFO it holds between plans only the
         # items of query groups the last plan left pending
         self.scheduler = scheduler or Scheduler.from_env()
-        if self.scheduler.ragged and engine.built.preprocess_spec.mode == "shortest_edge":
+        spec = getattr(getattr(engine, "built", None), "preprocess_spec", None)
+        if self.scheduler.ragged and getattr(spec, "mode", None) == "shortest_edge":
             raise ValueError(RAGGED_SHORTEST_EDGE_ERROR)
         self._sched_buf: list[QueueItem] = []
+        # key -> (primary future, waiter futures): one queue entry per key,
+        # its result fanned out to every waiter when the primary settles
+        self._keyed: dict[str, tuple[asyncio.Future, list[asyncio.Future]]] = {}
         self._fatal_fired = False
         self._queue: asyncio.Queue = asyncio.Queue(
             maxsize=0 if self.limiter is not None else max(0, max_queue)
@@ -164,6 +183,25 @@ class MicroBatcher:
     @property
     def draining(self) -> bool:
         return self._draining or self._closed
+
+    def in_flight(self, key: str) -> bool:
+        """True while a keyed entry for `key` is in flight: a submit with
+        this key now would coalesce onto it (the detector's
+        `X-Cache: coalesced`)."""
+        entry = self._keyed.get(key)
+        return entry is not None and not entry[0].done()
+
+    def attach_tenancy(self, plane) -> None:
+        """Wire the tenant isolation plane into the scheduler's DRR order,
+        the limiter's revocation and the brownout's rung 4. None (tenancy
+        unconfigured) leaves all three as built."""
+        if plane is None:
+            return
+        self.scheduler.tenancy = plane
+        if self.limiter is not None:
+            self.limiter.tenancy = plane
+        if self.brownout is not None:
+            self.brownout.tenancy = plane
 
     async def start(self) -> None:
         """Idempotent; an explicit start() after stop()/drain() re-opens the
@@ -239,8 +277,9 @@ class MicroBatcher:
         }
 
     async def submit(
-        self, image, deadline: Optional[Deadline] = None, cls: Optional[str] = None,
-        qset=None, info: Optional[dict] = None,
+        self, image, deadline: Optional[Deadline] = None, key: Optional[str] = None,
+        cls: Optional[str] = None, qset=None, tenant: Optional[str] = None,
+        info: Optional[dict] = None,
     ) -> list[dict]:
         """One image in, its detections out (awaits the batched device call).
 
@@ -253,12 +292,28 @@ class MicroBatcher:
         runs an open-vocabulary model against the request's own queries; it
         is also the item's batch group. `info` (a dict) gets the bucket the
         item ran in under "bucket" (the golden probe reads it).
+
+        `key` (the result cache's content key) coalesces: while a keyed
+        entry is in flight, a submit with the same key attaches a waiter
+        and adds no engine work (so no breaker or capacity check). Every
+        keyed caller, the first included, awaits its own waiter future and
+        gets its own copy of the detections. `tenant` (the resolved tenant
+        id) rides the item for the DRR order and the per-tenant scoping of
+        the overload tier. None for both keeps the plain path.
         """
         metrics = self.engine.metrics
         if self.draining:
             metrics.record_shed()
             raise DrainingError("MicroBatcher is draining or stopped")
         await self.start()
+        loop = asyncio.get_running_loop()
+        if key is not None:
+            entry = self._keyed.get(key)
+            if entry is not None and not entry[0].done():
+                metrics.record_coalesced_submit()
+                waiter: asyncio.Future = loop.create_future()
+                entry[1].append(waiter)
+                return await self._await_result(waiter, deadline, metrics)
         if not self.breaker.allow():
             metrics.record_shed()
             raise CircuitOpenError(
@@ -269,18 +324,29 @@ class MicroBatcher:
             metrics.record_deadline_exceeded()
             raise deadline.exceeded("queue admission")
         cls = BULK if cls == BULK else SLO
-        adm = self._admit(cls, metrics)
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        adm = self._admit(cls, metrics, tenant)
+        fut: asyncio.Future = loop.create_future()
         if adm is not None:
             # release the slot however the result lands; idempotent with the
             # limiter's own revocation release
             fut.add_done_callback(lambda f, a=adm: a.release())
+        if key is not None:
+            waiters: list[asyncio.Future] = []
+            self._keyed[key] = (fut, waiters)
+            # the callback holds its own waiters list: a later submit may
+            # replace the dict entry once this primary is done
+            fut.add_done_callback(lambda f, k=key, ws=waiters: self._settle_keyed(k, f, ws))
         try:
+            # a keyed entry carries no deadline: the shared primary must
+            # outlive any one waiter's budget
             self._queue.put_nowait(QueueItem(
-                image=image, fut=fut, deadline=deadline, trace=obs.current_trace(),
-                t_submit=time.monotonic(), adm=adm, cls=cls, qset=qset, info=info,
+                image=image, fut=fut, deadline=deadline if key is None else None,
+                trace=obs.current_trace(), t_submit=time.monotonic(), adm=adm, cls=cls,
+                tenant=tenant, qset=qset, info=info,
             ))
         except asyncio.QueueFull:
+            if key is not None and self._keyed.get(key, (None,))[0] is fut:
+                del self._keyed[key]
             metrics.record_shed()
             raise QueueFullError(
                 f"batch queue full ({self.max_queue} deep)",
@@ -294,14 +360,19 @@ class MicroBatcher:
                     retry_after_s=jittered_retry_after(max(self.max_delay_s * 2.0, 0.05)),
                 )
             ))
-        return await self._await_result(fut, deadline, metrics)
+        if key is None:
+            return await self._await_result(fut, deadline, metrics)
+        waiter = loop.create_future()
+        waiters.append(waiter)
+        return await self._await_result(waiter, deadline, metrics)
 
-    def _admit(self, cls: str, metrics):
+    def _admit(self, cls: str, metrics, tenant: Optional[str] = None):
         """Overload-tier admission; None when the tier is off (the bounded
-        queue below is then the only gate)."""
+        queue below is then the only gate). `tenant` scopes brownout rung 4
+        and tags the admission for top-occupancy revocation."""
         if self.brownout is not None:
             self.brownout.evaluate()
-            if cls == BULK and self.brownout.shed_bulk():
+            if cls == BULK and self.brownout.shed_bulk(tenant):
                 metrics.record_shed()
                 metrics.record_admit_shed(BULK)
                 raise BrownoutShedError(
@@ -310,7 +381,7 @@ class MicroBatcher:
                 )
         if self.limiter is None:
             return None
-        adm = self.limiter.try_admit(cls)
+        adm = self.limiter.try_admit(cls, tenant)
         if adm is None:
             metrics.record_shed()
             raise AdmitLimitError(
@@ -335,6 +406,37 @@ class MicroBatcher:
                 fut.cancel()
             metrics.record_deadline_exceeded()
             raise deadline.exceeded("batched detect") from None
+
+    def _settle_keyed(self, key: str, primary: asyncio.Future,
+                      waiters: list[asyncio.Future]) -> None:
+        """The primary future's done callback: retire the keyed entry (if it
+        is still this one), fill the result cache (success -> positive,
+        poison -> negative; nothing else is cached), and fan the outcome out
+        to every waiter, each with its own copy. No waiter can attach once
+        the primary is done, so `waiters` is complete here."""
+        entry = self._keyed.get(key)
+        if entry is not None and entry[0] is primary:
+            del self._keyed[key]
+        cache = self.result_cache
+        if primary.cancelled():  # defensive: nothing cancels keyed primaries
+            for w in waiters:
+                if not w.done():
+                    w.cancel()
+            return
+        exc = primary.exception()
+        if exc is None:
+            result = primary.result()
+            if cache is not None:
+                cache.put(key, result)
+            for w in waiters:
+                if not w.done():
+                    w.set_result([dict(d) for d in result])
+        else:
+            if cache is not None and isinstance(exc, PoisonImageError):
+                cache.put_negative(key, exc)
+            for w in waiters:
+                if not w.done():
+                    w.set_exception(exc)
 
     async def _pump(self) -> None:
         buf = self._sched_buf

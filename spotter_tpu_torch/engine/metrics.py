@@ -7,9 +7,11 @@ times, and the device-efficiency ledger (`metrics.perf`, the port's
 `obs.perf`: MFU, duty cycle, the capture ledger, memory gauges, SLO burn),
 the H2D bytes, the decode pool's queue gauge and the weights digest of the
 identity block, and the batch-latency histogram whose buckets carry
-trace-id exemplars (obs/prom.py renders it). The JAX package's result
-caching and wire counters and its mergeable stage histograms are not
-ported yet. Lock-light
+trace-id exemplars (obs/prom.py renders it), the result cache's
+hit/miss/negative/eviction and coalescing counters with its size, the
+stale serves of the brownout rung, and the /detect wire's bytes and
+encodings, under the JAX package's names. Its mergeable stage histograms
+are not ported. Lock-light
 counters plus a bounded reservoir; `snapshot()` is what /metrics serves.
 """
 
@@ -126,6 +128,26 @@ class Metrics:
         self._text_cache_misses_total = 0
         self._text_hit_ms: deque[float] = deque(maxlen=window)
         self._text_miss_ms: deque[float] = deque(maxlen=window)
+        # the result cache: hits, misses, negative hits (a cached
+        # deterministic failure short-circuited the fetch or the bisect),
+        # evictions, waiters coalesced onto an in-flight fetch (URL) or
+        # engine submit (content hash), its size, and stale-rung serves
+        self._cache_hits_total = 0
+        self._cache_misses_total = 0
+        self._cache_negative_hits_total = 0
+        self._cache_evictions_total = 0
+        self._coalesced_fetches_total = 0
+        self._coalesced_submits_total = 0
+        self._cache_entries = 0
+        self._cache_bytes = 0
+        self._stale_served_total = 0
+        # /detect bytes on the wire each way, and the responses sent as
+        # binary frames vs JSON
+        self._wire_bytes_in_total = 0
+        self._wire_bytes_out_total = 0
+        self._wire_requests_total = 0
+        self._wire_frame_responses_total = 0
+        self._wire_json_responses_total = 0
         # host -> device bytes the engine staged, and the decode pool's
         # submitted-but-unfinished photos when it last staged
         self._h2d_bytes_total = 0
@@ -280,6 +302,59 @@ class Metrics:
                 if resolve_ms is not None:
                     self._text_miss_ms.append(resolve_ms)
 
+    def record_cache_hit(self, n: int = 1) -> None:
+        """A lookup answered from the content-addressed result cache."""
+        with self._lock:
+            self._cache_hits_total += n
+
+    def record_cache_miss(self, n: int = 1) -> None:
+        with self._lock:
+            self._cache_misses_total += n
+
+    def record_cache_negative_hit(self, n: int = 1) -> None:
+        """A cached deterministic failure (4xx fetch, poison) short-circuited
+        the fetch or the bisect."""
+        with self._lock:
+            self._cache_negative_hits_total += n
+
+    def record_cache_eviction(self, n: int = 1) -> None:
+        with self._lock:
+            self._cache_evictions_total += n
+
+    def record_coalesced_fetch(self, n: int = 1) -> None:
+        """A request attached to an in-flight fetch of the same URL."""
+        with self._lock:
+            self._coalesced_fetches_total += n
+
+    def record_coalesced_submit(self, n: int = 1) -> None:
+        """A request attached to an in-flight engine call for the same
+        content hash instead of enqueuing its own image."""
+        with self._lock:
+            self._coalesced_submits_total += n
+
+    def record_stale_served(self, n: int = 1) -> None:
+        """An answer served from an expired cache entry (the brownout's stale
+        rung): the `degraded: stale` marker's counter."""
+        with self._lock:
+            self._stale_served_total += n
+
+    def set_cache_size(self, entries: int, nbytes: int) -> None:
+        with self._lock:
+            self._cache_entries = entries
+            self._cache_bytes = nbytes
+
+    def record_wire(self, bytes_in: int, bytes_out: int, frame: bool) -> None:
+        """One /detect exchange's bytes on the wire: the request body in, the
+        response body out, and the encoding the response used."""
+        with self._lock:
+            self._wire_bytes_in_total += int(bytes_in)
+            self._wire_bytes_out_total += int(bytes_out)
+            self._wire_requests_total += 1
+            if frame:
+                self._wire_frame_responses_total += 1
+            else:
+                self._wire_json_responses_total += 1
+
     def set_aggregate_bucket(self, bucket: int) -> None:
         with self._lock:
             self._aggregate_bucket = bucket
@@ -373,11 +448,29 @@ class Metrics:
                 "poison_isolated_total": self._poison_isolated_total,
                 "batch_retries_total": self._batch_retries_total,
                 "fatal_engine_errors_total": self._fatal_engine_errors_total,
+                "cache_hits_total": self._cache_hits_total,
+                "cache_misses_total": self._cache_misses_total,
+                "cache_negative_hits_total": self._cache_negative_hits_total,
+                "cache_evictions_total": self._cache_evictions_total,
+                "coalesced_fetches_total": self._coalesced_fetches_total,
+                "coalesced_submits_total": self._coalesced_submits_total,
+                "cache_entries": self._cache_entries,
+                "cache_bytes": self._cache_bytes,
+                "wire_bytes_in_total": self._wire_bytes_in_total,
+                "wire_bytes_out_total": self._wire_bytes_out_total,
+                "wire_requests_total": self._wire_requests_total,
+                "wire_frame_responses_total": self._wire_frame_responses_total,
+                "wire_json_responses_total": self._wire_json_responses_total,
+                "wire_bytes_out_per_request": (
+                    self._wire_bytes_out_total / self._wire_requests_total
+                    if self._wire_requests_total else 0.0
+                ),
                 "admit_limit": self._admit_limit,
                 "admit_in_flight": self._admit_in_flight,
                 "admit_sheds_total": dict(self._admit_sheds_total),
                 "brownout_rung": self._brownout_rung,
                 "brownout_transitions_total": self._brownout_transitions_total,
+                "stale_served_total": self._stale_served_total,
                 "shed_total": self._shed_total,
                 "deadline_exceeded_total": self._deadline_exceeded_total,
                 "batch_timeouts_total": self._batch_timeouts_total,

@@ -15,13 +15,18 @@ The leader's group goes first (the queue head under FIFO, the
 highest-priority item when slack-ordered); other groups stay pending and
 lead a later plan.
 
+With the tenancy plane attached (`Scheduler.tenancy`, serving/tenancy.py)
+the order among items of different tenants is deficit-weighted
+round-robin: under FIFO over the pending items, when slack-ordered within
+each request class (slo before bulk stays structural). With tenancy off, or
+one tenant present, the input list itself is used, so FIFO is bit-identical.
+
 What the JAX scheduler adds on top is not ported: the packing of
 mixed-size images into one smaller canvas (only `shortest_edge` specs, the
 DETR family, have a variable valid region; RT-DETR's 640x640 canvas is
-fixed) and the tenants' fair-share ordering. A batcher of a shortest-edge
-model under SPOTTER_TPU_RAGGED=1 raises (ROADMAP Queue 1 item 6): the JAX
-package would stage its images into smaller canvases, and so compute
-another result.
+fixed). A batcher of a shortest-edge model under SPOTTER_TPU_RAGGED=1
+raises (ROADMAP Queue 1 item 6): the JAX package would stage its images
+into smaller canvases, and so compute another result.
 """
 
 import os
@@ -54,6 +59,9 @@ class QueueItem:
     t_submit: float = 0.0
     adm: Optional[object] = None  # overload.Admission
     cls: str = SLO
+    # the resolved tenant id, for the DRR order and the per-tenant scoping
+    # (None: tenancy unconfigured)
+    tenant: Optional[str] = None
     # an open-vocabulary request's caching.text_cache.QuerySet; its key is
     # this item's batch group (None: the deployment's own vocabulary)
     qset: Optional[object] = field(default=None, compare=False)
@@ -72,6 +80,9 @@ class Scheduler:
 
     def __init__(self, ragged: bool = False) -> None:
         self.ragged = bool(ragged)
+        # a serving.tenancy.TenantPlane (`MicroBatcher.attach_tenancy`), or
+        # None (unconfigured)
+        self.tenancy = None
 
     @classmethod
     def from_env(cls) -> "Scheduler":
@@ -93,6 +104,26 @@ class Scheduler:
         slack = item.deadline.remaining() if item.deadline is not None else float("inf")
         return (0 if item.cls == SLO else 1, slack, item.t_submit)
 
+    def _tenant_order(self, items: list) -> list:
+        """DRR across the tenants present in `items`. Returns the input list
+        itself, not a copy, when tenancy is off or one tenant is present."""
+        if self.tenancy is None or len(items) <= 1:
+            return items
+        return self.tenancy.drr_order(items, lambda it: it.tenant)
+
+    def _classwise_tenant_order(self, items: list) -> list:
+        """DRR within each request class: slo before bulk and the slack
+        order stay structural; only the order among same-class items of
+        different tenants changes."""
+        if self.tenancy is None:
+            return items
+        slo = [it for it in items if it.cls == SLO]
+        bulk = [it for it in items if it.cls != SLO]
+        o_slo, o_bulk = self._tenant_order(slo), self._tenant_order(bulk)
+        if o_slo is slo and o_bulk is bulk:
+            return items
+        return list(o_slo) + list(o_bulk)
+
     def plan(self, pending: list[QueueItem], target: int, now: Optional[float] = None) -> list:
         """Pick (and remove from `pending`) the next dispatch's items, all of
         the leader's query group."""
@@ -110,11 +141,19 @@ class Scheduler:
 
     def _plan_from(self, pending: list[QueueItem], target: int, now: Optional[float]) -> list:
         if self.fifo:
-            pack = pending[:target]
-            del pending[: len(pack)]
+            ordered = self._tenant_order(pending)
+            if ordered is pending:
+                # tenancy off or one tenant: the plain FIFO drain
+                pack = pending[:target]
+                del pending[: len(pack)]
+                return pack
+            pack = ordered[:target]
+            chosen = {id(it) for it in pack}
+            pending[:] = [it for it in pending if id(it) not in chosen]
             return pack
         now = time.monotonic() if now is None else now
-        pack = sorted(pending, key=lambda it: self.priority_key(it, now))[:target]
+        items = sorted(pending, key=lambda it: self.priority_key(it, now))
+        pack = self._classwise_tenant_order(items)[:target]
         chosen = {id(it) for it in pack}
         pending[:] = [it for it in pending if id(it) not in chosen]
         return pack

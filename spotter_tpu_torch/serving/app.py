@@ -1,18 +1,26 @@
-"""Serving bootstrap: MODEL_NAME -> engine -> batcher -> detector (port of
-spotter_tpu.serving.app).
+"""Serving bootstrap: MODEL_NAME -> engine -> batcher -> detector, and the
+Ray Serve adapter (port of spotter_tpu.serving.app).
 
 MODEL_NAME is required and raises if unset, as in the reference's bootstrap
 (serve.py:199-205). The replica serves one device (dp = 1, no mesh; several
 GPUs come with the port's multi-GPU work) and runs on `cuda` unless the
 caller asks for the CPU: with no GPU and no such request, it raises.
 
-The JAX replica's tenancy and result-cache planes, its stub engine, and
-the faults whose seams lie in planes the port does not have are not ported
-(ROADMAP Queue 1 items 6, 10 and 12). Their knobs change what a replica
-does, so bring-up refuses them rather than serve as if they were unset
-(`refuse_unported_planes`). The output-integrity plane
-(serving/integrity.py, `SPOTTER_TPU_INTEGRITY`, on by default) and the
-other faults (testing/faults.py, `SPOTTER_TPU_FAULTS`) are served.
+The replica's planes are served: the output-integrity plane
+(serving/integrity.py, `SPOTTER_TPU_INTEGRITY`, on by default), tenancy
+(serving/tenancy.py, wired by the standalone server), the result cache
+(`SPOTTER_TPU_CACHE_MAX_MB`, set by the `--cache-mb` flag; off by default), the stub engine
+(testing/stub_engine.py) and the fault seams (testing/faults.py). A
+`SPOTTER_TPU_FAULTS` fault whose seam lies in a plane the port does not
+have (multi-GPU serving, the fleet tier: ROADMAP Queue 1 items 10 and 12)
+and `SPOTTER_TPU_PROFILER_PORT` change what a replica does, so bring-up
+refuses them rather than serve as if they were unset
+(`refuse_unported_planes`).
+
+Ray Serve is optional: `deployment` is the manifest's import_path target
+(rayservice-template.yaml), None when `ray` is not installed; with `ray`
+installed a bring-up error (MODEL_NAME unset) raises at import, as the
+reference's module-level bootstrap does.
 """
 
 import os
@@ -29,41 +37,12 @@ DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8)
 BATCH_BUCKETS_ENV = "SPOTTER_TPU_BATCH_BUCKETS"
 MAX_IN_FLIGHT_ENV = "SPOTTER_TPU_MAX_IN_FLIGHT"
 
-# the JAX package's names (spotter_tpu/serving/tenancy.py,
-# caching/result_cache.py)
-TENANCY_KNOBS = (
-    "SPOTTER_TPU_TENANT_KEYS", "SPOTTER_TPU_TENANT_CONFIG", "SPOTTER_TPU_TENANT_RPS_DEFAULT",
-    "SPOTTER_TPU_TENANT_TOP_K", "SPOTTER_TPU_TENANT_EDGE_SECRET",
-    "SPOTTER_TPU_TENANT_TRUST_HEADER",
-)
-CACHE_MAX_MB_ENV = "SPOTTER_TPU_CACHE_MAX_MB"
-# spotter_tpu/testing/stub_engine.py
-STUB_ENGINE_ENV = "SPOTTER_TPU_STUB_ENGINE"
-UNPORTED_PLANES = "not ported (ROADMAP Queue 1 item 6); unset it to serve without it"
-
 
 def refuse_unported_planes() -> None:
-    """Raise when a knob of an unported serving plane asks for it: a tenancy
-    knob set and not empty, SPOTTER_TPU_CACHE_MAX_MB above 0 (0 is the JAX
-    default and keeps the cache off), SPOTTER_TPU_STUB_ENGINE set to anything
-    but "" or "0" (the JAX package's two off values), a SPOTTER_TPU_FAULTS
-    fault whose seam the port does not have (`faults.parse_spec`: an
-    unknown fault or a bad value raises the JAX package's own text first);
-    and SPOTTER_TPU_PROFILER_PORT set (`profiler.refuse_profiler_port`)."""
-    for knob in TENANCY_KNOBS:
-        raw = os.environ.get(knob, "")
-        if raw.strip():
-            raise ValueError(f"{knob}={raw!r}: the tenancy plane is {UNPORTED_PLANES}")
-    raw = os.environ.get(CACHE_MAX_MB_ENV, "").strip()
-    try:
-        cache_mb = float(raw) if raw else 0.0
-    except ValueError:
-        raise ValueError(f"{CACHE_MAX_MB_ENV} must be a number, got {raw!r}") from None
-    if cache_mb > 0:
-        raise ValueError(f"{CACHE_MAX_MB_ENV}={raw!r}: the result cache is {UNPORTED_PLANES}")
-    raw = os.environ.get(STUB_ENGINE_ENV, "0")
-    if raw not in ("", "0"):
-        raise ValueError(f"{STUB_ENGINE_ENV}={raw!r}: the stub engine is {UNPORTED_PLANES}")
+    """Raise when a knob asks for a plane the port does not have: a
+    SPOTTER_TPU_FAULTS fault whose seam is not ported (`faults.parse_spec`:
+    an unknown fault or a bad value raises the JAX package's own text
+    first), or SPOTTER_TPU_PROFILER_PORT set (`profiler.refuse_profiler_port`)."""
     faults.parse_spec(os.environ.get(faults.FAULTS_ENV, "").strip())
     refuse_profiler_port()
 
@@ -96,7 +75,8 @@ def build_detector_app(
     naming a local HF checkpoint directory loads its weights
     (`convert/loader.py`); a hub name builds the family with weights drawn
     from `seed`. `warmup` captures each bucket's CUDA graph before the
-    detector is handed back."""
+    detector is handed back. The detector builds the result cache from
+    SPOTTER_TPU_CACHE_MAX_MB; unset, none of its machinery is built."""
     refuse_unported_planes()
     model_name = model_name or os.environ.get("MODEL_NAME")
     if not model_name:
@@ -111,3 +91,34 @@ def build_detector_app(
     max_in_flight = int(os.environ.get(MAX_IN_FLIGHT_ENV, "2"))
     batcher = MicroBatcher(engine, max_delay_ms=max_delay_ms, max_in_flight=max_in_flight)
     return AmenitiesDetector(engine, batcher)
+
+
+def ray_deployment():
+    """The Ray Serve deployment graph node (the manifest's import_path
+    target): each Ray replica builds the detector, warmed, and routes the
+    request's JSON body to `AmenitiesDetector.detect`."""
+    from ray import serve
+    from starlette.requests import Request
+
+    @serve.deployment
+    class RayAmenitiesDetector:
+        def __init__(self, model_name: str) -> None:
+            self._inner = build_detector_app(model_name, warmup=True)
+
+        async def __call__(self, raw_payload: "Request"):
+            return await self._inner.detect(await raw_payload.json())
+
+    model_name = os.environ.get("MODEL_NAME")
+    if not model_name:
+        raise ValueError("MODEL_NAME environment variable not set.")
+    return RayAmenitiesDetector.bind(model_name)
+
+
+try:  # the module-level `deployment` the manifest's import_path names
+    import ray  # noqa: F401
+except ImportError:  # Ray not installed: the standalone server serves
+    deployment = None
+else:
+    # with Ray present a bring-up error must raise at import, as the
+    # reference's does (serve.py:199-201), not become import_path=None
+    deployment = ray_deployment()

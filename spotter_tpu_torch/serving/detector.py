@@ -35,8 +35,21 @@ Each image's fetch, decode and postprocess (draw and encode) are spans of
 the ambient request trace (obs/trace.py); the fetch goes through the fault
 seam `faults.on_fetch` first.
 
-Not ported yet: the result cache, single-flight fetch coalescing and
-tenancy.
+The caching tier (opt-in, `SPOTTER_TPU_CACHE_MAX_MB`; caching/): detection
+is deterministic per (model, image bytes, threshold), so three exact
+short-circuits come before any engine work: (1) URL single-flight, N
+concurrent requests for one URL share one fetch; (2) the negative cache, a
+recent deterministic failure (a non-retryable 4xx fetch, a poison image)
+re-raises at once; (3) the content-addressed result cache, byte-identical
+images skip the engine (a hit still decodes and draws, unless the entry
+carries the finished JPEG and the brownout threshold rung is off). A miss
+submits with the content key, which the batcher coalesces on and fills
+the cache from. `detect(..., info=...)` collects each URL's outcome (the
+`X-Cache` header) and its deterministic-failure verdicts (the
+`X-Spotter-Negative` header). With the knob unset none of this is built.
+
+With the tenancy plane attached (`attach_tenancy`), each request's tenant
+rides into every batcher submit and scopes the brownout's bulk shed.
 """
 
 import asyncio
@@ -48,8 +61,12 @@ import httpx
 from PIL import Image, ImageDraw
 
 from spotter_tpu_torch import obs
+from spotter_tpu_torch.caching.keys import content_key, url_key
+from spotter_tpu_torch.caching.result_cache import ResultCache
+from spotter_tpu_torch.caching.singleflight import SingleFlight
 from spotter_tpu_torch.caching.text_cache import TextQueryResolver
 from spotter_tpu_torch.engine.batcher import MicroBatcher
+from spotter_tpu_torch.engine.errors import PoisonImageError
 from spotter_tpu_torch.ops.preprocess import check_image_pixels
 from spotter_tpu_torch.schemas import (
     DetectionErrorResult,
@@ -114,6 +131,27 @@ def _fetch_retryable(exc: BaseException) -> bool:
     return True
 
 
+# default for AmenitiesDetector(cache=...): build from the env knobs (None
+# when SPOTTER_TPU_CACHE_MAX_MB is unset or 0). Pass None to force the tier
+# off, or a ResultCache to use it whatever the env says.
+_CACHE_FROM_ENV = object()
+
+
+def _mark_outcome(info: dict | None, url: str, outcome: str) -> None:
+    """A URL's caching-tier outcome for the `X-Cache` header; the first
+    write wins ("the cache served this" outranks later bookkeeping)."""
+    if info is not None:
+        info.setdefault("cache", {}).setdefault(url, outcome)
+
+
+def _note_verdict(info: dict | None, url: str, kind: str, error: str, ttl_s: float) -> None:
+    """A deterministic-failure verdict for this URL, for the
+    `X-Spotter-Negative` header (only the result cache's deterministic
+    failures land here)."""
+    if info is not None:
+        info.setdefault("negative", {})[url] = {"kind": kind, "error": error, "ttl_s": ttl_s}
+
+
 # the summary sentence and the amenity filter, shared with assemble_response
 
 
@@ -172,6 +210,7 @@ class AmenitiesDetector:
         engine,
         batcher: MicroBatcher | None = None,
         client: httpx.AsyncClient | None = None,
+        cache: ResultCache | None | object = _CACHE_FROM_ENV,
     ) -> None:
         self.engine = engine
         self.batcher = batcher or MicroBatcher(engine)
@@ -188,6 +227,24 @@ class AmenitiesDetector:
             TextQueryResolver(self.model_name, text_encoder, metrics=engine.metrics)
             if text_encoder is not None else None
         )
+        # the caching tier, per detector (two detectors in one process share
+        # nothing); None means every path below is the cache-less one
+        if cache is _CACHE_FROM_ENV:
+            cache = ResultCache.from_env(metrics=engine.metrics)
+        self.cache: ResultCache | None = cache
+        self._fetch_flights = SingleFlight(on_coalesced=engine.metrics.record_coalesced_fetch)
+        if self.cache is not None and self.batcher.result_cache is None:
+            self.batcher.result_cache = self.cache
+        # the tenant isolation plane; None unless the serving layer attaches one
+        self.tenancy = None
+
+    def attach_tenancy(self, plane) -> None:
+        """Wire the tenant isolation plane through the detector into the
+        batcher's arbiters. None is a no-op."""
+        if plane is None:
+            return
+        self.tenancy = plane
+        self.batcher.attach_tenancy(plane)
 
     def _check_fetch_size(self, url: str, nbytes: int) -> None:
         if self.fetch_max_bytes > 0 and nbytes > self.fetch_max_bytes:
@@ -260,30 +317,100 @@ class AmenitiesDetector:
                 await asyncio.sleep(wait)
         raise FetchError("failed to fetch image after retries")  # unreachable
 
+    async def _fetch_flight(self, url: str) -> bytes:
+        """The shared fetch flight (cache tier on): one per URL at a time,
+        deadline-free (waiters apply their own budgets around it). A
+        deterministic failure lands in the negative cache on the way out;
+        a retryable one (5xx, 408/429, timeouts, connect errors) never."""
+        try:
+            return await self._fetch_with_retries(url)
+        except FetchError as exc:
+            if not exc.retryable:
+                self.cache.put_negative(url_key(url), exc)
+            raise
+        except httpx.HTTPStatusError as exc:
+            code = exc.response.status_code
+            if 400 <= code < 500 and code not in RETRYABLE_4XX:
+                self.cache.put_negative(url_key(url), exc)
+            raise
+
+    async def _fetch_for_request(self, url: str, deadline: Deadline | None,
+                                 info: dict | None = None) -> bytes:
+        if self.cache is None:  # tier off: the plain fetch
+            fetch = self._fetch_with_retries(url, deadline)
+            if deadline is not None:
+                return await deadline.wait_for(fetch, "image fetch")
+            return await fetch
+        cached_failure = self.cache.get_negative(url_key(url))
+        if cached_failure is not None:
+            _mark_outcome(info, url, "negative")
+            raise cached_failure
+        return await self._fetch_flights.run(
+            url, lambda: self._fetch_flight(url), deadline=deadline, what="image fetch")
+
     async def _process_single_image(
         self, url: str, deadline: Deadline | None = None, cls: str | None = None,
-        qset=None,
+        qset=None, degraded: set[str] | None = None, info: dict | None = None,
+        tenant: str | None = None,
     ) -> ImageResult:
         # the ambient request trace: None (recorder off, or a bare library
         # call) makes every span below a no-op
         trace = obs.current_trace()
         brownout = self.batcher.brownout
         # brownout threshold rung: read once, up front, for the whole image
+        # (the annotated fast hit is valid only at the base threshold)
         boost = brownout.threshold_boost_value() if brownout is not None else 0.0
         try:
             with obs.span(obs.FETCH, trace):
-                fetch = self._fetch_with_retries(url, deadline)
-                if deadline is not None:
-                    image_bytes = await deadline.wait_for(fetch, "image fetch")
-                else:
-                    image_bytes = await fetch
-            with obs.span(obs.DECODE, trace), Image.open(BytesIO(image_bytes)) as img_raw:
-                # decode-bomb guard: the header's pixel count is checked
-                # before convert() decodes anything
-                check_image_pixels(img_raw)
-                image = img_raw.convert("RGB")
-            raw_detections = await self.batcher.submit(
-                image, deadline=deadline, cls=cls, qset=qset)
+                image_bytes = await self._fetch_for_request(url, deadline, info)
+            with obs.span(obs.DECODE, trace):
+                cache_key, raw_detections, annotated = None, None, None
+                if self.cache is not None:
+                    cache_key = content_key(self.model_name, image_bytes, self.threshold)
+                    if qset is not None:
+                        # the detections depend on the vocabulary too
+                        cache_key = f"{cache_key}|q{qset.digest}"
+                    # a repeat poison re-raises its verdict instead of
+                    # poisoning a batch again
+                    cached_failure = self.cache.get_negative(cache_key)
+                    if cached_failure is not None:
+                        _mark_outcome(info, url, "negative")
+                        raise cached_failure
+                    # the brownout's stale rung: an expired entry beats a
+                    # forward, and the response is marked `degraded: stale`
+                    raw_detections, was_stale, annotated = self.cache.get_entry_full(
+                        cache_key, stale_ok=brownout is not None and brownout.stale_ok())
+                    if was_stale and degraded is not None:
+                        degraded.add("stale")
+                    if raw_detections is not None:
+                        _mark_outcome(info, url, "hit")
+                use_annotated = (
+                    raw_detections is not None and annotated is not None and boost == 0.0
+                )
+                if not use_annotated:
+                    with Image.open(BytesIO(image_bytes)) as img_raw:
+                        # decode-bomb guard: the header's pixel count is
+                        # checked before convert() decodes anything
+                        check_image_pixels(img_raw)
+                        image = img_raw.convert("RGB")
+            if use_annotated:
+                # the entry holds the finished JPEG and filtered boxes: no
+                # decode, draw or re-encode
+                with obs.span(obs.POSTPROCESS, trace):
+                    return DetectionSuccessResult(
+                        url=url,
+                        detections=[DetectionResult(label=d["label"], box=list(d["box"]))
+                                    for d in annotated["detections"]],
+                        labeled_image_base64=base64.b64encode(annotated["jpeg"]).decode("utf-8"),
+                    )
+            if raw_detections is None:
+                # a miss: the content key rides into the batcher for
+                # coalescing and the cache fill
+                if cache_key is not None:
+                    _mark_outcome(info, url,
+                                  "coalesced" if self.batcher.in_flight(cache_key) else "miss")
+                raw_detections = await self.batcher.submit(
+                    image, deadline=deadline, key=cache_key, cls=cls, qset=qset, tenant=tenant)
             if boost > 0.0:
                 bar = min(self.threshold + boost, 0.99)
                 raw_detections = [d for d in raw_detections if d.get("score", 1.0) >= bar]
@@ -294,6 +421,10 @@ class AmenitiesDetector:
                               for d in raw_detections]
             with obs.span(obs.POSTPROCESS, trace):
                 jpeg = draw_detections(image, detections)
+            # the annotated sidecar, at the base threshold only (a boosted
+            # view must not narrow the base entry's boxes)
+            if cache_key is not None and boost == 0.0:
+                self.cache.attach_annotated(cache_key, jpeg, detections)
             return DetectionSuccessResult(
                 url=url,
                 detections=[DetectionResult(**d) for d in detections],
@@ -305,16 +436,33 @@ class AmenitiesDetector:
             # detect() turns a fully shed request into HTTP 429/503
             raise
         except FetchError as e:
+            if self.cache is not None and not e.retryable:
+                _note_verdict(info, url, "fetch", f"Fetch Error: {e}", self.cache.negative_ttl_s)
             return DetectionErrorResult(url=url, error=f"Fetch Error: {e}")
         except httpx.HTTPError as e:
+            if (self.cache is not None and isinstance(e, httpx.HTTPStatusError)
+                    and 400 <= e.response.status_code < 500
+                    and e.response.status_code not in RETRYABLE_4XX):
+                _note_verdict(info, url, "fetch", f"HTTP Error: {e}", self.cache.negative_ttl_s)
             return DetectionErrorResult(url=url, error=f"HTTP Error: {e}")
         except Exception as e:
             tb_str = traceback.format_exc()
+            if self.cache is not None and isinstance(e, PoisonImageError):
+                # poison is keyed by content in the cache, but an edge knows
+                # URLs: the verdict names the URL that carried the bytes
+                _note_verdict(info, url, "poison", f"Processing Error: {e}",
+                              self.cache.negative_ttl_s)
             return DetectionErrorResult(url=url, error=f"Processing Error: {e}\n{tb_str}")
 
     async def detect(
-        self, payload: dict, deadline: Deadline | None = None, cls: str | None = None
+        self, payload: dict, deadline: Deadline | None = None, cls: str | None = None,
+        info: dict | None = None, tenant: str | None = None,
     ) -> DetectionResponse:
+        """`info` (optional dict) collects per-URL observations for the HTTP
+        layer: `info["cache"]` maps url -> hit|miss|negative|coalesced and
+        `info["negative"]` holds the deterministic-failure verdicts. `tenant`
+        rides into every batcher submit. None for both keeps the plain
+        path."""
         request = DetectionRequest.model_validate(payload)
         qset = None
         if request.queries:
@@ -329,8 +477,10 @@ class AmenitiesDetector:
         if deadline is None:
             deadline = Deadline.from_env()
         urls = [str(u) for u in request.image_urls]
+        degraded: set[str] = set()
         gathered = await asyncio.gather(
-            *(self._process_single_image(u, deadline, cls=cls, qset=qset) for u in urls),
+            *(self._process_single_image(u, deadline, cls=cls, qset=qset, degraded=degraded,
+                                         info=info, tenant=tenant) for u in urls),
             return_exceptions=True,
         )
         shed = [r for r in gathered if isinstance(r, AdmissionError)]
@@ -347,18 +497,23 @@ class AmenitiesDetector:
         amenities = {
             d.label for r in results if isinstance(r, DetectionSuccessResult) for d in r.detections
         }
+        # "stale" when an image was served from an expired entry, plus the
+        # active rungs' markers
         brownout = self.batcher.brownout
-        degraded = brownout.markers() if brownout is not None else []
+        if brownout is not None:
+            degraded.update(brownout.markers())
         return DetectionResponse(
             amenities_description=amenities_description(amenities),
             images=results,
-            degraded=degraded or None,
+            degraded=sorted(degraded) if degraded else None,
         )
 
-    def check_admission(self, cls: str | None = None) -> AdmissionError | None:
+    def check_admission(self, cls: str | None = None,
+                        tenant: str | None = None) -> AdmissionError | None:
         """HTTP-layer fast path: the AdmissionError to answer with before any
         fetch work, or None to proceed. Never consumes the breaker's
-        half-open probe slot."""
+        half-open probe slot. `tenant` scopes the brownout's bulk shed to
+        over-share tenants."""
         metrics = self.engine.metrics
         if self.batcher.draining:
             metrics.record_shed()
@@ -370,7 +525,7 @@ class AmenitiesDetector:
         brownout = self.batcher.brownout
         if brownout is not None and cls == BULK:
             brownout.evaluate()
-            if brownout.shed_bulk():
+            if brownout.shed_bulk(tenant):
                 metrics.record_shed()
                 metrics.record_admit_shed(BULK)
                 return BrownoutShedError(
@@ -403,6 +558,11 @@ class AmenitiesDetector:
             "open_vocab": (
                 self.text_resolver.stats()
                 if self.text_resolver is not None else {"enabled": False}
+            ),
+            # the caching tier's size state (its counters are in /metrics)
+            "cache": self.cache.stats() if self.cache is not None else {"enabled": False},
+            "tenancy": (
+                self.tenancy.snapshot() if self.tenancy is not None else {"enabled": False}
             ),
         }
 

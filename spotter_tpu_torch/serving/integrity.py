@@ -107,10 +107,11 @@ PROBE_REFERENCES: dict[str, list[dict]] = {
 
 class GoldenProbe:
     """Golden-probe canary: ask the real serving path the question whose
-    answer is known, through the real batcher (bulk class). The port's
-    batcher has no result cache and no coalescing yet, so there is nothing
-    for the JAX probe's `key=None` to bypass: a probe never shares a flight
-    with traffic and never fills a cache."""
+    answer is known, through the real batcher (bulk class). Every probe
+    submits without a content key (the JAX probe's `key=None`): it is never
+    coalesced into a user's in-flight forward, never answered from the
+    result cache (it does not pass the detector) and never fills it, so
+    each probe runs a forward."""
 
     def __init__(
         self,

@@ -1,6 +1,5 @@
 """Adaptive overload control: AIMD admission + brownout degradation ladder
-(copy of spotter_tpu.serving.overload, less tenant scoping and the fleet
-edge's limiter).
+(copy of spotter_tpu.serving.overload, less the fleet edge's limiter).
 
 - `AdaptiveLimiter`: an AIMD concurrency limiter. The control signal is
   queue_wait p90 (submit -> batch dispatch) against
@@ -11,18 +10,20 @@ edge's limiter).
   class-aware: when the limit is hit, bulk sheds strictly before slo — a
   new slo request first revokes the newest queued bulk admission, and if no
   bulk is revocable it rides a bounded soft overage while any bulk still
-  holds a slot. The tier is opt-in: with `SPOTTER_TPU_ADMIT_TARGET_MS`
+  holds a slot. With the tenancy plane attached (serving/tenancy.py) the
+  revocation victim is the top-occupancy tenant's newest queued bulk. The
+  tier is opt-in: with `SPOTTER_TPU_ADMIT_TARGET_MS`
   unset/0, `from_env()` returns None and the static queue-depth check is the
   only gate.
 
 - `BrownoutController`: a monotonic degradation ladder armed by sustained
   saturation (the limiter pinned at its floor, or queue_wait p90 above
   `SPOTTER_TPU_BROWNOUT_SLACK_MS`) for `SPOTTER_TPU_BROWNOUT_ARM_S`. Rungs,
-  entered one at a time: 1 stale (a result cache may serve expired entries;
-  the port has no result cache yet, so this rung changes nothing), 2
-  bucket_cap (the batcher's dispatch bucket drops one rung), 3 threshold
-  (the detection threshold rises by `SPOTTER_TPU_BROWNOUT_THRESHOLD_BOOST`),
-  4 bulk_503 (all bulk traffic shed with 503). Each rung is exited one at a
+  entered one at a time: 1 stale (the result cache serves expired entries,
+  marked `degraded: ["stale"]`), 2 bucket_cap (the batcher's dispatch
+  bucket drops one rung), 3 threshold (the detection threshold rises by
+  `SPOTTER_TPU_BROWNOUT_THRESHOLD_BOOST`), 4 bulk_503 (bulk traffic shed
+  with 503; with the tenancy plane attached, only over-share tenants'). Each rung is exited one at a
   time after saturation stays clear for `SPOTTER_TPU_BROWNOUT_DISARM_S`.
 
 Each rung transition pins a synthetic trace in the flight recorder, so
@@ -112,10 +113,13 @@ class Admission:
     admission may carry a revoke callback so a later slo arrival can
     reclaim the slot while the work is still queued."""
 
-    __slots__ = ("cls", "_limiter", "_revoke_cb", "_released", "_revocable")
+    __slots__ = ("cls", "tenant", "_limiter", "_revoke_cb", "_released", "_revocable")
 
-    def __init__(self, limiter: "AdaptiveLimiter", cls: str) -> None:
+    def __init__(self, limiter: "AdaptiveLimiter", cls: str, tenant: Optional[str] = None) -> None:
         self.cls = cls
+        # the tenant's identity lets revocation pick the top-occupancy
+        # tenant's bulk first; None when tenancy is off
+        self.tenant = tenant
         self._limiter = limiter
         self._revoke_cb: Optional[Callable[[], None]] = None
         self._released = False
@@ -156,6 +160,10 @@ class AdaptiveLimiter:
         clock=time.monotonic,
         metrics=None,
     ) -> None:
+        # the tenant isolation plane (`MicroBatcher.attach_tenancy`): when
+        # attached, revocation prefers the top-occupancy tenant's bulk; None
+        # keeps revocation as it was
+        self.tenancy = None
         if target_ms <= 0:
             raise ValueError("target_ms must be > 0 (unset disables the tier)")
         self.target_ms = target_ms
@@ -273,7 +281,7 @@ class AdaptiveLimiter:
 
     # -- admission --
 
-    def try_admit(self, cls: str = SLO) -> Optional[Admission]:
+    def try_admit(self, cls: str = SLO, tenant: Optional[str] = None) -> Optional[Admission]:
         """One admission attempt. Returns a slot, or None (shed).
 
         Class order is structural: when the limit is hit, a bulk arrival
@@ -282,30 +290,32 @@ class AdaptiveLimiter:
         still holds a slot (each overage slot is backed by at least one
         bulk slot, so the true engine pressure stays <= limit once bulk
         drains) — slo is shed only when the limit is hit by slo alone.
+        With the tenancy plane attached the revocation victim is the
+        top-occupancy tenant's newest queued bulk.
         """
         if cls not in (SLO, BULK):
             cls = SLO
         with self._lock:
             self._maybe_update(self._clock())
             if self._in_flight < self.limit:
-                return self._admit(cls)
+                return self._admit(cls, tenant)
             if cls == BULK:
                 return self._shed(cls)
             victim = self._pop_revocable()
             if victim is not None:
                 self._revoke(victim)
-                return self._admit(cls)
+                return self._admit(cls, tenant)
             if self._bulk_in_flight > 0:
                 # bounded soft overage (see above)
-                return self._admit(cls)
+                return self._admit(cls, tenant)
             return self._shed(cls)
 
-    def _admit(self, cls: str) -> Admission:
+    def _admit(self, cls: str, tenant: Optional[str] = None) -> Admission:
         # caller holds the lock
         self._in_flight += 1
         if cls == BULK:
             self._bulk_in_flight += 1
-        return Admission(self, cls)
+        return Admission(self, cls, tenant)
 
     def _shed(self, cls: str) -> None:
         # caller holds the lock
@@ -316,10 +326,19 @@ class AdaptiveLimiter:
 
     def _pop_revocable(self) -> Optional[Admission]:
         # caller holds the lock; newest first (LIFO-ish: the freshest bulk
-        # work has waited least and wasted least)
+        # work has waited least and wasted least); with the tenancy plane
+        # attached, the top-occupancy tenant's newest first, falling back to
+        # plain newest-first when that tenant holds none
         self._revocable = [a for a in self._revocable if not a._released]
         if not self._revocable:
             return None
+        if self.tenancy is not None:
+            top = self.tenancy.top_occupancy_tenant()
+            if top is not None:
+                for adm in reversed(self._revocable):
+                    if adm.tenant == top:
+                        self._revocable.remove(adm)
+                        return adm
         return self._revocable.pop()
 
     def _revoke(self, adm: Admission) -> None:
@@ -450,6 +469,10 @@ class BrownoutController:
         recorder=None,
         hold: Optional[Callable[[], bool]] = None,
     ) -> None:
+        # the tenant isolation plane (`MicroBatcher.attach_tenancy`): when
+        # attached, the bulk_503 rung sheds only over-share tenants; None
+        # keeps the rung class-wide
+        self.tenancy = None
         self.saturated = saturated
         # `hold` (optional): blocks DE-escalation without driving
         # escalation — see saturation_signals for why the asymmetry exists
@@ -571,7 +594,11 @@ class BrownoutController:
         except Exception:
             logger.exception("pinning brownout transition trace failed")
 
-    # -- rung effects (queried by batcher / detector) --
+    # -- rung effects (queried by batcher / detector / cache) --
+
+    def stale_ok(self) -> bool:
+        """Rung >= 1: expired result-cache entries become acceptable."""
+        return self._rung >= RUNG_STALE
 
     def bucket_cap_active(self) -> bool:
         """Rung >= 2: the batcher caps its dispatch bucket one rung down."""
@@ -581,13 +608,21 @@ class BrownoutController:
         """Rung >= 3: how much to raise the effective detection threshold."""
         return self.threshold_boost if self._rung >= RUNG_THRESHOLD else 0.0
 
-    def shed_bulk(self) -> bool:
-        """Rung >= 4: bulk traffic is shed with 503 at admission."""
-        return self._rung >= RUNG_BULK_503
+    def shed_bulk(self, tenant: Optional[str] = None) -> bool:
+        """Rung >= 4: bulk traffic is shed with 503 at admission. With the
+        tenancy plane attached and a tenant known, only a tenant holding
+        more than its weight-fair share of the current occupancy is shed;
+        otherwise the rung is class-wide."""
+        if self._rung < RUNG_BULK_503:
+            return False
+        if self.tenancy is not None and tenant is not None:
+            return self.tenancy.over_share(tenant)
+        return True
 
     def markers(self) -> list[str]:
         """Active degradation markers for the response-level `degraded`
-        field (the stale rung has no marker: there is no result cache)."""
+        field (the `stale` marker is added per response by the detector,
+        only when a stale entry was served)."""
         out = []
         if self._rung >= RUNG_BUCKET_CAP:
             out.append("bucket_cap")

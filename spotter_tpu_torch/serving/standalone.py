@@ -22,14 +22,33 @@ Routes:
   (body `{"duration_s": x}`, at most 30 s), into a directory the server
   picks (`SPOTTER_TPU_PROFILE_DIR` or the system temp dir);
 - `GET /debug/traces` (the flight recorder; `?request_id=` or `?trace_id=`
-  for one request) and `GET /debug/perf` (the device-efficiency ledger).
+  for one request), `GET /debug/perf` (the device-efficiency ledger) and
+  `GET /debug/tenants` (the full per-tenant table).
 
 The admin endpoints (/drain, /profile, /debug/*) require `X-Admin-Token`
 when `SPOTTER_TPU_ADMIN_TOKEN` is set. Every /detect response carries its
 `X-Request-ID` (the client's, or minted) and `traceparent`, and a traced
 one its per-stage `Server-Timing`; the trace lands in the flight recorder
 (`SPOTTER_TPU_TRACE_RING`). `SPOTTER_TPU_LOG_JSON=1` makes the logs JSON
-lines carrying the trace id.
+lines carrying the trace id. Once a detector is up, every /detect outcome
+carries `X-Spotter-Replica` and `X-Spotter-Version`.
+
+The replica planes (each absent, and /detect's JSON byte-identical, when
+its knobs are unset):
+- tenancy (serving/tenancy.py: `SPOTTER_TPU_TENANT_CONFIG`, `_TENANT_KEYS`,
+  `_TENANT_RPS_DEFAULT`): once READY, a request's tenant is resolved and
+  charged before any parse, fetch or decode; an over-quota tenant gets 429
+  with a tenant-scoped Retry-After, and its slot is released exactly once
+  however the request ends (a client disconnect included); /metrics gains
+  a bounded `tenants` view;
+- the result cache (`--cache-mb` or `SPOTTER_TPU_CACHE_MAX_MB`): URL
+  single-flight, the negative cache and keyed coalescing
+  (serving/detector.py); each /detect answers `X-Cache` and, for
+  deterministic failures, `X-Spotter-Negative`;
+- the binary wire format: `Accept: application/x-spotter-frame` gets the
+  response as an SPTF frame (serving/wire.py);
+- the stub engine (`--stub-engine` or `SPOTTER_TPU_STUB_ENGINE=1`; canned
+  detections, no device; never production).
 
 The HTTP surface binds before the model loads: bring-up runs as a
 background task, and a failed bring-up exits `BRINGUP_FAILED_EXIT_CODE`.
@@ -43,7 +62,8 @@ error exits `FATAL_ENGINE_EXIT_CODE` (85); a preemption (SIGTERM or
 arms the fault injection (testing/faults.py) for chaos staging.
 
     MODEL_NAME=PekingU/rtdetr_v2_r101vd python -m spotter_tpu_torch.serving.standalone \\
-        [--port 8000] [--device cpu] [--no-warmup] [--decode-workers N]
+        [--port 8000] [--device cpu] [--no-warmup] [--decode-workers N] [--cache-mb MB] \\
+        [--stub-engine]
 
 MODEL_NAME picks the family: RT-DETR (`PekingU/rtdetr_v2_*`), YOLOS
 (`hustvl/yolos-base`), OWL-ViT (`google/owlvit-base-patch32`, `-patch16`)
@@ -54,9 +74,7 @@ config (random weights) for smoke runs. The model runs on `cuda` unless
 `--device cpu` is given; with no GPU it raises. Warmup captures each
 bucket's CUDA graph before the replica verifies; the identity block of
 /metrics carries the engine's `weights_digest()` (or
-SPOTTER_TPU_WEIGHTS_DIGEST when set). Tenancy, the result cache and the
-stub engine are not ported yet: `make_app` refuses their knobs
-(`app.refuse_unported_planes`).
+SPOTTER_TPU_WEIGHTS_DIGEST when set).
 """
 
 import argparse
@@ -74,11 +92,12 @@ from spotter_tpu_torch.engine.metrics import default_weights_digest
 from spotter_tpu_torch.obs import http as obs_http
 from spotter_tpu_torch.obs import logs as obs_logs
 from spotter_tpu_torch.ops.preprocess import DECODE_WORKERS_ENV
-from spotter_tpu_torch.serving import integrity, lifecycle
+from spotter_tpu_torch.serving import integrity, lifecycle, tenancy, wire
 from spotter_tpu_torch.serving.detector import QueriesUnsupportedError
 from spotter_tpu_torch.serving.overload import BULK, SLO
 from spotter_tpu_torch.serving.resilience import AdmissionError
-from spotter_tpu_torch.testing import faults
+from spotter_tpu_torch.serving.tenancy import TenantQuotaError
+from spotter_tpu_torch.testing import faults, stub_engine
 
 logger = logging.getLogger(__name__)
 
@@ -128,6 +147,20 @@ def _not_ready_response(tracker: lifecycle.StartupTracker) -> web.Response:
     )
 
 
+def _build_detector_blocking(model_name: str | None, device: str | None):
+    """The heavy half of bring-up, run in an executor: the stub detector
+    when stub mode is on, else the model's."""
+    if stub_engine.stub_mode_enabled():
+        logger.warning(
+            "STUB ENGINE ACTIVE (%s): canned detections, no device; never production",
+            stub_engine.STUB_ENGINE_ENV,
+        )
+        return stub_engine.build_stub_detector()
+    from spotter_tpu_torch.serving.app import build_detector_app
+
+    return build_detector_app(model_name, device=device)
+
+
 def make_app(
     detector=None,
     model_name: str | None = None,
@@ -151,8 +184,11 @@ def make_app(
     plane re-verifies on its periods. The replica answers /detect and
     /healthz only once READY. The batcher gets `fatal_exit_cb` for fatal
     device errors. `preemption=True` (the `main()` path) installs the
-    PreemptionWatcher. Raises at once when a knob of an unported serving
-    plane is set (`refuse_unported_planes`), and arms SPOTTER_TPU_FAULTS.
+    PreemptionWatcher. The tenancy plane comes from its env knobs
+    (`tenancy.from_env`, None when unconfigured) and is attached to the
+    detector either way; with SPOTTER_TPU_STUB_ENGINE on, bring-up builds the
+    stub detector. Raises at once when a knob of an unported serving plane
+    is set (`refuse_unported_planes`), and arms SPOTTER_TPU_FAULTS.
     """
     from spotter_tpu_torch.serving.app import refuse_unported_planes
 
@@ -161,6 +197,10 @@ def make_app(
     tracker = lifecycle.StartupTracker()
     app["startup"] = tracker
     app["detector"] = detector
+    # the tenant isolation plane: None unless configured, and then every
+    # tenant branch below is absent
+    tenant_plane = tenancy.from_env()
+    app["tenancy"] = tenant_plane
     if faults.maybe_activate_from_env() is not None:
         logger.warning(
             "FAULT INJECTION ACTIVE (%s): this server is a chaos target, never production",
@@ -169,7 +209,9 @@ def make_app(
 
     def _wire(det) -> None:
         det.engine.metrics.set_restarts(lifecycle.restarts_from_env())
-        model = model_name or os.environ.get("MODEL_NAME") or det.engine.built.model_name
+        built = getattr(det.engine, "built", None)
+        model = (model_name or os.environ.get("MODEL_NAME")
+                 or getattr(built, "model_name", None) or "stub")
         det.engine.metrics.set_identity(model=model)
         # an operator-pinned SPOTTER_TPU_WEIGHTS_DIGEST (stamped at Metrics
         # init) outranks the engine's computed one
@@ -177,19 +219,16 @@ def make_app(
             det.engine.metrics.set_identity(weights_digest=det.engine.weights_digest())
         if det.batcher.fatal_exit_cb is None:
             det.batcher.fatal_exit_cb = fatal_exit_cb
+        det.attach_tenancy(tenant_plane)
 
     if detector is not None:
         _wire(detector)
         tracker.mark_ready(detector.engine.metrics)
 
     async def _bring_up(app: web.Application) -> None:
-        from spotter_tpu_torch.serving.app import build_detector_app
-
         loop = asyncio.get_running_loop()
         try:
-            det = await loop.run_in_executor(
-                None, lambda: build_detector_app(model_name, device=device)
-            )
+            det = await loop.run_in_executor(None, _build_detector_blocking, model_name, device)
             tracker.mark(lifecycle.WARMING)
             if warmup:
                 await loop.run_in_executor(None, det.engine.warmup)
@@ -245,8 +284,17 @@ def make_app(
         # id, and the completed trace lands in the flight recorder with its
         # per-stage Server-Timing on the response
         trace, request_id = obs_http.begin_http_trace(request)
+        tadm = None
 
         def done(resp: web.Response) -> web.Response:
+            # the tenant's slot is released once with the outcome: sheds and
+            # server errors burn its SLO budget, everything else credits it
+            if tadm is not None:
+                tadm.release(good=resp.status not in (429, 503) and resp.status < 500)
+            # which replica and build answered, on every outcome
+            if det is not None:
+                resp.headers[wire.REPLICA_HEADER] = det.engine.metrics.replica_id
+                resp.headers[wire.VERSION_HEADER] = det.engine.metrics.version
             return obs_http.finish_http_trace(trace, request_id, resp, server_timing=True)
 
         det = request.app["detector"]
@@ -256,29 +304,74 @@ def make_app(
             # injected intermittent failure (chaos only)
             return done(web.json_response(
                 {"error": "injected flaky failure", "status": 500}, status=500))
-        shed = det.check_admission()
-        if shed is not None:  # draining / breaker open: reject before parsing
-            return done(_shed_response(shed))
+        tenant = None
+        if tenant_plane is not None:
+            # charge the tenant's bucket and inflight cap before any parse,
+            # fetch or decode: an over-quota tenant sheds 429 here
+            tenant = tenant_plane.resolve(request.headers)
+            try:
+                tadm = tenant_plane.try_admit(tenant)
+            except TenantQuotaError as exc:
+                det.engine.metrics.record_shed()
+                det.engine.metrics.record_admit_shed(classify_request(request.headers, None)[0])
+                return done(_shed_response(exc))
         try:
-            payload = await request.json()
-        except json.JSONDecodeError:
-            return done(web.Response(status=400, text="Invalid JSON body"))
-        cls, payload = classify_request(request.headers, payload)
-        shed = det.check_admission(cls)
-        if shed is not None:  # brownout bulk shed: reject before fetching
-            return done(_shed_response(shed))
-        try:
-            response = await det.detect(payload, cls=cls)
-        except pydantic.ValidationError as exc:
-            return done(web.Response(status=400, text=f"Invalid request: {exc}"))
-        except QueriesUnsupportedError as exc:
-            return done(web.Response(status=400, text=str(exc)))
-        except AdmissionError as exc:  # every image shed -> 429/503
-            return done(_shed_response(exc))
-        except Exception:
-            logger.exception("detect failed")
-            return done(web.Response(status=500, text="Internal server error"))
-        return done(web.json_response(response.model_dump(exclude_none=True)))
+            shed = det.check_admission()
+            if shed is not None:  # draining / breaker open: reject before parsing
+                return done(_shed_response(shed))
+            try:
+                payload = await request.json()
+            except json.JSONDecodeError:
+                return done(web.Response(status=400, text="Invalid JSON body"))
+            cls, payload = classify_request(request.headers, payload)
+            shed = det.check_admission(cls, tenant)
+            if shed is not None:  # brownout bulk shed: reject before fetching
+                return done(_shed_response(shed))
+            # per-URL cache outcomes (X-Cache) and verdicts (X-Spotter-Negative)
+            info: dict = {}
+            try:
+                response = await det.detect(payload, cls=cls, info=info, tenant=tenant)
+            except pydantic.ValidationError as exc:
+                return done(web.Response(status=400, text=f"Invalid request: {exc}"))
+            except QueriesUnsupportedError as exc:
+                return done(web.Response(status=400, text=str(exc)))
+            except AdmissionError as exc:  # every image shed -> 429/503
+                return done(_shed_response(exc))
+            except Exception:
+                logger.exception("detect failed")
+                return done(web.Response(status=500, text="Internal server error"))
+            body = response.model_dump(exclude_none=True)
+            # `Accept: application/x-spotter-frame` negotiates the binary
+            # frame; otherwise the plain JSON response, byte-identical
+            frame = wire.wants_frame(request.headers.get("Accept"))
+            if frame:
+                # corrupt_frame (chaos only) flips a byte after the CRCs
+                resp = web.Response(
+                    body=faults.corrupt_frame_bytes(wire.encode_frame(body),
+                                                    det.engine.metrics.replica_id),
+                    content_type=wire.FRAME_CONTENT_TYPE,
+                )
+            else:
+                resp = web.json_response(body)
+            x_cache = wire.summarize_cache_outcomes((info.get("cache") or {}).values())
+            if x_cache is not None:
+                resp.headers[wire.X_CACHE_HEADER] = x_cache
+            verdicts = wire.encode_negative_header(info.get("negative") or {})
+            if verdicts is not None:
+                resp.headers[wire.NEGATIVE_HEADER] = verdicts
+            out_bytes = resp.body
+            det.engine.metrics.record_wire(
+                request.content_length or 0,
+                len(out_bytes) if isinstance(out_bytes, (bytes, bytearray)) else 0,
+                frame,
+            )
+            return done(resp)
+        finally:
+            # a client disconnect (CancelledError at any await) or an
+            # uncaught error must still free the tenant's slot; after done()
+            # this is a no-op, and it never touches the SLO burn
+            if tadm is not None:
+                tadm.release(good=None)
 
     async def startupz(request: web.Request) -> web.Response:
         return web.json_response(tracker.snapshot(), status=200 if tracker.ready else 503)
@@ -323,7 +416,19 @@ def make_app(
         plane = request.app.get("integrity")
         if plane is not None:
             snap["integrity"] = plane.snapshot()
+        # the bounded top-K per-tenant view; absent when unconfigured
+        if tenant_plane is not None:
+            snap["tenants"] = tenant_plane.metrics_view()
         return obs_http.metrics_response(request, snap)
+
+    async def debug_tenants(request: web.Request) -> web.Response:
+        """The full per-tenant table, admin-gated like /profile."""
+        rejected = obs_http.admin_rejection(request)
+        if rejected is not None:
+            return rejected
+        if tenant_plane is None:
+            return web.json_response({"enabled": False})
+        return web.json_response(tenant_plane.snapshot())
 
     async def profile(request: web.Request) -> web.Response:
         """A torch.profiler capture of in-flight device work, into a
@@ -382,6 +487,7 @@ def make_app(
     app.router.add_post("/drain", drain)
     app.router.add_get("/metrics", metrics)
     app.router.add_post("/profile", profile)
+    app.router.add_get("/debug/tenants", debug_tenants)
     app.router.add_get("/debug/traces", obs_http.make_debug_traces_handler())
     app.router.add_get("/debug/perf", obs_http.make_debug_perf_handler(
         lambda: app["detector"].engine.metrics if app["detector"] is not None else None))
@@ -400,6 +506,12 @@ def main(argv=None) -> None:
     parser.add_argument("--no-warmup", action="store_true")
     parser.add_argument("--decode-workers", type=int, default=None,
                         help=f"host decode/resize pool size ({DECODE_WORKERS_ENV})")
+    parser.add_argument("--cache-mb", type=float, default=None,
+                        help="result cache and request coalescing budget in MB "
+                             "(SPOTTER_TPU_CACHE_MAX_MB; 0, the default, disables the tier)")
+    parser.add_argument("--stub-engine", action="store_true",
+                        help=f"canned-detection stub engine ({stub_engine.STUB_ENGINE_ENV}=1); "
+                             "tests only, never production")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     # SPOTTER_TPU_LOG_JSON=1: JSON log lines carrying the trace and request
@@ -409,6 +521,12 @@ def main(argv=None) -> None:
     # behave identically
     if args.decode_workers is not None:
         os.environ[DECODE_WORKERS_ENV] = str(args.decode_workers)
+    if args.cache_mb is not None:
+        from spotter_tpu_torch.caching.result_cache import CACHE_MAX_MB_ENV
+
+        os.environ[CACHE_MAX_MB_ENV] = str(args.cache_mb)
+    if args.stub_engine:
+        os.environ[stub_engine.STUB_ENGINE_ENV] = "1"
     web.run_app(
         make_app(model_name=args.model, warmup=not args.no_warmup, preemption=True,
                  device=args.device),

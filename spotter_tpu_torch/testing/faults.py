@@ -28,7 +28,20 @@ failures happen, without monkeypatching internals:
   perturbs n device parameters before the `verifying` gate;
   `corrupt_compile_cache=1` is consumed once at the golden probe and
   perturbs its observed answer while the weights attest clean;
-- `only_replica=<id>` scopes `flaky` and `sdc` to one replica id.
+- `only_replica=<id>` scopes `flaky`, `sdc`, `slow_replica` and
+  `corrupt_frame` to one replica id;
+- the result cache calls `on_cache(op, key)` on every get and put:
+  `cache_error=N` makes the next N raise, which the cache contains (a miss
+  or a skipped fill, never a failed request);
+- `slow_replica=<ms>`: the stub engine sleeps that long in its device
+  window on every call (`replica_delay_s`);
+- `corrupt_frame=<n>`: the next n binary-frame response bodies get one
+  byte flipped after encoding (`corrupt_frame_bytes`), which the frame's
+  CRCs must catch;
+- the tenancy drill's load generators read `tenant_flood=<tenant>:<xQuota>`
+  (`tenant_flood_spec`) and `tenant_retry_storm=<n>`
+  (`tenant_retry_storm_n`): the abusive client is the fault, the serving
+  path is unchanged.
 
 Activation is explicit: the `inject(...)` context manager (tests) or
 `maybe_activate_from_env()` reading `SPOTTER_TPU_FAULTS` (e.g.
@@ -68,14 +81,9 @@ JAX_FAULTS = (
 # that plane's ROADMAP item
 UNPORTED_FAULTS = {
     "shard_dead": "multi-GPU serving (ROADMAP Queue 1 item 10)",
-    "cache_error": "the result cache (ROADMAP Queue 1 item 6)",
-    "corrupt_frame": "the binary wire format (ROADMAP Queue 1 item 6)",
-    "slow_replica": "the stub engine (ROADMAP Queue 1 item 6)",
     "preempt_storm": "the fleet tier (ROADMAP Queue 1 item 12)",
     "controller_crash": "the fleet tier (ROADMAP Queue 1 item 12)",
     "journal_corrupt": "the fleet tier (ROADMAP Queue 1 item 12)",
-    "tenant_flood": "tenancy (ROADMAP Queue 1 item 6)",
-    "tenant_retry_storm": "tenancy (ROADMAP Queue 1 item 6)",
 }
 
 
@@ -89,15 +97,21 @@ class FaultPlan:
     # poison tagging on/off, and armed device-OOM count
     poison_item: int = 0
     engine_oom: int = 0
+    # armed ResultCache get/put failures (contained by the cache)
+    cache_error: int = 0
     # the adaptive limiter's next N control ticks see a synthetic
     # far-over-target queue-wait p90 (consumed one per control interval)
     overload_spike: int = 0
     # "<stage>:<ms>" latency injected into the named pipeline stage on every
     # pass while the plan is active; several stages: ";"-separated pairs
     slow_stage: str = ""
-    # percent of /detect requests answering 500 (deterministic)
+    # ms of slowdown in every stub-engine call (the gray signature), percent
+    # of /detect requests answering 500 (deterministic), and armed frame
+    # corruptions (the next N binary-frame bodies get a byte flipped)
+    slow_replica: float = 0.0
     flaky: int = 0
-    # scope flaky / sdc to one replica id; empty = every replica
+    corrupt_frame: int = 0
+    # scope the per-replica faults to one replica id; empty = every replica
     only_replica: str = ""
     # percent of engine answers perturbed into plausible garbage, number of
     # device params corrupted at bring-up, and a one-shot miscompiled-program
@@ -105,6 +119,11 @@ class FaultPlan:
     sdc: int = 0
     corrupt_weights: int = 0
     corrupt_compile_cache: int = 0
+    # "<tenant>:<xQuota>" (the named tenant floods at that multiple of its
+    # quota) and an abusive client's immediate re-sends per shed: both read
+    # by drill load generators
+    tenant_flood: str = ""
+    tenant_retry_storm: int = 0
     # set() to un-wedge hanging engine calls early (tests)
     release: threading.Event = field(default_factory=threading.Event)
     _lock: threading.Lock = field(default_factory=threading.Lock)
@@ -161,11 +180,15 @@ def parse_spec(spec: str) -> dict:
         elif key == "slow_stage":
             kwargs[key] = value.strip()
             _parse_slow_stage(kwargs[key])  # fail loudly at activation
+        elif key == "tenant_flood":
+            kwargs[key] = value.strip()
+            _parse_tenant_flood(kwargs[key])  # fail loudly at activation
         elif key == "only_replica":
             kwargs[key] = value.strip()
         else:
             try:
-                kwargs[key] = float(value) if key.endswith("_s") else int(value)
+                duration = key.endswith("_s") or key == "slow_replica"
+                kwargs[key] = float(value) if duration else int(value)
             except ValueError:
                 raise ValueError(f"bad {FAULTS_ENV} entry {part!r}") from None
     if unported:
@@ -281,6 +304,17 @@ def on_engine_dispatch(n_images: int, device_ids: list) -> None:
         )
 
 
+def on_cache(op: str, key: str) -> None:
+    """ResultCache hook, called on every get and put (positive and
+    negative). The cache contains what this raises: a miss or a skipped
+    fill, never a failed request."""
+    plan = _active
+    if plan is None:
+        return
+    if plan._consume("cache_error"):
+        raise RuntimeError(f"injected cache failure ({op} {key!r})")
+
+
 def take_overload_spike() -> bool:
     """AdaptiveLimiter hook: consume one armed overload-spike tick."""
     plan = _active
@@ -295,6 +329,16 @@ def _in_scope(plan: FaultPlan, replica_id: str | None) -> bool:
     return not plan.only_replica or (
         replica_id is not None and replica_id == plan.only_replica
     )
+
+
+def replica_delay_s(replica_id: str | None = None) -> float:
+    """Whole-replica slowdown (seconds per engine call); 0.0 when no plan is
+    active. The stub engine sleeps it inside its device window, so the
+    slowdown shows in traces and stage histograms like a throttled card."""
+    plan = _active
+    if plan is None or plan.slow_replica <= 0 or not _in_scope(plan, replica_id):
+        return 0.0
+    return plan.slow_replica / 1000.0
 
 
 def take_flaky(replica_id: str | None = None) -> bool:
@@ -377,3 +421,54 @@ def take_corrupt_compile_cache() -> bool:
     if plan is None:
         return False
     return plan._consume("corrupt_compile_cache")
+
+
+# ---- tenant-isolation drills and the wire ----
+
+
+def _parse_tenant_flood(spec: str) -> tuple[str, float]:
+    """`"abuser:8"` -> ("abuser", 8.0): the named tenant floods at that
+    multiple of its sustained quota rate."""
+    tenant, sep, mult = spec.partition(":")
+    tenant = tenant.strip()
+    if not sep or not tenant:
+        raise ValueError(f"bad tenant_flood entry {spec!r}: expected <tenant>:<xQuota>")
+    try:
+        factor = float(mult)
+    except ValueError:
+        raise ValueError(f"bad tenant_flood entry {spec!r}: xQuota must be a number") from None
+    if factor <= 0:
+        raise ValueError(f"bad tenant_flood entry {spec!r}: xQuota must be > 0")
+    return tenant, factor
+
+
+def tenant_flood_spec() -> tuple[str, float] | None:
+    """Drill load-generator hook: (tenant, xQuota) while a tenant_flood plan
+    is active, else None. The generator sends the named tenant's traffic at
+    xQuota times its sustained rate; the serving path is unchanged."""
+    plan = _active
+    if plan is None or not plan.tenant_flood:
+        return None
+    return _parse_tenant_flood(plan.tenant_flood)
+
+
+def tenant_retry_storm_n() -> int:
+    """Drill load-generator hook: how many immediate re-sends (ignoring
+    Retry-After) the abusive client fires per shed; 0 when not armed."""
+    plan = _active
+    if plan is None:
+        return 0
+    return max(plan.tenant_retry_storm, 0)
+
+
+def corrupt_frame_bytes(data: bytes, replica_id: str | None = None) -> bytes:
+    """Response-encode hook: while armed, flip one byte near the tail of the
+    encoded frame (a CRC-protected segment byte) and consume one
+    `corrupt_frame` unit. Identity when not armed."""
+    plan = _active
+    if plan is None or not data or not _in_scope(plan, replica_id):
+        return data
+    if not plan._consume("corrupt_frame"):
+        return data
+    idx = max(len(data) - 2, 0)
+    return data[:idx] + bytes([data[idx] ^ 0xFF]) + data[idx + 1:]

@@ -1,12 +1,15 @@
 """Knobs the replica used to ignore, now refused or checked with the JAX
 package's texts, and the knobs a captured graph is keyed by.
 
-- `SPOTTER_TPU_STUB_ENGINE` (the JAX replica's canned-detection engine)
-  and the `SPOTTER_TPU_FAULTS` faults whose seams the port does not have
-  raise at bring-up, naming their ROADMAP item; their off values serve,
-  and so do the faults whose seams are ported (testing/faults.py), which
+- The `SPOTTER_TPU_FAULTS` faults whose seams the port does not have raise
+  at bring-up, naming their ROADMAP item; their off values serve, and so
+  do the faults whose seams are ported (testing/faults.py), which
   `make_app` arms. An unknown fault raises the JAX text first, as
   `spotter_tpu.testing.faults` does.
+- `SPOTTER_TPU_STUB_ENGINE` (the canned-detection engine,
+  testing/stub_engine.py) brings the stub replica up exactly when the JAX
+  package's `stub_mode_enabled` says so, and the stub passes its
+  `verifying` gate.
 - `SPOTTER_TPU_TOPK` outside auto|lax|bisect raises at the top-k call with
   the JAX text; every valid value serves (all compute lax.top_k's result).
 - `SPOTTER_TPU_PROFILER_PORT` has no torch counterpart and raises at
@@ -15,6 +18,7 @@ package's texts, and the knobs a captured graph is keyed by.
   knob change captures anew instead of replaying a stale graph.
 """
 
+import asyncio
 import os
 
 import numpy as np
@@ -29,6 +33,7 @@ from spotter_tpu_torch.ops import msda, openvocab, postprocess
 from spotter_tpu_torch.serving import app as tapp
 from spotter_tpu_torch.serving import standalone as tstandalone
 from spotter_tpu_torch.testing import faults as tfaults
+from spotter_tpu_torch.testing import stub_engine as tstub
 from spotter_tpu_torch.utils import quant
 
 MODEL = "PekingU/rtdetr_v2_r101vd"
@@ -43,18 +48,54 @@ def clean_env(monkeypatch):
     return monkeypatch
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("SPOTTER_TPU_STUB_ENGINE", "1"), ("SPOTTER_TPU_STUB_ENGINE", " 0"),
-    ("SPOTTER_TPU_FAULTS", "cache_error=1"), ("SPOTTER_TPU_FAULTS", "sdc=5,tenant_flood=abuser:8"),
-    ("SPOTTER_TPU_PROFILER_PORT", "9012"),
+@pytest.mark.parametrize("knob,value,item", [
+    ("SPOTTER_TPU_FAULTS", "shard_dead=0", 10),
+    ("SPOTTER_TPU_FAULTS", "sdc=5,preempt_storm=3", 12),
+    ("SPOTTER_TPU_PROFILER_PORT", "9012", 6),
 ], ids=str)
-def test_unported_knob_raises_at_bring_up(clean_env, knob, value):
+def test_unported_knob_raises_at_bring_up(clean_env, knob, value, item):
     clean_env.setenv(knob, value)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6") as info:
+    with pytest.raises(ValueError, match=f"ROADMAP Queue 1 item {item}") as info:
         tapp.build_detector_app(MODEL, tiny=True, device="cpu")
-    assert knob in str(info.value)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
+    assert knob in str(info.value) or value.split("=")[0] in str(info.value)
+    with pytest.raises(ValueError, match=f"ROADMAP Queue 1 item {item}"):
         tstandalone.make_app(model_name=MODEL, device="cpu")
+
+
+async def _stub_bring_up():
+    """A replica brought up through make_app with whatever
+    SPOTTER_TPU_STUB_ENGINE says: its startup state, exits and engine."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    exits = []
+    app = tstandalone.make_app(model_name=MODEL, device="cpu", bringup_exit_cb=exits.append,
+                               integrity_exit_cb=exits.append)
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        for _ in range(400):
+            state = (await (await client.get("/startupz")).json())["state"]
+            if state in ("ready", "failed"):
+                break
+            await asyncio.sleep(0.02)
+        status = None
+        if state == "ready":
+            resp = await client.post("/detect", json={"image_urls": ["http://cdn/a.jpg"]})
+            status = resp.status
+        return state, exits, app["detector"], status
+    finally:
+        await client.close()
+
+
+@pytest.mark.parametrize("value", ["1", " 0"], ids=repr)
+def test_stub_engine_knob_serves_the_stub(clean_env, value):
+    """Formerly refusals: any value but "" and "0" brings up the stub
+    replica, which passes its verifying gate and answers /detect."""
+    clean_env.setenv("SPOTTER_TPU_STUB_ENGINE", value)
+    clean_env.setenv("SPOTTER_TPU_BATCH_BUCKETS", "1")
+    state, exits, det, status = asyncio.run(_stub_bring_up())
+    assert state == "ready" and not exits
+    assert isinstance(det.engine, tstub.StubEngine) and status == 200
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -67,17 +108,20 @@ def test_off_values_serve(clean_env, knob, value):
 
 
 def test_stub_off_values_are_the_jax_ones(clean_env):
+    """The stub serves exactly when JAX's `stub_mode_enabled` says so; any
+    other bring-up builds the model (tiny here)."""
     from spotter_tpu.testing import stub_engine
 
+    clean_env.setenv("SPOTTER_TPU_TINY", "1")
+    clean_env.setenv("SPOTTER_TPU_BATCH_BUCKETS", "1")
+    clean_env.setenv("SPOTTER_TPU_INTEGRITY", "0")
     for value in ("", "0", "1", " 0", "true"):
         clean_env.setenv("SPOTTER_TPU_STUB_ENGINE", value)
-        refused = True
-        try:
-            tapp.refuse_unported_planes()
-            refused = False
-        except ValueError:
-            pass
-        assert refused == stub_engine.stub_mode_enabled(), value
+        tapp.refuse_unported_planes()
+        state, exits, det, _ = asyncio.run(_stub_bring_up())
+        assert state == "ready" and not exits, value
+        assert tstub.stub_mode_enabled() == stub_engine.stub_mode_enabled(), value
+        assert isinstance(det.engine, tstub.StubEngine) == stub_engine.stub_mode_enabled(), value
 
 
 @pytest.mark.parametrize("spec", ["no_such_fault=1", "engine_oom=1, bogus=2", "=3"])
@@ -92,7 +136,8 @@ def test_unknown_fault_raises_the_jax_text(clean_env, spec):
 
 
 @pytest.mark.parametrize("spec", ["engine_oom=1", "sdc=5,slow_stage=device:10",
-                                  "corrupt_weights=1,corrupt_compile_cache=1"])
+                                  "corrupt_weights=1,corrupt_compile_cache=1", "cache_error=1",
+                                  "sdc=5,tenant_flood=abuser:8"])
 def test_ported_faults_serve_and_arm(clean_env, spec):
     """Formerly refusals: faults whose seams are ported pass the bring-up
     check, and `make_app` arms their plan."""
@@ -104,7 +149,10 @@ def test_ported_faults_serve_and_arm(clean_env, spec):
         assert plan is not None
         for part in spec.split(","):
             key, _, value = part.partition("=")
-            assert str(getattr(plan, key)) == (value if key == "slow_stage" else str(int(value)))
+            if key in ("slow_stage", "tenant_flood"):
+                assert getattr(plan, key) == value
+            else:
+                assert getattr(plan, key) == int(value)
     finally:
         tfaults._active = None
 

@@ -6,9 +6,12 @@ Pure-function parity on the same inputs: the plan parsed from the same
 SPOTTER_TPU_FAULTS strings has the same fields; a bad string raises the same
 text; `perturb_detections` gives the same garbage; the Bresenham shares of
 `flaky` and `sdc` (with `only_replica` scoping) fire on the same calls; the
-one-shot and consume-whole takes behave alike. The faults whose seams the
-port does not have raise the port's text, after the JAX text for an unknown
-fault.
+one-shot and consume-whole takes behave alike; the seams of the result
+cache (`cache_error`), the wire (`corrupt_frame`), the stub engine
+(`slow_replica`) and the tenancy drills (`tenant_flood`,
+`tenant_retry_storm`) arm and act as JAX's. The faults whose seams the
+port does not have (a dead shard, the fleet tier) raise the port's text,
+after the JAX text for an unknown fault.
 
 Then each seam on a tiny RT-DETR replica on the CPU: `engine_oom` splits the
 chunk and retries (transient), `engine_error` fails its batch,
@@ -46,14 +49,19 @@ SPECS = [
     "flaky=25,only_replica=r-7",
     "sdc=33,corrupt_weights=2,corrupt_compile_cache=1",
     "  engine_oom=1 ,, ",
+    "cache_error=2,corrupt_frame=1,slow_replica=12.5",
+    "tenant_flood=abuser:8,tenant_retry_storm=3,only_replica=r-2",
 ]
 BAD_SPECS = [
     "no_such_fault=1", "engine_oom=1, bogus=2", "=3", "engine_oom=x", "fetch_delay_s=soon",
     "slow_stage=device", "slow_stage=device:fast", "engine_oom=x,bogus=1",
+    "tenant_flood=abuser", "tenant_flood=:3", "tenant_flood=a:x", "tenant_flood=a:0",
+    "slow_replica=soon", "cache_error=1.5",
 ]
-UNPORTED = ["shard_dead=0", "cache_error=1", "corrupt_frame=2", "slow_replica=50",
-            "preempt_storm=3", "controller_crash=2", "journal_corrupt=1",
-            "tenant_flood=abuser:8", "tenant_retry_storm=3", "engine_oom=1,cache_error=1"]
+UNPORTED = ["shard_dead=0", "preempt_storm=3", "controller_crash=2", "journal_corrupt=1"]
+# the seams this port had refused until their planes came in
+ARMED = ["cache_error=1", "corrupt_frame=2", "slow_replica=50", "tenant_flood=abuser:8",
+         "tenant_retry_storm=3", "engine_oom=1,cache_error=1"]
 
 
 @pytest.fixture(autouse=True)
@@ -109,6 +117,44 @@ def test_unported_fault_raises_after_the_jax_checks(monkeypatch, spec):
     assert faults.active() is None
     with pytest.raises(ValueError, match="is not ported"):
         tstandalone.make_app(model_name=MODEL, device="cpu")
+
+
+@pytest.mark.parametrize("spec", ARMED)
+def test_newly_armed_fault_parses_as_jax_and_serves(monkeypatch, spec):
+    monkeypatch.setenv(faults.FAULTS_ENV, spec)
+    assert _fields(faults.maybe_activate_from_env()) == _fields(jfaults.maybe_activate_from_env())
+    tapp.refuse_unported_planes()
+    tstandalone.make_app(model_name=MODEL, device="cpu")
+    assert faults.active() is not None
+
+
+def test_armed_seams_act_as_jax():
+    data = bytes(range(40))
+    for kw in ({"slow_replica": 40.0, "corrupt_frame": 2, "tenant_flood": "hobby:5",
+                "tenant_retry_storm": 3, "cache_error": 2},
+               {"slow_replica": 7.5, "corrupt_frame": 1, "only_replica": "r-1",
+                "tenant_retry_storm": -1}):
+        with faults.inject(**kw), jfaults.inject(**kw):
+            for rid in ("r-1", "r-2", None):
+                assert faults.replica_delay_s(rid) == jfaults.replica_delay_s(rid)
+            assert faults.tenant_flood_spec() == jfaults.tenant_flood_spec()
+            assert faults.tenant_retry_storm_n() == jfaults.tenant_retry_storm_n()
+            for rid in ("r-1", "r-1", "r-2", "r-1"):
+                assert faults.corrupt_frame_bytes(data, rid) == jfaults.corrupt_frame_bytes(data,
+                                                                                           rid)
+            got = []
+            for side in (faults, jfaults):
+                outcomes = []
+                for _ in range(3):
+                    try:
+                        side.on_cache("get", "k")
+                        outcomes.append(None)
+                    except RuntimeError as exc:
+                        outcomes.append(str(exc))
+                got.append(outcomes)
+            assert got[0] == got[1]
+    assert faults.replica_delay_s() == 0.0 and faults.tenant_flood_spec() is None
+    assert faults.corrupt_frame_bytes(data) == data
 
 
 detection = st.fixed_dictionaries({

@@ -137,6 +137,23 @@ INTEGRITY_MODULES = (
 )
 
 
+# the replica-planes slice's modules: tenancy, the result cache with its
+# single-flight and keys, the binary wire format and the stub engine
+PLANES_MODULES = (
+    "spotter_tpu_torch.serving.tenancy",
+    "spotter_tpu_torch.serving.wire",
+    "spotter_tpu_torch.caching",
+    "spotter_tpu_torch.caching.keys",
+    "spotter_tpu_torch.caching.singleflight",
+    "spotter_tpu_torch.caching.result_cache",
+    "spotter_tpu_torch.testing.stub_engine",
+)
+
+
+def test_every_planes_module_is_covered():
+    assert set(PLANES_MODULES) <= set(MODULES)
+
+
 def test_every_integrity_module_is_covered():
     assert set(INTEGRITY_MODULES) <= set(MODULES)
 

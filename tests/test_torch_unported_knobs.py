@@ -1,12 +1,14 @@
-"""Knobs of the JAX package that the port does not serve are refused, not
-ignored.
+"""The JAX package's serving knobs: each serves as the JAX package's does, or,
+where the port lacks the plane, is refused rather than ignored.
 
-- The tenancy and result-cache planes (ROADMAP Queue 1 item 6):
-  `build_detector_app` and the standalone `make_app` raise, naming the
-  item, when one of their knobs asks for the plane; the knobs' off values
-  serve. The output-integrity plane is ported: `SPOTTER_TPU_INTEGRITY`
-  serves with the plane on (any value but "" and "0", the default) or off,
-  and the plane's snapshot is in /metrics, not /healthz.
+- The tenancy and result-cache planes are ported: every knob that used to
+  be refused now brings the replica up, building the plane exactly when
+  JAX's `tenancy.from_env` / `ResultCache.from_env` builds it; the knobs'
+  off values serve without it, and a cache size that is not a number
+  raises the JAX text. The output-integrity plane is ported:
+  `SPOTTER_TPU_INTEGRITY` serves with the plane on (any value but "" and
+  "0", the default) or off, and the plane's snapshot is in /metrics, not
+  /healthz.
 - `SPOTTER_TPU_MSDA_PRECISION`: "highest" and "default" (one bf16 pass,
   the MSDA kernels' one-pass mode) serve; any other value raises with the
   JAX package's own text, at build and when a forward runs.
@@ -18,20 +20,28 @@ import numpy as np
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
+from spotter_tpu.caching import result_cache as jrc
 from spotter_tpu.ops import msda as jmsda  # imported before any test sets the knob
+from spotter_tpu.serving import tenancy as jtenancy
+from spotter_tpu_torch.caching import result_cache
 from spotter_tpu_torch.ops import msda
 from spotter_tpu_torch.serving import app as tapp
-from spotter_tpu_torch.serving import integrity
+from spotter_tpu_torch.serving import integrity, tenancy
 from spotter_tpu_torch.serving import standalone as tstandalone
 
 MODEL = "PekingU/rtdetr_v2_r101vd"
-REFUSED = [(knob, "x") for knob in tapp.TENANCY_KNOBS] + [
+TENANCY_KNOBS = (
+    tenancy.TENANT_KEYS_ENV, tenancy.TENANT_CONFIG_ENV, tenancy.TENANT_RPS_DEFAULT_ENV,
+    tenancy.TENANT_TOP_K_ENV, tenancy.TENANT_EDGE_SECRET_ENV, tenancy.TENANT_TRUST_HEADER_ENV,
+)
+# the knobs the port refused while it lacked their planes
+PLANE_KNOBS = [(knob, "x") for knob in TENANCY_KNOBS] + [
     ("SPOTTER_TPU_TENANT_KEYS", "k1:acme"),
     ("SPOTTER_TPU_CACHE_MAX_MB", "64"),
     ("SPOTTER_TPU_CACHE_MAX_MB", "0.5"),
 ]
 INTEGRITY_VALUES = [("1", True), ("true", True), ("", False), ("0", False), (" 0 ", False)]
-OFF_VALUES = [(knob, "") for knob in tapp.TENANCY_KNOBS] + [
+OFF_VALUES = [(knob, "") for knob in TENANCY_KNOBS] + [
     ("SPOTTER_TPU_TENANT_KEYS", "  "),
     ("SPOTTER_TPU_CACHE_MAX_MB", "0"),
     ("SPOTTER_TPU_CACHE_MAX_MB", ""),
@@ -40,7 +50,7 @@ OFF_VALUES = [(knob, "") for knob in tapp.TENANCY_KNOBS] + [
     ("SPOTTER_TPU_INTEGRITY", "0"),
     ("SPOTTER_TPU_INTEGRITY", " 0 "),
 ]
-ALL_KNOBS = (*tapp.TENANCY_KNOBS, tapp.CACHE_MAX_MB_ENV, integrity.INTEGRITY_ENV)
+ALL_KNOBS = (*TENANCY_KNOBS, result_cache.CACHE_MAX_MB_ENV, integrity.INTEGRITY_ENV)
 
 
 @pytest.fixture
@@ -52,14 +62,21 @@ def clean_env(monkeypatch):
     return monkeypatch
 
 
-@pytest.mark.parametrize("knob,value", REFUSED, ids=lambda v: str(v))
-def test_unported_plane_knob_raises_at_bring_up(clean_env, knob, value):
+@pytest.mark.parametrize("knob,value", PLANE_KNOBS, ids=lambda v: str(v))
+def test_plane_knob_serves_as_jax_at_bring_up(clean_env, knob, value):
+    """Formerly refusals: each knob brings the replica up, with the plane
+    built exactly when the JAX package builds it (a tenancy knob alone such
+    as SPOTTER_TPU_TENANT_TOP_K configures nothing there either)."""
     clean_env.setenv(knob, value)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6") as info:
-        tapp.build_detector_app(MODEL, tiny=True, device="cpu")
-    assert knob in str(info.value)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-        tstandalone.make_app(model_name=MODEL, device="cpu")
+    tapp.refuse_unported_planes()
+    det = tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
+    assert det.engine.device.type == "cpu"
+    assert (det.cache is None) == (jrc.ResultCache.from_env() is None)
+    if det.cache is not None:
+        assert det.cache.stats() == jrc.ResultCache.from_env().stats()
+        assert det.batcher.result_cache is det.cache
+    app = tstandalone.make_app(model_name=MODEL, device="cpu")
+    assert (app["tenancy"] is None) == (jtenancy.from_env() is None)
 
 
 @pytest.mark.parametrize("knob,value", OFF_VALUES, ids=lambda v: repr(v))
@@ -67,12 +84,16 @@ def test_unported_plane_knob_off_values_serve(clean_env, knob, value):
     clean_env.setenv(knob, value)
     det = tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
     assert det.engine.device.type == "cpu"
+    assert det.cache is None and tenancy.from_env() is None
 
 
 def test_cache_size_must_be_a_number(clean_env):
     clean_env.setenv("SPOTTER_TPU_CACHE_MAX_MB", "lots")
-    with pytest.raises(ValueError, match="must be a number"):
-        tapp.refuse_unported_planes()
+    with pytest.raises(ValueError, match="must be a number") as want:
+        jrc.ResultCache.from_env()
+    with pytest.raises(ValueError, match="must be a number") as got:
+        tapp.build_detector_app(MODEL, tiny=True, device="cpu", batch_buckets=(1,))
+    assert str(got.value) == str(want.value)
 
 
 async def _bring_up(app, polls: int = 600):
