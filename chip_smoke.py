@@ -122,7 +122,10 @@ Phases, each printing JSON lines:
              the other tenant), and an SPTF frame equal to the JSON;
 7. yolos_parity — yolos-base at B = 1 on the card against the same model on
              the CPU under "float32" (TF32 off), then the card under "mixed"
-             (bf16 body) against the card under "float32" at B = 8;
+             (bf16 body) against the card under "float32" at B = 8; and at
+             an off-native 640x960 (its position tables resized by
+             ops/resize.py) under each policy, the kernels' route against
+             the plain route (attention off the kernel) on the card;
 8. yolos_serve — InferenceEngine.detect on 1 and 8 photos under "float32"
              and "mixed"; flash_attn_fp32 with its split pass (resp. _bf16)
              must launch 12 times per forward and no other kernel at all; p50/p99, img/s, device
@@ -154,10 +157,24 @@ Phases, each printing JSON lines:
              forward at B = 1 and 8;
 15. detr_http — the standalone server with DETR-R50 answering POST /detect
              for 1 and 8 URLs, no kernel launched;
+15b. ragged — ragged canvas packing (SPOTTER_TPU_RAGGED=1) on
+             Deformable-DETR and DETR-R50, each a replica brought up through
+             make_app with the integrity gate and its probe at 1 s
+             (`phase_ragged`): a mix of listing-photo shapes, ragged (cold,
+             then warm) and FIFO on one engine, with padding waste, p50,
+             canvases, captures and their seconds, memory reserved; every
+             ragged pack within compare's tolerance of the engine's eager
+             forward at its canvas, one capture per new (bucket, canvas),
+             the probe never failing; a B = 8 int8 forward at a ragged
+             canvas bit equal to its plain witness; rows 1-5 at a ragged
+             canvas's level shapes (768x1333: 96x167 ... 12x21) against
+             their plain versions;
 16. owl_parity — OWLv2 and OWL-ViT B/32 at B = 1, the card against the CPU
              under "float32" (TF32 off): logits, boxes and objectness; then
-             OWLv2 on the card under "mixed" against "float32" at B = 8, and
-             SPOTTER_TPU_OWL_FUSED=0 (the unfused head) against auto;
+             OWLv2 at an off-native 768x768, the kernels' route against the
+             plain route on the card; OWLv2 on the card under "mixed" against
+             "float32" at B = 8, and SPOTTER_TPU_OWL_FUSED=0 (the unfused
+             head) against auto;
 17. owl_serve — OWLv2 through InferenceEngine.detect on 1 and 8 photos under
              "float32" and "mixed", plus requests with their own query set:
              owl_class_logits must launch once and flash_attn_fp32 with its
@@ -233,7 +250,7 @@ SPOTTER_TPU_CACHE, with CLIP-shaped ids drawn from --seed (the weights are
 random, so only the ids' shape matters). Every RT-DETR and Deformable-DETR
 path must launch neither attention kernel, no RT-DETR, YOLOS or
 Deformable-DETR path the class-logit kernel, and no DETR-lineage path any
-kernel. Then a
+kernel. Then each phase's seconds (`phase_seconds`), a
 `{"kernels": [...]}` summary line, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`. Any failure raises and the exit
 code is non-zero. Needs one CUDA card and the repository checkout around
@@ -242,7 +259,7 @@ this file; exits non-zero without either.
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernel,parity,serve,engine,http,
                                             integrity,planes,yolos_parity,yolos_serve,yolos_http,
                                             ddetr_parity,ddetr_serve,ddetr_http,
-                                            detr_parity,detr_serve,detr_http,
+                                            detr_parity,detr_serve,detr_http,ragged,
                                             owl_parity,owl_serve,owl_http,load,precision,
                                             int8,probes]
 
@@ -252,6 +269,8 @@ The full record is also written to build/chip_smoke.json (or --out).
 import argparse
 import asyncio
 import contextlib
+import copy
+import dataclasses
 import functools
 import importlib
 import json
@@ -271,7 +290,8 @@ REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernel", "parity", "serve", "engine", "http", "integrity",
           "planes", "yolos_parity",
           "yolos_serve", "yolos_http", "ddetr_parity", "ddetr_serve", "ddetr_http",
-          "detr_parity", "detr_serve", "detr_http", "owl_parity", "owl_serve", "owl_http",
+          "detr_parity", "detr_serve", "detr_http", "ragged", "owl_parity", "owl_serve",
+          "owl_http",
           "load", "precision", "int8", "probes")
 OWL_PHASES = ("owl_parity", "owl_serve", "owl_http")
 MODEL_NAME = "PekingU/rtdetr_v2_r101vd"
@@ -437,13 +457,13 @@ LP = len(SHAPES) * POINTS
 S_TOTAL = sum(h * w for h, w in SHAPES)
 
 
-def decoder_value(b: int, rows_dtype, rng, dev):
+def decoder_value(b: int, rows_dtype, rng, dev, s: int = S_TOTAL):
     """Decoder value maps as the model holds them, (B, S, H, hd) in
     `rows_dtype`, standard normal."""
     import torch
 
     value = torch.from_numpy(
-        rng.standard_normal((b, S_TOTAL, HEADS, HD), dtype=np.float32)).to(dev)
+        rng.standard_normal((b, s, HEADS, HD), dtype=np.float32)).to(dev)
     return value.to(rows_dtype)
 
 
@@ -602,9 +622,10 @@ def loc_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "c
 
 
 def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = "cuda",
-               precision: str = "highest") -> dict:
+               precision: str = "highest", shapes=SHAPES) -> dict:
     """msda_fused_sum (projections, softmax, locations and corners in the
-    kernel) against its plain version."""
+    kernel) against its plain version, at the level `shapes` (RT-DETR's
+    decoder's by default)."""
     import torch
 
     from spotter_tpu_torch.ops.msda import (
@@ -620,7 +641,8 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
 
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
-    value = decoder_value(b, rows_dtype, rng, dev)
+    s_total, lp = sum(h * w for h, w in shapes), len(shapes) * POINTS
+    value = decoder_value(b, rows_dtype, rng, dev, s_total)
     bh = b * HEADS
 
     def randn(*shape, scale=1.0):
@@ -632,11 +654,11 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
         [rng.uniform(0.05, 0.95, (b, QUERIES, 2)), rng.uniform(0.05, 0.5, (b, QUERIES, 2))],
         axis=-1).astype(np.float32)).to(dev)
     heads = fused_head_weights(
-        randn(D_MODEL, HEADS * LP * 2, scale=D_MODEL**-0.5), randn(HEADS * LP * 2, scale=0.1),
-        randn(D_MODEL, HEADS * LP, scale=D_MODEL**-0.5), randn(HEADS * LP, scale=0.1), HEADS,
+        randn(D_MODEL, HEADS * lp * 2, scale=D_MODEL**-0.5), randn(HEADS * lp * 2, scale=0.1),
+        randn(D_MODEL, HEADS * lp, scale=D_MODEL**-0.5), randn(HEADS * lp, scale=0.1), HEADS,
     )
-    base, scale = fused_anchors(ref, LP, POINTS, 0.5)
-    tables = level_tables(SHAPES, POINTS, dev, torch.float32)
+    base, scale = fused_anchors(ref, lp, POINTS, 0.5)
+    tables = level_tables(shapes, POINTS, dev, torch.float32)
     args = (value, hs, *heads, base, scale, *tables, method, precision)
 
     got = msda_fused_sum(*args)
@@ -651,12 +673,12 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
     idx, w = loc_corners(xy, at, *tables, method)
     j = idx.shape[2]
     extra = (hs.numel() + sum(t.numel() for t in heads) + base.numel() + scale.numel()
-             + got.numel()) * 4 + 3 * LP * 4
+             + got.numel()) * 4 + 3 * lp * 4
     return {
         "phase": "kernel", "kernel": "msda_fused_sum", "batch": b,
         "rows_dtype": str(rows_dtype).removeprefix("torch."), "method": method,
         "precision": precision,
-        "shape": {"bh": bh, "s": S_TOTAL, "hd": HD, "q": QUERIES, "lp": LP, "d": D_MODEL,
+        "shape": {"bh": bh, "s": s_total, "hd": HD, "q": QUERIES, "lp": lp, "d": D_MODEL,
                   "j": j},
         "max_abs_err": err, "atol": KERNEL_ATOL,
         "sass": msda_sass()[sass_key("msda_fused_sum", precision)] if device == "cuda" else None,
@@ -664,7 +686,7 @@ def fused_case(b: int, rows_dtype, method: str, seed: int, flush, device: str = 
         "plain_ms": cuda_time_ms(lambda: msda_fused_sum_plain(*args), 10, flush),
         "library_ms": None,  # no one PyTorch call computes this function
         **bound(value, idx, w, extra,
-                2 * bh * QUERIES * D_MODEL * 3 * LP + 2 * bh * QUERIES * j * HD),
+                2 * bh * QUERIES * D_MODEL * 3 * lp + 2 * bh * QUERIES * j * HD),
     }
 
 
@@ -684,6 +706,35 @@ MSDA_OP_SHAPES = {
     "ddetr_encoder": (DDETR_SHAPES, DDETR_TOKENS, (0, 1, 2, 3), True),
     "ddetr_decoder": (DDETR_SHAPES, QUERIES, (0, 1, 2, 3), False),
 }
+# Deformable-DETR at a ragged canvas (engine/scheduler.py): (768, 1333), the
+# snapped canvas of a 2:1 panorama, whose levels are not square and two of
+# them odd (167 and 21 wide), 21,324 tokens against the bucket's 37,150
+RAGGED_OP_CANVAS = (768, 1333)
+
+
+def ddetr_levels(hw) -> tuple:
+    """Deformable-DETR's four level shapes at an (H, W) canvas: ResNet-50's
+    strides 8, 16 and 32 and the extra stride-64 level, each a stride-2
+    convolution that rounds up."""
+    h, w, out = hw[0], hw[1], []
+    for step in range(6):
+        h, w = -(-h // 2), -(-w // 2)
+        if step >= 2:
+            out.append((h, w))
+    return tuple(out)
+
+
+RAGGED_DDETR_SHAPES = ddetr_levels(RAGGED_OP_CANVAS)
+RAGGED_OP_SHAPES = {
+    "ddetr_encoder_ragged": (RAGGED_DDETR_SHAPES, sum(h * w for h, w in RAGGED_DDETR_SHAPES),
+                             (0, 1, 2, 3), True),
+    "ddetr_decoder_ragged": (RAGGED_DDETR_SHAPES, QUERIES, (0, 1, 2, 3), False),
+}
+
+
+def op_shapes(label: str) -> tuple:
+    """(level shapes, queries, levels run, encoder-like) of an MSDA op case."""
+    return MSDA_OP_SHAPES[label] if label in MSDA_OP_SHAPES else RAGGED_OP_SHAPES[label]
 
 
 def msda_samples(b: int, q: int, shapes, seed: int, dev, encoder: bool):
@@ -768,7 +819,7 @@ def sep_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
     )
     from spotter_tpu_torch.tools.timing import cuda_time_ms
 
-    shapes, q, levels, encoder = MSDA_OP_SHAPES[label]
+    shapes, q, levels, encoder = op_shapes(label)
     dev = torch.device(device)
     s = sum(h * w for h, w in shapes)
     loc, attn = msda_samples(b, q, shapes, seed, dev, encoder)
@@ -851,7 +902,7 @@ def hd_gather_case(label: str, b: int, rows_dtype, method: str, seed: int, flush
     )
     from spotter_tpu_torch.tools.timing import cuda_time_ms
 
-    shapes, q, _, encoder = MSDA_OP_SHAPES[label]
+    shapes, q, _, encoder = op_shapes(label)
     dev = torch.device(device)
     s = sum(h * w for h, w in shapes)
     lp = len(shapes) * POINTS
@@ -927,7 +978,7 @@ def walk_op_case(label: str, b: int, rows_dtype, method: str, seed: int, flush,
     )
     from spotter_tpu_torch.tools.timing import cuda_time_ms
 
-    shapes, q, _, encoder = MSDA_OP_SHAPES[label]
+    shapes, q, _, encoder = op_shapes(label)
     dev = torch.device(device)
     s = sum(h * w for h, w in shapes)
     lp = len(shapes) * POINTS
@@ -1948,7 +1999,7 @@ def phase_http(log: list, seed: int, device: str = "cuda") -> dict:
         return lambda: setattr(msda, "MSDA_PREP", name)
 
     runs = [
-        ("fused", prep("fused"), [("1", 1, 10, 1), ("3", 3, 10, 1), ("8", 8, 10, 1),
+        ("fused", prep("fused"), [("1", 1, 5, 1), ("3", 3, 5, 1), ("8", 8, 5, 1),
                                   ("4x8", 8, 3, 4)]),
         ("kernel", prep("kernel"), [("8", 8, 3, 1)]),
     ]
@@ -2089,9 +2140,9 @@ def replica_env(env: dict):
 
 
 async def bring_up_replica(photo_dir: str, exits: list, watch_detect: bool = False,
-                           fetches: dict | None = None):
-    """The replica through `make_app(model_name=..., warmup=True,
-    device="cuda")` (its bring-up, not an injected detector) behind a local
+                           fetches: dict | None = None, model_name: str = MODEL_NAME):
+    """The replica of `model_name` through `make_app(model_name=...,
+    warmup=True, device="cuda")` (its bring-up, not an injected detector) behind a local
     server, with the photos on a static route. Polls /startupz every 50 ms
     until ready, failed or an exit code lands, recording the states seen;
     with `watch_detect`, also POSTs /detect at every poll and records the
@@ -2116,7 +2167,7 @@ async def bring_up_replica(photo_dir: str, exits: list, watch_detect: bool = Fal
         middlewares.append(count)
     images = web.Application(middlewares=middlewares)
     images.router.add_static("/img", photo_dir)
-    app = make_app(model_name=MODEL_NAME, warmup=True, device="cuda",
+    app = make_app(model_name=model_name, warmup=True, device="cuda",
                    bringup_exit_cb=exits.append, integrity_exit_cb=exits.append,
                    fatal_exit_cb=exits.append)
     runners = []
@@ -2828,6 +2879,61 @@ def build_yolos_under(policy: str, seed: int):
         return build_detector(YOLOS_NAME, tiny=False, seed=seed)
 
 
+# off-native inputs (the position tables resized by ops/resize.py's bicubic):
+# YOLOS-base at 640x960, 40x60 patches (2,501 tokens against the trained
+# 4,301, past the attention cutover); OWLv2 at 768x768, 48x48 patches
+YOLOS_OFF_NATIVE_HW = (640, 960)
+OWL_OFF_NATIVE_HW = (768, 768)
+
+
+@contextlib.contextmanager
+def plain_route(owl: bool = False):
+    """Every kernel a YOLOS or OWL forward reaches routed to its plain
+    version on the card while the block runs: the attention's (the
+    SPOTTER_TPU_FLASH_ATTN switch, read at each forward) and, for OWL, the
+    class-logit head's (SPOTTER_TPU_OWL_FUSED=0)."""
+    from spotter_tpu_torch.models import layers
+    from spotter_tpu_torch.ops import openvocab
+
+    saved = layers.FLASH_ATTN_ENABLED, openvocab.OWL_FUSED
+    layers.FLASH_ATTN_ENABLED = False
+    if owl:
+        openvocab.OWL_FUSED = "0"
+    try:
+        yield
+    finally:
+        layers.FLASH_ATTN_ENABLED, openvocab.OWL_FUSED = saved
+
+
+def off_native_record(model, inputs, expected: dict, owl: bool, atol: dict, what: str) -> dict:
+    """One forward at an off-native input on the kernels' route against the
+    plain route on the same card tensors: the kernels launch as `expected`
+    (none on the plain route), every output within `atol` (by output name)."""
+    import torch
+
+    with torch.inference_mode():
+        reset_counts()
+        got = model(*inputs)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        with plain_route(owl):
+            reset_counts()
+            plain = model(*inputs)
+            torch.cuda.synchronize()
+            plain_launches = read_counts()
+    check_counts(launches, expected, f"{what}, kernels' route")
+    check_counts(plain_launches, {}, f"{what}, plain route")
+    rec = {"compare": "kernels vs plain route (card)", "input_hw": list(inputs[0].shape[1:3]),
+           "card_launches": {k: v for k, v in launches.items() if v},
+           **{f"{k}_max_abs_err": (got[k].float() - plain[k].float()).abs().max().item()
+              for k in atol},
+           **{f"atol_{k}": v for k, v in atol.items()}}
+    bad = [k for k, v in atol.items() if not rec[f"{k}_max_abs_err"] <= v]
+    if bad or not all(torch.isfinite(got[k].float()).all() for k in atol):
+        raise AssertionError(f"{what}: {bad} outside tolerance, or not finite: {rec}")
+    return rec
+
+
 def release_cuda_memory() -> None:
     import gc
 
@@ -2889,6 +2995,14 @@ def phase_yolos_parity(log: list, seed: int, device: str = "cuda") -> list:
             and rec["boxes_max_abs_err"] <= PARITY_ATOL_BOXES):
         raise AssertionError(f"yolos card vs CPU outside tolerance: {rec}")
     del cpu_model, built, ref
+    x_off = torch.from_numpy(np.random.default_rng(seed + 5).uniform(
+        -2, 2, (1, *YOLOS_OFF_NATIVE_HW, 3)).astype(np.float32)).to(device)
+    rec = {"phase": "yolos_parity", "model": YOLOS_NAME, "policy": "float32", "batch": 1,
+           **off_native_record(gpu_model, (x_off,), {"flash_attn_fp32": layers}, False,
+                               {"logits": PARITY_ATOL_LOGITS, "pred_boxes": PARITY_ATOL_BOXES},
+                               "yolos off-native under float32")}
+    emit(rec, log)
+    records.append(rec)
 
     mixed_model = build_yolos_under("mixed", seed).module.to(device).eval()
     outs, counts = {}, {}
@@ -2901,6 +3015,14 @@ def phase_yolos_parity(log: list, seed: int, device: str = "cuda") -> list:
     for policy in outs:
         check_launches(counts[policy], POLICY_KERNEL[policy], layers,
                        f"yolos card forward under {policy}")
+    scale = outs["float32"]["logits"].abs().max().item()
+    rec = {"phase": "yolos_parity", "model": YOLOS_NAME, "policy": "mixed", "batch": 1,
+           **off_native_record(mixed_model, (x_off,), {"flash_attn_bf16": layers}, False,
+                               {"logits": MIXED_RTOL_LOGITS * scale,
+                                "pred_boxes": MIXED_ATOL_BOXES},
+                               "yolos off-native under mixed")}
+    emit(rec, log)
+    records.append(rec)
     o32, o16 = outs["float32"], outs["mixed"]
     scale = o32["logits"].abs().max().item()
     rec = {
@@ -2919,7 +3041,7 @@ def phase_yolos_parity(log: list, seed: int, device: str = "cuda") -> list:
     if not (rec["logits_max_abs_err"] <= rec["atol_logits"]
             and rec["boxes_max_abs_err"] <= MIXED_ATOL_BOXES):
         raise AssertionError(f"yolos mixed vs float32 outside tolerance: {rec}")
-    del gpu_model, mixed_model, outs, got
+    del gpu_model, mixed_model, outs, got, x_off
     release_cuda_memory()
     return records
 
@@ -3386,7 +3508,7 @@ def phase_detr_serve(log: list, seed: int, device: str = "cuda", rounds: int = 3
     return records
 
 
-def phase_detr_http(log: list, seed: int, device: str = "cuda", rounds: int = 10) -> dict:
+def phase_detr_http(log: list, seed: int, device: str = "cuda", rounds: int = 3) -> dict:
     """facebook/detr-resnet-50 behind the port's standalone server: `rounds`
     requests of 1 URL and of 8, the counts set to 0 just before and read just after (no
     kernel may launch). The score threshold stays the reference's: with
@@ -3420,6 +3542,320 @@ def phase_detr_http(log: list, seed: int, device: str = "cuda", rounds: int = 10
     if out["healthz"] != 200:
         raise AssertionError(f"/healthz answered {out['healthz']}")
     check_counts(out["detr"]["launches"], {}, "DETR /detect")
+    return rec
+
+
+# --- ragged canvas packing --------------------------------------------------
+
+# the ragged phase's mix of listing photos (h, w): 4:3 landscape (its resize
+# 800x1066 snaps to 896x1152), 3:2 landscape (800x1200 -> 896x1280), 3:4
+# portrait, a square and a 2:1 panorama (666x1333 -> 768x1333), a few photos
+# of each; requests of 1-8 of them, drawn from --seed, from concurrent clients
+RAGGED_SHAPES = ((768, 1024), (800, 1200), (1024, 768), (1000, 1000), (800, 1600))
+RAGGED_PHOTOS_PER_SHAPE = 3
+RAGGED_REQUESTS = 12
+RAGGED_CLIENTS = 4
+RAGGED_MODELS = (DDETR_NAME, DETR_NAME)
+# the op-level check's batch: every kernel of rows 1-5 at one ragged canvas
+RAGGED_OP_BATCH = 2
+
+
+def ragged_requests(seed: int) -> list:
+    """The mix: RAGGED_REQUESTS lists of photo names, 1-8 each."""
+    rng = np.random.default_rng(seed + 22)
+    names = [f"m{k}_{i}.jpg" for k in range(len(RAGGED_SHAPES))
+             for i in range(RAGGED_PHOTOS_PER_SHAPE)]
+    return [[str(n) for n in rng.choice(names, size=int(rng.integers(1, 9)))]
+            for _ in range(RAGGED_REQUESTS)]
+
+
+def write_ragged_photos(photo_dir: str, seed: int) -> None:
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 23)
+    for k, (h, w) in enumerate(RAGGED_SHAPES):
+        for i in range(RAGGED_PHOTOS_PER_SHAPE):
+            Image.fromarray(synthetic_photo(rng, h, w)).save(f"{photo_dir}/m{k}_{i}.jpg",
+                                                             quality=90)
+
+
+async def mix_burst(client, api: str, base: str, requests: list) -> list:
+    """The mix's requests from RAGGED_CLIENTS concurrent clients, each
+    answer checked against the wire schema; their latencies (ms)."""
+    lat, todo = [], list(requests)
+
+    async def one_client():
+        while todo:
+            names = todo.pop(0)
+            urls = [f"{base}/{n}" for n in names]
+            t = time.perf_counter()
+            resp = await client.post(f"{api}/detect", json={"image_urls": urls})
+            resp.raise_for_status()
+            lat.append((time.perf_counter() - t) * 1e3)
+            k = int(names[0][1:names[0].index("_")])
+            check_http_response(resp.json(), urls, RAGGED_SHAPES[k])
+
+    await asyncio.gather(*(one_client() for _ in range(RAGGED_CLIENTS)))
+    return lat
+
+
+def eager_pack(engine, chunk: list, canvas) -> list:
+    """The engine's eager answer for one pack (uint8 arrays): staged into
+    `canvas` as a served chunk is, the forward run eagerly (no graph) on the
+    engine's stream, thresholded as `_finish` does."""
+    import torch
+
+    from spotter_tpu_torch.ops.postprocess import to_detections
+
+    with engine._h2d_lock:
+        staged = engine._put_staged(engine._stage_host(chunk, canvas))[0]
+        with torch.inference_mode(), engine._on_stream():
+            outs = [t.cpu() for t in engine._forward_flat(*staged)]
+    scores, labels, boxes = (t.numpy() for t in outs)
+    return [to_detections(scores[j], labels[j], boxes[j], engine.built.id2label,
+                          engine.threshold) for j in range(len(chunk))]
+
+
+def waste_since(metrics, n0: int) -> float | None:
+    """The mean padding waste of the packs dispatched since the window held
+    `n0` of them."""
+    new = list(metrics._padding_waste_pct)[n0:]
+    return sum(new) / len(new) if new else None
+
+
+def int8_at_canvas(engine, photo_dir: str, names: list, other: dict, what: str) -> dict:
+    """One B = 8 forward of the replica's model at a ragged canvas with
+    SPOTTER_TPU_INT8 on (`conv_s8`, `amax_s8` and `quantize_nhwc_s8` at
+    canvas-shaped activations): bit equal to its plain witness."""
+    import torch
+    from PIL import Image
+
+    from spotter_tpu_torch.engine.scheduler import Scheduler
+    from spotter_tpu_torch.ops.preprocess import (
+        batch_images_uint8,
+        device_rescale_normalize_masked,
+        shortest_edge_size,
+    )
+
+    spec = engine.built.preprocess_spec
+    photos = [np.asarray(Image.open(f"{photo_dir}/{n}").convert("RGB")) for n in names]
+    dims = [shortest_edge_size(p.shape[:2], *spec.size) for p in photos]
+    canvas = Scheduler(spec=spec, ragged=True)._snap((max(h for h, _ in dims),
+                                                      max(w for _, w in dims)))
+    px, valid, _ = batch_images_uint8(photos, spec, canvas_hw=canvas)
+    model = engine.model
+    inputs = device_rescale_normalize_masked(torch.from_numpy(px).to(engine.device),
+                                             torch.from_numpy(valid).to(engine.device), spec)
+    with torch.inference_mode(), int8_knobs("conv"):
+        model(*inputs)
+        got, calls, launches = int8_forward(model, inputs, other, what)
+        with plain_int8(model):
+            plain = model(*inputs)
+        rec = {"canvas": list(canvas), "batch": len(photos), "calls_per_forward": calls,
+               "launches_per_forward": launches,
+               "plain_witness": witness_record(got, plain, what)}
+    if not calls["conv"]:
+        raise AssertionError(f"{what}: nothing quantized")
+    return rec
+
+
+async def ragged_replica(model_name: str, photo_dir: str, requests: list) -> dict:
+    """One replica of `model_name` under SPOTTER_TPU_RAGGED=1 (see
+    `phase_ragged`)."""
+    import httpx
+    import torch
+
+    from spotter_tpu_torch.engine import graphs
+    from spotter_tpu_torch.engine.engine import as_uint8_rgb
+    from spotter_tpu_torch.engine.scheduler import Scheduler
+    from spotter_tpu_torch.obs import compare
+
+    exits = []
+    runners, app, api, urls, bring = await bring_up_replica(photo_dir, exits,
+                                                            model_name=model_name)
+    out = {"model": model_name,
+           "bring_up": {k: bring[k] for k in ("states", "bringup_s", "exits")}}
+    try:
+        if bring["states"][-2:] != ["verifying", "ready"] or exits:
+            raise AssertionError(f"{model_name} ragged bring-up: {bring}")
+        det, plane = app["detector"], app["integrity"]
+        engine, metrics = det.engine, det.engine.metrics
+        base = urls[0].rsplit("/", 1)[0]
+        if not det.batcher.scheduler.ragged:
+            raise AssertionError("the replica's scheduler is not ragged")
+        calls = []
+        real_detect = engine.detect
+
+        def recording(images, canvas_hw=None, qset=None):
+            # the pixels as staged, copied first: the detector then draws the
+            # boxes into its photos
+            arrays = [as_uint8_rgb(im) for im in images]
+            got = real_detect(images, canvas_hw=canvas_hw, qset=qset)
+            calls.append((arrays, canvas_hw, copy.deepcopy(got), engine.ran_buckets()))
+            return got
+
+        engine.detect = recording
+        keys0 = set(engine.graphs)
+        probe0 = plane.probe.snapshot()
+        packs0 = metrics.snapshot()["ragged_packs_total"]
+        legs = {}
+        async with httpx.AsyncClient(timeout=300.0) as client:
+            for leg in ("ragged_cold", "ragged_warm", "fifo"):
+                if leg == "fifo":
+                    # the same engine and batcher under the FIFO scheduler, the
+                    # probe loop stopped (its pins are at its ragged canvas)
+                    # and the last ragged pack done: the ragged path's counts
+                    # and packs end here
+                    await plane.aclose()
+                    while det.batcher._in_flight or det.batcher._pump_busy:
+                        await asyncio.sleep(0.01)
+                    launches, ragged_calls = read_counts(), list(calls)
+                    probe1 = plane.probe.snapshot()
+                    ragged_sched = det.batcher.scheduler
+                    det.batcher.scheduler = Scheduler(spec=ragged_sched.spec, ragged=False,
+                                                      tenancy=ragged_sched.tenancy)
+                n_calls, n_waste = len(calls), len(metrics._padding_waste_pct)
+                if leg == "ragged_cold":
+                    reset_counts()
+                t0 = time.perf_counter()
+                lat = await mix_burst(client, api, base, requests)
+                legs[leg] = {"seconds": time.perf_counter() - t0,
+                             **latency_summary({"detect": lat})["detect"],
+                             "packs": len(calls) - n_calls,
+                             "padding_waste_pct": waste_since(metrics, n_waste),
+                             "canvases": sorted({str(c) for _, c, _, _ in calls[n_calls:]})}
+            det.batcher.scheduler = ragged_sched
+        engine.detect = real_detect
+        out["legs"] = legs
+        out["memory_reserved_bytes"] = torch.cuda.memory_reserved()
+        snap = metrics.snapshot()
+        out["ragged_packs"] = snap["ragged_packs_total"] - packs0
+        canvases = {c for _, c, _, _ in ragged_calls if c is not None}
+        out["distinct_canvases"] = sorted(list(c) for c in canvases)
+        # captures: one per new (bucket, canvas) key, nothing else
+        expected = {graphs.graph_key(engine._shape_key(ran[0], *c))
+                    for _, c, _, ran in ragged_calls if c is not None} - keys0
+        new = set(engine.graphs) - keys0
+        out["captures"] = {"new_keys": len(new), "expected": len(expected),
+                           "capture_s": sorted(engine.graphs[k].capture_s for k in new)}
+        if new:
+            out["captures"]["capture_s_mean"] = statistics.mean(out["captures"]["capture_s"])
+        # the kernels on the ragged path: counts set to 0 just before the
+        # cold leg, read after the warm leg and the probe's last pack
+        layers_expected = (ddetr_expected(engine.model, "xla", len(ragged_calls))
+                           if model_name == DDETR_NAME else {})
+        out["launches"] = launches
+        check_counts(launches, layers_expected, f"{model_name} ragged /detect")
+        # each pack's answer against the engine's eager detect at its canvas
+        worst, checked = None, 0
+        for images, canvas, got, _ in ragged_calls:
+            want = eager_pack(engine, images, canvas)
+            for g, w in zip(got, want, strict=True):
+                checked += 1
+                reason = compare.diff_detections(w, g)
+                if reason is not None:
+                    worst = reason
+        out["eager_check"] = {"packs": len(ragged_calls), "images": checked, "failure": worst}
+        probe = plane.probe.snapshot()
+        out["probe"] = {"canvas": probe["pinned_canvas"], "pinned_buckets": probe["pinned_buckets"],
+                        "probes_during_mix": probe1["probes_total"] - probe0["probes_total"],
+                        "failures": probe["failures_total"] - probe0["failures_total"]}
+        int8_names = [f"m0_{i % RAGGED_PHOTOS_PER_SHAPE}.jpg" for i in range(8)]
+        other = ddetr_expected(engine.model, "xla", 1) if model_name == DDETR_NAME else {}
+        out["int8_at_canvas"] = int8_at_canvas(engine, photo_dir, int8_names, other,
+                                               f"{model_name} int8 at a ragged canvas")
+        out["exits"] = list(exits)
+        problems = []
+        if exits:
+            problems.append(f"exits {exits}")
+        if len(canvases) < 3:
+            problems.append(f"{len(canvases)} distinct canvases")
+        if out["ragged_packs"] <= 0:
+            problems.append("no ragged pack")
+        if new != expected:
+            problems.append(f"captures {len(new)} against {len(expected)} new keys")
+        if worst is not None:
+            problems.append(f"a pack left compare's tolerance of its eager answer: {worst}")
+        if out["probe"]["probes_during_mix"] < 1 or out["probe"]["failures"]:
+            problems.append(f"probe {out['probe']}")
+        if any(c is not None for _, c, _, _ in calls[len(ragged_calls):]):
+            problems.append("a FIFO pack got a canvas")
+        if problems:
+            raise AssertionError(f"{model_name} ragged: {problems}; {out}")
+    finally:
+        for runner in reversed(runners):
+            await runner.cleanup()
+    return out
+
+
+def ragged_ops(seed: int) -> list:
+    """Rows 1-5 at a ragged canvas's level shapes (RAGGED_OP_CANVAS: not
+    square, two levels odd): msda_gather_sum and msda_loc_sum at the
+    Deformable-DETR encoder and decoder ops, msda_sep_sum and
+    msda_hd_gather_sum at the encoder op, msda_fused_sum at the decoder's
+    levels; each against its plain version (B = RAGGED_OP_BATCH, fp32 rows)."""
+    import torch
+
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    f32, b = torch.float32, RAGGED_OP_BATCH
+    cases = []
+    for label in RAGGED_OP_SHAPES:
+        for kernel in ("msda_gather_sum", "msda_loc_sum"):
+            cases.append(walk_op_case(label, b, f32, "default", seed, flush, kernel=kernel))
+    cases.append(sep_case("ddetr_encoder_ragged", b, f32, "default", seed, flush))
+    cases.append(hd_gather_case("ddetr_encoder_ragged", b, f32, "default", seed, flush))
+    cases.append(fused_case(b, f32, "default", seed, flush, shapes=RAGGED_DDETR_SHAPES))
+    for rec in cases:
+        rec.update({"phase": "ragged_ops", "canvas": list(RAGGED_OP_CANVAS),
+                    "levels": [list(hw) for hw in RAGGED_DDETR_SHAPES]})
+    del flush
+    release_cuda_memory()
+    return cases
+
+
+def phase_ragged(log: list, seed: int) -> dict:
+    """Ragged canvas packing (SPOTTER_TPU_RAGGED=1) on Deformable-DETR and
+    DETR-R50 at full width, seed-0 weights (the replica's bring-up builds
+    seed 0), each a replica brought up through `make_app` with buckets
+    (1, 8), the integrity gate and its probe at a 1 s cadence:
+
+    1. the mix (`ragged_requests`, photos of RAGGED_SHAPES) from
+       RAGGED_CLIENTS clients, cold (each new (bucket, canvas) runs eager
+       and is captured), then again warm, then under the FIFO scheduler on
+       the same engine (the probe loop stopped): p50/p99, packs, padding
+       waste and canvases of each leg;
+    2. checks: at least three distinct canvases; ragged_packs_total > 0;
+       one capture per new (bucket, canvas) key; every ragged pack's answer
+       within compare's tolerance of the engine's eager forward of its
+       images at its canvas; the probe ran during the mix, never failed, no
+       exit; the kernels' launches on the ragged path (Deformable-DETR:
+       msda_gather_sum 12 a forward; DETR: none); capture seconds of each
+       new key and torch.cuda.memory_reserved after the mix;
+    3. one B = 8 forward of each model at the 4:3 photos' canvas with
+       SPOTTER_TPU_INT8 on, bit equal to its plain witness;
+    4. rows 1-5 at RAGGED_OP_CANVAS's level shapes (`ragged_ops`)."""
+    import tempfile
+
+    rec: dict = {"phase": "ragged", "nvidia_smi": nvidia_smi("name,power.limit"),
+                 "shapes": [list(s) for s in RAGGED_SHAPES], "requests": ragged_requests(seed)}
+    t0 = time.perf_counter()
+    env = {"SPOTTER_TPU_RAGGED": "1", "SPOTTER_TPU_BATCH_BUCKETS": "1,8",
+           "SPOTTER_TPU_INTEGRITY": None, "SPOTTER_TPU_PROBE_INTERVAL_S": "1",
+           "SPOTTER_TPU_ATTEST_INTERVAL_S": "0", "SPOTTER_TPU_FAULTS": None,
+           "SPOTTER_TPU_RAGGED_STEP": None, "SPOTTER_TPU_CACHE_MAX_MB": None}
+    rec["models"] = {}
+    with tempfile.TemporaryDirectory() as photo_dir:
+        write_ragged_photos(photo_dir, seed)
+        for name in RAGGED_MODELS:
+            try:
+                with replica_env(env):
+                    rec["models"][name] = asyncio.run(
+                        ragged_replica(name, photo_dir, rec["requests"]))
+            finally:
+                release_cuda_memory()
+    rec["ops"] = ragged_ops(seed)
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec, log)
     return rec
 
 
@@ -3598,6 +4034,17 @@ def phase_owl_parity(log: list, seed: int, device: str = "cuda") -> list:
         release_cuda_memory()
 
     gpu_model, bank = kept["model"], kept["bank"]
+    x_off = owl_pixels(dataclasses.replace(kept["spec"], size=OWL_OFF_NATIVE_HW),
+                       photos[:1]).to(device)
+    rec = {"phase": "owl_parity", "model": OWLV2_NAME, "policy": "float32", "batch": 1,
+           **off_native_record(gpu_model, (x_off, bank),
+                               owl_expected(gpu_model, 1, "flash_attn_fp32"), True,
+                               {"logits": PARITY_ATOL_LOGITS, "pred_boxes": PARITY_ATOL_BOXES,
+                                "objectness": PARITY_ATOL_OBJECTNESS},
+                               "OWLv2 off-native under float32")}
+    emit(rec, log)
+    records.append(rec)
+    del x_off
     x8 = owl_pixels(kept["spec"], photos[:8]).to(device)
     mixed_model = build_owl_under(OWLV2_NAME, "mixed", seed).module.to(device).eval()
     outs, counts = {}, {}
@@ -3761,7 +4208,7 @@ def phase_owl_http(log: list, seed: int, device: str = "cuda") -> dict:
     model = det.engine.built.module
     # one round of 8 URLs each: a random-init OWLv2 draws thousands of boxes
     # on every photo, ~30 s a request on the host
-    runs = [("default", lambda: None, [("1", 1, 3, 1), ("8", 8, 1, 1)]),
+    runs = [("default", lambda: None, [("1", 1, 1, 1), ("8", 8, 1, 1)]),
             ("queries", lambda: None, [("8q", 8, 1, 1, OWL_QUERIES)])]
     with tempfile.TemporaryDirectory() as photo_dir:
         write_photos(photo_dir, rng)
@@ -3945,8 +4392,8 @@ def load_family(family: str, name: str, fmt: str, root: str, seed: int, photo,
     return rec
 
 
-def phase_load(log: list, seed: int, device: str = "cuda", rounds: int = 5,
-               kernel_rounds: int = 3) -> dict:
+def phase_load(log: list, seed: int, device: str = "cuda", rounds: int = 2,
+               kernel_rounds: int = 1) -> dict:
     """Every family built from a local HF checkpoint (MODEL_NAME=<dir>), as
     a user serves a trained model, with the seeded model written into that
     directory first (tools/hf_checkpoint.py: model.safetensors without the
@@ -4077,7 +4524,7 @@ POLICY_TOL = {"mixed": (0.1, 0.05), "bfloat16": (0.25, 0.1)}
 POLICY_VS_FLOAT32 = {"mixed": (0.1, 0.05), "bfloat16": (0.25, 0.1)}
 MATCH_RADIUS = 1e-2  # a query matches the other side's nearest selected box within this
 MIN_MATCHED_SHARE = 0.75
-POLICY_ROUNDS = 3  # timed engine requests, and /detect rounds of each size, a leg
+POLICY_ROUNDS = 2  # timed engine requests, and /detect rounds of each size, a leg
 
 
 def forward_with_scores(model, x):
@@ -4435,7 +4882,7 @@ INT8_FAMILIES = ((YOLOS_NAME, "mixed", "dense"), (DDETR_NAME, "mixed", "attn"),
                                                "attn"),
                  ("IDEA-Research/dab-detr-resnet-50", "mixed", "attn"),
                  (OWLV2_NAME, "mixed", "attn"))
-INT8_ROUNDS = 3  # timed engine requests and /detect rounds a leg
+INT8_ROUNDS = 1  # timed engine requests and /detect rounds a leg
 
 
 @contextlib.contextmanager
@@ -5142,57 +5589,57 @@ def main(argv=None) -> int:
 
     log: list = []
     t_start = time.perf_counter()
-    device = phase_device(log)
-    if "build" in phases:
-        phase_build(log)
-    cases = phase_kernel(log, args.seed) if "kernel" in phases else []
+    seconds: dict = {}  # each phase's wall seconds, for the run's time budget
+
+    def run(name: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    def wanted(name: str, fn, *args):
+        return run(name, fn, *args) if name in phases else None
+
+    device = run("device", phase_device, log)
+    wanted("build", phase_build, log)
+    cases = wanted("kernel", phase_kernel, log, args.seed) or []
     built = None
     if "parity" in phases or "serve" in phases or "engine" in phases:
-        built = build_detector(MODEL_NAME, tiny=False, seed=args.seed)
-    if "parity" in phases:
-        phase_parity(log, args.seed, built)
-    serve = phase_serve(log, args.seed, built) if "serve" in phases else None
-    engine = phase_engine(log, args.seed, built) if "engine" in phases else None
-    http = phase_http(log, args.seed) if "http" in phases else None
-    if "integrity" in phases:
-        phase_integrity(log, args.seed)
-    if "planes" in phases:
-        phase_planes(log, args.seed)
+        built = run("parity", lambda: build_detector(MODEL_NAME, tiny=False, seed=args.seed))
+    wanted("parity", phase_parity, log, args.seed, built)
+    serve = wanted("serve", phase_serve, log, args.seed, built)
+    engine = wanted("engine", phase_engine, log, args.seed, built)
+    http = wanted("http", phase_http, log, args.seed)
+    wanted("integrity", phase_integrity, log, args.seed)
+    wanted("planes", phase_planes, log, args.seed)
     del built
-    if "yolos_parity" in phases:
-        phase_yolos_parity(log, args.seed)
-    if "yolos_serve" in phases:
-        phase_yolos_serve(log, args.seed)
-    yolos_http = phase_yolos_http(log, args.seed) if "yolos_http" in phases else None
-    if "ddetr_parity" in phases:
-        phase_ddetr_parity(log, args.seed)
-    if "ddetr_serve" in phases:
-        phase_ddetr_serve(log, args.seed)
-    ddetr_http = phase_ddetr_http(log, args.seed) if "ddetr_http" in phases else None
-    if "detr_parity" in phases:
-        phase_detr_parity(log, args.seed)
-    if "detr_serve" in phases:
-        phase_detr_serve(log, args.seed)
-    if "detr_http" in phases:
-        phase_detr_http(log, args.seed)
+    wanted("yolos_parity", phase_yolos_parity, log, args.seed)
+    wanted("yolos_serve", phase_yolos_serve, log, args.seed)
+    yolos_http = wanted("yolos_http", phase_yolos_http, log, args.seed)
+    wanted("ddetr_parity", phase_ddetr_parity, log, args.seed)
+    wanted("ddetr_serve", phase_ddetr_serve, log, args.seed)
+    ddetr_http = wanted("ddetr_http", phase_ddetr_http, log, args.seed)
+    wanted("detr_parity", phase_detr_parity, log, args.seed)
+    wanted("detr_serve", phase_detr_serve, log, args.seed)
+    wanted("detr_http", phase_detr_http, log, args.seed)
+    ragged = wanted("ragged", phase_ragged, log, args.seed)
     owl_http = None
     if set(OWL_PHASES) & set(phases):
         # the OWL prompts' token ids, in a cache of this run's own
         with token_cache(args.seed) as files:
             emit({"phase": "owl_tokens", "files": files, "prompts": len(owl_prompts())}, log)
-            if "owl_parity" in phases:
-                phase_owl_parity(log, args.seed)
-            if "owl_serve" in phases:
-                phase_owl_serve(log, args.seed)
-            if "owl_http" in phases:
-                owl_http = phase_owl_http(log, args.seed)
-    load = phase_load(log, args.seed) if "load" in phases else None
-    precision = phase_precision(log, args.seed) if "precision" in phases else None
-    int8 = phase_int8(log, args.seed) if "int8" in phases else None
+            wanted("owl_parity", phase_owl_parity, log, args.seed)
+            wanted("owl_serve", phase_owl_serve, log, args.seed)
+            owl_http = wanted("owl_http", phase_owl_http, log, args.seed)
+    load = wanted("load", phase_load, log, args.seed)
+    precision = wanted("precision", phase_precision, log, args.seed)
+    int8 = wanted("int8", phase_int8, log, args.seed)
     if int8:
         cases += int8["kernel_cases"]
     if "probes" in phases:
-        cases += phase_probes(log, args.seed)
+        cases += run("probes", phase_probes, log, args.seed)
+    emit({"phase_seconds": {k: round(v, 1) for k, v in seconds.items()}}, log)
     # each kernel's launches on the path that runs it: slice 1's engine path
     # under xla, the HTTP /detect path under fused and under kernel, YOLOS's
     # /detect path under float32 (fp32) and mixed (bf16), and OWLv2's /detect
@@ -5231,6 +5678,11 @@ def main(argv=None) -> int:
             for row in summary["kernels"]:
                 if row["name"] == "msda_gather_sum":
                     row["engine_launches"] = engine["policies"]["float32"]["launches"][
+                        "msda_gather_sum"]
+        if ragged:  # row 1 on Deformable-DETR's ragged /detect path
+            for row in summary["kernels"]:
+                if row["name"] == "msda_gather_sum":
+                    row["ragged_launches"] = ragged["models"][DDETR_NAME]["launches"][
                         "msda_gather_sum"]
         if load:  # rows 1-3's launches on the loaded checkpoint's engine and /detect paths
             for row in summary["kernels"]:

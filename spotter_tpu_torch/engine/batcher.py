@@ -16,9 +16,13 @@ What it keeps of the JAX batcher:
   fails with `PoisonImageError`; a `FatalEngineError` fails the batch and
   calls `fatal_exit_cb(FATAL_ENGINE_EXIT_CODE)`. The port serves one device,
   so there is no degraded rebuild to try first;
-- the `Scheduler` (FIFO, or slack-ordered with `SPOTTER_TPU_RAGGED=1`),
-  which never mixes two open-vocabulary query sets in one batch (each
-  batch's `qset` goes to `engine.detect`), and the opt-in overload tier
+- the `Scheduler` (FIFO, or ragged with `SPOTTER_TPU_RAGGED=1`: slack
+  order and, for a shortest-edge family, mixed-size photos packed into one
+  snapped canvas), which never mixes two open-vocabulary query sets in one
+  batch (each batch's `qset` goes to `engine.detect`); a pack's canvas goes
+  to `engine.detect` only where its signature takes `canvas_hw` (a stub's
+  `detect(images)` gets none), rides through the poison bisect, and each
+  dispatch's padded-pixel waste lands in `record_pack`; and the opt-in overload tier
   (`SPOTTER_TPU_ADMIT_TARGET_MS`: AIMD limiter and
   brownout ladder);
 - keyed coalescing: `submit(..., key=<content hash>)` while a keyed entry
@@ -46,6 +50,7 @@ Not ported yet: the degraded-dp rebuild with its integrity recheck
 """
 
 import asyncio
+import inspect
 import logging
 import time
 from typing import Callable, Optional
@@ -59,8 +64,7 @@ from spotter_tpu_torch.engine.errors import (
     TransientEngineError,
 )
 from spotter_tpu_torch import obs
-from spotter_tpu_torch.engine.engine import RAGGED_SHORTEST_EDGE_ERROR
-from spotter_tpu_torch.engine.scheduler import QueueItem, Scheduler
+from spotter_tpu_torch.engine.scheduler import PackPlan, QueueItem, Scheduler
 from spotter_tpu_torch.serving.overload import (
     BULK,
     SLO,
@@ -157,10 +161,14 @@ class MicroBatcher:
         # the pending buffer lives here (not in the scheduler) so drain() and
         # stop() account for it; under FIFO it holds between plans only the
         # items of query groups the last plan left pending
-        self.scheduler = scheduler or Scheduler.from_env()
-        spec = getattr(getattr(engine, "built", None), "preprocess_spec", None)
-        if self.scheduler.ragged and getattr(spec, "mode", None) == "shortest_edge":
-            raise ValueError(RAGGED_SHORTEST_EDGE_ERROR)
+        self.scheduler = scheduler or Scheduler.from_env(engine)
+        # only an engine whose detect takes a canvas gets one (a stub's
+        # detect(images) still gets the slack order)
+        try:
+            self._engine_takes_canvas = "canvas_hw" in inspect.signature(
+                engine.detect).parameters
+        except (TypeError, ValueError):
+            self._engine_takes_canvas = False
         self._sched_buf: list[QueueItem] = []
         # key -> (primary future, waiter futures): one queue entry per key,
         # its result fanned out to every waiter when the primary settles
@@ -291,7 +299,9 @@ class MicroBatcher:
         sheds strictly before slo. `qset` (a `caching.text_cache.QuerySet`)
         runs an open-vocabulary model against the request's own queries; it
         is also the item's batch group. `info` (a dict) gets the bucket the
-        item ran in under "bucket" (the golden probe reads it).
+        item ran in under "bucket" and the ragged canvas it was staged into
+        under "canvas" (None: the static bucket), which the golden probe
+        reads.
 
         `key` (the result cache's content key) coalesces: while a keyed
         entry is in flight, a submit with the same key attaches a waiter
@@ -505,7 +515,7 @@ class MicroBatcher:
         below = [b for b in self.engine.batch_buckets if b < self.max_batch]
         return below[-1] if below else self.max_batch
 
-    def _detect_outcomes(self, images: list, splits_left: int, qset=None,
+    def _detect_outcomes(self, images: list, splits_left: int, canvas_hw=None, qset=None,
                          buckets: Optional[list] = None) -> list:
         """Worker-thread engine call with the poison bisect-retry.
 
@@ -515,17 +525,20 @@ class MicroBatcher:
         deterministic per-input failure converges to one `PoisonImageError`
         while every innocent neighbour gets its result. Typed engine errors
         (transient after the engine's own retry, fatal) are never bisected.
-        `buckets`, when given, gets the bucket each image ran in (None for
-        a failed one), in order.
+        `canvas_hw` (the pack's ragged canvas) rides through the recursion,
+        so the halves stay in the pack's canvas. `buckets`, when given, gets
+        the bucket each image ran in (None for a failed one), in order.
         """
         try:
             # the fault seam runs at every level, where a wedged or poisoned
             # device call would fail on a retry too
             faults.on_engine_batch(images)
-            if qset is None:
-                out = list(self.engine.detect(images))
-            else:
-                out = list(self.engine.detect(images, qset=qset))
+            kwargs = {}
+            if canvas_hw is not None:
+                kwargs["canvas_hw"] = canvas_hw
+            if qset is not None:
+                kwargs["qset"] = qset
+            out = list(self.engine.detect(images, **kwargs))
             if buckets is not None:
                 buckets.extend(self.engine.ran_buckets())
             return out
@@ -543,15 +556,16 @@ class MicroBatcher:
             self.engine.metrics.record_batch_retry()
             mid = len(images) // 2
             return self._detect_outcomes(
-                images[:mid], splits_left - 1, qset, buckets
-            ) + self._detect_outcomes(images[mid:], splits_left - 1, qset, buckets)
+                images[:mid], splits_left - 1, canvas_hw, qset, buckets
+            ) + self._detect_outcomes(images[mid:], splits_left - 1, canvas_hw, qset, buckets)
 
-    async def _run_batch(self, plan: list[QueueItem]) -> None:
+    async def _run_batch(self, plan: PackPlan) -> None:
         try:
-            batch = [item for item in plan if not item.fut.done()]
+            batch = [item for item in plan.items if not item.fut.done()]
             if not batch:
                 return
             images = [item.image for item in batch]
+            canvas_hw = plan.canvas_hw if self._engine_takes_canvas else None
             # the scheduler packs one query group per plan, so the first
             # item's query set is the whole batch's
             qset = batch[0].qset
@@ -576,15 +590,16 @@ class MicroBatcher:
                     traces.append(item.trace)
             metrics = self.engine.metrics
             metrics.record_stage_samples(obs.QUEUE_WAIT, queue_waits_ms)
-            metrics.record_slack(slack_ms)
+            metrics.record_pack(padding_waste_pct=plan.padding_waste_pct, slack_ms=slack_ms,
+                                ragged=canvas_hw is not None)
             # the worker thread inherits this through asyncio.to_thread's
             # context copy and fans its stage windows out to these traces
             obs.set_batch_traces(traces)
             # the bucket each image ran in, for the items that ask (the probe)
             buckets = [] if any(item.info is not None for item in batch) else None
             try:
-                detect = asyncio.to_thread(
-                    self._detect_outcomes, images, self.poison_max_splits, qset, buckets)
+                detect = asyncio.to_thread(self._detect_outcomes, images,
+                                           self.poison_max_splits, canvas_hw, qset, buckets)
                 if self.batch_timeout_s is not None:
                     outcomes = await asyncio.wait_for(detect, self.batch_timeout_s)
                 else:
@@ -611,6 +626,7 @@ class MicroBatcher:
             for item, bucket in zip(batch, buckets or ()):
                 if item.info is not None:
                     item.info["bucket"] = bucket
+                    item.info["canvas"] = canvas_hw
             self._settle_outcomes(batch, outcomes)
         finally:
             self._slots.release()

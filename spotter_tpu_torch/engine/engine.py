@@ -13,7 +13,10 @@ YOLOS, per-patch sigmoid max for OWL-ViT). A model that takes a pixel mask
 top left of a 1333x1333 bucket) gets it from each image's valid extent,
 built on the device with the rescale; padded batch rows are zero pixels
 with a mask of ones, as in the JAX engine; boxes are scaled to each
-photo's own size.
+photo's own size. Under ragged packing (engine/scheduler.py) a
+shortest-edge chunk stages into the pack's smaller `canvas_hw` instead of
+the bucket: the pad rows fill to that canvas, and the canvas is part of
+the shape key, so each (bucket, canvas) is its own graph.
 
 Open-vocabulary families (OWL-ViT, OWLv2) bring a build-time query bank,
 which the engine keeps on its device and passes to every forward, and a
@@ -106,18 +109,13 @@ from spotter_tpu_torch.ops.preprocess import (
     device_preprocess_supported,
     device_rescale_normalize,
     device_rescale_normalize_masked,
+    ragged_canvas_supported,
 )
 from spotter_tpu_torch.testing import faults
 from spotter_tpu_torch.utils import quant
 from spotter_tpu_torch.utils.precision import backbone_dtype, compute_dtype, use_exact_float32
 
 POSTPROCESS_KINDS = ("sigmoid_topk", "softmax", "sigmoid_max")  # RT-DETR; DETR/YOLOS; OWL-ViT
-# ragged canvas packing (the JAX scheduler's smaller canvases for
-# shortest-edge specs) is not ported
-RAGGED_SHORTEST_EDGE_ERROR = (
-    "ragged canvas packing for shortest_edge specs (SPOTTER_TPU_RAGGED=1 with the "
-    "DETR family) is not ported: ROADMAP Queue 1 item 6"
-)
 # query sets whose device copies the engine keeps, least recently used
 # dropped first (the text cache's default bound)
 QSET_DEVICE_ENTRIES = 256
@@ -502,12 +500,12 @@ class InferenceEngine:
         path's normalized float32) + (B, 2) sizes -> fixed-k outputs. An
         open-vocabulary model runs against `queries` (embeddings, mask),
         by default the build-time bank with no mask. A model that needs a
-        pixel mask gets it from `valid` (B, 2), each image's (h, w) in the
-        bucket (None: the whole bucket)."""
+        pixel mask gets it from `valid` (B, 2), each image's (h, w) in its
+        canvas (None: the whole canvas)."""
         spec = self.built.preprocess_spec
         if self.built.needs_mask:
             if valid is None:
-                valid = torch.tensor([spec.input_hw], dtype=torch.int32,
+                valid = torch.tensor([pixels.shape[1:3]], dtype=torch.int32,
                                      device=pixels.device).expand(pixels.shape[0], 2)
             pixels, mask = device_rescale_normalize_masked(pixels, valid, spec)
             out = self.model(pixels, mask)
@@ -664,9 +662,11 @@ class InferenceEngine:
         `FatalEngineError`; anything else propagates for the batcher's
         poison bisect.
 
-        `canvas_hw` is the ragged scheduler's canvas: fixed-size specs
-        ignore it, and a shortest-edge spec raises (the ragged canvas
-        packing is not ported). `qset` (a `caching.text_cache.QuerySet`)
+        `canvas_hw` is the ragged scheduler's canvas (engine/scheduler.py):
+        a shortest-edge spec stages every chunk into it (it must hold each
+        image's resize, else `_canvas_for` raises), the out-of-memory
+        halves included, so one pack's images are answered at one canvas;
+        fixed-size and pad_square specs ignore it. `qset` (a `caching.text_cache.QuerySet`)
         runs an open-vocabulary model against that query set and labels
         from it; a closed-set family raises, as the JAX engine does.
         """
@@ -675,8 +675,8 @@ class InferenceEngine:
                 f"{self.built.model_name} is a closed-set family: it has no "
                 f"text encoder, so per-request `queries` are unsupported"
             )
-        if canvas_hw is not None and self.built.preprocess_spec.mode == "shortest_edge":
-            raise ValueError(RAGGED_SHORTEST_EDGE_ERROR)
+        if canvas_hw is not None and not ragged_canvas_supported(self.built.preprocess_spec):
+            canvas_hw = None  # a fixed or pad_square canvas is all signal
         arrays = [as_uint8_rgb(img) for img in images]
         self._ran.buckets = []
         max_b = self.batch_buckets[-1]
@@ -685,36 +685,38 @@ class InferenceEngine:
         pending = None  # (dispatched item, its chunk)
         for chunk in chunks:
             try:
-                host = self._stage_host(chunk, qset)
+                host = self._stage_host(chunk, canvas_hw, qset)
                 with self._h2d_lock:
                     dispatched = self._dispatch(self._put_staged(host))
             except Exception as exc:
                 # keep the order: finish the older chunk in flight first,
                 # then recover (or fail) this one
                 if pending is not None:
-                    results.extend(self._finish_or_recover(*pending, qset))
+                    results.extend(self._finish_or_recover(*pending, canvas_hw, qset))
                     pending = None
-                results.extend(self._recover_chunk(chunk, exc, qset))
+                results.extend(self._recover_chunk(chunk, exc, canvas_hw, qset))
                 continue
             if pending is not None:
-                results.extend(self._finish_or_recover(*pending, qset))
+                results.extend(self._finish_or_recover(*pending, canvas_hw, qset))
             pending = (dispatched, chunk)
         if pending is not None:
-            results.extend(self._finish_or_recover(*pending, qset))
+            results.extend(self._finish_or_recover(*pending, canvas_hw, qset))
         return results
 
-    def _finish_or_recover(self, dispatched, chunk: list[np.ndarray], qset=None):
+    def _finish_or_recover(self, dispatched, chunk: list[np.ndarray], canvas_hw=None,
+                           qset=None):
         try:
             return self._finish(dispatched)
         except Exception as exc:
-            return self._recover_chunk(chunk, exc, qset)
+            return self._recover_chunk(chunk, exc, canvas_hw, qset)
 
     def _recover_chunk(
-        self, chunk: list[np.ndarray], exc: Exception, qset=None
+        self, chunk: list[np.ndarray], exc: Exception, canvas_hw=None, qset=None
     ) -> list[list[dict]]:
         """Classify a failed chunk and recover when the taxonomy allows it:
         an out-of-memory chunk drops to the next smaller bucket (split in
-        half, retried once, serially); a second failure propagates typed."""
+        half, retried once, serially, both halves in the chunk's canvas); a
+        second failure propagates typed."""
         kind = classify_engine_exception(exc)
         if kind is FatalEngineError:
             raise as_typed(exc) from exc
@@ -726,46 +728,57 @@ class InferenceEngine:
             # is an out-of-memory downgrade's cost, not traffic's
             with self._compile_source("oom_downgrade"):
                 if len(chunk) <= 1:
-                    return self._detect_chunk(chunk, qset)
+                    return self._detect_chunk(chunk, canvas_hw, qset)
                 mid = (len(chunk) + 1) // 2
-                return self._detect_chunk(chunk[:mid], qset) + self._detect_chunk(chunk[mid:], qset)
+                return (self._detect_chunk(chunk[:mid], canvas_hw, qset)
+                        + self._detect_chunk(chunk[mid:], canvas_hw, qset))
         except Exception as retry_exc:
             raise as_typed(retry_exc) from retry_exc
 
-    def _detect_chunk(self, chunk: list[np.ndarray], qset=None) -> list[list[dict]]:
+    def _detect_chunk(self, chunk: list[np.ndarray], canvas_hw=None,
+                      qset=None) -> list[list[dict]]:
         """Serial stage -> dispatch -> fetch for one chunk (<= the top bucket)."""
-        host = self._stage_host(chunk, qset)
+        host = self._stage_host(chunk, canvas_hw, qset)
         with self._h2d_lock:
             dispatched = self._dispatch(self._put_staged(host))
         return self._finish(dispatched)
 
-    def _stage_host(self, chunk: list[np.ndarray], qset=None):
+    def _stage_host(self, chunk: list[np.ndarray], canvas_hw=None, qset=None):
         """The host half: each photo resized (or, for OWLv2, warped in
         float) on the decode pool, straight into pinned (page-locked) host
-        buffers of the chunk's bucket on the card; pad rows are zero pixels,
-        sizes of ones, and (for a masked model) the whole bucket valid."""
+        buffers of the chunk's bucket and canvas (`canvas_hw`, a ragged
+        pack's, else the spec's static one) on the card; pad rows are zero
+        pixels, sizes of ones, and (for a masked model) the whole canvas
+        valid. The perf record's `valid_px` is the JAX engine's: for a
+        shortest-edge spec each real row's resize clipped to the canvas,
+        else every real row's whole canvas."""
         t0 = time.monotonic()
         faults.sleep_stage(obs.DECODE)  # slow_stage=decode:<ms>
         n = len(chunk)
         bucket = self.bucket_for(n)
         spec = self.built.preprocess_spec
-        h, w = spec.input_hw
+        h, w = canvas_hw if canvas_hw is not None else spec.input_hw
         pixels = self._host_buffer((bucket, h, w, 3),
                                    torch.uint8 if self.device_preprocess else torch.float32)
         sizes = self._host_buffer((bucket, 2), torch.float32)
         px, sz = pixels.numpy(), sizes.numpy()
         sz[n:] = 1.0
         valid = None
+        valid_px = n * h * w
         if self.device_preprocess:
-            _, v, sz[:n] = batch_images_uint8(chunk, spec, pool=self.decode_pool, out=px[:n])
+            _, v, sz[:n] = batch_images_uint8(chunk, spec, pool=self.decode_pool, out=px[:n],
+                                              canvas_hw=canvas_hw)
             if self.built.needs_mask:
                 valid = self._host_buffer((bucket, 2), torch.int32)
                 valid.numpy()[:n], valid.numpy()[n:] = v, (h, w)
+            if spec.mode == "shortest_edge":
+                valid_px = int((np.minimum(v[:, 0], h) * np.minimum(v[:, 1], w)).sum())
         else:
             px[:n], sz[:n] = batch_images_float(chunk, spec, pool=self.decode_pool)
         px[n:] = 0
+        padded_px = bucket * h * w
         meta = {"shape": self._shape_key(bucket, h, w, qset), "bucket": bucket,
-                "padded_px": bucket * h * w, "valid_px": n * h * w}
+                "padded_px": padded_px, "valid_px": min(valid_px, padded_px)}
         return (pixels, sizes, valid), n, t0, time.monotonic(), meta, qset
 
     def _host_buffer(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:

@@ -28,6 +28,21 @@ the counts then say what the served forwards ran, replays included. The
 engine's FLOPs-counting forward is not a served forward, and its launches
 are put back too (`uncounted`).
 
+Under ragged packing (engine/scheduler.py) a shortest-edge pack stages
+into a snapped canvas, whose (H, W) is part of the shape key: each new
+(bucket, canvas, knobs) runs eager once, then is captured in the engine's
+one shared pool, at its first use in traffic (the capture ledger's
+`traffic` source, as a canvas snap compiles in the JAX engine). What a new
+canvas costs: one eager forward plus the capture's wall time (`capture_s`,
+in the ledger: 0.06-0.14 s for Deformable-DETR at bucket 8 and 0.02-0.09 s
+for DETR-R50 on an H100 80GB HBM3 at 700 W, chip_smoke.py's `ragged`
+phase), the per-shape tables its forward builds (cached, never evicted),
+and, outside the pool, the graph's static input copies: B x H x W x 3
+bytes of uint8 pixels (36.9 MB at bucket 8 and 1152x1333) plus its (B, 2)
+sizes and valid extents. The snap grid bounds the count: at most ~11 x 11
+canvases a bucket at the DETR family's 1333x1333 bucket and the default
+step of 128.
+
 There is no switch that turns graphs off and no fallback to eager when a
 capture fails: a failed capture raises. The CPU path never captures.
 """

@@ -121,8 +121,13 @@ class Metrics:
         self._admit_sheds_total = {"slo": 0, "bulk": 0}
         self._brownout_rung = 0
         self._brownout_transitions_total = 0
-        # deadline slack each deadline-carrying item had left at dispatch
+        # the scheduler's packs: each dispatch's padded-pixel waste (measured
+        # under FIFO too, against the static bucket, so the per-bucket
+        # baseline shows), the deadline slack each deadline-carrying item had
+        # left at dispatch, and the dispatches staged into a ragged canvas
+        self._padding_waste_pct: deque[float] = deque(maxlen=window)
         self._slack_at_dispatch_ms: deque[float] = deque(maxlen=window)
+        self._ragged_packs_total = 0
         # open-vocabulary query-set resolves (caching/text_cache.py)
         self._text_cache_hits_total = 0
         self._text_cache_misses_total = 0
@@ -282,11 +287,22 @@ class Metrics:
         with self._lock:
             self._brownout_transitions_total += n
 
-    def record_slack(self, slack_ms: list[float]) -> None:
-        """One dispatch: the deadline slack each deadline-carrying item had
-        left (the slack-ordering control signal)."""
+    def record_pack(
+        self,
+        padding_waste_pct: float | None = None,
+        slack_ms: list[float] | None = None,
+        ragged: bool = False,
+    ) -> None:
+        """One scheduler dispatch: its padded-pixel waste, the deadline slack
+        each deadline-carrying item had left (the slack-ordering control
+        signal), and whether it staged into a ragged canvas."""
         with self._lock:
-            self._slack_at_dispatch_ms.extend(slack_ms)
+            if padding_waste_pct is not None:
+                self._padding_waste_pct.append(padding_waste_pct)
+            if slack_ms:
+                self._slack_at_dispatch_ms.extend(slack_ms)
+            if ragged:
+                self._ragged_packs_total += 1
 
     def record_text_cache(self, hit: bool, resolve_ms: float | None) -> None:
         """One open-vocabulary query-set resolve: the cache outcome and its
@@ -432,10 +448,15 @@ class Metrics:
                     if self._h2d_images_total else 0.0
                 ),
                 "decode_pool_queue_depth": self._decode_queue_depth,
+                "padding_waste_pct": (
+                    sum(self._padding_waste_pct) / len(self._padding_waste_pct)
+                    if self._padding_waste_pct else None
+                ),
                 "slack_at_dispatch_ms": (
                     _quantiles(self._slack_at_dispatch_ms)
                     if self._slack_at_dispatch_ms else None
                 ),
+                "ragged_packs_total": self._ragged_packs_total,
                 "aggregate_bucket": self._aggregate_bucket,
                 "latency_ms_histogram": {
                     "buckets": buckets,

@@ -23,8 +23,11 @@ the attention kernel on a CUDA tensor; the class head runs the class-logit
 kernel unless SPOTTER_TPU_OWL_FUSED says otherwise (ops/openvocab.py).
 
 The serving specs resize every image to the config's `image_size`, so the
-position table applies as trained; another grid would need the JAX
-package's bicubic table interpolation, which is not ported and raises.
+position table applies as trained. At another input size (a multiple of
+the patch) the table's patch rows are resized to the input's (gh, gw) grid
+as the JAX package resizes them (`ops/resize.py`: `jax.image.resize`'s
+bicubic, Keys a = -0.5, antialiased when shrinking), in fp32 before the
+cast; the box bias and the class head then run over gh * gw patches.
 """
 
 import functools
@@ -46,6 +49,7 @@ from spotter_tpu_torch.models.layers import (
 )
 from spotter_tpu_torch.ops import openvocab
 from spotter_tpu_torch.ops.openvocab import NEG_INF, owl_class_logits
+from spotter_tpu_torch.ops.resize import resize_table_bicubic
 
 
 def owlvit_box_bias(grid_h: int, grid_w: int) -> np.ndarray:
@@ -178,15 +182,15 @@ class OwlViTVisionTower(nn.Module):
         p = cfg.patch_size
         if h % p or w % p:
             raise ValueError(f"input {h}x{w} not divisible by patch size {p}")
-        if (h // p, w // p) != (cfg.grid, cfg.grid):
-            raise ValueError(
-                f"input {h}x{w} differs from the trained image size {cfg.image_size}: "
-                f"position-table interpolation is not ported"
-            )
         dt, d = self.dtype, cfg.hidden_size
+        pos = self.position_embedding
+        grid = (h // p, w // p)
+        if grid != (cfg.grid, cfg.grid):
+            pos = torch.cat([pos[:1], resize_table_bicubic(
+                pos[1:], (cfg.grid, cfg.grid), grid)], dim=0)
         x = self.patch_embedding(pixel_values)
         x = torch.cat([self.class_embedding.to(dt).expand(b, 1, d), x], dim=1)
-        x = x + self.position_embedding.to(dt)
+        x = x + pos.to(dt)
         x = self.pre_layernorm(x)
         for i in range(cfg.num_hidden_layers):
             x = getattr(self, f"layer{i}")(x)

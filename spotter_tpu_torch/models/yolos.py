@@ -19,8 +19,12 @@ with q scaled before the call; elsewhere the scores are materialised and
 scaled after q.kᵀ, as the JAX package's plain path does.
 
 The serving spec warp-resizes every image to `image_size`, so the position
-tables apply as trained; another input size would need the JAX package's
-bicubic table interpolation, which is not ported and raises.
+tables apply as trained. At another input size (a multiple of the patch)
+the patch rows of the position table, and of each mid table, are resized
+to the input's patch grid as the JAX package resizes them
+(`ops/resize.py`: `jax.image.resize`'s bicubic, Keys a = -0.5, antialiased
+when shrinking), in fp32 before the cast; the [CLS] and detection-token rows
+stay as trained. The attention then runs over the new sequence length.
 """
 
 import torch
@@ -37,6 +41,7 @@ from spotter_tpu_torch.models.layers import (
     flash_self_attention,
     get_activation,
 )
+from spotter_tpu_torch.ops.resize import resize_table_bicubic
 
 
 class YolosAttention(nn.Module):
@@ -117,22 +122,29 @@ class YolosDetector(nn.Module):
         p = cfg.patch_size
         if h % p or w % p:
             raise ValueError(f"input {h}x{w} not divisible by patch size {p}")
-        if (h // p, w // p) != cfg.grid_hw:
-            raise ValueError(
-                f"input {h}x{w} differs from the trained image size {cfg.image_size}: "
-                f"position-table interpolation is not ported"
-            )
+        grid = (h // p, w // p)
+        n_src = cfg.grid_hw[0] * cfg.grid_hw[1]
         dt, t, d = self.dtype, cfg.num_detection_tokens, cfg.hidden_size
+
+        def split_pos(table):
+            # JAX's split_pos: [CLS], the patch grid (resized off-native), the
+            # detection tokens
+            if grid == cfg.grid_hw:
+                return table
+            return torch.cat([table[:, :1],
+                              resize_table_bicubic(table[:, 1:1 + n_src], cfg.grid_hw, grid),
+                              table[:, 1 + n_src:]], dim=1)
+
         x = self.patch_projection(pixel_values)
         x = torch.cat(
             [self.cls_token.to(dt).expand(b, 1, d), x, self.detection_tokens.to(dt).expand(b, t, d)],
             dim=1,
         )
-        x = x + self.position_embeddings.to(dt)
+        x = x + split_pos(self.position_embeddings).to(dt)
         for i in range(cfg.num_hidden_layers):
             x = getattr(self, f"layer{i}")(x)
             if cfg.use_mid_position_embeddings and i < cfg.num_hidden_layers - 1:
-                x = x + self.mid_position_embeddings[i].to(dt)
+                x = x + split_pos(self.mid_position_embeddings[i]).to(dt)
         det_out = self.layernorm(x)[:, -t:]
         logits = self.class_labels_classifier(det_out)
         boxes = torch.sigmoid(self.bbox_predictor(det_out).to(torch.float32))

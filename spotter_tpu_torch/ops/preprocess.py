@@ -19,6 +19,11 @@ inherently float (`device_preprocess_supported`): pad with 0.5 grey to a
 square, scipy's gaussian_filter + zoom with skimage's resize semantics,
 then normalize; the engine ships float32 pixels (`batch_images_float`).
 
+Ragged packing (engine/scheduler.py) stages a shortest-edge batch into a
+`canvas_hw` smaller than the static bucket (`_canvas_for`, which refuses a
+canvas that cannot hold an image's resize with the JAX package's text);
+fixed and pad_square specs fill their canvas with signal and ignore it.
+
 Arrays are NHWC at this module's interface, as in the JAX package.
 """
 
@@ -177,15 +182,43 @@ def resize_uint8(
     return np.array(Image.fromarray(image).resize((tw, th), resample=pil_filter))
 
 
-def stage_uint8(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarray, tuple[int, int]]:
-    """One image's host half: (H, W, 3) uint8 -> (uint8 in the static
-    bucket, valid (h, w)). Fixed specs warp to the bucket; shortest-edge
-    specs resize by `shortest_edge_size` and stage at the top left of a
-    zeroed bucket."""
+def ragged_canvas_supported(spec: PreprocessSpec) -> bool:
+    """Only shortest_edge specs (the DETR family) have a variable valid
+    region inside their static bucket, which ragged packing stages into a
+    smaller canvas; fixed and pad_square specs fill their canvas."""
+    return spec.mode == "shortest_edge"
+
+
+def _canvas_for(
+    spec: PreprocessSpec,
+    canvas_hw: tuple[int, int] | None,
+    resized_hw: tuple[int, int],
+) -> tuple[int, int]:
+    """The padded canvas a shortest_edge image stages into: `canvas_hw`
+    when given (it must hold the resize: a too-small canvas is a caller's
+    bug and raises rather than crop), else the static bucket."""
+    if canvas_hw is None:
+        return spec.input_hw
+    ch, cw = int(canvas_hw[0]), int(canvas_hw[1])
+    rh, rw = resized_hw
+    if rh > ch or rw > cw:
+        raise ValueError(
+            f"ragged canvas {ch}x{cw} cannot hold resized image {rh}x{rw}"
+        )
+    return ch, cw
+
+
+def stage_uint8(
+    image: np.ndarray, spec: PreprocessSpec, canvas_hw: tuple[int, int] | None = None
+) -> tuple[np.ndarray, tuple[int, int]]:
+    """One image's host half: (H, W, 3) uint8 -> (uint8 in its canvas,
+    valid (h, w)). Fixed specs warp to the bucket; shortest-edge specs
+    resize by `shortest_edge_size` and stage at the top left of a zeroed
+    canvas: `canvas_hw` (a ragged pack's) or the static bucket."""
     if spec.mode == "fixed":
         return resize_uint8(image, spec.size, spec.resample), spec.size
     rh, rw = shortest_edge_size(image.shape[:2], spec.size[0], spec.size[1])
-    out = np.zeros((*spec.input_hw, 3), dtype=np.uint8)
+    out = np.zeros((*_canvas_for(spec, canvas_hw, (rh, rw)), 3), dtype=np.uint8)
     out[:rh, :rw] = resize_uint8(image, (rh, rw), spec.resample)
     return out, (rh, rw)
 
@@ -242,14 +275,16 @@ class DecodePool:
 
 def batch_images_uint8(
     images: list[np.ndarray], spec: PreprocessSpec, pool: DecodePool | None = None,
-    out: np.ndarray | None = None,
+    out: np.ndarray | None = None, canvas_hw: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Resize and stack -> (pixels (B,H,W,3) u8, valid (B,2) i32, sizes (B,2) f32 [orig h,w]),
     the photos staged on `pool`'s threads (None: one after another). `out`,
-    when given, receives the pixels (the engine's pinned buffer)."""
+    when given, receives the pixels (the engine's pinned buffer).
+    `canvas_hw` is a ragged pack's canvas (shortest-edge specs; fixed specs
+    ignore it)."""
     if not device_preprocess_supported(spec):
         raise ValueError(f"preprocess mode {spec.mode!r} has no uint8 path")
-    stage = functools.partial(stage_uint8, spec=spec)
+    stage = functools.partial(stage_uint8, spec=spec, canvas_hw=canvas_hw)
     staged = pool.map(stage, images) if pool is not None else [stage(img) for img in images]
     pixels = np.stack([px for px, _ in staged], out=out)
     valid = np.asarray([hw for _, hw in staged], dtype=np.int32).reshape(len(images), 2)
@@ -286,11 +321,13 @@ def pad_square_float(image: np.ndarray, spec: PreprocessSpec) -> tuple[np.ndarra
 
 
 def batch_images_float(
-    images: list[np.ndarray], spec: PreprocessSpec, pool: DecodePool | None = None
+    images: list[np.ndarray], spec: PreprocessSpec, pool: DecodePool | None = None,
+    canvas_hw: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """The host float path (pad_square) -> (pixels (B,H,W,3) f32 normalized,
     sizes (B,2) f32 [h, w] the boxes are scaled to), the photos warped on
-    `pool`'s threads (None: one after another)."""
+    `pool`'s threads (None: one after another). `canvas_hw` is ignored: a
+    pad_square canvas is all signal, as in the JAX package."""
     if spec.mode != "pad_square":
         raise ValueError(f"preprocess mode {spec.mode!r} takes the uint8 path")
     warp = functools.partial(pad_square_float, spec=spec)

@@ -20,6 +20,16 @@ plausible garbage) is caught before it serves and while it serves.
   must answer alike (`answer_class`: every bucket of one function under
   `float32`), fails if a bucket is left unpinned, and a later probe is held
   to the pin of the bucket it ran in (the batcher reports it).
+
+  Under ragged packing (SPOTTER_TPU_RAGGED=1) a shortest-edge family's
+  answer also depends on the canvas a pack is staged into: each
+  convolution spreads the photo into the zero pad beside it, and a smaller
+  canvas cuts those features off, so another canvas moves the boxes (past
+  compare's 2 px on random weights). The scheduler packs the probe only with photos that fit
+  its own snapped canvas (engine/scheduler.py), so every probe, at the gate
+  and after, runs at that one canvas; the batcher reports the canvas beside
+  the bucket, the gate's pins record it, and a probe that ran at another
+  canvas fails rather than be held to a pin it was not taken at.
 - **WeightsAttestor**: drives the engine's on-device `attest()`: the
   parameters and buffers against the trusted host copy, then every kept
   derived value a forward reads (engine/engine.py). Runs at every
@@ -129,6 +139,8 @@ class GoldenProbe:
             else PROBE_REFERENCES.get(family)
         )
         self.pins: dict[int, list[dict]] = {}  # bucket -> its pinned answer
+        # the ragged canvas the pins were taken at (None: the static bucket)
+        self.canvas: Optional[tuple[int, int]] = None
         self.score_tol = score_tol
         self.box_tol = box_tol
         self.probes_total = 0
@@ -166,6 +178,9 @@ class GoldenProbe:
         pinned = self.pins.get(bucket)
         if pinned is None:
             return self._fail(f"probe ran in bucket {bucket}, which has no pin")
+        canvas = info.get("canvas")
+        if canvas != self.canvas:
+            return self._fail(f"probe ran at canvas {canvas}, its pins at {self.canvas}")
         reason = self._diff(pinned, dets)
         return None if reason is None else self._fail(reason)
 
@@ -175,9 +190,11 @@ class GoldenProbe:
         of one batch must agree with each other (and with the registry
         answer, for a family that has one). A pin must agree with the first
         pin of its `answer_class(bucket)` (buckets whose class is None answer
-        on their own), and every bucket must end up pinned. None on success,
-        else the reason."""
+        on their own), and every bucket must end up pinned; every copy must
+        run at one canvas, which the pins record. None on success, else the
+        reason."""
         self.pins = {}
+        canvases = set()
         for size in buckets:
             self.probes_total += 1
             infos = [{} for _ in range(size)]
@@ -191,6 +208,7 @@ class GoldenProbe:
                 if faults.take_corrupt_compile_cache():
                     dets = faults.perturb_detections(dets)
                 bucket = info.get("bucket")
+                canvases.add(info.get("canvas"))
                 held = self.pins.get(bucket, self.registry)
                 if held is None:
                     self.pins[bucket] = [dict(d) for d in dets]
@@ -201,6 +219,9 @@ class GoldenProbe:
         missing = [b for b in buckets if b not in self.pins]
         if missing:
             return self._fail(f"buckets {missing} left unpinned")
+        if len(canvases) > 1:
+            return self._fail(f"probe pinned at several canvases {sorted(canvases, key=str)}")
+        self.canvas = canvases.pop() if canvases else None
         first: dict = {}
         for bucket in buckets:
             cls = None if answer_class is None else answer_class(bucket)
@@ -219,6 +240,7 @@ class GoldenProbe:
             "family": self.family,
             "pinned": bool(self.pins),
             "pinned_buckets": sorted(self.pins),
+            "pinned_canvas": None if self.canvas is None else list(self.canvas),
             "probes_total": self.probes_total,
             "failures_total": self.failures_total,
             "last_error": self.last_error,

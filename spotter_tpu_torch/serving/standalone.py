@@ -48,7 +48,12 @@ its knobs are unset):
 - the binary wire format: `Accept: application/x-spotter-frame` gets the
   response as an SPTF frame (serving/wire.py);
 - the stub engine (`--stub-engine` or `SPOTTER_TPU_STUB_ENGINE=1`; canned
-  detections, no device; never production).
+  detections, no device; never production);
+- ragged packing (`--ragged` or `SPOTTER_TPU_RAGGED=1`): the batcher's
+  scheduler orders by deadline slack and, for a shortest-edge family
+  (Deformable-DETR, the DETR lineage), packs mixed-size photos into one
+  snapped canvas (engine/scheduler.py); /healthz reports `ragged: true` and
+  /metrics `padding_waste_pct` and `ragged_packs_total`.
 
 The HTTP surface binds before the model loads: bring-up runs as a
 background task, and a failed bring-up exits `BRINGUP_FAILED_EXIT_CODE`.
@@ -63,7 +68,7 @@ arms the fault injection (testing/faults.py) for chaos staging.
 
     MODEL_NAME=PekingU/rtdetr_v2_r101vd python -m spotter_tpu_torch.serving.standalone \\
         [--port 8000] [--device cpu] [--no-warmup] [--decode-workers N] [--cache-mb MB] \\
-        [--stub-engine]
+        [--ragged] [--stub-engine]
 
 MODEL_NAME picks the family: RT-DETR (`PekingU/rtdetr_v2_*`), YOLOS
 (`hustvl/yolos-base`), OWL-ViT (`google/owlvit-base-patch32`, `-patch16`)
@@ -509,6 +514,10 @@ def main(argv=None) -> None:
     parser.add_argument("--cache-mb", type=float, default=None,
                         help="result cache and request coalescing budget in MB "
                              "(SPOTTER_TPU_CACHE_MAX_MB; 0, the default, disables the tier)")
+    parser.add_argument("--ragged", action="store_true",
+                        help="ragged packing and deadline-slack scheduling (SPOTTER_TPU_RAGGED=1): "
+                             "mixed-size photos of a shortest-edge family pack into one snapped "
+                             "canvas; unset keeps the per-bucket FIFO")
     parser.add_argument("--stub-engine", action="store_true",
                         help=f"canned-detection stub engine ({stub_engine.STUB_ENGINE_ENV}=1); "
                              "tests only, never production")
@@ -525,6 +534,10 @@ def main(argv=None) -> None:
         from spotter_tpu_torch.caching.result_cache import CACHE_MAX_MB_ENV
 
         os.environ[CACHE_MAX_MB_ENV] = str(args.cache_mb)
+    if args.ragged:
+        from spotter_tpu_torch.engine.scheduler import RAGGED_ENV
+
+        os.environ[RAGGED_ENV] = "1"
     if args.stub_engine:
         os.environ[stub_engine.STUB_ENGINE_ENV] = "1"
     web.run_app(

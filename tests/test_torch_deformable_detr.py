@@ -247,16 +247,6 @@ def test_seeded_init_is_deterministic_and_flax_shaped():
     assert abs(w.std().item() - 32**-0.5) < 0.03
 
 
-def test_ragged_canvas_with_a_shortest_edge_model_raises(monkeypatch):
-    built = registry.build_detector(MODEL, tiny=True)
-    engine = InferenceEngine(built, batch_buckets=(1, 2), device="cpu")
-    monkeypatch.setenv("SPOTTER_TPU_RAGGED", "1")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-        MicroBatcher(engine)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-        engine.detect([_photo(9, 48, 64)], canvas_hw=(48, 64))
-
-
 # --- the engine and /detect against the JAX package's ----------------------
 
 def _jspec():

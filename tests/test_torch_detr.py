@@ -248,17 +248,6 @@ def _photo(seed, h, w):
     return np.clip(base + rng.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("name", [MODEL, "microsoft/table-transformer-detection"])
-def test_ragged_canvas_raises_for_the_family(monkeypatch, name):
-    built = registry.build_detector(name, tiny=True)
-    engine = InferenceEngine(built, batch_buckets=(1, 2), device="cpu")
-    monkeypatch.setenv("SPOTTER_TPU_RAGGED", "1")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-        MicroBatcher(engine)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-        engine.detect([_photo(9, 48, 64)], canvas_hw=(48, 64))
-
-
 # --- the engine and /detect against the JAX package's ----------------------
 
 def _jspec():

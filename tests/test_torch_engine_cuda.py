@@ -197,3 +197,34 @@ def test_attest_waits_for_a_kept_value_made_on_the_engine_stream(engine):
     assert vars(bn)["_folded"] is not old
     assert result["ok"], result["mismatched"]
     assert id(vars(bn)["_folded"]) in engine._kept_pins
+
+
+@torch.inference_mode()
+def test_two_canvases_of_one_bucket_replay_in_alternation_bit_equal_to_eager():
+    """Ragged packing: a tiny Deformable-DETR's bucket 2 at two canvases
+    (the MSDA kernels at each canvas's level shapes) gets a graph each,
+    captured at first use with source `traffic`; replayed in alternation,
+    each is bit equal to the eager forward on the same staged pixels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    eng = InferenceEngine(registry.build_detector("SenseTime/deformable-detr", tiny=True, seed=5),
+                          batch_buckets=(2,), device="cuda")
+    rng = np.random.default_rng(3)
+    packs = {(64, 32): [rng.integers(0, 256, (90, 40, 3), dtype=np.uint8) for _ in range(2)],
+             (48, 64): [rng.integers(0, 256, (36, 64, 3), dtype=np.uint8) for _ in range(2)]}
+    first = {c: eng.detect(p, canvas_hw=c) for c, p in packs.items()}  # eager, then capture
+    assert len(eng.graphs) == 2
+    shapes = eng.metrics.snapshot()["compile_shapes"]
+    assert sorted(s["source"] for s in shapes) == ["traffic", "traffic"]
+    for _ in range(2):
+        for canvas, photos in packs.items():
+            assert eng.detect(photos, canvas_hw=canvas) == first[canvas]
+            staged = eng._put_staged(eng._stage_host(photos, canvas))[0]
+            with eng._on_stream():
+                eager = [t.clone() for t in eng._forward_flat(*staged)]
+                key = graphs.graph_key(eng._shape_key(2, *canvas))
+                replayed = [t.clone() for t in eng.graphs[key].replay(staged)]
+            torch.cuda.synchronize()
+            for e, r in zip(eager, replayed):
+                assert torch.equal(e, r), canvas
+    assert all(g.replays >= 2 for g in eng.graphs.values())

@@ -150,6 +150,28 @@ PLANES_MODULES = (
 )
 
 
+# the ragged-packing slice's modules: the scheduler's canvas plan, the
+# staging that takes a canvas, the engine, batcher and metrics that carry it,
+# the probe that is held at its canvas, and the bicubic table resize of the
+# off-native YOLOS and OWL position tables
+RAGGED_MODULES = (
+    "spotter_tpu_torch.engine.scheduler",
+    "spotter_tpu_torch.ops.preprocess",
+    "spotter_tpu_torch.engine.engine",
+    "spotter_tpu_torch.engine.batcher",
+    "spotter_tpu_torch.engine.metrics",
+    "spotter_tpu_torch.serving.integrity",
+    "spotter_tpu_torch.serving.standalone",
+    "spotter_tpu_torch.ops.resize",
+    "spotter_tpu_torch.models.yolos",
+    "spotter_tpu_torch.models.owlvit",
+)
+
+
+def test_every_ragged_module_is_covered():
+    assert set(RAGGED_MODULES) <= set(MODULES)
+
+
 def test_every_planes_module_is_covered():
     assert set(PLANES_MODULES) <= set(MODULES)
 

@@ -394,7 +394,7 @@ def test_scheduler_never_mixes_query_groups_like_jax(ragged):
     sched, jsched = Scheduler(ragged=ragged), JScheduler(spec=None, ragged=ragged)
     plans = []
     while mine:
-        pack = sched.plan(mine, target=2, now=0.0)
+        pack = sched.plan(mine, target=2, now=0.0).items
         jpack = jsched.plan(theirs, target=2, now=0.0).items
         assert [it.group for it in pack] == [it.group for it in jpack]
         assert len({it.group for it in pack}) == 1

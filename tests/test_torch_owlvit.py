@@ -236,15 +236,6 @@ def test_box_bias_matches_jax_and_is_cached():
     np.testing.assert_array_equal(a.numpy(), j_box_bias(60, 60))
 
 
-def test_off_native_grids_raise():
-    model = towl.OwlViTDetector(tzoo.tiny_owlvit_config())
-    bank = torch.zeros(3, 16)
-    with pytest.raises(ValueError, match="interpolation is not ported"):
-        model(torch.zeros(1, 40, 40, 3), bank)
-    with pytest.raises(ValueError, match="not divisible"):
-        model(torch.zeros(1, 30, 32, 3), bank)
-
-
 # --- preprocess -------------------------------------------------------------
 
 

@@ -29,6 +29,7 @@ from spotter_tpu.ops.preprocess import PreprocessSpec as JSpec
 from spotter_tpu.serving import overload as joverload
 from spotter_tpu.serving import tenancy as jtenancy
 from spotter_tpu_torch.engine.scheduler import QueueItem, Scheduler
+from spotter_tpu_torch.ops.preprocess import PreprocessSpec
 from spotter_tpu_torch.serving import overload, tenancy
 
 TENANTS = ("acme", "hobby", "anon", "t3", "t4")
@@ -202,7 +203,7 @@ def _items(mod, rng, n):
 def test_scheduler_plans_as_jax(seed, ragged):
     (port_plane, _), (jax_plane, _) = _planes(
         config={"tenants": {"acme": {"weight": 3}, "t3": {"weight": 0.5}}})
-    sched = Scheduler(ragged=ragged)
+    sched = Scheduler(spec=PreprocessSpec(mode="fixed", size=(64, 64)), ragged=ragged)
     sched.tenancy = port_plane
     jsched = JScheduler(spec=JSpec(mode="fixed", size=(64, 64)), ragged=ragged,
                         tenancy=jax_plane)
@@ -212,7 +213,7 @@ def test_scheduler_plans_as_jax(seed, ragged):
         JItem, np.random.default_rng(seed), n)
     while pending:
         target = int(rng.integers(1, 9))
-        pack = sched.plan(pending, target, now=0.0)
+        pack = sched.plan(pending, target, now=0.0).items
         jpack = jsched.plan(jpending, target, now=0.0).items
         assert [it.t_submit for it in pack] == [it.t_submit for it in jpack]
         assert [it.t_submit for it in pending] == [it.t_submit for it in jpending]
@@ -228,7 +229,7 @@ def test_scheduler_returns_the_input_list_with_one_tenant():
     assert Scheduler()._tenant_order(items) is items
     assert sched._classwise_tenant_order(items) is items
     pending = list(items)
-    assert all(a is b for a, b in zip(sched.plan(pending, 5), items)) and pending == []
+    assert all(a is b for a, b in zip(sched.plan(pending, 5).items, items)) and pending == []
 
 
 @pytest.mark.parametrize("seed", range(2))

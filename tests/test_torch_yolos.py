@@ -155,14 +155,6 @@ def test_patch_embed_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(), want, **tol)
 
 
-def test_other_input_sizes_raise():
-    model = YolosDetector(tzoo.tiny_yolos_config())
-    with pytest.raises(ValueError, match="interpolation is not ported"):
-        model(torch.zeros(1, 40, 48, 3))
-    with pytest.raises(ValueError, match="not divisible"):
-        model(torch.zeros(1, 30, 48, 3))
-
-
 @pytest.mark.parametrize("ties", [False, True])
 def test_softmax_postprocess_matches_jax(ties):
     rng = np.random.default_rng(9)
